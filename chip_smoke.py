@@ -16,6 +16,20 @@ Phases (each prints its own numbers; any failure exits non-zero):
               synthetic 1.5 s clips: predict_signal_batch + predict_batch;
               every kernel launched, transcripts equal to the plain path's
   6. timing   per-kernel and end-to-end times, kernel path vs plain path
+  7. K3       banded training trellis vs its plain version: scores and full
+              paths exactly equal (the trainer's shape B=896, T=160, S=59 on
+              real gathered emissions; -inf sprinkling, integer ties, a
+              degenerate entry, length-0 rows, B=5 with T=1, S=503)
+  8. train    ContinuousTrainer(device="cuda") at full width (12 labels,
+              D=39, 896 utterances of <= 150 frames) for 3 iterations with
+              the K3 trellis and again with the plain one: equal parameters
+              and iteration counts, K3 and K2-bt launched; ms per iteration
+              and its split by stage
+  9. pipeline synthetic corpus -> endpointing -> MFCC on the card ->
+              batched k-means boot + silence model -> 4 embedded iterations
+              -> ContinuousDecoder: exact-sequence accuracy >= 0.85 on the
+              training speakers (the JAX package's own bar)
+ 10. timing   K3 vs its plain version at the trainer's shape
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
 """
@@ -28,6 +42,12 @@ import torch
 
 RTOL_K1, ATOL_K1 = 1e-4, 1e-3  # as tests/test_pallas_emission.py holds K1
 BATCH, SECONDS = 512, 1.5
+# The embedded trainer's corpus: benchmarks/train_bench.py's shape.
+TRAIN_TRANSCRIPTS = ["14", "27Z", "4Z2Z", "58361", "9O4738", "14Z9O72", "6O3"]
+UTTS_PER_TRANSCRIPT, MAX_FRAMES = 128, 150
+# The pipeline of phase 9 (tests/conftest.py's trained_system).
+PIPELINE_TRANSCRIPTS = ["12", "4Z", "375", "9O2", "186Z", "54321"]
+ACC_BAR = 0.85  # tests/test_continuous_pipeline.py, training speakers
 
 
 def log(phase, **kw):
@@ -62,6 +82,27 @@ def random_composite(num_words, seed):
             covariances=a @ np.transpose(a, (0, 2, 1)) + 0.5 * np.eye(39, dtype=np.float32),
             log_a=uniform_forward_log_a(s)))
     return stack_word_models(models, penalty=-100.0)
+
+
+def training_corpus(models, seed=1):
+    """train_bench.sample_corpus's corpus: every transcript's
+    silence-interleaved sentence walked state by state (2-5 frames each)
+    around the model means, cut at MAX_FRAMES."""
+    from cs304_tpu_torch.models.train_continuous import insert_silence
+
+    rng = np.random.default_rng(seed)
+    labeled = {}
+    for transcript in TRAIN_TRANSCRIPTS:
+        feats = []
+        for _ in range(UTTS_PER_TRANSCRIPT):
+            frames = []
+            for word in insert_silence(transcript):
+                m = models[word]
+                for s_i, n in enumerate(rng.integers(2, 6, size=m.num_states)):
+                    frames.append(m.means[s_i] + rng.normal(0, 0.7, size=(n, 39)))
+            feats.append(np.concatenate(frames).astype(np.float32)[:MAX_FRAMES])
+        labeled[transcript] = feats
+    return labeled
 
 
 def main():
@@ -272,6 +313,265 @@ def main():
         log("timing", kernel=name, ms=ms, plain_ms=plain_ms,
             shape=f"B={b} T={t_total} S={s}")
 
+    train_phases(dev, kind, launches, timings, k1_err, k2_err)
+
+
+def train_phases(dev, kind, launches, timings, k1_err, k2_err):
+    """Phases 7-10 (the embedded-training slice), then the kernels' JSON line
+    and the final line."""
+    from cs304_tpu_torch.audio.endpointing import SignalSeparation
+    from cs304_tpu_torch.data.synthetic import SyntheticTIDigits
+    from cs304_tpu_torch.data.ti_digits import DIGIT_LABELS
+    from cs304_tpu_torch.models import train_fused as tf
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+    from cs304_tpu_torch.models.hmm import flagship_models
+    from cs304_tpu_torch.models.train_continuous import (
+        ContinuousTrainConfig,
+        ContinuousTrainer,
+        insert_silence,
+    )
+    from cs304_tpu_torch.models.train_kmeans import (
+        SegmentalKMeansConfig,
+        train_digit_models,
+        train_word_hmm,
+    )
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.mfcc import mfcc_batch
+    from cs304_tpu_torch.ops.viterbi import banded_sentence_forward
+
+    # -- 7. K3 vs plain -----------------------------------------------------
+    boot = {m.label: m for m in flagship_models(seed=0)}
+    labeled = training_corpus(boot)
+    probe = ContinuousTrainer(dict(boot), device=dev)
+    corpus = tf.prepare_fused_corpus(labeled, probe.state_counts, probe.label_index,
+                                     insert_silence, 32, device=dev)
+    means, covs, log_a = probe._device_state()
+    n_chunks, c, t_total, _ = corpus.batch.shape
+    b_all = n_chunks * c
+    topo = corpus.topo_id.reshape(-1).long()
+    lb_sent = tf._gather_sentence_emissions(
+        means, covs, corpus.lab_tab, corpus.loc_tab, corpus.batch, corpus.topo_id,
+        probe.s_max).reshape(b_all, t_total, -1)
+    diags = tf._sentence_trans_diagonals(
+        log_a, corpus.lab_tab[topo], corpus.loc_tab[topo], corpus.samew_tab[topo],
+        corpus.cross_tab[topo], "exit_only")
+    train_lengths = corpus.lengths.reshape(-1)
+    train_n_states = corpus.n_states_t[topo]
+    s_sent = lb_sent.shape[-1]
+    log("K3", corpus=f"B={b_all} (utterances {corpus.num_utts}) T={t_total} "
+        f"S_sent={s_sent} frames={corpus.num_frames}")
+    k3_err = 0.0
+
+    def k3_check(name, log_b, c0, c1, c2, lengths, n_states):
+        nonlocal k3_err
+        got_s, got_p = tb.viterbi_banded_batch_scanfree(log_b, c0, c1, c2, lengths, n_states)
+        want_s, want_p = tf._banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states)
+        torch.cuda.synchronize()
+        same_s, same_p = torch.equal(got_s, want_s), torch.equal(got_p, want_p)
+        both = torch.isfinite(got_s) & torch.isfinite(want_s)
+        err = (got_s - want_s)[both].abs().max().item() if both.any() else 0.0
+        k3_err = max(k3_err, err)
+        log("K3", case=name, B=log_b.shape[0], T=log_b.shape[1], S=log_b.shape[2],
+            scores_equal=same_s, paths_equal=same_p, max_abs_err=err,
+            neg_inf_scores=int((~torch.isfinite(got_s)).sum()))
+        if not (same_s and same_p):
+            raise SystemExit(f"K3 disagrees with _banded_trellis_batch ({name})")
+
+    k3_check("training-shape", lb_sent, *diags, train_lengths, train_n_states)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def problem(b, t, s, ties=False, degenerate=False, zero_length=False):
+        def rand(*shape):
+            x = torch.randn(shape, generator=gen, device=dev)
+            return torch.round(2 * x) if ties else x
+
+        c0, c1, c2 = (0.5 * rand(b, s) for _ in range(3))
+        c1[:, :1] = float("-inf")
+        c2[:, :2] = float("-inf")
+        for cc in (c0, c1, c2):
+            cc[torch.rand((b, s), generator=gen, device=dev) < 0.15] = float("-inf")
+        if degenerate:
+            c0[:, 0] = float("-inf")
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        if zero_length:
+            lengths[1::3] = 0
+        n_states = torch.randint(max(1, s - 8), s + 1, (b,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        return rand(b, t, s), c0, c1, c2, lengths, n_states
+
+    k3_check("random-inf", *problem(256, 160, 59))
+    k3_check("integer-ties", *problem(256, 160, 59, ties=True))
+    k3_check("degenerate-entry", *problem(64, 100, 59, degenerate=True))
+    k3_check("length-0-rows", *problem(64, 100, 59, ties=True, zero_length=True))
+    k3_check("B5-T1", *problem(5, 1, 59))
+    k3_check("503-states", *problem(16, 160, 503))
+
+    # -- 8. full-width training, K3 vs plain trellis -------------------------
+    cfg = ContinuousTrainConfig(max_iterations=3, silence_bootstrap=False,
+                                cov_reg=0.1, on_empty_state="keep")
+    counters = (tb.banded_forward, tsf.trellis_backtrace)
+    runs = {}
+    for backend in ("scanfree", "scan"):
+        tf._TRELLIS_BACKEND = backend
+        trainer = ContinuousTrainer(dict(boot), cfg, device=dev)
+        for k in counters:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_it = trainer.train(labeled)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[backend] = (trainer, n_it, {k.__name__: k.launches for k in counters})
+        log("train", trellis=backend, iterations=n_it, seconds=f"{seconds:.3f}",
+            launches=json.dumps(runs[backend][2]),
+            empty_slots=len(trainer.last_empty_slots))
+    tf._TRELLIS_BACKEND = "scanfree"
+    (tr_k, it_k, train_launches), (tr_p, it_p, plain_launches) = runs["scanfree"], runs["scan"]
+    if not (train_launches["banded_forward"] > 0 and train_launches["trellis_backtrace"] > 0):
+        raise SystemExit(f"a kernel of the training path never launched: {train_launches}")
+    if plain_launches["banded_forward"] != 0:
+        raise SystemExit("the plain training trellis launched K3")
+    same = {n: np.array_equal(getattr(tr_k, n), getattr(tr_p, n), equal_nan=True)
+            for n in ("means_g", "covs_g", "log_a_g")}
+    finite = all(np.isfinite(getattr(tr_k, n)).all() for n in ("means_g", "covs_g"))
+    log("train", iterations_equal=it_k == it_p, params_equal=json.dumps(same),
+        finite=finite, means_shape=tr_k.means_g.shape)
+    # Every statistic is a matmul, a sum or an integer histogram (no float
+    # atomics), and K3 is bitwise its plain version: the two runs must agree
+    # exactly.
+    if not (it_k == it_p and all(same.values()) and finite):
+        raise SystemExit("K3-trained and plain-trained parameters differ")
+
+    args = tr_k._fused_args(corpus)
+    kwargs = tr_k._fused_kwargs()
+    outs = {}
+    for backend in ("scanfree", "scan"):
+        tf._TRELLIS_BACKEND = backend
+        outs[backend] = tf.fused_viterbi_iteration(*args, **kwargs)
+    tf._TRELLIS_BACKEND = "scanfree"
+    torch.cuda.synchronize()
+    names = ("means", "covs", "log_a", "counts", "converged", "paths")
+    iter_same = {n: torch.equal(a, b) for n, a, b in zip(names, outs["scanfree"], outs["scan"])}
+    log("train", one_iteration_equal=json.dumps(iter_same))
+    if not all(iter_same.values()):
+        raise SystemExit("one fused iteration differs between K3 and the plain trellis")
+
+    def iteration_ms(backend):
+        """Best of 3: one iteration, a synchronize and a host copy of the new
+        parameters (benchmarks/train_bench.py's rule)."""
+        tf._TRELLIS_BACKEND = backend
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = tf.fused_viterbi_iteration(*args, **kwargs)
+            torch.cuda.synchronize()
+            [o.cpu() for o in out[:3]]
+            best = min(best, time.perf_counter() - t0)
+        tf._TRELLIS_BACKEND = "scanfree"
+        return best * 1e3
+
+    iteration_ms("scanfree")
+    it_ms = {}
+    for backend in ("scan", "scanfree", "scanfree", "scan"):
+        it_ms[backend] = min(it_ms.get(backend, float("inf")), iteration_ms(backend))
+    # Split by stage (CUDA events, fixed inputs): emissions, trellis (the
+    # diagonals and the K3 or plain decode), pass A, pass B; the M-step and
+    # glue are what remains of the event-timed iteration.
+    f = len(tr_k.labels) * tr_k.s_max
+    paths = outs["scanfree"][5].reshape(b_all, t_total)
+    lab_u, loc_u, pos_u = (x[topo] for x in (corpus.lab_tab, corpus.loc_tab, corpus.pos_tab))
+    pa = tf._pass_a(paths, lab_u, loc_u, pos_u, corpus.batch, train_lengths, tr_k.s_max, f)
+    new_means_flat = outs["scanfree"][0].reshape(f, -1)
+
+    def trellis_fn(backend):
+        def run():
+            tf._TRELLIS_BACKEND = backend
+            d3 = tf._sentence_trans_diagonals(
+                args[2], lab_u, loc_u, corpus.samew_tab[topo], corpus.cross_tab[topo],
+                "exit_only")
+            out = tf._training_trellis(lb_sent, *d3, train_lengths, train_n_states)
+            tf._TRELLIS_BACKEND = "scanfree"
+            return out
+        return run
+
+    stage = {
+        "emissions": cuda_ms(lambda: tf._gather_sentence_emissions(
+            args[0], args[1], corpus.lab_tab, corpus.loc_tab, corpus.batch,
+            corpus.topo_id, tr_k.s_max), reps=5),
+        "trellis_k3": cuda_ms(trellis_fn("scanfree"), reps=5),
+        "trellis_plain": cuda_ms(trellis_fn("scan"), reps=3),
+        "pass_a": cuda_ms(lambda: tf._pass_a(paths, lab_u, loc_u, pos_u, corpus.batch,
+                                             train_lengths, tr_k.s_max, f), reps=5),
+        "pass_b": cuda_ms(lambda: tf._pass_b(corpus.batch, pa[4], pa[3], new_means_flat),
+                          reps=5),
+        "iteration_k3": cuda_ms(lambda: tf.fused_viterbi_iteration(*args, **kwargs), reps=5),
+    }
+    stage["m_step_and_glue"] = stage["iteration_k3"] - (
+        stage["emissions"] + stage["trellis_k3"] + stage["pass_a"] + stage["pass_b"])
+    log("timing", what="training iteration, host wall best of 3 with readback",
+        ms_k3=it_ms["scanfree"], ms_plain=it_ms["scan"],
+        utt_per_s_k3=corpus.num_utts / it_ms["scanfree"] * 1e3)
+    log("timing", what="training stages (CUDA events)",
+        **{k: f"{v:.4f}" for k, v in stage.items()})
+
+    # -- 9. the whole pipeline ---------------------------------------------
+    t0 = time.perf_counter()
+    synth = SyntheticTIDigits(num_train_speakers=6, num_test_speakers=2, takes_per_digit=3)
+    sep = SignalSeparation()
+    feats = {l: mfcc_batch(sep.remove_empty_batch(synth.train_dataset[l]), device=dev)
+             for l in DIGIT_LABELS}
+    t_front = time.perf_counter() - t0
+    pipe_boot = train_digit_models(
+        feats, SegmentalKMeansConfig(num_states=5, max_iterations=15, length_multiple=32),
+        device=dev)
+    noises = [n for n in sep.get_all_noises() if len(n) >= 9 * sep.frame_size]
+    pipe_boot["S"] = train_word_hmm(
+        "S", mfcc_batch(noises, device=dev),
+        SegmentalKMeansConfig(num_states=3, max_iterations=15, length_multiple=32),
+        device=dev).model
+    t_boot = time.perf_counter() - t0 - t_front
+    pipe_labeled = {
+        tr: mfcc_batch([synth.sentence_audio(tr, spk, jitter_seed=take)
+                        for spk in range(6) for take in range(3)], device=dev)
+        for tr in PIPELINE_TRANSCRIPTS
+    }
+    for k in counters:
+        k.launches = 0
+    trainer = ContinuousTrainer(
+        dict(pipe_boot),
+        ContinuousTrainConfig(max_iterations=4, length_multiple=64, cov_reg=0.1),
+        device=dev)
+    pipe_it = trainer.train(pipe_labeled)
+    torch.cuda.synchronize()
+    pipe_launches = {k.__name__: k.launches for k in counters}
+    decoder = ContinuousDecoder(trainer.models(), penalty=-100.0, device=dev)
+    acc = {}
+    for split, speakers in (("train_speakers", range(6)), ("unseen_speakers", (6, 7))):
+        truths = [tr for tr in PIPELINE_TRANSCRIPTS for _ in speakers]
+        clips = [synth.sentence_audio(tr, spk, jitter_seed=33)
+                 for tr in PIPELINE_TRANSCRIPTS for spk in speakers]
+        preds = decoder.predict_batch(mfcc_batch(clips, device=dev))
+        acc[split] = float(np.mean([p == t for p, t in zip(preds, truths)]))
+    log("pipeline", iterations=pipe_it, launches=json.dumps(pipe_launches),
+        exact_seq_acc=json.dumps(acc), seconds_front_end=f"{t_front:.2f}",
+        seconds_boot=f"{t_boot:.2f}", seconds_total=f"{time.perf_counter() - t0:.2f}")
+    if not all(n > 0 for n in pipe_launches.values()):
+        raise SystemExit(f"the pipeline's training never launched a kernel: {pipe_launches}")
+    if acc["train_speakers"] < ACC_BAR:
+        raise SystemExit(f"exact-sequence accuracy {acc['train_speakers']} < {ACC_BAR}")
+
+    # -- 10. K3 timing and the kernels line ----------------------------------
+    k3_args = (lb_sent, *diags, train_lengths)
+    timings["trellis_banded_forward"] = (
+        cuda_ms(lambda: tb.banded_forward(*k3_args)),
+        cuda_ms(lambda: banded_sentence_forward(*k3_args), reps=3))
+    log("timing", kernel="trellis_banded_forward", ms=timings["trellis_banded_forward"][0],
+        plain_ms=timings["trellis_banded_forward"][1],
+        shape=f"B={b_all} T={t_total} S={s_sent}")
+    launches = dict(launches, trellis_banded_forward=train_launches["banded_forward"])
+
     meta = {
         "emission": ("cs304_tpu_torch/csrc/emission.cu",
                      "cs304_tpu/ops/pallas/emission.py:82", k1_err),
@@ -279,6 +579,8 @@ def main():
                             "cs304_tpu/ops/pallas/trellis_scanfree.py:55", k2_err),
         "trellis_backtrace": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
                               "cs304_tpu/ops/pallas/trellis_scanfree.py:121", k2_err),
+        "trellis_banded_forward": ("cs304_tpu_torch/csrc/trellis_banded.cu",
+                                   "cs304_tpu/ops/pallas/trellis_banded.py:41", k3_err),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,3 +1,8 @@
-from .batching import DIGIT_LABELS, PaddedBatch, make_signals, pad_batch
+from .batching import PaddedBatch, make_signals, pad_batch, round_up
+from .synthetic import SyntheticTIDigits
+from .ti_digits import DIGIT_LABELS, DataLoader
 
-__all__ = ["DIGIT_LABELS", "PaddedBatch", "make_signals", "pad_batch"]
+__all__ = [
+    "DIGIT_LABELS", "DataLoader", "PaddedBatch", "SyntheticTIDigits",
+    "make_signals", "pad_batch", "round_up",
+]

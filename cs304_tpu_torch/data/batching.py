@@ -3,14 +3,12 @@ and the synthetic benchmark signals the flagship decode is driven with."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import numpy as np
 
-# Label set of the TI-Digits corpus, "O" (oh) and "Z" (zero) included.
-DIGIT_LABELS: Tuple[str, ...] = (
-    "1", "2", "3", "4", "5", "6", "7", "8", "9", "O", "Z",
-)
+from .ti_digits import DIGIT_LABELS  # noqa: F401  (re-exported)
+
 SAMPLE_RATE = 16000
 
 

@@ -1,0 +1,97 @@
+"""Shared model-dict stacking for sentence-topology consumers.
+
+The trainers (and later the aligner and MAP adaptation) all need the same
+prologue: sort the labels, validate the silence model, stack every word
+model's parameters into padded (L, S_max, ...) global arrays, and gather them
+onto a transcript's sentence state space. A port of
+cs304_tpu/models/stacking.py for single-Gaussian models; a GMM model raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+
+from .train_continuous import _sentence_log_a, _topology, insert_silence
+
+
+@dataclass(frozen=True)
+class StackedModels:
+    """Padded global arrays over a sorted model dict of single Gaussians:
+    means (L, S, D), covariances (L, S, D, D; identity in padded slots),
+    log_a (L, S, S; -inf padded)."""
+
+    labels: List[str]
+    label_index: Dict[str, int]
+    state_counts: Dict[str, int]
+    s_max: int
+    dim: int
+    means: np.ndarray
+    covariances: np.ndarray
+    log_a: np.ndarray  # (L, S, S), -inf padded
+
+    def sentence(self, sentence: str, cross_word: str = "exit_only"):
+        """Gather onto a sentence's state space.
+
+        Returns (topo, log_a_sent (S_sent, S_sent), (means, covs))."""
+        topo = _topology(sentence, self.state_counts, self.label_index)
+        log_a_sent = _sentence_log_a(topo, self.log_a, cross_word)
+        lab, loc = topo.lab_of_state, topo.loc_of_state
+        return topo, log_a_sent, (self.means[lab, loc], self.covariances[lab, loc])
+
+    def sentence_for(self, transcript: str, insert_sil: bool,
+                     cross_word: str = "exit_only"):
+        """Validate a user transcript and gather its (optionally
+        silence-interleaved) sentence. Returns (sentence, topo, log_a_sent,
+        emission arrays)."""
+        missing = sorted(set(transcript) - set(self.labels))
+        if missing:
+            raise ValueError(
+                f"transcript {transcript!r} uses unknown words {missing}; "
+                f"known: {self.labels}"
+            )
+        if not transcript:
+            raise ValueError("empty transcript")
+        sentence = insert_silence(transcript) if insert_sil else transcript
+        return (sentence, *self.sentence(sentence, cross_word))
+
+
+def stack_models(
+    models: Dict[str, object], require_silence: bool = False
+) -> StackedModels:
+    """Stack a dict of single-Gaussian word models (WordHMM)."""
+    if not models:
+        raise ValueError("empty model dict")
+    gmm = sorted(l for l, m in models.items()
+                 if getattr(m, "weights", None) is not None)
+    if gmm:
+        raise NotImplementedError(
+            f"GMM word models {gmm} are not ported yet (ROADMAP Queue 1, "
+            "slice 3, item 17: models/gmm_hmm.py)"
+        )
+    if require_silence and "S" not in models:
+        raise ValueError(
+            "insert_sil=True needs a silence model 'S' in the model dict "
+            "(train one with project5_train_no_empty or pass insert_sil=False)"
+        )
+    labels = sorted(models)
+    label_index = {l: i for i, l in enumerate(labels)}
+    state_counts = {l: models[l].num_states for l in labels}
+    s_max = max(state_counts.values())
+    l_num = len(labels)
+    dim = int(models[labels[0]].means.shape[-1])
+
+    log_a = np.full((l_num, s_max, s_max), -np.inf, np.float32)
+    means = np.zeros((l_num, s_max, dim), np.float32)
+    covs = np.tile(np.eye(dim, dtype=np.float32), (l_num, s_max, 1, 1))
+    for l, i in label_index.items():
+        m = models[l]
+        s = state_counts[l]
+        log_a[i, :s, :s] = m.log_a
+        means[i, :s] = m.means
+        covs[i, :s] = m.covariances
+    return StackedModels(
+        labels=labels, label_index=label_index, state_counts=state_counts,
+        s_max=s_max, dim=dim, means=means, covariances=covs, log_a=log_a,
+    )

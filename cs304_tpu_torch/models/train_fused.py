@@ -1,0 +1,508 @@
+"""The fused embedded-training iteration: one Viterbi re-estimation pass over
+the whole corpus on one device, with one small host read per iteration.
+
+A port of cs304_tpu/models/train_fused.py (Viterbi update, single device).
+The reference semantics are unchanged (those of the JAX package's fused
+program, itself parity-tested against its legacy per-transcript oracle and
+reference hidden_markov_model.py:584-797):
+
+  - topologies are runtime DATA: per-transcript sentence state tables
+    (label, local state, word position) padded to the longest sentence, with
+    per-utterance topology ids;
+  - emissions are scored once against ALL (label, state) slots and gathered
+    per sentence state;
+  - the sentence trellis is purely banded (left-to-right skip-2; cross-word
+    exit->entry edges are adjacent states, so they live inside the band) and
+    runs over the WHOLE utterance batch at once: on a card the banded CUDA
+    kernel (ops/cuda/trellis_banded.py, K3) with K2's backtrace;
+  - the statistics use the hard Viterbi assignment: each frame belongs to
+    exactly one (label, state) slot, so counts are integer histograms, sums
+    one (slots, frames) x (frames, D) matmul, and the covariance pass centers
+    each frame on its slot's NEW mean and takes one (slots, frames) x
+    (frames, D^2) matmul per chunk of utterances;
+  - the M-step (mean/cov/transition re-estimation with empty-slot keep,
+    np.cov ddof=1 denominator, cov_reg*I) and the per-label allclose
+    convergence test run on the device.
+
+Every reduction is a matmul, a sum or an integer histogram, none a float
+atomic, so two runs on one card give bitwise equal parameters (state ties
+pool with index_add_, whose float atomics on a card are not ordered).
+Everything is float32 with TF32 off (the JAX program's HIGHEST precision).
+"""
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from ..device import fp32_exact, resolve_device
+from ..ops.cuda.emission import gaussian_log_pdf_quad_plain
+from ..ops.cuda.trellis_banded import final_states, viterbi_banded_batch_scanfree
+from ..ops.gaussian import (
+    gaussian_log_pdf,
+    make_gaussian_params,
+    make_gaussian_quad_params,
+)
+from ..ops.viterbi import backtrace_batch, banded_sentence_forward
+
+logger = logging.getLogger(__name__)
+
+NEG = float("-inf")
+
+# The training trellis: "scanfree" (default) runs the banded CUDA kernel on
+# a card (ops/cuda/trellis_banded.py; its plain version on the CPU), "scan"
+# the plain PyTorch loop. The JAX package defaults to its XLA scan because
+# compiling its Pallas kernel inside a while loop took many minutes through
+# a remote TPU compiler and gained little over an already-fused scan.
+# Neither holds here: nvcc builds the kernel in seconds, and the plain
+# trellis is a Python loop of ~12 small launches per frame (at 896
+# utterances x 160 frames x 59 states it took 26.8 ms against 0.106 ms for
+# the kernel on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). Both give
+# bitwise the same paths.
+_TRELLIS_BACKEND = "scanfree"
+
+
+@dataclass
+class FusedCorpus:
+    """Device-resident corpus + topology tables for fused_viterbi_iteration."""
+
+    batch: torch.Tensor      # (n_chunks, C, T, D) f32
+    lengths: torch.Tensor    # (n_chunks, C) i32
+    topo_id: torch.Tensor    # (n_chunks, C) i32
+    lab_tab: torch.Tensor    # (n_topo, S_sent) i32
+    loc_tab: torch.Tensor    # (n_topo, S_sent) i32
+    pos_tab: torch.Tensor    # (n_topo, S_sent) i32 (pads hold distinct negatives)
+    samew_tab: torch.Tensor  # (n_topo, S_sent, S_sent) bool
+    cross_tab: torch.Tensor  # (n_topo, S_sent, S_sent) bool (exit -> next entry)
+    n_states_t: torch.Tensor  # (n_topo,) i32
+    num_utts: int            # real (non-padding) utterance count
+    num_frames: int          # real frame count
+    sentences: list          # topo index -> sentence string
+
+
+def prepare_fused_corpus(
+    labeled_features: Dict[str, Sequence[np.ndarray]],
+    state_counts: Dict[str, int],
+    label_index: Dict[str, int],
+    insert_silence_fn,
+    length_multiple: int = 128,
+    chunk_utts: int = 64,
+    device=None,
+) -> FusedCorpus:
+    """Pack every transcript's utterances into one padded corpus on
+    ``device``.
+
+    All utterances share one global T (padded to length_multiple) and one
+    global sentence-state budget S_sent (the longest sentence); shorter
+    sentences are padded with unreachable states. The utterance count is
+    padded to a whole number of chunks with length-0 utterances, which
+    contribute nothing to the statistics."""
+    from .train_continuous import _entry_exit, _topology
+
+    dev = resolve_device(device)
+    sentences, topo_of_sentence = [], {}
+    feats_all, lengths_all, topo_ids = [], [], []
+    for transcript, feats in labeled_features.items():
+        sentence = insert_silence_fn(transcript)
+        if sentence not in topo_of_sentence:
+            topo_of_sentence[sentence] = len(sentences)
+            sentences.append(sentence)
+        tid = topo_of_sentence[sentence]
+        for x in feats:
+            x = np.asarray(x, np.float32)
+            feats_all.append(x)
+            lengths_all.append(x.shape[0])
+            topo_ids.append(tid)
+    if not feats_all:
+        raise ValueError("empty corpus")
+
+    d = feats_all[0].shape[1]
+    t_max = -(-max(lengths_all) // length_multiple) * length_multiple
+    b = len(feats_all)
+    c = min(chunk_utts, -(-b // 8) * 8)
+    b_pad = -(-b // c) * c
+    batch = np.zeros((b_pad, t_max, d), np.float32)
+    for i, x in enumerate(feats_all):
+        batch[i, : x.shape[0]] = x
+    lengths = np.zeros(b_pad, np.int32)
+    lengths[:b] = lengths_all
+    topo_id = np.zeros(b_pad, np.int32)
+    topo_id[:b] = topo_ids
+
+    topos = [_topology(s, state_counts, label_index) for s in sentences]
+    s_sent = max(len(t.lab_of_state) for t in topos)
+    n_topo = len(topos)
+    lab_tab = np.zeros((n_topo, s_sent), np.int32)
+    loc_tab = np.zeros((n_topo, s_sent), np.int32)
+    # Pad positions with distinct negatives so padded states never compare
+    # equal to anything (not to real positions, not to each other).
+    pos_tab = -1 - np.tile(np.arange(s_sent, dtype=np.int32), (n_topo, 1))
+    n_states_t = np.zeros(n_topo, np.int32)
+    samew_tab = np.zeros((n_topo, s_sent, s_sent), bool)
+    cross_tab = np.zeros((n_topo, s_sent, s_sent), bool)
+    for k, topo in enumerate(topos):
+        n = len(topo.lab_of_state)
+        n_states_t[k] = n
+        lab_tab[k, :n] = topo.lab_of_state
+        loc_tab[k, :n] = topo.loc_of_state
+        pos_tab[k, :n] = topo.pos_of_state
+        pos = topo.pos_of_state
+        samew_tab[k, :n, :n] = pos[:, None] == pos[None, :]
+        is_entry, is_exit = _entry_exit(pos)
+        cross_tab[k, :n, :n] = (
+            is_exit[:, None] & is_entry[None, :] & (pos[None, :] == pos[:, None] + 1)
+        )
+
+    n_chunks = b_pad // c
+
+    def put(x):
+        return torch.as_tensor(x, device=dev)
+
+    return FusedCorpus(
+        batch=put(batch.reshape(n_chunks, c, t_max, d)),
+        lengths=put(lengths.reshape(n_chunks, c)),
+        topo_id=put(topo_id.reshape(n_chunks, c)),
+        lab_tab=put(lab_tab),
+        loc_tab=put(loc_tab),
+        pos_tab=put(pos_tab),
+        samew_tab=put(samew_tab),
+        cross_tab=put(cross_tab),
+        n_states_t=put(n_states_t),
+        num_utts=b,
+        num_frames=int(sum(lengths_all)),
+        sentences=sentences,
+    )
+
+
+def _sentence_trans_diagonals(log_a_g, lab_u, loc_u, samew_u, cross_u,
+                              cross_word: str):
+    """Per-utterance banded transition coefficients (c0=self, c1=prev, c2=skip).
+
+    The full per-utterance sentence transition rule — word-internal entries
+    gathered from the global (L, S, S) bank, cross-word entries free per the
+    cross_word mode (train_continuous._sentence_log_a) — evaluated only on
+    the 3 diagonals the skip-2 band can ever read: entry (j - k, j) of
+    diagonal k, -inf where j < k."""
+    if cross_word not in ("band", "exit_only"):
+        raise ValueError(f"unknown cross_word {cross_word!r}")
+    b, ss = lab_u.shape
+    lab_u, loc_u = lab_u.to(torch.int64), loc_u.to(torch.int64)
+    j = torch.arange(ss, device=lab_u.device)
+    zero = torch.zeros((), dtype=log_a_g.dtype, device=log_a_g.device)
+    neg = torch.full((), NEG, dtype=log_a_g.dtype, device=log_a_g.device)
+    out = []
+    for k in range(3):
+        frm = torch.clamp(j - k, min=0)
+        val = log_a_g[lab_u[:, frm], loc_u[:, frm], loc_u[:, j]]
+        same = samew_u[:, frm, j]
+        if cross_word == "band":
+            la = torch.where(same, val, zero)
+        else:
+            la = torch.where(same, val, torch.where(cross_u[:, frm, j], zero, neg))
+        out.append(la if k == 0 else torch.where(j >= k, la, neg))
+    return tuple(out)
+
+
+def _banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states):
+    """Whole-batch banded sentence Viterbi, plain PyTorch: the plain version
+    of ops/cuda/trellis_banded.viterbi_banded_batch_scanfree.
+
+    log_b (B, T, S_sent), coefficients (B, S_sent), lengths (B,),
+    n_states (B,) -> (scores (B,), paths (B, T) i32). Tie-breaks match the
+    dense scan's first-max argmax (smallest predecessor index wins), and the
+    backtrace applies the reference's final-frame quirk."""
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=log_b.device)
+    alpha, bps = banded_sentence_forward(log_b, c0, c1, c2, lengths)
+    final = final_states(torch.as_tensor(n_states, device=log_b.device), log_b.shape[2])
+    scores = alpha.gather(1, final[:, None].to(torch.int64))[:, 0]
+    return scores, backtrace_batch(bps, final, lengths, quirk=True)
+
+
+def _training_trellis(log_b, c0, c1, c2, lengths, n_states):
+    """Dispatch the training trellis on _TRELLIS_BACKEND."""
+    if _TRELLIS_BACKEND == "scanfree":
+        return viterbi_banded_batch_scanfree(log_b, c0, c1, c2, lengths, n_states)
+    if _TRELLIS_BACKEND == "scan":
+        return _banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states)
+    raise ValueError(f"unknown training trellis backend {_TRELLIS_BACKEND!r}")
+
+
+def _pool_slots(stat, tie):
+    """Parameter tying: sum a statistic over the tie groups of its leading
+    axis and broadcast each group total back to the members. tie (N,) maps
+    every row (a flat (label, state) slot, or a label for transition tying)
+    to a group id in [0, N); untied rows carry unique ids (singleton groups),
+    which pool to themselves."""
+    tie = tie.to(torch.int64)
+    pooled = torch.zeros_like(stat).index_add_(0, tie, stat)
+    return pooled[tie]
+
+
+def _couple_convergence(converged_l, conv_tie):
+    """Freeze tie-connected labels together: a label counts as converged
+    only when every label in its convergence group is."""
+    conv_tie = conv_tie.to(torch.int64)
+    bad = torch.zeros(converged_l.shape[0], dtype=torch.int32,
+                      device=converged_l.device)
+    bad.index_add_(0, conv_tie, (~converged_l).to(torch.int32))
+    return bad[conv_tie] == 0
+
+
+def _gather_sentence_emissions(means_g, covs_g, lab_tab, loc_tab,
+                               batch, topo_id, s_max: int,
+                               form: str = "whiten"):
+    """All-slot Gaussian scoring, gathered per sentence state:
+    (n_chunks, C, T, D) frames -> (n_chunks, C, T, S_sent).
+
+    Chunked because the (frames, slots, D) whitened intermediate is the
+    largest tensor of the iteration. form="whiten": float32 whitening
+    matmul. form="quad": the quadratic-form layout's plain version (not the
+    emission kernel), as the JAX trainer uses its plain quad form."""
+    l, s, d = means_g.shape
+    f = l * s
+    n_chunks, c, t, _ = batch.shape
+    if form == "quad":
+        params = make_gaussian_quad_params(
+            means_g.reshape(f, d), covs_g.reshape(f, d, d))
+        emit = gaussian_log_pdf_quad_plain
+    elif form == "whiten":
+        params = make_gaussian_params(means_g.reshape(f, d), covs_g.reshape(f, d, d))
+        emit = gaussian_log_pdf
+    else:
+        raise ValueError(f"unknown emissions form {form!r}")
+    flat_slot = (lab_tab.to(torch.int64) * s_max + loc_tab.to(torch.int64))
+    ss = flat_slot.shape[1]
+    out = []
+    for k in range(n_chunks):
+        lb_all = emit(params, batch[k].reshape(c * t, d)).reshape(c, t, f)
+        fs = flat_slot[topo_id[k].to(torch.int64)]  # (C, S_sent)
+        out.append(lb_all.gather(2, fs[:, None, :].expand(c, t, ss)))
+    return torch.stack(out)
+
+
+def _histogram(idx, mask, n: int) -> torch.Tensor:
+    """Float32 counts of idx over [0, n) where mask holds: the sum of the
+    masked one-hots, exact (integer-valued) and order-free on any device."""
+    idx = torch.where(mask, idx, torch.full_like(idx, n))
+    return torch.bincount(idx.reshape(-1), minlength=n + 1)[:n].to(torch.float32)
+
+
+def _pass_a(paths_flat, lab_u, loc_u, pos_u, batch, lengths_flat, s_max: int,
+            f: int):
+    """Zeroth/first-order statistics and transition counts of the hard
+    alignment: paths (B, T) over per-utterance tables (B, S_sent) ->
+    (counts_f (F,), sums (F, D), trans_f (F * s_max,), one-hots (B, T, F)
+    masked to real frames, slot of every frame (B, T))."""
+    b, t = paths_flat.shape
+    d = batch.shape[-1]
+    dev = batch.device
+    path_l = paths_flat.to(torch.int64)
+    lab_p = lab_u.to(torch.int64).gather(1, path_l)
+    loc_p = loc_u.to(torch.int64).gather(1, path_l)
+    pos_p = pos_u.gather(1, path_l)
+    flat = lab_p * s_max + loc_p
+    mask = torch.arange(t, device=dev)[None, :] < lengths_flat[:, None]
+    counts_f = _histogram(flat, mask, f)
+    oh = torch.nn.functional.one_hot(flat, f).to(torch.float32) * mask[..., None]
+    sums = oh.reshape(b * t, f).T @ batch.reshape(b * t, d)
+    pair_live = (torch.arange(t - 1, device=dev)[None, :] < (lengths_flat[:, None] - 1)) & (
+        pos_p[:, :-1] == pos_p[:, 1:]
+    )
+    from_flat = (
+        lab_p[:, :-1] * (s_max * s_max) + loc_p[:, :-1] * s_max + loc_p[:, 1:]
+    )
+    trans_f = _histogram(from_flat, pair_live, f * s_max)
+    return counts_f, sums, trans_f, oh, flat
+
+
+def _pass_b(batch, flat, oh, new_means_flat):
+    """Covariance pass centered on the NEW means (np.cov parity), one chunk
+    of utterances at a time so x2 stays (C*T, D^2) floats: batch
+    (n_chunks, C, T, D), flat (B, T) slots, oh (B, T, F) -> m2 (F, D*D)."""
+    n_chunks, c, t, d = batch.shape
+    f = oh.shape[-1]
+    flat_c = flat.reshape(n_chunks, c * t)
+    oh_c = oh.reshape(n_chunks, c * t, f)
+    m2_flat = torch.zeros((f, d * d), dtype=torch.float32, device=batch.device)
+    for k in range(n_chunks):
+        # Hard assignment: each frame has exactly one slot, so centering is a
+        # single per-frame gather of that slot's new mean.
+        xc = batch[k].reshape(c * t, d) - new_means_flat[flat_c[k]]
+        x2 = (xc[:, :, None] * xc[:, None, :]).reshape(c * t, d * d)
+        m2_flat = m2_flat + oh_c[k].T @ x2
+    return m2_flat
+
+
+def _iteration_body(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id,
+    *, cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str,
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """One fused Viterbi iteration (see fused_viterbi_iteration).
+
+    tie_flat (F,) / trans_tie (L,) int, optional: state-level emission tying
+    and label-level transition tying — statistics pool over tie groups
+    before the M-step (see _pool_slots), so tied slots train as ONE shared
+    distribution. conv_tie (L,) int, optional: convergence-coupling groups —
+    labels sharing a tie group freeze TOGETHER; untied labels keep the
+    reference's per-label freeze semantics."""
+    fp32_exact()
+    l, s, d = means_g.shape
+    f = num_labels * s_max
+    n_chunks, c, t, _ = batch.shape
+    b = n_chunks * c
+    dev = batch.device
+
+    lb_sent = _gather_sentence_emissions(
+        means_g, covs_g, lab_tab, loc_tab, batch, topo_id, s_max,
+        form=emissions,
+    )
+    s_sent = lb_sent.shape[-1]
+
+    # ---- trellis: ONE whole-batch alignment.
+    topo_flat = topo_id.reshape(b).to(torch.int64)
+    c0, c1, c2 = _sentence_trans_diagonals(
+        log_a_g, lab_tab[topo_flat], loc_tab[topo_flat],
+        samew_tab[topo_flat], cross_tab[topo_flat], cross_word,
+    )
+    lengths_flat = lengths.reshape(b)
+    _scores, paths_flat = _training_trellis(
+        lb_sent.reshape(b, t, s_sent), c0, c1, c2,
+        lengths_flat, n_states_t[topo_flat],
+    )
+
+    # ---- pass A
+    counts_f, sums, trans_f, oh, flat = _pass_a(
+        paths_flat, lab_tab[topo_flat], loc_tab[topo_flat], pos_tab[topo_flat],
+        batch, lengths_flat, s_max, f,
+    )
+    if tie_flat is not None:
+        counts_f = _pool_slots(counts_f, tie_flat)
+        sums = _pool_slots(sums, tie_flat)
+    counts = counts_f.reshape(l, s)
+    trans = trans_f.reshape(l, s, s)
+    if trans_tie is not None:
+        trans = _pool_slots(trans, trans_tie)
+
+    # ---- M-step: means + convergence ----
+    empty = slot_used & (counts < 1.0)
+    new_means = (sums / torch.clamp(counts_f, min=1.0)[:, None]).reshape(l, s, d)
+    new_means = torch.where(empty[..., None], means_g, new_means)
+    # np.allclose(new, old): |new - old| <= atol + rtol * |old|.
+    close = torch.abs(new_means - means_g) <= atol + rtol * torch.abs(means_g)
+    converged_l = torch.all(close.all(-1) | ~slot_used, dim=-1)  # (L,)
+    if conv_tie is not None:
+        converged_l = _couple_convergence(converged_l, conv_tie)
+
+    # ---- pass B
+    m2_flat = _pass_b(batch, flat, oh, new_means.reshape(f, d))
+    if tie_flat is not None:
+        # Tied slots share new_means, so each pooled m2 is centered at its
+        # group mean — the group covariance with np.cov ddof=1 on the GROUP
+        # count follows exactly.
+        m2_flat = _pool_slots(m2_flat, tie_flat)
+    m2 = m2_flat.reshape(l, s, d, d)
+    denom = torch.clamp(counts - 1.0, min=1.0)[..., None, None]  # np.cov ddof=1
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    new_covs = m2 / denom + cov_reg * eye
+    new_covs = torch.where(empty[..., None, None], covs_g, new_covs)
+    # Padded slots keep identity covariance so the next Cholesky stays valid.
+    new_covs = torch.where(slot_used[..., None, None], new_covs, eye)
+
+    # ---- transitions ----
+    row_sums = trans.sum(dim=2, keepdim=True)
+    probs = trans / torch.clamp(row_sums, min=1.0)
+    new_log_a = torch.where(probs > 0, torch.log(probs),
+                            torch.full_like(probs, NEG))
+    no_out = (row_sums[..., 0] < 1.0) & slot_used
+    new_log_a = torch.where(no_out[..., None], log_a_g, new_log_a)
+
+    # Converged labels keep their parameters this iteration (reference raises
+    # HMMTrainConverge before assignment, hidden_markov_model.py:333-335).
+    keep = converged_l[:, None, None]
+    new_means = torch.where(keep, means_g, new_means)
+    new_covs = torch.where(keep[..., None], covs_g, new_covs)
+    new_log_a = torch.where(keep, log_a_g, new_log_a)
+
+    return (new_means, new_covs, new_log_a, counts, converged_l,
+            paths_flat.reshape(n_chunks, c, t))
+
+
+def fused_viterbi_iteration(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str = "exit_only",
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """One embedded-training iteration on the tensors' device.
+
+    Returns (new_means, new_covs, new_log_a, counts, converged_l, paths):
+    the COMMITTED M-step result — empty-slot/no-outgoing keep-old applied AND
+    the per-label converged mask applied (converged models keep their
+    parameters, reference hidden_markov_model.py:333-335) — per-slot frame
+    counts, per-label convergence flags (reference allclose on means), and
+    the Viterbi paths (n_chunks, C, T). The returned parameters can be fed
+    straight back in as the next iteration's state; the host only reads
+    counts (empty-slot policy) and converged_l (stop).
+    """
+    return _iteration_body(
+        means_g, covs_g, log_a_g, slot_used,
+        lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+        batch, lengths, topo_id,
+        cov_reg=cov_reg, rtol=rtol, atol=atol,
+        num_labels=num_labels, s_max=s_max, cross_word=cross_word,
+        emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie,
+        conv_tie=conv_tie,
+    )
+
+
+def fused_train_run(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str,
+    max_iterations: int, update: str = "viterbi",
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """The remaining embedded training run: fused iterations until every
+    label converges or max_iterations, reading one flag back per iteration.
+    The iteration that detects convergence counts (its parameter updates are
+    already suppressed by the converged-label keep mask), as in the JAX
+    package's while loop.
+
+    Returns (means, covs, log_a, counts, iterations, converged); the last two
+    are a Python int and bool."""
+    if update != "viterbi":
+        raise NotImplementedError(
+            f"update={update!r} is not ported yet (ROADMAP Queue 1, slice 3, "
+            "item 16: the fused Baum-Welch iteration)"
+        )
+    means, covs, log_a = means_g, covs_g, log_a_g
+    counts = torch.zeros((num_labels, s_max), dtype=torch.float32,
+                         device=means_g.device)
+    it, converged = 0, False
+    while it < max_iterations and not converged:
+        means, covs, log_a, counts, converged_l, _ = _iteration_body(
+            means, covs, log_a, slot_used,
+            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+            batch, lengths, topo_id,
+            cov_reg=cov_reg, rtol=rtol, atol=atol,
+            num_labels=num_labels, s_max=s_max, cross_word=cross_word,
+            emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie,
+            conv_tie=conv_tie,
+        )
+        it += 1
+        converged = bool(converged_l.all())
+    return means, covs, log_a, counts, it, converged

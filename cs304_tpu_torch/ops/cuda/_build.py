@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ctypes. The library is built at
-first use into ``cs304_tpu_torch/_build/`` (ignored by git) under a name keyed
-on a hash of the sources and flags, so an edited source rebuilds; it is
-written under a temporary name and renamed, so concurrent builders never see
-a half-written file. A failed build raises with nvcc's output: there is no
+Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` (one nvcc process
+per source, all started together) and linked into ONE shared library with a
+plain C interface, loaded with ctypes. The library is built at first use
+into ``cs304_tpu_torch/_build/`` (ignored by git) under a name keyed on a
+hash of the sources and flags, so an edited source rebuilds; it is written
+under a temporary name and renamed, so concurrent builders never see a
+half-written file. A failed build raises with nvcc's output: there is no
 fallback.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lib = None
@@ -59,20 +60,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(s) for s in sources()
-                                               if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = [proc.communicate()[0] for _c, _o, proc in jobs]  # wait for all
+        for (cmd, _obj, proc), log in zip(jobs, logs):
+            _raise_on_failure(proc.returncode, cmd, log)
+        tmp = os.path.join(work, out.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _c, obj, _p in jobs]]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        _raise_on_failure(proc.returncode, cmd, proc.stdout)
+        out.with_suffix(".log").write_text("".join(logs) + proc.stdout)
+        os.replace(tmp, out)
     return out
+
+
+def _raise_on_failure(code: int, cmd, log: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed (rc={code}): {' '.join(cmd)}\n{log}")
 
 
 def load():
@@ -87,6 +100,8 @@ def load():
         lib.cs304_trellis_forward.restype = i
         lib.cs304_trellis_backtrace.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.cs304_trellis_backtrace.restype = i
+        lib.cs304_trellis_banded_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_banded_forward.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p
         _lib = lib

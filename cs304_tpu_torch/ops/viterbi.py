@@ -15,6 +15,17 @@ every exit is -inf the index is 0. Steps t >= length leave alpha unchanged.
 Backtrace parity note: the reference's backtrace drops the true final state,
 so path[L-1] == path[L-2]; ``quirk_backtrace=True`` (the default) reproduces
 that. Backpointers are int32. The time loop is a Python loop.
+
+Two single-topology recursions sit beside it:
+
+- ``viterbi_banded(_batch)``: one left-to-right word HMM (the segmental
+  k-means E-step), a dense (S, S) max-plus step over the skip-2 band with a
+  first-max argmax over all S predecessors (an all -inf column points at 0);
+- ``banded_sentence_forward``: the embedded trainer's sentence trellis with
+  per-utterance destination-indexed diagonals c0/c1/c2 and no entry/exit
+  pool, the plain version of the banded trellis kernel
+  (ops/cuda/trellis_banded.py). Its tie order starts from skip-2 and replaces
+  only on a strict improvement, so an all -inf column points at max(j-2, 0).
 """
 from __future__ import annotations
 
@@ -186,3 +197,91 @@ def viterbi_composite_batch_fast(
     alpha, bps = forward_fast(log_b, coefs, penalty, lengths)
     scores, best = first_max(alpha, coefs[5] > 0)
     return scores, backtrace_batch(bps, best, lengths, quirk_backtrace)
+
+
+def banded_transition_matrix(log_a) -> torch.Tensor:
+    """Mask (..., S, S) log transitions to the left-to-right skip-2 band
+    s - 2 <= s' <= s (reference hidden_markov_model.py:181)."""
+    log_a = torch.as_tensor(log_a, dtype=torch.float32)
+    s = log_a.shape[-1]
+    frm = torch.arange(s, device=log_a.device)[:, None]
+    to = torch.arange(s, device=log_a.device)[None, :]
+    allowed = (frm <= to) & (frm >= to - 2)
+    return torch.where(allowed, log_a, torch.full_like(log_a, NEG))
+
+
+def viterbi_banded_batch(log_b, log_a, lengths, quirk_backtrace: bool = True):
+    """Single left-to-right word HMM Viterbi over a padded batch.
+
+    log_b (B, T, S) float32, log_a (S, S) shared or (B, S, S) per row,
+    lengths (B,) -> (scores (B,) = alpha at state S-1, paths (B, T) int32).
+    Entry is pinned to state 0 and t=0 includes the entry self-loop
+    (hidden_markov_model.py:81-83); a zero-probability self-loop counts as
+    log 1 there (the degenerate-safe init). Each step is a dense max-plus
+    product whose argmax is torch's first max over all S predecessors."""
+    dev = log_b.device
+    b, t_total, s = log_b.shape
+    log_a = torch.as_tensor(log_a, dtype=torch.float32, device=dev)
+    trans = banded_transition_matrix(log_a).expand(b, s, s)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    a00 = trans[:, 0, 0]
+    a00 = torch.where(torch.isfinite(a00), a00, torch.zeros_like(a00))
+    alpha = torch.full((b, s), NEG, dtype=torch.float32, device=dev)
+    alpha[:, 0] = log_b[:, 0, 0] + a00
+    bps = torch.empty((b, t_total, s), dtype=torch.int32, device=dev)
+    bps[:, 0] = -1
+    for t in range(1, t_total):
+        best, arg = torch.max(alpha[:, :, None] + trans, dim=1)
+        bps[:, t] = arg.to(torch.int32)
+        alpha = torch.where((t < lengths)[:, None], best + log_b[:, t], alpha)
+    final = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    return alpha[:, s - 1], backtrace_batch(bps, final, lengths, quirk_backtrace)
+
+
+def viterbi_banded(log_b, log_a, length=None, quirk_backtrace: bool = True):
+    """One utterance: log_b (T, S), log_a (S, S) -> (score, path (T,))."""
+    if length is None:
+        length = log_b.shape[0]
+    lengths = torch.as_tensor([int(length)], dtype=torch.int32, device=log_b.device)
+    score, paths = viterbi_banded_batch(log_b[None], log_a, lengths, quirk_backtrace)
+    return score[0], paths[0]
+
+
+def banded_sentence_forward(log_b, c0, c1, c2, lengths):
+    """Sentence trellis forward: log_b (B, T, S) float32, destination-indexed
+    self/prev/skip coefficients c0, c1, c2 (B, S), lengths (B,) ->
+    (alpha (B, S), backpointers (B, T, S) int32 with row 0 = -1).
+    Candidates start from skip-2 and are replaced only on a strict >, so
+    ties keep the smallest predecessor. Steps t >= length leave alpha
+    unchanged but still write backpointers."""
+    b, t_total, s = log_b.shape
+    dev = log_b.device
+    idx = torch.arange(s, device=dev, dtype=torch.int32)
+    idx1 = torch.clamp(idx - 1, min=0).expand(b, s)
+    idx2 = torch.clamp(idx - 2, min=0).expand(b, s)
+    idx0 = idx.expand(b, s)
+    lengths = torch.as_tensor(lengths, device=dev)
+    # t = 0: state 0 only, with its self-loop (0 where that is not finite:
+    # the degenerate-safe init).
+    a00 = torch.where(torch.isfinite(c0[:, 0]), c0[:, 0], torch.zeros_like(c0[:, 0]))
+    alpha = torch.full((b, s), NEG, dtype=torch.float32, device=dev)
+    alpha[:, 0] = log_b[:, 0, 0] + a00
+    bps = torch.empty((b, t_total, s), dtype=torch.int32, device=dev)
+    bps[:, 0] = -1
+    neg1 = torch.full((b, 1), NEG, dtype=torch.float32, device=dev)
+    neg2 = torch.full((b, min(2, s)), NEG, dtype=torch.float32, device=dev)
+    for t in range(1, t_total):
+        a1 = torch.cat([neg1, alpha[:, :-1]], dim=1)
+        a2 = torch.cat([neg2, alpha[:, :-2]], dim=1)
+        best = a2 + c2
+        bp = idx2
+        cand = a1 + c1
+        take = cand > best
+        best = torch.where(take, cand, best)
+        bp = torch.where(take, idx1, bp)
+        cand = alpha + c0
+        take = cand > best
+        best = torch.where(take, cand, best)
+        bps[:, t] = torch.where(take, idx0, bp)
+        alpha = torch.where((t < lengths)[:, None], best + log_b[:, t], alpha)
+    return alpha, bps

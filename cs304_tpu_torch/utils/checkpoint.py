@@ -4,6 +4,10 @@ label holding ``params.npz`` (means (S, D), covariances (S, D, D), log_a
 written by the JAX package load here unchanged, and the other way round.
 Only single-Gaussian models are ported; a GMM checkpoint (mixture weights in
 the npz) raises.
+
+Resumable trainer state (ContinuousTrainer.save_state / resume) is one
+``trainer_state.npz`` per folder, the port's own format (the JAX package
+writes Orbax state, which this module does not read).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from ..models.hmm import WordHMM
 
 _PARAMS = "params.npz"
 _MANIFEST = "manifest.json"
+_TRAINER_STATE = "trainer_state.npz"
 FORMAT = "cs304_tpu.npz.v1"
 
 
@@ -108,3 +113,23 @@ def load_models(folder: str, labels: List[str] | None = None) -> Dict[str, WordH
         if missing:
             raise FileNotFoundError(f"models not found in {folder}: {sorted(missing)}")
     return out
+
+
+def save_trainer_state(state: Dict[str, np.ndarray], folder: str) -> str:
+    """Write a dict of arrays to <folder>/trainer_state.npz (through a
+    temporary file, so an interrupted save leaves the previous state)."""
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, _TRAINER_STATE)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **{k: np.asarray(v) for k, v in state.items()})
+    os.replace(tmp, path)
+    return path
+
+
+def load_trainer_state(folder: str) -> Dict[str, np.ndarray]:
+    """The dict written by save_trainer_state."""
+    path = os.path.join(folder, _TRAINER_STATE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no trainer state at {path!r}")
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}

@@ -1,9 +1,10 @@
-"""The port's three CUDA kernels against their plain PyTorch versions, on
-the card: the quad-form emission kernel (within rtol 1e-4 / atol 1e-3, as
-tests/test_pallas_emission.py holds the Pallas kernel) and the scan-free
-trellis pair (scores and full paths bitwise equal, ties and T=1 included).
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the quad-form emission kernel (within rtol 1e-4 / atol 1e-3, as
+tests/test_pallas_emission.py holds the Pallas kernel), the scan-free
+trellis pair and the banded training trellis (scores and full paths bitwise
+equal, ties, length-0 rows and T=1 included).
 
-These are chip_smoke.py's phases 3-4 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4 and 7 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -20,7 +21,9 @@ from cs304_tpu_torch.models.hmm import (
     stack_word_models,
     uniform_forward_log_a,
 )
+from cs304_tpu_torch.models.train_fused import _banded_trellis_batch
 from cs304_tpu_torch.ops.cuda import emission as em
+from cs304_tpu_torch.ops.cuda import trellis_banded as tb
 from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
 from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf_quad, make_gaussian_quad_params
 from cs304_tpu_torch.ops.viterbi import pack_coefs, viterbi_composite_batch_fast
@@ -86,8 +89,61 @@ def _trellis_case(dev, comp, log_b, lengths):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("case", ["flagship", "503", "ties", "b5-t1", "b5-t2", "padded"])
+def banded_problem(gen, b, t, s, ties=False, degenerate=False, zero_length=False):
+    """A K3 input on the generator's device: log_b (B, T, S), c0/c1/c2 with
+    -inf sprinkled in, lengths and ragged n_states."""
+    dev = gen.device
+
+    def rand(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return torch.round(2 * x) if ties else x
+
+    log_b = rand(b, t, s)
+    c0, c1, c2 = (0.5 * rand(b, s) for _ in range(3))
+    c1[:, :1] = float("-inf")
+    c2[:, :2] = float("-inf")
+    for c in (c0, c1, c2):
+        c[torch.rand((b, s), generator=gen, device=dev) < 0.15] = float("-inf")
+    if degenerate:
+        c0[:, 0] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    if zero_length:
+        lengths[1::3] = 0
+    n_states = torch.randint(max(1, s - 8), s + 1, (b,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    return log_b, c0, c1, c2, lengths, n_states
+
+
+BANDED = {  # case -> (B, T, S, options); "training" is the trainer's shape
+    "banded-training": (896, 160, 59, {}),
+    "banded-ties": (64, 40, 59, {"ties": True}),
+    "banded-degenerate": (33, 50, 59, {"degenerate": True}),
+    "banded-zero-length": (33, 50, 59, {"zero_length": True, "ties": True}),
+    "banded-t1": (5, 1, 59, {}),
+    "banded-503": (8, 40, 503, {}),
+}
+
+
+def _banded_case(dev, case):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, t, s, opts = BANDED[case]
+    prob = banded_problem(gen, b, t, s, **opts)
+    before = (tb.banded_forward.launches, tsf.trellis_backtrace.launches)
+    got = tb.viterbi_banded_batch_scanfree(*prob)
+    assert (tb.banded_forward.launches, tsf.trellis_backtrace.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _banded_trellis_batch(*prob)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["flagship", "503", "ties", "b5-t1", "b5-t2", "padded",
+                                  *BANDED])
 def test_trellis_pair_is_bitwise_plain(dev, case):
+    if case in BANDED:
+        _banded_case(dev, case)
+        return
     gen = torch.Generator(device=dev).manual_seed(0)
     comp = _composite(100) if case == "503" else flagship_composite()
     s = comp.num_states
@@ -120,6 +176,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         em.emission(torch.zeros((39, 4), device=dev).T, *packed,
                     num_states=58, s_pad=128)
+    # K3: more states than the kernel takes, a wrong dtype, a non-contiguous
+    # input, and tensors on different devices.
+    gen = torch.Generator(device=dev).manual_seed(2)
+    log_b, c0, c1, c2, lens, _n = banded_problem(gen, 2, 3, 59)
+    wide = torch.zeros((1, 2, tb.MAX_STATES + 1), device=dev)
+    cw = torch.zeros((1, tb.MAX_STATES + 1), device=dev)
+    with pytest.raises(ValueError):
+        tb.banded_forward(wide, cw, cw, cw, lens[:1])
+    with pytest.raises(TypeError):
+        tb.banded_forward(log_b.double(), c0, c1, c2, lens)
+    with pytest.raises(ValueError):
+        tb.banded_forward(log_b.transpose(0, 1).contiguous().transpose(0, 1),
+                          c0, c1, c2, lens)
+    with pytest.raises(ValueError):
+        tb.banded_forward(log_b, c0, c1, c2, lens.cpu())
 
 
 def test_decoder_scanfree_matches_fast_backend_on_card(dev):

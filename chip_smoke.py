@@ -30,7 +30,28 @@ Phases (each prints its own numbers; any failure exits non-zero):
               -> ContinuousDecoder: exact-sequence accuracy >= 0.85 on the
               training speakers (the JAX package's own bar)
  10. timing   K3 vs its plain version at the trainer's shape
-The line before the last is the kernels' JSON record; the last line is
+ 11. K1-split the split emission kernel ("high": 3 bf16 tensor-core passes,
+              "default": 1) vs its plain version at the main-path shape,
+              bench.py's, 503 and 5003 states (rtol 1e-4, atol 1e-3), each
+              tier's max |delta| against K1; x2_mode "selmm" bitwise "concat"
+ 12. K4       dense trellis vs dense_forward: alpha, backpointers, scores and
+              paths exactly equal (flagship emissions B=512, 503 states,
+              integer ties, B=5 with T=1, -inf sprinkled in trans at 58 and
+              300 states)
+ 13. K5/K6    the fast / lanes wrappers bitwise forward_fast at S=58
+ 14. decode   ContinuousDecoder(backend="pallas") on the 512 clips: K1, K4
+              and K2-bt launched, transcripts equal to backend="scan"'s;
+              agreement with the scan-free path; the "high" and "default"
+              tiers launch the split kernel, agreement with "highest"
+ 15. tiers    the phase-9 models decoded with emissions="quad" at each tier:
+              exact-sequence accuracy and agreement with "highest"; "high"
+              >= 0.85 on the training speakers
+ 16. timing   the split kernel and K4 vs their plain versions, every
+              kernel's library call and bound, end-to-end ms per batch of
+              the scan-free, pallas, high and pallas+high paths
+The line before the last is the kernels' JSON record (six kernels, each with
+launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
+last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
 """
 import json
@@ -41,6 +62,8 @@ import numpy as np
 import torch
 
 RTOL_K1, ATOL_K1 = 1e-4, 1e-3  # as tests/test_pallas_emission.py holds K1
+# Published H100 SXM peaks (NVIDIA data sheet).
+PEAK_FP32, PEAK_BF16, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 BATCH, SECONDS = 512, 1.5
 # The embedded trainer's corpus: benchmarks/train_bench.py's shape.
 TRAIN_TRANSCRIPTS = ["14", "27Z", "4Z2Z", "58361", "9O4738", "14Z9O72", "6O3"]
@@ -65,6 +88,20 @@ def cuda_ms(fn, reps=20):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def window(fn):
+    """Host wall ms per call of fn(): best of 3 windows of 20 calls, the
+    clock stopped after a synchronize and a host copy of every output."""
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            out = fn()
+        torch.cuda.synchronize()
+        [o.cpu() for o in out]
+        best = min(best, time.perf_counter() - t0)
+    return best / 20 * 1e3
 
 
 def random_composite(num_words, seed):
@@ -275,17 +312,6 @@ def main():
         raise SystemExit("main path transcripts differ from the plain path's")
 
     # -- 6. timing ----------------------------------------------------------
-    def window(fn):
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(20):
-                out = fn()
-            torch.cuda.synchronize()
-            [o.cpu() for o in out]
-            best = min(best, time.perf_counter() - t0)
-        return best / 20 * 1e3
-
     kernel_fn = lambda: dec.decode_signals(sig_dev, ns_dev)  # noqa: E731
     plain_fn = lambda: plain_path(sig_dev, ns_dev)  # noqa: E731
     kernel_fn(), plain_fn()
@@ -313,12 +339,18 @@ def main():
         log("timing", kernel=name, ms=ms, plain_ms=plain_ms,
             shape=f"B={b} T={t_total} S={s}")
 
-    train_phases(dev, kind, launches, timings, k1_err, k2_err)
+    decode = {"comp": comp, "signals": signals, "sig_dev": sig_dev, "ns_dev": ns_dev,
+              "frames": frames, "packed": packed, "lb3": lb3, "n_frames": n_frames,
+              "rand_len": rand_len, "texts_sig": texts_sig, "dec": dec}
+    errs = {"emission": k1_err, "trellis_forward": k2_err, "trellis_backtrace": k2_err}
+    pipe = train_phases(dev, launches, timings, errs)
+    yardsticks = slice_phases(dev, decode, pipe, launches, timings, errs)
+    report(kind, launches, timings, errs, yardsticks)
 
 
-def train_phases(dev, kind, launches, timings, k1_err, k2_err):
-    """Phases 7-10 (the embedded-training slice), then the kernels' JSON line
-    and the final line."""
+def train_phases(dev, launches, timings, errs):
+    """Phases 7-10 (the embedded-training slice). Returns what phase 15
+    decodes: the phase-9 models and their evaluation features."""
     from cs304_tpu_torch.audio.endpointing import SignalSeparation
     from cs304_tpu_torch.data.synthetic import SyntheticTIDigits
     from cs304_tpu_torch.data.ti_digits import DIGIT_LABELS
@@ -547,12 +579,13 @@ def train_phases(dev, kind, launches, timings, k1_err, k2_err):
     torch.cuda.synchronize()
     pipe_launches = {k.__name__: k.launches for k in counters}
     decoder = ContinuousDecoder(trainer.models(), penalty=-100.0, device=dev)
-    acc = {}
+    acc, pipe_eval = {}, {}
     for split, speakers in (("train_speakers", range(6)), ("unseen_speakers", (6, 7))):
         truths = [tr for tr in PIPELINE_TRANSCRIPTS for _ in speakers]
         clips = [synth.sentence_audio(tr, spk, jitter_seed=33)
                  for tr in PIPELINE_TRANSCRIPTS for spk in speakers]
-        preds = decoder.predict_batch(mfcc_batch(clips, device=dev))
+        pipe_eval[split] = (truths, mfcc_batch(clips, device=dev))
+        preds = decoder.predict_batch(pipe_eval[split][1])
         acc[split] = float(np.mean([p == t for p, t in zip(preds, truths)]))
     log("pipeline", iterations=pipe_it, launches=json.dumps(pipe_launches),
         exact_seq_acc=json.dumps(acc), seconds_front_end=f"{t_front:.2f}",
@@ -562,7 +595,7 @@ def train_phases(dev, kind, launches, timings, k1_err, k2_err):
     if acc["train_speakers"] < ACC_BAR:
         raise SystemExit(f"exact-sequence accuracy {acc['train_speakers']} < {ACC_BAR}")
 
-    # -- 10. K3 timing and the kernels line ----------------------------------
+    # -- 10. K3 timing -------------------------------------------------------
     k3_args = (lb_sent, *diags, train_lengths)
     timings["trellis_banded_forward"] = (
         cuda_ms(lambda: tb.banded_forward(*k3_args)),
@@ -570,24 +603,343 @@ def train_phases(dev, kind, launches, timings, k1_err, k2_err):
     log("timing", kernel="trellis_banded_forward", ms=timings["trellis_banded_forward"][0],
         plain_ms=timings["trellis_banded_forward"][1],
         shape=f"B={b_all} T={t_total} S={s_sent}")
-    launches = dict(launches, trellis_banded_forward=train_launches["banded_forward"])
+    launches["trellis_banded_forward"] = train_launches["banded_forward"]
+    errs["trellis_banded_forward"] = k3_err
+    return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args}
 
-    meta = {
-        "emission": ("cs304_tpu_torch/csrc/emission.cu",
-                     "cs304_tpu/ops/pallas/emission.py:82", k1_err),
-        "trellis_forward": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
-                            "cs304_tpu/ops/pallas/trellis_scanfree.py:55", k2_err),
-        "trellis_backtrace": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
-                              "cs304_tpu/ops/pallas/trellis_scanfree.py:121", k2_err),
-        "trellis_banded_forward": ("cs304_tpu_torch/csrc/trellis_banded.cu",
-                                   "cs304_tpu/ops/pallas/trellis_banded.py:41", k3_err),
+
+def bound(bytes_moved, ops=()):
+    """The least time the card could take (ms) and what sets it: bytes
+    over the memory rate against the sum of operations over their type's
+    peak, ops = ((count, peak per second), ...)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = sum(n / peak for n, peak in ops)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def emission_bound(n, d, s, s_pad, tier):
+    """bound() of one emission call: N frames in, (N, s_pad) out, the S
+    states' parameters (bf16 nhp halves below "highest"); the quad and
+    linear terms' products in FP32 ("highest"), bf16 passes plus an FP32
+    linear term ("high"), or one bf16 pass for both ("default")."""
+    moved = 4 * n * d + 4 * (d + 1) * s + 4 * n * s_pad
+    if tier == "highest":
+        return bound(moved + 4 * d * d * s, [(2 * n * (d * d + d) * s, PEAK_FP32)])
+    if tier == "high":
+        return bound(moved + 4 * d * d * s, [(3 * 2 * n * d * d * s, PEAK_BF16),
+                                             (2 * n * d * s, PEAK_FP32)])
+    return bound(moved + 2 * d * d * s, [(2 * n * (d * d + d) * s, PEAK_BF16)])
+
+
+def dense_bound(b, t, s, lengths):
+    """bound() of one dense trellis forward: log_b rows up to each length in,
+    every backpointer out, trans, alpha0 and alpha; an add and a compare
+    per (step, predecessor, state)."""
+    live = int(lengths.clamp(max=t).sum().item())
+    return bound(4 * live * s + 4 * b * t * s + 4 * s * s + 8 * b * s + 4 * b,
+                 [(2 * b * (t - 1) * s * s, PEAK_FP32)])
+
+
+def slice_phases(dev, decode, pipe, launches, timings, errs):
+    """Phases 11-16: the decoder's other backends and precision tiers (the
+    split emission kernel, the dense trellis kernel, the K5/K6 wrappers).
+    Returns every kernel's yardsticks: name -> (library_ms, bound_ms,
+    bound_by)."""
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+    from cs304_tpu_torch.models.hmm import flagship_models
+    from cs304_tpu_torch.ops.cuda import emission as em
+    from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_fast as tfast
+    from cs304_tpu_torch.ops.cuda import trellis_lanes as tlanes
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.mfcc import mfcc_features_batch
+    from cs304_tpu_torch.ops.viterbi import (
+        composite_transition_matrix,
+        dense_decode,
+        dense_forward,
+        forward_fast,
+        pack_coefs,
+    )
+
+    comp, frames = decode["comp"], decode["frames"]
+    s = comp.num_states
+    b, t_total, _ld = decode["lb3"].shape
+    d = frames.shape[1]
+    kw = dict(penalty=-100.0, emissions="quad", device="cuda")
+
+    # -- 11. K1-split vs plain ----------------------------------------------
+    split_err = {"high": 0.0, "default": 0.0}
+
+    def split_check(name, composite, frames_in):
+        s_k = composite.num_states
+        sp = -(-s_k // 128) * 128
+        nhp, lin, const = em.pack_quad_params(composite.means, composite.covariances, sp,
+                                              device=dev)
+        hi, lo = em.split_hi_lo(nhp)
+        highest = em.emission(frames_in, nhp, lin, const, s_k, sp)
+        for tier, passes in em.PASSES.items():
+            got = em.emission_split(frames_in, hi, lo, lin, const, s_k, sp, passes)
+            want = em.emission_split_plain(frames_in, hi, lo, lin, const, passes)
+            torch.cuda.synchronize()
+            err = (got - want)[:, :s_k].abs().max().item()
+            split_err[tier] = max(split_err[tier], err)
+            pad_zero = bool((got[:, s_k:] == 0).all().item())
+            ok = torch.allclose(got[:, :s_k], want[:, :s_k], rtol=RTOL_K1, atol=ATOL_K1)
+            log("K1-split", case=name, tier=tier, N=frames_in.shape[0], S=s_k, s_pad=sp,
+                max_abs_err=err, max_abs_vs_highest=(got - highest).abs().max().item(),
+                pad_zero=pad_zero, ok=ok)
+            if not (ok and pad_zero and torch.isfinite(got).all().item()):
+                raise SystemExit(f"K1-split ({tier}) disagrees with its plain version ({name})")
+            del want
+
+    split_check("flagship", comp, frames)
+    feats_bench, _ = mfcc_features_batch(torch.as_tensor(decode["signals"], device=dev),
+                                         decode["ns_dev"])
+    split_check("bench-shape", comp, feats_bench.reshape(-1, d))
+    split_check("503-states", random_composite(100, 1), frames[: 64 * t_total])
+    split_check("5003-states", random_composite(1000, 2), frames[: 8 * t_total])
+    for tier in ("highest", "high"):
+        args = (comp.means, comp.covariances, frames)
+        concat = em.gaussian_log_pdf_fused(*args, precision=tier)
+        selmm = em.gaussian_log_pdf_fused(*args, precision=tier, x2_mode="selmm")
+        same = torch.equal(concat, selmm)
+        log("K1-selmm", tier=tier, bitwise_equal_concat=same)
+        if not same:
+            raise SystemExit(f"x2_mode='selmm' differs from 'concat' at {tier}")
+    errs["emission_split"] = max(split_err.values())
+
+    # -- 12. K4 vs plain ----------------------------------------------------
+    k4_err = 0.0
+
+    def k4_check(name, log_b, lengths, composite=None, trans=None, alpha0=None):
+        nonlocal k4_err
+        if composite is not None:
+            topo = (composite.log_a, composite.lower_of_state, composite.is_entry,
+                    composite.is_exit)
+            trans = composite_transition_matrix(*topo, composite.penalty, device=dev)
+            coefs = pack_coefs(*topo, device=dev)
+            alpha0 = torch.where(coefs[4] > 0, log_b[:, 0, : trans.shape[0]] + coefs[6],
+                                 float("-inf"))
+        got = tdn.trellis_dense_forward(log_b, trans, alpha0, lengths)
+        want = dense_forward(log_b, trans, alpha0, lengths)
+        same = {"alpha": torch.equal(got[0], want[0]), "bp": torch.equal(got[1], want[1])}
+        if composite is not None:
+            got_d = tdn.dense_decode_pallas(log_b, trans, coefs, lengths)
+            want_d = dense_decode(log_b, trans, coefs, lengths)
+            same.update(scores=torch.equal(got_d[0], want_d[0]),
+                        paths=torch.equal(got_d[1], want_d[1]))
+        torch.cuda.synchronize()
+        both = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        err = (got[0] - want[0])[both].abs().max().item() if both.any() else 0.0
+        k4_err = max(k4_err, err)
+        log("K4", case=name, B=log_b.shape[0], T=log_b.shape[1], S=trans.shape[0],
+            equal=json.dumps(same), max_abs_err=err)
+        if not all(same.values()):
+            raise SystemExit(f"K4 disagrees with dense_forward ({name})")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    k4_check("flagship-emissions", decode["lb3"], decode["rand_len"], comp)
+    c503 = random_composite(100, 3)
+    k4_check("503-states", 3 * torch.randn((64, t_total, c503.num_states), generator=gen,
+                                           device=dev),
+             torch.randint(1, t_total + 1, (64,), generator=gen, device=dev,
+                           dtype=torch.int32), c503)
+    k4_check("integer-ties", torch.randint(-3, 1, (64, 40, s), generator=gen,
+                                           device=dev).float(),
+             torch.randint(1, 41, (64,), generator=gen, device=dev, dtype=torch.int32), comp)
+    k4_check("B5-T1", torch.randn((5, 1, s), generator=gen, device=dev),
+             torch.ones(5, dtype=torch.int32, device=dev), comp)
+    for s_r in (58, 300):  # trans in shared memory, and read from L2
+        trans = torch.randn((s_r, s_r), generator=gen, device=dev)
+        trans[torch.rand((s_r, s_r), generator=gen, device=dev) < 0.4] = float("-inf")
+        trans[:, 1] = float("-inf")
+        alpha0 = torch.randn((32, s_r), generator=gen, device=dev)
+        alpha0[torch.rand((32, s_r), generator=gen, device=dev) < 0.3] = float("-inf")
+        k4_check(f"inf-trans-{s_r}", torch.randint(-3, 1, (32, 60, s_r), generator=gen,
+                                                   device=dev).float(),
+                 torch.randint(1, 61, (32,), generator=gen, device=dev, dtype=torch.int32),
+                 trans=trans, alpha0=alpha0)
+    errs["trellis_dense_forward"] = k4_err
+
+    # -- 13. K5 / K6 wrappers vs forward_fast --------------------------------
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    lb_s = decode["lb3"][..., :s].contiguous()
+    want = forward_fast(lb_s, pack_coefs(*topo, device=dev), comp.penalty, decode["rand_len"])
+    for name, fn in (("K5", tfast.viterbi_fast_forward_pallas),
+                     ("K6", tlanes.viterbi_lanes_forward_pallas)):
+        got = fn(lb_s, *topo, comp.penalty, decode["rand_len"])
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        log(name, wrapper=fn.__name__, B=b, T=t_total, S=s, bitwise_forward_fast=same)
+        if not same:
+            raise SystemExit(f"{name} ({fn.__name__}) disagrees with forward_fast")
+
+    # -- 14. decoder: backend "pallas" and the precision tiers ---------------
+    signals, texts_sig = list(decode["signals"]), decode["texts_sig"]
+    dec_p = ContinuousDecoder(flagship_models(), backend="pallas", **kw)
+    counters = (em.emission, tdn.trellis_dense_forward, tsf.trellis_backtrace)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    texts_p = dec_p.predict_signal_batch(signals)
+    torch.cuda.synchronize()
+    pallas_launches = {c.__name__: c.launches for c in counters}
+    texts_scan = ContinuousDecoder(flagship_models(), backend="scan",
+                                   **kw).predict_signal_batch(signals)
+    agree = float(np.mean([a == c for a, c in zip(texts_p, texts_sig)]))
+    log("decode-pallas", launches=json.dumps(pallas_launches),
+        transcripts_equal_scan=texts_p == texts_scan, agreement_scanfree=agree, B=len(texts_p))
+    if not all(v > 0 for v in pallas_launches.values()):
+        raise SystemExit(f"a kernel of the pallas backend never launched: {pallas_launches}")
+    if texts_p != texts_scan:
+        raise SystemExit("backend 'pallas' transcripts differ from backend 'scan'")
+    launches["trellis_dense_forward"] = pallas_launches["trellis_dense_forward"]
+    tier_decoders = {tier: ContinuousDecoder(flagship_models(), emission_precision=tier, **kw)
+                     for tier in em.PASSES}
+    em.emission_split.launches = 0
+    for tier in em.PASSES:
+        before = em.emission_split.launches
+        torch.cuda.synchronize()
+        texts_t = tier_decoders[tier].predict_signal_batch(signals)
+        torch.cuda.synchronize()
+        n_launch = em.emission_split.launches - before
+        log("decode-tier", tier=tier, backend=tier_decoders[tier].backend,
+            emission_split_launches=n_launch,
+            agreement_highest=float(np.mean([a == c for a, c in zip(texts_t, texts_sig)])))
+        if n_launch == 0:
+            raise SystemExit(f"the {tier} tier never launched the split kernel")
+    launches["emission_split"] = em.emission_split.launches
+
+    # -- 15. tier A/B on the phase-9 checkpoint ------------------------------
+    ab = {}
+    for tier in ("highest", *em.PASSES):
+        dec_t = ContinuousDecoder(pipe["models"], penalty=-100.0, emissions="quad",
+                                  emission_precision=tier, device=dev)
+        ab[tier] = {split: dec_t.predict_batch(f) for split, (_t, f) in pipe["eval"].items()}
+    for tier, preds in ab.items():
+        for split, (truths, _f) in pipe["eval"].items():
+            acc = float(np.mean([p == t for p, t in zip(preds[split], truths)]))
+            agree = float(np.mean([p == h for p, h in zip(preds[split], ab["highest"][split])]))
+            log("tier-ab", tier=tier, split=split, exact_seq_acc=acc, agreement_highest=agree,
+                n=len(truths))
+            if tier == "high" and split == "train_speakers" and acc < ACC_BAR:
+                raise SystemExit(f"high-tier exact-sequence accuracy {acc} < {ACC_BAR}")
+
+    # -- 16. timing: the new kernels, every kernel's yardsticks, end to end --
+    # The emission kernels at the main-path shape and past one state tile
+    # (503 states, phase 3's N = 64 * 201), each with its plain version,
+    # one library GEMM on a materialized x2 (FP32 for K1, bf16 for the split
+    # kernel) and its bound.
+    library, bounds = {}, {}
+    c503e = random_composite(100, 1)
+    for suffix, frames_e, packed_e, s_e in (
+            ("", frames, decode["packed"], s),
+            ("_503", frames[: 64 * t_total],
+             em.pack_quad_params(c503e.means, c503e.covariances, 512, device=dev), 503)):
+        nhp, lin, const = packed_e
+        hi, lo = em.split_hi_lo(nhp)
+        n_e, sp_e = frames_e.shape[0], nhp.shape[1]
+        timings["emission" + suffix] = (
+            cuda_ms(lambda: em.emission(frames_e, nhp, lin, const, s_e, sp_e)),
+            cuda_ms(lambda: em.emission_plain(frames_e, nhp, lin, const), reps=3))
+        for tier, passes in em.PASSES.items():
+            timings[f"emission_split_{tier}{suffix}"] = (
+                cuda_ms(lambda: em.emission_split(frames_e, hi, lo, lin, const, s_e, sp_e,
+                                                  passes)),
+                cuda_ms(lambda: em.emission_split_plain(frames_e, hi, lo, lin, const, passes),
+                        reps=3))
+        x2 = (frames_e[:, :, None] * frames_e[:, None, :]).reshape(n_e, d * d)
+        library["emission" + suffix] = cuda_ms(lambda: torch.matmul(x2, nhp))
+        x2, nhp_bf = x2.to(torch.bfloat16), nhp.to(torch.bfloat16)
+        for tier in em.PASSES:
+            library[f"emission_split_{tier}{suffix}"] = cuda_ms(lambda: torch.matmul(x2, nhp_bf))
+            bounds[f"emission_split_{tier}{suffix}"] = emission_bound(n_e, d, s_e, sp_e, tier)
+        bounds["emission" + suffix] = emission_bound(n_e, d, s_e, sp_e, "highest")
+        del x2
+
+    # K4 at the flagship and at 503 states (B = 64).
+    lengths = decode["n_frames"]
+    alpha0 = torch.where(dec_p._coefs[4] > 0, decode["lb3"][:, 0, :s] + dec_p._coefs[6],
+                         float("-inf"))
+    lb503 = 3 * torch.randn((64, t_total, c503.num_states), generator=gen, device=dev)
+    t503 = composite_transition_matrix(c503.log_a, c503.lower_of_state, c503.is_entry,
+                                       c503.is_exit, c503.penalty, device=dev)
+    k4_shapes = {
+        "trellis_dense_forward": (decode["lb3"], dec_p._trans, alpha0, lengths),
+        "trellis_dense_forward_503": (
+            lb503, t503, torch.where(torch.as_tensor(c503.is_entry, device=dev),
+                                     lb503[:, 0], float("-inf")),
+            torch.full((64,), t_total, dtype=torch.int32, device=dev)),
     }
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err,
-         "ms": timings[name][0], "plain_ms": timings[name][1]}
-        for name, (src, rep, err) in meta.items()
-    ]}), flush=True)
+    for name, args in k4_shapes.items():
+        timings[name] = (cuda_ms(lambda: tdn.trellis_dense_forward(*args)),
+                         cuda_ms(lambda: dense_forward(*args), reps=3))
+        log_b_k, trans_k, _a, lengths_k = args
+        bounds[name] = dense_bound(log_b_k.shape[0], t_total, trans_k.shape[0], lengths_k)
+
+    # The scan-free pair at phase 6's inputs and K3 at phase 10's.
+    live = int(lengths.clamp(max=t_total).sum().item())
+    bounds["trellis_forward"] = bound(4 * live * s + 4 * b * t_total * s
+                                      + 4 * (b * s + 8 * s + b),
+                                      [(6 * b * (t_total - 1) * s, PEAK_FP32)])
+    bounds["trellis_backtrace"] = bound(4 * (live - b) + 4 * b * t_total + 8 * b)
+    lb_k3, k3_lengths = pipe["k3_args"][0], pipe["k3_args"][-1]
+    b3, t3, s3 = lb_k3.shape
+    live3 = int(k3_lengths.clamp(max=t3).sum().item())
+    bounds["trellis_banded_forward"] = bound(4 * live3 * s3 + 4 * b3 * t3 * s3 + 16 * b3 * s3
+                                             + 4 * b3, [(6 * b3 * (t3 - 1) * s3, PEAK_FP32)])
+    timings["emission_split"] = timings["emission_split_high"]
+    library["emission_split"] = library["emission_split_high"]
+    bounds["emission_split"] = bounds["emission_split_high"]
+    yardsticks = {k: (library.get(k), *bounds[k]) for k in bounds}
+    for name in ("emission", "emission_split_high", "emission_split_default", "emission_503",
+                 "emission_split_high_503", "emission_split_default_503",
+                 "trellis_dense_forward", "trellis_dense_forward_503"):
+        ms, plain_ms = timings[name]
+        lib_ms, b_ms, b_by = yardsticks[name]
+        log("timing", kernel=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by)
+
+    dec_sf, dec_high = decode["dec"], tier_decoders["high"]
+    dec_high_p = ContinuousDecoder(flagship_models(), backend="pallas",
+                                   emission_precision="high", **kw)
+    paths = {"scanfree": dec_sf, "pallas": dec_p, "high": dec_high,
+             "pallas+high": dec_high_p}
+    sig_dev, ns_dev = decode["sig_dev"], decode["ns_dev"]
+    for dec_x in paths.values():
+        dec_x.decode_signals(sig_dev, ns_dev)
+    e2e = {}
+    for name in (*paths, *reversed(paths)):
+        e2e[name] = min(e2e.get(name, float("inf")),
+                        window(lambda: paths[name].decode_signals(sig_dev, ns_dev)))
+    for name, ms in e2e.items():
+        log("timing", path=name, ms_per_batch=ms, utt_per_s=len(signals) / ms * 1e3)
+    return yardsticks
+
+
+def report(kind, launches, timings, errs, yardsticks):
+    """The kernels' JSON line and the final line."""
+    meta = {
+        "emission": ("cs304_tpu_torch/csrc/emission.cu", "cs304_tpu/ops/pallas/emission.py:82"),
+        "emission_split": ("cs304_tpu_torch/csrc/emission_split.cu",
+                           "cs304_tpu/ops/pallas/emission.py:157"),
+        "trellis_forward": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                            "cs304_tpu/ops/pallas/trellis_scanfree.py:55"),
+        "trellis_backtrace": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                              "cs304_tpu/ops/pallas/trellis_scanfree.py:121"),
+        "trellis_banded_forward": ("cs304_tpu_torch/csrc/trellis_banded.cu",
+                                   "cs304_tpu/ops/pallas/trellis_banded.py:41"),
+        "trellis_dense_forward": ("cs304_tpu_torch/csrc/trellis_dense.cu",
+                                  "cs304_tpu/ops/pallas/trellis.py:33"),
+    }
+    rows = []
+    for name, (src, rep) in meta.items():
+        library_ms, bound_ms, bound_by = yardsticks[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": timings[name][0], "plain_ms": timings[name][1],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -5,11 +5,17 @@ Word models are stacked into one composite; a batch is decoded by emissions
 device, and only (B, max_words) word ids and counts come back to the host.
 
 Backends: "scanfree" runs the CUDA trellis pair (ops/cuda/trellis_scanfree.py)
-and "fast" the plain PyTorch trellis (ops/viterbi.py); "auto" picks
-"scanfree" on a CUDA device and "fast" on the CPU. With emissions="quad" the
-emission kernel (ops/cuda/emission.py) writes log_b padded to 128 state
-columns, which the trellis reads in place. On a CPU device every kernel
-wrapper runs its plain version.
+and "fast" the plain PyTorch banded trellis (ops/viterbi.py); "pallas" runs
+the dense (S, S) trellis kernel with K2's backtrace
+(ops/cuda/trellis_dense.py) and "scan" its plain version
+(ops/viterbi.viterbi_composite_batch); "auto" picks "scanfree" on a CUDA
+device and "fast" on the CPU. The dense backends break an exact tie between
+an entry's self-loop and a higher exit toward the self-loop; the banded ones
+toward the exit. With emissions="quad" the emission kernel of the
+``emission_precision`` tier (ops/cuda/emission.py: "highest" float32,
+"high" three bf16 tensor-core passes, "default" one) writes log_b padded to
+128 state columns, which every trellis reads in place. On a CPU device every
+kernel wrapper runs its plain version.
 """
 from __future__ import annotations
 
@@ -20,10 +26,16 @@ import torch
 
 from ..data.batching import pad_batch
 from ..device import resolve_device
-from ..ops.cuda.emission import LANES, emission, pack_quad_params
+from ..ops.cuda.emission import LANES, pack_quad_params, split_hi_lo, tier_emission
+from ..ops.cuda.trellis_dense import dense_decode_pallas
 from ..ops.cuda.trellis_scanfree import MAX_STATES, scanfree_decode
 from ..ops.gaussian import gaussian_log_pdf, make_gaussian_params
-from ..ops.viterbi import pack_coefs, viterbi_composite_batch_fast
+from ..ops.viterbi import (
+    composite_transition_matrix,
+    dense_decode,
+    pack_coefs,
+    viterbi_composite_batch_fast,
+)
 from ..ops.words import ids_to_strings, words_from_paths
 from .hmm import DEFAULT_WORD_PENALTY, stack_word_models
 
@@ -58,11 +70,11 @@ class ContinuousDecoder:
             raise ValueError(f"unknown emissions layout {emissions!r}")
         if emission_precision not in ("highest", "high", "default"):
             raise ValueError(f"unknown emission precision {emission_precision!r}")
-        if backend in ("scan", "pallas"):
-            where = ("Queue 2, K4" if backend == "pallas"
-                     else "Queue 1, item 4: the dense viterbi_composite_batch")
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP {where})"
+        if emission_precision != "highest" and emissions != "quad":
+            raise ValueError(
+                "emission_precision tiers below 'highest' require "
+                "emissions='quad' (the whitening layout stays f32-exact "
+                "by contract)"
             )
         if bigram is not None:
             raise NotImplementedError(
@@ -71,11 +83,6 @@ class ContinuousDecoder:
         if beam is not None:
             raise NotImplementedError(
                 "beam pruning is not ported yet (ROADMAP Queue 1, slice 4)"
-            )
-        if emission_precision != "highest":
-            raise NotImplementedError(
-                f"emission precision {emission_precision!r} is not ported yet "
-                "(ROADMAP Queue 2: K1-high / the default-tier A/B)"
             )
         if any(getattr(m, "weights", None) is not None for m in models):
             raise NotImplementedError(
@@ -88,25 +95,29 @@ class ContinuousDecoder:
         self.emissions = emissions
         self.emission_precision = emission_precision
         self.composite = stack_word_models(models, penalty)
-        if backend == "scanfree" and self.composite.num_states > MAX_STATES:
+        if backend in ("scanfree", "pallas") and self.composite.num_states > MAX_STATES:
             raise ValueError(
-                f"{self.composite.num_states} states exceed the scan-free "
+                f"{self.composite.num_states} states exceed the {backend} "
                 f"trellis limit of {MAX_STATES}; use backend='fast'"
             )
         self._prepare()
 
     def _prepare(self) -> None:
-        """Move the model to the device once: emission parameters, trellis
-        coefficients and word boundaries."""
+        """Move the model to the device once: emission parameters (and
+        their bf16 split below "highest"), trellis coefficients, the dense
+        transition matrix of the dense backends, and word boundaries."""
         c, dev = self.composite, self.device
         self._s_pad = -(-c.num_states // LANES) * LANES
         if self.emissions == "quad":
             self._quad = pack_quad_params(c.means, c.covariances, self._s_pad,
                                           device=dev)
+            self._nhp_split = (None if self.emission_precision == "highest"
+                               else split_hi_lo(self._quad[0]))
         else:
             self._whiten = make_gaussian_params(c.means, c.covariances, device=dev)
         self._coefs = pack_coefs(c.log_a, c.lower_of_state, c.is_entry,
                                  c.is_exit, device=dev)
+        self._trans = self._dense_trans()
         self._lowers = torch.as_tensor(c.lowers, dtype=torch.int32, device=dev)
         self._uppers = torch.as_tensor(c.uppers, dtype=torch.int32, device=dev)
 
@@ -117,14 +128,27 @@ class ContinuousDecoder:
     @penalty.setter
     def penalty(self, value: float) -> None:
         self.composite.penalty = value
+        self._trans = self._dense_trans()
+
+    def _dense_trans(self):
+        """The (S, S) transition matrix of the dense backends, which carries
+        the penalty; None for the banded ones."""
+        if self.backend not in ("scan", "pallas"):
+            return None
+        c = self.composite
+        return composite_transition_matrix(c.log_a, c.lower_of_state, c.is_entry,
+                                           c.is_exit, c.penalty, device=self.device)
 
     # -- device path ---------------------------------------------------------
     def _log_b(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> (B, T, S) or, for "quad", (B, T, s_pad) emissions."""
         if self.emissions == "quad":
             b, t, d = batch.shape
-            out = emission(batch.reshape(b * t, d), *self._quad,
-                           num_states=self.composite.num_states, s_pad=self._s_pad)
+            out = tier_emission(batch.reshape(b * t, d), *self._quad,
+                                num_states=self.composite.num_states,
+                                s_pad=self._s_pad,
+                                precision=self.emission_precision,
+                                nhp_split=self._nhp_split)
             return out.reshape(b, t, self._s_pad)
         return gaussian_log_pdf(self._whiten, batch)
 
@@ -135,6 +159,10 @@ class ContinuousDecoder:
         c = self.composite
         if self.backend == "scanfree":
             return scanfree_decode(log_b, self._coefs, c.penalty, lengths)
+        if self.backend == "pallas":
+            return dense_decode_pallas(log_b, self._trans, self._coefs, lengths)
+        if self.backend == "scan":
+            return dense_decode(log_b, self._trans, self._coefs, lengths)
         return viterbi_composite_batch_fast(
             log_b, c.log_a, c.lower_of_state, c.is_entry, c.is_exit,
             c.penalty, lengths,

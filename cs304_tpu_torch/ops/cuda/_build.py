@@ -102,6 +102,10 @@ def load():
         lib.cs304_trellis_backtrace.restype = i
         lib.cs304_trellis_banded_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.cs304_trellis_banded_forward.restype = i
+        lib.cs304_trellis_dense_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.cs304_trellis_dense_forward.restype = i
+        lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.cs304_emission_split.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -16,11 +16,18 @@ Backtrace parity note: the reference's backtrace drops the true final state,
 so path[L-1] == path[L-2]; ``quirk_backtrace=True`` (the default) reproduces
 that. Backpointers are int32. The time loop is a Python loop.
 
+The dense composite trellis (``viterbi_composite(_batch)``, the decoder's
+"scan" backend) runs the same topology as an (S, S) max-plus step
+(``composite_transition_matrix``, ``dense_forward``), the plain version of
+the dense trellis kernel (ops/cuda/trellis_dense.py). Its argmax is a
+first max over all S predecessors: the lowest predecessor index wins a
+tie, so an entry's self-loop beats an exit of higher index (the banded
+step above lets the exit win), and an all -inf column points at 0.
+
 Two single-topology recursions sit beside it:
 
 - ``viterbi_banded(_batch)``: one left-to-right word HMM (the segmental
-  k-means E-step), a dense (S, S) max-plus step over the skip-2 band with a
-  first-max argmax over all S predecessors (an all -inf column points at 0);
+  k-means E-step), the dense step over the skip-2 band;
 - ``banded_sentence_forward``: the embedded trainer's sentence trellis with
   per-utterance destination-indexed diagonals c0/c1/c2 and no entry/exit
   pool, the plain version of the banded trellis kernel
@@ -210,6 +217,91 @@ def banded_transition_matrix(log_a) -> torch.Tensor:
     return torch.where(allowed, log_a, torch.full_like(log_a, NEG))
 
 
+def composite_transition_matrix(log_a, lower_of_state, is_entry, is_exit,
+                                penalty, skip: int = 2, device=None) -> torch.Tensor:
+    """The (S, S) effective transition matrix of the flattened word-HMM
+    state space. Word-internal column s: log_a[s', s] for
+    max(s - skip, lower(s)) <= s' <= s; word-entry column e: the penalty
+    from every exit state, and the self-loop log_a[e, e] (a single-state
+    word, both entry and exit, takes the larger of the two)."""
+    log_a = torch.as_tensor(log_a, dtype=torch.float32, device=device)
+    dev = log_a.device
+    lower = torch.as_tensor(lower_of_state, device=dev).to(torch.int64)
+    entry = torch.as_tensor(is_entry, device=dev).to(torch.bool)
+    exit_ = torch.as_tensor(is_exit, device=dev).to(torch.bool)
+    s = log_a.shape[0]
+    frm = torch.arange(s, device=dev)[:, None]
+    to = torch.arange(s, device=dev)[None, :]
+    band = (frm <= to) & (frm >= torch.maximum(to - skip, lower[None, :]))
+    neg = torch.full_like(log_a, NEG)
+    penalty = torch.as_tensor(penalty, dtype=torch.float32, device=dev)
+    m_entry = torch.where(exit_[:, None], penalty, neg)
+    m_entry = torch.maximum(m_entry, torch.where(frm == to, log_a, neg))
+    return torch.where(entry[None, :], m_entry, torch.where(band, log_a, neg))
+
+
+def dense_forward(log_b, trans, alpha0, lengths):
+    """Dense max-plus forward recursion. log_b (B, T, >=S) float32 (columns
+    past S = trans.shape[-1] are ignored), trans (S, S) or (B, S, S),
+    alpha0 (B, S), lengths (B,) -> (alpha (B, S), backpointers (B, T, S)
+    int32 with row 0 = -1). The argmax is torch's first max over the S
+    predecessors; steps t >= length keep alpha but still write
+    backpointers. The plain version of the dense trellis kernel."""
+    b, t_total = log_b.shape[:2]
+    s = trans.shape[-1]
+    lengths = torch.as_tensor(lengths, device=log_b.device)
+    alpha = alpha0
+    bps = torch.empty((b, t_total, s), dtype=torch.int32, device=log_b.device)
+    bps[:, 0] = -1
+    for t in range(1, t_total):
+        best, arg = torch.max(alpha[:, :, None] + trans, dim=1)
+        bps[:, t] = arg.to(torch.int32)
+        alpha = torch.where((t < lengths)[:, None], best + log_b[:, t, :s], alpha)
+    return alpha, bps
+
+
+def dense_decode(log_b, trans, coefs, lengths, quirk_backtrace: bool = True,
+                 forward=dense_forward, backtrace=backtrace_batch):
+    """Composite decode on a dense transition matrix: every entry state
+    seeded with its t=0 emission and degenerate-safe self-loop (coefs from
+    pack_coefs), the forward recursion, the best exit (first max), the
+    backtrace. log_b (B, T, >=S), lengths (B,) int32 -> (scores (B,),
+    paths (B, T) int32)."""
+    s = trans.shape[-1]
+    alpha0 = torch.where(coefs[4] > 0, log_b[:, 0, :s] + coefs[6], NEG)
+    alpha, bps = forward(log_b, trans, alpha0, lengths)
+    scores, best = first_max(alpha, coefs[5] > 0)
+    return scores, backtrace(bps, best, lengths, quirk_backtrace)
+
+
+def viterbi_composite_batch(
+    log_b, log_a, lower_of_state, is_entry, is_exit, penalty, lengths,
+    quirk_backtrace: bool = True,
+):
+    """Dense composite batch decode (the "scan" backend): log_b (B, T, S)
+    float32, lengths (B,) -> (scores (B,) float32, paths (B, T) int32).
+    Scores equal viterbi_composite_batch_fast's; paths differ only where an
+    entry's self-loop ties an exit of higher index exactly."""
+    dev = log_b.device
+    trans = composite_transition_matrix(log_a, lower_of_state, is_entry,
+                                        is_exit, penalty, device=dev)
+    coefs = pack_coefs(log_a, lower_of_state, is_entry, is_exit, device=dev)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    return dense_decode(log_b, trans, coefs, lengths, quirk_backtrace)
+
+
+def viterbi_composite(log_b, log_a, lower_of_state, is_entry, is_exit, penalty,
+                      length=None, quirk_backtrace: bool = True):
+    """One utterance: log_b (T, S) -> (score, path (T,) int32)."""
+    if length is None:
+        length = log_b.shape[0]
+    lengths = torch.as_tensor([int(length)], dtype=torch.int32, device=log_b.device)
+    score, paths = viterbi_composite_batch(
+        log_b[None], log_a, lower_of_state, is_entry, is_exit, penalty,
+        lengths, quirk_backtrace)
+    return score[0], paths[0]
+
+
 def viterbi_banded_batch(log_b, log_a, lengths, quirk_backtrace: bool = True):
     """Single left-to-right word HMM Viterbi over a padded batch.
 
@@ -217,8 +309,8 @@ def viterbi_banded_batch(log_b, log_a, lengths, quirk_backtrace: bool = True):
     lengths (B,) -> (scores (B,) = alpha at state S-1, paths (B, T) int32).
     Entry is pinned to state 0 and t=0 includes the entry self-loop
     (hidden_markov_model.py:81-83); a zero-probability self-loop counts as
-    log 1 there (the degenerate-safe init). Each step is a dense max-plus
-    product whose argmax is torch's first max over all S predecessors."""
+    log 1 there (the degenerate-safe init). Each step is dense_forward's
+    max-plus product."""
     dev = log_b.device
     b, t_total, s = log_b.shape
     log_a = torch.as_tensor(log_a, dtype=torch.float32, device=dev)
@@ -228,12 +320,7 @@ def viterbi_banded_batch(log_b, log_a, lengths, quirk_backtrace: bool = True):
     a00 = torch.where(torch.isfinite(a00), a00, torch.zeros_like(a00))
     alpha = torch.full((b, s), NEG, dtype=torch.float32, device=dev)
     alpha[:, 0] = log_b[:, 0, 0] + a00
-    bps = torch.empty((b, t_total, s), dtype=torch.int32, device=dev)
-    bps[:, 0] = -1
-    for t in range(1, t_total):
-        best, arg = torch.max(alpha[:, :, None] + trans, dim=1)
-        bps[:, t] = arg.to(torch.int32)
-        alpha = torch.where((t < lengths)[:, None], best + log_b[:, t], alpha)
+    alpha, bps = dense_forward(log_b, trans, alpha, lengths)
     final = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
     return alpha[:, s - 1], backtrace_batch(bps, final, lengths, quirk_backtrace)
 

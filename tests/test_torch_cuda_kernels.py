@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the quad-form emission kernel (within rtol 1e-4 / atol 1e-3, as
-tests/test_pallas_emission.py holds the Pallas kernel), the scan-free
-trellis pair and the banded training trellis (scores and full paths bitwise
-equal, ties, length-0 rows and T=1 included).
+card: the quad-form emission kernel and its split "high" / "default" tiers
+(within rtol 1e-4 / atol 1e-3, as tests/test_pallas_emission.py holds the
+Pallas kernel), the scan-free trellis pair, the banded training trellis and
+the dense trellis (scores, full paths, alphas and backpointers bitwise
+equal, ties, length-0 rows and T=1 included), and the K5/K6 wrappers.
 
-These are chip_smoke.py's phases 3-4 and 7 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7 and 11-13 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -24,9 +25,18 @@ from cs304_tpu_torch.models.hmm import (
 from cs304_tpu_torch.models.train_fused import _banded_trellis_batch
 from cs304_tpu_torch.ops.cuda import emission as em
 from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+from cs304_tpu_torch.ops.cuda import trellis_fast as tfast
+from cs304_tpu_torch.ops.cuda import trellis_lanes as tlanes
 from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
 from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf_quad, make_gaussian_quad_params
-from cs304_tpu_torch.ops.viterbi import pack_coefs, viterbi_composite_batch_fast
+from cs304_tpu_torch.ops.viterbi import (
+    dense_forward,
+    forward_fast,
+    pack_coefs,
+    viterbi_composite_batch,
+    viterbi_composite_batch_fast,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +217,162 @@ def test_decoder_scanfree_matches_fast_backend_on_card(dev):
     got = dec.predict_signal_batch(signals)
     assert em.emission.launches > launches
     assert got == plain.predict_signal_batch(signals)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("num_words,n,d", [(11, 1000, 39), (100, 200, 39), (1, 77, 5)])
+def test_split_emission_kernel_matches_plain(dev, precision, num_words, n, d):
+    comp = _composite(num_words, d)
+    s = comp.num_states
+    s_pad = -(-s // 128) * 128
+    gen = torch.Generator().manual_seed(n)
+    frames = (3 * torch.randn((n, d), generator=gen)).to(dev)
+    nhp, lin, const = em.pack_quad_params(comp.means, comp.covariances, s_pad, device=dev)
+    nhp_hi, nhp_lo = em.split_hi_lo(nhp)
+    passes = em.PASSES[precision]
+    before = em.emission_split.launches
+    got = em.tier_emission(frames, nhp, lin, const, s, s_pad, precision)
+    assert em.emission_split.launches == before + 1
+    want = em.emission_split_plain(frames, nhp_hi, nhp_lo, lin, const, passes)
+    torch.cuda.synchronize()
+    assert got.shape == (n, s_pad)
+    torch.testing.assert_close(got[:, :s], want[:, :s], rtol=1e-4, atol=1e-3)
+    assert not got[:, s:].any()
+    # x2_mode "selmm" is the same kernel: bitwise the same output.
+    args = (comp.means, comp.covariances, frames)
+    for tier in ("highest", precision):
+        a = em.gaussian_log_pdf_fused(*args, s_pad=s_pad, precision=tier)
+        b = em.gaussian_log_pdf_fused(*args, s_pad=s_pad, precision=tier, x2_mode="selmm")
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["flagship", "503", "ties", "inf-trans", "b5-t1",
+                                  "padded", "wide-trans"])
+def test_dense_trellis_is_bitwise_plain(dev, case):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if case in ("inf-trans", "wide-trans"):
+        # A random trans with -inf sprinkled in, staged in shared memory up
+        # to ~230 states and read from L2 past that.
+        s = 64 if case == "inf-trans" else 300
+        b, t = 17, 30
+        trans = torch.randn((s, s), generator=gen, device=dev)
+        trans[torch.rand((s, s), generator=gen, device=dev) < 0.4] = float("-inf")
+        trans[:, 1] = float("-inf")
+        alpha0 = torch.randn((b, s), generator=gen, device=dev)
+        alpha0[torch.rand((b, s), generator=gen, device=dev) < 0.3] = float("-inf")
+        log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        before = tdn.trellis_dense_forward.launches
+        got = tdn.trellis_dense_forward(log_b, trans, alpha0, lengths)
+        assert tdn.trellis_dense_forward.launches == before + 1
+        want = dense_forward(log_b, trans, alpha0, lengths)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        return
+    comp = _composite(100) if case == "503" else flagship_composite()
+    s = comp.num_states
+    b, t = {"b5-t1": (5, 1), "503": (8, 40)}.get(case, (33, 50))
+    if case == "ties":
+        log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
+    elif case == "padded":  # the emission kernel's 128-column layout
+        log_b = 3 * torch.randn((b, t, 128), generator=gen, device=dev)
+    else:
+        log_b = 3 * torch.randn((b, t, s), generator=gen, device=dev)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit, comp.penalty)
+    before = (tdn.trellis_dense_forward.launches, tsf.trellis_backtrace.launches)
+    got = tdn.viterbi_composite_batch_pallas(log_b, *topo, lengths)
+    assert (tdn.trellis_dense_forward.launches, tsf.trellis_backtrace.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = viterbi_composite_batch(log_b[..., :s].contiguous(), *topo, lengths)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("wrapper", ["fast", "lanes"])
+def test_k5_k6_wrappers_are_bitwise_forward_fast(dev, wrapper):
+    fn = (tfast.viterbi_fast_forward_pallas if wrapper == "fast"
+          else tlanes.viterbi_lanes_forward_pallas)
+    comp = flagship_composite()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    log_b = 3 * torch.randn((40, 60, comp.num_states), generator=gen, device=dev)
+    lengths = torch.randint(1, 61, (40,), generator=gen, device=dev, dtype=torch.int32)
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    before = tsf.trellis_forward.launches
+    got = fn(log_b, *topo, comp.penalty, lengths)
+    assert tsf.trellis_forward.launches == before + 1
+    want = forward_fast(log_b, pack_coefs(*topo, device=dev), comp.penalty, lengths)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    comp = flagship_composite()
+    s = comp.num_states
+    nhp, lin, const = em.pack_quad_params(comp.means, comp.covariances, 128, device=dev)
+    nhp_hi, nhp_lo = em.split_hi_lo(nhp)
+    frames = torch.zeros((16, 39), device=dev)
+    with pytest.raises(TypeError):  # float32 nhp where bf16 is due
+        em.emission_split(frames, nhp, nhp_lo, lin, const, s, 128, passes=3)
+    with pytest.raises(ValueError):  # no nhp_lo at 3 passes
+        em.emission_split(frames, nhp_hi, None, lin, const, s, 128, passes=3)
+    with pytest.raises(ValueError):  # a wrong shape
+        em.emission_split(frames[:, :20], nhp_hi, nhp_lo, lin, const, s, 128, passes=3)
+    with pytest.raises(ValueError):  # operands on different devices
+        em.emission_split(frames, nhp_hi.cpu(), nhp_lo, lin, const, s, 128, passes=3)
+    shifted = torch.empty(39 * 39 * 128 + 1, dtype=torch.bfloat16, device=dev)[1:]
+    with pytest.raises(ValueError):  # nhp_hi not 16-byte aligned
+        em.emission_split(frames, shifted.view(39 * 39, 128), None, lin, const, s, 128,
+                          passes=1)
+    nhp96, lin96, const96 = (t[..., :96].contiguous() for t in (nhp, lin, const))
+    with pytest.raises(ValueError):  # s_pad not a multiple of the 64-state tile
+        em.emission_split(frames, nhp96.bfloat16(), None, lin96, const96, s, 96, passes=1)
+    trans = torch.zeros((s, s), device=dev)
+    alpha0 = torch.zeros((2, s), device=dev)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    log_b = torch.zeros((2, 3, s), device=dev)
+    with pytest.raises(TypeError):
+        tdn.trellis_dense_forward(log_b.double(), trans, alpha0, lengths)
+    with pytest.raises(ValueError):  # log_b narrower than S
+        tdn.trellis_dense_forward(log_b[..., :40].contiguous(), trans, alpha0, lengths)
+    with pytest.raises(ValueError):
+        tdn.trellis_dense_forward(log_b, trans, alpha0[:1], lengths)
+    with pytest.raises(ValueError):
+        tdn.trellis_dense_forward(log_b, trans, alpha0, lengths.cpu())
+    big = tdn.MAX_STATES + 1
+    with pytest.raises(ValueError):
+        tdn.trellis_dense_forward(torch.zeros((1, 2, big), device=dev),
+                                  torch.zeros((big, big), device=dev),
+                                  torch.zeros((1, big), device=dev), lengths[:1])
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    with pytest.raises(ValueError):  # S past the TPU kernels' limits
+        tfast.viterbi_fast_forward_pallas(torch.zeros((2, 3, 65), device=dev), *topo,
+                                          -1.0, lengths)
+    with pytest.raises(ValueError):
+        tlanes.viterbi_lanes_forward_pallas(torch.zeros((2, 3, 129), device=dev), *topo,
+                                            -1.0, lengths)
+
+
+def test_decoder_pallas_backend_matches_scan_on_card(dev):
+    from cs304_tpu_torch.data.batching import make_signals
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+
+    signals = list(make_signals(6, 1.5, seed=12))
+    kw = dict(penalty=-100.0, emissions="quad", device="cuda")
+    dec = ContinuousDecoder(flagship_models(), backend="pallas", **kw)
+    before = (em.emission.launches, tdn.trellis_dense_forward.launches,
+              tsf.trellis_backtrace.launches)
+    got = dec.predict_signal_batch(signals)
+    after = (em.emission.launches, tdn.trellis_dense_forward.launches,
+             tsf.trellis_backtrace.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert got == ContinuousDecoder(flagship_models(), backend="scan",
+                                    **kw).predict_signal_batch(signals)
+    high = ContinuousDecoder(flagship_models(), emission_precision="high", **kw)
+    launches = em.emission_split.launches
+    assert len(high.predict_signal_batch(signals)) == len(signals)
+    assert em.emission_split.launches > launches

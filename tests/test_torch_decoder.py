@@ -110,10 +110,7 @@ def test_resolve_device_cuda_raises_without_card():
     assert resolve_device(None).type == "cpu"
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"backend": "scan"}, {"backend": "pallas"}, {"beam": 50.0},
-    {"bigram": object()}, {"emissions": "quad", "emission_precision": "high"},
-])
+@pytest.mark.parametrize("kwargs", [{"beam": 50.0}, {"bigram": object()}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         ContinuousDecoder(flagship_models(), device="cpu", **kwargs)

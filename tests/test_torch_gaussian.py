@@ -95,13 +95,27 @@ def test_fused_plain_matches_pallas_interpret(name, s, d, n, s_pad):
 
 
 def test_fused_rejects_bad_s_pad_and_unported_tiers():
+    """Bad s_pad, tier or x2_mode raise; on CPU tensors the "high" and
+    "default" tiers dispatch to the split kernel's plain version (3 and 1
+    bf16 passes) and launch nothing."""
     means, covs, frames = _case("small", 6, 5, 8)
     args = (torch.as_tensor(means), torch.as_tensor(covs), torch.as_tensor(frames))
     with pytest.raises(ValueError):
         temission.gaussian_log_pdf_fused(*args, s_pad=100)
-    for tier in ("high", "default"):
-        with pytest.raises(NotImplementedError):
-            temission.gaussian_log_pdf_fused(*args, precision=tier)
+    with pytest.raises(ValueError):
+        temission.gaussian_log_pdf_fused(*args, precision="medium")
+    with pytest.raises(ValueError):
+        temission.gaussian_log_pdf_fused(*args, x2_mode="stretch")
+    nhp, lin, const = temission.pack_quad_params(means, covs, 128)
+    nhp_hi, nhp_lo = temission.split_hi_lo(nhp)
+    before = (temission.emission.launches, temission.emission_split.launches)
+    for tier, passes in (("high", 3), ("default", 1)):
+        got = temission.gaussian_log_pdf_fused(*args, precision=tier)
+        want = temission.emission_split_plain(args[2], nhp_hi, nhp_lo, lin, const,
+                                              passes)
+        np.testing.assert_array_equal(got[:, :6].numpy(), want[:, :6].numpy())
+        assert not got[:, 6:].any()
+    assert (temission.emission.launches, temission.emission_split.launches) == before
 
 
 def test_emission_wrapper_cpu_dispatch_is_plain():

@@ -5,10 +5,13 @@
 
 Phases (each prints its own numbers; any failure exits non-zero):
   1. card     nvidia-smi name and power limit, torch's device name
-  2. build    nvcc builds every kernel from csrc/ (seconds, ptxas usage)
-  3. K1       emission kernel vs its plain version at the flagship's main-path
-              shape, at bench.py's (N = 512 * 151) and at 503 / 5003 states
-              (rtol 1e-4, atol 1e-3)
+  2. build    nvcc builds every kernel from csrc/ (seconds, ptxas registers
+              and spills)
+  3. K1       emission kernel (on the folded operand) vs its plain version at
+              the flagship's main-path shape, at bench.py's (N = 512 * 151),
+              at 503 / 5003 states, and at the edges: s_pad = S = 58 (the
+              gaussian_log_pdf_quad call), N = 1, N off the frame tile,
+              D = 1 and D = 64 (rtol 1e-4, atol 1e-3)
   4. K2       trellis pair vs viterbi_composite_batch_fast on identical log_b:
               scores and full paths exactly equal (flagship B=512, 503 and
               5003 states, B=5 with T=1, integer-valued log_b for ties)
@@ -30,9 +33,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
               -> ContinuousDecoder: exact-sequence accuracy >= 0.85 on the
               training speakers (the JAX package's own bar)
  10. timing   K3 vs its plain version at the trainer's shape
- 11. K1-split the split emission kernel ("high": 3 bf16 tensor-core passes,
-              "default": 1) vs its plain version at the main-path shape,
-              bench.py's, 503 and 5003 states (rtol 1e-4, atol 1e-3), each
+ 11. K1-split the split emission kernel ("high": 3 bf16 wgmma passes,
+              "default": 1) vs its plain version at phase 3's shapes but
+              s_pad = 58, which it does not take (rtol 1e-4, atol 1e-3), each
               tier's max |delta| against K1; x2_mode "selmm" bitwise "concat"
  12. K4       dense trellis vs dense_forward: alpha, backpointers, scores and
               paths exactly equal (flagship emissions B=512, 503 states,
@@ -46,9 +49,12 @@ Phases (each prints its own numbers; any failure exits non-zero):
  15. tiers    the phase-9 models decoded with emissions="quad" at each tier:
               exact-sequence accuracy and agreement with "highest"; "high"
               >= 0.85 on the training speakers
- 16. timing   the split kernel and K4 vs their plain versions, every
-              kernel's library call and bound, end-to-end ms per batch of
-              the scan-free, pallas, high and pallas+high paths
+ 16. timing   the emission kernels and K4 vs their plain versions, every
+              kernel's library call (the emission kernels': one GEMM on a
+              materialized x2 and one on x2's symmetric half, the faster
+              kept) and bound (folded count, the unfolded one beside it),
+              end-to-end ms per batch of the scan-free, pallas, high and
+              pallas+high paths
 The line before the last is the kernels' JSON record (six kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
@@ -104,21 +110,38 @@ def window(fn):
     return best / 20 * 1e3
 
 
-def random_composite(num_words, seed):
-    """num_words 5-state words + a 3-state silence, flagship-like Gaussians."""
+def random_composite(num_words, seed, d=39):
+    """num_words 5-state words + a 3-state silence, flagship-like Gaussians
+    of dimension d."""
     from cs304_tpu_torch.models.hmm import WordHMM, stack_word_models, uniform_forward_log_a
 
     rng = np.random.default_rng(seed)
     models = []
     for i in range(num_words + 1):
         s = 3 if i == num_words else 5
-        a = rng.normal(size=(s, 39, 8)).astype(np.float32) * 0.1
+        a = rng.normal(size=(s, d, 8)).astype(np.float32) * 0.1
         models.append(WordHMM(
             label="S" if i == num_words else f"w{i}",
-            means=rng.normal(size=(s, 39)).astype(np.float32),
-            covariances=a @ np.transpose(a, (0, 2, 1)) + 0.5 * np.eye(39, dtype=np.float32),
+            means=rng.normal(size=(s, d)).astype(np.float32),
+            covariances=a @ np.transpose(a, (0, 2, 1)) + 0.5 * np.eye(d, dtype=np.float32),
             log_a=uniform_forward_log_a(s)))
     return stack_word_models(models, penalty=-100.0)
+
+
+def emission_edge_cases(dev, comp, frames, t_total):
+    """(name, composite, frames) of phases 3 and 11 past the main-path
+    shape: 503 and 5003 states, N = 1, N off every frame tile, D = 1 and
+    D = 64 (random frames of those widths)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    odd = 64 * t_total + 37
+    return (
+        ("503-states", random_composite(100, 1), frames[: 64 * t_total]),
+        ("5003-states", random_composite(1000, 2), frames[: 8 * t_total]),
+        ("N=1", comp, frames[:1]),
+        ("N-off-tile", comp, frames[:odd]),
+        *((f"D={d}", random_composite(11, 4, d),
+           torch.randn((odd, d), generator=gen, device=dev)) for d in (1, 64)),
+    )
 
 
 def training_corpus(models, seed=1):
@@ -152,7 +175,7 @@ def main():
     from cs304_tpu_torch.ops.cuda import _build
     from cs304_tpu_torch.ops.cuda import emission as em
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
-    from cs304_tpu_torch.ops.gaussian import make_gaussian_quad_params
+    from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf_quad, make_gaussian_quad_params
     from cs304_tpu_torch.ops.mfcc import mfcc_features_batch
     from cs304_tpu_torch.ops.viterbi import (
         backtrace_batch,
@@ -184,7 +207,7 @@ def main():
     ptxas = lib_path.with_suffix(".log")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "Used" in line or "Compiling entry" in line:
+            if "Used" in line or "Compiling entry" in line or "spill" in line:
                 print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     # Main-path inputs: the flagship and its features at the shapes
@@ -202,18 +225,22 @@ def main():
     frames = feats.reshape(b * t_total, d).contiguous()
 
     # -- 3. K1 vs plain -----------------------------------------------------
-    def k1_check(name, composite, frames_in):
+    def k1_check(name, composite, frames_in, unpadded=False):
         s_k = composite.num_states
-        s_pad = -(-s_k // 128) * 128
+        s_pad = s_k if unpadded else -(-s_k // 128) * 128
         packed = em.pack_quad_params(composite.means, composite.covariances, s_pad, device=dev)
-        got = em.emission(frames_in, *packed, num_states=s_k, s_pad=s_pad)
+        if unpadded:  # the call gaussian_log_pdf_quad makes: s_pad = S
+            qp = make_gaussian_quad_params(composite.means, composite.covariances, device=dev)
+            got = gaussian_log_pdf_quad(qp, frames_in[None])[0]
+        else:
+            got = em.emission(frames_in, *packed, num_states=s_k, s_pad=s_pad)
         want = em.emission_plain(frames_in, *packed)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         pad_zero = bool((got[:, s_k:] == 0).all().item())
         ok = torch.allclose(got, want, rtol=RTOL_K1, atol=ATOL_K1)
-        log("K1", case=name, N=frames_in.shape[0], S=s_k, s_pad=s_pad,
-            max_abs_err=err, pad_zero=pad_zero, ok=ok)
+        log("K1", case=name, N=frames_in.shape[0], D=frames_in.shape[1], S=s_k,
+            s_pad=s_pad, max_abs_err=err, pad_zero=pad_zero, ok=ok)
         if not (ok and pad_zero and torch.isfinite(got).all().item()):
             raise SystemExit(f"K1 disagrees with its plain version ({name})")
         return got, err
@@ -221,11 +248,11 @@ def main():
     log_b_flag, k1_err = k1_check("flagship", comp, frames)
     # bench.py's shape: the same clips unpadded, N = 512 * 151 frames.
     feats_bench, _ = mfcc_features_batch(torch.as_tensor(signals, device=dev), ns_dev)
-    k1_err = max(k1_err, k1_check("bench-shape", comp, feats_bench.reshape(-1, d))[1])
-    k1_err = max(k1_err, k1_check("503-states", random_composite(100, 1),
-                                  frames[: 64 * t_total])[1])
-    k1_err = max(k1_err, k1_check("5003-states", random_composite(1000, 2),
-                                  frames[: 8 * t_total])[1])
+    edge_cases = emission_edge_cases(dev, comp, frames, t_total)
+    for name, composite, frames_in in (
+            ("bench-shape", comp, feats_bench.reshape(-1, d)), *edge_cases):
+        k1_err = max(k1_err, k1_check(name, composite, frames_in)[1])
+    k1_err = max(k1_err, k1_check("s_pad=S", comp, frames[:4099], unpadded=True)[1])
 
     # -- 4. K2 vs plain -----------------------------------------------------
     k2_err = 0.0
@@ -321,14 +348,16 @@ def main():
     log("timing", path="kernels", ms_per_batch=t_kern, utt_per_s=BATCH / t_kern * 1e3)
     log("timing", path="plain", ms_per_batch=t_plain, utt_per_s=BATCH / t_plain * 1e3)
 
-    packed = dec._quad
-    log_b_main = em.emission(frames, *packed, num_states=s, s_pad=dec._s_pad)
+    # The kernels at the main path's inputs, on the decoder's cached operands.
+    packed, folded = dec._quad, dec._folded
+    log_b_main = em.emission(frames, *packed, num_states=s, s_pad=dec._s_pad, folded=folded)
     lb3 = log_b_main.reshape(b, t_total, -1)
     coefs = dec._coefs
     alpha, bp = tsf.trellis_forward(lb3, coefs, comp.penalty, n_frames)
     _, best = first_max(alpha, coefs[5] > 0)
     timings = {
-        "emission": (cuda_ms(lambda: em.emission(frames, *packed, num_states=s, s_pad=dec._s_pad)),
+        "emission": (cuda_ms(lambda: em.emission(frames, *packed, num_states=s,
+                                                 s_pad=dec._s_pad, folded=folded)),
                      cuda_ms(lambda: em.emission_plain(frames, *packed))),
         "trellis_forward": (cuda_ms(lambda: tsf.trellis_forward(lb3, coefs, comp.penalty, n_frames)),
                             cuda_ms(lambda: forward_fast(lb3, coefs, comp.penalty, n_frames), reps=3)),
@@ -341,7 +370,9 @@ def main():
 
     decode = {"comp": comp, "signals": signals, "sig_dev": sig_dev, "ns_dev": ns_dev,
               "frames": frames, "packed": packed, "lb3": lb3, "n_frames": n_frames,
-              "rand_len": rand_len, "texts_sig": texts_sig, "dec": dec}
+              "rand_len": rand_len, "texts_sig": texts_sig, "dec": dec,
+              "emission_cases": (("bench-shape", comp, feats_bench.reshape(-1, d)),
+                                 *edge_cases)}
     errs = {"emission": k1_err, "trellis_forward": k2_err, "trellis_backtrace": k2_err}
     pipe = train_phases(dev, launches, timings, errs)
     yardsticks = slice_phases(dev, decode, pipe, launches, timings, errs)
@@ -617,18 +648,21 @@ def bound(bytes_moved, ops=()):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def emission_bound(n, d, s, s_pad, tier):
+def emission_bound(n, d, s, s_pad, tier, folded=True):
     """bound() of one emission call: N frames in, (N, s_pad) out, the S
     states' parameters (bf16 nhp halves below "highest"); the quad and
     linear terms' products in FP32 ("highest"), bf16 passes plus an FP32
-    linear term ("high"), or one bf16 pass for both ("default")."""
+    linear term ("high"), or one bf16 pass for both ("default"). The quad
+    term needs D(D+1)/2 products per (frame, state), x2 being symmetric;
+    folded=False counts all D*D, as the bounds before the fold did."""
+    k = d * (d + 1) // 2 if folded else d * d
     moved = 4 * n * d + 4 * (d + 1) * s + 4 * n * s_pad
     if tier == "highest":
-        return bound(moved + 4 * d * d * s, [(2 * n * (d * d + d) * s, PEAK_FP32)])
+        return bound(moved + 4 * k * s, [(2 * n * (k + d) * s, PEAK_FP32)])
     if tier == "high":
-        return bound(moved + 4 * d * d * s, [(3 * 2 * n * d * d * s, PEAK_BF16),
-                                             (2 * n * d * s, PEAK_FP32)])
-    return bound(moved + 2 * d * d * s, [(2 * n * (d * d + d) * s, PEAK_BF16)])
+        return bound(moved + 4 * k * s, [(3 * 2 * n * k * s, PEAK_BF16),
+                                         (2 * n * d * s, PEAK_FP32)])
+    return bound(moved + 2 * k * s, [(2 * n * (k + d) * s, PEAK_BF16)])
 
 
 def dense_bound(b, t, s, lengths):
@@ -652,7 +686,6 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     from cs304_tpu_torch.ops.cuda import trellis_fast as tfast
     from cs304_tpu_torch.ops.cuda import trellis_lanes as tlanes
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
-    from cs304_tpu_torch.ops.mfcc import mfcc_features_batch
     from cs304_tpu_torch.ops.viterbi import (
         composite_transition_matrix,
         dense_decode,
@@ -685,7 +718,8 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
             split_err[tier] = max(split_err[tier], err)
             pad_zero = bool((got[:, s_k:] == 0).all().item())
             ok = torch.allclose(got[:, :s_k], want[:, :s_k], rtol=RTOL_K1, atol=ATOL_K1)
-            log("K1-split", case=name, tier=tier, N=frames_in.shape[0], S=s_k, s_pad=sp,
+            log("K1-split", case=name, tier=tier, N=frames_in.shape[0], D=frames_in.shape[1],
+                S=s_k, s_pad=sp,
                 max_abs_err=err, max_abs_vs_highest=(got - highest).abs().max().item(),
                 pad_zero=pad_zero, ok=ok)
             if not (ok and pad_zero and torch.isfinite(got).all().item()):
@@ -693,11 +727,8 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
             del want
 
     split_check("flagship", comp, frames)
-    feats_bench, _ = mfcc_features_batch(torch.as_tensor(decode["signals"], device=dev),
-                                         decode["ns_dev"])
-    split_check("bench-shape", comp, feats_bench.reshape(-1, d))
-    split_check("503-states", random_composite(100, 1), frames[: 64 * t_total])
-    split_check("5003-states", random_composite(1000, 2), frames[: 8 * t_total])
+    for case in decode["emission_cases"]:
+        split_check(*case)
     for tier in ("highest", "high"):
         args = (comp.means, comp.covariances, frames)
         concat = em.gaussian_log_pdf_fused(*args, precision=tier)
@@ -827,9 +858,12 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
 
     # -- 16. timing: the new kernels, every kernel's yardsticks, end to end --
     # The emission kernels at the main-path shape and past one state tile
-    # (503 states, phase 3's N = 64 * 201), each with its plain version,
-    # one library GEMM on a materialized x2 (FP32 for K1, bf16 for the split
-    # kernel) and its bound.
+    # (503 states, phase 3's N = 64 * 201), each on its tier's folded
+    # operand (cached, as the decoder caches it) with its plain version, its
+    # bound (the folded count; the unfolded one logged beside it) and one
+    # library GEMM (FP32 for K1, bf16 for the split kernel) on each of two
+    # materialized layouts: x2 (K = D*D) against nhp and x2's symmetric
+    # half (K = D(D+1)/2) against the folded nhp. The faster is kept.
     library, bounds = {}, {}
     c503e = random_composite(100, 1)
     for suffix, frames_e, packed_e, s_e in (
@@ -839,23 +873,38 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
         nhp, lin, const = packed_e
         hi, lo = em.split_hi_lo(nhp)
         n_e, sp_e = frames_e.shape[0], nhp.shape[1]
+        f_e = {tier: em.fold_quad_params(nhp, lin, const, tier, s_e)
+               for tier in ("highest", *em.PASSES)}
         timings["emission" + suffix] = (
-            cuda_ms(lambda: em.emission(frames_e, nhp, lin, const, s_e, sp_e)),
+            cuda_ms(lambda: em.emission(frames_e, nhp, lin, const, s_e, sp_e,
+                                        folded=f_e["highest"])),
             cuda_ms(lambda: em.emission_plain(frames_e, nhp, lin, const), reps=3))
         for tier, passes in em.PASSES.items():
             timings[f"emission_split_{tier}{suffix}"] = (
-                cuda_ms(lambda: em.emission_split(frames_e, hi, lo, lin, const, s_e, sp_e,
-                                                  passes)),
+                cuda_ms(lambda: em.emission_split(frames_e, None, None, lin, const, s_e, sp_e,
+                                                  passes, folded=f_e[tier])),
                 cuda_ms(lambda: em.emission_split_plain(frames_e, hi, lo, lin, const, passes),
                         reps=3))
-        x2 = (frames_e[:, :, None] * frames_e[:, None, :]).reshape(n_e, d * d)
-        library["emission" + suffix] = cuda_ms(lambda: torch.matmul(x2, nhp))
-        x2, nhp_bf = x2.to(torch.bfloat16), nhp.to(torch.bfloat16)
-        for tier in em.PASSES:
-            library[f"emission_split_{tier}{suffix}"] = cuda_ms(lambda: torch.matmul(x2, nhp_bf))
-            bounds[f"emission_split_{tier}{suffix}"] = emission_bound(n_e, d, s_e, sp_e, tier)
-        bounds["emission" + suffix] = emission_bound(n_e, d, s_e, sp_e, "highest")
-        del x2
+        layouts = {"x2": ((frames_e[:, :, None] * frames_e[:, None, :]).reshape(n_e, d * d),
+                          nhp),
+                   "x2_sym": (em.x2_sym(frames_e), em.fold_nhp(nhp, d))}
+        lib_ms = {}
+        for lay, (a, w) in layouts.items():
+            lib_ms[("fp32", lay)] = cuda_ms(lambda: torch.matmul(a, w))
+            a, w = a.to(torch.bfloat16), w.to(torch.bfloat16)
+            lib_ms[("bf16", lay)] = cuda_ms(lambda: torch.matmul(a, w))
+        del layouts, a, w
+        for kind, names in (("fp32", ["emission"]),
+                            ("bf16", [f"emission_split_{t}" for t in em.PASSES])):
+            log("timing", library=kind, suffix=suffix or "main", N=n_e, S=s_e,
+                **{f"{lay}_ms": lib_ms[(kind, lay)] for lay in ("x2", "x2_sym")})
+            for name in names:
+                library[name + suffix] = min(lib_ms[(kind, "x2")], lib_ms[(kind, "x2_sym")])
+        for tier in ("highest", *em.PASSES):
+            name = ("emission" if tier == "highest" else f"emission_split_{tier}") + suffix
+            bounds[name] = emission_bound(n_e, d, s_e, sp_e, tier)
+            log("timing", bound=name, folded_ms=bounds[name][0], folded_by=bounds[name][1],
+                unfolded_ms=emission_bound(n_e, d, s_e, sp_e, tier, folded=False)[0])
 
     # K4 at the flagship and at 503 states (B = 64).
     lengths = decode["n_frames"]

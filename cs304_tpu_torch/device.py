@@ -1,7 +1,8 @@
 """Device selection and float32 precision pinning.
 
-Nothing moves to the CPU silently: asking for a CUDA device on a host without
-a card raises.
+Nothing moves to the CPU silently: the default is the card, and asking for a
+CUDA device on a host without one raises. The CPU runs only when the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -9,11 +10,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None``/``"auto"`` -> the first card if there is one, else the CPU;
-    anything else is taken literally and a CUDA device without a card raises."""
-    if device is None or device == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """``None``/``"auto"`` -> the first card; anything else is taken
+    literally. A CUDA device (the default included) without a card raises."""
+    dev = torch.device("cuda", 0) if device is None or device == "auto" else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "

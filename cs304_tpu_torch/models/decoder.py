@@ -14,8 +14,9 @@ an entry's self-loop and a higher exit toward the self-loop; the banded ones
 toward the exit. With emissions="quad" the emission kernel of the
 ``emission_precision`` tier (ops/cuda/emission.py: "highest" float32,
 "high" three bf16 tensor-core passes, "default" one) writes log_b padded to
-128 state columns, which every trellis reads in place. On a CPU device every
-kernel wrapper runs its plain version.
+128 state columns, which every trellis reads in place. The device is the
+card unless the caller passes device="cpu"; on the CPU every kernel wrapper
+runs its plain version.
 """
 from __future__ import annotations
 
@@ -26,7 +27,13 @@ import torch
 
 from ..data.batching import pad_batch
 from ..device import resolve_device
-from ..ops.cuda.emission import LANES, pack_quad_params, split_hi_lo, tier_emission
+from ..ops.cuda.emission import (
+    LANES,
+    fold_quad_params,
+    pack_quad_params,
+    split_hi_lo,
+    tier_emission,
+)
 from ..ops.cuda.trellis_dense import dense_decode_pallas
 from ..ops.cuda.trellis_scanfree import MAX_STATES, scanfree_decode
 from ..ops.gaussian import gaussian_log_pdf, make_gaussian_params
@@ -104,14 +111,20 @@ class ContinuousDecoder:
 
     def _prepare(self) -> None:
         """Move the model to the device once: emission parameters (and
-        their bf16 split below "highest"), trellis coefficients, the dense
+        the tier's folded kernel operand on the card, or their bf16 split
+        below "highest" on the CPU), trellis coefficients, the dense
         transition matrix of the dense backends, and word boundaries."""
         c, dev = self.composite, self.device
         self._s_pad = -(-c.num_states // LANES) * LANES
         if self.emissions == "quad":
             self._quad = pack_quad_params(c.means, c.covariances, self._s_pad,
                                           device=dev)
-            self._nhp_split = (None if self.emission_precision == "highest"
+            on_card = dev.type == "cuda"
+            # The card runs the tier's folded operand, the CPU the plain
+            # version on the unfolded (split) parameters.
+            self._folded = (fold_quad_params(*self._quad, self.emission_precision,
+                                             c.num_states) if on_card else None)
+            self._nhp_split = (None if self.emission_precision == "highest" or on_card
                                else split_hi_lo(self._quad[0]))
         else:
             self._whiten = make_gaussian_params(c.means, c.covariances, device=dev)
@@ -148,7 +161,8 @@ class ContinuousDecoder:
                                 num_states=self.composite.num_states,
                                 s_pad=self._s_pad,
                                 precision=self.emission_precision,
-                                nhp_split=self._nhp_split)
+                                nhp_split=self._nhp_split,
+                                folded=self._folded)
             return out.reshape(b, t, self._s_pad)
         return gaussian_log_pdf(self._whiten, batch)
 

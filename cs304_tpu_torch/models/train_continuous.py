@@ -184,7 +184,8 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
 
 class ContinuousTrainer:
     """Embedded re-estimation of word (+ silence) models from transcripts,
-    on ``device`` (the first card if there is one, else the CPU)."""
+    on ``device`` (the first card by default; ``device="cpu"`` for the
+    CPU)."""
 
     def __init__(
         self,

@@ -8,6 +8,13 @@ The kernels compute
     x2_n = vec(x_n x_n^T),
 
 building x2 on chip, never in device memory; padded state columns hold 0.
+x2 is symmetric (x2[i*D+j] == x2[j*D+i] exactly), so the kernels run over
+its D(D+1)/2 distinct entries against the folded parameters
+nhp_sym[(i, j)] = nhp[i*D+j] + nhp[j*D+i] (i < j; the diagonal as it is):
+half the products of the unfolded sum. ``fold_quad_params`` prepares a
+tier's folded operand once (the decoder caches it); a wrapper given none
+folds before the launch.
+
 Three precision tiers, as the JAX package's gaussian_log_pdf_fused has:
 
 - "highest" (``emission``, csrc/emission.cu): float32 throughout. Replaces
@@ -24,10 +31,12 @@ Three precision tiers, as the JAX package's gaussian_log_pdf_fused has:
   a negative (0.825 vs 0.9625 exact-sequence on a trained 100-word
   checkpoint) and offers it all the same; so does the port.
 
-Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises.
+Dispatch: a CPU tensor goes to the plain version (unfolded); a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,6 +51,10 @@ MAX_DIM = 64  # the kernels stage a (64, D) frame tile; D <= 64
 PASSES = {"high": 3, "default": 1}  # bf16 passes of the split kernel's tiers
 SPLIT_TILE = 64  # the split kernel's state tile: s_pad must be a multiple
 X2_MODES = ("concat", "selmm")
+K_STEP = 16  # folded rows are padded to a multiple of both kernels' K step
+SPLIT_N_TILES = (64, 32, 16)  # the split kernel's wgmma widths, widest first
+SPLIT_WARPGROUPS = {3: 2, 1: 3}  # the split kernel's 64-frame warpgroups a block, by passes
+SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 
 
 def emission_plain(frames, nhp, lin, const):
@@ -62,11 +75,13 @@ def gaussian_log_pdf_quad_plain(params: GaussianQuadParams, frames):
     return out.reshape(*frames.shape[:-1], params.const.shape[0])
 
 
-def emission(frames, nhp, lin, const, num_states: int, s_pad: int):
+def emission(frames, nhp, lin, const, num_states: int, s_pad: int,
+             folded: FoldedQuad | None = None):
     """frames (N, D) float32 -> (N, s_pad) float32 log-densities of the first
     ``num_states`` states, zeros in columns num_states..s_pad-1. nhp
     (D*D, s_pad), lin (D, s_pad) and const (s_pad,) are zero past
-    num_states (pack_quad_params)."""
+    num_states (pack_quad_params). ``folded``: their "highest" operand from
+    fold_quad_params (folded here if None; CUDA only)."""
     if not frames.is_cuda:
         out = emission_plain(frames, nhp, lin, const)
         out[:, num_states:] = 0.0
@@ -78,13 +93,16 @@ def emission(frames, nhp, lin, const, num_states: int, s_pad: int):
                              ("lin", lin, f32, (d, s_pad)),
                              ("const", const, f32, (s_pad,))))
     _check_shape(n, d, num_states, s_pad)
+    if folded is None:
+        folded = fold_quad_params(nhp, lin, const, "highest", num_states)
+    w = _check_folded(frames, folded, "highest", d, num_states, s_pad)[0]
     lib = _build.load()
     out = torch.empty((n, s_pad), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cs304_emission_quad(
-            frames.data_ptr(), nhp.data_ptr(), lin.data_ptr(),
-            const.data_ptr(), out.data_ptr(), n, d, num_states, s_pad, stream,
+            frames.data_ptr(), w.data_ptr(), folded.pairs.data_ptr(), out.data_ptr(),
+            n, d, num_states, s_pad, w.shape[0], w.shape[1], folded.n_tile, stream,
         )
     _build.check(code, "emission")
     emission.launches += 1
@@ -116,6 +134,142 @@ def split_hi_lo(x):
     package's _split_hi_lo)."""
     hi = x.to(torch.bfloat16)
     return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def sym_pairs(d: int, device=None):
+    """The (i, j >= i) pairs of a D x D symmetric matrix, in row order
+    (i, then j): (i, j) int64 tensors of length D(D+1)/2."""
+    return tuple(torch.triu_indices(d, d, device=device))
+
+
+def fold_nhp(nhp, d: int, k_pad: int | None = None):
+    """nhp (D*D, s_pad) -> nhp_sym (k_pad, s_pad): row (i, j) is
+    nhp[i*D+i] on the diagonal and nhp[i*D+j] + nhp[j*D+i] (float32) off it,
+    rows past D(D+1)/2 zero. The sum, not 2 * nhp[i*D+j]: cholesky_solve
+    does not promise a bitwise-symmetric precision matrix."""
+    i, j = sym_pairs(d, nhp.device)
+    other = torch.where((i != j)[:, None], nhp[j * d + i], 0.0)
+    sym = nhp[i * d + j].float() + other.float()
+    k_pad = sym.shape[0] if k_pad is None else k_pad
+    return torch.cat([sym, sym.new_zeros((k_pad - sym.shape[0], sym.shape[1]))])
+
+
+def pair_table(d: int, k_pad: int, lin_rows: bool, const_row: bool, device=None):
+    """The kernels' K index: (k_pad,) int16, row k -> i | j << 8, so that
+    K row k of x2_sym is x[i] * x[j] over the frame staged with x[D] = 1 and
+    x[D+1] = 0: the D(D+1)/2 pairs, then (d, D) for the linear rows, (D, D)
+    for the constant row, and (D+1, D+1) for the zero padding."""
+    i, j = sym_pairs(d)
+    parts_i, parts_j = [i], [j]
+    if lin_rows:
+        parts_i.append(torch.arange(d))
+        parts_j.append(torch.full((d,), d))
+    if const_row:
+        parts_i.append(torch.tensor([d]))
+        parts_j.append(torch.tensor([d]))
+    i, j = torch.cat(parts_i), torch.cat(parts_j)
+    pad = torch.full((k_pad - i.shape[0],), d + 1)
+    i, j = torch.cat([i, pad]), torch.cat([j, pad])
+    return (i | (j << 8)).to(torch.int16).to(device)
+
+
+def x2_sym(frames):
+    """(N, D) -> (N, D(D+1)/2): x_i * x_j for each pair of sym_pairs."""
+    i, j = sym_pairs(frames.shape[1], frames.device)
+    return frames[:, i] * frames[:, j]
+
+
+def emission_folded_plain(frames, nhp_sym, lin, const):
+    """The folded product on a materialized x2_sym, float32 throughout:
+    x2_sym @ nhp_sym + frames @ lin + const. Tests hold the fold against
+    the JAX package with it; no kernel path calls it."""
+    fp32_exact()
+    x2 = x2_sym(frames)
+    return x2 @ nhp_sym[: x2.shape[1]] + frames @ lin + const
+
+
+class FoldedQuad(NamedTuple):
+    """One tier's kernel operand, prepared by fold_quad_params.
+
+    weights: "highest": (W,), W (k_pad, cols) float32 = [nhp_sym; lin;
+    const; 0] with cols = s_pad rounded up to n_tile. "high": (W_hi, W_lo),
+    "default": (W_hi,), bf16 split_hi_lo of nhp_sym ("default": with lin as
+    D more rows), each in the split kernel's layout (wgmma_layout).
+    pairs: pair_table of the same k_pad rows.
+    n_tile: state columns per block tile."""
+
+    precision: str
+    d: int
+    num_states: int
+    s_pad: int
+    n_tile: int
+    pairs: torch.Tensor
+    weights: Tuple[torch.Tensor, ...]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def split_smem_bytes(k_pad: int, d: int, n_tile: int, passes: int) -> int:
+    """Shared memory of one split-kernel block: the resident B operand
+    (k_pad x n_tile bf16, hi and lo at 3 passes), the pair table and each
+    warpgroup's frame tile (64 x an odd stride >= D + 2 floats)."""
+    halves = 2 if passes == 3 else 1
+    xs = SPLIT_WARPGROUPS[passes] * 64 * ((d + 2) | 1) * 4
+    return k_pad * n_tile * 2 * halves + _round_up(2 * k_pad, 16) + xs
+
+
+def wgmma_layout(w, n_tile: int):
+    """(k_pad, s_pad) -> the split kernel's B layout: for each n_tile-wide
+    state tile, 8 x 8 core matrices (8 states x 8 K rows, K contiguous),
+    ordered (K block, state block): element (k, n) of a tile sits at
+    ((k // 8) * (n_tile // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8."""
+    k_pad, s_pad = w.shape
+    t = w.reshape(k_pad // 8, 8, s_pad // n_tile, n_tile // 8, 8)
+    return t.permute(2, 0, 3, 4, 1).contiguous().reshape(s_pad // n_tile, k_pad * n_tile)
+
+
+def k1_n_tile(num_states: int) -> int:
+    """K1's states per block: one 64-wide tile covers the flagship; past it
+    256, so each frame tile's x2 is built once per 256 states."""
+    return 64 if num_states <= 64 else 256
+
+
+def fold_quad_params(nhp, lin, const, precision: str, num_states: int) -> FoldedQuad:
+    """A tier's folded kernel operand from pack_quad_params' nhp (D*D,
+    s_pad), lin (D, s_pad), const (s_pad,) (float32, zero past num_states).
+    The decoder calls it once per model; a wrapper given no operand calls it
+    before each launch."""
+    d, s_pad = lin.shape
+    sym = fold_nhp(nhp, d)
+    k_sym = sym.shape[0]
+    if precision == "highest":
+        n_tile = k1_n_tile(num_states)
+        k = k_sym + d + 1
+        k_pad = _round_up(k, K_STEP)
+        cols = _round_up(s_pad, n_tile)
+        w = sym.new_zeros((k_pad, cols))
+        w[:k_sym, :s_pad] = sym
+        w[k_sym:k_sym + d, :s_pad] = lin
+        w[k_sym + d, :s_pad] = const
+        return FoldedQuad(precision, d, num_states, s_pad, n_tile,
+                          pair_table(d, k_pad, True, True, lin.device), (w,))
+    if precision not in PASSES:
+        raise ValueError(f"unknown precision {precision!r}")
+    passes = PASSES[precision]
+    hi, lo = split_hi_lo(sym)
+    if passes == 1:  # the linear term rides the bf16 pass as D more rows
+        hi, lo = torch.cat([hi, lin.to(torch.bfloat16)]), None
+    k = hi.shape[0]
+    k_pad = _round_up(k, K_STEP)
+    fits = [n for n in SPLIT_N_TILES if split_smem_bytes(k_pad, d, n, passes) <= SMEM_MAX]
+    n_tile = fits[0]
+    halves = (hi,) if lo is None else (hi, lo)
+    weights = tuple(wgmma_layout(torch.cat([h, h.new_zeros((k_pad - k, s_pad))]), n_tile)
+                    for h in halves)
+    return FoldedQuad(precision, d, num_states, s_pad, n_tile,
+                      pair_table(d, k_pad, passes == 1, False, lin.device), weights)
 
 
 def emission_split_plain(frames, nhp_hi, nhp_lo, lin, const, passes: int):
@@ -159,13 +313,46 @@ def _check_shape(n, d, num_states, s_pad):
         )
 
 
+def _check_folded(frames, folded: FoldedQuad, precision: str, d: int,
+                  num_states: int, s_pad: int):
+    """A folded operand matches the call: tier, shapes, device, layout.
+    Returns its weights."""
+    if not isinstance(folded, FoldedQuad) or folded.precision != precision:
+        raise ValueError(f"folded operand is not the {precision!r} tier's")
+    if (folded.d, folded.num_states, folded.s_pad) != (d, num_states, s_pad):
+        raise ValueError(
+            f"folded operand is for D={folded.d} S={folded.num_states} "
+            f"s_pad={folded.s_pad}, not D={d} S={num_states} s_pad={s_pad}")
+    k_pad = folded.pairs.shape[0]
+    if precision == "highest":
+        shapes = [(k_pad, _round_up(s_pad, folded.n_tile))]
+        dtype = torch.float32
+    else:
+        halves = 2 if PASSES[precision] == 3 else 1
+        shapes = [(s_pad // folded.n_tile, k_pad * folded.n_tile)] * halves
+        dtype = torch.bfloat16
+    specs = [("pairs", folded.pairs, torch.int16, (k_pad,))]
+    if len(folded.weights) != len(shapes):
+        raise ValueError(f"folded operand has {len(folded.weights)} weights, "
+                         f"want {len(shapes)}")
+    specs += [(f"weights[{i}]", w, dtype, shape)
+              for i, (w, shape) in enumerate(zip(folded.weights, shapes))]
+    _check_operands(frames, specs)
+    if k_pad % K_STEP or any(t.data_ptr() % 16 for t in (folded.pairs, *folded.weights)):
+        raise ValueError(f"folded rows must be a multiple of {K_STEP} and the "
+                         "folded tensors 16-byte aligned")
+    return folded.weights
+
+
 def emission_split(frames, nhp_hi, nhp_lo, lin, const, num_states: int,
-                   s_pad: int, passes: int):
+                   s_pad: int, passes: int, folded: FoldedQuad | None = None):
     """The "high" (passes=3) or "default" (passes=1) tier: frames (N, D)
     float32 -> (N, s_pad) float32, zeros in columns num_states..s_pad-1.
     nhp_hi / nhp_lo (D*D, s_pad) bfloat16 from split_hi_lo of
     pack_quad_params' nhp (nhp_lo may be None at 1 pass); lin (D, s_pad),
-    const (s_pad,) float32."""
+    const (s_pad,) float32. ``folded``: the tier's operand from
+    fold_quad_params (CUDA only; nhp_hi / nhp_lo may then be None); if None,
+    nhp_hi + nhp_lo is folded here."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     if not frames.is_cuda:
@@ -175,28 +362,33 @@ def emission_split(frames, nhp_hi, nhp_lo, lin, const, num_states: int,
     n, d = frames.shape
     bf16 = torch.bfloat16
     specs = [("frames", frames, torch.float32, (n, d)),
-             ("nhp_hi", nhp_hi, bf16, (d * d, s_pad)),
              ("lin", lin, torch.float32, (d, s_pad)),
              ("const", const, torch.float32, (s_pad,))]
-    if passes == 3:
-        if nhp_lo is None:
-            raise ValueError("the 3-pass tier needs nhp_lo")
-        specs.append(("nhp_lo", nhp_lo, bf16, (d * d, s_pad)))
+    if folded is None:  # the halves are folded here, so they must be whole
+        specs.append(("nhp_hi", nhp_hi, bf16, (d * d, s_pad)))
+        if passes == 3:
+            if nhp_lo is None:
+                raise ValueError("the 3-pass tier needs nhp_lo")
+            specs.append(("nhp_lo", nhp_lo, bf16, (d * d, s_pad)))
     _check_operands(frames, specs)
     _check_shape(n, d, num_states, s_pad)
-    split = (nhp_hi, nhp_lo) if passes == 3 else (nhp_hi,)
-    if s_pad % SPLIT_TILE or any(t.data_ptr() % 16 for t in split):
-        raise ValueError(f"the split kernel needs s_pad a multiple of {SPLIT_TILE} "
-                         "and 16-byte aligned nhp_hi / nhp_lo")
+    if s_pad % SPLIT_TILE:
+        raise ValueError(f"the split kernel needs s_pad a multiple of {SPLIT_TILE}")
+    tier = "high" if passes == 3 else "default"
+    if folded is None:
+        nhp = nhp_hi.float() if passes == 1 else nhp_hi.float() + nhp_lo.float()
+        folded = fold_quad_params(nhp, lin, const, tier, num_states)
+    weights = _check_folded(frames, folded, tier, d, num_states, s_pad)
     lib = _build.load()
     out = torch.empty((n, s_pad), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cs304_emission_split(
-            frames.data_ptr(), nhp_hi.data_ptr(),
-            nhp_lo.data_ptr() if passes == 3 else None,
+            frames.data_ptr(), weights[0].data_ptr(),
+            weights[1].data_ptr() if passes == 3 else None, folded.pairs.data_ptr(),
             lin.data_ptr(), const.data_ptr(), out.data_ptr(),
-            n, d, num_states, s_pad, passes, stream,
+            n, d, num_states, s_pad, folded.pairs.shape[0], folded.n_tile, passes,
+            stream,
         )
     _build.check(code, "emission_split")
     emission_split.launches += 1
@@ -207,17 +399,25 @@ emission_split.launches = 0
 
 
 def tier_emission(frames, nhp, lin, const, num_states: int, s_pad: int,
-                  precision: str = "highest", nhp_split=None):
+                  precision: str = "highest", nhp_split=None,
+                  folded: FoldedQuad | None = None):
     """One precision tier's emissions on packed parameters: "highest" runs
-    the float32 kernel, "high" / "default" the split kernel (nhp_split, the
-    cached split_hi_lo(nhp), saves the split)."""
+    the float32 kernel, "high" / "default" the split kernel. On a CPU tensor
+    nhp_split, the cached split_hi_lo(nhp), saves the plain version's split;
+    on the card ``folded``, the cached fold_quad_params(..., precision), saves
+    the fold (folded from nhp here if None)."""
     if precision == "highest":
-        return emission(frames, nhp, lin, const, num_states, s_pad)
+        return emission(frames, nhp, lin, const, num_states, s_pad, folded)
     if precision not in PASSES:
         raise ValueError(f"unknown precision {precision!r}")
-    nhp_hi, nhp_lo = nhp_split if nhp_split is not None else split_hi_lo(nhp)
+    if frames.is_cuda:  # the kernel reads the folded operand only
+        nhp_hi = nhp_lo = None
+        if folded is None:
+            folded = fold_quad_params(nhp, lin, const, precision, num_states)
+    else:
+        nhp_hi, nhp_lo = nhp_split if nhp_split is not None else split_hi_lo(nhp)
     return emission_split(frames, nhp_hi, nhp_lo, lin, const, num_states,
-                          s_pad, PASSES[precision])
+                          s_pad, PASSES[precision], folded)
 
 
 def gaussian_log_pdf_fused(means, covariances, frames_flat, s_pad: int = LANES,

@@ -23,7 +23,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..device import fp32_exact
+from ..device import fp32_exact, resolve_device
 
 # ----------------------------------------------------------------------------
 # Static constants (host NumPy)
@@ -342,7 +342,8 @@ def mfcc_features(signal, num_samples=None, cfg: MFCCConfig = MFCCConfig()):
 def mfcc_batch(signals, sample_rate: float = 16000.0, cfg: MFCCConfig | None = None,
                device=None) -> List[np.ndarray]:
     """A list of 1-D float arrays -> a list of (T_i, 39) float32 arrays, in one
-    batch padded to the longest clip, on ``device`` (the CPU by default)."""
+    batch padded to the longest clip, on ``device`` (the card by default;
+    ``device="cpu"`` for the CPU)."""
     if cfg is None:
         cfg = MFCCConfig(sample_rate=sample_rate)
     if not signals:
@@ -354,12 +355,13 @@ def mfcc_batch(signals, sample_rate: float = 16000.0, cfg: MFCCConfig | None = N
             f"clip with {min_frames} frames is shorter than delta_width="
             f"{cfg.delta_width}; librosa's delta filter rejects such inputs"
         )
+    dev = resolve_device(device)
     batch = np.zeros((len(signals), int(lengths.max())), np.float32)
     for i, s in enumerate(signals):
         batch[i, : len(s)] = np.asarray(s, np.float32)
     feats, n_frames = mfcc_features_batch(
-        torch.as_tensor(batch, device=device),
-        torch.as_tensor(lengths, device=device), cfg,
+        torch.as_tensor(batch, device=dev),
+        torch.as_tensor(lengths, device=dev), cfg,
     )
     feats = feats.cpu().numpy()
     n_frames = n_frames.cpu().numpy()

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the quad-form emission kernel and its split "high" / "default" tiers
 (within rtol 1e-4 / atol 1e-3, as tests/test_pallas_emission.py holds the
-Pallas kernel), the scan-free trellis pair, the banded training trellis and
+Pallas kernel; both run the folded operand, the plain versions the unfolded
+one; N = 1, N off the frame tile, D = 1 and D = 64 included), the scan-free
+trellis pair, the banded training trellis and
 the dense trellis (scores, full paths, alphas and backpointers bitwise
 equal, ties, length-0 rows and T=1 included), and the K5/K6 wrappers.
 
@@ -63,7 +65,14 @@ def _composite(num_words, d=39, seed=0):
     return stack_word_models(models, penalty=-100.0)
 
 
-@pytest.mark.parametrize("num_words,n,d", [(11, 1000, 39), (100, 200, 39), (1, 77, 5)])
+# num_words, N, D: the flagship, 503 states, small D, N = 1, D = 1, D = 64
+# (the split kernel's narrower wgmma tiles), 5003 states; N = 1000 and 333
+# are off every frame tile.
+EMISSION_CASES = [(11, 1000, 39), (100, 200, 39), (1, 77, 5), (11, 1, 39), (11, 333, 1),
+                  (11, 500, 64), (1000, 64, 39)]
+
+
+@pytest.mark.parametrize("num_words,n,d", EMISSION_CASES)
 def test_emission_kernel_matches_plain(dev, num_words, n, d):
     comp = _composite(num_words, d)
     s = comp.num_states
@@ -211,6 +220,7 @@ def test_decoder_scanfree_matches_fast_backend_on_card(dev):
     dec = ContinuousDecoder(flagship_models(), penalty=-100.0, emissions="quad",
                             device="cuda")
     assert dec.backend == "scanfree"
+    assert dec._folded.precision == "highest"  # folded once, at construction
     plain = ContinuousDecoder(flagship_models(), penalty=-100.0, emissions="quad",
                               backend="fast", device="cuda")
     launches = em.emission.launches
@@ -220,7 +230,7 @@ def test_decoder_scanfree_matches_fast_backend_on_card(dev):
 
 
 @pytest.mark.parametrize("precision", ["high", "default"])
-@pytest.mark.parametrize("num_words,n,d", [(11, 1000, 39), (100, 200, 39), (1, 77, 5)])
+@pytest.mark.parametrize("num_words,n,d", EMISSION_CASES)
 def test_split_emission_kernel_matches_plain(dev, precision, num_words, n, d):
     comp = _composite(num_words, d)
     s = comp.num_states
@@ -324,10 +334,19 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         em.emission_split(frames[:, :20], nhp_hi, nhp_lo, lin, const, s, 128, passes=3)
     with pytest.raises(ValueError):  # operands on different devices
         em.emission_split(frames, nhp_hi.cpu(), nhp_lo, lin, const, s, 128, passes=3)
-    shifted = torch.empty(39 * 39 * 128 + 1, dtype=torch.bfloat16, device=dev)[1:]
-    with pytest.raises(ValueError):  # nhp_hi not 16-byte aligned
-        em.emission_split(frames, shifted.view(39 * 39, 128), None, lin, const, s, 128,
-                          passes=1)
+    folded = em.fold_quad_params(nhp, lin, const, "default", s)
+    w = folded.weights[0]
+    shifted = torch.empty(w.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(w.shape)
+    with pytest.raises(ValueError):  # a folded operand not 16-byte aligned
+        em.emission_split(frames, None, None, lin, const, s, 128, passes=1,
+                          folded=folded._replace(weights=(shifted,)))
+    with pytest.raises(ValueError):  # another tier's folded operand
+        em.emission_split(frames, None, None, lin, const, s, 128, passes=3, folded=folded)
+    with pytest.raises(ValueError):
+        em.emission(frames, nhp, lin, const, s, 128, folded=folded)
+    with pytest.raises(ValueError):  # folded for another state count
+        em.emission(frames, nhp, lin, const, s - 1, 128,
+                    folded=em.fold_quad_params(nhp, lin, const, "highest", s))
     nhp96, lin96, const96 = (t[..., :96].contiguous() for t in (nhp, lin, const))
     with pytest.raises(ValueError):  # s_pad not a multiple of the 64-state tile
         em.emission_split(frames, nhp96.bfloat16(), None, lin96, const96, s, 96, passes=1)

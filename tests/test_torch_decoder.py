@@ -107,7 +107,14 @@ def test_resolve_device_cuda_raises_without_card():
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         ContinuousDecoder(flagship_models(), device="cuda")
-    assert resolve_device(None).type == "cpu"
+    # No silent CPU: the default device is the card, and without one it
+    # raises; the CPU runs only when it is asked for.
+    for default in (None, "auto"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device(default)
+    with pytest.raises(RuntimeError):
+        ContinuousDecoder(flagship_models())
+    assert resolve_device("cpu").type == "cpu"
 
 
 @pytest.mark.parametrize("kwargs", [{"beam": 50.0}, {"bigram": object()}])

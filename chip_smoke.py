@@ -12,13 +12,24 @@ Phases (each prints its own numbers; any failure exits non-zero):
               at 503 / 5003 states, and at the edges: s_pad = S = 58 (the
               gaussian_log_pdf_quad call), N = 1, N off the frame tile,
               D = 1 and D = 64 (rtol 1e-4, atol 1e-3)
-  4. K2       trellis pair vs viterbi_composite_batch_fast on identical log_b:
-              scores and full paths exactly equal (flagship B=512, 503 and
-              5003 states, B=5 with T=1, integer-valued log_b for ties)
+  4. K2       the scan-free trellis on identical log_b: the decode-mode
+              kernel vs viterbi_composite_batch_fast (scores and full paths),
+              the backpointer-mode forward vs forward_fast (alpha and bp), K2-bt
+              vs backtrace_batch, all exactly equal (flagship B=512 at ld=128
+              and at ld=S=58 with length-1 rows, 98, 503 and 5003 states, B=5
+              with T=1, integer-valued log_b for ties, T=1280, T=4000, 503
+              states at T=500); each case logs whether the decode kernel kept
+              its codes in shared memory or a global scratch, and fails if
+              that is not the branch the case is meant to drive (global at
+              5003 states, T=4000 and 503 states at T=500)
   5. main     ContinuousDecoder(emissions="quad", device="cuda") on 512
               synthetic 1.5 s clips: predict_signal_batch + predict_batch;
-              every kernel launched, transcripts equal to the plain path's
-  6. timing   per-kernel and end-to-end times, kernel path vs plain path
+              the emission and decode kernels launched and no other trellis
+              kernel, transcripts equal to the plain path's
+  6. timing   per-kernel and end-to-end times, kernel path vs plain path; the
+              decode kernel against the chain it replaced (trellis_forward +
+              first_max + trellis_backtrace), and µs per step of both forward
+              modes
   7. K3       banded training trellis vs its plain version: scores and full
               paths exactly equal (the trainer's shape B=896, T=160, S=59 on
               real gathered emissions; -inf sprinkling, integer ties, a
@@ -32,7 +43,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
               batched k-means boot + silence model -> 4 embedded iterations
               -> ContinuousDecoder: exact-sequence accuracy >= 0.85 on the
               training speakers (the JAX package's own bar)
- 10. timing   K3 vs its plain version at the trainer's shape
+ 10. timing   K3 and K2-bt vs their plain versions at the trainer's shape
  11. K1-split the split emission kernel ("high": 3 bf16 wgmma passes,
               "default": 1) vs its plain version at phase 3's shapes but
               s_pad = 58, which it does not take (rtol 1e-4, atol 1e-3), each
@@ -41,7 +52,8 @@ Phases (each prints its own numbers; any failure exits non-zero):
               paths exactly equal (flagship emissions B=512, 503 states,
               integer ties, B=5 with T=1, -inf sprinkled in trans at 58 and
               300 states)
- 13. K5/K6    the fast / lanes wrappers bitwise forward_fast at S=58
+ 13. K5/K6    the fast / lanes wrappers bitwise forward_fast at S=58 (the
+              backpointer-mode forward's launches)
  14. decode   ContinuousDecoder(backend="pallas") on the 512 clips: K1, K4
               and K2-bt launched, transcripts equal to backend="scan"'s;
               agreement with the scan-free path; the "high" and "default"
@@ -55,7 +67,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
               kept) and bound (folded count, the unfolded one beside it),
               end-to-end ms per batch of the scan-free, pallas, high and
               pallas+high paths
-The line before the last is the kernels' JSON record (six kernels, each with
+Kernel and library times are device times from CUDA-graph replays
+(device_ms); plain versions run eagerly (cuda_ms), host loops included.
+The line before the last is the kernels' JSON record (seven kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -91,6 +105,28 @@ def cuda_ms(fn, reps=20):
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device time of one fn() (ms): reps calls captured in one CUDA graph,
+    the graph replayed after a warm-up and timed with CUDA events, so the
+    wrappers' host work stays outside the window (a kernel of ~20 µs can
+    take less time than its Python wrapper, which then sets an eager loop's
+    pace)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -257,41 +293,77 @@ def main():
     # -- 4. K2 vs plain -----------------------------------------------------
     k2_err = 0.0
 
-    def k2_check(name, composite, log_b, lengths):
+    def k2_check(name, composite, log_b, lengths, codes="shared"):
+        """The decode-mode kernel against viterbi_composite_batch_fast, the
+        backpointer-mode forward against forward_fast, K2-bt against
+        backtrace_batch on forward_fast's backpointers: all bitwise. codes:
+        where the decode kernel must keep its backpointer codes."""
         nonlocal k2_err
         coefs = pack_coefs(composite.log_a, composite.lower_of_state,
                            composite.is_entry, composite.is_exit, device=dev)
+        s_k = composite.num_states
         got_s, got_p = tsf.scanfree_decode(log_b, coefs, composite.penalty, lengths)
         want_s, want_p = viterbi_composite_batch_fast(
-            log_b[..., : composite.num_states].contiguous(), composite.log_a,
+            log_b[..., :s_k].contiguous(), composite.log_a,
             composite.lower_of_state, composite.is_entry, composite.is_exit,
             composite.penalty, lengths)
+        alpha, bp = tsf.trellis_forward(log_b, coefs, composite.penalty, lengths)
+        want_a, want_bp = forward_fast(log_b, coefs, composite.penalty, lengths)
+        _, best = first_max(want_a, coefs[5] > 0)
+        bt_p = tsf.trellis_backtrace(want_bp, best, lengths)
         torch.cuda.synchronize()
-        same_s = torch.equal(got_s, want_s)
-        same_p = torch.equal(got_p, want_p)
+        same = {"scores": torch.equal(got_s, want_s), "paths": torch.equal(got_p, want_p),
+                "alpha": torch.equal(alpha, want_a), "bp": torch.equal(bp, want_bp),
+                "bt_paths": torch.equal(bt_p, want_p)}
         both = torch.isfinite(got_s) & torch.isfinite(want_s)
         err = (got_s - want_s)[both].abs().max().item() if both.any() else 0.0
         k2_err = max(k2_err, err)
-        log("K2", case=name, B=log_b.shape[0], T=log_b.shape[1],
-            S=composite.num_states, scores_equal=same_s, paths_equal=same_p,
+        b_k, t_k, ld_k = log_b.shape
+        took = "shared" if tsf.codes_scratch_bytes(b_k, t_k, s_k) == 0 else "global"
+        log("K2", case=name, B=b_k, T=t_k, S=s_k, ld=ld_k, codes=took,
+            length_1_rows=int((lengths == 1).sum()), equal=json.dumps(same),
             max_abs_err=err, neg_inf_scores=int((~torch.isfinite(got_s)).sum()))
-        if not (same_s and same_p):
-            raise SystemExit(f"K2 disagrees with viterbi_composite_batch_fast ({name})")
+        if not all(same.values()):
+            raise SystemExit(f"K2 disagrees with its plain version ({name})")
+        if took != codes:
+            raise SystemExit(f"K2 case {name} kept its codes in {took} memory, not {codes}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rand_len = torch.randint(1, t_total + 1, (BATCH,), generator=gen, device=dev,
                              dtype=torch.int32)
-    k2_check("flagship-emissions", comp, log_b_flag.reshape(b, t_total, -1), rand_len)
-    for words, nb in ((100, 16), (1000, 8)):
+    lb_flag3 = log_b_flag.reshape(b, t_total, -1)
+    k2_check("flagship-emissions", comp, lb_flag3, rand_len)
+    # ld = S = 58: rows 8-byte aligned, not 16; and rows of length 1.
+    short_len = rand_len.clone()
+    short_len[::7] = 1
+    k2_check("ld=S,length-1", comp, lb_flag3[..., :s].contiguous(), short_len)
+    # 98 states: one warp of 4 states a lane (the K6 wrapper's range); 503:
+    # a team of 4 warps; 5003: 20 warps of 8, codes in a global scratch.
+    for words, nb, codes in ((19, 16, "shared"), (100, 16, "shared"), (1000, 8, "global")):
         c_k = random_composite(words, 3)
         lb = 3 * torch.randn((nb, t_total, c_k.num_states), generator=gen, device=dev)
         ln = torch.randint(1, t_total + 1, (nb,), generator=gen, device=dev, dtype=torch.int32)
-        k2_check(f"{c_k.num_states}-states", c_k, lb, ln)
+        k2_check(f"{c_k.num_states}-states", c_k, lb, ln, codes)
     lb1 = torch.randn((5, 1, s), generator=gen, device=dev)
     k2_check("B5-T1", comp, lb1, torch.ones(5, dtype=torch.int32, device=dev))
     lbi = torch.randint(-3, 1, (64, 40, s), generator=gen, device=dev).to(torch.float32)
     k2_check("integer-ties", comp, lbi,
              torch.randint(1, 41, (64,), generator=gen, device=dev, dtype=torch.int32))
+    long_len = torch.randint(1, 1281, (8,), generator=gen, device=dev, dtype=torch.int32)
+    long_len[0] = 1280
+    k2_check("T=1280", comp, 3 * torch.randn((8, 1280, s), generator=gen, device=dev), long_len)
+    # The global-codes branch with one-warp teams (T = 4000 at 58 states,
+    # four a block, the last block short) and with 4-warp teams (503 states
+    # at T = 500).
+    long_len = torch.randint(1, 4001, (6,), generator=gen, device=dev, dtype=torch.int32)
+    long_len[0] = 4000
+    k2_check("T=4000", comp, 3 * torch.randn((6, 4000, s), generator=gen, device=dev),
+             long_len, "global")
+    c_k = random_composite(100, 3)
+    ln = torch.randint(1, 501, (4,), generator=gen, device=dev, dtype=torch.int32)
+    ln[0] = 500
+    k2_check("503-states,T=500", c_k,
+             3 * torch.randn((4, 500, c_k.num_states), generator=gen, device=dev), ln, "global")
 
     # -- 5. main path -------------------------------------------------------
     dec = ContinuousDecoder(flagship_models(), penalty=-100.0, emissions="quad",
@@ -300,18 +372,24 @@ def main():
         raise SystemExit(f"backend 'auto' resolved to {dec.backend!r} on CUDA")
     # The same features predict_signal_batch computes, as a ragged list.
     feat_list = [f[:n].cpu().numpy() for f, n in zip(feats, n_frames.tolist())]
-    counters = (em.emission, tsf.trellis_forward, tsf.trellis_backtrace)
-    for c in counters:
+    counters = {"emission": em.emission, "trellis_decode": tsf.scanfree_decode,
+                "trellis_forward": tsf.trellis_forward,
+                "trellis_backtrace": tsf.trellis_backtrace}
+    for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
     texts_sig = dec.predict_signal_batch(list(signals))
     texts_feat = dec.predict_batch(feat_list)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    log("main", launches=json.dumps(launches), distinct_transcripts=len(set(texts_sig)),
+    main_launches = {name: c.launches for name, c in counters.items()}
+    log("main", launches=json.dumps(main_launches), distinct_transcripts=len(set(texts_sig)),
         sample=repr(texts_sig[:4]))
+    launches = {name: main_launches[name] for name in ("emission", "trellis_decode")}
     if not all(n > 0 for n in launches.values()):
         raise SystemExit(f"a kernel of the main path never launched: {launches}")
+    if main_launches["trellis_forward"] or main_launches["trellis_backtrace"]:
+        raise SystemExit(f"the main path launched a trellis kernel besides the decode "
+                         f"kernel: {main_launches}")
 
     qp = make_gaussian_quad_params(comp.means, comp.covariances, device=dev)
     lowers = torch.as_tensor(comp.lowers, device=dev)
@@ -352,28 +430,67 @@ def main():
     packed, folded = dec._quad, dec._folded
     log_b_main = em.emission(frames, *packed, num_states=s, s_pad=dec._s_pad, folded=folded)
     lb3 = log_b_main.reshape(b, t_total, -1)
-    coefs = dec._coefs
-    alpha, bp = tsf.trellis_forward(lb3, coefs, comp.penalty, n_frames)
+    coefs, pen = dec._coefs, comp.penalty
+    alpha, bp = tsf.trellis_forward(lb3, coefs, pen, n_frames)
     _, best = first_max(alpha, coefs[5] > 0)
+
+    def old_chain():
+        a, p_ = tsf.trellis_forward(lb3, coefs, pen, n_frames)
+        _, bst = first_max(a, coefs[5] > 0)
+        return tsf.trellis_backtrace(p_, bst, n_frames)
+
+    def plain_decode():
+        a, p_ = forward_fast(lb3, coefs, pen, n_frames)
+        sc, bst = first_max(a, coefs[5] > 0)
+        return sc, backtrace_batch(p_, bst, n_frames)
+
     timings = {
-        "emission": (cuda_ms(lambda: em.emission(frames, *packed, num_states=s,
+        "emission": (device_ms(lambda: em.emission(frames, *packed, num_states=s,
                                                  s_pad=dec._s_pad, folded=folded)),
                      cuda_ms(lambda: em.emission_plain(frames, *packed))),
-        "trellis_forward": (cuda_ms(lambda: tsf.trellis_forward(lb3, coefs, comp.penalty, n_frames)),
-                            cuda_ms(lambda: forward_fast(lb3, coefs, comp.penalty, n_frames), reps=3)),
-        "trellis_backtrace": (cuda_ms(lambda: tsf.trellis_backtrace(bp, best, n_frames)),
+        "trellis_decode": (device_ms(lambda: tsf.scanfree_decode(lb3, coefs, pen, n_frames)),
+                           cuda_ms(plain_decode, reps=3)),
+        "trellis_forward": (device_ms(lambda: tsf.trellis_forward(lb3, coefs, pen, n_frames)),
+                            cuda_ms(lambda: forward_fast(lb3, coefs, pen, n_frames), reps=3)),
+        "trellis_backtrace": (device_ms(lambda: tsf.trellis_backtrace(bp, best, n_frames)),
                               cuda_ms(lambda: backtrace_batch(bp, best, n_frames), reps=3)),
     }
+    # The eager loop (host launch work included) beside the device time: the
+    # parent commit's chip_smoke.py timed K2 so.
+    eager = {"trellis_decode": cuda_ms(lambda: tsf.scanfree_decode(lb3, coefs, pen, n_frames)),
+             "trellis_forward": cuda_ms(lambda: tsf.trellis_forward(lb3, coefs, pen, n_frames)),
+             "trellis_backtrace": cuda_ms(lambda: tsf.trellis_backtrace(bp, best, n_frames)),
+             "chain": cuda_ms(old_chain)}
     for name, (ms, plain_ms) in timings.items():
-        log("timing", kernel=name, ms=ms, plain_ms=plain_ms,
-            shape=f"B={b} T={t_total} S={s}")
+        log("timing", kernel=name, ms=ms, plain_ms=plain_ms, eager_ms=eager.get(name),
+            shape=f"B={b} T={t_total} S={s} ld={lb3.shape[2]}")
+    # The chain the decode kernel replaced, and the time of one step: the
+    # slope between two runs that differ only in the steps they take
+    # (decode: lengths cut to 51; backpointer mode: T cut to 101).
+    chain_ms = device_ms(old_chain)
+    steps_dec = int(n_frames.clamp(max=t_total).max()) - 1
+    short = n_frames.clamp(max=51)
+    dec_short = device_ms(lambda: tsf.scanfree_decode(lb3, coefs, pen, short))
+    lb_half = lb3[:, :101].contiguous()
+    fwd_half = device_ms(lambda: tsf.trellis_forward(lb_half, coefs, pen, n_frames))
+    step_us = {
+        "trellis_decode": (timings["trellis_decode"][0] - dec_short) / (steps_dec - 50) * 1e3,
+        "trellis_forward": (timings["trellis_forward"][0] - fwd_half) / 100 * 1e3,
+    }
+    for name, steps in (("trellis_decode", steps_dec), ("trellis_forward", t_total - 1)):
+        log("timing", kernel=name, steps=steps,
+            us_per_step=timings[name][0] / steps * 1e3, slope_us_per_step=step_us[name],
+            serial_floor_ms=steps * step_us[name] / 1e3)
+    log("timing", chain="trellis_forward+first_max+trellis_backtrace", ms=chain_ms,
+        eager_ms=eager["chain"], decode_kernel_ms=timings["trellis_decode"][0])
 
     decode = {"comp": comp, "signals": signals, "sig_dev": sig_dev, "ns_dev": ns_dev,
               "frames": frames, "packed": packed, "lb3": lb3, "n_frames": n_frames,
               "rand_len": rand_len, "texts_sig": texts_sig, "dec": dec,
               "emission_cases": (("bench-shape", comp, feats_bench.reshape(-1, d)),
                                  *edge_cases)}
-    errs = {"emission": k1_err, "trellis_forward": k2_err, "trellis_backtrace": k2_err}
+    errs = {"emission": k1_err, "trellis_decode": k2_err, "trellis_forward": k2_err,
+            "trellis_backtrace": k2_err}
     pipe = train_phases(dev, launches, timings, errs)
     yardsticks = slice_phases(dev, decode, pipe, launches, timings, errs)
     report(kind, launches, timings, errs, yardsticks)
@@ -401,7 +518,7 @@ def train_phases(dev, launches, timings, errs):
     from cs304_tpu_torch.ops.cuda import trellis_banded as tb
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
     from cs304_tpu_torch.ops.mfcc import mfcc_batch
-    from cs304_tpu_torch.ops.viterbi import banded_sentence_forward
+    from cs304_tpu_torch.ops.viterbi import backtrace_batch, banded_sentence_forward
 
     # -- 7. K3 vs plain -----------------------------------------------------
     boot = {m.label: m for m in flagship_models(seed=0)}
@@ -629,13 +746,21 @@ def train_phases(dev, launches, timings, errs):
     # -- 10. K3 timing -------------------------------------------------------
     k3_args = (lb_sent, *diags, train_lengths)
     timings["trellis_banded_forward"] = (
-        cuda_ms(lambda: tb.banded_forward(*k3_args)),
+        device_ms(lambda: tb.banded_forward(*k3_args)),
         cuda_ms(lambda: banded_sentence_forward(*k3_args), reps=3))
     log("timing", kernel="trellis_banded_forward", ms=timings["trellis_banded_forward"][0],
         plain_ms=timings["trellis_banded_forward"][1],
         shape=f"B={b_all} T={t_total} S={s_sent}")
     launches["trellis_banded_forward"] = train_launches["banded_forward"]
     errs["trellis_banded_forward"] = k3_err
+    # K2-bt at K3's shape: the trainer's backtrace.
+    _alpha3, bp3 = tb.banded_forward(*k3_args)
+    final3 = tb.final_states(train_n_states, s_sent)
+    timings["trellis_backtrace_k3"] = (
+        device_ms(lambda: tsf.trellis_backtrace(bp3, final3, train_lengths)),
+        cuda_ms(lambda: backtrace_batch(bp3, final3, train_lengths), reps=3))
+    log("timing", kernel="trellis_backtrace_k3", ms=timings["trellis_backtrace_k3"][0],
+        plain_ms=timings["trellis_backtrace_k3"][1], shape=f"B={b_all} T={t_total} S={s_sent}")
     return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args}
 
 
@@ -796,6 +921,7 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
     lb_s = decode["lb3"][..., :s].contiguous()
     want = forward_fast(lb_s, pack_coefs(*topo, device=dev), comp.penalty, decode["rand_len"])
+    tsf.trellis_forward.launches = 0
     for name, fn in (("K5", tfast.viterbi_fast_forward_pallas),
                      ("K6", tlanes.viterbi_lanes_forward_pallas)):
         got = fn(lb_s, *topo, comp.penalty, decode["rand_len"])
@@ -804,6 +930,7 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
         log(name, wrapper=fn.__name__, B=b, T=t_total, S=s, bitwise_forward_fast=same)
         if not same:
             raise SystemExit(f"{name} ({fn.__name__}) disagrees with forward_fast")
+    launches["trellis_forward"] = tsf.trellis_forward.launches
 
     # -- 14. decoder: backend "pallas" and the precision tiers ---------------
     signals, texts_sig = list(decode["signals"]), decode["texts_sig"]
@@ -825,6 +952,7 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     if texts_p != texts_scan:
         raise SystemExit("backend 'pallas' transcripts differ from backend 'scan'")
     launches["trellis_dense_forward"] = pallas_launches["trellis_dense_forward"]
+    launches["trellis_backtrace"] = pallas_launches["trellis_backtrace"]
     tier_decoders = {tier: ContinuousDecoder(flagship_models(), emission_precision=tier, **kw)
                      for tier in em.PASSES}
     em.emission_split.launches = 0
@@ -876,12 +1004,12 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
         f_e = {tier: em.fold_quad_params(nhp, lin, const, tier, s_e)
                for tier in ("highest", *em.PASSES)}
         timings["emission" + suffix] = (
-            cuda_ms(lambda: em.emission(frames_e, nhp, lin, const, s_e, sp_e,
+            device_ms(lambda: em.emission(frames_e, nhp, lin, const, s_e, sp_e,
                                         folded=f_e["highest"])),
             cuda_ms(lambda: em.emission_plain(frames_e, nhp, lin, const), reps=3))
         for tier, passes in em.PASSES.items():
             timings[f"emission_split_{tier}{suffix}"] = (
-                cuda_ms(lambda: em.emission_split(frames_e, None, None, lin, const, s_e, sp_e,
+                device_ms(lambda: em.emission_split(frames_e, None, None, lin, const, s_e, sp_e,
                                                   passes, folded=f_e[tier])),
                 cuda_ms(lambda: em.emission_split_plain(frames_e, hi, lo, lin, const, passes),
                         reps=3))
@@ -890,9 +1018,9 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
                    "x2_sym": (em.x2_sym(frames_e), em.fold_nhp(nhp, d))}
         lib_ms = {}
         for lay, (a, w) in layouts.items():
-            lib_ms[("fp32", lay)] = cuda_ms(lambda: torch.matmul(a, w))
+            lib_ms[("fp32", lay)] = device_ms(lambda: torch.matmul(a, w))
             a, w = a.to(torch.bfloat16), w.to(torch.bfloat16)
-            lib_ms[("bf16", lay)] = cuda_ms(lambda: torch.matmul(a, w))
+            lib_ms[("bf16", lay)] = device_ms(lambda: torch.matmul(a, w))
         del layouts, a, w
         for kind, names in (("fp32", ["emission"]),
                             ("bf16", [f"emission_split_{t}" for t in em.PASSES])):
@@ -921,7 +1049,7 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
             torch.full((64,), t_total, dtype=torch.int32, device=dev)),
     }
     for name, args in k4_shapes.items():
-        timings[name] = (cuda_ms(lambda: tdn.trellis_dense_forward(*args)),
+        timings[name] = (device_ms(lambda: tdn.trellis_dense_forward(*args)),
                          cuda_ms(lambda: dense_forward(*args), reps=3))
         log_b_k, trans_k, _a, lengths_k = args
         bounds[name] = dense_bound(log_b_k.shape[0], t_total, trans_k.shape[0], lengths_k)
@@ -932,9 +1060,14 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
                                       + 4 * (b * s + 8 * s + b),
                                       [(6 * b * (t_total - 1) * s, PEAK_FP32)])
     bounds["trellis_backtrace"] = bound(4 * (live - b) + 4 * b * t_total + 8 * b)
+    # Decode mode: the live log_b rows in, paths and scores out, coefficients
+    # and lengths; the steps these lengths run.
+    bounds["trellis_decode"] = bound(4 * live * s + 4 * b * t_total + 4 * b + 4 * 8 * s
+                                     + 4 * b, [(6 * (live - b) * s, PEAK_FP32)])
     lb_k3, k3_lengths = pipe["k3_args"][0], pipe["k3_args"][-1]
     b3, t3, s3 = lb_k3.shape
     live3 = int(k3_lengths.clamp(max=t3).sum().item())
+    bounds["trellis_backtrace_k3"] = bound(4 * (live3 - b3) + 4 * b3 * t3 + 8 * b3)
     bounds["trellis_banded_forward"] = bound(4 * live3 * s3 + 4 * b3 * t3 * s3 + 16 * b3 * s3
                                              + 4 * b3, [(6 * b3 * (t3 - 1) * s3, PEAK_FP32)])
     timings["emission_split"] = timings["emission_split_high"]
@@ -943,7 +1076,8 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     yardsticks = {k: (library.get(k), *bounds[k]) for k in bounds}
     for name in ("emission", "emission_split_high", "emission_split_default", "emission_503",
                  "emission_split_high_503", "emission_split_default_503",
-                 "trellis_dense_forward", "trellis_dense_forward_503"):
+                 "trellis_dense_forward", "trellis_dense_forward_503", "trellis_decode",
+                 "trellis_forward", "trellis_backtrace", "trellis_backtrace_k3"):
         ms, plain_ms = timings[name]
         lib_ms, b_ms, b_by = yardsticks[name]
         log("timing", kernel=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -972,6 +1106,8 @@ def report(kind, launches, timings, errs, yardsticks):
         "emission": ("cs304_tpu_torch/csrc/emission.cu", "cs304_tpu/ops/pallas/emission.py:82"),
         "emission_split": ("cs304_tpu_torch/csrc/emission_split.cu",
                            "cs304_tpu/ops/pallas/emission.py:157"),
+        "trellis_decode": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                           "cs304_tpu/ops/pallas/trellis_scanfree.py:55 and :121"),
         "trellis_forward": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
                             "cs304_tpu/ops/pallas/trellis_scanfree.py:55"),
         "trellis_backtrace": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",

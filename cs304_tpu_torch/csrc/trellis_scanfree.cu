@@ -1,165 +1,538 @@
-// Scan-free composite Viterbi for Hopper: forward trellis + backtrace.
+// Scan-free composite Viterbi for Hopper: one forward kernel in two modes,
+// and the backtrace.
 //
 // Replaces cs304_tpu/ops/pallas/trellis_scanfree.py:_forward_kernel and
 // :_backtrace_kernel. Semantics are bitwise those of the plain PyTorch
-// version, cs304_tpu_torch/ops/viterbi.py:viterbi_composite_batch_fast:
+// version, cs304_tpu_torch/ops/viterbi.py:viterbi_composite_batch_fast
+// (forward_fast + first_max + backtrace_batch):
 //   non-entry j:  max over (j-2, j-1, j) banded predecessors, ties resolved
 //                 skip-2, then skip-1, then self (all on >=);
 //   entry e:      max(best exit + penalty, self-loop), an exit winning an
 //                 exact tie; among exits the lowest state index wins, and
 //                 when every exit is -inf the index is 0;
-//   steps t >= length leave alpha unchanged but still write backpointers.
+//   steps t >= length leave alpha unchanged.
 //
-// What bounds it on this card: the T-1 steps are sequential, and each step
-// is O(S) adds and compares plus one block-wide (value, index) reduction, so
-// the forward is latency-bound per utterance; the card is filled by running
-// one block per utterance (B blocks) rather than by parallelism inside a step.
-// Bytes are log_b read once (4 B/cell) and backpointers written once
-// (4 B/cell), coalesced over states.
-// What the design does about it: the whole time loop runs inside one block
-// with alpha double-buffered in shared memory (no per-step launch, no global
-// round trip), threads stride over states, and the best-exit reduction is a
-// warp shuffle plus one shared-memory pass over at most 32 warp results.
-// The backtrace is one thread per utterance walking its backpointers in
-// reverse; it reads T ints per utterance and is bound by that dependent
-// chain of loads.
+// trellis_team_kernel<K, MODE> is the forward. A team of W warps owns one
+// utterance; each lane holds K contiguous states (alpha and their
+// coefficients) in registers for the whole time loop, and reads a state's
+// j-1 / j-2 neighbours from its own registers or from the previous lane by
+// __shfl_up_sync. At S <= 128 the team is one warp and a block carries up to
+// four utterances (one per warp), and a step has no barrier: at a non-zero
+// penalty only the best exit's value feeds the next alpha, and it is one
+// __reduce_max_sync over an order-preserving key; the lowest index holding
+// it (better()'s winner, needed only by stores) is one __reduce_min_sync off
+// the chain. Past one warp, or at a zero penalty, the exit is a butterfly of
+// (value, index) pairs over __shfl_xor_sync with better(), a lexicographic
+// order, so the winner does not depend on the tree's shape; a team of
+// several warps exchanges the lane-31 boundary states and per-warp winners
+// through shared memory under one named barrier per step. Emission rows
+// come in D steps ahead of use, each lane loading its K values into
+// registers, so the load latency leaves the step's chain (a shared-memory
+// ring filled by cp.async cost more to issue per step than it hid).
+//   MODE BACKPOINTERS (trellis_forward): runs all T - 1 steps
+//     and writes alpha (B, S) and int32 backpointers (B, T, S), row 0 = -1.
+//   MODE DECODE_SHARED / DECODE_GLOBAL (scanfree_decode): stops at each
+//     utterance's length, stores one byte per (step, state) -- code c in
+//     {0, 1, 2} meaning
+//     max(j - c, 0), or 3 meaning "the step's best exit" -- and one int16
+//     best-exit index per step, in shared memory where the block's
+//     utterances fit (else in a global scratch the wrapper allocates), then
+//     takes the final best exit and walks the codes back into the path with
+//     the reference quirk. No backpointer tensor reaches device memory.
+//
+// What bounds it on this card: the steps are sequential, so each utterance's
+// forward is a chain of dependent shuffles, adds and compares (latency);
+// bytes are the live emission rows read once, plus the backpointers written
+// once in backpointer mode. The design keeps the chain on registers and
+// warp-wide reductions: no barrier at S <= 128, no load on the chain,
+// coefficients loaded once.
+//
+// trellis_backtrace_kernel is K2-bt (the backtrace of K3 and K4): one warp
+// per utterance stages the backpointer rows it will walk into shared memory
+// in tiles of R time steps, walking backwards (16-byte cp.async inside a
+// tile, 4-byte at an unaligned head or tail), with the next (earlier) tile
+// in flight while lane 0 walks the current one. The dependent chain then
+// runs at shared-memory latency rather than L2 latency; the rows are read
+// whole (more bytes than the T elements on the path, none dependent).
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+// Dynamic shared memory a block of the forward may take (the card allows
+// 227 KB; the rest covers the static exchange buffers).
+constexpr size_t SMEM_BUDGET = 200 * 1024;
+// K2-bt: tiles in flight, the shared memory they may share, and the most
+// time steps a tile holds (at least one, whatever S).
+constexpr int BT_TILES = 2;
+constexpr size_t BT_BUDGET = 48 * 1024;
+constexpr int BT_MAX_ROWS = 32;
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+__device__ __forceinline__ void warp_best(float& bv, int& bi) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, bv, off);
+    const int oi = __shfl_xor_sync(FULL, bi, off);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy n 4-byte elements starting at src (4-byte aligned) into dst (16-byte
+// aligned shared memory) by threads tid of nthr: element i lands at
+// dst[span_offset(src) + i]. Chunks wholly inside the span go as 16-byte
+// copies; the (at most two) partial chunks at its ends element by element.
+// dst must hold n + 8 elements.
+__device__ __forceinline__ int span_offset(const void* src) {
+  return (int)(((uintptr_t)src >> 2) & 3);
+}
+
+__device__ __forceinline__ void copy_span(void* dst, const void* src, int n,
+                                          int tid, int nthr) {
+  const uintptr_t a = (uintptr_t)src;
+  const uintptr_t base = a & ~(uintptr_t)15;
+  const uintptr_t end = a + 4 * (uintptr_t)n;
+  const int nchunks = (int)((end - base + 15) >> 4);
+  char* d = (char*)dst;
+  for (int c = tid; c < nchunks; c += nthr) {
+    const uintptr_t g = base + 16 * (uintptr_t)c;
+    if (g >= a && g + 16 <= end) {
+      cp_async16(d + 16 * c, (const void*)g);
+    } else {
+      for (int e = 0; e < 4; ++e) {
+        const uintptr_t ge = g + 4 * e;
+        if (ge >= a && ge < end) cp_async4(d + 16 * c + 4 * e, (const void*)ge);
+      }
+    }
+  }
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// Time steps of emissions a lane holds in flight, K registers each.
+__host__ __device__ constexpr int prefetch_rows(int k) { return k == 8 ? 2 : (k == 4 ? 4 : 8); }
+
+// The forward's launch plan, fixed by (T, S, mode) alone.
+struct Plan {
+  int k;             // states per lane: 2 (S <= 64), 4 (S <= 2048) or 8
+  int w;             // warps per utterance
+  int u;             // utterances per block (1 unless w == 1)
+  int row_bytes;     // code bytes per step (32 * w * k)
+  int codes_shared;  // decode: codes and best exits in shared memory
+  size_t team_bytes;  // dynamic shared memory per utterance
+};
+
+Plan make_plan(int T, int S, bool decode) {
+  Plan pl;
+  pl.k = S <= 64 ? 2 : (S <= 2048 ? 4 : 8);
+  pl.w = (S + 32 * pl.k - 1) / (32 * pl.k);
+  pl.row_bytes = 32 * pl.w * pl.k;
+  const size_t codes = align16((size_t)T * pl.row_bytes) + align16((size_t)T * 2);
+  pl.codes_shared = decode && codes <= SMEM_BUDGET;
+  pl.team_bytes = pl.codes_shared ? codes : 0;
+  pl.u = 1;
+  if (pl.w == 1) {
+    for (int u = 4; u > 1; u >>= 1) {
+      if ((size_t)u * pl.team_bytes <= SMEM_BUDGET) {
+        pl.u = u;
+        break;
+      }
+    }
+  }
+  return pl;
+}
+
+struct TeamArgs {
+  const float* log_b;
+  const float* coefs;
+  const int* lengths;
+  float penalty;
+  float* alpha_out;          // backpointer mode
+  int* bp;                   // backpointer mode
+  float* scores;             // decode mode
+  int* paths;                // decode mode
+  unsigned char* codes_g;    // decode mode, codes not in shared memory
+  int B, T, S, ld, quirk;
+  int w, u, row_bytes;
+  size_t team_bytes;
+};
+
 // coefs rows (each of length S): 0 diag_ne, 1 sub1, 2 sub2, 3 diag_e,
 // 4 is_entry (1/0), 5 is_exit (1/0), 6 diag_init, 7 unused.
-__global__ void trellis_forward_kernel(
-    const float* __restrict__ log_b, const float* __restrict__ coefs,
-    float penalty, const int* __restrict__ lengths,
-    float* __restrict__ alpha_out, int* __restrict__ bp,
-    int T, int S, int ld) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
+// At K = 2 (S <= 64) a block is at most four one-warp teams, at K = 4
+// (S <= 2048) a team of up to 16 warps, at K = 8 up to 32.
+// MODE: backpointer mode, or decode mode with its codes in shared or in
+// global memory (a compile-time choice, so that code loads and stores are
+// shared-memory instructions where they can be).
+enum { BACKPOINTERS = 0, DECODE_SHARED = 1, DECODE_GLOBAL = 2 };
 
+template <int K, int MODE>
+__global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
+    trellis_team_kernel(const TeamArgs p) {
+  constexpr bool DECODE = MODE != BACKPOINTERS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red_v[2][32];
+  __shared__ int red_i[2][32];
+  __shared__ float2 bnd[2][32];
+
+  constexpr int D = prefetch_rows(K);
   const float neg = -__int_as_float(0x7f800000);
-  const float* diag_ne = coefs;
-  const float* sub1 = coefs + S;
-  const float* sub2 = coefs + 2 * S;
-  const float* diag_e = coefs + 3 * S;
-  const float* is_entry = coefs + 4 * S;
-  const float* is_exit = coefs + 5 * S;
-  const float* diag_init = coefs + 6 * S;
+  const int S = p.S, T = p.T;
+  const bool one_warp = K == 2 || p.w == 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int team = one_warp ? warp : 0;
+  const int tw = one_warp ? 0 : warp;  // warp within the team
+  const int nt = 32 * p.w;
+  const int tt = tw * 32 + lane;       // thread within the team
+  const int b = blockIdx.x * p.u + team;
+  if (b >= p.B) return;  // only a one-warp team leaves early: no block barrier
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthr >> 5;
-  const int length = lengths[b];
-  const size_t lb_base = (size_t)b * T * ld;
-  const size_t bp_base = (size_t)b * T * S;
-
-  float* cur = smem;
-  float* nxt = smem + S;
-  for (int j = tid; j < S; j += nthr) {
-    cur[j] = is_entry[j] > 0.f ? log_b[lb_base + j] + diag_init[j] : neg;
-    bp[bp_base + j] = -1;
+  unsigned char* codes = nullptr;
+  short* bex = nullptr;
+  if constexpr (MODE == DECODE_SHARED) {
+    codes = smem + (size_t)team * p.team_bytes;
+    bex = (short*)(codes + align16((size_t)T * p.row_bytes));
+  } else if constexpr (MODE == DECODE_GLOBAL) {
+    codes = p.codes_g + (size_t)b * T * p.row_bytes;
+    bex = (short*)(p.codes_g + (size_t)p.B * T * p.row_bytes) + (size_t)b * T;
   }
-  __syncthreads();
 
-  for (int t = 1; t < T; ++t) {
-    float bv = neg;
-    int bi = INT_MAX;
-    for (int j = tid; j < S; j += nthr) {
-      if (is_exit[j] > 0.f && better(cur[j], j, bv, bi)) {
-        bv = cur[j];
-        bi = j;
+  const int length = p.lengths[b];
+  const int steps = min(max(length, 1), T);  // rows 1..steps-1 are live
+  const float* lb_b = p.log_b + (size_t)b * T * p.ld;
+  const int j0 = tt * K;
+
+  float a[K], dg[K], s1[K], s2[K];
+  unsigned entry_m = 0, exit_m = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = j0 + k;
+    a[k] = neg;
+    dg[k] = s1[k] = s2[k] = neg;
+    if (j < S) {
+      const bool e = p.coefs[4 * S + j] > 0.f;
+      entry_m |= (unsigned)e << k;
+      exit_m |= (unsigned)(p.coefs[5 * S + j] > 0.f) << k;
+      dg[k] = e ? p.coefs[3 * S + j] : p.coefs[j];
+      s1[k] = p.coefs[S + j];
+      s2[k] = p.coefs[2 * S + j];
+      if (e) a[k] = lb_b[j] + p.coefs[6 * S + j];
+      if (!DECODE) p.bp[(size_t)b * T * S + j] = -1;
+    }
+  }
+
+  // Emission rows come in D steps ahead of use, into registers.
+  float pf[D][K];
+  auto fetch = [&](float* dst, int row) {
+    if (row < steps) {
+      const float* r = lb_b + (size_t)row * p.ld + j0;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (j0 + k < S) dst[k] = __ldg(r + k);
+    }
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) pf[d][k] = 0.f;
+    fetch(pf[d], 1 + d);
+  }
+
+  // The team's best exit over alpha with better(), every thread getting
+  // (value, index), and each lane's j0-1 / j0-2 neighbours u1 / u2. Its sync
+  // also publishes the codes stored before it.
+  auto team_best = [&](int parity, float& bv, int& bi, float& u1, float& u2) {
+    bv = neg;
+    bi = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (((exit_m >> k) & 1u) && better(a[k], j0 + k, bv, bi)) {
+        bv = a[k];
+        bi = j0 + k;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+    warp_best(bv, bi);
+    u1 = __shfl_up_sync(FULL, a[K - 1], 1);
+    u2 = __shfl_up_sync(FULL, a[K - 2], 1);
+    if (one_warp) {
+      __syncwarp();
+      if (lane == 0) u1 = u2 = neg;
+    } else {
+      if (lane == 31) bnd[parity][tw] = make_float2(a[K - 1], a[K - 2]);
+      if (lane == 0) {
+        red_v[parity][tw] = bv;
+        red_i[parity][tw] = bi;
       }
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    bv = red_v[0];
-    bi = red_i[0];
-    for (int w = 1; w < nwarps; ++w) {
-      if (better(red_v[w], red_i[w], bv, bi)) {
-        bv = red_v[w];
-        bi = red_i[w];
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+      if (lane == 0) {
+        if (tw > 0) {
+          const float2 q = bnd[parity][tw - 1];
+          u1 = q.x;
+          u2 = q.y;
+        } else {
+          u1 = u2 = neg;
+        }
       }
+      bv = lane < p.w ? red_v[parity][lane] : neg;
+      bi = lane < p.w ? red_i[parity][lane] : INT_MAX;
+      warp_best(bv, bi);
     }
     // Every exit at -inf: the reference's first-max runs over all states,
     // which then all tie, so the winner is state 0.
     if (!(bv > neg)) bi = 0;
+  };
 
-    const bool live = t < length;
-    const float c_pen = bv + penalty;
-    const float* lb_t = log_b + lb_base + (size_t)t * ld;
-    int* bp_t = bp + bp_base + (size_t)t * S;
-    for (int j = tid; j < S; j += nthr) {
-      const float a0 = cur[j];
+  // A one-warp step at a non-zero penalty: only the best exit's value feeds
+  // the next alpha, so it is reduced alone, by one redux.sync over an
+  // order-preserving key; the lowest index holding it (better()'s winner),
+  // which only feeds stores, takes a second redux.sync off the chain. The
+  // max folds -0 into +0, where better() keeps the sign of the lowest index;
+  // bv + penalty hides the difference unless the penalty is zero, where the
+  // step takes team_best instead.
+  auto warp_exit = [&](float& bv, int& bi, float& u1, float& u2) {
+    float vmax = neg;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((exit_m >> k) & 1u) vmax = fmaxf(vmax, a[k]);
+    unsigned key = __float_as_uint(vmax + 0.0f);
+    key = (key & 0x80000000u) ? ~key : (key | 0x80000000u);
+    key = __reduce_max_sync(FULL, key);
+    vmax = __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+    unsigned cand = INT_MAX;
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k)
+      if (((exit_m >> k) & 1u) && a[k] == vmax) cand = j0 + k;
+    const int wi = (int)__reduce_min_sync(FULL, cand);
+    u1 = __shfl_up_sync(FULL, a[K - 1], 1);
+    u2 = __shfl_up_sync(FULL, a[K - 2], 1);
+    if (lane == 0) u1 = u2 = neg;
+    bv = vmax;
+    bi = vmax > neg ? wi : 0;
+  };
+
+  // One step: code c in {0, 1, 2} is the predecessor max(j - c, 0), 3 the
+  // step's best exit; decode mode stores the codes and the exit's index,
+  // backpointer mode the int32 backpointers they stand for.
+  auto step = [&](int t, const float* lbv, auto value_only) {
+    const bool live = DECODE || t < length;
+    float bv, u1, u2;
+    int bi;
+    if constexpr (decltype(value_only)::value) {
+      warp_exit(bv, bi, u1, u2);
+    } else {
+      team_best(t & 1, bv, bi, u1, u2);
+    }
+    const float c_pen = bv + p.penalty;
+    float na[K];
+    int code[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + k;
+      const float a0 = a[k];
+      const float a1 = k >= 1 ? a[k - 1] : u1;
+      const float a2 = k >= 2 ? a[k - 2] : (k == 1 ? u1 : u2);
       float val;
-      int arg;
-      if (is_entry[j] > 0.f) {
-        const float c_self = a0 + diag_e[j];
+      if ((entry_m >> k) & 1u) {
+        const float c_self = a0 + dg[k];
         val = fmaxf(c_pen, c_self);
-        arg = c_pen >= c_self ? bi : j;
+        code[k] = c_pen >= c_self ? 3 : 0;
       } else {
-        const float a1 = j >= 1 ? cur[j - 1] : neg;
-        const float a2 = j >= 2 ? cur[j - 2] : neg;
-        const float c0 = a0 + diag_ne[j];
-        const float c1 = a1 + sub1[j];
-        const float c2 = a2 + sub2[j];
+        const float c0 = a0 + dg[k];
+        const float c1 = a1 + s1[k];
+        const float c2 = a2 + s2[k];
         const float v12 = fmaxf(c1, c0);
         val = fmaxf(c2, v12);
-        arg = c2 >= v12 ? max(j - 2, 0) : (c1 >= c0 ? max(j - 1, 0) : j);
+        code[k] = c2 >= v12 ? 2 : (c1 >= c0 ? 1 : 0);
       }
-      const float na = val + lb_t[j];
-      nxt[j] = live ? na : a0;
-      bp_t[j] = arg;
+      na[k] = (live && j < S) ? val + lbv[k] : a0;
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = na[k];
+    if (DECODE) {
+      unsigned long long packed = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) packed |= (unsigned long long)code[k] << (8 * k);
+      unsigned char* c_t = codes + (size_t)t * p.row_bytes + j0;
+      if (K == 2) *(unsigned short*)c_t = (unsigned short)packed;
+      if (K == 4) *(unsigned*)c_t = (unsigned)packed;
+      if (K == 8) *(unsigned long long*)c_t = packed;
+      if (tt == 0) bex[t] = (short)bi;
+    } else {
+      int* bp_t = p.bp + ((size_t)b * T + t) * S;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (j0 + k < S) bp_t[j0 + k] = code[k] == 3 ? bi : max(j0 + k - code[k], 0);
+    }
+  };
+
+  const int t_end = DECODE ? steps : T;
+  auto run = [&](auto value_only) {
+    for (int t0 = 1; t0 < t_end; t0 += D) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int t = t0 + d;
+        if (t >= t_end) break;
+        step(t, pf[d], value_only);
+        fetch(pf[d], t + D);
+      }
+    }
+  };
+  if (one_warp && p.penalty != 0.f) {
+    run(std::true_type{});
+  } else {
+    run(std::false_type{});
   }
-  for (int j = tid; j < S; j += nthr) alpha_out[(size_t)b * S + j] = cur[j];
+
+  if (!DECODE) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (j0 + k < S) p.alpha_out[(size_t)b * S + j0 + k] = a[k];
+    return;
+  }
+
+  // Decode epilogue: the final best exit (its sync publishes the codes),
+  // then the walk.
+  float best_v, u1, u2;
+  int best;
+  team_best(t_end & 1, best_v, best, u1, u2);
+  int* path = p.paths + (size_t)b * T;
+  for (int t = max(length, 1) + tt; t < T; t += nt) path[t] = best;
+  if (tt != 0) return;
+  p.scores[b] = best_v;
+  const int second = min(max(length - 2, 0), T - 1);
+  int state = best;
+  int at_second = best;
+#pragma unroll 4
+  for (int t = steps - 1; t >= 1; --t) {
+    path[t] = state;
+    if (t == second) at_second = state;
+    const int c = codes[(size_t)t * p.row_bytes + state];
+    state = c == 3 ? (int)bex[t] : max(state - c, 0);
+  }
+  path[0] = state;
+  if (second == 0) at_second = state;
+  const int last = max(length - 1, 0);
+  if (p.quirk && last < T) path[last] = at_second;  // path[L-1] = path[L-2]
 }
 
 __global__ void trellis_backtrace_kernel(
     const int* __restrict__ bp, const int* __restrict__ best,
     const int* __restrict__ lengths, int* __restrict__ path,
-    int B, int T, int S, int quirk) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    int T, int S, int R, int buf_ints, int quirk) {
+  extern __shared__ __align__(16) int tiles[];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
   const int length = lengths[b];
-  const int* bp_b = bp + (size_t)b * T * S;
+  const int start = best[b];
   int* p = path + (size_t)b * T;
-  int state = best[b];
-  for (int t = T - 1; t >= 1; --t) {
-    p[t] = state;  // emitted before stepping: entries past length hold the start
-    if (t <= length - 1) state = bp_b[(size_t)t * S + state];
+  // Entries past the length hold the start state (emitted before stepping).
+  for (int t = max(length, 1) + lane; t < T; t += 32) p[t] = start;
+
+  const int hi = min(length, T) - 1;  // rows 1..hi are walked
+  const int ntiles = hi >= 1 ? (hi + R - 1) / R : 0;
+  const int* bp_b = bp + (size_t)b * T * S;
+  auto issue = [&](int k) {
+    if (k < ntiles) {
+      const int top = hi - k * R;
+      const int lo = max(top - R + 1, 1);
+      copy_span(tiles + (k % BT_TILES) * buf_ints, bp_b + (size_t)lo * S,
+                (top - lo + 1) * S, lane, 32);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < BT_TILES; ++k) issue(k);
+  const int second = min(max(length - 2, 0), T - 1);
+  int state = start;
+  int at_second = start;
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait<BT_TILES - 1>();  // tile k has landed (this lane's copies)
+    __syncwarp();
+    if (lane == 0) {
+      const int top = hi - k * R;
+      const int lo = max(top - R + 1, 1);
+      const int* tile = tiles + (k % BT_TILES) * buf_ints + span_offset(bp_b + (size_t)lo * S);
+      for (int t = top; t >= lo; --t) {
+        p[t] = state;
+        if (t == second) at_second = state;
+        state = tile[(t - lo) * S + state];
+      }
+    }
+    __syncwarp();
+    issue(k + BT_TILES);
   }
+  cp_async_wait<0>();
+  if (lane != 0) return;
   p[0] = state;
-  if (quirk) {
-    // Reference parity: the final frame repeats the one before it.
-    const int last = max(length - 1, 0);
-    const int second = min(max(length - 2, 0), T - 1);
-    if (last < T) p[last] = p[second];
-  }
+  if (second == 0) at_second = state;
+  const int last = max(length - 1, 0);
+  if (quirk && last < T) p[last] = at_second;  // path[L-1] = path[L-2]
+}
+
+int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+template <int K, int MODE>
+int launch_team(const Plan& pl, TeamArgs a, cudaStream_t stream) {
+  a.w = pl.w;
+  a.u = pl.u;
+  a.row_bytes = pl.row_bytes;
+  a.team_bytes = pl.team_bytes;
+  const size_t smem = (size_t)pl.u * pl.team_bytes;
+  const int err = set_smem((const void*)trellis_team_kernel<K, MODE>, smem);
+  if (err) return err;
+  const int threads = 32 * (pl.w == 1 ? pl.u : pl.w);
+  const int blocks = (a.B + pl.u - 1) / pl.u;
+  trellis_team_kernel<K, MODE><<<blocks, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_k(const Plan& pl, TeamArgs a, cudaStream_t stream) {
+  if (pl.k == 2) return launch_team<2, MODE>(pl, a, stream);
+  if (pl.k == 4) return launch_team<4, MODE>(pl, a, stream);
+  return launch_team<8, MODE>(pl, a, stream);
+}
+
+int launch_forward(TeamArgs a, bool decode, cudaStream_t stream) {
+  const Plan pl = make_plan(a.T, a.S, decode);
+  if (!decode) return launch_k<BACKPOINTERS>(pl, a, stream);
+  if (pl.codes_shared) return launch_k<DECODE_SHARED>(pl, a, stream);
+  return launch_k<DECODE_GLOBAL>(pl, a, stream);
 }
 
 }  // namespace
@@ -167,29 +540,62 @@ __global__ void trellis_backtrace_kernel(
 extern "C" int cs304_trellis_forward(
     const void* log_b, const void* coefs, float penalty, const void* lengths,
     void* alpha, void* bp, int B, int T, int S, int ld, void* stream) {
-  int threads = ((S + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = 2 * (size_t)S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        trellis_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  trellis_forward_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)log_b, (const float*)coefs, penalty, (const int*)lengths,
-      (float*)alpha, (int*)bp, T, S, ld);
-  return (int)cudaGetLastError();
+  TeamArgs a = {};
+  a.log_b = (const float*)log_b;
+  a.coefs = (const float*)coefs;
+  a.lengths = (const int*)lengths;
+  a.penalty = penalty;
+  a.alpha_out = (float*)alpha;
+  a.bp = (int*)bp;
+  a.B = B;
+  a.T = T;
+  a.S = S;
+  a.ld = ld;
+  return launch_forward(a, false, (cudaStream_t)stream);
+}
+
+// Bytes of global scratch the decode kernel needs for its codes at this
+// shape: 0 where every block's codes fit in shared memory.
+extern "C" long long cs304_trellis_decode_scratch_bytes(int B, int T, int S) {
+  const Plan pl = make_plan(T, S, true);
+  if (pl.codes_shared) return 0;
+  return (long long)B * T * pl.row_bytes + (long long)B * T * 2;
+}
+
+extern "C" int cs304_trellis_decode(
+    const void* log_b, const void* coefs, float penalty, const void* lengths,
+    void* scores, void* paths, void* scratch, int B, int T, int S, int ld,
+    int quirk, void* stream) {
+  TeamArgs a = {};
+  a.log_b = (const float*)log_b;
+  a.coefs = (const float*)coefs;
+  a.lengths = (const int*)lengths;
+  a.penalty = penalty;
+  a.scores = (float*)scores;
+  a.paths = (int*)paths;
+  a.codes_g = (unsigned char*)scratch;
+  a.B = B;
+  a.T = T;
+  a.S = S;
+  a.ld = ld;
+  a.quirk = quirk;
+  return launch_forward(a, true, (cudaStream_t)stream);
 }
 
 extern "C" int cs304_trellis_backtrace(
     const void* bp, const void* best, const void* lengths, void* path,
     int B, int T, int S, int quirk, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  trellis_backtrace_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const size_t buf_cap = BT_BUDGET / BT_TILES / 4;  // ints per tile buffer
+  size_t r = buf_cap > (size_t)S + 8 ? (buf_cap - 8) / S : 1;
+  if (r > BT_MAX_ROWS) r = BT_MAX_ROWS;
+  const int R = (int)r;
+  const int buf_ints = (int)(((size_t)R * S + 8 + 3) & ~(size_t)3);
+  const size_t smem = BT_TILES * (size_t)buf_ints * 4;
+  const int err = set_smem((const void*)trellis_backtrace_kernel, smem);
+  if (err) return err;
+  trellis_backtrace_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(
       (const int*)bp, (const int*)best, (const int*)lengths, (int*)path,
-      B, T, S, quirk);
+      T, S, R, buf_ints, quirk);
   return (int)cudaGetLastError();
 }
 

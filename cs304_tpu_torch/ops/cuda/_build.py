@@ -98,6 +98,10 @@ def load():
         lib.cs304_emission_quad.restype = i
         lib.cs304_trellis_forward.argtypes = [p, p, f, p, p, p, i, i, i, i, p]
         lib.cs304_trellis_forward.restype = i
+        lib.cs304_trellis_decode.argtypes = [p, p, f, p, p, p, p, i, i, i, i, i, p]
+        lib.cs304_trellis_decode.restype = i
+        lib.cs304_trellis_decode_scratch_bytes.argtypes = [i, i, i]
+        lib.cs304_trellis_decode_scratch_bytes.restype = ctypes.c_longlong
         lib.cs304_trellis_backtrace.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.cs304_trellis_backtrace.restype = i
         lib.cs304_trellis_banded_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]

@@ -1,31 +1,41 @@
-"""Scan-free composite Viterbi: wrappers of the CUDA forward and backtrace
-kernels (csrc/trellis_scanfree.cu).
+"""Scan-free composite Viterbi: wrappers of the CUDA forward kernel (decode
+and backpointer modes) and the backtrace kernel (csrc/trellis_scanfree.cu).
 
 Replaces cs304_tpu/ops/pallas/trellis_scanfree.py (_forward_kernel,
 _backtrace_kernel). The kernels are bitwise the plain version,
-ops/viterbi.py:viterbi_composite_batch_fast (forward_fast + backtrace_batch).
+ops/viterbi.py:viterbi_composite_batch_fast (forward_fast + first_max +
+backtrace_batch).
+
+- scanfree_decode (the decoder's main path) is ONE launch of the forward in
+  decode mode: forward, best exit and backtrace inside the kernel, with
+  one-byte backpointer codes kept on chip (ops/viterbi.py:backpointer_codes
+  is their plain specification).
+- trellis_forward is the forward in backpointer mode: alpha and int32
+  backpointers, for the K5/K6 wrappers and the tests.
+- trellis_backtrace walks int32 backpointers: K3's and K4's backtrace.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. The CUDA pair takes every B >= 1, T >= 1 and
-S <= MAX_STATES, with no shape fallback; past MAX_STATES it raises.
-The time loop runs inside one block per utterance, so no padding of states
-or time is needed; log_b may carry padded state columns (the emission
-kernel's layout), which are skipped through its row stride.
+kernel or raises. The kernels take every B >= 1, T >= 1 and
+S <= MAX_STATES, with no shape fallback; past MAX_STATES they raise.
+log_b may carry padded state columns (the emission kernel's layout), which
+are skipped through its row stride, at any 4-byte alignment.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..viterbi import backtrace_batch, first_max, forward_fast, pack_coefs
 from . import _build
 
-# Two float32 alpha buffers per block must fit the card's 227 KB of shared
-# memory; 8192 states (64 KB) keeps the JAX kernels' limit.
+# One team of at most 32 warps holds 8 states a lane; 8192 states keeps the
+# JAX kernels' limit.
 MAX_STATES = 8192
 
 __all__ = [
-    "MAX_STATES", "pack_coefs", "trellis_backtrace", "trellis_forward",
-    "viterbi_composite_batch_scanfree",
+    "MAX_STATES", "codes_scratch_bytes", "pack_coefs", "scanfree_decode",
+    "trellis_backtrace", "trellis_forward", "viterbi_composite_batch_scanfree",
 ]
 
 
@@ -38,11 +48,8 @@ def _check_cuda(name, t, dtype):
         raise ValueError(f"{name} must be contiguous")
 
 
-def trellis_forward(log_b, coefs, penalty, lengths):
-    """log_b (B, T, ld >= S) float32, coefs (8, S) float32, penalty float,
-    lengths (B,) int32 -> (alpha (B, S) float32, bp (B, T, S) int32)."""
-    if not log_b.is_cuda:
-        return forward_fast(log_b, coefs, penalty, lengths)
+def _check_forward(log_b, coefs, lengths):
+    """Validate the forward's CUDA inputs -> (B, T, S, ld)."""
     b, t_total, ld = log_b.shape
     s = coefs.shape[1]
     _check_cuda("log_b", log_b, torch.float32)
@@ -57,6 +64,15 @@ def trellis_forward(log_b, coefs, penalty, lengths):
         raise ValueError(f"lengths {tuple(lengths.shape)} vs batch {b}, T {t_total}")
     if not (log_b.device == coefs.device == lengths.device):
         raise ValueError("log_b, coefs and lengths are on different devices")
+    return b, t_total, s, ld
+
+
+def trellis_forward(log_b, coefs, penalty, lengths):
+    """log_b (B, T, ld >= S) float32, coefs (8, S) float32, penalty float,
+    lengths (B,) int32 -> (alpha (B, S) float32, bp (B, T, S) int32)."""
+    if not log_b.is_cuda:
+        return forward_fast(log_b, coefs, penalty, lengths)
+    b, t_total, s, ld = _check_forward(log_b, coefs, lengths)
     lib = _build.load()
     alpha = torch.empty((b, s), dtype=torch.float32, device=log_b.device)
     bp = torch.empty((b, t_total, s), dtype=torch.int32, device=log_b.device)
@@ -108,12 +124,45 @@ def trellis_backtrace(bp, best, lengths, quirk: bool = True):
 trellis_backtrace.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def codes_scratch_bytes(b: int, t_total: int, s: int) -> int:
+    """Bytes of device scratch scanfree_decode allocates for its backpointer
+    codes at this shape: 0 where they stay in shared memory. The kernel's
+    launch plan decides; a shape asks it once."""
+    return int(_build.load().cs304_trellis_decode_scratch_bytes(b, t_total, s))
+
+
 def scanfree_decode(log_b, coefs, penalty, lengths, quirk_backtrace: bool = True):
-    """Forward + best exit + backtrace on packed coefficients. log_b may
-    have padded state columns past S = coefs.shape[1]."""
-    alpha, bp = trellis_forward(log_b, coefs, penalty, lengths)
-    scores, best = first_max(alpha, coefs[5] > 0)
-    return scores, trellis_backtrace(bp, best, lengths, quirk_backtrace)
+    """Forward + best exit + backtrace on packed coefficients: log_b
+    (B, T, ld >= S) float32 (padded state columns past S = coefs.shape[1]
+    are ignored), coefs (8, S), lengths (B,) int32 -> (scores (B,) float32,
+    paths (B, T) int32). On CUDA tensors one launch of the decode-mode
+    kernel."""
+    if not log_b.is_cuda:
+        alpha, bp = forward_fast(log_b, coefs, penalty, lengths)
+        scores, best = first_max(alpha, coefs[5] > 0)
+        return scores, backtrace_batch(bp, best, lengths, quirk_backtrace)
+    b, t_total, s, ld = _check_forward(log_b, coefs, lengths)
+    lib = _build.load()
+    dev = log_b.device
+    scores = torch.empty((b,), dtype=torch.float32, device=dev)
+    paths = torch.empty((b, t_total), dtype=torch.int32, device=dev)
+    n_scratch = codes_scratch_bytes(b, t_total, s)
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev) if n_scratch else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.cs304_trellis_decode(
+            log_b.data_ptr(), coefs.data_ptr(), float(penalty), lengths.data_ptr(),
+            scores.data_ptr(), paths.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            b, t_total, s, ld, int(quirk_backtrace), stream,
+        )
+    _build.check(code, "scanfree_decode")
+    scanfree_decode.launches += 1
+    return scores, paths
+
+
+scanfree_decode.launches = 0
 
 
 def viterbi_composite_batch_scanfree(

@@ -177,6 +177,59 @@ def apply_quirk(paths, lengths):
     return out
 
 
+def backpointer_codes(backptrs, coefs, lengths):
+    """The decode-mode kernel's one-byte backpointers, plain: backptrs
+    (B, T, S) int32 from forward_fast, coefs (8, S), lengths (B,) ->
+    (codes (B, T, S) uint8, best_exit (B, T) int16). At every live step
+    1 <= t < min(length, T) a non-entry state's code c in {0, 1, 2} means
+    max(j - c, 0); an entry state's is 0 (itself) or 3, the step's one
+    best-exit index best_exit[b, t]. Other rows are 0. Raises ValueError
+    where a backpointer breaks that scheme."""
+    b, t_total, s = backptrs.shape
+    dev = backptrs.device
+    j = torch.arange(s, device=dev, dtype=torch.int64)
+    entry = coefs[4].to(dev) > 0
+    bp = backptrs.to(torch.int64)
+    t_idx = torch.arange(t_total, device=dev)
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)
+    live = ((t_idx >= 1)[None, :] & (t_idx[None, :] < lengths[:, None]))[..., None]
+    step = j - bp
+    takes_exit = entry & (bp != j)
+    band_ok = (step >= 0) & (step <= 2) & (bp == torch.clamp(j - step, min=0))
+    # Every entry that took an exit at a step names the same state.
+    first = torch.where(takes_exit, bp, s).min(dim=-1).values
+    last = torch.where(takes_exit, bp, -1).max(dim=-1).values
+    ok = torch.where(entry, ~takes_exit | (first == last)[..., None], band_ok)
+    if not bool(ok[live.expand_as(ok)].all()):
+        raise ValueError("backpointers outside the banded / best-exit scheme")
+    codes = torch.where(takes_exit, 3, torch.where(entry, 0, step))
+    codes = torch.where(live, codes, 0).to(torch.uint8)
+    best_exit = torch.where(live[..., 0] & (first < s), first, 0).to(torch.int16)
+    return codes, best_exit
+
+
+def backtrace_codes(codes, best_exit, best, lengths, quirk: bool = True):
+    """backtrace_batch over backpointer codes: codes (B, T, S) uint8 and
+    best_exit (B, T) int16 from backpointer_codes, best (B,) start states,
+    lengths (B,) -> paths (B, T) int32, the walk the decode-mode kernel runs
+    in shared memory."""
+    b, t_total, _ = codes.shape
+    dev = codes.device
+    lengths = torch.as_tensor(lengths, device=dev)
+    state = best.to(torch.int64)
+    path = torch.empty((b, t_total), dtype=torch.int32, device=dev)
+    for t in range(t_total - 1, 0, -1):
+        path[:, t] = state.to(torch.int32)
+        c = codes[:, t].gather(1, state[:, None])[:, 0].to(torch.int64)
+        nxt = torch.where(c == 3, best_exit[:, t].to(torch.int64),
+                          torch.clamp(state - c, min=0))
+        state = torch.where(t <= lengths - 1, nxt, state)
+    path[:, 0] = state.to(torch.int32)
+    if quirk:
+        path = apply_quirk(path, lengths)
+    return path
+
+
 def _backtrace(backptrs, best_state, length, quirk: bool = True):
     """One utterance: backptrs (T, S), best_state scalar, length scalar ->
     path (T,) int32."""

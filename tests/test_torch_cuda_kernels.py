@@ -3,7 +3,10 @@ card: the quad-form emission kernel and its split "high" / "default" tiers
 (within rtol 1e-4 / atol 1e-3, as tests/test_pallas_emission.py holds the
 Pallas kernel; both run the folded operand, the plain versions the unfolded
 one; N = 1, N off the frame tile, D = 1 and D = 64 included), the scan-free
-trellis pair, the banded training trellis and
+trellis (the decode-mode kernel, the backpointer-mode forward and K2-bt;
+T = 1280, an odd row stride, 98 and 5003 states, and the global-codes
+branch at T = 4000 and at 503 states included), the banded training
+trellis (backtraced by K2-bt at the trainer's shape) and
 the dense trellis (scores, full paths, alphas and backpointers bitwise
 equal, ties, length-0 rows and T=1 included), and the K5/K6 wrappers.
 
@@ -34,6 +37,7 @@ from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
 from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf_quad, make_gaussian_quad_params
 from cs304_tpu_torch.ops.viterbi import (
     dense_forward,
+    first_max,
     forward_fast,
     pack_coefs,
     viterbi_composite_batch,
@@ -94,18 +98,26 @@ def test_emission_kernel_matches_plain(dev, num_words, n, d):
 
 
 def _trellis_case(dev, comp, log_b, lengths):
+    """The decode-mode kernel (one launch, no other trellis kernel), the
+    backpointer-mode forward and K2-bt, each bitwise its plain version."""
     coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry,
                        comp.is_exit, device=dev)
-    before = (tsf.trellis_forward.launches, tsf.trellis_backtrace.launches)
+    counters = (tsf.scanfree_decode, tsf.trellis_forward, tsf.trellis_backtrace)
+    before = [c.launches for c in counters]
     got = tsf.scanfree_decode(log_b, coefs, comp.penalty, lengths)
-    assert (tsf.trellis_forward.launches, tsf.trellis_backtrace.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 0, 0]
     want = viterbi_composite_batch_fast(
         log_b[..., : comp.num_states].contiguous(), comp.log_a,
         comp.lower_of_state, comp.is_entry, comp.is_exit, comp.penalty, lengths)
+    alpha, bp = tsf.trellis_forward(log_b, coefs, comp.penalty, lengths)
+    want_fwd = forward_fast(log_b, coefs, comp.penalty, lengths)
+    scores, best = first_max(want_fwd[0], coefs[5] > 0)
+    paths = tsf.trellis_backtrace(want_fwd[1], best, lengths)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert torch.equal(alpha, want_fwd[0]) and torch.equal(bp, want_fwd[1])
+    assert torch.equal(scores, want[0]) and torch.equal(paths, want[1])
 
 
 def banded_problem(gen, b, t, s, ties=False, degenerate=False, zero_length=False):
@@ -157,24 +169,78 @@ def _banded_case(dev, case):
         assert torch.equal(g, w)
 
 
+# Cases whose decode codes go to a global scratch: T = 4000 at 58 states
+# (one-warp teams, four a block), 503 states at T = 500 (a team of 4 warps,
+# 4 states a lane) and 5003 states at T = 60 (20 warps, 8 states a lane;
+# at T = 30 their codes still fit in shared memory). "98" is a one-warp
+# team of 4 states a lane, the K6 wrapper's range.
+GLOBAL_CODES = {"t4000", "503-t500", "5003-t60"}
+
+
 @pytest.mark.parametrize("case", ["flagship", "503", "ties", "b5-t1", "b5-t2", "padded",
-                                  *BANDED])
+                                  "t1280", "ld-odd", "5003", "98", "t4000", "503-t500",
+                                  "5003-t60", *BANDED])
 def test_trellis_pair_is_bitwise_plain(dev, case):
     if case in BANDED:
         _banded_case(dev, case)
         return
     gen = torch.Generator(device=dev).manual_seed(0)
-    comp = _composite(100) if case == "503" else flagship_composite()
+    comp = {"503": lambda: _composite(100), "503-t500": lambda: _composite(100),
+            "5003": lambda: _composite(1000), "5003-t60": lambda: _composite(1000),
+            "98": lambda: _composite(19)}.get(case, flagship_composite)()
     s = comp.num_states
-    b, t = {"b5-t1": (5, 1), "b5-t2": (5, 2), "503": (8, 40)}.get(case, (33, 50))
+    b, t = {"b5-t1": (5, 1), "b5-t2": (5, 2), "503": (8, 40), "5003": (4, 30),
+            "t1280": (6, 1280), "98": (9, 50), "t4000": (6, 4000),
+            "503-t500": (4, 500), "5003-t60": (2, 60)}.get(case, (33, 50))
+    assert (tsf.codes_scratch_bytes(b, t, s) > 0) == (case in GLOBAL_CODES)
+    ld = {"padded": 128, "ld-odd": s + 1}.get(case, s)  # 128: the emission kernel's layout
     if case == "ties":
         log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
-    elif case == "padded":  # the emission kernel's 128-column layout
-        log_b = 3 * torch.randn((b, t, 128), generator=gen, device=dev)
     else:
-        log_b = 3 * torch.randn((b, t, s), generator=gen, device=dev)
+        log_b = 3 * torch.randn((b, t, ld), generator=gen, device=dev)
     lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0] = 1  # a length-1 row
     _trellis_case(dev, comp, log_b, lengths)
+
+
+@pytest.mark.parametrize("penalty", [-0.0, 0.0])
+def test_trellis_zero_penalty_keeps_the_sign_of_zero(dev, penalty):
+    """Every transition and emission -0.0: exits tie at zeros, and with a
+    zero penalty the best exit's sign of zero reaches alpha, so the decode
+    kernel must take better()'s value, not a max's."""
+    comp = flagship_composite()
+    log_a = np.where(np.isfinite(comp.log_a), np.float32(-0.0), comp.log_a).astype(np.float32)
+    topo = (log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    coefs = pack_coefs(*topo, device=dev)
+    log_b = torch.full((8, 20, comp.num_states), -0.0, device=dev)
+    lengths = torch.full((8,), 20, dtype=torch.int32, device=dev)
+    got = tsf.scanfree_decode(log_b, coefs, penalty, lengths)
+    alpha, bp = tsf.trellis_forward(log_b, coefs, penalty, lengths)
+    want = viterbi_composite_batch_fast(log_b, *topo, penalty, lengths)
+    want_fwd = forward_fast(log_b, coefs, penalty, lengths)
+    torch.cuda.synchronize()
+    for g, w in zip((*got, alpha, bp), (*want, *want_fwd)):
+        assert torch.equal(g, w)
+    # torch.equal holds -0.0 == 0.0: compare the signs too.
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+    assert torch.equal(torch.signbit(alpha), torch.signbit(want_fwd[0]))
+
+
+def test_scanfree_decode_codes_branch_by_shape(dev):
+    """Shared-memory codes at the flagship (T = 201 and 1280), 98 states,
+    503 states at T = 201 and 5003 at T = 30; a global scratch of B * T code
+    rows (32 lanes * k states * W warps bytes each) and B * T int16 best
+    exits at 5003 states from T = 40, at T = 4000 with 58 states and at
+    T = 500 with 503."""
+    assert tsf.codes_scratch_bytes(512, 201, 58) == 0
+    assert tsf.codes_scratch_bytes(6, 1280, 58) == 0
+    assert tsf.codes_scratch_bytes(16, 201, 98) == 0
+    assert tsf.codes_scratch_bytes(16, 201, 503) == 0
+    assert tsf.codes_scratch_bytes(4, 30, 5003) == 0
+    assert tsf.codes_scratch_bytes(8, 201, 5003) == 8 * 201 * (5120 + 2)
+    assert tsf.codes_scratch_bytes(2, 60, 5003) == 2 * 60 * (5120 + 2)
+    assert tsf.codes_scratch_bytes(6, 4000, 58) == 6 * 4000 * (64 + 2)
+    assert tsf.codes_scratch_bytes(4, 500, 503) == 4 * 500 * (512 + 2)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -161,6 +161,7 @@ def test_trellis_wrappers_cpu_dispatch_is_plain():
     log_b = torch.as_tensor(rng.normal(size=(3, 7, comp.num_states)).astype(np.float32))
     lengths = torch.tensor([7, 5, 1], dtype=torch.int32)
     coefs = tsf.pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
-    before = (tsf.trellis_forward.launches, tsf.trellis_backtrace.launches)
+    counters = (tsf.scanfree_decode, tsf.trellis_forward, tsf.trellis_backtrace)
+    before = [c.launches for c in counters]
     tsf.scanfree_decode(log_b, coefs, comp.penalty, lengths)
-    assert (tsf.trellis_forward.launches, tsf.trellis_backtrace.launches) == before
+    assert [c.launches for c in counters] == before

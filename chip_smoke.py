@@ -30,28 +30,38 @@ Phases (each prints its own numbers; any failure exits non-zero):
               decode kernel against the chain it replaced (trellis_forward +
               first_max + trellis_backtrace), and µs per step of both forward
               modes
-  7. K3       banded training trellis vs its plain version: scores and full
-              paths exactly equal (the trainer's shape B=896, T=160, S=59 on
-              real gathered emissions; -inf sprinkling, integer ties, a
-              degenerate entry, length-0 rows, B=5 with T=1, S=503)
+  7. K3       the sentence topology of the scan-free team kernel vs its
+              plain versions: the decode mode (one launch) vs
+              _banded_trellis_batch (scores and full paths), the backpointer
+              mode vs banded_sentence_forward (alpha and bp), all exactly
+              equal (the trainer's shape B=896, T=160, S=59 on real gathered
+              emissions; -inf sprinkling, integer ties, a degenerate entry,
+              length-0 rows, B=5 with T=1, S=503, S=2100, T=4000); each logs
+              its codes branch and fails off it (global at T=4000)
   8. train    ContinuousTrainer(device="cuda") at full width (12 labels,
               D=39, 896 utterances of <= 150 frames) for 3 iterations with
-              the K3 trellis and again with the plain one: equal parameters
-              and iteration counts, K3 and K2-bt launched; ms per iteration
-              and its split by stage
+              the K3 decode mode and again with the plain trellis: equal
+              parameters and iteration counts, the decode mode launched and
+              neither the backpointer mode nor K2-bt; ms per iteration and
+              its split by stage
   9. pipeline synthetic corpus -> endpointing -> MFCC on the card ->
               batched k-means boot + silence model -> 4 embedded iterations
               -> ContinuousDecoder: exact-sequence accuracy >= 0.85 on the
               training speakers (the JAX package's own bar)
- 10. timing   K3 and K2-bt vs their plain versions at the trainer's shape
+ 10. timing   K3's decode and backpointer modes and K2-bt vs their plain
+              versions at the trainer's shape, and the chain the decode mode
+              replaced (backpointer mode + gather + K2-bt)
  11. K1-split the split emission kernel ("high": 3 bf16 wgmma passes,
               "default": 1) vs its plain version at phase 3's shapes but
               s_pad = 58, which it does not take (rtol 1e-4, atol 1e-3), each
               tier's max |delta| against K1; x2_mode "selmm" bitwise "concat"
- 12. K4       dense trellis vs dense_forward: alpha, backpointers, scores and
-              paths exactly equal (flagship emissions B=512, 503 states,
-              integer ties, B=5 with T=1, -inf sprinkled in trans at 58 and
-              300 states)
+ 12. K4       dense trellis vs dense_forward: alpha (signs of zero too),
+              backpointers, scores and paths exactly equal (flagship
+              emissions B=512, with length-0 and -1 rows, 503 states,
+              integer ties, B=5 with T=1, -inf sprinkled in trans at 58, 220,
+              300, 503 and 1000 states, B not a multiple of the utterances a
+              block or cluster carries, signed zeros); each case logs its
+              branch (block, cluster, streamed) and fails off it
  13. K5/K6    the fast / lanes wrappers bitwise forward_fast at S=58 (the
               backpointer-mode forward's launches)
  14. decode   ContinuousDecoder(backend="pallas") on the 512 clips: K1, K4
@@ -61,7 +71,8 @@ Phases (each prints its own numbers; any failure exits non-zero):
  15. tiers    the phase-9 models decoded with emissions="quad" at each tier:
               exact-sequence accuracy and agreement with "highest"; "high"
               >= 0.85 on the training speakers
- 16. timing   the emission kernels and K4 vs their plain versions, every
+ 16. timing   the emission kernels and K4 (58 and 503 states; 1000 logged)
+              vs their plain versions, every
               kernel's library call (the emission kernels': one GEMM on a
               materialized x2 and one on x2's symmetric half, the faster
               kept) and bound (folded count, the unfolded one beside it),
@@ -69,7 +80,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
               pallas+high paths
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (seven kernels, each with
+The line before the last is the kernels' JSON record (eight kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -84,6 +95,9 @@ import torch
 RTOL_K1, ATOL_K1 = 1e-4, 1e-3  # as tests/test_pallas_emission.py holds K1
 # Published H100 SXM peaks (NVIDIA data sheet).
 PEAK_FP32, PEAK_BF16, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# A max-plus add or compare is one FP32 instruction, not an FMA (which the
+# FP32 peak counts as two operations): half the peak's operation rate.
+PEAK_FP32_ALU = PEAK_FP32 / 2
 BATCH, SECONDS = 512, 1.5
 # The embedded trainer's corpus: benchmarks/train_bench.py's shape.
 TRAIN_TRANSCRIPTS = ["14", "27Z", "4Z2Z", "58361", "9O4738", "14Z9O72", "6O3"]
@@ -543,20 +557,30 @@ def train_phases(dev, launches, timings, errs):
         f"S_sent={s_sent} frames={corpus.num_frames}")
     k3_err = 0.0
 
-    def k3_check(name, log_b, c0, c1, c2, lengths, n_states):
+    def k3_check(name, log_b, c0, c1, c2, lengths, n_states, codes="shared"):
+        """The sentence decode mode against _banded_trellis_batch (scores and
+        full paths) and the backpointer mode against banded_sentence_forward
+        (alpha and bp): all bitwise. codes: where the decode mode must keep
+        its backpointer codes."""
         nonlocal k3_err
         got_s, got_p = tb.viterbi_banded_batch_scanfree(log_b, c0, c1, c2, lengths, n_states)
         want_s, want_p = tf._banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states)
+        alpha, bp = tb.banded_forward(log_b, c0, c1, c2, lengths)
+        want_a, want_bp = banded_sentence_forward(log_b, c0, c1, c2, lengths)
         torch.cuda.synchronize()
-        same_s, same_p = torch.equal(got_s, want_s), torch.equal(got_p, want_p)
+        same = {"scores": torch.equal(got_s, want_s), "paths": torch.equal(got_p, want_p),
+                "alpha": torch.equal(alpha, want_a), "bp": torch.equal(bp, want_bp)}
         both = torch.isfinite(got_s) & torch.isfinite(want_s)
         err = (got_s - want_s)[both].abs().max().item() if both.any() else 0.0
         k3_err = max(k3_err, err)
-        log("K3", case=name, B=log_b.shape[0], T=log_b.shape[1], S=log_b.shape[2],
-            scores_equal=same_s, paths_equal=same_p, max_abs_err=err,
-            neg_inf_scores=int((~torch.isfinite(got_s)).sum()))
-        if not (same_s and same_p):
-            raise SystemExit(f"K3 disagrees with _banded_trellis_batch ({name})")
+        b_k, t_k, s_k = log_b.shape
+        took = "shared" if tsf.codes_scratch_bytes(b_k, t_k, s_k) == 0 else "global"
+        log("K3", case=name, B=b_k, T=t_k, S=s_k, codes=took, equal=json.dumps(same),
+            max_abs_err=err, neg_inf_scores=int((~torch.isfinite(got_s)).sum()))
+        if not all(same.values()):
+            raise SystemExit(f"K3 disagrees with its plain version ({name})")
+        if took != codes:
+            raise SystemExit(f"K3 case {name} kept its codes in {took} memory, not {codes}")
 
     k3_check("training-shape", lb_sent, *diags, train_lengths, train_n_states)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -587,11 +611,14 @@ def train_phases(dev, launches, timings, errs):
     k3_check("length-0-rows", *problem(64, 100, 59, ties=True, zero_length=True))
     k3_check("B5-T1", *problem(5, 1, 59))
     k3_check("503-states", *problem(16, 160, 503))
+    # Teams of 9 warps, 8 states a lane; and codes in a global scratch.
+    k3_check("2100-states", *problem(4, 40, 2100))
+    k3_check("T=4000", *problem(6, 4000, 59), codes="global")
 
     # -- 8. full-width training, K3 vs plain trellis -------------------------
     cfg = ContinuousTrainConfig(max_iterations=3, silence_bootstrap=False,
                                 cov_reg=0.1, on_empty_state="keep")
-    counters = (tb.banded_forward, tsf.trellis_backtrace)
+    counters = (tb.banded_decode, tb.banded_forward, tsf.trellis_backtrace)
     runs = {}
     for backend in ("scanfree", "scan"):
         tf._TRELLIS_BACKEND = backend
@@ -609,10 +636,13 @@ def train_phases(dev, launches, timings, errs):
             empty_slots=len(trainer.last_empty_slots))
     tf._TRELLIS_BACKEND = "scanfree"
     (tr_k, it_k, train_launches), (tr_p, it_p, plain_launches) = runs["scanfree"], runs["scan"]
-    if not (train_launches["banded_forward"] > 0 and train_launches["trellis_backtrace"] > 0):
-        raise SystemExit(f"a kernel of the training path never launched: {train_launches}")
-    if plain_launches["banded_forward"] != 0:
-        raise SystemExit("the plain training trellis launched K3")
+    if train_launches["banded_decode"] == 0:
+        raise SystemExit(f"the training path never launched the decode mode: {train_launches}")
+    if train_launches["banded_forward"] or train_launches["trellis_backtrace"]:
+        raise SystemExit(f"the training path launched a trellis kernel besides the decode "
+                         f"mode: {train_launches}")
+    if any(plain_launches.values()):
+        raise SystemExit(f"the plain training trellis launched a kernel: {plain_launches}")
     same = {n: np.array_equal(getattr(tr_k, n), getattr(tr_p, n), equal_nan=True)
             for n in ("means_g", "covs_g", "log_a_g")}
     finite = all(np.isfinite(getattr(tr_k, n)).all() for n in ("means_g", "covs_g"))
@@ -738,29 +768,46 @@ def train_phases(dev, launches, timings, errs):
     log("pipeline", iterations=pipe_it, launches=json.dumps(pipe_launches),
         exact_seq_acc=json.dumps(acc), seconds_front_end=f"{t_front:.2f}",
         seconds_boot=f"{t_boot:.2f}", seconds_total=f"{time.perf_counter() - t0:.2f}")
-    if not all(n > 0 for n in pipe_launches.values()):
+    if pipe_launches["banded_decode"] == 0:
         raise SystemExit(f"the pipeline's training never launched a kernel: {pipe_launches}")
     if acc["train_speakers"] < ACC_BAR:
         raise SystemExit(f"exact-sequence accuracy {acc['train_speakers']} < {ACC_BAR}")
 
     # -- 10. K3 timing -------------------------------------------------------
+    # The decode mode (the training path's one launch), the backpointer mode,
+    # and the chain the decode mode replaced: the backpointer mode, K2-bt on
+    # its backpointers and the gather of the score.
     k3_args = (lb_sent, *diags, train_lengths)
+    final3 = tb.final_states(train_n_states, s_sent)
+    _alpha3, bp3 = tb.banded_forward(*k3_args)
+
+    def k3_chain():
+        alpha, bp = tb.banded_forward(*k3_args)
+        sc = alpha.gather(1, final3[:, None].to(torch.int64))[:, 0]
+        return sc, tsf.trellis_backtrace(bp, final3, train_lengths)
+
+    timings["trellis_banded_decode"] = (
+        device_ms(lambda: tb.banded_decode(*k3_args, final3)),
+        cuda_ms(lambda: tf._banded_trellis_batch(*k3_args, train_n_states), reps=3))
     timings["trellis_banded_forward"] = (
         device_ms(lambda: tb.banded_forward(*k3_args)),
         cuda_ms(lambda: banded_sentence_forward(*k3_args), reps=3))
-    log("timing", kernel="trellis_banded_forward", ms=timings["trellis_banded_forward"][0],
-        plain_ms=timings["trellis_banded_forward"][1],
-        shape=f"B={b_all} T={t_total} S={s_sent}")
-    launches["trellis_banded_forward"] = train_launches["banded_forward"]
-    errs["trellis_banded_forward"] = k3_err
-    # K2-bt at K3's shape: the trainer's backtrace.
-    _alpha3, bp3 = tb.banded_forward(*k3_args)
-    final3 = tb.final_states(train_n_states, s_sent)
     timings["trellis_backtrace_k3"] = (
         device_ms(lambda: tsf.trellis_backtrace(bp3, final3, train_lengths)),
         cuda_ms(lambda: backtrace_batch(bp3, final3, train_lengths), reps=3))
-    log("timing", kernel="trellis_backtrace_k3", ms=timings["trellis_backtrace_k3"][0],
-        plain_ms=timings["trellis_backtrace_k3"][1], shape=f"B={b_all} T={t_total} S={s_sent}")
+    chain3 = device_ms(k3_chain)
+    shape3 = f"B={b_all} T={t_total} S={s_sent}"
+    for name in ("trellis_banded_decode", "trellis_banded_forward", "trellis_backtrace_k3"):
+        log("timing", kernel=name, ms=timings[name][0], plain_ms=timings[name][1],
+            shape=shape3)
+    log("timing", chain="banded_forward+gather+trellis_backtrace", ms=chain3,
+        eager_decode_ms=cuda_ms(lambda: tb.banded_decode(*k3_args, final3)),
+        decode_mode_ms=timings["trellis_banded_decode"][0], shape=shape3)
+    # The training path no longer runs the backpointer mode: its count from
+    # phase 8 is 0.
+    launches["trellis_banded_decode"] = train_launches["banded_decode"]
+    launches["trellis_banded_forward"] = train_launches["banded_forward"]
+    errs["trellis_banded_decode"] = errs["trellis_banded_forward"] = k3_err
     return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args}
 
 
@@ -793,10 +840,13 @@ def emission_bound(n, d, s, s_pad, tier, folded=True):
 def dense_bound(b, t, s, lengths):
     """bound() of one dense trellis forward: log_b rows up to each length in,
     every backpointer out, trans, alpha0 and alpha; an add and a compare
-    per (step, predecessor, state)."""
+    per (step, predecessor, state) at PEAK_FP32_ALU, over the steps these
+    lengths need (the live ones and the first frozen one, whose backpointer
+    row every later row repeats)."""
     live = int(lengths.clamp(max=t).sum().item())
+    steps = int(((lengths.clamp(min=1) + 1).clamp(max=t) - 1).sum().item())
     return bound(4 * live * s + 4 * b * t * s + 4 * s * s + 8 * b * s + 4 * b,
-                 [(2 * b * (t - 1) * s * s, PEAK_FP32)])
+                 [(2 * steps * s * s, PEAK_FP32_ALU)])
 
 
 def slice_phases(dev, decode, pipe, launches, timings, errs):
@@ -867,7 +917,10 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     # -- 12. K4 vs plain ----------------------------------------------------
     k4_err = 0.0
 
-    def k4_check(name, log_b, lengths, composite=None, trans=None, alpha0=None):
+    def k4_check(name, branch, log_b, lengths, composite=None, trans=None, alpha0=None):
+        """K4 against dense_forward (alpha with its signs of zero, bp), and on
+        a composite the pallas decode against dense_decode: all bitwise.
+        branch: the kernel branch the case must take."""
         nonlocal k4_err
         if composite is not None:
             topo = (composite.log_a, composite.lower_of_state, composite.is_entry,
@@ -878,7 +931,8 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
                                  float("-inf"))
         got = tdn.trellis_dense_forward(log_b, trans, alpha0, lengths)
         want = dense_forward(log_b, trans, alpha0, lengths)
-        same = {"alpha": torch.equal(got[0], want[0]), "bp": torch.equal(got[1], want[1])}
+        same = {"alpha": torch.equal(got[0], want[0]), "bp": torch.equal(got[1], want[1]),
+                "alpha_sign": torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))}
         if composite is not None:
             got_d = tdn.dense_decode_pallas(log_b, trans, coefs, lengths)
             want_d = dense_decode(log_b, trans, coefs, lengths)
@@ -888,33 +942,65 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
         both = torch.isfinite(got[0]) & torch.isfinite(want[0])
         err = (got[0] - want[0])[both].abs().max().item() if both.any() else 0.0
         k4_err = max(k4_err, err)
+        took = tdn.trellis_dense_branch(trans.shape[0])
         log("K4", case=name, B=log_b.shape[0], T=log_b.shape[1], S=trans.shape[0],
-            equal=json.dumps(same), max_abs_err=err)
+            branch=took, equal=json.dumps(same), max_abs_err=err)
         if not all(same.values()):
             raise SystemExit(f"K4 disagrees with dense_forward ({name})")
+        if took != branch:
+            raise SystemExit(f"K4 case {name} took the {took} branch, not {branch}")
 
-    gen = torch.Generator(device=dev).manual_seed(11)
-    k4_check("flagship-emissions", decode["lb3"], decode["rand_len"], comp)
-    c503 = random_composite(100, 3)
-    k4_check("503-states", 3 * torch.randn((64, t_total, c503.num_states), generator=gen,
-                                           device=dev),
-             torch.randint(1, t_total + 1, (64,), generator=gen, device=dev,
-                           dtype=torch.int32), c503)
-    k4_check("integer-ties", torch.randint(-3, 1, (64, 40, s), generator=gen,
-                                           device=dev).float(),
-             torch.randint(1, 41, (64,), generator=gen, device=dev, dtype=torch.int32), comp)
-    k4_check("B5-T1", torch.randn((5, 1, s), generator=gen, device=dev),
-             torch.ones(5, dtype=torch.int32, device=dev), comp)
-    for s_r in (58, 300):  # trans in shared memory, and read from L2
-        trans = torch.randn((s_r, s_r), generator=gen, device=dev)
+    def rand_trans(s_r, b_r, t_r, zeros=False):
+        """A random trans with -inf sprinkled in and an all -inf column,
+        alpha0, integer log_b and lengths; zeros: every value a zero of
+        random sign."""
+        def zero(*shape):
+            return torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5, -0.0, 0.0)
+
+        if zeros:
+            trans, alpha0, lb = zero(s_r, s_r), zero(b_r, s_r), zero(b_r, t_r, s_r)
+        else:
+            trans = torch.randn((s_r, s_r), generator=gen, device=dev)
+            alpha0 = torch.randn((b_r, s_r), generator=gen, device=dev)
+            alpha0[torch.rand((b_r, s_r), generator=gen, device=dev) < 0.3] = float("-inf")
+            lb = torch.randint(-3, 1, (b_r, t_r, s_r), generator=gen, device=dev).float()
         trans[torch.rand((s_r, s_r), generator=gen, device=dev) < 0.4] = float("-inf")
         trans[:, 1] = float("-inf")
-        alpha0 = torch.randn((32, s_r), generator=gen, device=dev)
-        alpha0[torch.rand((32, s_r), generator=gen, device=dev) < 0.3] = float("-inf")
-        k4_check(f"inf-trans-{s_r}", torch.randint(-3, 1, (32, 60, s_r), generator=gen,
-                                                   device=dev).float(),
-                 torch.randint(1, 61, (32,), generator=gen, device=dev, dtype=torch.int32),
-                 trans=trans, alpha0=alpha0)
+        ln = torch.randint(1, t_r + 1, (b_r,), generator=gen, device=dev, dtype=torch.int32)
+        return lb, ln, trans, alpha0
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    k4_check("flagship-emissions", "block", decode["lb3"], decode["rand_len"], comp)
+    c503 = random_composite(100, 3)
+    k4_check("503-states", "cluster",
+             3 * torch.randn((64, t_total, c503.num_states), generator=gen, device=dev),
+             torch.randint(1, t_total + 1, (64,), generator=gen, device=dev,
+                           dtype=torch.int32), c503)
+    k4_check("integer-ties", "block", torch.randint(-3, 1, (64, 40, s), generator=gen,
+                                                    device=dev).float(),
+             torch.randint(1, 41, (64,), generator=gen, device=dev, dtype=torch.int32), comp)
+    k4_check("B5-T1", "block", torch.randn((5, 1, s), generator=gen, device=dev),
+             torch.ones(5, dtype=torch.int32, device=dev), comp)
+    short = decode["rand_len"].clone()
+    short[::5] = 1
+    short[1::11] = 0
+    k4_check("length-0-and-1-rows", "block", decode["lb3"], short, comp)
+    # Each branch on random trans: one CTA (58, and 220 near the edge of
+    # shared memory; 220 with B = 301, not a multiple of the utterances a
+    # block carries), a cluster (300, 503; 503 with B = 37 and at T = 1), a
+    # streamed slice (1000); signed zeros in the one-CTA and streamed ones.
+    for name, branch, s_r, b_r, t_r, zeros in (
+            ("inf-trans-58", "block", 58, 32, 60, False),
+            ("inf-trans-220", "block", 220, 32, 60, False),
+            ("220-ragged-B", "block", 220, 301, 12, False),
+            ("inf-trans-300", "cluster", 300, 32, 60, False),
+            ("503-ragged-B", "cluster", 503, 37, 40, False),
+            ("503-T1", "cluster", 503, 5, 1, False),
+            ("inf-trans-1000", "streamed", 1000, 8, 30, False),
+            ("zeros-58", "block", 58, 16, 30, True),
+            ("zeros-1000", "streamed", 1000, 3, 8, True)):
+        lb, ln, trans, alpha0 = rand_trans(s_r, b_r, t_r, zeros)
+        k4_check(name, branch, lb, ln, trans=trans, alpha0=alpha0)
     errs["trellis_dense_forward"] = k4_err
 
     # -- 13. K5 / K6 wrappers vs forward_fast --------------------------------
@@ -1034,19 +1120,24 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
             log("timing", bound=name, folded_ms=bounds[name][0], folded_by=bounds[name][1],
                 unfolded_ms=emission_bound(n_e, d, s_e, sp_e, tier, folded=False)[0])
 
-    # K4 at the flagship and at 503 states (B = 64).
+    # K4 at the flagship, at 503 states (B = 64; the cluster branch) and,
+    # logged only, at 1000 (B = 16; the streamed branch).
     lengths = decode["n_frames"]
     alpha0 = torch.where(dec_p._coefs[4] > 0, decode["lb3"][:, 0, :s] + dec_p._coefs[6],
                          float("-inf"))
     lb503 = 3 * torch.randn((64, t_total, c503.num_states), generator=gen, device=dev)
     t503 = composite_transition_matrix(c503.log_a, c503.lower_of_state, c503.is_entry,
                                        c503.is_exit, c503.penalty, device=dev)
+    lb1k, _ln, tr1k, a1k = rand_trans(1000, 16, t_total)
     k4_shapes = {
         "trellis_dense_forward": (decode["lb3"], dec_p._trans, alpha0, lengths),
         "trellis_dense_forward_503": (
             lb503, t503, torch.where(torch.as_tensor(c503.is_entry, device=dev),
                                      lb503[:, 0], float("-inf")),
             torch.full((64,), t_total, dtype=torch.int32, device=dev)),
+        "trellis_dense_forward_1000": (lb1k, tr1k, a1k,
+                                       torch.full((16,), t_total, dtype=torch.int32,
+                                                  device=dev)),
     }
     for name, args in k4_shapes.items():
         timings[name] = (device_ms(lambda: tdn.trellis_dense_forward(*args)),
@@ -1058,26 +1149,36 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     live = int(lengths.clamp(max=t_total).sum().item())
     bounds["trellis_forward"] = bound(4 * live * s + 4 * b * t_total * s
                                       + 4 * (b * s + 8 * s + b),
-                                      [(6 * b * (t_total - 1) * s, PEAK_FP32)])
+                                      [(6 * b * (t_total - 1) * s, PEAK_FP32_ALU)])
     bounds["trellis_backtrace"] = bound(4 * (live - b) + 4 * b * t_total + 8 * b)
     # Decode mode: the live log_b rows in, paths and scores out, coefficients
     # and lengths; the steps these lengths run.
     bounds["trellis_decode"] = bound(4 * live * s + 4 * b * t_total + 4 * b + 4 * 8 * s
-                                     + 4 * b, [(6 * (live - b) * s, PEAK_FP32)])
+                                     + 4 * b, [(6 * (live - b) * s, PEAK_FP32_ALU)])
     lb_k3, k3_lengths = pipe["k3_args"][0], pipe["k3_args"][-1]
     b3, t3, s3 = lb_k3.shape
     live3 = int(k3_lengths.clamp(max=t3).sum().item())
     bounds["trellis_backtrace_k3"] = bound(4 * (live3 - b3) + 4 * b3 * t3 + 8 * b3)
     bounds["trellis_banded_forward"] = bound(4 * live3 * s3 + 4 * b3 * t3 * s3 + 16 * b3 * s3
-                                             + 4 * b3, [(6 * b3 * (t3 - 1) * s3, PEAK_FP32)])
+                                             + 4 * b3,
+                                             [(6 * b3 * (t3 - 1) * s3, PEAK_FP32_ALU)])
+    # The sentence decode mode: the live log_b rows, the coefficient rows,
+    # lengths and final states in, paths and scores out; the steps these
+    # lengths run.
+    steps3 = int(k3_lengths.clamp(min=1, max=t3).sum().item()) - b3
+    bounds["trellis_banded_decode"] = bound(4 * live3 * s3 + 12 * b3 * s3 + 8 * b3
+                                            + 4 * b3 * t3 + 4 * b3,
+                                            [(6 * steps3 * s3, PEAK_FP32_ALU)])
     timings["emission_split"] = timings["emission_split_high"]
     library["emission_split"] = library["emission_split_high"]
     bounds["emission_split"] = bounds["emission_split_high"]
     yardsticks = {k: (library.get(k), *bounds[k]) for k in bounds}
     for name in ("emission", "emission_split_high", "emission_split_default", "emission_503",
                  "emission_split_high_503", "emission_split_default_503",
-                 "trellis_dense_forward", "trellis_dense_forward_503", "trellis_decode",
-                 "trellis_forward", "trellis_backtrace", "trellis_backtrace_k3"):
+                 "trellis_dense_forward", "trellis_dense_forward_503",
+                 "trellis_dense_forward_1000", "trellis_decode", "trellis_forward",
+                 "trellis_backtrace", "trellis_banded_decode", "trellis_banded_forward",
+                 "trellis_backtrace_k3"):
         ms, plain_ms = timings[name]
         lib_ms, b_ms, b_by = yardsticks[name]
         log("timing", kernel=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1112,7 +1213,10 @@ def report(kind, launches, timings, errs, yardsticks):
                             "cs304_tpu/ops/pallas/trellis_scanfree.py:55"),
         "trellis_backtrace": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
                               "cs304_tpu/ops/pallas/trellis_scanfree.py:121"),
-        "trellis_banded_forward": ("cs304_tpu_torch/csrc/trellis_banded.cu",
+        "trellis_banded_decode": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                                  "cs304_tpu/ops/pallas/trellis_banded.py:41 and "
+                                  "cs304_tpu/ops/pallas/trellis_scanfree.py:121"),
+        "trellis_banded_forward": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
                                    "cs304_tpu/ops/pallas/trellis_banded.py:41"),
         "trellis_dense_forward": ("cs304_tpu_torch/csrc/trellis_dense.cu",
                                   "cs304_tpu/ops/pallas/trellis.py:33"),

@@ -40,6 +40,20 @@
 //     takes the final best exit and walks the codes back into the path with
 //     the reference quirk. No backpointer tensor reaches device memory.
 //
+// The same template, with SENT, is the embedded trainer's sentence trellis
+// (K3), replacing cs304_tpu/ops/pallas/trellis_banded.py:
+// _forward_banded_kernel and its reuse of the backtrace kernel. Its plain
+// version is ops/viterbi.py:banded_sentence_forward (+ backtrace_batch from
+// max(n_states - 1, 0), models/train_fused.py:_banded_trellis_batch): the
+// non-entry step above with per-utterance coefficient rows (pointers with a
+// row stride of S, no packing copy), the value the winner's own; no entry or
+// exit state, so a step exchanges only the lane-boundary neighbours; t = 0 is
+// state 0 alone, log_b[b,0,0] + (isfinite(c0[b,0]) ? c0[b,0] : 0). Decode
+// mode returns the score alpha[final] and the walked path in one launch
+// (sentence_decode); backpointer mode gives alpha and bp (sentence_forward).
+// The inputs never hold +inf, so no candidate is NaN and no NaN handling is
+// needed.
+//
 // What bounds it on this card: the steps are sequential, so each utterance's
 // forward is a chain of dependent shuffles, adds and compares (latency);
 // bytes are the live emission rows read once, plus the backpointers written
@@ -47,7 +61,7 @@
 // warp-wide reductions: no barrier at S <= 128, no load on the chain,
 // coefficients loaded once.
 //
-// trellis_backtrace_kernel is K2-bt (the backtrace of K3 and K4): one warp
+// trellis_backtrace_kernel is K2-bt (the backtrace of K4): one warp
 // per utterance stages the backpointer rows it will walk into shared memory
 // in tiles of R time steps, walking backwards (16-byte cp.async inside a
 // tile, 4-byte at an unaligned head or tail), with the next (earlier) tile
@@ -175,7 +189,11 @@ Plan make_plan(int T, int S, bool decode) {
 
 struct TeamArgs {
   const float* log_b;
-  const float* coefs;
+  const float* coefs;        // composite topology
+  const float* c0;           // sentence topology: (B, S) self, prev, skip
+  const float* c1;
+  const float* c2;
+  const int* final_state;    // sentence decode: (B,) start of the walk
   const int* lengths;
   float penalty;
   float* alpha_out;          // backpointer mode
@@ -195,9 +213,12 @@ struct TeamArgs {
 // MODE: backpointer mode, or decode mode with its codes in shared or in
 // global memory (a compile-time choice, so that code loads and stores are
 // shared-memory instructions where they can be).
+// SENT: the sentence topology (K3) instead of the composite one: per-utterance
+// c0/c1/c2 rows, no entry or exit state (so no exit reduction at all), t = 0
+// seeded at state 0 alone, and the walk started from a given final state.
 enum { BACKPOINTERS = 0, DECODE_SHARED = 1, DECODE_GLOBAL = 2 };
 
-template <int K, int MODE>
+template <int K, int MODE, bool SENT>
 __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     trellis_team_kernel(const TeamArgs p) {
   constexpr bool DECODE = MODE != BACKPOINTERS;
@@ -242,13 +263,22 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     a[k] = neg;
     dg[k] = s1[k] = s2[k] = neg;
     if (j < S) {
-      const bool e = p.coefs[4 * S + j] > 0.f;
-      entry_m |= (unsigned)e << k;
-      exit_m |= (unsigned)(p.coefs[5 * S + j] > 0.f) << k;
-      dg[k] = e ? p.coefs[3 * S + j] : p.coefs[j];
-      s1[k] = p.coefs[S + j];
-      s2[k] = p.coefs[2 * S + j];
-      if (e) a[k] = lb_b[j] + p.coefs[6 * S + j];
+      if constexpr (SENT) {
+        const size_t r = (size_t)b * S + j;
+        dg[k] = p.c0[r];
+        s1[k] = p.c1[r];
+        s2[k] = p.c2[r];
+        // t = 0: state 0 alone, a non-finite self-loop counting as 0.
+        if (j == 0) a[k] = lb_b[0] + (isfinite(dg[k]) ? dg[k] : 0.f);
+      } else {
+        const bool e = p.coefs[4 * S + j] > 0.f;
+        entry_m |= (unsigned)e << k;
+        exit_m |= (unsigned)(p.coefs[5 * S + j] > 0.f) << k;
+        dg[k] = e ? p.coefs[3 * S + j] : p.coefs[j];
+        s1[k] = p.coefs[S + j];
+        s2[k] = p.coefs[2 * S + j];
+        if (e) a[k] = lb_b[j] + p.coefs[6 * S + j];
+      }
       if (!DECODE) p.bp[(size_t)b * T * S + j] = -1;
     }
   }
@@ -342,14 +372,35 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     bi = vmax > neg ? wi : 0;
   };
 
+  // The sentence step's only exchange: each lane's j0-1 / j0-2 neighbours
+  // (a lane-31 boundary through shared memory and the named barrier past one
+  // warp).
+  auto neighbours = [&](int parity, float& u1, float& u2) {
+    u1 = __shfl_up_sync(FULL, a[K - 1], 1);
+    u2 = __shfl_up_sync(FULL, a[K - 2], 1);
+    if (one_warp) {
+      if (lane == 0) u1 = u2 = neg;
+    } else {
+      if (lane == 31) bnd[parity][tw] = make_float2(a[K - 1], a[K - 2]);
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+      if (lane == 0) {
+        const float2 q = tw > 0 ? bnd[parity][tw - 1] : make_float2(neg, neg);
+        u1 = q.x;
+        u2 = q.y;
+      }
+    }
+  };
+
   // One step: code c in {0, 1, 2} is the predecessor max(j - c, 0), 3 the
   // step's best exit; decode mode stores the codes and the exit's index,
   // backpointer mode the int32 backpointers they stand for.
   auto step = [&](int t, const float* lbv, auto value_only) {
     const bool live = DECODE || t < length;
-    float bv, u1, u2;
-    int bi;
-    if constexpr (decltype(value_only)::value) {
+    float bv = neg, u1, u2;
+    int bi = 0;
+    if constexpr (SENT) {
+      neighbours(t & 1, u1, u2);
+    } else if constexpr (decltype(value_only)::value) {
       warp_exit(bv, bi, u1, u2);
     } else {
       team_best(t & 1, bv, bi, u1, u2);
@@ -364,7 +415,19 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       const float a1 = k >= 1 ? a[k - 1] : u1;
       const float a2 = k >= 2 ? a[k - 2] : (k == 1 ? u1 : u2);
       float val;
-      if ((entry_m >> k) & 1u) {
+      if (SENT) {
+        // The plain version starts from skip-2 and replaces on a strict >:
+        // the same codes as below, and the value is the winner's own (a max
+        // could fold -0 into +0).
+        const float c0 = a0 + dg[k];
+        const float c1 = a1 + s1[k];
+        const float c2 = a2 + s2[k];
+        const bool one = c1 >= c0;
+        const float w12 = one ? c1 : c0;
+        const bool two = c2 >= w12;
+        val = two ? c2 : w12;
+        code[k] = two ? 2 : (one ? 1 : 0);
+      } else if ((entry_m >> k) & 1u) {
         const float c_self = a0 + dg[k];
         val = fmaxf(c_pen, c_self);
         code[k] = c_pen >= c_self ? 3 : 0;
@@ -388,7 +451,7 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       if (K == 2) *(unsigned short*)c_t = (unsigned short)packed;
       if (K == 4) *(unsigned*)c_t = (unsigned)packed;
       if (K == 8) *(unsigned long long*)c_t = packed;
-      if (tt == 0) bex[t] = (short)bi;
+      if (!SENT && tt == 0) bex[t] = (short)bi;
     } else {
       int* bp_t = p.bp + ((size_t)b * T + t) * S;
 #pragma unroll
@@ -409,7 +472,7 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       }
     }
   };
-  if (one_warp && p.penalty != 0.f) {
+  if (!SENT && one_warp && p.penalty != 0.f) {
     run(std::true_type{});
   } else {
     run(std::false_type{});
@@ -422,15 +485,29 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     return;
   }
 
-  // Decode epilogue: the final best exit (its sync publishes the codes),
-  // then the walk.
-  float best_v, u1, u2;
+  // Decode epilogue: the walk's start (the final best exit, or the sentence's
+  // given final state and its alpha from the lane that owns it) behind a
+  // sync that publishes the codes, then the walk.
+  float best_v = neg;
   int best;
-  team_best(t_end & 1, best_v, best, u1, u2);
+  if constexpr (SENT) {
+    if (one_warp) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+    }
+    best = p.final_state[b];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (j0 + k == best) p.scores[b] = a[k];
+  } else {
+    float u1, u2;
+    team_best(t_end & 1, best_v, best, u1, u2);
+  }
   int* path = p.paths + (size_t)b * T;
   for (int t = max(length, 1) + tt; t < T; t += nt) path[t] = best;
   if (tt != 0) return;
-  p.scores[b] = best_v;
+  if (!SENT) p.scores[b] = best_v;
   const int second = min(max(length - 2, 0), T - 1);
   int state = best;
   int at_second = best;
@@ -506,33 +583,49 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
-template <int K, int MODE>
+template <int K, int MODE, bool SENT>
 int launch_team(const Plan& pl, TeamArgs a, cudaStream_t stream) {
   a.w = pl.w;
   a.u = pl.u;
   a.row_bytes = pl.row_bytes;
   a.team_bytes = pl.team_bytes;
   const size_t smem = (size_t)pl.u * pl.team_bytes;
-  const int err = set_smem((const void*)trellis_team_kernel<K, MODE>, smem);
+  const int err = set_smem((const void*)trellis_team_kernel<K, MODE, SENT>, smem);
   if (err) return err;
   const int threads = 32 * (pl.w == 1 ? pl.u : pl.w);
   const int blocks = (a.B + pl.u - 1) / pl.u;
-  trellis_team_kernel<K, MODE><<<blocks, threads, smem, stream>>>(a);
+  trellis_team_kernel<K, MODE, SENT><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, bool SENT>
 int launch_k(const Plan& pl, TeamArgs a, cudaStream_t stream) {
-  if (pl.k == 2) return launch_team<2, MODE>(pl, a, stream);
-  if (pl.k == 4) return launch_team<4, MODE>(pl, a, stream);
-  return launch_team<8, MODE>(pl, a, stream);
+  if (pl.k == 2) return launch_team<2, MODE, SENT>(pl, a, stream);
+  if (pl.k == 4) return launch_team<4, MODE, SENT>(pl, a, stream);
+  return launch_team<8, MODE, SENT>(pl, a, stream);
 }
 
+template <bool SENT>
 int launch_forward(TeamArgs a, bool decode, cudaStream_t stream) {
   const Plan pl = make_plan(a.T, a.S, decode);
-  if (!decode) return launch_k<BACKPOINTERS>(pl, a, stream);
-  if (pl.codes_shared) return launch_k<DECODE_SHARED>(pl, a, stream);
-  return launch_k<DECODE_GLOBAL>(pl, a, stream);
+  if (!decode) return launch_k<BACKPOINTERS, SENT>(pl, a, stream);
+  if (pl.codes_shared) return launch_k<DECODE_SHARED, SENT>(pl, a, stream);
+  return launch_k<DECODE_GLOBAL, SENT>(pl, a, stream);
+}
+
+TeamArgs sentence_args(const void* log_b, const void* c0, const void* c1,
+                       const void* c2, const void* lengths, int B, int T, int S) {
+  TeamArgs a = {};
+  a.log_b = (const float*)log_b;
+  a.c0 = (const float*)c0;
+  a.c1 = (const float*)c1;
+  a.c2 = (const float*)c2;
+  a.lengths = (const int*)lengths;
+  a.B = B;
+  a.T = T;
+  a.S = S;
+  a.ld = S;
+  return a;
 }
 
 }  // namespace
@@ -551,7 +644,7 @@ extern "C" int cs304_trellis_forward(
   a.T = T;
   a.S = S;
   a.ld = ld;
-  return launch_forward(a, false, (cudaStream_t)stream);
+  return launch_forward<false>(a, false, (cudaStream_t)stream);
 }
 
 // Bytes of global scratch the decode kernel needs for its codes at this
@@ -579,7 +672,35 @@ extern "C" int cs304_trellis_decode(
   a.S = S;
   a.ld = ld;
   a.quirk = quirk;
-  return launch_forward(a, true, (cudaStream_t)stream);
+  return launch_forward<false>(a, true, (cudaStream_t)stream);
+}
+
+// The sentence topology (K3). log_b (B, T, S) f32; c0/c1/c2 (B, S) f32
+// destination-indexed self/prev/skip log transitions; lengths (B,) i32.
+// Backpointer mode -> alpha (B, S) f32, bp (B, T, S) i32 with row 0 = -1.
+extern "C" int cs304_trellis_sentence_forward(
+    const void* log_b, const void* c0, const void* c1, const void* c2,
+    const void* lengths, void* alpha, void* bp, int B, int T, int S, void* stream) {
+  TeamArgs a = sentence_args(log_b, c0, c1, c2, lengths, B, T, S);
+  a.alpha_out = (float*)alpha;
+  a.bp = (int*)bp;
+  return launch_forward<true>(a, false, (cudaStream_t)stream);
+}
+
+// Decode mode: final (B,) i32 in [0, S) -> scores (B,) = alpha[final],
+// paths (B, T) i32 walked from final with the reference quirk; scratch as
+// cs304_trellis_decode_scratch_bytes(B, T, S) says (null where it is 0).
+extern "C" int cs304_trellis_sentence_decode(
+    const void* log_b, const void* c0, const void* c1, const void* c2,
+    const void* lengths, const void* final_state, void* scores, void* paths,
+    void* scratch, int B, int T, int S, void* stream) {
+  TeamArgs a = sentence_args(log_b, c0, c1, c2, lengths, B, T, S);
+  a.final_state = (const int*)final_state;
+  a.scores = (float*)scores;
+  a.paths = (int*)paths;
+  a.codes_g = (unsigned char*)scratch;
+  a.quirk = 1;
+  return launch_forward<true>(a, true, (cudaStream_t)stream);
 }
 
 extern "C" int cs304_trellis_backtrace(

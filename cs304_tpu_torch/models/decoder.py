@@ -62,6 +62,7 @@ class ContinuousDecoder:
         sort_labels: bool = True,
         backend: str = "auto",
         bigram=None,
+        lm_weight: float = 1.0,
         beam: float | None = None,
         emissions: str = "whiten",
         emission_precision: str = "highest",
@@ -101,6 +102,9 @@ class ContinuousDecoder:
         self.backend = backend
         self.emissions = emissions
         self.emission_precision = emission_precision
+        # The bigram LM's weight: stored, and with no bigram it changes
+        # nothing (as in the JAX decoder).
+        self._lm_weight = lm_weight
         self.composite = stack_word_models(models, penalty)
         if backend in ("scanfree", "pallas") and self.composite.num_states > MAX_STATES:
             raise ValueError(
@@ -291,15 +295,18 @@ class ContinuousDecoder:
                 out[i] = texts[row]
         return out
 
-    def viterbi_batch(self, features: Sequence[np.ndarray]):
-        """Returns (scores (B,), paths (B, T) np.int32, lengths (B,)), paths
-        padded to the longest bucket; each 128-frame length bucket is one
-        device batch."""
+    def viterbi_batch(self, features: Sequence[np.ndarray], bucket: bool = True):
+        """Returns (scores (B,), paths (B, T) np.int32, lengths (B,)).
+        bucket=True decodes each 128-frame length bucket as its own device
+        batch, paths padded to the longest bucket; bucket=False (or a single
+        utterance, or a single bucket) decodes the whole list as one
+        128-padded batch."""
         padded_all = pad_batch([np.asarray(f) for f in features], 128)
         b = len(features)
         scores = np.zeros(b, np.float32)
         paths = np.zeros((b, padded_all.data.shape[1]), np.int32)
-        for idx in self._buckets(features):
+        groups = self._buckets(features) if bucket else [list(range(b))]
+        for idx in groups:
             padded = pad_batch([np.asarray(features[i]) for i in idx], 128)
             s_k, p_k = self.decode(*self._to_device(padded))
             scores[idx] = s_k.cpu().numpy()

@@ -13,8 +13,9 @@ reference hidden_markov_model.py:584-797):
     per sentence state;
   - the sentence trellis is purely banded (left-to-right skip-2; cross-word
     exit->entry edges are adjacent states, so they live inside the band) and
-    runs over the WHOLE utterance batch at once: on a card the banded CUDA
-    kernel (ops/cuda/trellis_banded.py, K3) with K2's backtrace;
+    runs over the WHOLE utterance batch at once: on a card one launch of the
+    sentence decode mode of the scan-free team kernel (ops/cuda/
+    trellis_banded.py, K3: forward, score and backtrace in one kernel);
   - the statistics use the hard Viterbi assignment: each frame belongs to
     exactly one (label, state) slot, so counts are integer histograms, sums
     one (slots, frames) x (frames, D) matmul, and the covariance pass centers
@@ -52,16 +53,16 @@ logger = logging.getLogger(__name__)
 
 NEG = float("-inf")
 
-# The training trellis: "scanfree" (default) runs the banded CUDA kernel on
-# a card (ops/cuda/trellis_banded.py; its plain version on the CPU), "scan"
+# The training trellis: "scanfree" (default) runs the sentence decode kernel
+# on a card (ops/cuda/trellis_banded.py; its plain version on the CPU), "scan"
 # the plain PyTorch loop. The JAX package defaults to its XLA scan because
 # compiling its Pallas kernel inside a while loop took many minutes through
 # a remote TPU compiler and gained little over an already-fused scan.
 # Neither holds here: nvcc builds the kernel in seconds, and the plain
 # trellis is a Python loop of ~12 small launches per frame (at 896
-# utterances x 160 frames x 59 states it took 26.8 ms against 0.106 ms for
-# the kernel on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). Both give
-# bitwise the same paths.
+# utterances x 160 frames x 59 states it takes tens of ms against a few
+# hundredths of a ms for the kernel on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md). Both give bitwise the same paths.
 _TRELLIS_BACKEND = "scanfree"
 
 

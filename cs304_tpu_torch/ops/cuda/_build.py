@@ -104,10 +104,14 @@ def load():
         lib.cs304_trellis_decode_scratch_bytes.restype = ctypes.c_longlong
         lib.cs304_trellis_backtrace.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.cs304_trellis_backtrace.restype = i
-        lib.cs304_trellis_banded_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-        lib.cs304_trellis_banded_forward.restype = i
+        lib.cs304_trellis_sentence_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_sentence_forward.restype = i
+        lib.cs304_trellis_sentence_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_sentence_decode.restype = i
         lib.cs304_trellis_dense_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.cs304_trellis_dense_forward.restype = i
+        lib.cs304_trellis_dense_branch.argtypes = [i]
+        lib.cs304_trellis_dense_branch.restype = i
         lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.cs304_emission_split.restype = i
         lib.cs304_error_string.argtypes = [i]

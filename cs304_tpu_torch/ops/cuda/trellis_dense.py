@@ -1,6 +1,8 @@
 """Dense composite Viterbi (the decoder's "pallas" backend): wrapper of the
 CUDA forward kernel (csrc/trellis_dense.cu), decoded with K2's backtrace
-kernel.
+kernel. The kernel shares trans between the utterances of a block (S up to
+~240), of a thread block cluster (S up to 512), or streams each CTA's slice
+of it from L2 (past 512); trellis_dense_branch(S) says which.
 
 Replaces cs304_tpu/ops/pallas/trellis.py (_forward_kernel,
 viterbi_forward_pallas) and cs304_tpu/ops/viterbi.py:
@@ -22,7 +24,18 @@ from ..viterbi import composite_transition_matrix, dense_decode, dense_forward, 
 from . import _build
 from .trellis_scanfree import MAX_STATES, _check_cuda, trellis_backtrace
 
-__all__ = ["MAX_STATES", "trellis_dense_forward", "viterbi_composite_batch_pallas"]
+__all__ = ["MAX_STATES", "trellis_dense_branch", "trellis_dense_forward",
+           "viterbi_composite_batch_pallas"]
+
+BRANCHES = ("block", "cluster", "streamed")
+
+
+def trellis_dense_branch(s: int) -> str:
+    """The dense kernel's branch at s states: "block" (trans resident in one
+    CTA's shared memory), "cluster" (a column slice resident in each CTA of
+    a thread block cluster) or "streamed" (each CTA's slice read from L2
+    every step). The kernel's launch plan decides."""
+    return BRANCHES[_build.load().cs304_trellis_dense_branch(int(s))]
 
 
 def trellis_dense_forward(log_b, trans, alpha0, lengths):

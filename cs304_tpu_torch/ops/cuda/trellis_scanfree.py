@@ -12,7 +12,7 @@ backtrace_batch).
   is their plain specification).
 - trellis_forward is the forward in backpointer mode: alpha and int32
   backpointers, for the K5/K6 wrappers and the tests.
-- trellis_backtrace walks int32 backpointers: K3's and K4's backtrace.
+- trellis_backtrace walks int32 backpointers: K4's backtrace.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. The kernels take every B >= 1, T >= 1 and

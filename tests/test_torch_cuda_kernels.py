@@ -5,10 +5,14 @@ Pallas kernel; both run the folded operand, the plain versions the unfolded
 one; N = 1, N off the frame tile, D = 1 and D = 64 included), the scan-free
 trellis (the decode-mode kernel, the backpointer-mode forward and K2-bt;
 T = 1280, an odd row stride, 98 and 5003 states, and the global-codes
-branch at T = 4000 and at 503 states included), the banded training
-trellis (backtraced by K2-bt at the trainer's shape) and
-the dense trellis (scores, full paths, alphas and backpointers bitwise
-equal, ties, length-0 rows and T=1 included), and the K5/K6 wrappers.
+branch at T = 4000 and at 503 states included), the sentence topology of
+the same kernel (the training path: ONE decode-mode launch, no
+backpointer-mode launch and no K2-bt; its backpointer mode; 2100 states and
+a global-codes T included), the dense trellis on each of its branches
+(trans resident in one CTA, in a cluster's CTAs, or streamed; B not a
+multiple of the utterances a block or cluster carries, T = 1, length-0 and
+-1 rows, signed zeros; scores, full paths, alphas with their signs of zero
+and backpointers bitwise equal), and the K5/K6 wrappers.
 
 These are chip_smoke.py's phases 3-4, 7 and 11-13 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
@@ -36,6 +40,7 @@ from cs304_tpu_torch.ops.cuda import trellis_lanes as tlanes
 from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
 from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf_quad, make_gaussian_quad_params
 from cs304_tpu_torch.ops.viterbi import (
+    banded_sentence_forward,
     dense_forward,
     first_max,
     forward_fast,
@@ -152,21 +157,31 @@ BANDED = {  # case -> (B, T, S, options); "training" is the trainer's shape
     "banded-zero-length": (33, 50, 59, {"zero_length": True, "ties": True}),
     "banded-t1": (5, 1, 59, {}),
     "banded-503": (8, 40, 503, {}),
+    "banded-2100": (4, 40, 2100, {}),  # teams of 9 warps, 8 states a lane
+    "banded-t4000": (6, 4000, 59, {}),  # codes in a global scratch
 }
 
 
 def _banded_case(dev, case):
+    """The sentence trellis: the training path is ONE launch of the decode
+    mode (no backpointer-mode launch, no K2-bt), bitwise
+    _banded_trellis_batch; the backpointer mode is bitwise
+    banded_sentence_forward."""
     gen = torch.Generator(device=dev).manual_seed(1)
     b, t, s, opts = BANDED[case]
     prob = banded_problem(gen, b, t, s, **opts)
-    before = (tb.banded_forward.launches, tsf.trellis_backtrace.launches)
+    assert (tsf.codes_scratch_bytes(b, t, s) > 0) == (case == "banded-t4000")
+    counters = (tb.banded_decode, tb.banded_forward, tsf.trellis_backtrace)
+    before = [c.launches for c in counters]
     got = tb.viterbi_banded_batch_scanfree(*prob)
-    assert (tb.banded_forward.launches, tsf.trellis_backtrace.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 0, 0]
     want = _banded_trellis_batch(*prob)
+    alpha, bp = tb.banded_forward(*prob[:5])
+    want_fwd = banded_sentence_forward(*prob[:5])
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for g, w in zip((*got, alpha, bp), (*want, *want_fwd)):
         assert torch.equal(g, w)
+    assert torch.equal(torch.signbit(alpha), torch.signbit(want_fwd[0]))
 
 
 # Cases whose decode codes go to a global scratch: T = 4000 at 58 states
@@ -322,31 +337,76 @@ def test_split_emission_kernel_matches_plain(dev, precision, num_words, n, d):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["flagship", "503", "ties", "inf-trans", "b5-t1",
-                                  "padded", "wide-trans"])
-def test_dense_trellis_is_bitwise_plain(dev, case):
-    gen = torch.Generator(device=dev).manual_seed(4)
-    if case in ("inf-trans", "wide-trans"):
-        # A random trans with -inf sprinkled in, staged in shared memory up
-        # to ~230 states and read from L2 past that.
-        s = 64 if case == "inf-trans" else 300
-        b, t = 17, 30
+# The dense kernel's branch by state count: trans resident in one CTA up to
+# 240 states, a 64-column slice resident in each CTA of a cluster up to 512,
+# each CTA's slice streamed from L2 past that.
+DENSE_BRANCH = {1: "block", 58: "block", 64: "block", 220: "block", 240: "block",
+                241: "cluster", 300: "cluster", 503: "cluster", 512: "cluster",
+                513: "streamed", 1000: "streamed", 8192: "streamed"}
+
+# case -> (S, B, T, options): random trans with -inf sprinkled in and an all
+# -inf column; "ragged": B not a multiple of the utterances a block or
+# cluster carries; "short": rows of length 0 and 1; "zeros": every value a
+# zero of random sign.
+DENSE_RANDOM = {
+    "inf-trans": (64, 17, 30, {}),
+    "s220": (220, 17, 30, {}),
+    "s220-ragged": (220, 301, 8, {}),
+    "wide-trans": (300, 17, 30, {}),
+    "s503-ragged": (503, 37, 20, {}),
+    "s503-t1": (503, 5, 1, {}),
+    "s1000": (1000, 5, 20, {}),
+    "s58-short": (58, 40, 30, {"short": True}),
+    "s58-zeros": (58, 9, 20, {"zeros": True}),
+    "s1000-zeros": (1000, 3, 6, {"zeros": True}),
+}
+
+
+def _dense_random_case(dev, case):
+    s, b, t, opts = DENSE_RANDOM[case]
+    gen = torch.Generator(device=dev).manual_seed(s + b)
+
+    def zeros(*shape):
+        sign = torch.rand(shape, generator=gen, device=dev) < 0.5
+        return torch.where(sign, -0.0, 0.0)
+
+    if opts.get("zeros"):
+        trans, alpha0, log_b = zeros(s, s), zeros(b, s), zeros(b, t, s)
+    else:
         trans = torch.randn((s, s), generator=gen, device=dev)
-        trans[torch.rand((s, s), generator=gen, device=dev) < 0.4] = float("-inf")
-        trans[:, 1] = float("-inf")
         alpha0 = torch.randn((b, s), generator=gen, device=dev)
         alpha0[torch.rand((b, s), generator=gen, device=dev) < 0.3] = float("-inf")
         log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
-        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
-                                dtype=torch.int32)
-        before = tdn.trellis_dense_forward.launches
-        got = tdn.trellis_dense_forward(log_b, trans, alpha0, lengths)
-        assert tdn.trellis_dense_forward.launches == before + 1
-        want = dense_forward(log_b, trans, alpha0, lengths)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+    trans[torch.rand((s, s), generator=gen, device=dev) < 0.4] = float("-inf")
+    trans[:, min(1, s - 1)] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    if opts.get("short"):
+        lengths[::3] = 1
+        lengths[1::7] = 0
+    before = tdn.trellis_dense_forward.launches
+    got = tdn.trellis_dense_forward(log_b, trans, alpha0, lengths)
+    assert tdn.trellis_dense_forward.launches == before + 1
+    want = dense_forward(log_b, trans, alpha0, lengths)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+
+
+def test_dense_trellis_branch_by_states(dev):
+    assert {s: tdn.trellis_dense_branch(s) for s in DENSE_BRANCH} == DENSE_BRANCH
+
+
+@pytest.mark.parametrize("case", ["flagship", "503", "ties", "b5-t1", "padded",
+                                  *DENSE_RANDOM])
+def test_dense_trellis_is_bitwise_plain(dev, case):
+    if case in DENSE_RANDOM:
+        s = DENSE_RANDOM[case][0]
+        assert tdn.trellis_dense_branch(s) == DENSE_BRANCH.get(
+            s, "block" if s <= 240 else "cluster" if s <= 512 else "streamed")
+        _dense_random_case(dev, case)
         return
+    gen = torch.Generator(device=dev).manual_seed(4)
     comp = _composite(100) if case == "503" else flagship_composite()
     s = comp.num_states
     b, t = {"b5-t1": (5, 1), "503": (8, 40)}.get(case, (33, 50))
@@ -366,6 +426,31 @@ def test_dense_trellis_is_bitwise_plain(dev, case):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_sentence_trellis_keeps_the_sign_of_zero(dev):
+    """Every coefficient and emission a zero of random sign: candidates tie
+    at zeros, and the sentence kernel must take the winner's value, not a
+    max's."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, t, s = 12, 30, 59
+    sign = lambda *sh: torch.rand(sh, generator=gen, device=dev) < 0.5  # noqa: E731
+    zeros = lambda *sh: torch.where(sign(*sh), -0.0, 0.0)  # noqa: E731
+    c0, c1, c2 = zeros(b, s), zeros(b, s), zeros(b, s)
+    c1[:, :1] = float("-inf")
+    c2[:, :2] = float("-inf")
+    log_b = zeros(b, t, s)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    n_states = torch.full((b,), s, dtype=torch.int32, device=dev)
+    alpha, bp = tb.banded_forward(log_b, c0, c1, c2, lengths)
+    got = tb.viterbi_banded_batch_scanfree(log_b, c0, c1, c2, lengths, n_states)
+    want_fwd = banded_sentence_forward(log_b, c0, c1, c2, lengths)
+    want = _banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states)
+    torch.cuda.synchronize()
+    for g, w in zip((alpha, bp, *got), (*want_fwd, *want)):
+        assert torch.equal(g, w)
+    assert torch.equal(torch.signbit(alpha), torch.signbit(want_fwd[0]))
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
 
 
 @pytest.mark.parametrize("wrapper", ["fast", "lanes"])

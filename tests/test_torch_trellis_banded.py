@@ -100,7 +100,8 @@ def test_plain_banded_trellis_matches_interpret_pallas(case):
 def test_training_trellis_backends_agree_and_count_no_cpu_launch():
     rng = np.random.default_rng(5)
     prob = _torch(_random_problem(rng, quantize=True))
-    before = tb.banded_forward.launches
+    counters = (tb.banded_decode, tb.banded_forward)
+    before = [c.launches for c in counters]
     saved = tf._TRELLIS_BACKEND
     try:
         assert saved == "scanfree"  # the port's default
@@ -113,8 +114,8 @@ def test_training_trellis_backends_agree_and_count_no_cpu_launch():
     finally:
         tf._TRELLIS_BACKEND = saved
     assert torch.equal(got_k[0], got_s[0]) and torch.equal(got_k[1], got_s[1])
-    # CPU tensors run the plain version: the kernel's counter does not move.
-    assert tb.banded_forward.launches == before
+    # CPU tensors run the plain version: the kernels' counters do not move.
+    assert [c.launches for c in counters] == before
 
 
 def test_wrapper_rejects_n_states_past_the_trellis():

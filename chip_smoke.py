@@ -78,9 +78,32 @@ Phases (each prints its own numbers; any failure exits non-zero):
               kept) and bound (folded count, the unfolded one beside it),
               end-to-end ms per batch of the scan-free, pallas, high and
               pallas+high paths
+ 17. stream   the stream mode of the scan-free team kernel (the serving
+              pool's banded step) bitwise _advance_compact on CPU copies
+              (alpha with its signs of zero, the ring): 58 states with the
+              int8 ring, 503 and 5003 with int32, staggered starts, chunks of
+              1-32 frames, idle and recycled slots, compact and dense rows, a
+              zero penalty, integer ties; the dense step through K4 bitwise
+              _advance; K2-bt on int8 and int32 ring slices bitwise
+              backtrace_batch; device times at streaming_bench.py's shapes
+              (128 / 512 / 1024 slots, chunk 16, 58 states) and 256 slots at
+              503; whole banded pools on the card at 58 and 503 states give
+              the CPU pools' texts and launch the stream mode and K2-bt;
+              real-time streams of both step_impls, and a torch.profiler
+              trace of one pool step of each
+ 18. serving  ServingSessionPool(device="cuda") on phase 9's models with
+              serving_bench.py's traffic (64 sessions of 3 s, 100 ms feeds,
+              64 slots, chunk 32, max_frames 4096): every final equals
+              ContinuousDecoder.predict_signal_batch on its endpointed signal
+              (reference per-frame endpointing), 4 sessions' finals and
+              last partials equal a device="cpu" run (partials >= 95%), K4,
+              K2-bt and scanfree_decode launched and no plain step on a CUDA
+              tensor; real-time sessions, ms per feed() round, HAS_NATIVE,
+              a torch.profiler trace (the card's busy share) and a cProfile
+              of feed() rounds (host functions)
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (eight kernels, each with
+The line before the last is the kernels' JSON record (nine kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -507,6 +530,8 @@ def main():
             "trellis_backtrace": k2_err}
     pipe = train_phases(dev, launches, timings, errs)
     yardsticks = slice_phases(dev, decode, pipe, launches, timings, errs)
+    stream_phase(dev, launches, timings, errs, yardsticks)
+    serving_phase(dev, pipe)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -808,7 +833,8 @@ def train_phases(dev, launches, timings, errs):
     launches["trellis_banded_decode"] = train_launches["banded_decode"]
     launches["trellis_banded_forward"] = train_launches["banded_forward"]
     errs["trellis_banded_decode"] = errs["trellis_banded_forward"] = k3_err
-    return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args}
+    return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args,
+            "corpus": synth}
 
 
 def bound(bytes_moved, ops=()):
@@ -1201,6 +1227,501 @@ def slice_phases(dev, decode, pipe, launches, timings, errs):
     return yardsticks
 
 
+def stream_steps(rng, b, c, t_max, n_steps, compact):
+    """Pool steps as host (slot_ids, t, valid) rows: staggered starts,
+    uneven chunks of 1..c frames, idle slots, slot 0 recycled halfway;
+    compact rows are the fed slots padded to a power of two with slot b and
+    valid 0, dense rows one a slot (valid 0 when idle)."""
+    clock = np.zeros(b, np.int64)
+    start = rng.integers(0, 3, b)
+    for step in range(n_steps):
+        if step == n_steps // 2:
+            clock[0] = 0
+        fed = [s for s in range(b)
+               if step >= start[s] and rng.random() < 0.7 and clock[s] < t_max]
+        valid = np.zeros(b, np.int64)
+        for s in fed:
+            valid[s] = min(int(rng.integers(1, c + 1)), t_max - clock[s])
+        if compact:
+            r = max(8, 1 << max(len(fed) - 1, 0).bit_length())
+            slot_ids = np.full(r, b, np.int32)
+            t = np.zeros(r, np.int32)
+            v = np.zeros(r, np.int32)
+            slot_ids[: len(fed)] = fed
+            t[: len(fed)] = clock[fed]
+            v[: len(fed)] = valid[fed]
+        else:
+            slot_ids, t, v = (np.arange(b, dtype=np.int32), clock.astype(np.int32),
+                              valid.astype(np.int32))
+        yield slot_ids, t, v
+        clock += valid
+
+
+def trace(fn, n=5):
+    """A torch.profiler trace of n calls of fn(): host wall ms a call, device
+    busy ms a call (kernels and copies), and the six torch ops with the most
+    host time (self, ms a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    avgs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avgs if e.device_type == DeviceType.CUDA)
+    top = sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    return {"wall_ms": wall, "device_busy_ms": busy / n / 1e3,
+            "top_host_ops_ms": {e.key: round(e.self_cpu_time_total / n / 1e3, 4) for e in top}}
+
+
+def stream_bound(rows, valid, s, ring_bytes):
+    """bound() of one stream-mode step: the live rows' emissions in, their
+    alpha read and written, one ring row a live frame out, coefficients and
+    row ids; an add and a compare per (candidate, state), 6 a step, at
+    PEAK_FP32_ALU over the live frames."""
+    frames = rows * valid
+    return bound(4 * frames * s + 8 * rows * s + ring_bytes * frames * s + 32 * s + 12 * rows,
+                 [(6 * frames * s, PEAK_FP32_ALU)])
+
+
+def stream_phase(dev, launches, timings, errs, yardsticks):
+    """Phase 17: the serving pool's step on the card: the stream mode, the
+    dense step through K4 and K2-bt on the ring against their plain
+    versions, their times, and whole banded pools against CPU pools."""
+    from cs304_tpu_torch.device import upload
+    from cs304_tpu_torch.models.hmm import flagship_composite
+    from cs304_tpu_torch.ops import streaming_batch as sb
+    from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.viterbi import (
+        backtrace_batch,
+        composite_transition_matrix,
+        first_max,
+        pack_coefs,
+    )
+
+    flag, c503, c5003 = flagship_composite(), random_composite(100, 3), random_composite(1000, 3)
+    stream_err = 0.0
+
+    def stream_check(name, comp, b, t_max, ring_dtype, penalty, compact, ties, dense=False):
+        """The stream mode (or, dense, the K4 step) over 12 pool steps of up
+        to 32 frames against the plain step on CPU copies, compared after
+        every step. Returns the card's alpha, ring and clocks."""
+        nonlocal stream_err
+        s = comp.num_states
+        topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+        coefs = pack_coefs(*topo, device=dev)
+        trans = composite_transition_matrix(*topo, penalty, device=dev)
+        coefs_p, trans_p = coefs.cpu(), trans.cpu()
+        alpha = torch.full((b, s), float("-inf"), device=dev)
+        ring = torch.full((b, t_max, s), -1, dtype=ring_dtype, device=dev)
+        alpha_p, ring_p = alpha.cpu(), ring.cpu()
+        rng = np.random.default_rng(s + b)
+        clock = np.zeros(b, np.int64)
+        same = {"alpha": True, "alpha_sign": True, "ring": True}
+        for slot_ids, t, valid in stream_steps(rng, b, 32, t_max, 12, compact):
+            shape = (len(slot_ids), 32, s)
+            lb = (rng.integers(-3, 1, shape) if ties else 3 * rng.normal(size=shape))
+            lb = torch.as_tensor(lb.astype(np.float32))
+            if dense:
+                tst.dense_stream_advance(alpha, ring, slot_ids, t, valid, lb.to(dev), trans,
+                                         coefs)
+                if compact:
+                    sb._advance_compact(alpha_p, ring_p, slot_ids, t, valid, lb, coefs_p[6],
+                                        coefs_p[4] > 0, trans=trans_p)
+                else:
+                    sb._advance(alpha_p, ring_p, t, valid, lb, trans_p, coefs_p[6],
+                                coefs_p[4] > 0)
+            else:
+                tst.stream_advance(alpha, ring, *(upload(x, dev) for x in (slot_ids, t, valid)),
+                                   lb.to(dev), coefs, penalty)
+                sb._advance_compact(alpha_p, ring_p, slot_ids, t, valid, lb, coefs_p[6],
+                                    coefs_p[4] > 0, coeffs=sb._coeffs_of(coefs_p, penalty))
+            torch.cuda.synchronize()
+            got_a = alpha.cpu()
+            same["alpha"] &= torch.equal(got_a, alpha_p)
+            same["alpha_sign"] &= torch.equal(torch.signbit(got_a), torch.signbit(alpha_p))
+            same["ring"] &= torch.equal(ring.cpu(), ring_p)
+            both = torch.isfinite(got_a) & torch.isfinite(alpha_p)
+            if both.any():
+                stream_err = max(stream_err, (got_a - alpha_p)[both].abs().max().item())
+            keep = slot_ids < b
+            clock[slot_ids[keep]] = t[keep] + valid[keep]
+        log("stream", case=name, kernel="K4" if dense else "stream_mode", S=s, B=b,
+            T_max=t_max, ring=str(ring_dtype).split(".")[-1], penalty=penalty,
+            rows="compact" if compact else "dense", ties=ties, equal=json.dumps(same))
+        if not all(same.values()):
+            raise SystemExit(f"the pool step disagrees with its plain version ({name})")
+        return alpha, ring, clock
+
+    cases = {}
+    for name, comp, b, t_max, ring_dtype, penalty, compact, ties in (
+            ("flagship-int8-compact", flag, 64, 400, torch.int8, -100.0, True, False),
+            ("flagship-int8-dense-ties", flag, 64, 400, torch.int8, -100.0, False, True),
+            ("flagship-int8-zero-penalty", flag, 64, 400, torch.int8, 0.0, True, True),
+            ("503-int32-compact", c503, 16, 300, torch.int32, -100.0, True, False),
+            ("503-int32-dense-zero-penalty", c503, 16, 300, torch.int32, 0.0, False, True),
+            ("5003-int32-compact", c5003, 8, 200, torch.int32, -100.0, True, False),
+            ("5003-int32-dense-ties", c5003, 8, 200, torch.int32, -100.0, False, True)):
+        cases[name] = stream_check(name, comp, b, t_max, ring_dtype, penalty, compact, ties)
+    for compact in (False, True):
+        stream_check(f"flagship-k4-{'compact' if compact else 'dense'}", flag, 64, 400,
+                     torch.int8, -100.0, compact, True, dense=True)
+    # K2-bt walking ring[:, :T] in place, int8 (58 states) and int32 (503).
+    for name, t_bucket in (("flagship-int8-compact", 256), ("503-int32-compact", 256)):
+        alpha, ring, clock = cases[name]
+        fills = torch.as_tensor(np.minimum(clock, t_bucket).astype(np.int32), device=dev)
+        _, best = first_max(alpha, torch.ones(alpha.shape[1], dtype=torch.bool, device=dev))
+        got = tsf.trellis_backtrace(ring[:, :t_bucket], best, fills, quirk=False)
+        want = backtrace_batch(ring[:, :t_bucket].cpu().to(torch.int32), best.cpu(),
+                               fills.cpu(), quirk=False)
+        torch.cuda.synchronize()
+        same = torch.equal(got.cpu(), want)
+        log("stream", case=f"K2-bt-ring-{name}", T=t_bucket, ring=str(ring.dtype),
+            bitwise_backtrace_batch=same)
+        if not same:
+            raise SystemExit(f"K2-bt on the ring disagrees with backtrace_batch ({name})")
+    errs["trellis_stream"] = stream_err
+
+    # -- times at streaming_bench.py's shapes (chunk 16, max_frames 1024, 58
+    # states; every slot fed, clocks past 0) and 256 slots at 503 states.
+    def kernel_times(comp, b, t_max, ring_dtype, chunk=16):
+        s = comp.num_states
+        topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+        coefs = pack_coefs(*topo, device=dev)
+        trans = composite_transition_matrix(*topo, comp.penalty, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(b)
+        alpha = 3 * torch.randn((b, s), generator=gen, device=dev)
+        ring = torch.full((b, t_max, s), -1, dtype=ring_dtype, device=dev)
+        lb = 3 * torch.randn((b, chunk, s), generator=gen, device=dev)
+        ids_h, t_h = np.arange(b, dtype=np.int32), np.full(b, 100, np.int32)
+        v_h = np.full(b, chunk, np.int32)
+        ids, t_d, v_d = (torch.as_tensor(x, device=dev) for x in (ids_h, t_h, v_h))
+        out = {"stream": device_ms(lambda: tst.stream_advance(alpha, ring, ids, t_d, v_d, lb,
+                                                             coefs, comp.penalty)),
+               "stream_plain": cuda_ms(lambda: sb._advance_compact(
+                   alpha, ring, ids, t_d, v_d, lb, coefs[6], coefs[4] > 0,
+                   coeffs=sb._coeffs_of(coefs, comp.penalty)), reps=3)}
+        if s <= 127:
+            lb17 = 3 * torch.randn((b, chunk + 1, s), generator=gen, device=dev)
+            lens = torch.full((b,), chunk + 1, dtype=torch.int32, device=dev)
+            out["k4"] = device_ms(lambda: tdn.trellis_dense_forward(lb17, trans, alpha, lens))
+            out["k4_step_eager"] = cuda_ms(lambda: tst.dense_stream_advance(
+                alpha, ring, ids_h, t_h, v_h, lb, trans, coefs))
+            fills = torch.full((b,), 500, dtype=torch.int32, device=dev)
+            ring[:, :512] = torch.randint(0, s, (b, 512, s), generator=gen, device=dev).to(
+                ring_dtype)
+            best = torch.zeros(b, dtype=torch.int32, device=dev)
+            out["k2bt_ring"] = device_ms(lambda: tsf.trellis_backtrace(
+                ring[:, :512], best, fills, quirk=False))
+        return out
+
+    def fed_pool(comp, b, t_max, step_impl, chunk=16):
+        """A pool of b slots, warmed by one step and every slot restarted,
+        and 4 feeds of a chunk for every slot (streaming_bench.py's)."""
+        pool = sb.BatchedStreamingComposite(comp, num_slots=b, chunk_size=chunk,
+                                            max_frames=t_max, step_impl=step_impl, device=dev)
+        rng = np.random.default_rng(0)
+        slots = [pool.start() for _ in range(b)]
+        feeds = [{s: rng.normal(size=(chunk, 39)).astype(np.float32) for s in slots}
+                 for _ in range(4)]
+        pool.step(feeds[0])
+        torch.cuda.synchronize()
+        for s in slots:
+            pool.release(s)
+        for _ in range(b):
+            pool.start()
+        return pool, feeds
+
+    def pool_step_ms(comp, b, t_max, step_impl, chunk=16, steps=20):
+        """streaming_bench.py's step: host wall ms of pool.step() with every
+        slot fed a chunk (upload, emissions, trellis), the window closed by
+        a synchronize."""
+        pool, feeds = fed_pool(comp, b, t_max, step_impl, chunk)
+        steps = min(steps, t_max // chunk - 1)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pool.step(feeds[i % 4])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    for comp, b, t_max, ring_dtype in ((flag, 128, 1024, torch.int8), (flag, 512, 1024, torch.int8),
+                                       (flag, 1024, 1024, torch.int8),
+                                       (c503, 256, 2048, torch.int32)):
+        s = comp.num_states
+        kt = kernel_times(comp, b, t_max, ring_dtype)
+        rb = 1 if ring_dtype == torch.int8 else 4
+        b_ms, b_by = stream_bound(b, 16, s, rb)
+        steps = {impl: pool_step_ms(comp, b, t_max, impl)
+                 for impl in (("dense", "banded") if s <= 127 else ("banded",))}
+        log("timing", what="pool step", S=s, slots=b, chunk=16, T_max=t_max,
+            ring=str(ring_dtype).split(".")[-1], card=repr(smi),
+            stream_ms=kt["stream"], stream_plain_ms=kt["stream_plain"],
+            stream_bound_ms=b_ms, stream_bound_by=b_by,
+            k4_ms=kt.get("k4"), k4_step_eager_ms=kt.get("k4_step_eager"),
+            k2bt_ring_ms=kt.get("k2bt_ring"),
+            **{f"pool_step_ms_{k}": v for k, v in steps.items()},
+            **{f"realtime_streams_{k}": int(b * 16 / (v * 1e-3 * 100))
+               for k, v in steps.items()})
+        if s <= 127 and b == 512:
+            timings["trellis_stream"] = (kt["stream"], kt["stream_plain"])
+            yardsticks["trellis_stream"] = (None, b_ms, b_by)
+            # Where a pool step's time goes (the dense step's gather and
+            # scatter against the stream mode's one launch).
+            for impl in ("dense", "banded"):
+                pool, feeds = fed_pool(comp, b, t_max, impl)
+                it = iter(range(10 ** 6))
+                tr = trace(lambda: pool.step(feeds[next(it) % 4]))
+                log("trace", what=f"pool step {impl}", S=s, slots=b, chunk=16,
+                    wall_ms=tr["wall_ms"], device_busy_ms=tr["device_busy_ms"],
+                    top_host_ops_ms=json.dumps(tr["top_host_ops_ms"]))
+                del pool
+        del kt
+        torch.cuda.empty_cache()
+
+    # -- whole banded pools on the card against the same pools on the CPU ---
+    def utterances(comp, n, rng):
+        means = np.asarray(comp.means)
+        picks = (means[rng.integers(0, len(means), int(rng.integers(40, 300)))]
+                 for _ in range(n))
+        return [(m + rng.normal(0, 0.5, m.shape)).astype(np.float32) for m in picks]
+
+    pool_launches = 0
+    for comp in (flag, c503):
+        rng = np.random.default_rng(comp.num_states)
+        utts = utterances(comp, 12, rng)
+        pools = {d: sb.BatchedStreamingComposite(comp, num_slots=16, chunk_size=32,
+                                                 max_frames=512, step_impl="banded", device=d)
+                 for d in ("cuda", "cpu")}
+        slots = {d: [p.start() for _ in utts] for d, p in pools.items()}
+        tst.stream_advance.launches = 0
+        tsf.trellis_backtrace.launches = 0
+        polls, agree = 0, 0
+        cursors, step = [0] * len(utts), 0
+        while any(cursors[i] < len(u) for i, u in enumerate(utts)):
+            feeds = {}
+            for i, u in enumerate(utts):
+                if step >= i // 3 and cursors[i] < len(u):
+                    n = int(rng.integers(1, 33))
+                    feeds[i] = u[cursors[i]: cursors[i] + n]
+                    cursors[i] += len(feeds[i])
+            texts = {}
+            for d, p in pools.items():
+                p.step({slots[d][i]: f for i, f in feeds.items()}, partials=step % 2 == 0)
+                got = p.partial_texts(slots[d], stale_ok=step % 3 == 0)
+                texts[d] = [got[s] for s in slots[d]]
+            polls += len(utts)
+            agree += sum(a == c for a, c in zip(texts["cuda"], texts["cpu"]))
+            step += 1
+        fin = {d: p.finalize(slots[d]) for d, p in pools.items()}
+        last = {d: p.partial_texts(slots[d]) for d, p in pools.items()}
+        torch.cuda.synchronize()
+        n_stream, n_bt = tst.stream_advance.launches, tsf.trellis_backtrace.launches
+        pool_launches += n_stream
+        ok_texts = all(fin["cuda"][a][1] == fin["cpu"][c][1] and last["cuda"][a] == last["cpu"][c]
+                       for a, c in zip(slots["cuda"], slots["cpu"]))
+        ok_scores = all(abs(fin["cuda"][a][0] - fin["cpu"][c][0])
+                        <= 1e-5 * abs(fin["cpu"][c][0])
+                        for a, c in zip(slots["cuda"], slots["cpu"]))
+        log("stream", pool=f"banded S={comp.num_states}", steps=step,
+            launches=json.dumps({"stream_advance": n_stream, "trellis_backtrace": n_bt}),
+            finals_equal_cpu=ok_texts, scores_within_rel_1e_5=ok_scores,
+            poll_agreement=agree / polls, sample=repr([fin["cuda"][s][1] for s in
+                                                       slots["cuda"][:3]]))
+        if not (ok_texts and ok_scores):
+            raise SystemExit(f"the banded pool on the card differs from the CPU pool "
+                             f"(S={comp.num_states})")
+        if n_stream == 0 or n_bt == 0:
+            raise SystemExit(f"the banded pool never launched the stream mode or K2-bt: "
+                             f"{n_stream}, {n_bt}")
+        del pools
+        torch.cuda.empty_cache()
+    launches["trellis_stream"] = pool_launches
+
+
+def serving_phase(dev, pipe):
+    """Phase 18: ServingSessionPool on the card with serving_bench.py's
+    traffic, on phase 9's trained models."""
+    from cs304_tpu_torch import native
+    from cs304_tpu_torch.audio.capture import Segmentation, SegmentationDone
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+    from cs304_tpu_torch.ops import streaming_batch as sb
+    from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.serving import ServingSessionPool
+
+    models, corpus = pipe["models"], pipe["corpus"]
+    sr, n_sessions, seconds, chunk = 16000, 64, 3.0, 1600
+    rng = np.random.default_rng(0)
+    transcripts = ["375", "186Z", "54321", "12", "9O2", "4Z"]
+
+    def session_audio(i):  # benchmarks/serving_bench.py:67-78
+        pieces = [rng.normal(0, 20.0, int(0.3 * sr)).astype(np.float32)]
+        for j in range(2):
+            pieces.append(corpus.sentence_audio(transcripts[(i + j) % len(transcripts)], i % 6,
+                                                jitter_seed=j))
+            pieces.append(rng.normal(0, 20.0, int(0.4 * sr)).astype(np.float32))
+        return np.concatenate(pieces)[: int(seconds * sr)]
+
+    audio = [session_audio(i) for i in range(n_sessions)]
+    warm = np.concatenate([corpus.sentence_audio("375", 0),
+                           rng.normal(0, 20.0, int(0.4 * sr)).astype(np.float32)])
+
+    def drive(pool, which):
+        """Feed sessions `which` their audio in 100 ms chunks, polling
+        partials after each feed(). -> (results per session, polls, wall s,
+        ms per round)."""
+        scratch = pool.open()
+        for off in range(0, len(warm), chunk):
+            pool.feed({scratch: warm[off: off + chunk]})
+            pool.partials([scratch])
+        pool.close(scratch)
+        sessions = [pool.open() for _ in which]
+        results = {s: [] for s in sessions}
+        polls = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        longest = max(len(audio[i]) for i in which)
+        rounds = 0
+        for off in range(0, longest, chunk):
+            done = pool.feed({s: audio[i][off: off + chunk]
+                              for s, i in zip(sessions, which) if off < len(audio[i])})
+            for s, rs in done.items():
+                results[s] += rs
+            polls.append(pool.partials(sessions))
+            rounds += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return ([results[s] for s in sessions], [[p[s] for s in sessions] for p in polls],
+                wall, wall / rounds * 1e3)
+
+    # No plain step may run on a CUDA tensor: count calls of the plain
+    # versions the wrappers reach, by CUDA argument.
+    plain_on_card = {}
+
+    def guard(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card[name] = plain_on_card.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        setattr(mod, name, counted)
+        return mod, name, fn
+
+    counters = {"trellis_dense_forward": tdn.trellis_dense_forward,
+                "trellis_backtrace": tsf.trellis_backtrace,
+                "trellis_decode": tsf.scanfree_decode, "trellis_stream": tst.stream_advance}
+    saved = [guard(m, n) for m, n in ((sb, "_advance"), (sb, "_advance_banded"),
+                                      (sb, "_advance_compact"), (tdn, "dense_forward"),
+                                      (tsf, "backtrace_batch"), (tsf, "forward_fast"))]
+    try:
+        pool = ServingSessionPool(models, num_slots=64, max_frames=4096, device="cuda")
+        for c in counters.values():
+            c.launches = 0
+        results, polls, wall, round_ms = drive(pool, range(n_sessions))
+        serve_launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    audio_s = sum(len(a) for a in audio) / sr
+
+    # Reference: per-frame endpointing (Segmentation.routine, one 320-sample
+    # frame a call), every endpointed signal decoded by a fresh decoder.
+    signals, owner = [], []
+    for i, a in enumerate(audio):
+        seg = Segmentation(stream=None, silence_duration_threshold=0.2)
+        for f in range(len(a) // 320):
+            seg.audio_cache.put(a[f * 320: (f + 1) * 320])
+            try:
+                seg.routine()
+            except SegmentationDone:
+                signals.append(seg.result_signal())
+                owner.append(i)
+                seg = Segmentation(stream=None, silence_duration_threshold=0.2)
+    ref = ContinuousDecoder(models, penalty=-100.0, device="cuda").predict_signal_batch(signals)
+    want = [[] for _ in audio]
+    for i, sig, text in zip(owner, signals, ref):
+        want[i].append((text, len(sig)))
+    got = [[(r.text, r.num_samples) for r in rs] for rs in results]
+    finals_ok = got == want
+    n_finals = sum(len(rs) for rs in results)
+
+    # The same audio on the CPU for 4 sessions.
+    cpu = ServingSessionPool(models, num_slots=64, max_frames=4096, device="cpu")
+    results_c, polls_c, _w, _r = drive(cpu, range(4))
+    cross = [[(r.text, r.last_partial) for r in rs] for rs in results_c]
+    cross_ok = cross == [[(r.text, r.last_partial) for r in rs] for rs in results[:4]]
+    pairs = [(a, c) for pc, pk in zip(polls_c, polls) for a, c in zip(pk[:4], pc)]
+    agreement = float(np.mean([a == c for a, c in pairs]))
+
+    # Finals only (partials off): the headline of serving_bench.py.
+    finals_only = ServingSessionPool(models, num_slots=64, max_frames=4096, partials=False,
+                                     device="cuda")
+    _res, _polls, wall_f, round_ms_f = drive(finals_only, range(n_sessions))
+    log("serving", sessions=n_sessions, audio_s=f"{audio_s:.1f}", finals=n_finals,
+        finals_equal_predict_signal_batch=finals_ok, cpu_cross_check_equal=cross_ok,
+        partial_poll_agreement_cpu=agreement, polls=len(pairs),
+        launches=json.dumps(serve_launches), plain_steps_on_card=json.dumps(plain_on_card),
+        has_native=native.HAS_NATIVE, sample=repr(got[0]))
+    log("timing", what="serving (partials pipelined, polled every feed)", wall_s=wall,
+        realtime_sessions=audio_s / wall, ms_per_feed_round=round_ms)
+    log("timing", what="serving (finals only)", wall_s=wall_f,
+        realtime_sessions=audio_s / wall_f, ms_per_feed_round=round_ms_f)
+
+    # Where a feed() round's time goes: a torch.profiler trace of 10 rounds
+    # (the card's busy share) and cProfile of the next 10 (host functions;
+    # cProfile slows the Python it counts, so read shares, not times).
+    import cProfile
+    import pstats
+
+    traced = ServingSessionPool(models, num_slots=64, max_frames=4096, device="cuda")
+    sessions = [traced.open() for _ in range(n_sessions)]
+    offsets = iter(range(0, int(seconds * sr), chunk))
+
+    def one_round():
+        off = next(offsets)
+        traced.feed({s: audio[i][off: off + chunk] for i, s in enumerate(sessions)})
+        traced.partials(sessions)
+
+    tr = trace(one_round, n=10)
+    log("trace", what=f"serving feed() round, {n_sessions} sessions, partials polled",
+        wall_ms=tr["wall_ms"], device_busy_ms=tr["device_busy_ms"],
+        device_idle_share=1 - tr["device_busy_ms"] / tr["wall_ms"],
+        top_host_ops_ms=json.dumps(tr["top_host_ops_ms"]))
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(9):
+        one_round()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    total = sum(v[2] for _k, v in rows)
+    log("trace", what="serving host functions (cProfile, 9 rounds, share of tottime)",
+        top=json.dumps({f"{k[0].rsplit('/', 1)[-1]}:{k[2]}": round(v[2] / total, 4)
+                        for k, v in rows[:10]}))
+    if not finals_ok or n_finals < n_sessions:
+        raise SystemExit(f"serving finals differ from predict_signal_batch on the endpointed "
+                         f"signals ({n_finals} finals)")
+    if not cross_ok or agreement < 0.95:
+        raise SystemExit(f"serving on the card differs from the CPU run (finals "
+                         f"{cross_ok}, partial agreement {agreement})")
+    if not all(serve_launches[k] > 0 for k in ("trellis_dense_forward", "trellis_backtrace",
+                                                "trellis_decode")):
+        raise SystemExit(f"a kernel of the serving path never launched: {serve_launches}")
+    if plain_on_card:
+        raise SystemExit(f"a plain step ran on a CUDA tensor while serving: {plain_on_card}")
+
+
 def report(kind, launches, timings, errs, yardsticks):
     """The kernels' JSON line and the final line."""
     meta = {
@@ -1220,6 +1741,9 @@ def report(kind, launches, timings, errs, yardsticks):
                                    "cs304_tpu/ops/pallas/trellis_banded.py:41"),
         "trellis_dense_forward": ("cs304_tpu_torch/csrc/trellis_dense.cu",
                                   "cs304_tpu/ops/pallas/trellis.py:33"),
+        # No Pallas counterpart: the JAX pool's step is a lax.scan.
+        "trellis_stream": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                           "cs304_tpu/ops/streaming_batch.py:201 (lax.scan; also :130)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

@@ -40,6 +40,18 @@
 //     takes the final best exit and walks the codes back into the path with
 //     the reference quirk. No backpointer tensor reaches device memory.
 //
+//   MODE STREAM (stream_advance): the serving pool's step, with alpha
+//     carried in and out. Row r of log_b (R, C, ld) advances slot
+//     slot_ids[r] of the pool's alpha (n_slots, S) IN PLACE by its valid[r]
+//     frames from absolute frame t[r]: an absolute frame 0 reseeds the row
+//     (entry states, backpointer -1), every other frame is the step above;
+//     each frame's backpointer row goes to ring[slot, t + i, :] (n_slots,
+//     T_max, S) in int8 or int32 (RingT, following the pool's ring_dtype).
+//     A row with valid 0 is skipped. Its plain version is
+//     ops/streaming_batch.py:_advance_compact with the banded coefficients
+//     (the JAX package's lax.scan, cs304_tpu/ops/streaming_batch.py:201;
+//     there is no Pallas kernel of it). Rows must name distinct slots.
+//
 // The same template, with SENT, is the embedded trainer's sentence trellis
 // (K3), replacing cs304_tpu/ops/pallas/trellis_banded.py:
 // _forward_banded_kernel and its reuse of the backtrace kernel. Its plain
@@ -67,7 +79,10 @@
 // tile, 4-byte at an unaligned head or tail), with the next (earlier) tile
 // in flight while lane 0 walks the current one. The dependent chain then
 // runs at shared-memory latency rather than L2 latency; the rows are read
-// whole (more bytes than the T elements on the path, none dependent).
+// whole (more bytes than the T elements on the path, none dependent). The
+// backpointers are int32 or int8 (the serving pool's ring, walked in place
+// through a per-utterance stride: ring[:, :T] of a (B, T_max, S) ring); an
+// int8 span's ragged ends are staged from the 4-byte words that hold them.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -125,7 +140,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // aligned shared memory) by threads tid of nthr: element i lands at
 // dst[span_offset(src) + i]. Chunks wholly inside the span go as 16-byte
 // copies; the (at most two) partial chunks at its ends element by element.
-// dst must hold n + 8 elements.
+// dst must hold n + 8 elements. (K2-bt stages an int8 span as the 4-byte
+// words that hold it.)
 __device__ __forceinline__ int span_offset(const void* src) {
   return (int)(((uintptr_t)src >> 2) & 3);
 }
@@ -201,6 +217,11 @@ struct TeamArgs {
   float* scores;             // decode mode
   int* paths;                // decode mode
   unsigned char* codes_g;    // decode mode, codes not in shared memory
+  const int* slot_ids;       // stream mode: (R,) slot of each row
+  const int* t_start;        // stream mode: (R,) absolute frame of row 0
+  float* alpha_io;           // stream mode: (n_slots, S), updated in place
+  void* ring;                // stream mode: (n_slots, t_max, S) RingT
+  int n_slots, t_max;
   int B, T, S, ld, quirk;
   int w, u, row_bytes;
   size_t team_bytes;
@@ -212,16 +233,21 @@ struct TeamArgs {
 // (S <= 2048) a team of up to 16 warps, at K = 8 up to 32.
 // MODE: backpointer mode, or decode mode with its codes in shared or in
 // global memory (a compile-time choice, so that code loads and stores are
-// shared-memory instructions where they can be).
+// shared-memory instructions where they can be), or stream mode (the
+// serving pool's step; B is then the number of rows, T the chunk length C,
+// and lengths the rows' valid frame counts).
 // SENT: the sentence topology (K3) instead of the composite one: per-utterance
 // c0/c1/c2 rows, no entry or exit state (so no exit reduction at all), t = 0
 // seeded at state 0 alone, and the walk started from a given final state.
-enum { BACKPOINTERS = 0, DECODE_SHARED = 1, DECODE_GLOBAL = 2 };
+// RingT: the stream mode's ring element, int8_t or int.
+enum { BACKPOINTERS = 0, DECODE_SHARED = 1, DECODE_GLOBAL = 2, STREAM = 3 };
 
-template <int K, int MODE, bool SENT>
+template <int K, int MODE, bool SENT, typename RingT = int>
 __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     trellis_team_kernel(const TeamArgs p) {
-  constexpr bool DECODE = MODE != BACKPOINTERS;
+  constexpr bool DECODE = MODE == DECODE_SHARED || MODE == DECODE_GLOBAL;
+  constexpr bool STREAMS = MODE == STREAM;
+  static_assert(!(STREAMS && SENT), "the stream mode runs the composite topology");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red_v[2][32];
   __shared__ int red_i[2][32];
@@ -254,6 +280,19 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   const int steps = min(max(length, 1), T);  // rows 1..steps-1 are live
   const float* lb_b = p.log_b + (size_t)b * T * p.ld;
   const int j0 = tt * K;
+  // Stream mode: the row's slot and absolute frame. A padding row (valid 0)
+  // leaves, the whole team at once (a team past one warp is the block).
+  int slot = 0, t_abs = 0;
+  RingT* ring_s = nullptr;
+  if constexpr (STREAMS) {
+    slot = p.slot_ids[b];
+    t_abs = p.t_start[b];
+    if (length <= 0 || slot < 0 || slot >= p.n_slots) return;
+    ring_s = (RingT*)p.ring + (size_t)slot * p.t_max * S;
+  }
+  // The first live row: 1 (row 0 seeds), or 0 for a stream row that
+  // continues its slot's alpha.
+  const int first = (STREAMS && t_abs != 0) ? 0 : 1;
 
   float a[K], dg[K], s1[K], s2[K];
   unsigned entry_m = 0, exit_m = 0;
@@ -277,9 +316,17 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
         dg[k] = e ? p.coefs[3 * S + j] : p.coefs[j];
         s1[k] = p.coefs[S + j];
         s2[k] = p.coefs[2 * S + j];
-        if (e) a[k] = lb_b[j] + p.coefs[6 * S + j];
+        if (first == 0) {
+          a[k] = p.alpha_io[(size_t)slot * S + j];
+        } else if (e) {
+          a[k] = lb_b[j] + p.coefs[6 * S + j];
+        }
       }
-      if (!DECODE) p.bp[(size_t)b * T * S + j] = -1;
+      if constexpr (STREAMS) {
+        if (first == 1) ring_s[j] = (RingT)-1;  // absolute frame 0
+      } else if constexpr (!DECODE) {
+        p.bp[(size_t)b * T * S + j] = -1;
+      }
     }
   }
 
@@ -297,7 +344,7 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   for (int d = 0; d < D; ++d) {
 #pragma unroll
     for (int k = 0; k < K; ++k) pf[d][k] = 0.f;
-    fetch(pf[d], 1 + d);
+    fetch(pf[d], first + d);
   }
 
   // The team's best exit over alpha with better(), every thread getting
@@ -393,9 +440,10 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
 
   // One step: code c in {0, 1, 2} is the predecessor max(j - c, 0), 3 the
   // step's best exit; decode mode stores the codes and the exit's index,
-  // backpointer mode the int32 backpointers they stand for.
+  // backpointer mode the int32 backpointers they stand for, stream mode the
+  // same backpointers into the ring at the row's absolute frame.
   auto step = [&](int t, const float* lbv, auto value_only) {
-    const bool live = DECODE || t < length;
+    const bool live = DECODE || STREAMS || t < length;
     float bv = neg, u1, u2;
     int bi = 0;
     if constexpr (SENT) {
@@ -443,7 +491,7 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) a[k] = na[k];
-    if (DECODE) {
+    if constexpr (DECODE) {
       unsigned long long packed = 0;
 #pragma unroll
       for (int k = 0; k < K; ++k) packed |= (unsigned long long)code[k] << (8 * k);
@@ -452,6 +500,13 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       if (K == 4) *(unsigned*)c_t = (unsigned)packed;
       if (K == 8) *(unsigned long long*)c_t = packed;
       if (!SENT && tt == 0) bex[t] = (short)bi;
+    } else if constexpr (STREAMS) {
+      // One element a state (bytes for the int8 ring: a row of S bytes has
+      // no alignment to pack into); the clamp mirrors the plain version's.
+      RingT* r_t = ring_s + (size_t)min(t_abs + t, p.t_max - 1) * S;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (j0 + k < S) r_t[j0 + k] = (RingT)(code[k] == 3 ? bi : max(j0 + k - code[k], 0));
     } else {
       int* bp_t = p.bp + ((size_t)b * T + t) * S;
 #pragma unroll
@@ -460,9 +515,9 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     }
   };
 
-  const int t_end = DECODE ? steps : T;
+  const int t_end = (DECODE || STREAMS) ? steps : T;
   auto run = [&](auto value_only) {
-    for (int t0 = 1; t0 < t_end; t0 += D) {
+    for (int t0 = first; t0 < t_end; t0 += D) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const int t = t0 + d;
@@ -478,10 +533,11 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     run(std::false_type{});
   }
 
-  if (!DECODE) {
+  if constexpr (!DECODE) {
+    float* out = STREAMS ? p.alpha_io + (size_t)slot * S : p.alpha_out + (size_t)b * S;
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      if (j0 + k < S) p.alpha_out[(size_t)b * S + j0 + k] = a[k];
+      if (j0 + k < S) out[j0 + k] = a[k];
     return;
   }
 
@@ -524,8 +580,14 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   if (p.quirk && last < T) path[last] = at_second;  // path[L-1] = path[L-2]
 }
 
+// BP: int (backpointers of a forward) or int8_t (the serving ring); row t of
+// utterance b at bp + b * ustride + t * S. Row 0 (the -1 seed) is never read.
+// An int8 span is staged as the 4-byte words that hold it (at most 3 bytes
+// either side, inside the words of its own first and last byte); the int32
+// path is the same code as before the ring, which the card times as fast.
+template <typename BP>
 __global__ void trellis_backtrace_kernel(
-    const int* __restrict__ bp, const int* __restrict__ best,
+    const BP* __restrict__ bp, long long ustride, const int* __restrict__ best,
     const int* __restrict__ lengths, int* __restrict__ path,
     int T, int S, int R, int buf_ints, int quirk) {
   extern __shared__ __align__(16) int tiles[];
@@ -539,13 +601,27 @@ __global__ void trellis_backtrace_kernel(
 
   const int hi = min(length, T) - 1;  // rows 1..hi are walked
   const int ntiles = hi >= 1 ? (hi + R - 1) / R : 0;
-  const int* bp_b = bp + (size_t)b * T * S;
+  const BP* bp_b = bp + (size_t)b * ustride;
+  // The 4-byte words staging rows lo..top: their first word and count.
+  auto words = [&](int lo, int top, const int*& w0, int& n) {
+    const uintptr_t src = (uintptr_t)(bp_b + (size_t)lo * S);
+    if constexpr (sizeof(BP) == 4) {
+      w0 = (const int*)src;
+      n = (top - lo + 1) * S;
+    } else {
+      const uintptr_t end = src + (uintptr_t)(top - lo + 1) * S;
+      w0 = (const int*)(src & ~(uintptr_t)3);
+      n = (int)((((end + 3) & ~(uintptr_t)3) - (uintptr_t)w0) >> 2);
+    }
+  };
   auto issue = [&](int k) {
     if (k < ntiles) {
       const int top = hi - k * R;
       const int lo = max(top - R + 1, 1);
-      copy_span(tiles + (k % BT_TILES) * buf_ints, bp_b + (size_t)lo * S,
-                (top - lo + 1) * S, lane, 32);
+      const int* w0;
+      int n;
+      words(lo, top, w0, n);
+      copy_span(tiles + (k % BT_TILES) * buf_ints, w0, n, lane, 32);
     }
     cp_async_commit();
   };
@@ -559,11 +635,16 @@ __global__ void trellis_backtrace_kernel(
     if (lane == 0) {
       const int top = hi - k * R;
       const int lo = max(top - R + 1, 1);
-      const int* tile = tiles + (k % BT_TILES) * buf_ints + span_offset(bp_b + (size_t)lo * S);
+      const int* w0;
+      int n;
+      words(lo, top, w0, n);
+      const BP* tile = (const BP*)(tiles + (k % BT_TILES) * buf_ints + span_offset(w0));
+      if constexpr (sizeof(BP) == 1)
+        tile += (uintptr_t)(bp_b + (size_t)lo * S) - (uintptr_t)w0;
       for (int t = top; t >= lo; --t) {
         p[t] = state;
         if (t == second) at_second = state;
-        state = tile[(t - lo) * S + state];
+        state = (int)tile[(t - lo) * S + state];
       }
     }
     __syncwarp();
@@ -583,26 +664,26 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
-template <int K, int MODE, bool SENT>
+template <int K, int MODE, bool SENT, typename RingT = int>
 int launch_team(const Plan& pl, TeamArgs a, cudaStream_t stream) {
   a.w = pl.w;
   a.u = pl.u;
   a.row_bytes = pl.row_bytes;
   a.team_bytes = pl.team_bytes;
   const size_t smem = (size_t)pl.u * pl.team_bytes;
-  const int err = set_smem((const void*)trellis_team_kernel<K, MODE, SENT>, smem);
+  const int err = set_smem((const void*)trellis_team_kernel<K, MODE, SENT, RingT>, smem);
   if (err) return err;
   const int threads = 32 * (pl.w == 1 ? pl.u : pl.w);
   const int blocks = (a.B + pl.u - 1) / pl.u;
-  trellis_team_kernel<K, MODE, SENT><<<blocks, threads, smem, stream>>>(a);
+  trellis_team_kernel<K, MODE, SENT, RingT><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool SENT>
+template <int MODE, bool SENT, typename RingT = int>
 int launch_k(const Plan& pl, TeamArgs a, cudaStream_t stream) {
-  if (pl.k == 2) return launch_team<2, MODE, SENT>(pl, a, stream);
-  if (pl.k == 4) return launch_team<4, MODE, SENT>(pl, a, stream);
-  return launch_team<8, MODE, SENT>(pl, a, stream);
+  if (pl.k == 2) return launch_team<2, MODE, SENT, RingT>(pl, a, stream);
+  if (pl.k == 4) return launch_team<4, MODE, SENT, RingT>(pl, a, stream);
+  return launch_team<8, MODE, SENT, RingT>(pl, a, stream);
 }
 
 template <bool SENT>
@@ -703,20 +784,63 @@ extern "C" int cs304_trellis_sentence_decode(
   return launch_forward<true>(a, true, (cudaStream_t)stream);
 }
 
+// The stream mode. alpha (n_slots, S) f32 and ring (n_slots, t_max, S) of
+// ring_bytes (1: int8, 4: int32) elements are updated in place; slot_ids,
+// t, valid (R,) i32; log_b (R, C, ld) f32; coefs (8, S) as the other modes.
+extern "C" int cs304_trellis_stream(
+    void* alpha, void* ring, int ring_bytes, const void* slot_ids, const void* t,
+    const void* valid, const void* log_b, const void* coefs, float penalty,
+    int R, int C, int S, int ld, int n_slots, int t_max, void* stream) {
+  TeamArgs a = {};
+  a.log_b = (const float*)log_b;
+  a.coefs = (const float*)coefs;
+  a.lengths = (const int*)valid;
+  a.penalty = penalty;
+  a.slot_ids = (const int*)slot_ids;
+  a.t_start = (const int*)t;
+  a.alpha_io = (float*)alpha;
+  a.ring = ring;
+  a.n_slots = n_slots;
+  a.t_max = t_max;
+  a.B = R;
+  a.T = C;
+  a.S = S;
+  a.ld = ld;
+  const Plan pl = make_plan(C, S, false);
+  if (ring_bytes == 1) return launch_k<STREAM, false, int8_t>(pl, a, (cudaStream_t)stream);
+  if (ring_bytes == 4) return launch_k<STREAM, false, int>(pl, a, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2-bt. bp holds elem_bytes-byte backpointers (4: int32, 1: int8), row t
+// of utterance b at element b * ustride + t * S (ustride = T * S for a
+// forward's (B, T, S) output; T_max * S walks ring[:, :T] of a ring in
+// place).
 extern "C" int cs304_trellis_backtrace(
-    const void* bp, const void* best, const void* lengths, void* path,
-    int B, int T, int S, int quirk, void* stream) {
-  const size_t buf_cap = BT_BUDGET / BT_TILES / 4;  // ints per tile buffer
-  size_t r = buf_cap > (size_t)S + 8 ? (buf_cap - 8) / S : 1;
+    const void* bp, int elem_bytes, long long ustride, const void* best,
+    const void* lengths, void* path, int B, int T, int S, int quirk, void* stream) {
+  if (elem_bytes != 1 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  const size_t row = (size_t)S * elem_bytes;  // bytes a time step
+  const size_t buf_cap = BT_BUDGET / BT_TILES;  // bytes a tile buffer
+  size_t r = buf_cap > row + 32 ? (buf_cap - 32) / row : 1;
   if (r > BT_MAX_ROWS) r = BT_MAX_ROWS;
   const int R = (int)r;
-  const int buf_ints = (int)(((size_t)R * S + 8 + 3) & ~(size_t)3);
+  // The tile's words plus 8 (its head offset and an int8 span's ragged ends).
+  const int buf_ints = (int)(((r * row + 3) / 4 + 8 + 3) & ~(size_t)3);
   const size_t smem = BT_TILES * (size_t)buf_ints * 4;
-  const int err = set_smem((const void*)trellis_backtrace_kernel, smem);
+  const void* fn = elem_bytes == 1 ? (const void*)trellis_backtrace_kernel<int8_t>
+                                   : (const void*)trellis_backtrace_kernel<int>;
+  const int err = set_smem(fn, smem);
   if (err) return err;
-  trellis_backtrace_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(
-      (const int*)bp, (const int*)best, (const int*)lengths, (int*)path,
-      T, S, R, buf_ints, quirk);
+  if (elem_bytes == 1) {
+    trellis_backtrace_kernel<int8_t><<<B, 32, smem, (cudaStream_t)stream>>>(
+        (const int8_t*)bp, ustride, (const int*)best, (const int*)lengths, (int*)path,
+        T, S, R, buf_ints, quirk);
+  } else {
+    trellis_backtrace_kernel<int><<<B, 32, smem, (cudaStream_t)stream>>>(
+        (const int*)bp, ustride, (const int*)best, (const int*)lengths, (int*)path,
+        T, S, R, buf_ints, quirk);
+  }
   return (int)cudaGetLastError();
 }
 

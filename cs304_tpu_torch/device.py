@@ -6,6 +6,7 @@ passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,30 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A host NumPy array as a new tensor on ``device``, never aliasing the
+    array (the caller may reuse it at once). To a card it is a non-blocking
+    copy from pageable memory: the driver stages the bytes before the call
+    returns, and the host does not wait for the work already queued on the
+    stream (a blocking copy synchronizes it; staging through pinned memory
+    cost more host time a step, measured on the card in `PERF.md` §6 PR 7)."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(array, copy=True))
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device, non_blocking=True)
+
+
+def upload_ints(arrays, device: torch.device, dtype=np.int64):
+    """Several host integer arrays in ONE upload, as contiguous ``dtype``
+    views on ``device`` (one copy, not one per array)."""
+    flat = [np.asarray(a, dtype).ravel() for a in arrays]
+    packed = upload(np.concatenate(flat), device)
+    out, at = [], 0
+    for a, f in zip(arrays, flat):
+        out.append(packed[at: at + len(f)].view(np.shape(a)))
+        at += len(f)
+    return out
 
 
 def fp32_exact() -> None:

@@ -92,14 +92,19 @@ trellis_forward.launches = 0
 
 
 def trellis_backtrace(bp, best, lengths, quirk: bool = True):
-    """bp (B, T, S) int32, best (B,) int32 start states, lengths (B,) int32
-    -> paths (B, T) int32, the reference quirk applied when ``quirk``.
+    """bp (B, T, S) int32 or int8, best (B,) int32 start states, lengths (B,)
+    int32 -> paths (B, T) int32, the reference quirk applied when ``quirk``.
+    bp may be a view whose (T, S) rows are contiguous but whose utterances
+    lie further apart (the serving ring's ``ring[:, :T]``, walked in place).
     The kernel follows bp from best without bounds checks: best must lie in
-    [0, S) and bp must come from trellis_forward."""
+    [0, S) and bp must come from a forward (or the ring) of these lengths."""
     if not bp.is_cuda:
         return backtrace_batch(bp, best, lengths, quirk)
     b, t_total, s = bp.shape
-    _check_cuda("bp", bp, torch.int32)
+    if bp.dtype not in (torch.int32, torch.int8):
+        raise TypeError(f"bp must be int32 or int8, got {bp.dtype}")
+    if bp.stride(2) != 1 or (t_total > 1 and bp.stride(1) != s) or bp.stride(0) < t_total * s:
+        raise ValueError(f"bp rows must be contiguous (strides {bp.stride()}, S {s})")
     _check_cuda("best", best, torch.int32)
     _check_cuda("lengths", lengths, torch.int32)
     if best.shape != (b,) or lengths.shape != (b,):
@@ -113,8 +118,8 @@ def trellis_backtrace(bp, best, lengths, quirk: bool = True):
     with torch.cuda.device(bp.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cs304_trellis_backtrace(
-            bp.data_ptr(), best.data_ptr(), lengths.data_ptr(),
-            path.data_ptr(), b, t_total, s, int(quirk), stream,
+            bp.data_ptr(), bp.element_size(), bp.stride(0), best.data_ptr(),
+            lengths.data_ptr(), path.data_ptr(), b, t_total, s, int(quirk), stream,
         )
     _build.check(code, "trellis_backtrace")
     trellis_backtrace.launches += 1

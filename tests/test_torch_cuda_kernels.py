@@ -12,9 +12,13 @@ a global-codes T included), the dense trellis on each of its branches
 (trans resident in one CTA, in a cluster's CTAs, or streamed; B not a
 multiple of the utterances a block or cluster carries, T = 1, length-0 and
 -1 rows, signed zeros; scores, full paths, alphas with their signs of zero
-and backpointers bitwise equal), and the K5/K6 wrappers.
+and backpointers bitwise equal), and the K5/K6 wrappers; the serving pool's
+step (the stream mode on each team size and ring dtype, a zero penalty and
+ties; K4's dense step; K2-bt walking int8 and int32 ring slices in place),
+the single-stream decoder on the card, and the serving entry points'
+default device.
 
-These are chip_smoke.py's phases 3-4, 7 and 11-13 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13 and 17 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -546,3 +550,171 @@ def test_decoder_pallas_backend_matches_scan_on_card(dev):
     launches = em.emission_split.launches
     assert len(high.predict_signal_batch(signals)) == len(signals)
     assert em.emission_split.launches > launches
+
+
+# -- the serving pool's step (stream mode, K4 dense step) and K2-bt on the ring
+
+
+def _stream_steps(rng, b, c, t_max, n_steps, compact):
+    """Pool steps as (slot_ids, t, valid) rows: staggered starts, uneven
+    chunks of 1..c frames, idle slots, slot 0 recycled halfway; compact rows
+    are the fed slots padded to a power of two with slot b and valid 0,
+    otherwise one row a slot (valid 0 when idle)."""
+    clock = np.zeros(b, np.int64)
+    start = rng.integers(0, 3, b)
+    for step in range(n_steps):
+        if step == n_steps // 2:
+            clock[0] = 0
+        fed = [s for s in range(b)
+               if step >= start[s] and rng.random() < 0.7 and clock[s] < t_max]
+        valid = np.zeros(b, np.int64)
+        for s in fed:
+            valid[s] = min(int(rng.integers(1, c + 1)), t_max - clock[s])
+        if compact:
+            r = max(2, 1 << max(len(fed) - 1, 0).bit_length())
+            slot_ids = np.full(r, b, np.int32)
+            t = np.zeros(r, np.int32)
+            v = np.zeros(r, np.int32)
+            slot_ids[: len(fed)] = fed
+            t[: len(fed)] = clock[fed]
+            v[: len(fed)] = valid[fed]
+        else:
+            slot_ids, t, v = (np.arange(b, dtype=np.int32), clock.astype(np.int32),
+                              valid.astype(np.int32))
+        yield slot_ids, t, v
+        clock += valid
+
+
+@pytest.mark.parametrize("num_words,ring,penalty,compact,ties", [
+    (11, torch.int8, -100.0, True, False),     # the flagship, K=2 one-warp teams
+    (11, torch.int32, -100.0, False, True),    # dense upload, integer ties
+    (11, torch.int8, 0.0, True, True),         # zero penalty: the butterfly fork
+    (19, torch.int8, -100.0, False, False),    # 98 states, K=4, one warp
+    (100, torch.int32, -100.0, True, False),   # 503 states, a 4-warp team
+    (1000, torch.int32, 0.0, True, False),     # 5003 states, K=8, 20 warps
+])
+def test_stream_mode_is_bitwise_plain(dev, num_words, ring, penalty, compact, ties):
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.streaming_batch import _advance_compact, _coeffs_of
+
+    comp = _composite(num_words)
+    s = comp.num_states
+    b, c, t_max = 6, 8, 40
+    coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                       device=dev)
+    alpha = torch.full((b, s), float("-inf"), device=dev)
+    ring_d = torch.full((b, t_max, s), -1, dtype=ring, device=dev)
+    alpha_p, ring_p = alpha.cpu(), ring_d.cpu()
+    coefs_p = coefs.cpu()
+    rng = np.random.default_rng(num_words)
+    before = tst.stream_advance.launches
+    for slot_ids, t, valid in _stream_steps(rng, b, c, t_max, 10, compact):
+        shape = (len(slot_ids), c, s)
+        log_b = (rng.integers(-3, 1, shape) if ties else 3 * rng.normal(size=shape))
+        log_b = torch.as_tensor(log_b.astype(np.float32))
+        tst.stream_advance(alpha, ring_d, *(torch.as_tensor(x, device=dev)
+                                            for x in (slot_ids, t, valid)),
+                           log_b.to(dev), coefs, penalty)
+        _advance_compact(alpha_p, ring_p, slot_ids, t, valid, log_b, coefs_p[6],
+                         coefs_p[4] > 0, coeffs=_coeffs_of(coefs_p, penalty))
+        torch.cuda.synchronize()
+        assert torch.equal(alpha.cpu(), alpha_p)
+        assert torch.equal(torch.signbit(alpha.cpu()), torch.signbit(alpha_p))
+        assert torch.equal(ring_d.cpu(), ring_p)
+    assert tst.stream_advance.launches == before + 10
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_dense_step_through_k4_matches_advance(dev, compact):
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.streaming_batch import _advance_compact
+    from cs304_tpu_torch.ops.viterbi import composite_transition_matrix
+
+    comp = flagship_composite()
+    s = comp.num_states
+    b, c, t_max = 6, 8, 40
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    coefs = pack_coefs(*topo, device=dev)
+    trans = composite_transition_matrix(*topo, comp.penalty, device=dev)
+    alpha = torch.full((b, s), float("-inf"), device=dev)
+    ring = torch.full((b, t_max, s), -1, dtype=torch.int8, device=dev)
+    alpha_p, ring_p, coefs_p, trans_p = alpha.cpu(), ring.cpu(), coefs.cpu(), trans.cpu()
+    rng = np.random.default_rng(3)
+    before = tdn.trellis_dense_forward.launches
+    for slot_ids, t, valid in _stream_steps(rng, b, c, t_max, 10, compact):
+        log_b = torch.as_tensor(rng.integers(-3, 1, (len(slot_ids), c, s)).astype(np.float32))
+        tst.dense_stream_advance(alpha, ring, slot_ids, t, valid, log_b.to(dev), trans, coefs)
+        _advance_compact(alpha_p, ring_p, slot_ids, t, valid, log_b, coefs_p[6],
+                         coefs_p[4] > 0, trans=trans_p)
+        torch.cuda.synchronize()
+        assert torch.equal(alpha.cpu(), alpha_p)
+        assert torch.equal(ring.cpu(), ring_p)
+    assert tdn.trellis_dense_forward.launches > before
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.int8, torch.int32])
+def test_backtrace_walks_a_ring_slice_in_place(dev, ring_dtype):
+    """K2-bt on ring[:, :T] of a (B, T_max, S) ring, int8 and int32, against
+    backtrace_batch on a contiguous int32 copy; S = 58 makes an int8 row
+    start at every byte alignment."""
+    comp = flagship_composite()
+    s = comp.num_states
+    coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, t_max, t = 9, 700, 512
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = t, 1
+    log_b = 3 * torch.randn((b, t_max, s), generator=gen, device=dev)
+    alpha, bp = forward_fast(log_b, coefs, comp.penalty, torch.full_like(lengths, t_max))
+    ring = bp.to(ring_dtype)
+    best = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
+    view = ring[:, :t]
+    assert not view.is_contiguous()
+    got = tsf.trellis_backtrace(view, best, lengths, quirk=False)
+    want = backtrace_batch_plain(view.to(torch.int32).contiguous(), best, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def backtrace_batch_plain(bp, best, lengths):
+    from cs304_tpu_torch.ops.viterbi import backtrace_batch
+
+    return backtrace_batch(bp, best, lengths, quirk=False)
+
+
+def test_serving_pool_defaults_to_the_card_and_raises_without_one(dev, monkeypatch):
+    from cs304_tpu_torch.ops.streaming_batch import BatchedStreamingComposite
+    from cs304_tpu_torch.serving import ServingSessionPool
+
+    pool = ServingSessionPool(flagship_models(), num_slots=2, max_frames=64)
+    assert pool._pool.device.type == "cuda" and pool._decoder.device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        ServingSessionPool(flagship_models(), num_slots=2)
+    with pytest.raises(RuntimeError):
+        BatchedStreamingComposite(flagship_composite(), num_slots=2)
+
+
+def test_streaming_composite_on_card_matches_cpu(dev):
+    """The single-stream decoder's chunk step is K4 on the card; its partials
+    and final path equal the CPU run's (emissions differ in the last bits,
+    so the score is held within rel 1e-5)."""
+    from cs304_tpu_torch.ops.streaming import StreamingComposite
+
+    comp = flagship_composite()
+    feats = (np.asarray(comp.means)[np.random.default_rng(5).integers(0, 58, 70)]
+             + np.random.default_rng(6).normal(0, 0.3, (70, 39))).astype(np.float32)
+    runs = {}
+    before = tdn.trellis_dense_forward.launches
+    for d in ("cuda", "cpu"):
+        stream = StreamingComposite(comp, chunk_size=16, device=d)
+        parts = []
+        for lo in range(0, 70, 13):
+            stream.feed(feats[lo: lo + 13])
+            parts.append(stream.partial_labels())
+        runs[d] = (parts, stream.finalize())
+    assert tdn.trellis_dense_forward.launches > before
+    assert runs["cuda"][0] == runs["cpu"][0]
+    np.testing.assert_array_equal(runs["cuda"][1][1], runs["cpu"][1][1])
+    assert runs["cuda"][1][0] == pytest.approx(runs["cpu"][1][0], rel=1e-5)

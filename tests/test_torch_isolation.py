@@ -1,8 +1,9 @@
 """cs304_tpu_torch stands alone: it imports neither jax nor cs304_tpu.
 
 A fresh interpreter blocks both (``sys.modules[name] = None`` makes any
-import of them raise), imports every module of the port and runs a tiny CPU
-decode through the raw-audio entry point.
+import of them raise), imports every module of the port, runs a tiny CPU
+decode through the raw-audio entry point, and feeds two sessions of a
+ServingSessionPool through one utterance each.
 """
 import os
 import subprocess
@@ -22,6 +23,18 @@ dec = ContinuousDecoder(flagship_models(), penalty=-100.0, emissions="quad",
                         backend="scanfree", device="cpu")
 out = dec.predict_signal_batch(list(make_signals(2, 0.5)))
 assert len(out) == 2 and all(isinstance(s, str) for s in out), out
+from cs304_tpu_torch.serving import ServingSessionPool
+pool = ServingSessionPool(flagship_models(), num_slots=2, max_frames=256, device="cpu")
+rng = np.random.default_rng(0)
+quiet = lambda n: rng.normal(0, 20.0, n).astype(np.float32)
+loud = rng.normal(0, 2000.0, 8000).astype(np.float32)
+sessions = [pool.open(), pool.open()]
+done = {}
+for piece in (quiet(1600), loud, quiet(8000)):
+    for s, rs in pool.feed({s: piece for s in sessions}).items():
+        done.setdefault(s, []).extend(rs)
+    pool.partials(sessions)
+assert sorted(done) == sessions and all(len(rs) == 1 for rs in done.values()), done
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "cs304_tpu.")))
                 and sys.modules[m] is not None)

@@ -101,9 +101,30 @@ Phases (each prints its own numbers; any failure exits non-zero):
               tensor; real-time sessions, ms per feed() round, HAS_NATIVE,
               a torch.profiler trace (the card's busy share) and a cProfile
               of feed() rounds (host functions)
+ 19. FB       the Baum-Welch sentence forward-backward kernel vs
+              banded_fb_plain (the trainer's shape B=896, T=160, S=59 on
+              real gathered emissions; -inf sprinkled in log_b and c1/c2,
+              length-0 and -1 rows, B=5 with T=1, S=503, S=2100, T=4000):
+              the same -inf cells, the rest within 1e-5 * max(1, |x|),
+              logged bitwise or not; device time, plain time, bound, µs per
+              step by slope
+ 20. BW       ContinuousTrainer(update="baum_welch") at phase 8's width for
+              3 iterations with FB and with the plain forward-backward:
+              equal iteration counts, parameters within rtol 1e-4 /
+              atol 1e-5, FB launched and no plain forward-backward on a
+              CUDA tensor; ms per iteration and its split by stage
+ 21. GMM      phase 9's models: 3 Baum-Welch iterations (accuracy >= 0.85);
+              promote_to_gmm(K=2) + GMMContinuousTrainer for 4 iterations
+              with K3 and with the plain trellis (bitwise, K3 launched), ms
+              per iteration; ContinuousDecoder on the GMMs: whitening
+              accuracy >= 0.85, emissions="quad" at each tier launching K1
+              or the split kernel over S*K columns (agreement reported),
+              predict_signal_batch == predict_batch on the same clips, a
+              GMM checkpoint round trip decoding the same texts; GMM pools
+              on the card (dense at 58 states, and banded) == CPU pools
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (nine kernels, each with
+The line before the last is the kernels' JSON record (ten kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -532,6 +553,7 @@ def main():
     yardsticks = slice_phases(dev, decode, pipe, launches, timings, errs)
     stream_phase(dev, launches, timings, errs, yardsticks)
     serving_phase(dev, pipe)
+    bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -834,7 +856,8 @@ def train_phases(dev, launches, timings, errs):
     launches["trellis_banded_forward"] = train_launches["banded_forward"]
     errs["trellis_banded_decode"] = errs["trellis_banded_forward"] = k3_err
     return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args,
-            "corpus": synth}
+            "corpus": synth, "n_states": train_n_states, "boot": boot, "labeled": labeled,
+            "pipe_labeled": pipe_labeled}
 
 
 def bound(bytes_moved, ops=()):
@@ -1722,6 +1745,356 @@ def serving_phase(dev, pipe):
         raise SystemExit(f"a plain step ran on a CUDA tensor while serving: {plain_on_card}")
 
 
+def fb_bound(b, t, s, lengths):
+    """bound() of one sentence forward-backward: every log_b row a chain
+    reads (rows below min(length, T)), the coefficients, lengths and finals
+    in; alpha and beta (every row) and ll out; 16 FP32 operations (adds,
+    compares, three exp and a log counted as one each) per (chain step,
+    state) in each direction, over the steps these lengths need."""
+    live = int(lengths.clamp(min=0, max=t).sum().item())
+    steps = int((lengths.clamp(min=1, max=t) - 1).sum().item())
+    return bound(4 * live * s + 12 * b * s + 8 * b + 8 * b * t * s + 4 * b,
+                 [(2 * 16 * steps * s, PEAK_FP32_ALU)])
+
+
+def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
+    """Phases 19-21: the Baum-Welch sentence forward-backward kernel (FB),
+    embedded Baum-Welch training, and the GMM slice (training, decoding,
+    checkpoints, pools) on phase 9's models."""
+    import tempfile
+
+    from cs304_tpu_torch.models import train_fused as tf
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+    from cs304_tpu_torch.models.train_continuous import (
+        ContinuousTrainConfig,
+        ContinuousTrainer,
+        insert_silence,
+    )
+    from cs304_tpu_torch.models.train_continuous_gmm import (
+        GMMContinuousTrainConfig,
+        GMMContinuousTrainer,
+        fused_gmm_iteration,
+        promote_to_gmm,
+    )
+    from cs304_tpu_torch.ops.cuda import emission as em
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+    from cs304_tpu_torch.ops.mfcc import mfcc_batch
+    from cs304_tpu_torch.ops.streaming_batch import BatchedStreamingComposite
+    from cs304_tpu_torch.utils.checkpoint import load_models, save_models
+
+    # -- 19. FB vs plain ------------------------------------------------------
+    t_phase = time.perf_counter()
+    lb_sent, c0, c1, c2, train_lengths = pipe["k3_args"]
+    final = tb.final_states(pipe["n_states"], lb_sent.shape[2])
+    fb_err, fb_bitwise = 0.0, True
+
+    def fb_check(name, log_b, c0_, c1_, c2_, lengths, fin):
+        """FB against banded_fb_plain on the same inputs: the same -inf
+        cells, finite cells within 1e-5 * max(1, |x|)."""
+        nonlocal fb_err, fb_bitwise
+        got = tfb.banded_fb(log_b, c0_, c1_, c2_, lengths, fin)
+        want = tfb.banded_fb_plain(log_b, c0_, c1_, c2_, lengths, fin)
+        torch.cuda.synchronize()
+        ok, err, bitwise = True, 0.0, True
+        for g, w in zip(got, want):
+            fin_w = torch.isfinite(w)
+            ok &= bool(torch.equal(fin_w, torch.isfinite(g))) and not bool(torch.isnan(g).any())
+            if fin_w.any():
+                d = (g[fin_w] - w[fin_w]).abs()
+                err = max(err, d.max().item())
+                ok &= bool((d <= 1e-5 * w[fin_w].abs().clamp(min=1.0)).all())
+            bitwise &= bool(torch.equal(g, w))
+        fb_err = max(fb_err, err)
+        fb_bitwise &= bitwise
+        b_k, t_k, s_k = log_b.shape
+        log("FB", case=name, B=b_k, T=t_k, S=s_k, ok=ok, bitwise=bitwise, max_abs_err=err,
+            neg_inf_ll=int((~torch.isfinite(got[2])).sum()),
+            length_0_rows=int((lengths == 0).sum()), length_1_rows=int((lengths == 1).sum()))
+        if not ok:
+            raise SystemExit(f"FB disagrees with its plain version ({name})")
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def problem(b, t, s, zero_length=False):
+        log_b = 2 * torch.randn((b, t, s), generator=gen, device=dev)
+        cs = [0.5 * torch.randn((b, s), generator=gen, device=dev) for _ in range(3)]
+        cs[1][:, :1] = float("-inf")
+        cs[2][:, :2] = float("-inf")
+        for cc in cs[1:]:
+            cc[torch.rand((b, s), generator=gen, device=dev) < 0.15] = float("-inf")
+        log_b[torch.rand((b, t, s), generator=gen, device=dev) < 0.03] = float("-inf")
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        lengths[0] = t
+        if zero_length:
+            lengths[1::3] = 0
+            lengths[2::5] = 1
+        fin = torch.randint(max(0, s - 8), s, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        return log_b, *cs, lengths, fin
+
+    fb_args = (lb_sent, c0, c1, c2, train_lengths, final)
+    fb_check("training-shape", *fb_args)
+    fb_check("random-inf", *problem(256, 160, 59))
+    fb_check("length-0-and-1-rows", *problem(96, 100, 59, zero_length=True))
+    fb_check("B5-T1", *problem(5, 1, 59))
+    fb_check("503-states", *problem(16, 160, 503))
+    fb_check("2100-states", *problem(4, 40, 2100))
+    fb_check("T=4000", *problem(6, 4000, 59))
+    b_fb, t_fb, s_fb = lb_sent.shape
+    timings["trellis_fb"] = (device_ms(lambda: tfb.banded_fb(*fb_args)),
+                             cuda_ms(lambda: tfb.banded_fb_plain(*fb_args), reps=2))
+    errs["trellis_fb"] = fb_err
+    b_ms, b_by = fb_bound(b_fb, t_fb, s_fb, train_lengths)
+    yardsticks["trellis_fb"] = (None, b_ms, b_by)
+    chain = int(train_lengths.clamp(max=t_fb).max().item()) - 1
+    short = train_lengths.clamp(max=41)
+    fb_short = device_ms(lambda: tfb.banded_fb(lb_sent, c0, c1, c2, short, final))
+    slope = (timings["trellis_fb"][0] - fb_short) / (chain - 40) * 1e3
+    log("timing", kernel="trellis_fb", ms=timings["trellis_fb"][0],
+        plain_ms=timings["trellis_fb"][1], bound_ms=b_ms, bound_by=b_by,
+        eager_ms=cuda_ms(lambda: tfb.banded_fb(*fb_args)), bitwise_all_cases=fb_bitwise,
+        chain_steps=chain, slope_us_per_step=slope, serial_floor_ms=chain * slope / 1e3,
+        shape=f"B={b_fb} T={t_fb} S={s_fb}")
+    log("phase", which="19 FB", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+    # -- 20. Baum-Welch training, FB vs the plain forward-backward ---------
+    t_phase = time.perf_counter()
+    boot, labeled = pipe["boot"], pipe["labeled"]
+    cfg = ContinuousTrainConfig(max_iterations=3, silence_bootstrap=False, cov_reg=0.1,
+                                on_empty_state="keep", update="baum_welch")
+    plain_on_card = {"n": 0}
+    plain_fn = tfb.banded_fb_plain
+
+    def counted_plain(log_b, *rest):
+        plain_on_card["n"] += int(log_b.is_cuda)
+        return plain_fn(log_b, *rest)
+
+    runs = {}
+    for backend in ("kernel", "plain"):
+        tf._FB_BACKEND = backend
+        tfb.banded_fb_plain = tf.banded_fb_plain = counted_plain
+        plain_on_card["n"] = 0
+        trainer = ContinuousTrainer(dict(boot), cfg, device=dev)
+        tfb.banded_fb.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_it = trainer.train(labeled)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[backend] = (trainer, n_it, tfb.banded_fb.launches, plain_on_card["n"])
+        log("bw-train", fb=backend, iterations=n_it, seconds=f"{seconds:.3f}",
+            fb_launches=tfb.banded_fb.launches, plain_fb_on_card=plain_on_card["n"],
+            empty_slots=len(trainer.last_empty_slots))
+    tfb.banded_fb_plain = tf.banded_fb_plain = plain_fn
+    tf._FB_BACKEND = "kernel"
+    (tr_k, it_k, fb_launches, plain_k), (tr_p, it_p, _l, _p) = runs["kernel"], runs["plain"]
+    close = {}
+    for n in ("means_g", "covs_g", "log_a_g"):
+        a, b = getattr(tr_k, n), getattr(tr_p, n)
+        same_inf = np.array_equal(np.isfinite(a), np.isfinite(b))
+        fin = np.isfinite(b)
+        close[n] = bool(same_inf and np.allclose(a[fin], b[fin], rtol=1e-4, atol=1e-5))
+        log("bw-train", param=n, max_abs_diff=float(np.abs(a[fin] - b[fin]).max()),
+            bitwise=bool(np.array_equal(a, b)), close=close[n])
+    if not (it_k == it_p and all(close.values())):
+        raise SystemExit(f"FB-trained and plain-trained parameters differ ({close}, "
+                         f"iterations {it_k} vs {it_p})")
+    if fb_launches == 0 or plain_k:
+        raise SystemExit(f"Baum-Welch training launched FB {fb_launches} times and ran the "
+                         f"plain forward-backward {plain_k} times on the card")
+    launches["trellis_fb"] = fb_launches
+
+    # Stages of one iteration (CUDA events, fixed inputs).
+    corpus = tf.prepare_fused_corpus(labeled, tr_k.state_counts, tr_k.label_index,
+                                     insert_silence, 32, device=dev)
+    args, kwargs = tr_k._fused_args(corpus), tr_k._fused_kwargs()
+    n_chunks, c, t_total, _ = corpus.batch.shape
+    b_all = n_chunks * c
+    topo = corpus.topo_id.reshape(-1).long()
+    lab_u, loc_u, samew_u = (x[topo] for x in (corpus.lab_tab, corpus.loc_tab,
+                                                corpus.samew_tab))
+    f = len(tr_k.labels) * tr_k.s_max
+    lb_bw = tf._gather_sentence_emissions(args[0], args[1], corpus.lab_tab, corpus.loc_tab,
+                                          corpus.batch, corpus.topo_id,
+                                          tr_k.s_max).reshape(b_all, t_total, -1)
+    diags = tf._sentence_trans_diagonals(args[2], lab_u, loc_u, samew_u,
+                                         corpus.cross_tab[topo], "exit_only")
+    lens = corpus.lengths.reshape(-1)
+    n_states = corpus.n_states_t[topo]
+    la, lbeta, ll = tf._training_fb(lb_bw, *diags, lens, n_states)
+    gam, ll_c, valid = tf._bw_posteriors(la, lbeta, ll, lens)
+    pa = tf._bw_pass_a(gam, la, lbeta, lb_bw, diags, ll_c, valid, lens, lab_u, loc_u,
+                       samew_u, corpus.batch, tr_k.s_max, f)
+    c_glob = pa[1].sum(0) / pa[0].sum()
+
+    def fb_stage(backend):
+        def run():
+            tf._FB_BACKEND = backend
+            d3 = tf._sentence_trans_diagonals(args[2], lab_u, loc_u, samew_u,
+                                              corpus.cross_tab[topo], "exit_only")
+            out = tf._training_fb(lb_bw, *d3, lens, n_states)
+            tf._FB_BACKEND = "kernel"
+            return out
+        return run
+
+    stage = {
+        "emissions": cuda_ms(lambda: tf._gather_sentence_emissions(
+            args[0], args[1], corpus.lab_tab, corpus.loc_tab, corpus.batch,
+            corpus.topo_id, tr_k.s_max), reps=5),
+        "fb_kernel": cuda_ms(fb_stage("kernel"), reps=5),
+        "fb_plain": cuda_ms(fb_stage("plain"), reps=2),
+        "pass_a": cuda_ms(lambda: tf._bw_pass_a(
+            *tf._bw_posteriors(la, lbeta, ll, lens)[:1], la, lbeta, lb_bw, diags, ll_c,
+            valid, lens, lab_u, loc_u, samew_u, corpus.batch, tr_k.s_max, f), reps=5),
+        "pass_b": cuda_ms(lambda: tf._bw_pass_b(corpus.batch, pa[3], c_glob), reps=5),
+        "iteration_fb": cuda_ms(lambda: tf.fused_bw_iteration(*args, **kwargs), reps=5),
+    }
+    stage["m_step_and_glue"] = stage["iteration_fb"] - (
+        stage["emissions"] + stage["fb_kernel"] + stage["pass_a"] + stage["pass_b"])
+
+    def bw_iteration_ms(backend):
+        """Best of 3: one iteration, a synchronize and a host copy of the new
+        parameters."""
+        tf._FB_BACKEND = backend
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = tf.fused_bw_iteration(*args, **kwargs)
+            torch.cuda.synchronize()
+            [o.cpu() for o in out[:3]]
+            best = min(best, time.perf_counter() - t0)
+        tf._FB_BACKEND = "kernel"
+        return best * 1e3
+
+    bw_iteration_ms("kernel")
+    it_ms = {}
+    for backend in ("plain", "kernel", "kernel", "plain"):
+        it_ms[backend] = min(it_ms.get(backend, float("inf")), bw_iteration_ms(backend))
+    log("timing", what="Baum-Welch iteration, host wall best of 3 with readback",
+        ms_fb=it_ms["kernel"], ms_plain_fb=it_ms["plain"],
+        utt_per_s_fb=corpus.num_utts / it_ms["kernel"] * 1e3,
+        shape=f"B={b_all} T={t_total} S_sent={lb_bw.shape[2]}")
+    log("timing", what="Baum-Welch stages (CUDA events)",
+        **{k: f"{v:.4f}" for k, v in stage.items()})
+    log("phase", which="20 Baum-Welch", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+    # -- 21. GMM on phase 9's models -----------------------------------------
+    t_phase = time.perf_counter()
+    models, pipe_labeled = pipe["models"], pipe["pipe_labeled"]
+    truths, eval_feats = pipe["eval"]["train_speakers"]
+
+    def accuracy(dec):
+        preds = dec.predict_batch(eval_feats)
+        return float(np.mean([p == t for p, t in zip(preds, truths)])), preds
+
+    bw_trainer = ContinuousTrainer(dict(models), ContinuousTrainConfig(
+        max_iterations=3, cov_reg=0.1, silence_bootstrap=False, update="baum_welch"),
+        device=dev)
+    bw_it = bw_trainer.train(pipe_labeled)
+    bw_acc, _ = accuracy(ContinuousDecoder(bw_trainer.models(), penalty=-100.0, device=dev))
+    log("gmm", what="Baum-Welch refinement of the phase-9 models", iterations=bw_it,
+        exact_seq_acc=bw_acc)
+    if bw_acc < ACC_BAR:
+        raise SystemExit(f"Baum-Welch exact-sequence accuracy {bw_acc} < {ACC_BAR}")
+
+    gmm0 = promote_to_gmm(models, 2)
+    gcfg = GMMContinuousTrainConfig(max_iterations=4, cov_reg=0.1)
+    gruns = {}
+    for backend in ("scanfree", "scan"):
+        tf._TRELLIS_BACKEND = backend
+        tb.banded_decode.launches = 0
+        trainer = GMMContinuousTrainer(dict(gmm0), gcfg, device=dev)
+        t0 = time.perf_counter()
+        n_it = trainer.train(pipe_labeled)
+        torch.cuda.synchronize()
+        gruns[backend] = (trainer, n_it, tb.banded_decode.launches)
+        log("gmm", trellis=backend, iterations=n_it, seconds=f"{time.perf_counter() - t0:.3f}",
+            k3_launches=tb.banded_decode.launches)
+    tf._TRELLIS_BACKEND = "scanfree"
+    (g_k, n_k, k3_l), (g_p, n_p, k3_p) = gruns["scanfree"], gruns["scan"]
+    same = {n: bool(np.array_equal(getattr(g_k, n), getattr(g_p, n)))
+            for n in ("means_g", "covs_g", "weights_g", "log_a_g")}
+    log("gmm", iterations_equal=n_k == n_p, params_bitwise=json.dumps(same),
+        finite=bool(np.isfinite(g_k.means_g).all() and np.isfinite(g_k.covs_g).all()))
+    if not (n_k == n_p and all(same.values())) or k3_l == 0 or k3_p:
+        raise SystemExit(f"GMM training: K3 and plain runs differ or K3 did not launch "
+                         f"({same}, launches {k3_l}/{k3_p})")
+    gfused = tf.prepare_fused_corpus(pipe_labeled, g_k.state_counts, g_k.label_index,
+                                     insert_silence, 32, chunk_utts=32, device=dev)
+    g_args, g_kwargs = g_k._args(gfused), g_k._kwargs()
+
+    def gmm_iteration_ms():
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fused_gmm_iteration(*g_args, **g_kwargs)
+            torch.cuda.synchronize()
+            [o.cpu() for o in out[:4]]
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    gmm_iteration_ms()
+    log("timing", what="GMM iteration (K=2), host wall best of 3 with readback",
+        ms=gmm_iteration_ms(), utt_per_s=gfused.num_utts / gmm_iteration_ms() * 1e3,
+        shape=f"B={gfused.batch.shape[0] * gfused.batch.shape[1]} "
+              f"T={gfused.batch.shape[2]} utterances={gfused.num_utts}")
+
+    gmm = g_k.models()
+    dec_w = ContinuousDecoder(gmm, penalty=-100.0, device=dev)
+    acc_w, preds_w = accuracy(dec_w)
+    s_states = dec_w.composite.num_states
+    tiers = {}
+    for tier in ("highest", "high", "default"):
+        dec_q = ContinuousDecoder(gmm, penalty=-100.0, emissions="quad",
+                                  emission_precision=tier, device=dev)
+        em.emission.launches = em.emission_split.launches = 0
+        acc_q, preds_q = accuracy(dec_q)
+        torch.cuda.synchronize()
+        kernel = em.emission if tier == "highest" else em.emission_split
+        tiers[tier] = (acc_q, float(np.mean([a == b for a, b in zip(preds_q, preds_w)])),
+                       kernel.launches)
+        log("gmm", decoder="quad", tier=tier, gaussians=dec_q._n_gauss, s_pad=dec_q._s_pad,
+            launches=kernel.launches, exact_seq_acc=acc_q, agreement_with_whiten=tiers[tier][1])
+        if kernel.launches == 0 or dec_q._n_gauss != 2 * s_states:
+            raise SystemExit(f"GMM quad at {tier} did not run its kernel over S*K columns")
+    corpus_a = pipe["corpus"]
+    clips = [corpus_a.sentence_audio(tr, spk, jitter_seed=33)
+             for tr in PIPELINE_TRANSCRIPTS for spk in range(6)]
+    texts_sig = dec_w.predict_signal_batch(clips)
+    texts_feat = dec_w.predict_batch(mfcc_batch(clips, device=dev))
+    with tempfile.TemporaryDirectory() as folder:
+        save_models(gmm, folder)
+        loaded = load_models(folder)
+        _, preds_l = accuracy(ContinuousDecoder(loaded, penalty=-100.0, device=dev))
+    log("gmm", decoder="whiten", exact_seq_acc=acc_w, signal_equals_features=texts_sig == texts_feat,
+        checkpoint_texts_equal=preds_l == preds_w, states=s_states)
+    if acc_w < ACC_BAR or texts_sig != texts_feat or preds_l != preds_w:
+        raise SystemExit(f"GMM decoding failed its gates (accuracy {acc_w}, signal == "
+                         f"features {texts_sig == texts_feat}, checkpoint {preds_l == preds_w})")
+
+    utts = eval_feats[:12]
+
+    def pool_texts(device, step_impl):
+        pool = BatchedStreamingComposite.from_models(
+            gmm, penalty=-100.0, num_slots=16, chunk_size=16, max_frames=512,
+            step_impl=step_impl, device=device)
+        slots = [pool.start() for _ in utts]
+        for lo in range(0, max(len(u) for u in utts), 16):
+            pool.step({s: u[lo: lo + 16] for s, u in zip(slots, utts) if lo < len(u)})
+        out = pool.finalize(slots)
+        return pool.step_impl, [out[s][1] for s in slots]
+
+    for step_impl in ("auto", "banded"):
+        impl, on_card = pool_texts(dev, step_impl)
+        _, on_cpu = pool_texts("cpu", step_impl)
+        log("gmm", pool=impl, states=s_states, texts_equal_cpu=on_card == on_cpu,
+            agreement_with_offline=float(np.mean([a == b for a, b in zip(on_card, preds_w)])))
+        if on_card != on_cpu:
+            raise SystemExit(f"the GMM pool ({impl}) on the card differs from the CPU pool")
+    log("phase", which="21 GMM", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def report(kind, launches, timings, errs, yardsticks):
     """The kernels' JSON line and the final line."""
     meta = {
@@ -1744,6 +2117,10 @@ def report(kind, launches, timings, errs, yardsticks):
         # No Pallas counterpart: the JAX pool's step is a lax.scan.
         "trellis_stream": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
                            "cs304_tpu/ops/streaming_batch.py:201 (lax.scan; also :130)"),
+        # No Pallas counterpart: the JAX trainer's forward-backward is two
+        # lax.scans.
+        "trellis_fb": ("cs304_tpu_torch/csrc/trellis_fb.cu",
+                       "cs304_tpu/models/train_fused.py:369 (_banded_fb_batch, lax.scans)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

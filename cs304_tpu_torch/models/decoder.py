@@ -17,6 +17,16 @@ toward the exit. With emissions="quad" the emission kernel of the
 128 state columns, which every trellis reads in place. The device is the
 card unless the caller passes device="cpu"; on the CPU every kernel wrapper
 runs its plain version.
+
+K-mixture GMM models (GMMWordHMM), alone or mixed with single Gaussians
+(lifted to one-mixture rows, zero-weight padding), decode over the same
+composite: "whiten" scores the S*K Gaussians and takes the logsumexp of
+component + log weight over K; "quad" computes the S*K component densities
+with the tier's emission kernel on a cached folded operand (the first S*K
+columns of its padded layout) and combines them the same way, outside any
+kernel, as the JAX package does. predict_signal_batch always scores GMMs
+with the whitening layout, whatever ``emissions`` says, as the JAX decoder
+does.
 """
 from __future__ import annotations
 
@@ -36,7 +46,13 @@ from ..ops.cuda.emission import (
 )
 from ..ops.cuda.trellis_dense import dense_decode_pallas
 from ..ops.cuda.trellis_scanfree import MAX_STATES, scanfree_decode
-from ..ops.gaussian import gaussian_log_pdf, make_gaussian_params
+from ..ops.gaussian import (
+    gaussian_log_pdf,
+    gmm_combine,
+    gmm_log_pdf,
+    make_gaussian_params,
+    make_gmm_params,
+)
 from ..ops.viterbi import (
     composite_transition_matrix,
     dense_decode,
@@ -44,16 +60,38 @@ from ..ops.viterbi import (
     viterbi_composite_batch_fast,
 )
 from ..ops.words import ids_to_strings, words_from_paths
-from .hmm import DEFAULT_WORD_PENALTY, stack_word_models
+from .hmm import DEFAULT_WORD_PENALTY, WordHMM, stack_word_models
 
 # Word buffer of the on-device compaction; a longer transcript falls back to
 # the host walk of the full path.
 MAX_WORDS = 64
 
 
+def _lift_to_gmm(models):
+    """Mixed WordHMM / GMMWordHMM list -> (single-Gaussian boundary views,
+    (means (S, K, D), covs (S, K, D, D), weights (S, K)) stacked over the
+    composite's states and padded to a common K by pad_mixture_params)."""
+    from .gmm_hmm import GMMWordHMM, pad_mixture_params
+
+    k_max = max(m.num_mixtures if isinstance(m, GMMWordHMM) else 1 for m in models)
+    views, means_l, covs_l, weights_l = [], [], [], []
+    for m in models:
+        mm, cc, ww = pad_mixture_params(m, k_max)
+        if isinstance(m, GMMWordHMM):
+            views.append(WordHMM(label=m.label, means=m.means[:, 0],
+                                 covariances=m.covariances[:, 0], log_a=m.log_a))
+        else:
+            views.append(m)
+        means_l.append(mm)
+        covs_l.append(cc)
+        weights_l.append(ww)
+    return views, (np.concatenate(means_l), np.concatenate(covs_l),
+                   np.concatenate(weights_l))
+
+
 class ContinuousDecoder:
-    """Batched continuous decoding with optional silence handling
-    (single-Gaussian word models)."""
+    """Batched continuous decoding with optional silence handling, over
+    single-Gaussian word models, GMM word models or a mix of both."""
 
     def __init__(
         self,
@@ -92,10 +130,6 @@ class ContinuousDecoder:
             raise NotImplementedError(
                 "beam pruning is not ported yet (ROADMAP Queue 1, slice 4)"
             )
-        if any(getattr(m, "weights", None) is not None for m in models):
-            raise NotImplementedError(
-                "GMM word models are not ported yet (ROADMAP Queue 1, slice 3)"
-            )
         self.device = resolve_device(device)
         if backend == "auto":
             backend = "scanfree" if self.device.type == "cuda" else "fast"
@@ -105,7 +139,12 @@ class ContinuousDecoder:
         # The bigram LM's weight: stored, and with no bigram it changes
         # nothing (as in the JAX decoder).
         self._lm_weight = lm_weight
-        self.composite = stack_word_models(models, penalty)
+        self._gmm = None  # (means, covs, weights) stacked over states
+        if any(getattr(m, "weights", None) is not None for m in models):
+            views, self._gmm = _lift_to_gmm(models)
+            self.composite = stack_word_models(views, penalty)
+        else:
+            self.composite = stack_word_models(models, penalty)
         if backend in ("scanfree", "pallas") and self.composite.num_states > MAX_STATES:
             raise ValueError(
                 f"{self.composite.num_states} states exceed the {backend} "
@@ -117,21 +156,31 @@ class ContinuousDecoder:
         """Move the model to the device once: emission parameters (and
         the tier's folded kernel operand on the card, or their bf16 split
         below "highest" on the CPU), trellis coefficients, the dense
-        transition matrix of the dense backends, and word boundaries."""
+        transition matrix of the dense backends, and word boundaries. A GMM
+        decoder's quad operand covers its S*K Gaussians, and it keeps the
+        whitening parameters too (predict_signal_batch's layout)."""
         c, dev = self.composite, self.device
-        self._s_pad = -(-c.num_states // LANES) * LANES
+        means, covs = c.means, c.covariances
+        n_gauss = c.num_states
+        if self._gmm is not None:
+            g_means, g_covs, g_weights = self._gmm
+            s, k, d = g_means.shape
+            means, covs = g_means.reshape(s * k, d), g_covs.reshape(s * k, d, d)
+            n_gauss = s * k
+            self._gmm_whiten = make_gmm_params(g_means, g_covs, g_weights, device=dev)
+        self._n_gauss = n_gauss
+        self._s_pad = -(-n_gauss // LANES) * LANES
         if self.emissions == "quad":
-            self._quad = pack_quad_params(c.means, c.covariances, self._s_pad,
-                                          device=dev)
+            self._quad = pack_quad_params(means, covs, self._s_pad, device=dev)
             on_card = dev.type == "cuda"
             # The card runs the tier's folded operand, the CPU the plain
             # version on the unfolded (split) parameters.
             self._folded = (fold_quad_params(*self._quad, self.emission_precision,
-                                             c.num_states) if on_card else None)
+                                             n_gauss) if on_card else None)
             self._nhp_split = (None if self.emission_precision == "highest" or on_card
                                else split_hi_lo(self._quad[0]))
-        else:
-            self._whiten = make_gaussian_params(c.means, c.covariances, device=dev)
+        elif self._gmm is None:
+            self._whiten = make_gaussian_params(means, covs, device=dev)
         self._coefs = pack_coefs(c.log_a, c.lower_of_state, c.is_entry,
                                  c.is_exit, device=dev)
         self._trans = self._dense_trans()
@@ -157,23 +206,31 @@ class ContinuousDecoder:
                                            c.is_exit, c.penalty, device=self.device)
 
     # -- device path ---------------------------------------------------------
-    def _log_b(self, batch: torch.Tensor) -> torch.Tensor:
-        """(B, T, D) -> (B, T, S) or, for "quad", (B, T, s_pad) emissions."""
+    def _log_b(self, batch: torch.Tensor, whiten: bool = False) -> torch.Tensor:
+        """(B, T, D) -> (B, T, S) or, for single-Gaussian "quad", (B, T,
+        s_pad) emissions. whiten=True scores a GMM decoder's models with the
+        whitening layout whatever ``emissions`` says."""
+        if self._gmm is not None and (whiten or self.emissions == "whiten"):
+            return gmm_log_pdf(self._gmm_whiten, batch)
         if self.emissions == "quad":
             b, t, d = batch.shape
             out = tier_emission(batch.reshape(b * t, d), *self._quad,
-                                num_states=self.composite.num_states,
+                                num_states=self._n_gauss,
                                 s_pad=self._s_pad,
                                 precision=self.emission_precision,
                                 nhp_split=self._nhp_split,
                                 folded=self._folded)
+            if self._gmm is not None:
+                comp = out[:, : self._n_gauss]
+                return gmm_combine(comp, self._gmm_whiten.log_weights).reshape(b, t, -1)
             return out.reshape(b, t, self._s_pad)
         return gaussian_log_pdf(self._whiten, batch)
 
-    def decode(self, batch: torch.Tensor, lengths: torch.Tensor):
+    def decode(self, batch: torch.Tensor, lengths: torch.Tensor,
+               whiten: bool = False):
         """(B, T, D) float32 features + (B,) lengths on the decoder's device
-        -> (scores (B,), paths (B, T) int32)."""
-        log_b = self._log_b(batch)
+        -> (scores (B,), paths (B, T) int32). whiten: see _log_b."""
+        log_b = self._log_b(batch, whiten).contiguous()
         c = self.composite
         if self.backend == "scanfree":
             return scanfree_decode(log_b, self._coefs, c.penalty, lengths)
@@ -206,7 +263,8 @@ class ContinuousDecoder:
         feats, n_frames = mfcc_features_batch(
             signals, n_samples, mcfg if mcfg is not None else MFCCConfig()
         )
-        scores, paths = self.decode(feats, n_frames)
+        # GMMs go through the whitening layout here, as in the JAX decoder.
+        scores, paths = self.decode(feats, n_frames, whiten=True)
         ids, counts = self._words(paths, n_frames, skip_silence)
         return scores, ids, counts
 

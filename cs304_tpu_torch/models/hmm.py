@@ -114,12 +114,25 @@ def stack_word_models(
     )
 
 
-def from_numpy_models(labels, means, covariances, log_a) -> List[WordHMM]:
+def from_numpy_models(labels, means, covariances, log_a, weights=None) -> list:
     """Per-word parameter arrays (as the JAX package's models hold them:
     means (S_w, D), covariances (S_w, D, D), log_a (S_w, S_w)) -> the port's
-    WordHMMs, in the order given. Arrays are copied as float32."""
-    if not (len(labels) == len(means) == len(covariances) == len(log_a)):
-        raise ValueError("labels, means, covariances and log_a differ in length")
+    WordHMMs, in the order given. With ``weights`` (one (S_w, K) array a
+    word; means (S_w, K, D), covariances (S_w, K, D, D)) -> GMMWordHMMs.
+    Arrays are copied as float32."""
+    n = len(labels)
+    if not (n == len(means) == len(covariances) == len(log_a)) or (
+            weights is not None and len(weights) != n):
+        raise ValueError("labels, means, covariances, log_a and weights differ in length")
+    if weights is not None:
+        from .gmm_hmm import GMMWordHMM
+
+        return [
+            GMMWordHMM(label=str(lab), means=np.array(m, np.float32),
+                       covariances=np.array(c, np.float32),
+                       weights=np.array(w, np.float32), log_a=np.array(a, np.float32))
+            for lab, m, c, w, a in zip(labels, means, covariances, weights, log_a)
+        ]
     return [
         WordHMM(
             label=str(lab),

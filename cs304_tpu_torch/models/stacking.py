@@ -4,12 +4,13 @@ The trainers (and later the aligner and MAP adaptation) all need the same
 prologue: sort the labels, validate the silence model, stack every word
 model's parameters into padded (L, S_max, ...) global arrays, and gather them
 onto a transcript's sentence state space. A port of
-cs304_tpu/models/stacking.py for single-Gaussian models; a GMM model raises.
+cs304_tpu/models/stacking.py: single-Gaussian dicts stack as they are; a
+dict with any GMM lifts every model to K_max mixtures.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -18,9 +19,14 @@ from .train_continuous import _sentence_log_a, _topology, insert_silence
 
 @dataclass(frozen=True)
 class StackedModels:
-    """Padded global arrays over a sorted model dict of single Gaussians:
-    means (L, S, D), covariances (L, S, D, D; identity in padded slots),
-    log_a (L, S, S; -inf padded)."""
+    """Padded global arrays over a sorted model dict.
+
+    Single-Gaussian dicts: means (L, S, D), covariances (L, S, D, D;
+    identity in padded slots), weights None. Any GMM present: every model
+    lifted to K_max mixtures, means (L, S, K, D), covariances
+    (L, S, K, D, D), weights (L, S, K); zero-weight padding mixtures
+    contribute log 0 and drop out of the logsumexp. log_a (L, S, S; -inf
+    padded) either way."""
 
     labels: List[str]
     label_index: Dict[str, int]
@@ -30,15 +36,24 @@ class StackedModels:
     means: np.ndarray
     covariances: np.ndarray
     log_a: np.ndarray  # (L, S, S), -inf padded
+    weights: Optional[np.ndarray] = None
+
+    @property
+    def is_gmm(self) -> bool:
+        return self.weights is not None
 
     def sentence(self, sentence: str, cross_word: str = "exit_only"):
         """Gather onto a sentence's state space.
 
-        Returns (topo, log_a_sent (S_sent, S_sent), (means, covs))."""
+        Returns (topo, log_a_sent (S_sent, S_sent), emission arrays): (means,
+        covs) for a Gaussian stack, (means, covs, weights) for a GMM one."""
         topo = _topology(sentence, self.state_counts, self.label_index)
         log_a_sent = _sentence_log_a(topo, self.log_a, cross_word)
         lab, loc = topo.lab_of_state, topo.loc_of_state
-        return topo, log_a_sent, (self.means[lab, loc], self.covariances[lab, loc])
+        emission = (self.means[lab, loc], self.covariances[lab, loc])
+        if self.is_gmm:
+            emission += (self.weights[lab, loc],)
+        return topo, log_a_sent, emission
 
     def sentence_for(self, transcript: str, insert_sil: bool,
                      cross_word: str = "exit_only"):
@@ -60,16 +75,12 @@ class StackedModels:
 def stack_models(
     models: Dict[str, object], require_silence: bool = False
 ) -> StackedModels:
-    """Stack a dict of single-Gaussian word models (WordHMM)."""
+    """Stack a model dict (WordHMM / GMMWordHMM / mixed: a mixed dict lifts
+    its single-Gaussian models to one-mixture rows)."""
+    from .gmm_hmm import pad_mixture_params
+
     if not models:
         raise ValueError("empty model dict")
-    gmm = sorted(l for l, m in models.items()
-                 if getattr(m, "weights", None) is not None)
-    if gmm:
-        raise NotImplementedError(
-            f"GMM word models {gmm} are not ported yet (ROADMAP Queue 1, "
-            "slice 3, item 17: models/gmm_hmm.py)"
-        )
     if require_silence and "S" not in models:
         raise ValueError(
             "insert_sil=True needs a silence model 'S' in the model dict "
@@ -81,17 +92,32 @@ def stack_models(
     s_max = max(state_counts.values())
     l_num = len(labels)
     dim = int(models[labels[0]].means.shape[-1])
+    is_gmm = any(getattr(models[l], "weights", None) is not None for l in labels)
 
     log_a = np.full((l_num, s_max, s_max), -np.inf, np.float32)
-    means = np.zeros((l_num, s_max, dim), np.float32)
-    covs = np.tile(np.eye(dim, dtype=np.float32), (l_num, s_max, 1, 1))
     for l, i in label_index.items():
-        m = models[l]
         s = state_counts[l]
-        log_a[i, :s, :s] = m.log_a
-        means[i, :s] = m.means
-        covs[i, :s] = m.covariances
+        log_a[i, :s, :s] = models[l].log_a
+    weights = None
+    if is_gmm:
+        k_max = max(getattr(models[l], "num_mixtures", 1) for l in labels)
+        means = np.zeros((l_num, s_max, k_max, dim), np.float32)
+        covs = np.tile(np.eye(dim, dtype=np.float32), (l_num, s_max, k_max, 1, 1))
+        weights = np.zeros((l_num, s_max, k_max), np.float32)
+        for l, i in label_index.items():
+            s = state_counts[l]
+            means[i, :s], covs[i, :s], weights[i, :s] = pad_mixture_params(
+                models[l], k_max)
+    else:
+        means = np.zeros((l_num, s_max, dim), np.float32)
+        covs = np.tile(np.eye(dim, dtype=np.float32), (l_num, s_max, 1, 1))
+        for l, i in label_index.items():
+            m = models[l]
+            s = state_counts[l]
+            means[i, :s] = m.means
+            covs[i, :s] = m.covariances
     return StackedModels(
         labels=labels, label_index=label_index, state_counts=state_counts,
         s_max=s_max, dim=dim, means=means, covariances=covs, log_a=log_a,
+        weights=weights,
     )

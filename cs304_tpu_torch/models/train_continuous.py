@@ -15,8 +15,12 @@ This is the PyTorch port of cs304_tpu/models/train_continuous.py, fused path
 only: every iteration is models/train_fused.py's fused Viterbi iteration
 (alignment of every utterance, sufficient statistics, M-step, convergence
 test) on the trainer's device, whose sentence trellis is the banded CUDA
-kernel on a card. Not ported yet, each raising NotImplementedError: the
-Baum-Welch update, mesh training, GMM models and the fused=False legacy
+kernel on a card, or with update="baum_welch" its fused Baum-Welch
+iteration, whose sentence forward-backward is the FB kernel on a card. GMM
+models train with models/train_continuous_gmm.py's GMMContinuousTrainer:
+given one, train() raises a ValueError that says so (the JAX trainer fails
+there too, with a ValueError of its own). Not ported yet, each raising
+NotImplementedError: mesh training and the fused=False legacy
 per-transcript oracle.
 
 Convergence semantics divergence (documented): the reference counts
@@ -93,8 +97,9 @@ class ContinuousTrainConfig:
     silence_label: str = SILENCE_LABEL
     # Statistics used for re-estimation. "viterbi" (default) replicates the
     # reference's segmental update: hard path counts from the banded sentence
-    # Viterbi (hidden_markov_model.py:588-600). "baum_welch" (forward-backward
-    # posteriors over the same banded sentence topology) is not ported yet.
+    # Viterbi (hidden_markov_model.py:588-600). "baum_welch" replaces them by
+    # forward-backward posteriors over the same banded sentence topology
+    # (soft counts, floor 1e-4; cross-word xi excluded).
     update: str = "viterbi"
     # The fused iteration (models/train_fused.py) is the port's only spine;
     # fused=False (the JAX package's legacy per-transcript oracle) is not
@@ -209,10 +214,6 @@ class ContinuousTrainer:
             raise ValueError(
                 f"update={cfg.update!r} is not one of 'viterbi'/'baum_welch'"
             )
-        if cfg.update == "baum_welch":
-            raise _not_ported(
-                "update='baum_welch'",
-                "Queue 1, slice 3, item 16: the fused Baum-Welch iteration")
         if mesh is not None:
             raise _not_ported(
                 "mesh (data-parallel) training",
@@ -354,6 +355,11 @@ class ContinuousTrainer:
         can continue via `resume(checkpoint_dir)`."""
         from .train_fused import prepare_fused_corpus
 
+        if self.means_g.ndim != 3:
+            raise ValueError(
+                "ContinuousTrainer trains single-Gaussian word models; these "
+                "models carry mixture weights: train them with "
+                "GMMContinuousTrainer (models/train_continuous_gmm.py)")
         # Frame padding at 32 granularity: the fused iteration is topology-
         # independent, so a coarser multiple would only add trellis steps.
         batches = prepare_fused_corpus(
@@ -402,7 +408,7 @@ class ContinuousTrainer:
         )
         self._dev_state = (means, covs, log_a)
         counts = counts.cpu().numpy()
-        empty = self._slot_used() & (counts < 1.0)
+        empty = self._slot_used() & (counts < self._count_floor())
         # Machine-readable: which (label, state) slots never saw a frame in
         # the final iteration (kept previous params), and which whole labels
         # that freezes.
@@ -468,6 +474,13 @@ class ContinuousTrainer:
     # flags. The numpy mirrors (means_g/covs_g/log_a_g) are refreshed lazily
     # via _sync_from_device — any code that writes the numpy arrays directly
     # must call _invalidate_device_state.
+    def _count_floor(self) -> float:
+        """Slot count below which a slot is empty: one frame (Viterbi), the
+        soft-count floor (Baum-Welch)."""
+        from .train_fused import _BW_FLOOR
+
+        return _BW_FLOOR if self.cfg.update == "baum_welch" else 1.0
+
     def _slot_used(self) -> np.ndarray:
         l, s = len(self.labels), self.s_max
         slot_used = np.zeros((l, s), bool)
@@ -523,13 +536,17 @@ class ContinuousTrainer:
         return fused_viterbi_iteration(*self._fused_args(fused),
                                        **self._fused_kwargs())
 
+    def _run_fused_bw(self, fused):
+        from .train_fused import fused_bw_iteration
+
+        return fused_bw_iteration(*self._fused_args(fused), **self._fused_kwargs())
+
     def _iteration_fused(self, fused) -> bool:
-        new_means, new_covs, new_log_a, counts, converged_l, _paths = (
-            self._run_fused(fused)
-        )
+        run = self._run_fused_bw if self.cfg.update == "baum_welch" else self._run_fused
+        new_means, new_covs, new_log_a, counts, converged_l, _ = run(fused)
         counts = counts.cpu().numpy()
         converged_l = converged_l.cpu().numpy()
-        empty = self._slot_used() & (counts < 1.0)
+        empty = self._slot_used() & (counts < self._count_floor())
         if np.any(empty):
             bad = np.argwhere(empty).tolist()
             if self.cfg.on_empty_state == "fail":

@@ -1,7 +1,9 @@
-"""The fused embedded-training iteration: one Viterbi re-estimation pass over
-the whole corpus on one device, with one small host read per iteration.
+"""The fused embedded-training iteration: one Viterbi or Baum-Welch
+re-estimation pass over the whole corpus on one device, with one small host
+read per iteration.
 
-A port of cs304_tpu/models/train_fused.py (Viterbi update, single device).
+A port of cs304_tpu/models/train_fused.py (Viterbi and Baum-Welch updates,
+single device).
 The reference semantics are unchanged (those of the JAX package's fused
 program, itself parity-tested against its legacy per-transcript oracle and
 reference hidden_markov_model.py:584-797):
@@ -25,6 +27,12 @@ reference hidden_markov_model.py:584-797):
     np.cov ddof=1 denominator, cov_reg*I) and the per-label allclose
     convergence test run on the device.
 
+The Baum-Welch iteration (fused_bw_iteration) replaces the hard alignment by
+the sentence forward-backward over the same band (on a card one launch of
+ops/cuda/trellis_fb.py, FB: forward and backward as independent teams) and
+the one-hots by the posteriors gamma and, over the three band diagonals,
+within-word xi.
+
 Every reduction is a matmul, a sum or an integer histogram, none a float
 atomic, so two runs on one card give bitwise equal parameters (state ties
 pool with index_add_, whose float atomics on a card are not ordered).
@@ -41,6 +49,7 @@ import torch
 
 from ..device import fp32_exact, resolve_device
 from ..ops.cuda.emission import gaussian_log_pdf_quad_plain
+from ..ops.cuda.trellis_fb import banded_fb, banded_fb_plain, lse3, shift_states
 from ..ops.cuda.trellis_banded import final_states, viterbi_banded_batch_scanfree
 from ..ops.gaussian import (
     gaussian_log_pdf,
@@ -64,6 +73,12 @@ NEG = float("-inf")
 # hundredths of a ms for the kernel on an NVIDIA H100 80GB HBM3 at 700 W,
 # PERF.md). Both give bitwise the same paths.
 _TRELLIS_BACKEND = "scanfree"
+# The Baum-Welch sentence forward-backward: "kernel" (default) runs FB on a
+# card (ops/cuda/trellis_fb.py; its plain version on the CPU), "plain" the
+# plain PyTorch loop (about 25 small launches a step in each direction).
+_FB_BACKEND = "kernel"
+# The soft-count floor of the Baum-Welch M-step (the JAX trainer's).
+_BW_FLOOR = 1e-4
 
 
 @dataclass
@@ -229,6 +244,36 @@ def _training_trellis(log_b, c0, c1, c2, lengths, n_states):
     if _TRELLIS_BACKEND == "scan":
         return _banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states)
     raise ValueError(f"unknown training trellis backend {_TRELLIS_BACKEND!r}")
+
+
+_lse3 = lse3
+
+
+def _banded_fb_batch(log_b, c0, c1, c2, lengths, n_states):
+    """Whole-batch banded forward-backward over the sentence band, plain
+    PyTorch: the plain version of ops/cuda/trellis_fb.banded_fb.
+
+    log_b (B, T, S_sent), destination-indexed coefficients (B, S_sent)
+    (c0 self, c1 from prev, c2 skip), lengths (B,), n_states (B,) ->
+    (log_alpha (B, T, S), log_beta (B, T, S), ll (B,)), initial state pinned
+    to 0 and termination to max(n_states - 1, 0)."""
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=log_b.device)
+    final = final_states(torch.as_tensor(n_states, device=log_b.device), log_b.shape[2])
+    return banded_fb_plain(log_b, c0, c1, c2, lengths, final)
+
+
+def _training_fb(log_b, c0, c1, c2, lengths, n_states):
+    """Dispatch the Baum-Welch sentence forward-backward on _FB_BACKEND."""
+    if _FB_BACKEND == "kernel":
+        dev = log_b.device
+        final = final_states(torch.as_tensor(n_states, device=dev), log_b.shape[2])
+        return banded_fb(log_b.contiguous(), c0.contiguous(), c1.contiguous(),
+                         c2.contiguous(),
+                         torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+                         final.contiguous())
+    if _FB_BACKEND == "plain":
+        return _banded_fb_batch(log_b, c0, c1, c2, lengths, n_states)
+    raise ValueError(f"unknown forward-backward backend {_FB_BACKEND!r}")
 
 
 def _pool_slots(stat, tie):
@@ -467,6 +512,192 @@ def fused_viterbi_iteration(
     )
 
 
+def _bw_posteriors(log_alpha, log_beta, ll, lengths_flat):
+    """gamma (B, T, S) = exp(alpha + beta - ll) on real frames of valid
+    utterances (finite ll; a padding utterance has ll = -inf), 0 elsewhere;
+    also the per-utterance ll with 0 for invalid rows and the valid mask."""
+    t = log_alpha.shape[1]
+    valid = torch.isfinite(ll)
+    ll_c = torch.where(valid, ll, torch.zeros_like(ll))
+    mask = (torch.arange(t, device=ll.device)[None, :] < lengths_flat[:, None]) & valid[:, None]
+    g = torch.exp(log_alpha + log_beta - ll_c[:, None, None])
+    return torch.where(mask[..., None], g, torch.zeros_like(g)), ll_c, valid
+
+
+def _bw_pass_a(gam, log_alpha, log_beta, lb, diags, ll_c, valid, lengths_flat,
+               lab_u, loc_u, samew_u, batch, s_max: int, f: int):
+    """Soft zeroth/first-order statistics and within-word transition mass
+    over the whole batch -> (counts_f (F,), sums (F, D), trans_f
+    (F * s_max,), gam_f (B, T, F)). xi runs over the three band diagonals
+    (destination-indexed: the value at state v comes from v - k), and only
+    pairs inside one word count."""
+    b, t, ss = gam.shape
+    d = batch.shape[-1]
+    dev = gam.device
+    lab_u, loc_u = lab_u.to(torch.int64), loc_u.to(torch.int64)
+    flat_slot = lab_u * s_max + loc_u  # (B, S_sent)
+    oh = torch.nn.functional.one_hot(flat_slot, f).to(torch.float32)  # (B, S, F)
+    gam_f = torch.bmm(gam, oh)  # (B, T, F)
+    counts_f = gam_f.sum(dim=(0, 1))
+    sums = gam_f.reshape(b * t, f).T @ batch.reshape(b * t, d)
+
+    pair_mask = ((torch.arange(t - 1, device=dev)[None, :, None] + 1
+                  < lengths_flat[:, None, None]) & valid[:, None, None])
+    zb = lb[:, 1:] + log_beta[:, 1:]  # (B, T-1, S_sent)
+    ar = torch.arange(ss, device=dev)
+    trans_f = torch.zeros((f * s_max,), dtype=torch.float32, device=dev)
+    for k, ck in enumerate(diags):
+        if k == 0:
+            a_shift = log_alpha[:, :-1]
+            samew_k = torch.ones((b, ss), dtype=torch.bool, device=dev)
+            loc_from = loc_u
+        else:
+            a_shift = shift_states(log_alpha[:, :-1], k)
+            frm = torch.clamp(ar - k, min=0)
+            samew_k = samew_u[:, frm, ar] & (ar >= k)
+            loc_from = shift_states(loc_u, k, 0)
+        log_xi = a_shift + ck[:, None, :] + zb - ll_c[:, None, None]
+        xi = torch.where(pair_mask & samew_k[:, None, :], torch.exp(log_xi),
+                         torch.zeros_like(log_xi))
+        xi_sum = xi.sum(dim=1)  # (B, S_sent)
+        from_flat = lab_u * (s_max * s_max) + loc_from * s_max + loc_u
+        ohp = torch.nn.functional.one_hot(from_flat, f * s_max).to(torch.float32)
+        trans_f = trans_f + xi_sum.reshape(1, b * ss) @ ohp.reshape(b * ss, f * s_max)
+    return counts_f, sums, trans_f.reshape(-1), gam_f
+
+
+def _bw_pass_b(batch, gam_f, c_glob):
+    """Second moments around the fixed point c_glob, one chunk of utterances
+    at a time so x2 stays (C*T, D^2) floats -> sxx (F, D*D)."""
+    n_chunks, c, t, d = batch.shape
+    f = gam_f.shape[-1]
+    gam_c = gam_f.reshape(n_chunks, c * t, f)
+    sxx = torch.zeros((f, d * d), dtype=torch.float32, device=batch.device)
+    for k in range(n_chunks):
+        xc = batch[k].reshape(c * t, d) - c_glob
+        x2 = (xc[:, :, None] * xc[:, None, :]).reshape(c * t, d * d)
+        sxx = sxx + gam_c[k].T @ x2
+    return sxx
+
+
+def _bw_body(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id,
+    *, cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str,
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """One fused Baum-Welch iteration (see fused_bw_iteration).
+
+    Soft forward-backward posteriors over the banded sentence topology
+    replace the hard Viterbi one-hots. Cross-word xi mass is excluded from
+    the transition counts (within-word pairs only) and termination is pinned
+    to the sentence's last state, as in the JAX package.
+
+    The covariance uses the Koenig decomposition around the global weighted
+    mean c: sum_t w_tf (x - mu_f)(x - mu_f)^T = sum_t w_tf (x - c)(x - c)^T
+    - counts_f d_f d_f^T with d_f = mu_f - c; both accumulated terms are
+    centred (residuals of the corpus spread, not raw magnitudes), so one
+    float32 matmul a chunk suffices.
+
+    Returns (new_means, new_covs, new_log_a, counts, converged_l, ll_sum)."""
+    fp32_exact()
+    l, s, d = means_g.shape
+    f = num_labels * s_max
+    n_chunks, c, t, _ = batch.shape
+    b = n_chunks * c
+    dev = batch.device
+
+    lb_sent = _gather_sentence_emissions(
+        means_g, covs_g, lab_tab, loc_tab, batch, topo_id, s_max, form=emissions,
+    ).reshape(b, t, -1)
+    topo_flat = topo_id.reshape(b).to(torch.int64)
+    lab_u, loc_u, samew_u = lab_tab[topo_flat], loc_tab[topo_flat], samew_tab[topo_flat]
+    diags = _sentence_trans_diagonals(log_a_g, lab_u, loc_u, samew_u,
+                                      cross_tab[topo_flat], cross_word)
+    lengths_flat = lengths.reshape(b)
+    log_alpha, log_beta, ll = _training_fb(lb_sent, *diags, lengths_flat,
+                                           n_states_t[topo_flat])
+    gam, ll_c, valid = _bw_posteriors(log_alpha, log_beta, ll, lengths_flat)
+    ll_sum = ll_c.sum()
+
+    # ---- pass A: soft counts / frame sums / within-word transition mass
+    counts_f, sums, trans_f, gam_f = _bw_pass_a(
+        gam, log_alpha, log_beta, lb_sent, diags, ll_c, valid, lengths_flat,
+        lab_u, loc_u, samew_u, batch, s_max, f)
+    if tie_flat is not None:
+        counts_f = _pool_slots(counts_f, tie_flat)
+        sums = _pool_slots(sums, tie_flat)
+    counts = counts_f.reshape(l, s)
+    trans = trans_f.reshape(l, s, s)
+    if trans_tie is not None:
+        trans = _pool_slots(trans, trans_tie)
+
+    # ---- M-step: means + convergence (soft-count floors) ----
+    empty = slot_used & (counts < _BW_FLOOR)
+    new_means = (sums / torch.clamp(counts_f, min=_BW_FLOOR)[:, None]).reshape(l, s, d)
+    new_means = torch.where(empty[..., None], means_g, new_means)
+    close = torch.abs(new_means - means_g) <= atol + rtol * torch.abs(means_g)
+    converged_l = torch.all(close.all(-1) | ~slot_used, dim=-1)
+    if conv_tie is not None:
+        converged_l = _couple_convergence(converged_l, conv_tie)
+
+    # ---- pass B: covariance (Koenig around the global weighted mean) ----
+    new_means_flat = new_means.reshape(f, d)
+    total = torch.clamp(counts_f.sum(), min=_BW_FLOOR)
+    c_glob = sums.sum(dim=0) / total
+    d_f = new_means_flat - c_glob
+    sxx_flat = _bw_pass_b(batch, gam_f, c_glob)
+    if tie_flat is not None:
+        # Koenig holds for any fixed centring point: pooled sxx with the
+        # pooled counts and the shared group mean is the group covariance.
+        sxx_flat = _pool_slots(sxx_flat, tie_flat)
+    m2 = (sxx_flat.reshape(f, d, d)
+          - counts_f[:, None, None] * (d_f[:, :, None] * d_f[:, None, :])).reshape(l, s, d, d)
+    denom = torch.clamp(counts, min=_BW_FLOOR)[..., None, None]
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    new_covs = m2 / denom + cov_reg * eye
+    new_covs = torch.where(empty[..., None, None], covs_g, new_covs)
+    new_covs = torch.where(slot_used[..., None, None], new_covs, eye)
+
+    # ---- transitions ----
+    row_sums = trans.sum(dim=2, keepdim=True)
+    probs = trans / torch.clamp(row_sums, min=_BW_FLOOR)
+    new_log_a = torch.where(probs > 0, torch.log(probs), torch.full_like(probs, NEG))
+    no_out = (row_sums[..., 0] < _BW_FLOOR) & slot_used
+    new_log_a = torch.where(no_out[..., None], log_a_g, new_log_a)
+
+    keep = converged_l[:, None, None]
+    new_means = torch.where(keep, means_g, new_means)
+    new_covs = torch.where(keep[..., None], covs_g, new_covs)
+    new_log_a = torch.where(keep, log_a_g, new_log_a)
+    return new_means, new_covs, new_log_a, counts, converged_l, ll_sum
+
+
+def fused_bw_iteration(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str = "exit_only",
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """One embedded Baum-Welch iteration on the tensors' device (_bw_body).
+    Returns (new_means, new_covs, new_log_a, counts, converged_l, ll_sum)."""
+    return _bw_body(
+        means_g, covs_g, log_a_g, slot_used,
+        lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+        batch, lengths, topo_id,
+        cov_reg=cov_reg, rtol=rtol, atol=atol,
+        num_labels=num_labels, s_max=s_max, cross_word=cross_word,
+        emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie,
+        conv_tie=conv_tie,
+    )
+
+
 def fused_train_run(
     means_g, covs_g, log_a_g, slot_used,
     lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
@@ -483,19 +714,20 @@ def fused_train_run(
     already suppressed by the converged-label keep mask), as in the JAX
     package's while loop.
 
+    update: "viterbi" (_iteration_body) or "baum_welch" (_bw_body).
+
     Returns (means, covs, log_a, counts, iterations, converged); the last two
     are a Python int and bool."""
-    if update != "viterbi":
-        raise NotImplementedError(
-            f"update={update!r} is not ported yet (ROADMAP Queue 1, slice 3, "
-            "item 16: the fused Baum-Welch iteration)"
-        )
+    bodies = {"viterbi": _iteration_body, "baum_welch": _bw_body}
+    if update not in bodies:
+        raise ValueError(f"update={update!r} is not one of {sorted(bodies)}")
+    body_fn = bodies[update]
     means, covs, log_a = means_g, covs_g, log_a_g
     counts = torch.zeros((num_labels, s_max), dtype=torch.float32,
                          device=means_g.device)
     it, converged = 0, False
     while it < max_iterations and not converged:
-        means, covs, log_a, counts, converged_l, _ = _iteration_body(
+        means, covs, log_a, counts, converged_l, _ = body_fn(
             means, covs, log_a, slot_used,
             lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
             batch, lengths, topo_id,

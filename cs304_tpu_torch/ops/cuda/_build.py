@@ -116,6 +116,8 @@ def load():
         lib.cs304_trellis_dense_forward.restype = i
         lib.cs304_trellis_dense_branch.argtypes = [i]
         lib.cs304_trellis_dense_branch.restype = i
+        lib.cs304_trellis_fb.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_fb.restype = i
         lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.cs304_emission_split.restype = i
         lib.cs304_error_string.argtypes = [i]

@@ -12,6 +12,11 @@ Quadratic form (what the emission kernel computes):
 The quadratic form is a one-pass expansion and carries ~1e-3 absolute drift
 against the whitening path in float32; it is not bit-comparable with it.
 Everything is float32 with TF32 off.
+
+K-mixture GMM emissions (GMMParams, GMMQuadParams) flatten the (S, K)
+mixture grid to S*K Gaussians, score them in either layout and take the
+logsumexp of component + log weight over K; zero-weight padded mixtures carry
+log 0 = -inf and drop out of it.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import fp32_exact
+from .logmath import logsumexp
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -113,3 +119,86 @@ def gaussian_log_pdf_quad(
         params.lin, params.const, num_states=s, s_pad=s,
     )
     return out.reshape(*frames.shape[:-1], s)
+
+
+class GMMParams(NamedTuple):
+    """K-mixture GMM emission parameters: means (S, K, D), whiten
+    (S, K, D, D), log_norm (S, K), log_weights (S, K)."""
+
+    means: torch.Tensor
+    whiten: torch.Tensor
+    log_norm: torch.Tensor
+    log_weights: torch.Tensor
+
+    @property
+    def num_states(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def num_mixtures(self) -> int:
+        return self.means.shape[1]
+
+
+def make_gmm_params(means, covariances, weights, device=None) -> GMMParams:
+    """means (S, K, D), covariances (S, K, D, D), weights (S, K) -> GMMParams."""
+    means = _as_f32(means, device)
+    s, k, d = means.shape
+    flat = make_gaussian_params(means.reshape(s * k, d),
+                                _as_f32(covariances, means.device).reshape(s * k, d, d))
+    return GMMParams(
+        means=flat.means.reshape(s, k, d),
+        whiten=flat.whiten.reshape(s, k, d, d),
+        log_norm=flat.log_norm.reshape(s, k),
+        log_weights=torch.log(_as_f32(weights, means.device)),
+    )
+
+
+def gmm_log_pdf(params: GMMParams, frames: torch.Tensor,
+                return_components: bool = False):
+    """(..., T, D) frames -> (..., T, S) GMM log-densities; with
+    return_components also the weighted components (..., T, S, K)."""
+    s, k, d = params.means.shape
+    flat = GaussianParams(
+        means=params.means.reshape(s * k, d),
+        whiten=params.whiten.reshape(s * k, d, d),
+        log_norm=params.log_norm.reshape(s * k),
+    )
+    comp = gaussian_log_pdf(flat, frames)
+    weighted = comp.reshape(*comp.shape[:-1], s, k) + params.log_weights
+    out = logsumexp(weighted, axis=-1)
+    return (out, weighted) if return_components else out
+
+
+class GMMQuadParams(NamedTuple):
+    """K-mixture GMM emissions in the quadratic-form layout: ``quad`` over
+    the flattened (S*K,) Gaussians (state-major: column s*K + k), and
+    log_weights (S, K)."""
+
+    quad: GaussianQuadParams
+    log_weights: torch.Tensor
+
+
+def make_gmm_quad_params(means, covariances, weights, device=None) -> GMMQuadParams:
+    """means (S, K, D), covariances (S, K, D, D), weights (S, K)."""
+    means = _as_f32(means, device)
+    s, k, d = means.shape
+    return GMMQuadParams(
+        quad=make_gaussian_quad_params(
+            means.reshape(s * k, d),
+            _as_f32(covariances, means.device).reshape(s * k, d, d)),
+        log_weights=torch.log(_as_f32(weights, means.device)),
+    )
+
+
+def gmm_combine(comp: torch.Tensor, log_weights: torch.Tensor) -> torch.Tensor:
+    """(..., S*K) component log-densities + (S, K) log weights -> (..., S)
+    GMM log-densities (logsumexp over K)."""
+    s, k = log_weights.shape
+    return logsumexp(comp.reshape(*comp.shape[:-1], s, k) + log_weights, axis=-1)
+
+
+def gmm_log_pdf_quad(params: GMMQuadParams, frames: torch.Tensor) -> torch.Tensor:
+    """(..., T, D) frames -> (..., T, S) GMM log-densities through the quad
+    layout (gaussian_log_pdf_quad over the S*K Gaussians: the emission
+    kernel on a CUDA tensor). Same ~1e-3 drift contract as that layout."""
+    return gmm_combine(gaussian_log_pdf_quad(params.quad, frames), params.log_weights)

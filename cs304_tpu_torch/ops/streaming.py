@@ -12,6 +12,8 @@ CPU; the JAX package's counterpart is cs304_tpu/ops/streaming.py
 (_stream_chunk, a lax.scan). Streaming operates at the feature level: the
 reference MFCC normalization is utterance-global, so parity features need
 the whole utterance (ops/streaming_mfcc.py is the causal front end).
+GMM models stream with their K-mixture densities (gmm_params, or
+from_models on a GMM or mixed model list).
 """
 from __future__ import annotations
 
@@ -22,10 +24,6 @@ import torch
 
 from ..device import resolve_device
 from .viterbi import composite_transition_matrix, pack_coefs
-
-_GMM_NOT_PORTED = ("GMM word models are not ported yet "
-                   "(ROADMAP Queue 1, item 17: models/gmm_hmm.py)")
-
 
 class StreamingComposite:
     """Online continuous decoding over a CompositeHMM.
@@ -39,10 +37,11 @@ class StreamingComposite:
 
     def __init__(self, composite, chunk_size: int = 64,
                  gmm_params=None, device=None) -> None:
-        """device: None means the card (raising without one); tests pass
-        "cpu". gmm_params raise (item 17)."""
-        if gmm_params is not None:
-            raise NotImplementedError(_GMM_NOT_PORTED)
+        """gmm_params: optional ops.gaussian.GMMParams over the composite's
+        states, on ``device``: emissions become K-mixture log-densities (the
+        composite itself carries only the single-Gaussian boundary view;
+        from_models builds both). device: None means the card (raising
+        without one); tests pass "cpu"."""
         from .gaussian import make_gaussian_params
 
         self.device = dev = resolve_device(device)
@@ -52,21 +51,30 @@ class StreamingComposite:
             c.log_a, c.lower_of_state, c.is_entry, c.is_exit, c.penalty, device=dev)
         self._coefs = pack_coefs(c.log_a, c.lower_of_state, c.is_entry, c.is_exit,
                                  device=dev)
-        self._emission_params = make_gaussian_params(c.means, c.covariances, device=dev)
+        self._gmm_params = gmm_params
+        self._emission_params = (None if gmm_params is not None else
+                                 make_gaussian_params(c.means, c.covariances, device=dev))
         self.reset()
 
     @classmethod
     def from_models(cls, models, penalty: float = -100.0,
                     chunk_size: int = 64, device=None) -> "StreamingComposite":
         """Streaming decoder from a model dict/list (sorted by label, as the
-        decoder stacks them). GMM models raise (item 17)."""
+        decoder stacks them), GMM-aware: K-mixture models stream with their
+        GMM densities (the decoder's lift, models/decoder.py:_lift_to_gmm)."""
+        from ..models.decoder import _lift_to_gmm
         from ..models.hmm import stack_word_models
+        from .gaussian import make_gmm_params
 
         if isinstance(models, dict):
             models = list(models.values())
-        if any(getattr(m, "weights", None) is not None for m in models):
-            raise NotImplementedError(_GMM_NOT_PORTED)
         models = sorted(models, key=lambda m: m.label)
+        if any(getattr(m, "weights", None) is not None for m in models):
+            views, (means, covs, weights) = _lift_to_gmm(models)
+            dev = resolve_device(device)
+            return cls(stack_word_models(views, penalty), chunk_size,
+                       gmm_params=make_gmm_params(means, covs, weights, device=dev),
+                       device=dev)
         return cls(stack_word_models(models, penalty), chunk_size, device=device)
 
     def reset(self) -> None:
@@ -78,7 +86,7 @@ class StreamingComposite:
         """Feed a (c, D) feature chunk, c <= chunk_size (longer chunks are
         split)."""
         from .cuda.trellis_stream import k4_chunk
-        from .gaussian import gaussian_log_pdf
+        from .gaussian import gaussian_log_pdf, gmm_log_pdf
 
         features = np.asarray(features, np.float32)
         c = features.shape[0]
@@ -88,8 +96,9 @@ class StreamingComposite:
             for start in range(0, c, self.chunk_size):
                 self.feed(features[start : start + self.chunk_size])
             return
-        log_b = gaussian_log_pdf(self._emission_params,
-                                 torch.as_tensor(features, device=self.device))
+        x = torch.as_tensor(features, device=self.device)
+        log_b = (gmm_log_pdf(self._gmm_params, x) if self._gmm_params is not None
+                 else gaussian_log_pdf(self._emission_params, x))
         s = self.composite.num_states
         alpha = (self._alpha if self._alpha is not None
                  else torch.empty((1, s), dtype=torch.float32, device=self.device))

@@ -47,8 +47,6 @@ __all__ = ["BatchedStreamingComposite", "ring_dtype"]
 
 _MESH_NOT_PORTED = ("mesh= (slots sharded over devices) is not ported yet "
                     "(ROADMAP Queue 1, item 18: parallel/data_parallel.py)")
-_GMM_NOT_PORTED = ("GMM word models are not ported yet "
-                   "(ROADMAP Queue 1, item 17: models/gmm_hmm.py)")
 _BIGRAM_NOT_PORTED = ("bigram LM streaming is not ported yet "
                       "(ROADMAP Queue 1, item 19: ops/lm.py)")
 
@@ -201,18 +199,19 @@ class BatchedStreamingComposite:
         "banded" (the O(S) step, the stream mode of the scan-free team kernel
         on the card), or "auto" (banded past 127 states, as in the JAX
         package). emissions: "whiten" (f32-exact) or "quad" (the emission
-        kernel on the card; banded step only). sparse_upload: the compact
-        upload of only the fed slots; "auto" picks it per step when the
-        padded fed set is at most half the slots. device: None means the
-        card (raising without one); tests pass "cpu".
+        kernel on the card; Gaussian banded step only: GMMs have no quad
+        form here). gmm_params: optional ops.gaussian.GMMParams over the
+        composite's states, on ``device``: K-mixture whitening emissions
+        before the same dense or banded step (from_models builds them for
+        GMM or mixed model lists). sparse_upload: the compact upload of only
+        the fed slots; "auto" picks it per step when the padded fed set is at
+        most half the slots. device: None means the card (raising without
+        one); tests pass "cpu".
 
-        Not ported (NotImplementedError): mesh= (item 18), GMM models and
-        gmm_params (item 17), bigram= (item 19); lm_weight, which only
-        weighs a bigram, is accepted and unused."""
+        Not ported (NotImplementedError): mesh= (item 18), bigram= (item
+        19); lm_weight, which only weighs a bigram, is accepted and unused."""
         if mesh is not None:
             raise NotImplementedError(_MESH_NOT_PORTED)
-        if gmm_params is not None:
-            raise NotImplementedError(_GMM_NOT_PORTED)
         if bigram is not None:
             raise NotImplementedError(_BIGRAM_NOT_PORTED)
         self.device = resolve_device(device)
@@ -236,14 +235,18 @@ class BatchedStreamingComposite:
         self._is_exit = self._coefs[5] > 0
         if emissions not in ("whiten", "quad"):
             raise ValueError(f"unknown emissions layout {emissions!r}")
-        if emissions == "quad" and step_impl == "dense":
+        if emissions == "quad" and (gmm_params is not None or step_impl == "dense"):
             raise ValueError("emissions='quad' needs the Gaussian banded step")
         self.emissions = emissions
         from .gaussian import make_gaussian_params, make_gaussian_quad_params
 
-        self._emission = (make_gaussian_quad_params(c.means, c.covariances, device=dev)
-                          if emissions == "quad"
-                          else make_gaussian_params(c.means, c.covariances, device=dev))
+        self._gmm_params = gmm_params
+        if gmm_params is not None:
+            self._emission = None
+        elif emissions == "quad":
+            self._emission = make_gaussian_quad_params(c.means, c.covariances, device=dev)
+        else:
+            self._emission = make_gaussian_params(c.means, c.covariances, device=dev)
         self._lowers = torch.as_tensor(c.lowers, dtype=torch.int32, device=dev)
         self._uppers = torch.as_tensor(c.uppers, dtype=torch.int32, device=dev)
         self._alpha = torch.full((self.num_slots, s), NEG, dtype=torch.float32, device=dev)
@@ -272,14 +275,21 @@ class BatchedStreamingComposite:
     def from_models(cls, models, penalty: float = -100.0, **kwargs
                     ) -> "BatchedStreamingComposite":
         """Constructor from a model dict/list (sorted by label, as the
-        decoder stacks them). GMM models raise (item 17)."""
+        decoder stacks them), GMM-aware: K-mixture models stream with their
+        GMM densities (the decoder's lift, models/decoder.py:_lift_to_gmm)."""
+        from ..models.decoder import _lift_to_gmm
         from ..models.hmm import stack_word_models
+        from .gaussian import make_gmm_params
 
         if isinstance(models, dict):
             models = list(models.values())
-        if any(getattr(m, "weights", None) is not None for m in models):
-            raise NotImplementedError(_GMM_NOT_PORTED)
         models = sorted(models, key=lambda m: m.label)
+        if any(getattr(m, "weights", None) is not None for m in models):
+            views, (means, covs, weights) = _lift_to_gmm(models)
+            dev = resolve_device(kwargs.pop("device", None))
+            return cls(stack_word_models(views, penalty),
+                       gmm_params=make_gmm_params(means, covs, weights, device=dev),
+                       device=dev, **kwargs)
         return cls(stack_word_models(models, penalty), **kwargs)
 
     # -- slot lifecycle -------------------------------------------------------
@@ -381,11 +391,13 @@ class BatchedStreamingComposite:
 
     def _log_b(self, feats: torch.Tensor) -> torch.Tensor:
         """(R, C, D) features -> (R, C, S) emissions."""
-        from .gaussian import gaussian_log_pdf, gaussian_log_pdf_quad
+        from .gaussian import gaussian_log_pdf, gaussian_log_pdf_quad, gmm_log_pdf
 
         r, c, d = feats.shape
         flat = feats.reshape(r * c, d)
-        if self.emissions == "quad":
+        if self._gmm_params is not None:
+            log_b = gmm_log_pdf(self._gmm_params, flat)
+        elif self.emissions == "quad":
             log_b = gaussian_log_pdf_quad(self._emission, flat)
         else:
             log_b = gaussian_log_pdf(self._emission, flat)

@@ -26,7 +26,9 @@ The port of the JAX package's serving.py. The endpointer and the causal
 front end are host code (native/, ops/streaming_mfcc.py); on the card the
 pool's step is K4 at <= 127 states (the stream mode of the scan-free team
 kernel past that), its finalize K2-bt on the ring, and the finals the
-decoder's whitening emissions, then scanfree_decode, then words.
+decoder's whitening emissions, then scanfree_decode, then words. GMM and
+mixed model sets serve through the same path: the pool and the decoder
+both lift them (K-mixture whitening emissions before the same steps).
 """
 from __future__ import annotations
 
@@ -109,6 +111,7 @@ class ServingSessionPool:
         exact in every mode.
 
         device: None means the card (raising without one); tests pass "cpu".
+        models may be GMMWordHMMs, or a mix with single Gaussians.
 
         Not ported (NotImplementedError): confidences=True and bigram=
         (item 19), mesh= (item 18). lm_weight is accepted and, with no

@@ -2,8 +2,8 @@
 label holding ``params.npz`` (means (S, D), covariances (S, D, D), log_a
 (S, S), float32) plus a ``manifest.json`` for the collection. Checkpoints
 written by the JAX package load here unchanged, and the other way round.
-Only single-Gaussian models are ported; a GMM checkpoint (mixture weights in
-the npz) raises.
+A GMM model stores its mixture weights (S, K) beside them, with means
+(S, K, D) and covariances (S, K, D, D), and loads as a GMMWordHMM.
 
 Resumable trainer state (ContinuousTrainer.save_state / resume) is one
 ``trainer_state.npz`` per folder, the port's own format (the JAX package
@@ -25,29 +25,35 @@ _TRAINER_STATE = "trainer_state.npz"
 FORMAT = "cs304_tpu.npz.v1"
 
 
-def save_model(model: WordHMM, parent_folder: str) -> str:
-    """Save one word model under <parent>/<label>/params.npz."""
+def save_model(model, parent_folder: str) -> str:
+    """Save one word model (Gaussian or GMM) under <parent>/<label>/params.npz;
+    a GMM model also stores its mixture weights."""
     folder = os.path.join(parent_folder, model.label)
     os.makedirs(folder, exist_ok=True)
     path = os.path.join(folder, _PARAMS)
-    np.savez(
-        path,
-        means=np.asarray(model.means, np.float32),
-        covariances=np.asarray(model.covariances, np.float32),
-        log_a=np.asarray(model.log_a, np.float32),
-    )
+    arrays = {
+        "means": np.asarray(model.means, np.float32),
+        "covariances": np.asarray(model.covariances, np.float32),
+        "log_a": np.asarray(model.log_a, np.float32),
+    }
+    weights = getattr(model, "weights", None)
+    if weights is not None:
+        arrays["weights"] = np.asarray(weights, np.float32)
+    np.savez(path, **arrays)
     return path
 
 
-def load_model(model_folder: str) -> WordHMM:
-    """Load one word model; the label is the folder name."""
+def load_model(model_folder: str):
+    """Load one word model; the label is the folder name. A WordHMM, or a
+    GMMWordHMM when the npz holds mixture weights."""
     label = os.path.basename(os.path.normpath(model_folder))
     with np.load(os.path.join(model_folder, _PARAMS)) as z:
         if "weights" in z:
-            raise NotImplementedError(
-                f"{model_folder} holds a GMM model; GMM models are not ported "
-                "yet (ROADMAP Queue 1, slice 3: models/gmm_hmm.py)"
-            )
+            from ..models.gmm_hmm import GMMWordHMM
+
+            return GMMWordHMM(label=label, means=z["means"],
+                              covariances=z["covariances"], weights=z["weights"],
+                              log_a=z["log_a"])
         return WordHMM(
             label=label,
             means=z["means"],

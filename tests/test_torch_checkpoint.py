@@ -81,11 +81,27 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_gmm_checkpoint_raises(tmp_path):
+    """A GMM checkpoint (mixture weights in the npz) loads as a GMMWordHMM,
+    as the JAX package loads it (the port refused it before GMMs were
+    ported); it saves back to the same arrays."""
+    from cs304_tpu_torch.models.gmm_hmm import GMMWordHMM
+
     folder = tmp_path / "1"
     folder.mkdir()
-    np.savez(folder / "params.npz", means=np.zeros((5, 2, 3), np.float32),
-             covariances=np.zeros((5, 2, 3, 3), np.float32),
-             log_a=np.zeros((5, 5), np.float32),
-             weights=np.ones((5, 2), np.float32))
-    with pytest.raises(NotImplementedError):
-        load_models(str(tmp_path))
+    rng = np.random.default_rng(0)
+    arrays = dict(means=rng.normal(size=(5, 2, 3)).astype(np.float32),
+                  covariances=np.tile(np.eye(3, dtype=np.float32), (5, 2, 1, 1)),
+                  log_a=np.zeros((5, 5), np.float32),
+                  weights=np.full((5, 2), 0.5, np.float32))
+    np.savez(folder / "params.npz", **arrays)
+    loaded = load_models(str(tmp_path))["1"]
+    want = j_load(str(tmp_path))["1"]
+    assert isinstance(loaded, GMMWordHMM) and loaded.num_mixtures == 2
+    for name, value in arrays.items():
+        np.testing.assert_array_equal(getattr(loaded, name), value)
+        np.testing.assert_array_equal(getattr(loaded, name), getattr(want, name))
+    save_models([loaded], str(tmp_path / "again"))
+    with np.load(tmp_path / "again" / "1" / "params.npz") as z:
+        assert sorted(z.files) == sorted(arrays)
+        for name, value in arrays.items():
+            np.testing.assert_array_equal(z[name], value)

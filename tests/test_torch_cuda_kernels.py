@@ -16,9 +16,12 @@ and backpointers bitwise equal), and the K5/K6 wrappers; the serving pool's
 step (the stream mode on each team size and ring dtype, a zero penalty and
 ties; K4's dense step; K2-bt walking int8 and int32 ring slices in place),
 the single-stream decoder on the card, and the serving entry points'
-default device.
+default device; the Baum-Welch sentence forward-backward (FB: -inf cells
+equal, the rest within 1e-5 * max(1, |x|) of its plain version; length-0
+and -1 rows, T = 1, 1 to 2100 states) and one fused Baum-Welch iteration
+launching it.
 
-These are chip_smoke.py's phases 3-4, 7, 11-13 and 17 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13, 17 and 19-20 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -718,3 +721,102 @@ def test_streaming_composite_on_card_matches_cpu(dev):
     assert runs["cuda"][0] == runs["cpu"][0]
     np.testing.assert_array_equal(runs["cuda"][1][1], runs["cpu"][1][1])
     assert runs["cuda"][1][0] == pytest.approx(runs["cpu"][1][0], rel=1e-5)
+
+
+def _fb_case(dev, b, t, s, seed, zero_length=False, sprinkle=True):
+    """A sentence forward-backward problem on the card: log_b, c0/c1/c2 with
+    -inf off the band's start (and sprinkled when asked), lengths, finals."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_b = 2 * torch.randn((b, t, s), generator=gen, device=dev)
+    c0, c1, c2 = (0.5 * torch.randn((b, s), generator=gen, device=dev) for _ in range(3))
+    c1[:, :1] = float("-inf")
+    c2[:, :2] = float("-inf")
+    if sprinkle:
+        for c in (c1, c2):
+            c[torch.rand((b, s), generator=gen, device=dev) < 0.15] = float("-inf")
+        log_b[torch.rand((b, t, s), generator=gen, device=dev) < 0.03] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0] = t
+    if zero_length:
+        lengths[1::3] = 0
+        lengths[2::5] = 1
+    final = torch.randint(max(0, s - 6), s, (b,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return log_b, c0, c1, c2, lengths, final
+
+
+@pytest.mark.parametrize("case", [(64, 160, 59, False), (40, 50, 59, True), (5, 1, 59, False),
+                                  (8, 40, 98, True), (4, 30, 503, False),
+                                  (2, 20, 2100, False), (3, 600, 33, True), (6, 12, 1, False)])
+def test_sentence_forward_backward_matches_plain(dev, case):
+    """FB against banded_fb_plain on the card: -inf in the same cells, the
+    rest within 1e-5 * max(1, |x|) (IEEE expf / logf on both sides); one
+    launch a call."""
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+
+    b, t, s, zero = case
+    prob = _fb_case(dev, b, t, s, seed=b * 7 + s, zero_length=zero)
+    before = tfb.banded_fb.launches
+    got = tfb.banded_fb(*prob)
+    want = tfb.banded_fb_plain(*prob)
+    torch.cuda.synchronize()
+    assert tfb.banded_fb.launches == before + 1
+    for g, w, name in zip(got, want, ("alpha", "beta", "ll")):
+        assert g.shape == w.shape, name
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w)), name
+        assert not torch.isnan(g).any(), name
+        fin = torch.isfinite(w)
+        tol = 1e-5 * torch.clamp(w[fin].abs(), min=1.0)
+        assert bool(((g[fin] - w[fin]).abs() <= tol).all()), name
+
+
+def test_bw_iteration_launches_fb_and_matches_plain_fb(dev):
+    """One fused Baum-Welch iteration on the card launches FB once and gives
+    the plain forward-backward's parameters (rtol 1e-4 / atol 1e-5)."""
+    from cs304_tpu_torch.models import train_fused as tf
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainer, insert_silence
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+
+    models = {m.label: m for m in flagship_models(seed=0)}
+    rng = np.random.default_rng(1)
+    labeled = {}
+    for tr in ("14", "27Z"):
+        feats = []
+        for _ in range(6):
+            frames = [models[w].means[i] + rng.normal(0, 0.7, size=(3, 39))
+                      for w in insert_silence(tr) for i in range(models[w].num_states)]
+            feats.append(np.concatenate(frames).astype(np.float32))
+        labeled[tr] = feats
+    trainer = ContinuousTrainer(models, device=dev)
+    corpus = tf.prepare_fused_corpus(labeled, trainer.state_counts, trainer.label_index,
+                                     insert_silence, 32, device=dev)
+    args, kwargs = trainer._fused_args(corpus), trainer._fused_kwargs()
+    before = tfb.banded_fb.launches
+    got = tf.fused_bw_iteration(*args, **kwargs)
+    assert tfb.banded_fb.launches == before + 1
+    tf._FB_BACKEND = "plain"
+    try:
+        want = tf.fused_bw_iteration(*args, **kwargs)
+    finally:
+        tf._FB_BACKEND = "kernel"
+    torch.cuda.synchronize()
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        fin = torch.isfinite(w)
+        torch.testing.assert_close(g[fin], w[fin], rtol=1e-4, atol=1e-5)
+
+
+def test_fb_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+
+    prob = _fb_case(dev, 2, 4, tfb.MAX_FB_STATES + 1, seed=1, sprinkle=False)
+    with pytest.raises(ValueError, match="states"):
+        tfb.banded_fb(*prob)
+    log_b, c0, c1, c2, lengths, final = _fb_case(dev, 2, 4, 9, seed=2)
+    with pytest.raises(TypeError):
+        tfb.banded_fb(log_b, c0, c1, c2, lengths.long(), final)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.banded_fb(log_b.transpose(1, 2).contiguous().transpose(1, 2), c0, c1, c2,
+                      lengths, final)
+    with pytest.raises(ValueError):
+        tfb.banded_fb(log_b, c0[:1], c1, c2, lengths, final)

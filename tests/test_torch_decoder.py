@@ -124,9 +124,17 @@ def test_unported_options_raise(kwargs):
 
 
 def test_gmm_models_raise():
-    class GMMWord:
-        label = "1"
-        weights = np.ones((5, 2), np.float32)
+    """GMM word models decode (the port refused them before GMMs were
+    ported): the flagship's words as K = 2 GMMs give the JAX decoder's
+    transcripts (tests/test_torch_gmm_decode.py holds the rest)."""
+    from cs304_tpu.models.gmm_hmm import GMMWordHMM as JGMMWordHMM
+    from cs304_tpu_torch.models.gmm_hmm import GMMWordHMM
 
-    with pytest.raises(NotImplementedError):
-        ContinuousDecoder([GMMWord()], device="cpu")
+    gmm = [GMMWordHMM(label=m.label, means=np.stack([m.means, m.means + 0.5], 1),
+                      covariances=np.stack([m.covariances] * 2, 1),
+                      weights=np.full((m.num_states, 2), 0.5, np.float32), log_a=m.log_a)
+           for m in flagship_models()]
+    jgmm = [JGMMWordHMM(m.label, m.means, m.covariances, m.weights, m.log_a) for m in gmm]
+    feats = _sampled_features(4, 4)
+    want = JDecoder(jgmm, penalty=-100.0, backend="fast").predict_batch(feats)
+    assert ContinuousDecoder(gmm, penalty=-100.0, device="cpu").predict_batch(feats) == want

@@ -2,8 +2,9 @@
 
 A fresh interpreter blocks both (``sys.modules[name] = None`` makes any
 import of them raise), imports every module of the port, runs a tiny CPU
-decode through the raw-audio entry point, and feeds two sessions of a
-ServingSessionPool through one utterance each.
+decode through the raw-audio entry point, a GMM decode and the Baum-Welch
+sentence forward-backward, and feeds two sessions of a ServingSessionPool
+through one utterance each.
 """
 import os
 import subprocess
@@ -23,6 +24,15 @@ dec = ContinuousDecoder(flagship_models(), penalty=-100.0, emissions="quad",
                         backend="scanfree", device="cpu")
 out = dec.predict_signal_batch(list(make_signals(2, 0.5)))
 assert len(out) == 2 and all(isinstance(s, str) for s in out), out
+import torch
+from cs304_tpu_torch.models.train_continuous_gmm import promote_to_gmm
+from cs304_tpu_torch.models.train_fused import _banded_fb_batch
+gmm = promote_to_gmm({m.label: m for m in flagship_models()}, 2)
+gdec = ContinuousDecoder(gmm, penalty=-100.0, emissions="quad", device="cpu")
+assert len(gdec.predict_signal_batch(list(make_signals(2, 0.5)))) == 2
+la, lb, ll = _banded_fb_batch(torch.zeros(2, 6, 5), *(torch.zeros(2, 5),) * 3,
+                              torch.tensor([6, 3]), torch.tensor([5, 5]))
+assert la.shape == lb.shape == (2, 6, 5) and torch.isfinite(ll).all()
 from cs304_tpu_torch.serving import ServingSessionPool
 pool = ServingSessionPool(flagship_models(), num_slots=2, max_frames=256, device="cpu")
 rng = np.random.default_rng(0)

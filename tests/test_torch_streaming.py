@@ -108,9 +108,21 @@ def test_streaming_reset_from_models_and_unported_options():
     again = stream.finalize()
     assert again[0] == first[0]
     np.testing.assert_array_equal(again[1], first[1])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        StreamingComposite(stream.composite, gmm_params=object(), device="cpu")
-    gmm = [WordHMM(m.label, m.means, m.covariances, m.log_a) for m in models]
-    gmm[0].weights = np.ones(1, np.float32)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        StreamingComposite.from_models(gmm, device="cpu")
+    # GMM models stream (they raised before GMMs were ported): K = 1 GMMs
+    # give the single-Gaussian stream's result, through gmm_params and
+    # through from_models.
+    from cs304_tpu_torch.models.gmm_hmm import GMMWordHMM
+    from cs304_tpu_torch.ops.gaussian import make_gmm_params
+
+    gmm = [GMMWordHMM(m.label, m.means[:, None], m.covariances[:, None],
+                      np.ones((m.num_states, 1), np.float32), m.log_a) for m in models]
+    c = stream.composite
+    params = make_gmm_params(c.means[:, None], c.covariances[:, None],
+                             np.ones((c.num_states, 1), np.float32), device="cpu")
+    for gstream in (StreamingComposite(c, chunk_size=8, gmm_params=params, device="cpu"),
+                    StreamingComposite.from_models(gmm, penalty=-4.0, chunk_size=8,
+                                                   device="cpu")):
+        gstream.feed(feats)
+        score, path = gstream.finalize()
+        np.testing.assert_array_equal(path, first[1])
+        np.testing.assert_allclose(score, first[0], rtol=1e-5)

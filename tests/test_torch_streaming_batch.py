@@ -318,13 +318,32 @@ def test_sparse_auto_picks_per_step_and_quad_emissions_match_jax():
 def test_unported_options_raise():
     models = _models()
     comp = stack_word_models(models, -5.0)
-    for kw in ({"mesh": object()}, {"gmm_params": object()}, {"bigram": object()}):
-        with pytest.raises(NotImplementedError, match="item 1[789]"):
+    for kw in ({"mesh": object()}, {"bigram": object()}):
+        with pytest.raises(NotImplementedError, match="item 1[89]"):
             tsb.BatchedStreamingComposite(comp, num_slots=2, device="cpu", **kw)
-    gmm = [WordHMM(m.label, m.means, m.covariances, m.log_a) for m in models]
-    gmm[0].weights = np.ones(1, np.float32)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tsb.BatchedStreamingComposite.from_models(gmm, device="cpu")
+    # GMM models and gmm_params stream (they raised before GMMs were
+    # ported): K = 1 GMMs give the single-Gaussian pool's texts and scores
+    # (tests/test_torch_gmm_decode.py holds K = 2 pools against JAX's).
+    from cs304_tpu_torch.models.gmm_hmm import GMMWordHMM
+    from cs304_tpu_torch.ops.gaussian import make_gmm_params
+
+    gmm = [GMMWordHMM(m.label, m.means[:, None], m.covariances[:, None],
+                      np.ones((m.num_states, 1), np.float32), m.log_a) for m in models]
+    params = make_gmm_params(comp.means[:, None], comp.covariances[:, None],
+                             np.ones((comp.num_states, 1), np.float32), device="cpu")
+    feats = _utterances(models, 1, np.random.default_rng(5))[0][:16]
+    results = []
+    for pool in (tsb.BatchedStreamingComposite(comp, num_slots=2, device="cpu"),
+                 tsb.BatchedStreamingComposite(comp, num_slots=2, gmm_params=params,
+                                               device="cpu"),
+                 tsb.BatchedStreamingComposite.from_models(gmm, penalty=-5.0, num_slots=2,
+                                                           device="cpu")):
+        slot = pool.start()
+        pool.step({slot: feats})
+        results.append(pool.finalize([slot])[slot])
+    for score, text in results[1:]:
+        assert text == results[0][1]
+        np.testing.assert_allclose(score, results[0][0], rtol=1e-5)
     with pytest.raises(NotImplementedError, match="item 19"):
         tsb._banded_coeffs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
                            -5.0, pair_penalty=np.zeros((3, 3), np.float32))

@@ -7,7 +7,8 @@ means stop moving once the paths stop changing); means within rtol 1e-5 /
 atol 1e-5, covariances within rtol 1e-4 / atol 1e-5, log_a within atol 1e-6
 with -inf at the same places (the sum order differs between XLA and torch).
 Also: the "fail" empty-slot policy, save_state / resume, the trained models'
-checkpoint round trip, and every option that is not ported yet.
+checkpoint round trip, and every option that is not ported yet (and the
+two that were refused until they were: update="baum_welch" and GMM models).
 """
 import os
 
@@ -125,23 +126,53 @@ def test_empty_state_fail_raises():
         ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu").train(labeled)
 
 
-class _GMM:
-    label, num_states = "9", 5
-    means = np.zeros((5, 1, 6), np.float32)
-    weights = np.ones((5, 1), np.float32)
+def _gmm_word(label="9", d=6):
+    from cs304_tpu_torch.models.gmm_hmm import GMMWordHMM
+    from cs304_tpu_torch.models.hmm import uniform_forward_log_a
+
+    rng = np.random.default_rng(9)
+    return GMMWordHMM(label, rng.normal(size=(5, 2, d)).astype(np.float32),
+                      np.tile(np.eye(d, dtype=np.float32), (5, 2, 1, 1)),
+                      np.full((5, 2), 0.5, np.float32), uniform_forward_log_a(5))
 
 
 @pytest.mark.parametrize("what", ["baum_welch", "mesh", "legacy", "gmm"])
 def test_unported_options_raise(what):
+    """mesh and fused=False are not ported. update="baum_welch" and GMM
+    models were refused before they were ported: Baum-Welch now trains as
+    the JAX trainer does (one iteration here; test_torch_train_bw.py holds
+    the rest), and GMM models fail in train() with a ValueError, as in the
+    JAX trainer, naming GMMContinuousTrainer."""
     models = make_models(seed=0)
     cfg, kw = {}, {}
     if what == "baum_welch":
-        cfg = dict(update="baum_welch")
-    elif what == "mesh":
+        labeled = make_corpus(models, ["12", "3"], 2, seed=3)
+        cfg = dict(update="baum_welch", max_iterations=1, cov_reg=0.05,
+                   silence_bootstrap=False)
+        tt = ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu")
+        jt = JTrainer(jax_models(models), JConfig(**cfg))
+        assert tt.train(labeled) == jt.train(labeled) == 1
+        for label, want in jt.models().items():
+            np.testing.assert_allclose(tt.models()[label].means, want.means,
+                                       rtol=1e-5, atol=1e-5)
+        return
+    if what == "gmm":
+        from cs304_tpu.models.gmm_hmm import GMMWordHMM as JGMMWordHMM
+
+        labeled = make_corpus(models, ["12"], 2, seed=3)
+        g = _gmm_word()
+        jmodels = jax_models(models)
+        jmodels["9"] = JGMMWordHMM(g.label, g.means, g.covariances, g.weights, g.log_a)
+        models["9"] = g
+        with pytest.raises(ValueError):
+            JTrainer(jmodels, JConfig(max_iterations=1)).train(labeled)
+        with pytest.raises(ValueError, match="GMMContinuousTrainer"):
+            ContinuousTrainer(models, ContinuousTrainConfig(max_iterations=1),
+                              device="cpu").train(labeled)
+        return
+    if what == "mesh":
         kw = dict(mesh=object())
     elif what == "legacy":
         cfg = dict(fused=False)
-    else:
-        models["9"] = _GMM()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu", **kw)

@@ -102,17 +102,27 @@ Phases (each prints its own numbers; any failure exits non-zero):
               a torch.profiler trace (the card's busy share) and a cProfile
               of feed() rounds (host functions)
  19. FB       the Baum-Welch sentence forward-backward kernel vs
-              banded_fb_plain (the trainer's shape B=896, T=160, S=59 on
-              real gathered emissions; -inf sprinkled in log_b and c1/c2,
-              length-0 and -1 rows, B=5 with T=1, S=503, S=2100, T=4000):
-              the same -inf cells, the rest within 1e-5 * max(1, |x|),
-              logged bitwise or not; device time, plain time, bound, µs per
-              step by slope
+              banded_fb_plain, and its E-step mode (gamma, xi sums, ll)
+              vs banded_fb_posteriors_plain (the trainer's shape B=896,
+              T=160, S=59 on real gathered emissions; -inf sprinkled in
+              log_b and c1/c2, length-0 and -1 rows, B=5 with T=1, S=98,
+              S=503 at T=340, S=2100 at T=1500, T=4000; finals the band
+              reaches, each case failing unless half its rows have a finite
+              ll, row 0 reaches its final and gamma / xi keep their sums):
+              the same -inf and zero cells, the rest within
+              1e-5 * max(1, |x|), logged bitwise or not (where not, which
+              side's exp rounds exp(e) correctly); device time, plain
+              time, bound, µs per step by slope (the E-step's forward alone
+              timed on utterances whose final state lies outside the
+              trellis, which skip the backward)
  20. BW       ContinuousTrainer(update="baum_welch") at phase 8's width for
-              3 iterations with FB and with the plain forward-backward:
+              3 iterations with the E-step kernel and with the plain E-step:
               equal iteration counts, parameters within rtol 1e-4 /
-              atol 1e-5, FB launched and no plain forward-backward on a
-              CUDA tensor; ms per iteration and its split by stage
+              atol 1e-5, the E-step kernel launched once an iteration, FB's
+              alpha/beta mode never, no plain forward-backward or E-step on
+              a CUDA tensor; the E-step call allocating nothing of gamma's
+              size besides gamma (no (B, T, S) alpha or beta); ms per
+              iteration and its split by stage
  21. GMM      phase 9's models: 3 Baum-Welch iterations (accuracy >= 0.85);
               promote_to_gmm(K=2) + GMMContinuousTrainer for 4 iterations
               with K3 and with the plain trellis (bitwise, K3 launched), ms
@@ -124,7 +134,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
               on the card (dense at 58 states, and banded) == CPU pools
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (ten kernels, each with
+The line before the last is the kernels' JSON record (eleven kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -1757,6 +1767,129 @@ def fb_bound(b, t, s, lengths):
                  [(2 * 16 * steps * s, PEAK_FP32_ALU)])
 
 
+def fb_posteriors_bound(b, t, s, lengths):
+    """bound() of one Baum-Welch E-step: the live log_b rows, the
+    coefficients, lengths and finals in; gamma (every row), xi (B, 3, S) and
+    ll out; per (chain step, state) 15 FP32 operations in each direction
+    (adds, compares, two exp and a log counted as one each), per (pair,
+    state) 15 for the three xi terms (three adds, an exp and the sum's add
+    each), per (live row, state) 3 for gamma, over what these lengths need."""
+    live = int(lengths.clamp(min=0, max=t).sum().item())
+    steps = int((lengths.clamp(min=1, max=t) - 1).sum().item())
+    return bound(4 * live * s + 12 * b * s + 8 * b + 4 * b * t * s + 12 * b * s + 4 * b,
+                 [((2 * 15 + 15) * steps * s + 3 * live * s, PEAK_FP32_ALU)])
+
+
+def fb_problem(dev, b, t, s, seed, zero_length=False):
+    """A sentence forward-backward problem drawn on the CPU from a seed and
+    moved to the card (tests/test_torch_cuda_kernels.py:_fb_case): -inf
+    sprinkled in odd rows into log_b, c1 and c2 independently (walls, dead
+    utterances over long T), in even rows into c1 and c2, never both at one
+    state; finals in the top
+    quarter of [0, min(S - 1, 1.5 (length - 1))], row 0's at its top, rows
+    3, 11, ... past the band (ll = -inf)."""
+    gen = torch.Generator().manual_seed(seed)
+    log_b = 2 * torch.randn((b, t, s), generator=gen)
+    cs = [0.5 * torch.randn((b, s), generator=gen) for _ in range(3)]
+    cs[1][:, :1] = float("-inf")
+    cs[2][:, :2] = float("-inf")
+    hole = torch.rand((b, s), generator=gen) < 0.15
+    cs[1][hole] = float("-inf")
+    odd = (torch.arange(b) % 2 == 1)[:, None]
+    cs[2][(torch.rand((b, s), generator=gen) < 0.15) & (odd | ~hole)] = float("-inf")
+    log_b[(torch.rand((b, t, s), generator=gen) < 0.03) & odd[..., None]] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32)
+    lengths[0] = t
+    if zero_length:
+        lengths[1::3] = 0
+        lengths[2::5] = 1
+    reach = torch.clamp(3 * (lengths - 1) // 2, min=0, max=s - 1)
+    drop = (torch.rand((b,), generator=gen) * (reach // 4 + 1).float()).floor()
+    fin = reach - drop.to(torch.int32)
+    fin[0] = reach[0]
+    past = 2 * (lengths - 1) + 1
+    off = torch.zeros((b,), dtype=torch.bool)
+    off[3::8] = True
+    fin = torch.where(off & (lengths >= 1) & (past < s), past, fin).to(torch.int32)
+    return tuple(x.to(dev) for x in (log_b, *cs, lengths, fin))
+
+
+def fb_coverage(lengths, fin, gamma, xi, ll):
+    """What an E-step case exercises, checked before its comparison counts:
+    -> (share of utterances of length >= 1 with a finite ll, row 0's highest
+    state with nonzero gamma, ok). ok: that share >= 0.5 with row 0 among
+    them, that state row 0's final, and for each valid utterance every live
+    gamma row summing to 1 and the xi sums to length - 1 (a posterior's own
+    identities) within 25%: a check of coverage, not of accuracy (that is
+    the comparison), since float32 chains of 2T steps at |ll| ~ T drift
+    by ~9% at T = 4000."""
+    lengths, fin = lengths.long(), fin.long()
+    live = lengths >= 1
+    valid = torch.isfinite(ll) & live
+    share = float(valid.sum()) / max(int(live.sum()), 1)
+    rows = torch.arange(gamma.shape[1], device=gamma.device)[None, :] < lengths[:, None]
+    sums_ok = bool(((gamma.sum(dim=2) - 1).abs() <= 0.25)[rows & valid[:, None]].all())
+    pairs = (lengths - 1).clamp(min=0).to(xi.dtype)
+    xi_ok = bool(((xi.sum(dim=(1, 2)) - pairs).abs() <= 0.25 * pairs.clamp(min=1))[valid].all())
+    nz = torch.nonzero(gamma[0].amax(dim=0) > 0)
+    top = int(nz.max()) if nz.numel() else -1
+    ok = share >= 0.5 and bool(valid[0]) and top == int(fin[0]) and sums_ok and xi_ok
+    return share, top, ok
+
+
+def expf_probe(args, fb_out, got_post, want_post):
+    """Where the E-step kernel and its plain version differ, which side's
+    exp rounds correctly. Each differing cell's exponents are rebuilt from
+    FB's alpha/beta mode (bitwise its plain version where this runs) in the
+    plain version's order: e = (alpha + beta) - ll for gamma, e =
+    ((alpha_t[v - k] + c_k) + (log_b + beta_{t+1})) - ll for each pair of an
+    xi sum. A side counts as correctly rounded where its value is exp(e)
+    rounded once from float64 (for xi: those terms summed in float32 from
+    the last pair down). The plain side is also held to torch.exp(e) on the
+    card, to show the exponents are the ones it saw. Subnormal: either side's
+    value below the smallest normal float32."""
+    alpha, beta, ll = fb_out
+    log_b, cs, lengths = args[0], args[1:4], args[4]
+    tiny = torch.finfo(torch.float32).tiny
+    ll_c = torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll))
+    g, w = got_post[0], want_post[0]
+    cells = g.view(torch.int32) != w.view(torch.int32)
+    e = (alpha + beta - ll_c[:, None, None])[cells]
+    rounded = torch.exp(e.double()).float()
+    out = {"gamma_cells": int(cells.sum()),
+           "gamma_kernel_correctly_rounded": int((g[cells] == rounded).sum()),
+           "gamma_plain_correctly_rounded": int((w[cells] == rounded).sum()),
+           "gamma_plain_is_torch_exp": int((w[cells] == torch.exp(e)).sum()),
+           "gamma_subnormal": int(((g[cells].abs() < tiny) | (w[cells].abs() < tiny)).sum())}
+    xg, xw = got_post[1], want_post[1]
+    xcells = (xg.view(torch.int32) != xw.view(torch.int32)).nonzero().tolist()
+    counts = {"kernel": 0, "plain": 0, "plain_torch": 0, "subnormal": 0}
+    for bi, k, v in xcells:
+        n = int(lengths[bi])
+        if v < k or n < 2:
+            continue
+        e = ((alpha[bi, : n - 1, v - k] + cs[k][bi, v])
+             + (log_b[bi, 1:n, v] + beta[bi, 1:n, v])) - ll_c[bi]
+        sums = []
+        for terms in (torch.exp(e.double()).float(), torch.exp(e)):
+            acc = np.float32(0.0)
+            for term in terms.cpu().numpy()[::-1]:
+                acc = np.float32(acc + term)
+            sums.append(acc)
+        counts["kernel"] += int(np.float32(xg[bi, k, v].item()) == sums[0])
+        counts["plain"] += int(np.float32(xw[bi, k, v].item()) == sums[0])
+        counts["plain_torch"] += int(np.float32(xw[bi, k, v].item()) == sums[1])
+        counts["subnormal"] += int(min(abs(xg[bi, k, v].item()), abs(xw[bi, k, v].item())) < tiny)
+    out.update({"xi_cells": len(xcells), "xi_kernel_correctly_rounded": counts["kernel"],
+                "xi_plain_correctly_rounded": counts["plain"],
+                "xi_plain_is_torch_exp_sum": counts["plain_torch"],
+                "xi_subnormal": counts["subnormal"]})
+    from cs304_tpu_torch.ops.cuda import _build
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
+    out.update({"nvcc": nvcc.stdout.strip().splitlines()[-1], "torch_cuda": torch.version.cuda})
+    return out
+
+
 def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
     """Phases 19-21: the Baum-Welch sentence forward-backward kernel (FB),
     embedded Baum-Welch training, and the GMM slice (training, decoding,
@@ -1787,64 +1920,72 @@ def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
     t_phase = time.perf_counter()
     lb_sent, c0, c1, c2, train_lengths = pipe["k3_args"]
     final = tb.final_states(pipe["n_states"], lb_sent.shape[2])
-    fb_err, fb_bitwise = 0.0, True
+    fb_err, fb_bitwise = {"fb": 0.0, "post": 0.0}, {"fb": True, "post": True}
 
-    def fb_check(name, log_b, c0_, c1_, c2_, lengths, fin):
-        """FB against banded_fb_plain on the same inputs: the same -inf
-        cells, finite cells within 1e-5 * max(1, |x|)."""
-        nonlocal fb_err, fb_bitwise
-        got = tfb.banded_fb(log_b, c0_, c1_, c2_, lengths, fin)
-        want = tfb.banded_fb_plain(log_b, c0_, c1_, c2_, lengths, fin)
-        torch.cuda.synchronize()
-        ok, err, bitwise = True, 0.0, True
+    def compare(mode, got, want):
+        """The same -inf cells and the same zero cells, finite cells within
+        1e-5 * max(1, |x|); bitwise or not is logged, and where not, how
+        many cells differ and the largest |x| among them."""
+        ok, err, bitwise, differ, largest = True, 0.0, True, 0, 0.0
         for g, w in zip(got, want):
             fin_w = torch.isfinite(w)
             ok &= bool(torch.equal(fin_w, torch.isfinite(g))) and not bool(torch.isnan(g).any())
+            ok &= bool(torch.equal(w == 0, g == 0))
             if fin_w.any():
                 d = (g[fin_w] - w[fin_w]).abs()
                 err = max(err, d.max().item())
                 ok &= bool((d <= 1e-5 * w[fin_w].abs().clamp(min=1.0)).all())
-            bitwise &= bool(torch.equal(g, w))
-        fb_err = max(fb_err, err)
-        fb_bitwise &= bitwise
+            cells = g.view(torch.int32) != w.view(torch.int32)
+            if cells.any():
+                bitwise = False
+                differ += int(cells.sum())
+                largest = max(largest, w[cells].abs().max().item())
+        fb_err[mode] = max(fb_err[mode], err)
+        fb_bitwise[mode] &= bitwise
+        return ok, err, bitwise, differ, largest
+
+    def fb_check(name, log_b, c0_, c1_, c2_, lengths, fin):
+        """FB (alpha, beta, ll) against banded_fb_plain and the E-step mode
+        (gamma, xi, ll) against banded_fb_posteriors_plain, one launch each,
+        on a case that reaches its finals (fb_coverage)."""
+        args_ = (log_b, c0_, c1_, c2_, lengths, fin)
+        n_fb, n_post = tfb.banded_fb.launches, tfb.banded_fb_posteriors.launches
+        got = tfb.banded_fb(*args_)
+        got_post = tfb.banded_fb_posteriors(*args_)
+        torch.cuda.synchronize()
+        one_each = (tfb.banded_fb.launches == n_fb + 1
+                    and tfb.banded_fb_posteriors.launches == n_post + 1)
+        want = tfb.banded_fb_plain(*args_)
+        want_post = tfb.banded_fb_posteriors_plain(*args_)
+        torch.cuda.synchronize()
+        share, top, covered = fb_coverage(lengths, fin, *got_post)
+        ok, err, bitwise, _n, _x = compare("fb", got, want)
+        ok_p, err_p, bitwise_p, n_p, x_p = compare("post", got_post, want_post)
         b_k, t_k, s_k = log_b.shape
         log("FB", case=name, B=b_k, T=t_k, S=s_k, ok=ok, bitwise=bitwise, max_abs_err=err,
-            neg_inf_ll=int((~torch.isfinite(got[2])).sum()),
+            e_step_ok=ok_p, e_step_bitwise=bitwise_p, e_step_max_abs_err=err_p,
+            e_step_cells_differing=n_p, e_step_largest_differing=x_p,
+            one_launch_each=one_each, finite_ll_share=share, row0_top_state=top,
+            covered=covered, neg_inf_ll=int((~torch.isfinite(got[2])).sum()),
             length_0_rows=int((lengths == 0).sum()), length_1_rows=int((lengths == 1).sum()))
-        if not ok:
-            raise SystemExit(f"FB disagrees with its plain version ({name})")
-
-    gen = torch.Generator(device=dev).manual_seed(19)
-
-    def problem(b, t, s, zero_length=False):
-        log_b = 2 * torch.randn((b, t, s), generator=gen, device=dev)
-        cs = [0.5 * torch.randn((b, s), generator=gen, device=dev) for _ in range(3)]
-        cs[1][:, :1] = float("-inf")
-        cs[2][:, :2] = float("-inf")
-        for cc in cs[1:]:
-            cc[torch.rand((b, s), generator=gen, device=dev) < 0.15] = float("-inf")
-        log_b[torch.rand((b, t, s), generator=gen, device=dev) < 0.03] = float("-inf")
-        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
-        lengths[0] = t
-        if zero_length:
-            lengths[1::3] = 0
-            lengths[2::5] = 1
-        fin = torch.randint(max(0, s - 8), s, (b,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        return log_b, *cs, lengths, fin
+        if not (ok and ok_p and one_each and covered):
+            raise SystemExit(f"FB or its E-step mode disagrees with its plain version, or the "
+                             f"case does not reach its finals ({name})")
+        if not bitwise_p:
+            log("FB-expf", case=name, **expf_probe(args_, got, got_post, want_post))
 
     fb_args = (lb_sent, c0, c1, c2, train_lengths, final)
     fb_check("training-shape", *fb_args)
-    fb_check("random-inf", *problem(256, 160, 59))
-    fb_check("length-0-and-1-rows", *problem(96, 100, 59, zero_length=True))
-    fb_check("B5-T1", *problem(5, 1, 59))
-    fb_check("503-states", *problem(16, 160, 503))
-    fb_check("2100-states", *problem(4, 40, 2100))
-    fb_check("T=4000", *problem(6, 4000, 59))
+    for name, (b_k, t_k, s_k, zero) in {
+            "random-inf": (256, 160, 59, False), "length-0-and-1-rows": (96, 100, 59, True),
+            "B5-T1": (5, 1, 59, False), "98-states": (32, 160, 98, False),
+            "503-states": (16, 340, 503, False), "2100-states": (4, 1500, 2100, False),
+            "T=4000": (6, 4000, 59, False)}.items():
+        fb_check(name, *fb_problem(dev, b_k, t_k, s_k, seed=b_k * 7 + s_k, zero_length=zero))
     b_fb, t_fb, s_fb = lb_sent.shape
     timings["trellis_fb"] = (device_ms(lambda: tfb.banded_fb(*fb_args)),
                              cuda_ms(lambda: tfb.banded_fb_plain(*fb_args), reps=2))
-    errs["trellis_fb"] = fb_err
+    errs["trellis_fb"] = fb_err["fb"]
     b_ms, b_by = fb_bound(b_fb, t_fb, s_fb, train_lengths)
     yardsticks["trellis_fb"] = (None, b_ms, b_by)
     chain = int(train_lengths.clamp(max=t_fb).max().item()) - 1
@@ -1853,42 +1994,81 @@ def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
     slope = (timings["trellis_fb"][0] - fb_short) / (chain - 40) * 1e3
     log("timing", kernel="trellis_fb", ms=timings["trellis_fb"][0],
         plain_ms=timings["trellis_fb"][1], bound_ms=b_ms, bound_by=b_by,
-        eager_ms=cuda_ms(lambda: tfb.banded_fb(*fb_args)), bitwise_all_cases=fb_bitwise,
+        eager_ms=cuda_ms(lambda: tfb.banded_fb(*fb_args)), bitwise_all_cases=fb_bitwise["fb"],
         chain_steps=chain, slope_us_per_step=slope, serial_floor_ms=chain * slope / 1e3,
         shape=f"B={b_fb} T={t_fb} S={s_fb}")
+
+    # The E-step: forward then backward in one team, a chain of 2 x chain
+    # steps. Finals outside the trellis give ll = -inf, and such an
+    # utterance skips its backward: the forward's slope alone.
+    timings["trellis_fb_posteriors"] = (
+        device_ms(lambda: tfb.banded_fb_posteriors(*fb_args)),
+        cuda_ms(lambda: tfb.banded_fb_posteriors_plain(*fb_args), reps=2))
+    errs["trellis_fb_posteriors"] = fb_err["post"]
+    p_ms, p_by = fb_posteriors_bound(b_fb, t_fb, s_fb, train_lengths)
+    yardsticks["trellis_fb_posteriors"] = (None, p_ms, p_by)
+    outside = torch.full_like(final, s_fb)
+
+    def post_ms(lengths, fin):
+        return device_ms(lambda: tfb.banded_fb_posteriors(lb_sent, c0, c1, c2, lengths, fin))
+
+    e_ms = timings["trellis_fb_posteriors"][0]
+    e_short = post_ms(short, final)
+    f_long, f_short = post_ms(train_lengths, outside), post_ms(short, outside)
+    slope_both = (e_ms - e_short) / (chain - 40) * 1e3
+    slope_fwd = (f_long - f_short) / (chain - 40) * 1e3
+    log("timing", kernel="trellis_fb_posteriors", ms=e_ms,
+        plain_ms=timings["trellis_fb_posteriors"][1], bound_ms=p_ms, bound_by=p_by,
+        eager_ms=cuda_ms(lambda: tfb.banded_fb_posteriors(*fb_args)),
+        bitwise_all_cases=fb_bitwise["post"], chain_steps=f"2 x {chain}",
+        forward_only_ms=f_long, slope_us_per_step_fwd=slope_fwd,
+        slope_us_per_step_bwd=slope_both - slope_fwd,
+        serial_floor_ms=chain * slope_both / 1e3, shape=f"B={b_fb} T={t_fb} S={s_fb}")
     log("phase", which="19 FB", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
-    # -- 20. Baum-Welch training, FB vs the plain forward-backward ---------
+    # -- 20. Baum-Welch training, the E-step kernel vs the plain E-step -----
     t_phase = time.perf_counter()
     boot, labeled = pipe["boot"], pipe["labeled"]
     cfg = ContinuousTrainConfig(max_iterations=3, silence_bootstrap=False, cov_reg=0.1,
                                 on_empty_state="keep", update="baum_welch")
     plain_on_card = {"n": 0}
-    plain_fn = tfb.banded_fb_plain
+    plain_fns = {name: getattr(tfb, name)
+                 for name in ("banded_fb_plain", "banded_fb_posteriors_plain")}
 
-    def counted_plain(log_b, *rest):
-        plain_on_card["n"] += int(log_b.is_cuda)
-        return plain_fn(log_b, *rest)
+    def counted(fn):
+        def run(log_b, *rest):
+            plain_on_card["n"] += int(log_b.is_cuda)
+            return fn(log_b, *rest)
+        return run
+
+    def count_plain(on):
+        for name, fn in plain_fns.items():
+            setattr(tfb, name, counted(fn) if on else fn)
+            if hasattr(tf, name):
+                setattr(tf, name, counted(fn) if on else fn)
 
     runs = {}
     for backend in ("kernel", "plain"):
         tf._FB_BACKEND = backend
-        tfb.banded_fb_plain = tf.banded_fb_plain = counted_plain
+        count_plain(True)
         plain_on_card["n"] = 0
         trainer = ContinuousTrainer(dict(boot), cfg, device=dev)
-        tfb.banded_fb.launches = 0
+        tfb.banded_fb.launches = tfb.banded_fb_posteriors.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         n_it = trainer.train(labeled)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        runs[backend] = (trainer, n_it, tfb.banded_fb.launches, plain_on_card["n"])
-        log("bw-train", fb=backend, iterations=n_it, seconds=f"{seconds:.3f}",
-            fb_launches=tfb.banded_fb.launches, plain_fb_on_card=plain_on_card["n"],
-            empty_slots=len(trainer.last_empty_slots))
-    tfb.banded_fb_plain = tf.banded_fb_plain = plain_fn
+        runs[backend] = (trainer, n_it, tfb.banded_fb_posteriors.launches,
+                         tfb.banded_fb.launches, plain_on_card["n"])
+        log("bw-train", e_step=backend, iterations=n_it, seconds=f"{seconds:.3f}",
+            e_step_launches=tfb.banded_fb_posteriors.launches,
+            fb_alpha_beta_launches=tfb.banded_fb.launches,
+            plain_on_card=plain_on_card["n"], empty_slots=len(trainer.last_empty_slots))
+    count_plain(False)
     tf._FB_BACKEND = "kernel"
-    (tr_k, it_k, fb_launches, plain_k), (tr_p, it_p, _l, _p) = runs["kernel"], runs["plain"]
+    (tr_k, it_k, post_launches, fb_launches, plain_k), (tr_p, it_p, *_rest) = (
+        runs["kernel"], runs["plain"])
     close = {}
     for n in ("means_g", "covs_g", "log_a_g"):
         a, b = getattr(tr_k, n), getattr(tr_p, n)
@@ -1898,11 +2078,13 @@ def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
         log("bw-train", param=n, max_abs_diff=float(np.abs(a[fin] - b[fin]).max()),
             bitwise=bool(np.array_equal(a, b)), close=close[n])
     if not (it_k == it_p and all(close.values())):
-        raise SystemExit(f"FB-trained and plain-trained parameters differ ({close}, "
-                         f"iterations {it_k} vs {it_p})")
-    if fb_launches == 0 or plain_k:
-        raise SystemExit(f"Baum-Welch training launched FB {fb_launches} times and ran the "
-                         f"plain forward-backward {plain_k} times on the card")
+        raise SystemExit(f"E-step-kernel-trained and plain-trained parameters differ "
+                         f"({close}, iterations {it_k} vs {it_p})")
+    if post_launches != it_k or fb_launches or plain_k:
+        raise SystemExit(f"Baum-Welch training launched the E-step kernel {post_launches} "
+                         f"times in {it_k} iterations, FB's alpha/beta mode {fb_launches} "
+                         f"times, and ran a plain forward-backward {plain_k} times on the card")
+    launches["trellis_fb_posteriors"] = post_launches
     launches["trellis_fb"] = fb_launches
 
     # Stages of one iteration (CUDA events, fixed inputs).
@@ -1922,36 +2104,63 @@ def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
                                          corpus.cross_tab[topo], "exit_only")
     lens = corpus.lengths.reshape(-1)
     n_states = corpus.n_states_t[topo]
-    la, lbeta, ll = tf._training_fb(lb_bw, *diags, lens, n_states)
-    gam, ll_c, valid = tf._bw_posteriors(la, lbeta, ll, lens)
-    pa = tf._bw_pass_a(gam, la, lbeta, lb_bw, diags, ll_c, valid, lens, lab_u, loc_u,
-                       samew_u, corpus.batch, tr_k.s_max, f)
+    gam, xi, _ll = tf._training_fb(lb_bw, *diags, lens, n_states)
+    pa = tf._bw_pass_a(gam, xi, lab_u, loc_u, samew_u, corpus.batch, tr_k.s_max, f)
     c_glob = pa[1].sum(0) / pa[0].sum()
+    oh = torch.nn.functional.one_hot(lab_u.long() * tr_k.s_max + loc_u.long(), f).float()
 
-    def fb_stage(backend):
+    def e_stage(backend):
         def run():
             tf._FB_BACKEND = backend
-            d3 = tf._sentence_trans_diagonals(args[2], lab_u, loc_u, samew_u,
-                                              corpus.cross_tab[topo], "exit_only")
-            out = tf._training_fb(lb_bw, *d3, lens, n_states)
+            out = tf._training_fb(lb_bw, *diags, lens, n_states)
             tf._FB_BACKEND = "kernel"
             return out
         return run
+
+    def e_step_peak_bytes(backend):
+        """Device memory the E-step allocates beyond its inputs."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = e_stage(backend)()
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base
+
+    def gamma_stats():
+        """Pass A's gamma part: the slot bmm, counts and frame sums."""
+        gam_f = torch.bmm(gam, oh)
+        return gam_f.sum(dim=(0, 1)), gam_f.reshape(-1, f).T @ corpus.batch.reshape(
+            -1, corpus.batch.shape[-1])
 
     stage = {
         "emissions": cuda_ms(lambda: tf._gather_sentence_emissions(
             args[0], args[1], corpus.lab_tab, corpus.loc_tab, corpus.batch,
             corpus.topo_id, tr_k.s_max), reps=5),
-        "fb_kernel": cuda_ms(fb_stage("kernel"), reps=5),
-        "fb_plain": cuda_ms(fb_stage("plain"), reps=2),
-        "pass_a": cuda_ms(lambda: tf._bw_pass_a(
-            *tf._bw_posteriors(la, lbeta, ll, lens)[:1], la, lbeta, lb_bw, diags, ll_c,
-            valid, lens, lab_u, loc_u, samew_u, corpus.batch, tr_k.s_max, f), reps=5),
+        "diagonals": cuda_ms(lambda: tf._sentence_trans_diagonals(
+            args[2], lab_u, loc_u, samew_u, corpus.cross_tab[topo], "exit_only"), reps=5),
+        "e_step": cuda_ms(e_stage("kernel"), reps=5),
+        "e_step_plain": cuda_ms(e_stage("plain"), reps=2),
+        "pass_a": cuda_ms(lambda: tf._bw_pass_a(gam, xi, lab_u, loc_u, samew_u, corpus.batch,
+                                                tr_k.s_max, f), reps=5),
+        "pass_a_gamma": cuda_ms(gamma_stats, reps=5),
         "pass_b": cuda_ms(lambda: tf._bw_pass_b(corpus.batch, pa[3], c_glob), reps=5),
-        "iteration_fb": cuda_ms(lambda: tf.fused_bw_iteration(*args, **kwargs), reps=5),
+        "iteration": cuda_ms(lambda: tf.fused_bw_iteration(*args, **kwargs), reps=5),
     }
-    stage["m_step_and_glue"] = stage["iteration_fb"] - (
-        stage["emissions"] + stage["fb_kernel"] + stage["pass_a"] + stage["pass_b"])
+    stage["pass_a_trans"] = stage["pass_a"] - stage["pass_a_gamma"]
+    stage["m_step_and_glue"] = stage["iteration"] - (
+        stage["emissions"] + stage["diagonals"] + stage["e_step"] + stage["pass_a"]
+        + stage["pass_b"])
+    # No (B, T, S) alpha or beta on the training path: the kernel's E-step
+    # allocates gamma, xi and ll and nothing of gamma's size besides.
+    gamma_bytes = 4 * lb_bw.numel()
+    peak = {backend: e_step_peak_bytes(backend) for backend in ("kernel", "plain")}
+    log("bw-train", e_step_peak_mib_kernel=f"{peak['kernel'] / 2**20:.1f}",
+        e_step_peak_mib_plain=f"{peak['plain'] / 2**20:.1f}",
+        gamma_mib=f"{gamma_bytes / 2**20:.1f}")
+    if peak["kernel"] >= 1.5 * gamma_bytes:
+        raise SystemExit(f"the E-step kernel's call allocated {peak['kernel']} bytes, more "
+                         f"than gamma ({gamma_bytes}) and its xi and ll")
 
     def bw_iteration_ms(backend):
         """Best of 3: one iteration, a synchronize and a host copy of the new
@@ -1972,8 +2181,8 @@ def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
     for backend in ("plain", "kernel", "kernel", "plain"):
         it_ms[backend] = min(it_ms.get(backend, float("inf")), bw_iteration_ms(backend))
     log("timing", what="Baum-Welch iteration, host wall best of 3 with readback",
-        ms_fb=it_ms["kernel"], ms_plain_fb=it_ms["plain"],
-        utt_per_s_fb=corpus.num_utts / it_ms["kernel"] * 1e3,
+        ms_e_step_kernel=it_ms["kernel"], ms_plain_e_step=it_ms["plain"],
+        utt_per_s=corpus.num_utts / it_ms["kernel"] * 1e3,
         shape=f"B={b_all} T={t_total} S_sent={lb_bw.shape[2]}")
     log("timing", what="Baum-Welch stages (CUDA events)",
         **{k: f"{v:.4f}" for k, v in stage.items()})
@@ -2121,6 +2330,11 @@ def report(kind, launches, timings, errs, yardsticks):
         # lax.scans.
         "trellis_fb": ("cs304_tpu_torch/csrc/trellis_fb.cu",
                        "cs304_tpu/models/train_fused.py:369 (_banded_fb_batch, lax.scans)"),
+        # The E-step mode of the same kernel: the forward-backward and the
+        # posteriors the JAX trainer forms from it.
+        "trellis_fb_posteriors": ("cs304_tpu_torch/csrc/trellis_fb.cu",
+                                  "cs304_tpu/models/train_fused.py:369 (_banded_fb_batch) "
+                                  "and :663-715 (gamma_of, the xi loop)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

@@ -28,10 +28,10 @@ reference hidden_markov_model.py:584-797):
     convergence test run on the device.
 
 The Baum-Welch iteration (fused_bw_iteration) replaces the hard alignment by
-the sentence forward-backward over the same band (on a card one launch of
-ops/cuda/trellis_fb.py, FB: forward and backward as independent teams) and
-the one-hots by the posteriors gamma and, over the three band diagonals,
-within-word xi.
+the sentence forward-backward over the same band and the one-hots by the
+posteriors gamma and, over the three band diagonals, within-word xi: on a
+card one launch of the E-step mode of ops/cuda/trellis_fb.py, which hands
+back gamma, the per-diagonal xi sums and ll, alpha and beta never written.
 
 Every reduction is a matmul, a sum or an integer histogram, none a float
 atomic, so two runs on one card give bitwise equal parameters (state ties
@@ -49,8 +49,14 @@ import torch
 
 from ..device import fp32_exact, resolve_device
 from ..ops.cuda.emission import gaussian_log_pdf_quad_plain
-from ..ops.cuda.trellis_fb import banded_fb, banded_fb_plain, lse3, shift_states
-from ..ops.cuda.trellis_banded import final_states, viterbi_banded_batch_scanfree
+from ..ops.cuda.trellis_banded import banded_decode, final_states
+from ..ops.cuda.trellis_fb import (
+    banded_fb_plain,
+    banded_fb_posteriors,
+    banded_fb_posteriors_plain,
+    lse3,
+    shift_states,
+)
 from ..ops.gaussian import (
     gaussian_log_pdf,
     make_gaussian_params,
@@ -73,9 +79,10 @@ NEG = float("-inf")
 # hundredths of a ms for the kernel on an NVIDIA H100 80GB HBM3 at 700 W,
 # PERF.md). Both give bitwise the same paths.
 _TRELLIS_BACKEND = "scanfree"
-# The Baum-Welch sentence forward-backward: "kernel" (default) runs FB on a
-# card (ops/cuda/trellis_fb.py; its plain version on the CPU), "plain" the
-# plain PyTorch loop (about 25 small launches a step in each direction).
+# The Baum-Welch E-step: "kernel" (default) runs the E-step mode of the FB
+# kernel on a card (ops/cuda/trellis_fb.banded_fb_posteriors; its plain
+# version on the CPU), "plain" the plain PyTorch loop (about 25 small
+# launches a step in each direction, then the posteriors).
 _FB_BACKEND = "kernel"
 # The soft-count floor of the Baum-Welch M-step (the JAX trainer's).
 _BW_FLOOR = 1e-4
@@ -231,18 +238,36 @@ def _banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states):
     dense scan's first-max argmax (smallest predecessor index wins), and the
     backtrace applies the reference's final-frame quirk."""
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=log_b.device)
-    alpha, bps = banded_sentence_forward(log_b, c0, c1, c2, lengths)
     final = final_states(torch.as_tensor(n_states, device=log_b.device), log_b.shape[2])
+    return _banded_trellis_final(log_b, c0, c1, c2, lengths, final)
+
+
+def _banded_trellis_final(log_b, c0, c1, c2, lengths, final):
+    """_banded_trellis_batch from int32 lengths and final states."""
+    alpha, bps = banded_sentence_forward(log_b, c0, c1, c2, lengths)
     scores = alpha.gather(1, final[:, None].to(torch.int64))[:, 0]
     return scores, backtrace_batch(bps, final, lengths, quirk=True)
 
 
+def _training_args(log_b, lengths, n_states):
+    """int32 lengths and final states max(n - 1, 0) on log_b's device, with
+    no check (final_states' would sync with the card between the emissions
+    and the trellis): n_states <= S_sent holds by construction, S_sent being
+    the longest sentence of prepare_fused_corpus."""
+    dev = log_b.device
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    final = torch.clamp(torch.as_tensor(n_states, device=dev) - 1, min=0).to(torch.int32)
+    return lengths, final
+
+
 def _training_trellis(log_b, c0, c1, c2, lengths, n_states):
     """Dispatch the training trellis on _TRELLIS_BACKEND."""
+    lengths, final = _training_args(log_b, lengths, n_states)
     if _TRELLIS_BACKEND == "scanfree":
-        return viterbi_banded_batch_scanfree(log_b, c0, c1, c2, lengths, n_states)
+        return banded_decode(log_b.contiguous(), c0.contiguous(), c1.contiguous(),
+                             c2.contiguous(), lengths, final)
     if _TRELLIS_BACKEND == "scan":
-        return _banded_trellis_batch(log_b, c0, c1, c2, lengths, n_states)
+        return _banded_trellis_final(log_b, c0, c1, c2, lengths, final)
     raise ValueError(f"unknown training trellis backend {_TRELLIS_BACKEND!r}")
 
 
@@ -263,16 +288,15 @@ def _banded_fb_batch(log_b, c0, c1, c2, lengths, n_states):
 
 
 def _training_fb(log_b, c0, c1, c2, lengths, n_states):
-    """Dispatch the Baum-Welch sentence forward-backward on _FB_BACKEND."""
+    """The Baum-Welch E-step, dispatched on _FB_BACKEND: -> (gamma
+    (B, T, S), xi (B, 3, S), ll (B,)), see
+    ops/cuda/trellis_fb.banded_fb_posteriors_plain."""
+    lengths, final = _training_args(log_b, lengths, n_states)
     if _FB_BACKEND == "kernel":
-        dev = log_b.device
-        final = final_states(torch.as_tensor(n_states, device=dev), log_b.shape[2])
-        return banded_fb(log_b.contiguous(), c0.contiguous(), c1.contiguous(),
-                         c2.contiguous(),
-                         torch.as_tensor(lengths, dtype=torch.int32, device=dev),
-                         final.contiguous())
+        return banded_fb_posteriors(log_b.contiguous(), c0.contiguous(), c1.contiguous(),
+                                    c2.contiguous(), lengths, final)
     if _FB_BACKEND == "plain":
-        return _banded_fb_batch(log_b, c0, c1, c2, lengths, n_states)
+        return banded_fb_posteriors_plain(log_b, c0, c1, c2, lengths, final)
     raise ValueError(f"unknown forward-backward backend {_FB_BACKEND!r}")
 
 
@@ -512,25 +536,14 @@ def fused_viterbi_iteration(
     )
 
 
-def _bw_posteriors(log_alpha, log_beta, ll, lengths_flat):
-    """gamma (B, T, S) = exp(alpha + beta - ll) on real frames of valid
-    utterances (finite ll; a padding utterance has ll = -inf), 0 elsewhere;
-    also the per-utterance ll with 0 for invalid rows and the valid mask."""
-    t = log_alpha.shape[1]
-    valid = torch.isfinite(ll)
-    ll_c = torch.where(valid, ll, torch.zeros_like(ll))
-    mask = (torch.arange(t, device=ll.device)[None, :] < lengths_flat[:, None]) & valid[:, None]
-    g = torch.exp(log_alpha + log_beta - ll_c[:, None, None])
-    return torch.where(mask[..., None], g, torch.zeros_like(g)), ll_c, valid
-
-
-def _bw_pass_a(gam, log_alpha, log_beta, lb, diags, ll_c, valid, lengths_flat,
-               lab_u, loc_u, samew_u, batch, s_max: int, f: int):
+def _bw_pass_a(gam, xi, lab_u, loc_u, samew_u, batch, s_max: int, f: int):
     """Soft zeroth/first-order statistics and within-word transition mass
-    over the whole batch -> (counts_f (F,), sums (F, D), trans_f
-    (F * s_max,), gam_f (B, T, F)). xi runs over the three band diagonals
-    (destination-indexed: the value at state v comes from v - k), and only
-    pairs inside one word count."""
+    over the whole batch, from the E-step's gamma (B, T, S_sent) and xi
+    sums (B, 3, S_sent) -> (counts_f (F,), sums (F, D), trans_f
+    (F * s_max,), gam_f (B, T, F)). xi's diagonal k is destination-indexed
+    (the value at state v comes from v - k), and only pairs inside one word
+    count: the same-word mask does not depend on t, so masking the sums
+    over t equals masking every term."""
     b, t, ss = gam.shape
     d = batch.shape[-1]
     dev = gam.device
@@ -541,25 +554,17 @@ def _bw_pass_a(gam, log_alpha, log_beta, lb, diags, ll_c, valid, lengths_flat,
     counts_f = gam_f.sum(dim=(0, 1))
     sums = gam_f.reshape(b * t, f).T @ batch.reshape(b * t, d)
 
-    pair_mask = ((torch.arange(t - 1, device=dev)[None, :, None] + 1
-                  < lengths_flat[:, None, None]) & valid[:, None, None])
-    zb = lb[:, 1:] + log_beta[:, 1:]  # (B, T-1, S_sent)
     ar = torch.arange(ss, device=dev)
     trans_f = torch.zeros((f * s_max,), dtype=torch.float32, device=dev)
-    for k, ck in enumerate(diags):
+    for k in range(3):
         if k == 0:
-            a_shift = log_alpha[:, :-1]
-            samew_k = torch.ones((b, ss), dtype=torch.bool, device=dev)
+            xi_sum = xi[:, 0]
             loc_from = loc_u
         else:
-            a_shift = shift_states(log_alpha[:, :-1], k)
             frm = torch.clamp(ar - k, min=0)
             samew_k = samew_u[:, frm, ar] & (ar >= k)
+            xi_sum = torch.where(samew_k, xi[:, k], torch.zeros_like(xi[:, k]))
             loc_from = shift_states(loc_u, k, 0)
-        log_xi = a_shift + ck[:, None, :] + zb - ll_c[:, None, None]
-        xi = torch.where(pair_mask & samew_k[:, None, :], torch.exp(log_xi),
-                         torch.zeros_like(log_xi))
-        xi_sum = xi.sum(dim=1)  # (B, S_sent)
         from_flat = lab_u * (s_max * s_max) + loc_from * s_max + loc_u
         ohp = torch.nn.functional.one_hot(from_flat, f * s_max).to(torch.float32)
         trans_f = trans_f + xi_sum.reshape(1, b * ss) @ ohp.reshape(b * ss, f * s_max)
@@ -618,15 +623,14 @@ def _bw_body(
     diags = _sentence_trans_diagonals(log_a_g, lab_u, loc_u, samew_u,
                                       cross_tab[topo_flat], cross_word)
     lengths_flat = lengths.reshape(b)
-    log_alpha, log_beta, ll = _training_fb(lb_sent, *diags, lengths_flat,
-                                           n_states_t[topo_flat])
-    gam, ll_c, valid = _bw_posteriors(log_alpha, log_beta, ll, lengths_flat)
-    ll_sum = ll_c.sum()
+    # ---- E-step: gamma and the per-diagonal xi sums; padding utterances
+    # (ll = -inf) count nothing and add 0 to the summed log-likelihood.
+    gam, xi, ll = _training_fb(lb_sent, *diags, lengths_flat, n_states_t[topo_flat])
+    ll_sum = torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll)).sum()
 
     # ---- pass A: soft counts / frame sums / within-word transition mass
     counts_f, sums, trans_f, gam_f = _bw_pass_a(
-        gam, log_alpha, log_beta, lb_sent, diags, ll_c, valid, lengths_flat,
-        lab_u, loc_u, samew_u, batch, s_max, f)
+        gam, xi, lab_u, loc_u, samew_u, batch, s_max, f)
     if tie_flat is not None:
         counts_f = _pool_slots(counts_f, tie_flat)
         sums = _pool_slots(sums, tie_flat)

@@ -118,6 +118,8 @@ def load():
         lib.cs304_trellis_dense_branch.restype = i
         lib.cs304_trellis_fb.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
         lib.cs304_trellis_fb.restype = i
+        lib.cs304_trellis_fb_posteriors.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_fb_posteriors.restype = i
         lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.cs304_emission_split.restype = i
         lib.cs304_error_string.argtypes = [i]

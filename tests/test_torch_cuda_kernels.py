@@ -18,8 +18,11 @@ ties; K4's dense step; K2-bt walking int8 and int32 ring slices in place),
 the single-stream decoder on the card, and the serving entry points'
 default device; the Baum-Welch sentence forward-backward (FB: -inf cells
 equal, the rest within 1e-5 * max(1, |x|) of its plain version; length-0
-and -1 rows, T = 1, 1 to 2100 states) and one fused Baum-Welch iteration
-launching it.
+and -1 rows, T = 1, 1 to 2100 states, finals the band reaches), its E-step
+mode (gamma, xi sums, ll on the same cases, each with finite ll in at least
+half its rows: -inf and zero cells equal, the rest within
+1e-5 * max(1, |x|)) and one fused Baum-Welch iteration launching the E-step
+mode and not FB.
 
 These are chip_smoke.py's phases 3-4, 7, 11-13, 17 and 19-20 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
@@ -724,30 +727,74 @@ def test_streaming_composite_on_card_matches_cpu(dev):
 
 
 def _fb_case(dev, b, t, s, seed, zero_length=False, sprinkle=True):
-    """A sentence forward-backward problem on the card: log_b, c0/c1/c2 with
-    -inf off the band's start (and sprinkled when asked), lengths, finals."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    log_b = 2 * torch.randn((b, t, s), generator=gen, device=dev)
-    c0, c1, c2 = (0.5 * torch.randn((b, s), generator=gen, device=dev) for _ in range(3))
+    """A sentence forward-backward problem, drawn on the CPU from a seed and
+    moved to the card: log_b, c0/c1/c2 with -inf off the band's start (and
+    sprinkled when asked: in odd rows into log_b, c1 and c2 independently,
+    which walls off states and, over long T, kills whole utterances; in
+    even rows into c1 and c2, never both at one state), lengths, finals. The band advances at most two states a frame:
+    each final lies in the top quarter of [0, reach], reach = min(S - 1,
+    1.5 (length - 1)), row 0's at reach (S - 1 where T >= 2S / 3 + 1, so
+    that every warp of a block team carries mass), and rows 3, 11, ... at
+    2 (length - 1) + 1, past the band (ll = -inf), where that is a state."""
+    gen = torch.Generator().manual_seed(seed)
+    log_b = 2 * torch.randn((b, t, s), generator=gen)
+    c0, c1, c2 = (0.5 * torch.randn((b, s), generator=gen) for _ in range(3))
     c1[:, :1] = float("-inf")
     c2[:, :2] = float("-inf")
     if sprinkle:
-        for c in (c1, c2):
-            c[torch.rand((b, s), generator=gen, device=dev) < 0.15] = float("-inf")
-        log_b[torch.rand((b, t, s), generator=gen, device=dev) < 0.03] = float("-inf")
-    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        hole = torch.rand((b, s), generator=gen) < 0.15
+        c1[hole] = float("-inf")
+        odd = (torch.arange(b) % 2 == 1)[:, None]
+        c2[(torch.rand((b, s), generator=gen) < 0.15) & (odd | ~hole)] = float("-inf")
+        log_b[(torch.rand((b, t, s), generator=gen) < 0.03) & odd[..., None]] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32)
     lengths[0] = t
     if zero_length:
         lengths[1::3] = 0
         lengths[2::5] = 1
-    final = torch.randint(max(0, s - 6), s, (b,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    return log_b, c0, c1, c2, lengths, final
+    reach = torch.clamp(3 * (lengths - 1) // 2, min=0, max=s - 1)
+    drop = (torch.rand((b,), generator=gen) * (reach // 4 + 1).float()).floor()
+    final = reach - drop.to(torch.int32)
+    final[0] = reach[0]
+    past = 2 * (lengths - 1) + 1
+    off = torch.zeros((b,), dtype=torch.bool)
+    off[3::8] = True
+    final = torch.where(off & (lengths >= 1) & (past < s), past, final).to(torch.int32)
+    return tuple(x.to(dev) for x in (log_b, c0, c1, c2, lengths, final))
 
 
-@pytest.mark.parametrize("case", [(64, 160, 59, False), (40, 50, 59, True), (5, 1, 59, False),
-                                  (8, 40, 98, True), (4, 30, 503, False),
-                                  (2, 20, 2100, False), (3, 600, 33, True), (6, 12, 1, False)])
+def _fb_coverage(prob, gamma, xi, ll):
+    """What an E-step case exercises, asserted before its comparison counts:
+    at least half of the utterances of length >= 1 have a finite ll, row 0
+    among them, and the highest state with nonzero gamma in row 0 is its
+    final; for each such utterance every live gamma row sums to 1 and the
+    xi sums to length - 1 over the three diagonals (a posterior's own
+    identities) within 25%: a check of coverage, not of accuracy (that is
+    the comparison), since float32 chains of 2T steps at |ll| ~ T drift by
+    ~9% at T = 4000 (chip_smoke.py phase 19). Returns
+    (share of finite ll, row 0's highest state with nonzero gamma)."""
+    lengths, final = prob[4].long(), prob[5].long()
+    live = lengths >= 1
+    valid = torch.isfinite(ll) & live
+    share = float(valid.sum()) / max(int(live.sum()), 1)
+    assert share >= 0.5 and bool(valid[0]), (share, bool(valid[0]))
+    t = gamma.shape[1]
+    rows = torch.arange(t, device=gamma.device)[None, :] < lengths[:, None]
+    sums = gamma.sum(dim=2)
+    assert bool(((sums - 1).abs() <= 0.25)[rows & valid[:, None]].all())
+    pairs = (lengths - 1).clamp(min=0).to(xi.dtype)
+    assert bool(((xi.sum(dim=(1, 2)) - pairs).abs() <= 0.25 * pairs.clamp(min=1))[valid].all())
+    top = int(torch.nonzero(gamma[0].amax(dim=0) > 0).max())
+    assert top == int(final[0]), (top, int(final[0]))
+    return share, top
+
+
+FB_CASES = [(64, 160, 59, False), (40, 50, 59, True), (5, 1, 59, False), (8, 70, 98, True),
+            (12, 90, 128, False), (4, 340, 503, False), (2, 1500, 2100, False),
+            (3, 600, 33, True), (6, 12, 1, False)]
+
+
+@pytest.mark.parametrize("case", FB_CASES)
 def test_sentence_forward_backward_matches_plain(dev, case):
     """FB against banded_fb_plain on the card: -inf in the same cells, the
     rest within 1e-5 * max(1, |x|) (IEEE expf / logf on both sides); one
@@ -770,9 +817,38 @@ def test_sentence_forward_backward_matches_plain(dev, case):
         assert bool(((g[fin] - w[fin]).abs() <= tol).all()), name
 
 
+@pytest.mark.parametrize("case", FB_CASES)
+def test_fb_posteriors_match_plain(dev, case):
+    """The E-step mode against banded_fb_posteriors_plain on FB's cases,
+    which reach their finals (_fb_coverage): -inf and zero cells equal
+    (signs of zero too), the rest within 1e-5 * max(1, |x|) (IEEE expf /
+    logf on both sides, in the same order); one launch a call, FB's
+    alpha/beta mode not launched."""
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+
+    b, t, s, zero = case
+    prob = _fb_case(dev, b, t, s, seed=b * 7 + s, zero_length=zero)
+    before, fb_before = tfb.banded_fb_posteriors.launches, tfb.banded_fb.launches
+    got = tfb.banded_fb_posteriors(*prob)
+    want = tfb.banded_fb_posteriors_plain(*prob)
+    torch.cuda.synchronize()
+    assert tfb.banded_fb_posteriors.launches == before + 1
+    assert tfb.banded_fb.launches == fb_before
+    _fb_coverage(prob, *got)
+    for g, w, name in zip(got, want, ("gamma", "xi", "ll")):
+        assert g.shape == w.shape, name
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w)), name
+        assert torch.equal(w == 0, g == 0) and torch.equal(torch.signbit(g), torch.signbit(w))
+        assert not torch.isnan(g).any(), name
+        fin = torch.isfinite(w)
+        tol = 1e-5 * torch.clamp(w[fin].abs(), min=1.0)
+        assert bool(((g[fin] - w[fin]).abs() <= tol).all()), name
+
+
 def test_bw_iteration_launches_fb_and_matches_plain_fb(dev):
-    """One fused Baum-Welch iteration on the card launches FB once and gives
-    the plain forward-backward's parameters (rtol 1e-4 / atol 1e-5)."""
+    """One fused Baum-Welch iteration on the card launches the E-step mode of
+    FB once and its alpha/beta mode never, and gives the plain E-step's
+    parameters (rtol 1e-4 / atol 1e-5)."""
     from cs304_tpu_torch.models import train_fused as tf
     from cs304_tpu_torch.models.train_continuous import ContinuousTrainer, insert_silence
     from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
@@ -791,9 +867,10 @@ def test_bw_iteration_launches_fb_and_matches_plain_fb(dev):
     corpus = tf.prepare_fused_corpus(labeled, trainer.state_counts, trainer.label_index,
                                      insert_silence, 32, device=dev)
     args, kwargs = trainer._fused_args(corpus), trainer._fused_kwargs()
-    before = tfb.banded_fb.launches
+    before, fb_before = tfb.banded_fb_posteriors.launches, tfb.banded_fb.launches
     got = tf.fused_bw_iteration(*args, **kwargs)
-    assert tfb.banded_fb.launches == before + 1
+    assert tfb.banded_fb_posteriors.launches == before + 1
+    assert tfb.banded_fb.launches == fb_before
     tf._FB_BACKEND = "plain"
     try:
         want = tf.fused_bw_iteration(*args, **kwargs)
@@ -820,3 +897,20 @@ def test_fb_wrapper_rejects_what_the_kernel_does_not_take(dev):
                       lengths, final)
     with pytest.raises(ValueError):
         tfb.banded_fb(log_b, c0[:1], c1, c2, lengths, final)
+
+
+def test_fb_posteriors_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+
+    prob = _fb_case(dev, 2, 4, tfb.MAX_FB_STATES + 1, seed=1, sprinkle=False)
+    with pytest.raises(ValueError, match="states"):
+        tfb.banded_fb_posteriors(*prob)
+    log_b, c0, c1, c2, lengths, final = _fb_case(dev, 2, 4, 9, seed=2)
+    with pytest.raises(TypeError):
+        tfb.banded_fb_posteriors(log_b, c0, c1, c2, lengths, final.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.banded_fb_posteriors(log_b, c0.t().contiguous().t(), c1, c2, lengths, final)
+    with pytest.raises(ValueError):
+        tfb.banded_fb_posteriors(log_b, c0, c1, c2[:1], lengths, final)
+    with pytest.raises(ValueError):
+        tfb.banded_fb_posteriors(log_b, c0, c1, c2, lengths.cpu(), final)

@@ -132,9 +132,30 @@ Phases (each prints its own numbers; any failure exits non-zero):
               predict_signal_batch == predict_batch on the same clips, a
               GMM checkpoint round trip decoding the same texts; GMM pools
               on the card (dense at 58 states, and banded) == CPU pools
+ 22. search   the LM and BEAM decode modes and the LM stream mode of the
+              scan-free team kernel against their plain versions, bitwise
+              in scores, paths and score signs (ring rows, alpha and its
+              signs for the stream mode): the flagship on phase 6's
+              emissions with a bigram trained on seeded digit strings,
+              equal pair values on integer ties, zero pair values, 503
+              states (W = 101), 5003 states (W = 1001, codes and sources in
+              the global scratch), beams of 50 and 5 (the share of final
+              states pruned logged), LM + beam; 512 slots x 16 frames at 58
+              states and 256 at 503 for the stream mode. Each case fails
+              unless half its rows are finite. ContinuousDecoder(bigram=) and
+              (beam=) on the 512 clips: transcripts equal to a device="cpu"
+              decoder's, their mode launched, no plain trellis on the card,
+              ms a batch; on phase 9's models the bigram decode's accuracy
+              >= 0.85, and the ms and launches of predict_batch_with_confidence
+              (K4 + K2-bt), predict_nbest, counted, duration and grammar
+              decodes at 64 clips; phase 18's traffic under
+              ServingSessionPool(bigram=) and (confidences=True), 16 sessions
+              on the card, 4 equal to a CPU pool's (confidences within 1e-4),
+              the LM stream mode launched; each new mode's time, plain time
+              and bound
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (eleven kernels, each with
+The line before the last is the kernels' JSON record (fourteen kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -564,6 +585,7 @@ def main():
     stream_phase(dev, launches, timings, errs, yardsticks)
     serving_phase(dev, pipe)
     bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks)
+    search_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -1580,6 +1602,59 @@ def stream_phase(dev, launches, timings, errs, yardsticks):
     launches["trellis_stream"] = pool_launches
 
 
+SERVE_SR, SERVE_SESSIONS, SERVE_SECONDS, SERVE_CHUNK = 16000, 64, 3.0, 1600
+
+
+def serving_traffic(corpus):
+    """benchmarks/serving_bench.py:67-78's traffic: 64 sessions of 3 s
+    (noise, two synthetic sentences, noise), and a warm-up utterance."""
+    rng = np.random.default_rng(0)
+    sr = SERVE_SR
+    transcripts = ["375", "186Z", "54321", "12", "9O2", "4Z"]
+
+    def session_audio(i):
+        pieces = [rng.normal(0, 20.0, int(0.3 * sr)).astype(np.float32)]
+        for j in range(2):
+            pieces.append(corpus.sentence_audio(transcripts[(i + j) % len(transcripts)], i % 6,
+                                                jitter_seed=j))
+            pieces.append(rng.normal(0, 20.0, int(0.4 * sr)).astype(np.float32))
+        return np.concatenate(pieces)[: int(SERVE_SECONDS * sr)]
+
+    audio = [session_audio(i) for i in range(SERVE_SESSIONS)]
+    warm = np.concatenate([corpus.sentence_audio("375", 0),
+                           rng.normal(0, 20.0, int(0.4 * sr)).astype(np.float32)])
+    return audio, warm
+
+
+def drive_sessions(pool, which, audio, warm, chunk=SERVE_CHUNK):
+    """Feed sessions `which` their audio in 100 ms chunks after a warm-up
+    session, polling partials after each feed(). -> (results per session,
+    polls, wall s, ms per round)."""
+    scratch = pool.open()
+    for off in range(0, len(warm), chunk):
+        pool.feed({scratch: warm[off: off + chunk]})
+        pool.partials([scratch])
+    pool.close(scratch)
+    sessions = [pool.open() for _ in which]
+    results = {s: [] for s in sessions}
+    polls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    longest = max(len(audio[i]) for i in which)
+    rounds = 0
+    for off in range(0, longest, chunk):
+        done = pool.feed({s: audio[i][off: off + chunk]
+                          for s, i in zip(sessions, which) if off < len(audio[i])})
+        for s, rs in done.items():
+            results[s] += rs
+        polls.append(pool.partials(sessions))
+        rounds += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([results[s] for s in sessions], [[p[s] for s in sessions] for p in polls],
+            wall, wall / rounds * 1e3)
+
+
 def serving_phase(dev, pipe):
     """Phase 18: ServingSessionPool on the card with serving_bench.py's
     traffic, on phase 9's trained models."""
@@ -1593,49 +1668,11 @@ def serving_phase(dev, pipe):
     from cs304_tpu_torch.serving import ServingSessionPool
 
     models, corpus = pipe["models"], pipe["corpus"]
-    sr, n_sessions, seconds, chunk = 16000, 64, 3.0, 1600
-    rng = np.random.default_rng(0)
-    transcripts = ["375", "186Z", "54321", "12", "9O2", "4Z"]
-
-    def session_audio(i):  # benchmarks/serving_bench.py:67-78
-        pieces = [rng.normal(0, 20.0, int(0.3 * sr)).astype(np.float32)]
-        for j in range(2):
-            pieces.append(corpus.sentence_audio(transcripts[(i + j) % len(transcripts)], i % 6,
-                                                jitter_seed=j))
-            pieces.append(rng.normal(0, 20.0, int(0.4 * sr)).astype(np.float32))
-        return np.concatenate(pieces)[: int(seconds * sr)]
-
-    audio = [session_audio(i) for i in range(n_sessions)]
-    warm = np.concatenate([corpus.sentence_audio("375", 0),
-                           rng.normal(0, 20.0, int(0.4 * sr)).astype(np.float32)])
+    sr, n_sessions, seconds, chunk = SERVE_SR, SERVE_SESSIONS, SERVE_SECONDS, SERVE_CHUNK
+    audio, warm = serving_traffic(corpus)
 
     def drive(pool, which):
-        """Feed sessions `which` their audio in 100 ms chunks, polling
-        partials after each feed(). -> (results per session, polls, wall s,
-        ms per round)."""
-        scratch = pool.open()
-        for off in range(0, len(warm), chunk):
-            pool.feed({scratch: warm[off: off + chunk]})
-            pool.partials([scratch])
-        pool.close(scratch)
-        sessions = [pool.open() for _ in which]
-        results = {s: [] for s in sessions}
-        polls = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        longest = max(len(audio[i]) for i in which)
-        rounds = 0
-        for off in range(0, longest, chunk):
-            done = pool.feed({s: audio[i][off: off + chunk]
-                              for s, i in zip(sessions, which) if off < len(audio[i])})
-            for s, rs in done.items():
-                results[s] += rs
-            polls.append(pool.partials(sessions))
-            rounds += 1
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return ([results[s] for s in sessions], [[p[s] for s in sessions] for p in polls],
-                wall, wall / rounds * 1e3)
+        return drive_sessions(pool, which, audio, warm)
 
     # No plain step may run on a CUDA tensor: count calls of the plain
     # versions the wrappers reach, by CUDA argument.
@@ -2304,6 +2341,401 @@ def bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks):
     log("phase", which="21 GMM", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+def search_decode_bound(b, t, s, lengths, n_words=0, beam=False):
+    """bound() of one search decode: the live log_b rows in, paths and
+    scores out, coefficients, lengths and the LM's tables (pair, word_of,
+    uppers); per step these lengths run, 6 operations a state (the banded
+    candidates), 2 a (source, target) word pair with the LM (an add and a
+    compare), 2 a state with the beam (its max and the prune), at
+    PEAK_FP32_ALU."""
+    live = int(lengths.clamp(min=1, max=t).sum().item())
+    lm_bytes = 4 * (n_words * n_words + s + n_words) if n_words else 0
+    ops = (live - b) * (6 * s + 2 * n_words * n_words + (2 * s if beam else 0))
+    return bound(4 * live * s + 4 * b * t + 8 * b + 32 * s + lm_bytes,
+                 [(ops, PEAK_FP32_ALU)])
+
+
+def stream_lm_bound(rows, valid, s, ring_bytes, n_words):
+    """stream_bound() with the LM's tables read and 2 operations a
+    (source, target) word pair a frame."""
+    frames = rows * valid
+    return bound(4 * frames * s + 8 * rows * s + ring_bytes * frames * s + 32 * s + 12 * rows
+                 + 4 * (n_words * n_words + s + n_words),
+                 [(frames * (6 * s + 2 * n_words * n_words), PEAK_FP32_ALU)])
+
+
+def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
+    """Phase 22: search on the decoder. The LM and BEAM decode modes and the
+    LM stream mode against their plain versions; bigram and beam decoders
+    on the 512 clips; n-best, confidences and constrained decodes on phase
+    9's models; bigram and confidence serving."""
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.models.hmm import flagship_models
+    from cs304_tpu_torch.ops import streaming_batch as sb
+    from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.grammar import WordDFA
+    from cs304_tpu_torch.ops.lm import train_word_bigram, word_pair_penalties
+    from cs304_tpu_torch.ops.viterbi import (
+        forward_fast,
+        lm_tables,
+        pack_coefs,
+        viterbi_composite_batch_fast,
+    )
+    from cs304_tpu_torch.serving import ServingSessionPool
+
+    t_phase = time.perf_counter()
+    flag, lb3, n_frames = decode["comp"], decode["lb3"], decode["n_frames"]
+    b, t_total, _ld = lb3.shape
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rng = np.random.default_rng(22)
+
+    def digit_bigram(comp):
+        """A bigram trained on 500 seeded random word strings."""
+        words = [lab for lab in comp.labels if lab != "S"]
+        corpus = [tuple(rng.choice(words, size=int(rng.integers(1, 8)))) for _ in range(500)]
+        return train_word_bigram(corpus, comp.labels)
+
+    def pair_of(comp, mode="trained"):
+        pair = word_pair_penalties(comp, digit_bigram(comp), 1.0)
+        if mode == "ties":
+            pair[:] = np.float32(-7.0)
+        elif mode == "zero":
+            pair[:, :2] = 0.0
+            pair[1] = 0.0
+        return pair
+
+    err = {"trellis_decode_lm": 0.0, "trellis_decode_beam": 0.0, "trellis_stream_lm": 0.0}
+
+    # -- (a) the three variants against their plain versions ----------------
+    def search_check(name, comp, log_b, lengths, pair=None, beam=None, codes=None):
+        s_k = comp.num_states
+        topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+        coefs = pack_coefs(*topo, device=dev)
+        lm = lm_tables(pair, comp.word_of_state, comp.uppers, device=dev) if pair is not None \
+            else None
+        key = "trellis_decode_lm" if lm is not None else "trellis_decode_beam"
+        if lm is not None:
+            got = tsf.scanfree_decode_lm(log_b, coefs, lm, lengths, beam=beam)
+        else:
+            got = tsf.scanfree_decode_beam(log_b, coefs, comp.penalty, lengths, beam)
+        want = viterbi_composite_batch_fast(
+            log_b[..., :s_k].contiguous(), *topo, comp.penalty, lengths, pair_penalty=pair,
+            word_of_state=comp.word_of_state, uppers=comp.uppers, beam=beam)
+        torch.cuda.synchronize()
+        same = {"scores": torch.equal(got[0], want[0]), "paths": torch.equal(got[1], want[1]),
+                "score_signs": torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))}
+        finite = torch.isfinite(want[0])
+        both = finite & torch.isfinite(got[0])
+        e = (got[0] - want[0])[both].abs().max().item() if both.any() else 0.0
+        err[key] = max(err[key], e)
+        b_k, t_k = log_b.shape[:2]
+        w = len(comp.labels) if lm is not None else 0
+        took = "shared" if tsf.codes_scratch_bytes(b_k, t_k, s_k, w) == 0 else "global"
+        pruned = None
+        if beam is not None:
+            alpha = forward_fast(log_b, coefs, comp.penalty, lengths, lm=lm, beam=beam)[0]
+            pruned = (~torch.isfinite(alpha)).float().mean().item()
+        log("search", case=name, mode=key.split("_")[-1] + ("+beam" if lm and beam else ""),
+            B=b_k, T=t_k, S=s_k, W=w or None, beam=beam, codes=took,
+            equal=json.dumps(same), finite_rows=finite.float().mean().item(),
+            final_states_pruned=pruned, max_abs_err=e)
+        if not all(same.values()) or finite.float().mean().item() < 0.5:
+            raise SystemExit(f"phase 22: {key} disagrees with its plain version ({name}), or "
+                             f"its case compares -inf")
+        if codes is not None and took != codes:
+            raise SystemExit(f"phase 22: case {name} kept its codes in {took} memory, not {codes}")
+
+    def rand_lengths(nb, t):
+        ln = torch.randint(1, t + 1, (nb,), generator=gen, device=dev, dtype=torch.int32)
+        ln[0] = t
+        return ln
+
+    c503, c5003 = random_composite(100, 3), random_composite(1000, 3)
+    s58 = flag.num_states
+    search_check("flagship-lm", flag, lb3, n_frames, pair_of(flag), codes="shared")
+    lbi = torch.randint(-3, 1, (64, t_total, s58), generator=gen, device=dev).float()
+    search_check("flagship-lm-ties", flag, lbi, rand_lengths(64, t_total), pair_of(flag, "ties"))
+    search_check("flagship-lm-zero", flag, 3 * torch.randn((64, t_total, s58), generator=gen,
+                                                            device=dev),
+                 rand_lengths(64, t_total), pair_of(flag, "zero"))
+    lb503 = 3 * torch.randn((64, t_total, c503.num_states), generator=gen, device=dev)
+    len503 = rand_lengths(64, t_total)
+    pair503 = pair_of(c503)
+    search_check("503-lm", c503, lb503, len503, pair503)
+    search_check("5003-lm", c5003, 3 * torch.randn((4, 60, c5003.num_states), generator=gen,
+                                                     device=dev),
+                 rand_lengths(4, 60), pair_of(c5003), codes="global")
+    search_check("flagship-beam-50", flag, lb3, n_frames, beam=50.0)
+    lb_rand = 3 * torch.randn((b, t_total, s58), generator=gen, device=dev)
+    len_rand = rand_lengths(b, t_total)
+    search_check("flagship-beam-5", flag, lb_rand, len_rand, beam=5.0)
+    search_check("flagship-lm+beam-50", flag, lb3, n_frames, pair_of(flag), beam=50.0)
+    search_check("503-beam-10", c503, lb503, len503, beam=10.0)
+
+    def stream_lm_check(name, comp, slots, t_max, ring_dtype, n_steps=6, chunk=16):
+        s_k = comp.num_states
+        coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                           device=dev)
+        lm = lm_tables(pair_of(comp), comp.word_of_state, comp.uppers, device=dev)
+        lm_p, coefs_p = tuple(x.cpu() for x in lm), coefs.cpu()
+        alpha = torch.full((slots, s_k), float("-inf"), device=dev)
+        ring = torch.full((slots, t_max, s_k), -1, dtype=ring_dtype, device=dev)
+        alpha_p, ring_p = alpha.cpu(), ring.cpu()
+        srng = np.random.default_rng(s_k + slots)
+        same = {"alpha": True, "alpha_sign": True, "ring": True}
+        for slot_ids, t, valid in stream_steps(srng, slots, chunk, t_max, n_steps, False):
+            lb = torch.as_tensor((3 * srng.normal(size=(slots, chunk, s_k))).astype(np.float32))
+            tst.stream_advance_lm(alpha, ring, *(torch.as_tensor(x, device=dev)
+                                                 for x in (slot_ids, t, valid)),
+                                  lb.to(dev), coefs, lm)
+            sb._advance_compact(alpha_p, ring_p, slot_ids, t, valid, lb, coefs_p[6],
+                                coefs_p[4] > 0, coeffs=sb._coeffs_of(coefs_p, 0.0, lm_p))
+            torch.cuda.synchronize()
+            got_a = alpha.cpu()
+            same["alpha"] &= torch.equal(got_a, alpha_p)
+            same["alpha_sign"] &= torch.equal(torch.signbit(got_a), torch.signbit(alpha_p))
+            same["ring"] &= torch.equal(ring.cpu(), ring_p)
+        live = torch.isfinite(alpha_p).any(dim=1).float().mean().item()
+        log("search", case=name, mode="stream_lm", slots=slots, S=s_k, W=len(comp.labels),
+            ring=str(ring_dtype).split(".")[-1], steps=n_steps, equal=json.dumps(same),
+            live_slots=live)
+        if not all(same.values()) or live < 0.5:
+            raise SystemExit(f"phase 22: the LM stream mode disagrees with its plain version "
+                             f"({name})")
+
+    stream_lm_check("flagship-512-slots", flag, 512, 128, torch.int8)
+    stream_lm_check("503-256-slots", c503, 256, 128, torch.int32, n_steps=4)
+
+    # -- (b) bigram and beam decoders on the 512 clips ------------------------
+    signals, sig_dev, ns_dev = decode["signals"], decode["sig_dev"], decode["ns_dev"]
+    bigram = digit_bigram(flag)
+    plain_on_card = {}
+
+    def guard(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card[name] = plain_on_card.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        setattr(mod, name, counted)
+        return mod, name, fn
+
+    counters = {"trellis_decode_lm": tsf.scanfree_decode_lm,
+                "trellis_decode_beam": tsf.scanfree_decode_beam,
+                "trellis_decode": tsf.scanfree_decode}
+    beam_main = 50.0
+    searches = {"bigram": {"bigram": bigram}, "beam": {"beam": beam_main}}
+    e2e = {}
+    for what, kw in searches.items():
+        cpu_texts = dm.ContinuousDecoder(flagship_models(), penalty=-100.0, device="cpu",
+                                         **kw).predict_signal_batch(list(signals))
+        dec = dm.ContinuousDecoder(flagship_models(), penalty=-100.0, device="cuda", **kw)
+        saved = [guard(dm, "viterbi_composite_batch_fast"), guard(tsf, "_plain_search"),
+                 guard(tsf, "forward_fast")]
+        try:
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            texts = dec.predict_signal_batch(list(signals))
+            torch.cuda.synchronize()
+            got_launches = {n: c.launches for n, c in counters.items()}
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        key = "trellis_decode_lm" if what == "bigram" else "trellis_decode_beam"
+        launches[key] = got_launches[key]
+        log("search", decoder=what, B=len(texts), transcripts_equal_cpu=texts == cpu_texts,
+            launches=json.dumps(got_launches), plain_on_card=json.dumps(plain_on_card),
+            distinct_transcripts=len(set(texts)))
+        if texts != cpu_texts or got_launches[key] == 0 or plain_on_card:
+            raise SystemExit(f"phase 22: the {what} decoder on the card is not the CPU port's, "
+                             f"never launched its mode, or ran the plain trellis")
+    # ms a batch of decode_signals, flat / bigram / beam, with the whitening
+    # emissions (the decoders above) and with phase 5's quad emissions, in
+    # turns (forward, then backward), best of the two windows each.
+    decoders = {}
+    for emissions in ("whiten", "quad"):
+        for what, kw in (("flat", {}), *searches.items()):
+            decoders[f"{what}-{emissions}"] = dm.ContinuousDecoder(
+                flagship_models(), penalty=-100.0, emissions=emissions, device="cuda", **kw)
+    for d in decoders.values():
+        d.decode_signals(sig_dev, ns_dev)
+    for name in (*decoders, *reversed(decoders)):
+        e2e[name] = min(e2e.get(name, float("inf")),
+                        window(lambda: decoders[name].decode_signals(sig_dev, ns_dev)))
+    log("timing", what="decode_signals ms a batch, B=512 clips of 1.5 s, best of 3 windows",
+        **e2e)
+
+    # -- (c) phase 9's trained models -------------------------------------------
+    models = pipe["models"]
+    labels = sorted(models)
+    lm_pipe = train_word_bigram(PIPELINE_TRANSCRIPTS, labels, insert_silence=True)
+    lm_dec = dm.ContinuousDecoder(models, penalty=-100.0, bigram=lm_pipe, device="cuda")
+    flat_dec = dm.ContinuousDecoder(models, penalty=-100.0, device="cuda")
+    acc = {}
+    for split, (truths, feats) in pipe["eval"].items():
+        preds = lm_dec.predict_batch(feats)
+        acc[split] = float(np.mean([p == t for p, t in zip(preds, truths)]))
+    log("search", what="bigram decode of phase 9's models", exact_seq_acc=json.dumps(acc))
+    if acc["train_speakers"] < ACC_BAR:
+        raise SystemExit(f"phase 22: bigram exact-sequence accuracy {acc} < {ACC_BAR}")
+    truths = pipe["eval"]["train_speakers"][0] + pipe["eval"]["unseen_speakers"][0]
+    feats = pipe["eval"]["train_speakers"][1] + pipe["eval"]["unseen_speakers"][1]
+    clips, clip_truths = (feats * 2)[:64], (truths * 2)[:64]
+    kernel_counters = {"dense": tdn.trellis_dense_forward, "backtrace": tsf.trellis_backtrace,
+                       "decode": tsf.scanfree_decode}
+    grammar = WordDFA.from_strings(PIPELINE_TRANSCRIPTS, labels)
+    by_count = {}
+    for i, tr in enumerate(clip_truths):
+        by_count.setdefault(len(tr), []).append(i)
+
+    def counted_all():
+        out = [""] * len(clips)
+        for n, idx in by_count.items():
+            for i, text in zip(idx, flat_dec.predict_batch_counted([clips[i] for i in idx], n)):
+                out[i] = text
+        return out
+
+    runs = {
+        "confidences (64 clips)": lambda: flat_dec.predict_batch_with_confidence(clips),
+        "nbest (1 clip, n=4)": lambda: flat_dec.predict_nbest(clips[0], n=4),
+        "counted (64 clips, true counts)": counted_all,
+        "duration (64 clips, min 2)": lambda: flat_dec.predict_batch_duration(clips, 2),
+        "grammar (64 clips, 6-string menu)": lambda: flat_dec.predict_batch_grammar(clips,
+                                                                                    grammar),
+    }
+    search_ms = {}
+    for what, fn in runs.items():
+        fn()
+        best, out = float("inf"), None
+        for _ in range(2):
+            for c in kernel_counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        search_ms[what] = best
+        if what.startswith("nbest"):
+            acc_x = float(out[0][1] == clip_truths[0])
+        else:
+            texts = ["".join(w for w, *_r in u) for u in out] if what.startswith("conf") else out
+            acc_x = float(np.mean([p == t for p, t in zip(texts, clip_truths)]))
+        log("search", run=what, ms=best, exact_seq_acc=acc_x,
+            launches=json.dumps({n: c.launches for n, c in kernel_counters.items()}))
+    conf_launches = {}
+    for c in kernel_counters.values():
+        c.launches = 0
+    flat_dec.predict_batch_with_confidence(clips)
+    conf_launches = {n: c.launches for n, c in kernel_counters.items()}
+    if not (conf_launches["dense"] and conf_launches["backtrace"]):
+        raise SystemExit(f"phase 22: confidences never launched K4 / K2-bt: {conf_launches}")
+
+    # -- (d) phase 18's traffic under bigram and confidence serving -----------
+    audio, warm = serving_traffic(pipe["corpus"])
+    lm_serve = train_word_bigram(PIPELINE_TRANSCRIPTS, labels, insert_silence=True)
+    which_card, which_cpu = range(min(16, len(audio))), range(4)
+    for what, kw in (("bigram", {"bigram": lm_serve}), ("confidences", {"confidences": True})):
+        pool = ServingSessionPool(models, num_slots=64, max_frames=4096, device="cuda", **kw)
+        tst.stream_advance_lm.launches = 0
+        results, _polls, wall, round_ms = drive_sessions(pool, which_card, audio, warm)
+        stream_lm = tst.stream_advance_lm.launches
+        if what == "bigram":
+            launches["trellis_stream_lm"] = stream_lm
+        cpu = ServingSessionPool(models, num_slots=64, max_frames=4096, device="cpu", **kw)
+        results_c, _pc, _w, _r = drive_sessions(cpu, which_cpu, audio, warm)
+        card = [[(r.text, r.num_samples) for r in rs] for rs in results[:4]]
+        host = [[(r.text, r.num_samples) for r in rs] for rs in results_c]
+        # A confidence is exp of (alpha + penalty + beta - log Z), float32
+        # sums of magnitude |log Z|, whose ulp is 4.9e-4 from |log Z| =
+        # 4096 on: card and CPU agree within 1e-4, or within 4e-3 in the
+        # log (4 ulps at 8192).
+        pairs = [(a.confidence, c.confidence) for ra, rc in zip(results, results_c)
+                 for a, c in zip(ra, rc) if a.confidence is not None]
+        conf_err = max((abs(a - c) for a, c in pairs), default=0.0)
+        log_err = max((abs(np.log(a) - np.log(c)) for a, c in pairs if a > 0 and c > 0),
+                      default=0.0)
+        conf_ok = all(abs(a - c) <= 1e-4 or (a > 0 and c > 0 and
+                                            abs(np.log(a) - np.log(c)) <= 4e-3)
+                      for a, c in pairs)
+        n_finals = sum(len(rs) for rs in results)
+        log("search", serving=what, sessions=len(which_card), finals=n_finals,
+            finals_equal_cpu=card == host, confidences_compared=len(pairs),
+            max_confidence_diff=conf_err, max_log_confidence_diff=log_err,
+            stream_lm_launches=stream_lm, ms_per_feed_round=round_ms, wall_s=wall)
+        if card != host or not conf_ok or n_finals < len(which_card):
+            raise SystemExit(f"phase 22: {what} serving on the card differs from the CPU pool")
+        if what == "bigram" and stream_lm == 0:
+            raise SystemExit("phase 22: the bigram pool never launched the LM stream mode")
+
+    # -- timing rows --------------------------------------------------------------
+    coefs58 = pack_coefs(flag.log_a, flag.lower_of_state, flag.is_entry, flag.is_exit,
+                         device=dev)
+    lm58 = lm_tables(pair_of(flag), flag.word_of_state, flag.uppers, device=dev)
+    coefs503 = pack_coefs(c503.log_a, c503.lower_of_state, c503.is_entry, c503.is_exit,
+                          device=dev)
+    lm503 = lm_tables(pair503, c503.word_of_state, c503.uppers, device=dev)
+    w58, w503 = len(flag.labels), len(c503.labels)
+    pen = flag.penalty
+
+    def plain_decode(lb, coefs, lengths, lm=None, beam=None):
+        return tsf._plain_search(lb, coefs, pen, lengths, True, lm=lm, beam=beam)
+
+    timings["trellis_decode_lm"] = (
+        device_ms(lambda: tsf.scanfree_decode_lm(lb3, coefs58, lm58, n_frames)),
+        cuda_ms(lambda: plain_decode(lb3, coefs58, n_frames, lm=lm58), reps=3))
+    t503 = (device_ms(lambda: tsf.scanfree_decode_lm(lb503, coefs503, lm503, len503)),
+            cuda_ms(lambda: plain_decode(lb503, coefs503, len503, lm=lm503), reps=3))
+    timings["trellis_decode_beam"] = (
+        device_ms(lambda: tsf.scanfree_decode_beam(lb3, coefs58, pen, n_frames, beam_main)),
+        cuda_ms(lambda: plain_decode(lb3, coefs58, n_frames, beam=beam_main), reps=3))
+    flat_ms = device_ms(lambda: tsf.scanfree_decode(lb3, coefs58, pen, n_frames))
+    yardsticks["trellis_decode_lm"] = (None, *search_decode_bound(b, t_total, s58, n_frames,
+                                                                  w58))
+    yardsticks["trellis_decode_beam"] = (None, *search_decode_bound(b, t_total, s58, n_frames,
+                                                                    beam=True))
+    b503 = search_decode_bound(64, t_total, c503.num_states, len503, w503)
+
+    def stream_args(comp, slots, lm):
+        s_k = comp.num_states
+        alpha = torch.randn((slots, s_k), generator=gen, device=dev)
+        ring = torch.zeros((slots, 64, s_k), dtype=sb.ring_dtype(s_k), device=dev)
+        ids = torch.arange(slots, dtype=torch.int32, device=dev)
+        t = torch.full((slots,), 16, dtype=torch.int32, device=dev)
+        valid = torch.full((slots,), 16, dtype=torch.int32, device=dev)
+        lb = 3 * torch.randn((slots, 16, s_k), generator=gen, device=dev)
+        coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                           device=dev)
+        return alpha, ring, ids, t, valid, lb, coefs, lm
+
+    st58 = stream_args(flag, 512, lm58)
+    st503 = stream_args(c503, 256, lm503)
+    timings["trellis_stream_lm"] = (
+        device_ms(lambda: tst.stream_advance_lm(*st58)),
+        cuda_ms(lambda: tst._plain_step(*st58[:7], 0.0, lm58), reps=3))
+    flat_stream_ms = device_ms(lambda: tst.stream_advance(*st58[:7], pen))
+    s503_ms = device_ms(lambda: tst.stream_advance_lm(*st503))
+    yardsticks["trellis_stream_lm"] = (None, *stream_lm_bound(512, 16, s58, 1, w58))
+    s503_bound = stream_lm_bound(256, 16, c503.num_states, 4, w503)
+    for name in ("trellis_decode_lm", "trellis_decode_beam", "trellis_stream_lm"):
+        ms, plain_ms = timings[name]
+        lib_ms, b_ms, b_by = yardsticks[name]
+        log("timing", kernel=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by, launches=launches[name])
+    log("timing", kernel="trellis_decode_lm", shape="S=503 W=101 B=64 T=201", ms=t503[0],
+        plain_ms=t503[1], bound_ms=b503[0], bound_by=b503[1])
+    log("timing", kernel="trellis_stream_lm", shape="256 slots x 16 frames, S=503, W=101",
+        ms=s503_ms, bound_ms=s503_bound[0], bound_by=s503_bound[1])
+    log("timing", beside="flat modes at the same inputs", trellis_decode_ms=flat_ms,
+        trellis_stream_ms=flat_stream_ms, search_ms=json.dumps(search_ms))
+    errs.update(err)
+    log("phase", which="22 search", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def report(kind, launches, timings, errs, yardsticks):
     """The kernels' JSON line and the final line."""
     meta = {
@@ -2335,6 +2767,18 @@ def report(kind, launches, timings, errs, yardsticks):
         "trellis_fb_posteriors": ("cs304_tpu_torch/csrc/trellis_fb.cu",
                                   "cs304_tpu/models/train_fused.py:369 (_banded_fb_batch) "
                                   "and :663-715 (gamma_of, the xi loop)"),
+        # No Pallas counterpart: the JAX decoder runs bigram and beam
+        # decoding on its banded lax.scan, and its bigram pool on the banded
+        # step's lax.scan.
+        "trellis_decode_lm": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                              "cs304_tpu/ops/viterbi.py:275 (viterbi_composite_batch_fast "
+                              "with pair_penalty, lax.scan)"),
+        "trellis_decode_beam": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                                "cs304_tpu/ops/viterbi.py:275 (viterbi_composite_batch_fast "
+                                "with beam, lax.scan)"),
+        "trellis_stream_lm": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
+                              "cs304_tpu/ops/streaming_batch.py:97 (_banded_coeffs with lm) "
+                              "and :201 (lax.scan)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

@@ -40,6 +40,29 @@
 //     takes the final best exit and walks the codes back into the path with
 //     the reference quirk. No backpointer tensor reaches device memory.
 //
+//   LM (scanfree_decode_lm, stream_advance_lm): a bigram LM's entry update,
+//     replacing the flat penalty. The entry of word w takes max over source
+//     words v of (alpha[uppers[v]] + pair[v, w]), pair (W, W) float32 read
+//     through the read-only cache. Each step the team publishes its W exit
+//     values to shared memory, threads w = tt, tt + 32 * warps, ... each run
+//     one word's column in order, a strict > keeping the lowest v and its own
+//     sum (torch's max over a dim; all -inf -> source 0, so uppers[0]), and
+//     a second sync publishes the per-word values and source states. Code 3
+//     then names a per-(step, word) source: the decode mode stores W int16
+//     source states a step (T * W beside the codes; 4.8 KB an utterance at
+//     W = 12, T = 201, the global scratch past the shared budget) and the
+//     walk reads the one of its state's word (word_of); the stream mode
+//     writes the full source state into the ring. Replaces the JAX package's
+//     viterbi_composite_batch_fast with pair_penalty
+//     (cs304_tpu/ops/viterbi.py:275) and its pool's banded step with lm
+//     (cs304_tpu/ops/streaming_batch.py:97 _banded_coeffs, :201 lax.scan);
+//     no Pallas kernel of either exists.
+//   BEAM (decode modes only): after each step every state below (the team's
+//     max of the new alpha - beam) is set to -inf, one more team max on the
+//     chain (redux.sync over an order-preserving key, and one named barrier
+//     past a warp); alpha0 is pruned the same way and the codes are those
+//     of the unpruned step (JAX ops/viterbi.py:369-380). LM and BEAM combine.
+//
 //   MODE STREAM (stream_advance): the serving pool's step, with alpha
 //     carried in and out. Row r of log_b (R, C, ld) advances slot
 //     slot_ids[r] of the pool's alpha (n_slots, S) IN PLACE by its valid[r]
@@ -180,17 +203,27 @@ struct Plan {
   int u;             // utterances per block (1 unless w == 1)
   int row_bytes;     // code bytes per step (32 * w * k)
   int codes_shared;  // decode: codes and best exits in shared memory
+  size_t codes_off;  // offset of the LM's exchange in a team's shared bytes
   size_t team_bytes;  // dynamic shared memory per utterance
 };
 
-Plan make_plan(int T, int S, bool decode) {
+// The LM's exchange: exit values, per-word values and source states, each
+// (2, W) for the step's parity.
+__host__ __device__ constexpr size_t lm_bytes(int lm_words) {
+  return lm_words > 0 ? (((size_t)lm_words * 24 + 15) & ~(size_t)15) : 0;
+}
+
+// lm_words: 0, or W for the LM modes (W best-exit sources a step).
+Plan make_plan(int T, int S, bool decode, int lm_words = 0) {
   Plan pl;
   pl.k = S <= 64 ? 2 : (S <= 2048 ? 4 : 8);
   pl.w = (S + 32 * pl.k - 1) / (32 * pl.k);
   pl.row_bytes = 32 * pl.w * pl.k;
-  const size_t codes = align16((size_t)T * pl.row_bytes) + align16((size_t)T * 2);
-  pl.codes_shared = decode && codes <= SMEM_BUDGET;
-  pl.team_bytes = pl.codes_shared ? codes : 0;
+  const int nb = lm_words > 0 ? lm_words : 1;
+  const size_t codes = align16((size_t)T * pl.row_bytes) + align16((size_t)T * nb * 2);
+  pl.codes_shared = decode && codes + lm_bytes(lm_words) <= SMEM_BUDGET;
+  pl.codes_off = pl.codes_shared ? codes : 0;
+  pl.team_bytes = pl.codes_off + lm_bytes(lm_words);
   pl.u = 1;
   if (pl.w == 1) {
     for (int u = 4; u > 1; u >>= 1) {
@@ -221,10 +254,15 @@ struct TeamArgs {
   const int* t_start;        // stream mode: (R,) absolute frame of row 0
   float* alpha_io;           // stream mode: (n_slots, S), updated in place
   void* ring;                // stream mode: (n_slots, t_max, S) RingT
+  const float* pair;         // LM: (W, W) pair[v, w] from word v to word w
+  const int* word_of;        // LM: (S,) word of each state
+  const int* uppers;         // LM: (W,) exit state of each word
+  int n_words;               // LM: W
+  float beam;                // BEAM
   int n_slots, t_max;
   int B, T, S, ld, quirk;
   int w, u, row_bytes;
-  size_t team_bytes;
+  size_t codes_off, team_bytes;
 };
 
 // coefs rows (each of length S): 0 diag_ne, 1 sub1, 2 sub2, 3 diag_e,
@@ -240,18 +278,24 @@ struct TeamArgs {
 // c0/c1/c2 rows, no entry or exit state (so no exit reduction at all), t = 0
 // seeded at state 0 alone, and the walk started from a given final state.
 // RingT: the stream mode's ring element, int8_t or int.
+// LM: the bigram entry update (decode and stream modes); BEAM: the prune
+// (decode modes).
 enum { BACKPOINTERS = 0, DECODE_SHARED = 1, DECODE_GLOBAL = 2, STREAM = 3 };
 
-template <int K, int MODE, bool SENT, typename RingT = int>
+template <int K, int MODE, bool SENT, typename RingT = int, bool LM = false,
+          bool BEAM = false>
 __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     trellis_team_kernel(const TeamArgs p) {
   constexpr bool DECODE = MODE == DECODE_SHARED || MODE == DECODE_GLOBAL;
   constexpr bool STREAMS = MODE == STREAM;
   static_assert(!(STREAMS && SENT), "the stream mode runs the composite topology");
+  static_assert(!(SENT && (LM || BEAM)), "LM and BEAM run the composite topology");
+  static_assert(!BEAM || DECODE, "the beam is a decode mode");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red_v[2][32];
   __shared__ int red_i[2][32];
   __shared__ float2 bnd[2][32];
+  __shared__ unsigned red_m[2][32];
 
   constexpr int D = prefetch_rows(K);
   const float neg = -__int_as_float(0x7f800000);
@@ -266,15 +310,23 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   const int b = blockIdx.x * p.u + team;
   if (b >= p.B) return;  // only a one-warp team leaves early: no block barrier
 
+  // Best-exit sources a step: one, or one a word with the LM.
+  const int W = p.n_words;
+  const int nb = LM ? W : 1;
+  unsigned char* const team_smem = smem + (size_t)team * p.team_bytes;
   unsigned char* codes = nullptr;
   short* bex = nullptr;
   if constexpr (MODE == DECODE_SHARED) {
-    codes = smem + (size_t)team * p.team_bytes;
+    codes = team_smem;
     bex = (short*)(codes + align16((size_t)T * p.row_bytes));
   } else if constexpr (MODE == DECODE_GLOBAL) {
     codes = p.codes_g + (size_t)b * T * p.row_bytes;
-    bex = (short*)(p.codes_g + (size_t)p.B * T * p.row_bytes) + (size_t)b * T;
+    bex = (short*)(p.codes_g + (size_t)p.B * T * p.row_bytes) + (size_t)b * T * nb;
   }
+  // The LM's exchange, (2, W) each: exit values, per-word values, sources.
+  float* lm_ex = (float*)(team_smem + p.codes_off);
+  float* lm_val = lm_ex + 2 * W;
+  int* lm_src = (int*)(lm_val + 2 * W);
 
   const int length = p.lengths[b];
   const int steps = min(max(length, 1), T);  // rows 1..steps-1 are live
@@ -295,13 +347,16 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   const int first = (STREAMS && t_abs != 0) ? 0 : 1;
 
   float a[K], dg[K], s1[K], s2[K];
+  int wd[K];  // LM: each state's word
   unsigned entry_m = 0, exit_m = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int j = j0 + k;
     a[k] = neg;
     dg[k] = s1[k] = s2[k] = neg;
+    wd[k] = 0;
     if (j < S) {
+      if constexpr (LM) wd[k] = p.word_of[j];
       if constexpr (SENT) {
         const size_t r = (size_t)b * S + j;
         dg[k] = p.c0[r];
@@ -329,6 +384,30 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       }
     }
   }
+
+  // BEAM: the team's max of m (every thread gets it), by redux.sync over an
+  // order-preserving key (-0 folds into +0, which max - beam hides).
+  auto team_max = [&](int parity, float m) {
+    unsigned key = __float_as_uint(m + 0.0f);
+    key = (key & 0x80000000u) ? ~key : (key | 0x80000000u);
+    key = __reduce_max_sync(FULL, key);
+    if (!one_warp) {
+      if (lane == 0) red_m[parity][tw] = key;
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+      key = __reduce_max_sync(FULL, lane < p.w ? red_m[parity][lane] : 0u);
+    }
+    return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+  };
+  // BEAM: states below (max - beam) to -inf.
+  auto prune = [&](int parity, float (&v)[K]) {
+    float m = neg;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m = fmaxf(m, v[k]);
+    const float th = team_max(parity, m) - p.beam;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = v[k] >= th ? v[k] : neg;
+  };
+  if constexpr (BEAM) prune(0, a);
 
   // Emission rows come in D steps ahead of use, into registers.
   float pf[D][K];
@@ -438,6 +517,40 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     }
   };
 
+  // LM: the per-word entry values and sources of step t, behind the
+  // neighbours' exchange (whose sync publishes the exit values); a second
+  // sync publishes them. Decode mode stores each word's source state.
+  auto lm_entry = [&](int t, int parity, float& u1, float& u2) {
+    float* ex = lm_ex + parity * W;
+    float* val = lm_val + parity * W;
+    int* src = lm_src + parity * W;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((exit_m >> k) & 1u) ex[wd[k]] = a[k];
+    if (one_warp) __syncwarp();
+    neighbours(parity, u1, u2);
+    for (int w = tt; w < W; w += nt) {
+      float best = neg;
+      int v_best = 0;
+      for (int v = 0; v < W; ++v) {
+        const float c = ex[v] + __ldg(p.pair + (size_t)v * W + w);
+        if (c > best) {
+          best = c;
+          v_best = v;
+        }
+      }
+      const int st = __ldg(p.uppers + v_best);
+      val[w] = best;
+      src[w] = st;
+      if constexpr (DECODE) bex[(size_t)t * W + w] = (short)st;
+    }
+    if (one_warp) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+    }
+  };
+
   // One step: code c in {0, 1, 2} is the predecessor max(j - c, 0), 3 the
   // step's best exit; decode mode stores the codes and the exit's index,
   // backpointer mode the int32 backpointers they stand for, stream mode the
@@ -448,6 +561,8 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     int bi = 0;
     if constexpr (SENT) {
       neighbours(t & 1, u1, u2);
+    } else if constexpr (LM) {
+      lm_entry(t, t & 1, u1, u2);
     } else if constexpr (decltype(value_only)::value) {
       warp_exit(bv, bi, u1, u2);
     } else {
@@ -476,9 +591,10 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
         val = two ? c2 : w12;
         code[k] = two ? 2 : (one ? 1 : 0);
       } else if ((entry_m >> k) & 1u) {
+        const float cp = LM ? lm_val[(t & 1) * W + wd[k]] : c_pen;
         const float c_self = a0 + dg[k];
-        val = fmaxf(c_pen, c_self);
-        code[k] = c_pen >= c_self ? 3 : 0;
+        val = fmaxf(cp, c_self);
+        code[k] = cp >= c_self ? 3 : 0;
       } else {
         const float c0 = a0 + dg[k];
         const float c1 = a1 + s1[k];
@@ -489,6 +605,7 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       }
       na[k] = (live && j < S) ? val + lbv[k] : a0;
     }
+    if constexpr (BEAM) prune(t & 1, na);
 #pragma unroll
     for (int k = 0; k < K; ++k) a[k] = na[k];
     if constexpr (DECODE) {
@@ -499,14 +616,16 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       if (K == 2) *(unsigned short*)c_t = (unsigned short)packed;
       if (K == 4) *(unsigned*)c_t = (unsigned)packed;
       if (K == 8) *(unsigned long long*)c_t = packed;
-      if (!SENT && tt == 0) bex[t] = (short)bi;
+      if (!SENT && !LM && tt == 0) bex[t] = (short)bi;
     } else if constexpr (STREAMS) {
       // One element a state (bytes for the int8 ring: a row of S bytes has
       // no alignment to pack into); the clamp mirrors the plain version's.
       RingT* r_t = ring_s + (size_t)min(t_abs + t, p.t_max - 1) * S;
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (j0 + k < S) r_t[j0 + k] = (RingT)(code[k] == 3 ? bi : max(j0 + k - code[k], 0));
+      for (int k = 0; k < K; ++k) {
+        const int src = LM ? lm_src[(t & 1) * W + wd[k]] : bi;
+        if (j0 + k < S) r_t[j0 + k] = (RingT)(code[k] == 3 ? src : max(j0 + k - code[k], 0));
+      }
     } else {
       int* bp_t = p.bp + ((size_t)b * T + t) * S;
 #pragma unroll
@@ -527,7 +646,7 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
       }
     }
   };
-  if (!SENT && one_warp && p.penalty != 0.f) {
+  if (!SENT && !LM && one_warp && p.penalty != 0.f) {
     run(std::true_type{});
   } else {
     run(std::false_type{});
@@ -572,7 +691,8 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     path[t] = state;
     if (t == second) at_second = state;
     const int c = codes[(size_t)t * p.row_bytes + state];
-    state = c == 3 ? (int)bex[t] : max(state - c, 0);
+    state = c == 3 ? (int)bex[(size_t)t * nb + (LM ? __ldg(p.word_of + state) : 0)]
+                   : max(state - c, 0);
   }
   path[0] = state;
   if (second == 0) at_second = state;
@@ -664,26 +784,29 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
-template <int K, int MODE, bool SENT, typename RingT = int>
+template <int K, int MODE, bool SENT, typename RingT = int, bool LM = false,
+          bool BEAM = false>
 int launch_team(const Plan& pl, TeamArgs a, cudaStream_t stream) {
   a.w = pl.w;
   a.u = pl.u;
   a.row_bytes = pl.row_bytes;
+  a.codes_off = pl.codes_off;
   a.team_bytes = pl.team_bytes;
   const size_t smem = (size_t)pl.u * pl.team_bytes;
-  const int err = set_smem((const void*)trellis_team_kernel<K, MODE, SENT, RingT>, smem);
+  const void* fn = (const void*)trellis_team_kernel<K, MODE, SENT, RingT, LM, BEAM>;
+  const int err = set_smem(fn, smem);
   if (err) return err;
   const int threads = 32 * (pl.w == 1 ? pl.u : pl.w);
   const int blocks = (a.B + pl.u - 1) / pl.u;
-  trellis_team_kernel<K, MODE, SENT, RingT><<<blocks, threads, smem, stream>>>(a);
+  trellis_team_kernel<K, MODE, SENT, RingT, LM, BEAM><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool SENT, typename RingT = int>
+template <int MODE, bool SENT, typename RingT = int, bool LM = false, bool BEAM = false>
 int launch_k(const Plan& pl, TeamArgs a, cudaStream_t stream) {
-  if (pl.k == 2) return launch_team<2, MODE, SENT, RingT>(pl, a, stream);
-  if (pl.k == 4) return launch_team<4, MODE, SENT, RingT>(pl, a, stream);
-  return launch_team<8, MODE, SENT, RingT>(pl, a, stream);
+  if (pl.k == 2) return launch_team<2, MODE, SENT, RingT, LM, BEAM>(pl, a, stream);
+  if (pl.k == 4) return launch_team<4, MODE, SENT, RingT, LM, BEAM>(pl, a, stream);
+  return launch_team<8, MODE, SENT, RingT, LM, BEAM>(pl, a, stream);
 }
 
 template <bool SENT>
@@ -692,6 +815,14 @@ int launch_forward(TeamArgs a, bool decode, cudaStream_t stream) {
   if (!decode) return launch_k<BACKPOINTERS, SENT>(pl, a, stream);
   if (pl.codes_shared) return launch_k<DECODE_SHARED, SENT>(pl, a, stream);
   return launch_k<DECODE_GLOBAL, SENT>(pl, a, stream);
+}
+
+// The search decode modes: LM and / or BEAM.
+template <bool LM, bool BEAM>
+int launch_search(TeamArgs a, cudaStream_t stream) {
+  const Plan pl = make_plan(a.T, a.S, true, LM ? a.n_words : 0);
+  if (pl.codes_shared) return launch_k<DECODE_SHARED, false, int, LM, BEAM>(pl, a, stream);
+  return launch_k<DECODE_GLOBAL, false, int, LM, BEAM>(pl, a, stream);
 }
 
 TeamArgs sentence_args(const void* log_b, const void* c0, const void* c1,
@@ -728,12 +859,13 @@ extern "C" int cs304_trellis_forward(
   return launch_forward<false>(a, false, (cudaStream_t)stream);
 }
 
-// Bytes of global scratch the decode kernel needs for its codes at this
-// shape: 0 where every block's codes fit in shared memory.
-extern "C" long long cs304_trellis_decode_scratch_bytes(int B, int T, int S) {
-  const Plan pl = make_plan(T, S, true);
+// Bytes of global scratch a decode mode needs for its codes at this shape
+// (W = 0, or the LM's words): 0 where every block's codes fit in shared
+// memory.
+extern "C" long long cs304_trellis_decode_scratch_bytes(int B, int T, int S, int W) {
+  const Plan pl = make_plan(T, S, true, W);
   if (pl.codes_shared) return 0;
-  return (long long)B * T * pl.row_bytes + (long long)B * T * 2;
+  return (long long)B * T * pl.row_bytes + (long long)B * T * (W > 0 ? W : 1) * 2;
 }
 
 extern "C" int cs304_trellis_decode(
@@ -756,6 +888,39 @@ extern "C" int cs304_trellis_decode(
   return launch_forward<false>(a, true, (cudaStream_t)stream);
 }
 
+// The search decode modes: as cs304_trellis_decode, with a bigram LM where
+// pair is given ((W, W) f32 pair[v, w], word_of (S,) i32, uppers (W,) i32;
+// penalty unused) and the beam where has_beam; scratch as
+// cs304_trellis_decode_scratch_bytes(B, T, S, pair ? W : 0) says.
+extern "C" int cs304_trellis_search_decode(
+    const void* log_b, const void* coefs, float penalty, const void* pair,
+    const void* word_of, const void* uppers, int W, float beam, int has_beam,
+    const void* lengths, void* scores, void* paths, void* scratch, int B, int T, int S,
+    int ld, int quirk, void* stream) {
+  TeamArgs a = {};
+  a.log_b = (const float*)log_b;
+  a.coefs = (const float*)coefs;
+  a.lengths = (const int*)lengths;
+  a.penalty = penalty;
+  a.pair = (const float*)pair;
+  a.word_of = (const int*)word_of;
+  a.uppers = (const int*)uppers;
+  a.n_words = pair ? W : 0;
+  a.beam = beam;
+  a.scores = (float*)scores;
+  a.paths = (int*)paths;
+  a.codes_g = (unsigned char*)scratch;
+  a.B = B;
+  a.T = T;
+  a.S = S;
+  a.ld = ld;
+  a.quirk = quirk;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pair) return has_beam ? launch_search<true, true>(a, st) : launch_search<true, false>(a, st);
+  if (has_beam) return launch_search<false, true>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The sentence topology (K3). log_b (B, T, S) f32; c0/c1/c2 (B, S) f32
 // destination-indexed self/prev/skip log transitions; lengths (B,) i32.
 // Backpointer mode -> alpha (B, S) f32, bp (B, T, S) i32 with row 0 = -1.
@@ -770,7 +935,7 @@ extern "C" int cs304_trellis_sentence_forward(
 
 // Decode mode: final (B,) i32 in [0, S) -> scores (B,) = alpha[final],
 // paths (B, T) i32 walked from final with the reference quirk; scratch as
-// cs304_trellis_decode_scratch_bytes(B, T, S) says (null where it is 0).
+// cs304_trellis_decode_scratch_bytes(B, T, S, 0) says (null where it is 0).
 extern "C" int cs304_trellis_sentence_decode(
     const void* log_b, const void* c0, const void* c1, const void* c2,
     const void* lengths, const void* final_state, void* scores, void* paths,
@@ -809,6 +974,38 @@ extern "C" int cs304_trellis_stream(
   const Plan pl = make_plan(C, S, false);
   if (ring_bytes == 1) return launch_k<STREAM, false, int8_t>(pl, a, (cudaStream_t)stream);
   if (ring_bytes == 4) return launch_k<STREAM, false, int>(pl, a, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The stream mode with a bigram LM: cs304_trellis_stream's arguments with
+// pair (W, W) f32, word_of (S,) i32, uppers (W,) i32 for the penalty.
+extern "C" int cs304_trellis_stream_lm(
+    void* alpha, void* ring, int ring_bytes, const void* slot_ids, const void* t,
+    const void* valid, const void* log_b, const void* coefs, const void* pair,
+    const void* word_of, const void* uppers, int W, int R, int C, int S, int ld,
+    int n_slots, int t_max, void* stream) {
+  TeamArgs a = {};
+  a.log_b = (const float*)log_b;
+  a.coefs = (const float*)coefs;
+  a.lengths = (const int*)valid;
+  a.slot_ids = (const int*)slot_ids;
+  a.t_start = (const int*)t;
+  a.alpha_io = (float*)alpha;
+  a.ring = ring;
+  a.pair = (const float*)pair;
+  a.word_of = (const int*)word_of;
+  a.uppers = (const int*)uppers;
+  a.n_words = W;
+  a.n_slots = n_slots;
+  a.t_max = t_max;
+  a.B = R;
+  a.T = C;
+  a.S = S;
+  a.ld = ld;
+  const Plan pl = make_plan(C, S, false, W);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ring_bytes == 1) return launch_k<STREAM, false, int8_t, true>(pl, a, st);
+  if (ring_bytes == 4) return launch_k<STREAM, false, int, true>(pl, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

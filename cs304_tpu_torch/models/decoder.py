@@ -27,9 +27,28 @@ columns of its padded layout) and combines them the same way, outside any
 kernel, as the JAX package does. predict_signal_batch always scores GMMs
 with the whitening layout, whatever ``emissions`` says, as the JAX decoder
 does.
+
+Search (ROADMAP item 19): ``bigram=`` (a WordBigram, weighed by
+``lm_weight``) replaces the flat inter-word penalty by per-pair penalties
+(ops/lm.word_pair_penalties), and ``beam=`` prunes each step. With either,
+"auto" (on the card), "scanfree" and "pallas" run the LM or BEAM decode
+mode of the scan-free team kernel (ops/cuda/trellis_scanfree.py:
+scanfree_decode_lm / scanfree_decode_beam; LM and beam together are the LM
+mode with its beam); "fast" runs their plain version, as asked; "scan" with
+a bigram alone runs the dense plain path on the (S, S) pair matrix
+(ops/lm.pair_penalty_matrix), as the JAX decoder's "scan" does, and "scan"
+with a beam the banded semantics (the JAX decoder switches to "fast" there
+and reports it; this one keeps the name it was given). The n-best, lattice
+confidence, counted, duration and grammar decodes use the flat penalty, as
+in the JAX package: predict_nbest (ops/nbest.py),
+predict_batch_with_confidence (ops/lattice.py; K4 + K2-bt on the card),
+predict_batch_counted (ops/viterbi_counted.py), predict_batch_duration
+(ops/viterbi_duration.py) and predict_batch_grammar (ops/grammar.py), each
+a batched PyTorch step in a Python loop over T.
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -45,7 +64,12 @@ from ..ops.cuda.emission import (
     tier_emission,
 )
 from ..ops.cuda.trellis_dense import dense_decode_pallas
-from ..ops.cuda.trellis_scanfree import MAX_STATES, scanfree_decode
+from ..ops.cuda.trellis_scanfree import (
+    MAX_STATES,
+    scanfree_decode,
+    scanfree_decode_beam,
+    scanfree_decode_lm,
+)
 from ..ops.gaussian import (
     gaussian_log_pdf,
     gmm_combine,
@@ -56,11 +80,14 @@ from ..ops.gaussian import (
 from ..ops.viterbi import (
     composite_transition_matrix,
     dense_decode,
+    lm_tables,
     pack_coefs,
     viterbi_composite_batch_fast,
 )
 from ..ops.words import ids_to_strings, words_from_paths
 from .hmm import DEFAULT_WORD_PENALTY, WordHMM, stack_word_models
+
+logger = logging.getLogger(__name__)
 
 # Word buffer of the on-device compaction; a longer transcript falls back to
 # the host walk of the full path.
@@ -122,22 +149,18 @@ class ContinuousDecoder:
                 "emissions='quad' (the whitening layout stays f32-exact "
                 "by contract)"
             )
-        if bigram is not None:
-            raise NotImplementedError(
-                "bigram LM decoding is not ported yet (ROADMAP Queue 1, slice 4)"
-            )
-        if beam is not None:
-            raise NotImplementedError(
-                "beam pruning is not ported yet (ROADMAP Queue 1, slice 4)"
-            )
+        if beam is not None and beam <= 0:
+            raise ValueError(f"beam must be positive, got {beam}")
         self.device = resolve_device(device)
         if backend == "auto":
             backend = "scanfree" if self.device.type == "cuda" else "fast"
         self.backend = backend
+        self.beam = beam
         self.emissions = emissions
         self.emission_precision = emission_precision
-        # The bigram LM's weight: stored, and with no bigram it changes
-        # nothing (as in the JAX decoder).
+        # The bigram LM and its weight (with no bigram the weight changes
+        # nothing, as in the JAX decoder).
+        self._bigram = bigram
         self._lm_weight = lm_weight
         self._gmm = None  # (means, covs, weights) stacked over states
         if any(getattr(m, "weights", None) is not None for m in models):
@@ -183,6 +206,7 @@ class ContinuousDecoder:
             self._whiten = make_gaussian_params(means, covs, device=dev)
         self._coefs = pack_coefs(c.log_a, c.lower_of_state, c.is_entry,
                                  c.is_exit, device=dev)
+        self._lm = self._lm_tables()
         self._trans = self._dense_trans()
         self._lowers = torch.as_tensor(c.lowers, dtype=torch.int32, device=dev)
         self._uppers = torch.as_tensor(c.uppers, dtype=torch.int32, device=dev)
@@ -194,16 +218,38 @@ class ContinuousDecoder:
     @penalty.setter
     def penalty(self, value: float) -> None:
         self.composite.penalty = value
+        self._lm = self._lm_tables()
         self._trans = self._dense_trans()
+
+    def _searching(self) -> bool:
+        return self._bigram is not None or self.beam is not None
+
+    def _lm_tables(self):
+        """The bigram's (W, W) pair penalties (lm_weight and the penalty
+        folded in) with word_of_state and uppers on the device, or None."""
+        if self._bigram is None:
+            return None
+        from ..ops.lm import word_pair_penalties
+
+        c = self.composite
+        return lm_tables(word_pair_penalties(c, self._bigram, self._lm_weight),
+                         c.word_of_state, c.uppers, device=self.device)
 
     def _dense_trans(self):
         """The (S, S) transition matrix of the dense backends, which carries
-        the penalty; None for the banded ones."""
-        if self.backend not in ("scan", "pallas"):
+        the penalty (the (S, S) pair matrix of a bigram on "scan"); None for
+        the banded ones and for a search on "pallas" (the LM / BEAM mode)."""
+        if self.backend not in ("scan", "pallas") or (
+                self._searching() and not (self.backend == "scan" and self.beam is None)):
             return None
         c = self.composite
+        penalty = c.penalty
+        if self._bigram is not None:
+            from ..ops.lm import pair_penalty_matrix
+
+            penalty = pair_penalty_matrix(c, self._bigram, self._lm_weight)
         return composite_transition_matrix(c.log_a, c.lower_of_state, c.is_entry,
-                                           c.is_exit, c.penalty, device=self.device)
+                                           c.is_exit, penalty, device=self.device)
 
     # -- device path ---------------------------------------------------------
     def _log_b(self, batch: torch.Tensor, whiten: bool = False) -> torch.Tensor:
@@ -232,6 +278,18 @@ class ContinuousDecoder:
         -> (scores (B,), paths (B, T) int32). whiten: see _log_b."""
         log_b = self._log_b(batch, whiten).contiguous()
         c = self.composite
+        if self._searching() and self._trans is None:
+            if self.backend in ("scanfree", "pallas"):
+                if self._lm is not None:
+                    return scanfree_decode_lm(log_b, self._coefs, self._lm, lengths,
+                                              beam=self.beam)
+                return scanfree_decode_beam(log_b, self._coefs, c.penalty, lengths,
+                                            self.beam)
+            pair, word_of_state, uppers = self._lm or (None, None, None)
+            return viterbi_composite_batch_fast(
+                log_b, c.log_a, c.lower_of_state, c.is_entry, c.is_exit, c.penalty,
+                lengths, pair_penalty=pair, word_of_state=word_of_state, uppers=uppers,
+                beam=self.beam)
         if self.backend == "scanfree":
             return scanfree_decode(log_b, self._coefs, c.penalty, lengths)
         if self.backend == "pallas":
@@ -284,31 +342,51 @@ class ContinuousDecoder:
             buckets.setdefault(key, []).append(i)
         return list(buckets.values())
 
+    def _dispatch(self, features: Sequence[np.ndarray], skip_silence: bool = True):
+        """Queue one batch (128-padded): decode and word compaction on the
+        device; returns the handles without waiting for them."""
+        padded = pad_batch([np.asarray(f) for f in features], 128)
+        batch, lengths = self._to_device(padded)
+        _scores, paths = self.decode(batch, lengths)
+        ids, counts = self._words(paths, lengths, skip_silence)
+        return ids, counts, paths, padded.lengths, skip_silence
+
+    def _consume(self, handles) -> List[str]:
+        """Read a dispatched batch back as label strings; a transcript longer
+        than the word buffer is read from the full path on the host."""
+        ids, counts, paths, lengths, skip_silence = handles
+        c = self.composite
+        try:
+            return ids_to_strings(ids.cpu().numpy(), counts.cpu().numpy(), c.labels)
+        except ValueError:
+            paths_np = paths.cpu().numpy()
+            return ["".join(c.path_to_labels(paths_np[row, :n], skip_silence))
+                    for row, n in enumerate(lengths)]
+
     def predict_batch(
         self, features: Sequence[np.ndarray], skip_silence: bool = True
     ) -> List[str]:
         """Decode a ragged list of (T_i, D) features to label strings, one
-        device batch per 128-frame length bucket. A transcript longer than
-        the word buffer is read from the full path on the host instead."""
+        device batch per 128-frame length bucket."""
         out: List[str] = [""] * len(features)
-        c = self.composite
         for idx in self._buckets(features):
-            padded = pad_batch([np.asarray(features[i]) for i in idx], 128)
-            batch, lengths = self._to_device(padded)
-            _scores, paths = self.decode(batch, lengths)
-            ids, counts = self._words(paths, lengths, skip_silence)
-            try:
-                strings = ids_to_strings(ids.cpu().numpy(), counts.cpu().numpy(),
-                                         c.labels)
-            except ValueError:
-                paths_np = paths.cpu().numpy()
-                strings = [
-                    "".join(c.path_to_labels(paths_np[row, :n], skip_silence))
-                    for row, n in enumerate(padded.lengths)
-                ]
+            strings = self._consume(self._dispatch([features[i] for i in idx], skip_silence))
             for i, s in zip(idx, strings):
                 out[i] = s
         return out
+
+    def predict_batches(self, feature_batches, skip_silence: bool = True):
+        """Generator over batches of feature lists, double-buffered: batch
+        i + 1 is queued on the device before batch i is read back, so the
+        card works while the host consumes."""
+        pending = None
+        for features in feature_batches:
+            handles = self._dispatch(features, skip_silence)
+            if pending is not None:
+                yield self._consume(pending)
+            pending = handles
+        if pending is not None:
+            yield self._consume(pending)
 
     def predict_signal_batch(
         self, signals: Sequence[np.ndarray], skip_silence: bool = True,
@@ -352,6 +430,125 @@ class ContinuousDecoder:
             for row, i in enumerate(idx):
                 out[i] = texts[row]
         return out
+
+    # -- search beside the 1-best decode ---------------------------------------
+    def _emissions(self, batch: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) padded features on the device -> (B, T, S) log
+        densities of the decoder's emission model: GMMs by whitening, single
+        Gaussians by the quad form at the decoder's tier (tier_emission) or
+        by whitening, as ``emissions`` says."""
+        return self._log_b(batch, whiten=True)[..., : self.composite.num_states]
+
+    def _constrained(self, features, run, skip_silence: bool, what: str) -> List[str]:
+        """Shared tail of the counted / duration / grammar decodes: emissions
+        of the 128-padded batch, run(log_b, lengths) -> (scores, paths), and
+        the unconstrained decode for every utterance whose score is -inf."""
+        c = self.composite
+        padded = pad_batch([np.asarray(f) for f in features], 128)
+        batch, lengths = self._to_device(padded)
+        scores, paths = run(self._emissions(batch), lengths)
+        scores = scores.cpu().numpy()
+        paths = paths.cpu().numpy()
+        fallback_idx = [i for i in range(len(features)) if not np.isfinite(scores[i])]
+        fallbacks = {}
+        if fallback_idx:
+            logger.info("%s decode: %d utterance(s) have no admissible path; falling "
+                        "back to unconstrained", what, len(fallback_idx))
+            preds = self.predict_batch([features[i] for i in fallback_idx], skip_silence)
+            fallbacks = dict(zip(fallback_idx, preds))
+        return [fallbacks[i] if i in fallbacks else
+                "".join(c.path_to_labels(paths[i, : padded.lengths[i]],
+                                         skip_silence=skip_silence))
+                for i in range(len(features))]
+
+    def predict_batch_counted(self, features: Sequence[np.ndarray], n_words: int,
+                              skip_silence: bool = True) -> List[str]:
+        """Decode constrained to exactly n_words non-silence words
+        (ops/viterbi_counted.py); utterances with no such path fall back to
+        the unconstrained decode. Flat penalty (no bigram here)."""
+        from ..ops.viterbi_counted import viterbi_composite_counted_batch
+
+        c = self.composite
+        counted = c.word_of_state != (c._silence_word if c._silence_word is not None else -1)
+
+        def run(log_b, lengths):
+            return viterbi_composite_counted_batch(
+                log_b, c.log_a, c.lower_of_state, c.is_entry, c.is_exit, counted,
+                c.penalty, n_words, lengths)
+
+        return self._constrained(features, run, skip_silence, "counted")
+
+    def predict_batch_duration(self, features: Sequence[np.ndarray], min_duration=2,
+                               max_duration=None, skip_silence: bool = True,
+                               constrain_silence: bool = False) -> List[str]:
+        """Decode under state-duration floors / ceilings
+        (ops/viterbi_duration.py): min_duration and max_duration an int or
+        {label: int}; utterances with no feasible path fall back to the
+        unconstrained decode. Flat penalty (no bigram here)."""
+        from ..ops.viterbi_duration import duration_arrays, viterbi_composite_duration_batch
+
+        c = self.composite
+        min_dur, max_dur, d_cap = duration_arrays(c, min_duration, max_duration,
+                                                  constrain_silence)
+
+        def run(log_b, lengths):
+            return viterbi_composite_duration_batch(
+                log_b, c.log_a, c.lower_of_state, c.is_entry, c.is_exit, c.penalty,
+                min_dur, max_dur, lengths, d_cap=d_cap)
+
+        return self._constrained(features, run, skip_silence, "duration")
+
+    def predict_batch_grammar(self, features: Sequence[np.ndarray], grammar,
+                              skip_silence: bool = True) -> List[str]:
+        """Decode constrained to the word sequences a WordDFA accepts
+        (ops/grammar.py); utterances with no accepted path fall back to the
+        unconstrained decode. Flat penalty (no bigram here)."""
+        from ..ops.grammar import viterbi_composite_grammar_batch
+
+        c = self.composite
+        if list(grammar.labels) != list(c.labels):
+            raise ValueError(f"grammar vocabulary {grammar.labels} does not match the "
+                             f"decoder's labels {c.labels}")
+
+        def run(log_b, lengths):
+            return viterbi_composite_grammar_batch(
+                log_b, c.log_a, c.lower_of_state, c.is_entry, c.is_exit, c.word_of_state,
+                grammar.next_state, grammar.accept, c.penalty, lengths)
+
+        return self._constrained(features, run, skip_silence, "grammar")
+
+    def _gmm_log_b(self, features):
+        """GMM log densities of one (T, D) utterance on the device (the
+        whitening layout), or None for single Gaussians."""
+        if self._gmm is None:
+            return None
+        x = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
+        return gmm_log_pdf(self._gmm_whiten, x)
+
+    def predict_nbest(self, features, n: int = 4, beam_k: int | None = None):
+        """N-best word strings for one utterance: [(score, text), ...]
+        (ops/nbest.py), scored with the decoder's densities (GMMs' own) and
+        the flat penalty; apply a bigram afterwards with
+        ops.lm.rescore_nbest."""
+        from ..ops.nbest import nbest_decode
+
+        return nbest_decode(self.composite, features, n=n, beam_k=beam_k,
+                            log_b=self._gmm_log_b(features), device=self.device)
+
+    def predict_batch_with_confidence(self, features: Sequence[np.ndarray],
+                                      skip_silence: bool = True):
+        """Batched decode with per-word posterior confidences:
+        [[(label, start, end, confidence), ...] per utterance]
+        (ops/lattice.word_confidences_batch: the dense max-plus decode, K4 +
+        K2-bt on the card, and the sum-semiring passes), under the
+        flat-penalty measure; GMM-aware."""
+        from ..ops.lattice import word_confidences_batch
+
+        log_b = None
+        if self._gmm is not None:
+            log_b = [self._gmm_log_b(f) for f in features]
+        return word_confidences_batch(self.composite, features, log_b=log_b,
+                                      skip_silence=skip_silence, device=self.device)
 
     def viterbi_batch(self, features: Sequence[np.ndarray], bucket: bool = True):
         """Returns (scores (B,), paths (B, T) np.int32, lengths (B,)).

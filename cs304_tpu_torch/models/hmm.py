@@ -69,6 +69,27 @@ class CompositeHMM:
         self._silence_word = (
             self.labels.index("S") if "S" in self.labels else None
         )
+        self._emission_cache = {}  # device -> whitening GaussianParams
+
+    def log_likelihoods(self, features, device=None):
+        """(..., T, D) features -> (..., T, S) single-Gaussian log-densities
+        (the whitening layout), on the features' device if they are a
+        tensor, else on ``device`` (the card unless "cpu"). The n-best and
+        lattice searches score with it when no log_b is given."""
+        import torch
+
+        from ..device import resolve_device
+        from ..ops.gaussian import gaussian_log_pdf, make_gaussian_params
+
+        if isinstance(features, torch.Tensor):
+            dev = features.device
+        else:
+            dev = resolve_device(device)
+            features = torch.as_tensor(np.asarray(features, np.float32), device=dev)
+        if dev not in self._emission_cache:
+            self._emission_cache[dev] = make_gaussian_params(self.means, self.covariances,
+                                                             device=dev)
+        return gaussian_log_pdf(self._emission_cache[dev], features)
 
     def path_to_labels(self, path: np.ndarray, skip_silence: bool = True) -> List[str]:
         """State path -> emitted word labels (host walk): a word is emitted at

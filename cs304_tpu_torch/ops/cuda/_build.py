@@ -100,7 +100,7 @@ def load():
         lib.cs304_trellis_forward.restype = i
         lib.cs304_trellis_decode.argtypes = [p, p, f, p, p, p, p, i, i, i, i, i, p]
         lib.cs304_trellis_decode.restype = i
-        lib.cs304_trellis_decode_scratch_bytes.argtypes = [i, i, i]
+        lib.cs304_trellis_decode_scratch_bytes.argtypes = [i, i, i, i]
         lib.cs304_trellis_decode_scratch_bytes.restype = ctypes.c_longlong
         lib.cs304_trellis_backtrace.argtypes = [p, i, ctypes.c_longlong, p, p, p,
                                                 i, i, i, i, p]
@@ -108,6 +108,12 @@ def load():
         lib.cs304_trellis_stream.argtypes = [p, p, i, p, p, p, p, p, f,
                                              i, i, i, i, i, i, p]
         lib.cs304_trellis_stream.restype = i
+        lib.cs304_trellis_search_decode.argtypes = [p, p, f, p, p, p, i, f, i, p, p, p, p,
+                                                    i, i, i, i, i, p]
+        lib.cs304_trellis_search_decode.restype = i
+        lib.cs304_trellis_stream_lm.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i,
+                                                i, i, i, i, i, i, p]
+        lib.cs304_trellis_stream_lm.restype = i
         lib.cs304_trellis_sentence_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.cs304_trellis_sentence_forward.restype = i
         lib.cs304_trellis_sentence_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]

@@ -13,6 +13,14 @@ backtrace_batch).
 - trellis_forward is the forward in backpointer mode: alpha and int32
   backpointers, for the K5/K6 wrappers and the tests.
 - trellis_backtrace walks int32 backpointers: K4's backtrace.
+- scanfree_decode_lm and scanfree_decode_beam are the search decode modes,
+  one launch each: the bigram LM's per-word entry update (with or without
+  the beam), and the beam on the flat penalty. They replace the JAX
+  package's viterbi_composite_batch_fast with pair_penalty / beam
+  (cs304_tpu/ops/viterbi.py:275), which its decoder runs on the banded scan;
+  there is no Pallas kernel of them. Their plain version is the same
+  function here (ops/viterbi.py; backpointer_codes(per_word=True) /
+  backtrace_codes specify the LM mode's codes).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. The kernels take every B >= 1, T >= 1 and
@@ -35,6 +43,7 @@ MAX_STATES = 8192
 
 __all__ = [
     "MAX_STATES", "codes_scratch_bytes", "pack_coefs", "scanfree_decode",
+    "scanfree_decode_beam", "scanfree_decode_lm",
     "trellis_backtrace", "trellis_forward", "viterbi_composite_batch_scanfree",
 ]
 
@@ -65,6 +74,21 @@ def _check_forward(log_b, coefs, lengths):
     if not (log_b.device == coefs.device == lengths.device):
         raise ValueError("log_b, coefs and lengths are on different devices")
     return b, t_total, s, ld
+
+
+def _check_lm(lm, s):
+    """Validate a bigram LM's CUDA operands (ops/viterbi.lm_tables) for S
+    states -> W."""
+    pair, word_of, uppers = lm
+    _check_cuda("pair", pair, torch.float32)
+    _check_cuda("word_of_state", word_of, torch.int32)
+    _check_cuda("uppers", uppers, torch.int32)
+    w = uppers.shape[0]
+    if pair.shape != (w, w) or word_of.shape != (s,) or not 1 <= w <= s:
+        raise ValueError(
+            f"pair {tuple(pair.shape)}, word_of_state {tuple(word_of.shape)}, "
+            f"uppers {tuple(uppers.shape)}: need (W, W), (S,), (W,) with 1 <= W <= S = {s}")
+    return w
 
 
 def trellis_forward(log_b, coefs, penalty, lengths):
@@ -130,11 +154,12 @@ trellis_backtrace.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
-def codes_scratch_bytes(b: int, t_total: int, s: int) -> int:
-    """Bytes of device scratch scanfree_decode allocates for its backpointer
-    codes at this shape: 0 where they stay in shared memory. The kernel's
-    launch plan decides; a shape asks it once."""
-    return int(_build.load().cs304_trellis_decode_scratch_bytes(b, t_total, s))
+def codes_scratch_bytes(b: int, t_total: int, s: int, n_words: int = 0) -> int:
+    """Bytes of device scratch a decode mode allocates for its backpointer
+    codes at this shape (n_words = W for the LM mode, which keeps W
+    best-exit sources a step): 0 where they stay in shared memory. The
+    kernel's launch plan decides; a shape asks it once."""
+    return int(_build.load().cs304_trellis_decode_scratch_bytes(b, t_total, s, n_words))
 
 
 def scanfree_decode(log_b, coefs, penalty, lengths, quirk_backtrace: bool = True):
@@ -144,9 +169,7 @@ def scanfree_decode(log_b, coefs, penalty, lengths, quirk_backtrace: bool = True
     paths (B, T) int32). On CUDA tensors one launch of the decode-mode
     kernel."""
     if not log_b.is_cuda:
-        alpha, bp = forward_fast(log_b, coefs, penalty, lengths)
-        scores, best = first_max(alpha, coefs[5] > 0)
-        return scores, backtrace_batch(bp, best, lengths, quirk_backtrace)
+        return _plain_search(log_b, coefs, penalty, lengths, quirk_backtrace)
     b, t_total, s, ld = _check_forward(log_b, coefs, lengths)
     lib = _build.load()
     dev = log_b.device
@@ -168,6 +191,71 @@ def scanfree_decode(log_b, coefs, penalty, lengths, quirk_backtrace: bool = True
 
 
 scanfree_decode.launches = 0
+
+
+def _plain_search(log_b, coefs, penalty, lengths, quirk, lm=None, beam=None):
+    """The decode modes' plain version: forward_fast, first_max over the
+    exits, backtrace_batch."""
+    alpha, bp = forward_fast(log_b, coefs, penalty, lengths, lm=lm, beam=beam)
+    scores, best = first_max(alpha, coefs[5] > 0)
+    return scores, backtrace_batch(bp, best, lengths, quirk)
+
+
+def _search_launch(what, log_b, coefs, penalty, lengths, quirk, lm, beam):
+    b, t_total, s, ld = _check_forward(log_b, coefs, lengths)
+    w = _check_lm(lm, s) if lm is not None else 0
+    pair, word_of, uppers = lm if lm is not None else (None, None, None)
+    if lm is not None and pair.device != log_b.device:
+        raise ValueError("the LM tables and log_b are on different devices")
+    lib = _build.load()
+    dev = log_b.device
+    scores = torch.empty((b,), dtype=torch.float32, device=dev)
+    paths = torch.empty((b, t_total), dtype=torch.int32, device=dev)
+    n_scratch = codes_scratch_bytes(b, t_total, s, w)
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev) if n_scratch else None
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.cs304_trellis_search_decode(
+            log_b.data_ptr(), coefs.data_ptr(), float(penalty), ptr(pair), ptr(word_of),
+            ptr(uppers), w, float(beam) if beam is not None else 0.0, int(beam is not None),
+            lengths.data_ptr(), scores.data_ptr(), paths.data_ptr(), ptr(scratch),
+            b, t_total, s, ld, int(quirk), stream,
+        )
+    _build.check(code, what)
+    return scores, paths
+
+
+def scanfree_decode_lm(log_b, coefs, lm, lengths, beam=None, quirk_backtrace: bool = True):
+    """The LM decode mode (with the beam when ``beam`` is given): log_b
+    (B, T, ld >= S) float32, coefs (8, S), lm = ops/viterbi.lm_tables'
+    (pair (W, W) float32, word_of_state (S,) int32, uppers (W,) int32),
+    lengths (B,) int32 -> (scores (B,), paths (B, T) int32). One launch on
+    CUDA tensors; the plain version (forward_fast(lm=, beam=)) on the CPU."""
+    if not log_b.is_cuda:
+        return _plain_search(log_b, coefs, 0.0, lengths, quirk_backtrace, lm=lm, beam=beam)
+    out = _search_launch("scanfree_decode_lm", log_b, coefs, 0.0, lengths, quirk_backtrace,
+                         lm, beam)
+    scanfree_decode_lm.launches += 1
+    return out
+
+
+scanfree_decode_lm.launches = 0
+
+
+def scanfree_decode_beam(log_b, coefs, penalty, lengths, beam, quirk_backtrace: bool = True):
+    """The BEAM decode mode on the flat penalty: scanfree_decode's
+    arguments and the beam -> (scores (B,), paths (B, T) int32). One launch
+    on CUDA tensors; the plain version (forward_fast(beam=)) on the CPU."""
+    if not log_b.is_cuda:
+        return _plain_search(log_b, coefs, penalty, lengths, quirk_backtrace, beam=beam)
+    out = _search_launch("scanfree_decode_beam", log_b, coefs, penalty, lengths,
+                         quirk_backtrace, None, beam)
+    scanfree_decode_beam.launches += 1
+    return out
+
+
+scanfree_decode_beam.launches = 0
 
 
 def viterbi_composite_batch_scanfree(

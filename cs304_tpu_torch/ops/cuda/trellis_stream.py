@@ -14,6 +14,11 @@ of it. Written as plain PyTorch it is a Python loop of ~15 launches a frame.
   their absolute frames (int8 or int32, the pool's ring_dtype). It is
   bitwise its plain version, ops/streaming_batch.py:_advance_compact with
   the banded coefficients (pack_coefs rows), which a CPU tensor runs.
+- stream_advance_lm is the same step with a bigram LM's per-word entry
+  update (the LM variant of the stream mode), one launch; it replaces the
+  JAX pool's banded step with lm (cs304_tpu/ops/streaming_batch.py:97
+  _banded_coeffs, :201), and its plain version is _advance_compact with
+  _coeffs_of(coefs, penalty, lm).
 - dense_stream_advance is the dense step (the JAX package's choice at
   <= 127 states) on K4, whose row 0 is its seed row: a continuing row gets
   its carried alpha as alpha0 and its chunk at rows 1..C (length valid + 1),
@@ -37,9 +42,16 @@ from ...device import upload_ints
 from ..viterbi import NEG
 from . import _build
 from .trellis_dense import trellis_dense_forward
-from .trellis_scanfree import MAX_STATES, _check_cuda
+from .trellis_scanfree import MAX_STATES, _check_cuda, _check_lm
 
-__all__ = ["dense_stream_advance", "k4_chunk", "stream_advance"]
+__all__ = ["dense_stream_advance", "k4_chunk", "stream_advance", "stream_advance_lm"]
+
+
+def _plain_step(alpha, ring, slot_ids, t, valid, log_b, coefs, penalty, lm=None):
+    from ..streaming_batch import _advance_compact, _coeffs_of
+
+    return _advance_compact(alpha, ring, slot_ids, t, valid, log_b, coefs[6],
+                            coefs[4] > 0, coeffs=_coeffs_of(coefs, penalty, lm))
 
 
 def stream_advance(alpha, ring, slot_ids, t, valid, log_b, coefs, penalty):
@@ -48,10 +60,55 @@ def stream_advance(alpha, ring, slot_ids, t, valid, log_b, coefs, penalty):
     (a row with valid 0 is skipped; rows name distinct slots); log_b
     (R, C, ld >= S) float32; coefs (8, S) from pack_coefs; penalty float."""
     if not alpha.is_cuda:
-        from ..streaming_batch import _advance_compact, _coeffs_of
+        return _plain_step(alpha, ring, slot_ids, t, valid, log_b, coefs, penalty)
+    b, t_max, s, r, c, ld = _check_step(alpha, ring, slot_ids, t, valid, log_b, coefs)
+    lib = _build.load()
+    with torch.cuda.device(alpha.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.cs304_trellis_stream(
+            alpha.data_ptr(), ring.data_ptr(), ring.element_size(),
+            slot_ids.data_ptr(), t.data_ptr(), valid.data_ptr(), log_b.data_ptr(),
+            coefs.data_ptr(), float(penalty), r, c, s, ld, b, t_max, stream,
+        )
+    _build.check(code, "stream_advance")
+    stream_advance.launches += 1
+    return alpha, ring
 
-        return _advance_compact(alpha, ring, slot_ids, t, valid, log_b, coefs[6],
-                                coefs[4] > 0, coeffs=_coeffs_of(coefs, penalty))
+
+stream_advance.launches = 0
+
+
+def stream_advance_lm(alpha, ring, slot_ids, t, valid, log_b, coefs, lm):
+    """stream_advance with a bigram LM's entry update: lm =
+    ops/viterbi.lm_tables' (pair (W, W) float32, word_of_state (S,) int32,
+    uppers (W,) int32) on the pool's device; the ring keeps full source
+    states. One launch on CUDA tensors."""
+    if not alpha.is_cuda:
+        return _plain_step(alpha, ring, slot_ids, t, valid, log_b, coefs, 0.0, lm)
+    b, t_max, s, r, c, ld = _check_step(alpha, ring, slot_ids, t, valid, log_b, coefs)
+    w = _check_lm(lm, s)
+    pair, word_of, uppers = lm
+    if pair.device != alpha.device:
+        raise ValueError("the LM tables and the pool are on different devices")
+    lib = _build.load()
+    with torch.cuda.device(alpha.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.cs304_trellis_stream_lm(
+            alpha.data_ptr(), ring.data_ptr(), ring.element_size(),
+            slot_ids.data_ptr(), t.data_ptr(), valid.data_ptr(), log_b.data_ptr(),
+            coefs.data_ptr(), pair.data_ptr(), word_of.data_ptr(), uppers.data_ptr(), w,
+            r, c, s, ld, b, t_max, stream,
+        )
+    _build.check(code, "stream_advance_lm")
+    stream_advance_lm.launches += 1
+    return alpha, ring
+
+
+stream_advance_lm.launches = 0
+
+
+def _check_step(alpha, ring, slot_ids, t, valid, log_b, coefs):
+    """Validate a pool step's CUDA inputs -> (B, T_max, S, R, C, ld)."""
     b, t_max, s = ring.shape
     r, c, ld = log_b.shape
     _check_cuda("alpha", alpha, torch.float32)
@@ -73,20 +130,7 @@ def stream_advance(alpha, ring, slot_ids, t, valid, log_b, coefs, penalty):
     devs = {x.device for x in (alpha, ring, slot_ids, t, valid, log_b, coefs)}
     if len(devs) != 1:
         raise ValueError(f"stream_advance inputs on different devices: {devs}")
-    lib = _build.load()
-    with torch.cuda.device(alpha.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.cs304_trellis_stream(
-            alpha.data_ptr(), ring.data_ptr(), ring.element_size(),
-            slot_ids.data_ptr(), t.data_ptr(), valid.data_ptr(), log_b.data_ptr(),
-            coefs.data_ptr(), float(penalty), r, c, s, ld, b, t_max, stream,
-        )
-    _build.check(code, "stream_advance")
-    stream_advance.launches += 1
-    return alpha, ring
-
-
-stream_advance.launches = 0
+    return b, t_max, s, r, c, ld
 
 
 def k4_chunk(alpha_rows, t, valid, log_b, trans, coefs):

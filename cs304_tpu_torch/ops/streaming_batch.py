@@ -38,7 +38,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, upload, upload_ints
-from .viterbi import NEG, composite_transition_matrix, entry_update, first_max, pack_coefs
+from .viterbi import (
+    NEG,
+    composite_transition_matrix,
+    entry_update,
+    first_max,
+    lm_tables,
+    pack_coefs,
+)
 from .words import ids_to_strings, words_from_paths
 
 logger = logging.getLogger(__name__)
@@ -47,8 +54,6 @@ __all__ = ["BatchedStreamingComposite", "ring_dtype"]
 
 _MESH_NOT_PORTED = ("mesh= (slots sharded over devices) is not ported yet "
                     "(ROADMAP Queue 1, item 18: parallel/data_parallel.py)")
-_BIGRAM_NOT_PORTED = ("bigram LM streaming is not ported yet "
-                      "(ROADMAP Queue 1, item 19: ops/lm.py)")
 
 
 def ring_dtype(num_states: int) -> torch.dtype:
@@ -61,26 +66,28 @@ def _banded_coeffs(log_a, lower_of_state, is_entry, is_exit, penalty,
                    device=None):
     """Per-state banded coefficients of the composite step, as the JAX
     package's tuple (sub1, sub2, diag_ne, diag_e, is_exit, penalty, lm):
-    pack_coefs' rows 1, 2, 0, 3 and 5. A pair penalty (bigram LM) raises."""
-    if pair_penalty is not None:
-        raise NotImplementedError(_BIGRAM_NOT_PORTED)
+    pack_coefs' rows 1, 2, 0, 3 and 5; lm is None, or for a pair penalty
+    (W, W) (a bigram LM, ops/lm.word_pair_penalties) lm_tables' (pair,
+    word_of_state, uppers)."""
+    lm = (lm_tables(pair_penalty, word_of_state, uppers, device=device)
+          if pair_penalty is not None else None)
     return _coeffs_of(pack_coefs(log_a, lower_of_state, is_entry, is_exit,
-                                 device=device), penalty)
+                                 device=device), penalty, lm)
 
 
-def _coeffs_of(coefs, penalty):
-    """_banded_coeffs' tuple from pack_coefs rows (8, S)."""
+def _coeffs_of(coefs, penalty, lm=None):
+    """_banded_coeffs' tuple from pack_coefs rows (8, S) and lm_tables'."""
     return (coefs[1], coefs[2], coefs[0], coefs[3], coefs[5] > 0,
-            torch.as_tensor(penalty, dtype=torch.float32, device=coefs.device), None)
+            torch.as_tensor(penalty, dtype=torch.float32, device=coefs.device), lm)
 
 
 def _banded_step(rows, is_entry, coeffs):
     """One banded composite step over (K, S) rows -> (value before the
     emission, backpointers int64): skip-2, skip-1, self on >=; an entry takes
-    the best exit + penalty against its self-loop, the exit winning a tie."""
+    the best exit + penalty against its self-loop (with an LM, the per-word
+    best over source words, ops/viterbi.entry_update), the exit winning a
+    tie. The plain version of the stream mode and its LM variant."""
     sub1, sub2, diag_ne, diag_e, is_exit, penalty, lm = coeffs
-    if lm is not None:
-        raise NotImplementedError(_BIGRAM_NOT_PORTED)
     s = rows.shape[1]
     to = torch.arange(s, device=rows.device)
     a1 = torch.full_like(rows, NEG)
@@ -94,10 +101,10 @@ def _banded_step(rows, is_entry, coeffs):
     val_ne = torch.maximum(c2, v12)
     bp_ne = torch.where(c2 >= v12, (to - 2).clamp(min=0),
                         torch.where(c1 >= c0, (to - 1).clamp(min=0), to))
-    c_pen, best_exit_idx = entry_update(rows, is_exit, penalty)
+    c_pen, best_exit_idx = entry_update(rows, is_exit, penalty, *(lm or ()))
     c_self = rows + diag_e
     val_e = torch.maximum(c_pen, c_self)
-    bp_e = torch.where(c_pen >= c_self, best_exit_idx.to(torch.int64), to)
+    bp_e = torch.where(c_pen >= c_self, best_exit_idx, to)
     return torch.where(is_entry, val_e, val_ne), torch.where(is_entry, bp_e, bp_ne)
 
 
@@ -208,12 +215,15 @@ class BatchedStreamingComposite:
         most half the slots. device: None means the card (raising without
         one); tests pass "cpu".
 
-        Not ported (NotImplementedError): mesh= (item 18), bigram= (item
-        19); lm_weight, which only weighs a bigram, is accepted and unused."""
+        bigram (+ lm_weight): decode online under the bigram LM's per-pair
+        inter-word penalties (ops/lm.word_pair_penalties), the measure of
+        ContinuousDecoder(bigram=...), so finals equal its results. Forces
+        the banded step, as in the JAX package: on the card the LM variant
+        of the stream mode (ops/cuda/trellis_stream.stream_advance_lm).
+
+        Not ported (NotImplementedError): mesh= (item 18)."""
         if mesh is not None:
             raise NotImplementedError(_MESH_NOT_PORTED)
-        if bigram is not None:
-            raise NotImplementedError(_BIGRAM_NOT_PORTED)
         self.device = resolve_device(device)
         self.composite = composite
         self.num_slots = int(num_slots)
@@ -224,11 +234,21 @@ class BatchedStreamingComposite:
         s = c.num_states
         if step_impl not in ("auto", "dense", "banded"):
             raise ValueError(f"unknown step_impl {step_impl!r}")
-        if step_impl == "auto":
+        if bigram is not None:
+            if step_impl == "dense":
+                logger.info("bigram LM streaming uses the banded step")
+            step_impl = "banded"
+        elif step_impl == "auto":
             step_impl = "banded" if s > 127 else "dense"
         self.step_impl = step_impl
         self._coefs = pack_coefs(c.log_a, c.lower_of_state, c.is_entry, c.is_exit,
                                  device=dev)
+        self._lm = None
+        if bigram is not None:
+            from .lm import word_pair_penalties
+
+            self._lm = lm_tables(word_pair_penalties(c, bigram, lm_weight),
+                                 c.word_of_state, c.uppers, device=dev)
         self._trans = (composite_transition_matrix(
             c.log_a, c.lower_of_state, c.is_entry, c.is_exit, c.penalty, device=dev)
             if step_impl == "dense" else None)
@@ -405,14 +425,21 @@ class BatchedStreamingComposite:
 
     def _advance_rows(self, slot_ids, t_rows, valid_rows, feats) -> None:
         """One pool step on host-built rows: emissions, then the trellis."""
-        from .cuda.trellis_stream import dense_stream_advance, stream_advance
+        from .cuda.trellis_stream import (
+            dense_stream_advance,
+            stream_advance,
+            stream_advance_lm,
+        )
 
         dev = self.device
         log_b = self._log_b(upload(feats, dev))
         if self.step_impl == "banded":
-            stream_advance(self._alpha, self._ring,
-                           *upload_ints((slot_ids, t_rows, valid_rows), dev, np.int32),
-                           log_b, self._coefs, self.composite.penalty)
+            rows = upload_ints((slot_ids, t_rows, valid_rows), dev, np.int32)
+            if self._lm is not None:
+                stream_advance_lm(self._alpha, self._ring, *rows, log_b, self._coefs, self._lm)
+            else:
+                stream_advance(self._alpha, self._ring, *rows, log_b, self._coefs,
+                               self.composite.penalty)
         else:
             dense_stream_advance(self._alpha, self._ring, slot_ids, t_rows,
                                  valid_rows, log_b, self._trans, self._coefs)

@@ -12,6 +12,21 @@ Tie-breaks: skip-2, then skip-1, then self on >=; an exit beats the entry's
 self-loop on an exact tie; the lowest exit index wins among exits, and when
 every exit is -inf the index is 0. Steps t >= length leave alpha unchanged.
 
+Two search options of the JAX package's banded step (its
+viterbi_composite_batch_fast) ride the same recursion:
+
+- a bigram LM (``pair_penalty`` (W, W), ops/lm.word_pair_penalties): the
+  entry of word w takes max over v of (best exit of v + pair[v, w]), a
+  per-word tropical matvec; the lowest source word wins a tie and an all
+  -inf column takes source 0, so its backpointer is uppers[0];
+- a beam: after each update every state below (max - beam) is set to -inf,
+  before the length mask, and alpha0 is pruned the same way; backpointers
+  are those of the unpruned step.
+
+These are the plain versions of the LM and BEAM decode modes and of the LM
+stream mode of the scan-free team kernel (ops/cuda/trellis_scanfree.py,
+ops/cuda/trellis_stream.py).
+
 Backtrace parity note: the reference's backtrace drops the true final state,
 so path[L-1] == path[L-2]; ``quirk_backtrace=True`` (the default) reproduces
 that. Backpointers are int32. The time loop is a Python loop.
@@ -39,10 +54,6 @@ from __future__ import annotations
 import torch
 
 NEG = float("-inf")
-_PAIR_PENALTY_NOT_PORTED = (
-    "per-pair (bigram LM) penalties are not ported yet "
-    "(ROADMAP Queue 1, slice 4: ops/lm.py)"
-)
 
 
 def pack_coefs(log_a, lower_of_state, is_entry, is_exit, device=None) -> torch.Tensor:
@@ -91,21 +102,44 @@ def first_max(values: torch.Tensor, mask: torch.Tensor):
     return best.squeeze(-1), idx.to(torch.int32)
 
 
+def lm_tables(pair_penalty, word_of_state, uppers, device=None):
+    """A bigram LM's operands on one device, as the kernels take them:
+    (pair (W, W) float32, word_of_state (S,) int32, uppers (W,) int32)."""
+    return (torch.as_tensor(pair_penalty, dtype=torch.float32, device=device).contiguous(),
+            torch.as_tensor(word_of_state, device=device).to(torch.int32).contiguous(),
+            torch.as_tensor(uppers, device=device).to(torch.int32).contiguous())
+
+
 def entry_update(alpha, is_exit, penalty, pair_penalty=None,
                  word_of_state=None, uppers=None):
-    """Word-entry predecessor candidate: alpha (B, S) ->
-    (c_pen (B, 1) = best exit + penalty, best_exit_idx (B, 1) int32).
-    Only the flat penalty is ported."""
+    """Word-entry predecessor candidates: alpha (B, S) -> (c_pen,
+    best_exit_idx int64). Flat penalty: (B, 1) each, the best exit +
+    penalty and its first-max index (int64). pair_penalty (W, W) with word_of_state
+    (S,) and uppers (W,) (lm_tables): (B, S) each, the per-word tropical
+    matvec max over v of (alpha[uppers[v]] + pair[v, w(s)]) and
+    uppers[first v attaining it] (in uppers' dtype; torch's max over a dim
+    keeps the first index and its own value)."""
     if pair_penalty is not None:
-        raise NotImplementedError(_PAIR_PENALTY_NOT_PORTED)
+        cand = alpha[:, uppers][:, :, None] + pair_penalty[None]  # (B, W, W)
+        best_w, src_w = cand.max(dim=1)                            # (B, W)
+        return best_w[:, word_of_state], uppers[src_w[:, word_of_state]]
     best, idx = first_max(alpha, is_exit)
-    return (best + penalty)[:, None], idx[:, None]
+    return (best + penalty)[:, None], idx[:, None].to(torch.int64)
 
 
-def forward_fast(log_b, coefs, penalty, lengths):
+def prune(alpha, beam):
+    """The beam: states below (row max - beam) set to -inf. beam a float32
+    scalar tensor on alpha's device."""
+    thresh = alpha.max(dim=1, keepdim=True).values - beam
+    return torch.where(alpha >= thresh, alpha, NEG)
+
+
+def forward_fast(log_b, coefs, penalty, lengths, lm=None, beam=None):
     """Forward recursion. log_b (B, T, >=S) float32 (columns past S are
     ignored), coefs (8, S) from pack_coefs, lengths (B,) ->
-    (alpha (B, S) float32, backpointers (B, T, S) int32 with row 0 = -1)."""
+    (alpha (B, S) float32, backpointers (B, T, S) int32 with row 0 = -1).
+    lm: lm_tables' (pair, word_of_state, uppers) for a bigram LM (penalty
+    then unused); beam: the per-step prune (module docstring)."""
     b, t_total = log_b.shape[:2]
     s = coefs.shape[1]
     dev = log_b.device
@@ -117,7 +151,11 @@ def forward_fast(log_b, coefs, penalty, lengths):
     penalty = torch.as_tensor(penalty, dtype=torch.float32, device=dev)
     lengths = torch.as_tensor(lengths, device=dev)
 
+    if beam is not None:
+        beam = torch.as_tensor(beam, dtype=torch.float32, device=dev)
     alpha = torch.where(entry, log_b[:, 0, :s] + coefs[6], NEG)
+    if beam is not None:
+        alpha = prune(alpha, beam)
     bps = torch.empty((b, t_total, s), dtype=torch.int32, device=dev)
     bps[:, 0] = -1
     for t in range(1, t_total):
@@ -132,12 +170,14 @@ def forward_fast(log_b, coefs, penalty, lengths):
         val_ne = torch.maximum(c2, v12)
         bp_ne = torch.where(c2 >= v12, to2, torch.where(c1 >= c0, to1, to))
 
-        c_pen, best_exit_idx = entry_update(alpha, exit_, penalty)
+        c_pen, best_exit_idx = entry_update(alpha, exit_, penalty, *(lm or ()))
         c_self = alpha + diag_e
         val_e = torch.maximum(c_pen, c_self)
-        bp_e = torch.where(c_pen >= c_self, best_exit_idx, to)
+        bp_e = torch.where(c_pen >= c_self, best_exit_idx.to(torch.int32), to)
 
         new_alpha = torch.where(entry, val_e, val_ne) + log_b[:, t, :s]
+        if beam is not None:
+            new_alpha = prune(new_alpha, beam)
         bps[:, t] = torch.where(entry, bp_e, bp_ne)
         live = (t < lengths)[:, None]
         alpha = torch.where(live, new_alpha, alpha)
@@ -177,14 +217,17 @@ def apply_quirk(paths, lengths):
     return out
 
 
-def backpointer_codes(backptrs, coefs, lengths):
+def backpointer_codes(backptrs, coefs, lengths, per_word: bool = False):
     """The decode-mode kernel's one-byte backpointers, plain: backptrs
     (B, T, S) int32 from forward_fast, coefs (8, S), lengths (B,) ->
     (codes (B, T, S) uint8, best_exit (B, T) int16). At every live step
     1 <= t < min(length, T) a non-entry state's code c in {0, 1, 2} means
     max(j - c, 0); an entry state's is 0 (itself) or 3, the step's one
     best-exit index best_exit[b, t]. Other rows are 0. Raises ValueError
-    where a backpointer breaks that scheme."""
+    where a backpointer breaks that scheme. per_word=True is the LM decode
+    mode's layout: best_exit (B, T, W), the source state of word w's entry
+    at step t (the kernel stores it for every word; here 0 where the entry
+    did not take an exit)."""
     b, t_total, s = backptrs.shape
     dev = backptrs.device
     j = torch.arange(s, device=dev, dtype=torch.int64)
@@ -196,33 +239,45 @@ def backpointer_codes(backptrs, coefs, lengths):
     step = j - bp
     takes_exit = entry & (bp != j)
     band_ok = (step >= 0) & (step <= 2) & (bp == torch.clamp(j - step, min=0))
-    # Every entry that took an exit at a step names the same state.
-    first = torch.where(takes_exit, bp, s).min(dim=-1).values
-    last = torch.where(takes_exit, bp, -1).max(dim=-1).values
-    ok = torch.where(entry, ~takes_exit | (first == last)[..., None], band_ok)
-    if not bool(ok[live.expand_as(ok)].all()):
-        raise ValueError("backpointers outside the banded / best-exit scheme")
     codes = torch.where(takes_exit, 3, torch.where(entry, 0, step))
     codes = torch.where(live, codes, 0).to(torch.uint8)
-    best_exit = torch.where(live[..., 0] & (first < s), first, 0).to(torch.int16)
-    return codes, best_exit
+    if per_word:
+        # One entry state a word: each word's source is its own entry's.
+        ok = torch.where(entry, True, band_ok)
+        best_exit = torch.where(takes_exit & live, bp, 0)[..., torch.nonzero(entry)[:, 0]]
+    else:
+        # Every entry that took an exit at a step names the same state.
+        first = torch.where(takes_exit, bp, s).min(dim=-1).values
+        last = torch.where(takes_exit, bp, -1).max(dim=-1).values
+        ok = torch.where(entry, ~takes_exit | (first == last)[..., None], band_ok)
+        best_exit = torch.where(live[..., 0] & (first < s), first, 0)
+    if not bool(ok[live.expand_as(ok)].all()):
+        raise ValueError("backpointers outside the banded / best-exit scheme")
+    return codes, best_exit.to(torch.int16)
 
 
-def backtrace_codes(codes, best_exit, best, lengths, quirk: bool = True):
+def backtrace_codes(codes, best_exit, best, lengths, quirk: bool = True,
+                    word_of_state=None):
     """backtrace_batch over backpointer codes: codes (B, T, S) uint8 and
     best_exit (B, T) int16 from backpointer_codes, best (B,) start states,
     lengths (B,) -> paths (B, T) int32, the walk the decode-mode kernel runs
-    in shared memory."""
+    in shared memory. The LM layout (best_exit (B, T, W)) needs
+    word_of_state (S,): code 3 at a state of word w reads best_exit[:, t, w]."""
     b, t_total, _ = codes.shape
     dev = codes.device
     lengths = torch.as_tensor(lengths, device=dev)
+    if word_of_state is not None:
+        word_of_state = torch.as_tensor(word_of_state, device=dev).to(torch.int64)
     state = best.to(torch.int64)
     path = torch.empty((b, t_total), dtype=torch.int32, device=dev)
     for t in range(t_total - 1, 0, -1):
         path[:, t] = state.to(torch.int32)
         c = codes[:, t].gather(1, state[:, None])[:, 0].to(torch.int64)
-        nxt = torch.where(c == 3, best_exit[:, t].to(torch.int64),
-                          torch.clamp(state - c, min=0))
+        if word_of_state is None:
+            src = best_exit[:, t]
+        else:
+            src = best_exit[:, t].gather(1, word_of_state[state][:, None])[:, 0]
+        nxt = torch.where(c == 3, src.to(torch.int64), torch.clamp(state - c, min=0))
         state = torch.where(t <= lengths - 1, nxt, state)
     path[:, 0] = state.to(torch.int32)
     if quirk:
@@ -244,17 +299,16 @@ def viterbi_composite_batch_fast(
     uppers=None, beam=None,
 ):
     """Composite batch decode: log_b (B, T, S) float32, lengths (B,) ->
-    (scores (B,) float32, paths (B, T) int32), on log_b's device."""
-    if pair_penalty is not None:
-        raise NotImplementedError(_PAIR_PENALTY_NOT_PORTED)
-    if beam is not None:
-        raise NotImplementedError(
-            "beam pruning is not ported yet (ROADMAP Queue 1, slice 4)"
-        )
+    (scores (B,) float32, paths (B, T) int32), on log_b's device.
+    pair_penalty (W, W) with word_of_state (S,) and uppers (W,): a bigram
+    LM's per-pair entry update; beam: the per-step prune (module
+    docstring). The plain version of the LM / BEAM decode modes."""
     dev = log_b.device
     coefs = pack_coefs(log_a, lower_of_state, is_entry, is_exit, device=dev)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-    alpha, bps = forward_fast(log_b, coefs, penalty, lengths)
+    lm = (lm_tables(pair_penalty, word_of_state, uppers, device=dev)
+          if pair_penalty is not None else None)
+    alpha, bps = forward_fast(log_b, coefs, penalty, lengths, lm=lm, beam=beam)
     scores, best = first_max(alpha, coefs[5] > 0)
     return scores, backtrace_batch(bps, best, lengths, quirk_backtrace)
 

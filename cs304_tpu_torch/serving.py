@@ -29,6 +29,9 @@ kernel past that), its finalize K2-bt on the ring, and the finals the
 decoder's whitening emissions, then scanfree_decode, then words. GMM and
 mixed model sets serve through the same path: the pool and the decoder
 both lift them (K-mixture whitening emissions before the same steps).
+With bigram= the pool's step is the LM variant of the stream mode and the
+finals the decoder's LM decode mode; with confidences=True the finals are
+the dense decode (K4 + K2-bt) with posterior confidences (ops/lattice.py).
 """
 from __future__ import annotations
 
@@ -40,16 +43,12 @@ import numpy as np
 
 from .audio.capture import Segmentation
 from .models.decoder import ContinuousDecoder
-from .ops.mfcc import MFCCConfig
+from .ops.mfcc import MFCCConfig, mfcc_batch
 from .ops.streaming_batch import BatchedStreamingComposite
 from .ops.streaming_mfcc import StreamingMFCC, mel_peak
 
 logger = logging.getLogger(__name__)
 
-_CONFIDENCE_NOT_PORTED = ("confidences=True is not ported yet "
-                          "(ROADMAP Queue 1, item 19: ops/lattice.py)")
-_BIGRAM_NOT_PORTED = ("bigram LM serving is not ported yet "
-                      "(ROADMAP Queue 1, item 19: ops/lm.py)")
 _MESH_NOT_PORTED = ("mesh= is not ported yet "
                     "(ROADMAP Queue 1, item 18: parallel/data_parallel.py)")
 
@@ -113,9 +112,16 @@ class ServingSessionPool:
         device: None means the card (raising without one); tests pass "cpu".
         models may be GMMWordHMMs, or a mix with single Gaussians.
 
-        Not ported (NotImplementedError): confidences=True and bigram=
-        (item 19), mesh= (item 18). lm_weight is accepted and, with no
-        bigram, changes nothing."""
+        confidences=True scores every final with the minimum per-word
+        posterior of ContinuousDecoder.predict_batch_with_confidence (the
+        dense decode, K4 + K2-bt on the card, and the sum-semiring passes of
+        ops/lattice.py) on host-MFCC features. bigram (+ lm_weight): finals
+        and partials decode under the bigram's per-pair penalties (the
+        decoder's LM decode mode, the pool's LM stream mode). The two do
+        not combine (ValueError): the posterior pass decodes the
+        flat-penalty measure.
+
+        Not ported (NotImplementedError): mesh= (item 18)."""
         if partials not in (True, False, "exact", "pipelined"):
             raise ValueError(f"unknown partials mode {partials!r}")
         self._partials_exact = partials == "exact"
@@ -125,14 +131,11 @@ class ServingSessionPool:
                 "decode the flat-penalty posterior measure, which would "
                 "silently drop the LM from final texts"
             )
-        if confidences:
-            raise NotImplementedError(_CONFIDENCE_NOT_PORTED)
-        if bigram is not None:
-            raise NotImplementedError(_BIGRAM_NOT_PORTED)
         if mesh is not None:
             raise NotImplementedError(_MESH_NOT_PORTED)
+        self._confidences = confidences
         self._decoder = ContinuousDecoder(
-            models, penalty=penalty, lm_weight=lm_weight, device=device
+            models, penalty=penalty, bigram=bigram, lm_weight=lm_weight, device=device
         )
         self._mcfg = mcfg
         self._partials_enabled = partials and mcfg.normalization == "per_frame"
@@ -144,8 +147,8 @@ class ServingSessionPool:
         self._pool = (
             BatchedStreamingComposite.from_models(
                 models, penalty=penalty, num_slots=num_slots,
-                chunk_size=32, max_frames=max_frames, lm_weight=lm_weight,
-                device=device,
+                chunk_size=32, max_frames=max_frames, bigram=bigram,
+                lm_weight=lm_weight, device=device,
             )
             if self._partials_enabled else None
         )
@@ -245,16 +248,25 @@ class ServingSessionPool:
 
         out: Dict[int, List[UtteranceResult]] = {}
         if finished:
-            # Offline-parity finals, decoded as one batch on the device:
-            # MFCC + emissions + trellis + word compaction.
-            texts = self._decoder.predict_signal_batch(
-                [sig for _s, sig, _p in finished], mcfg=self._mcfg
-            )
-            for (session, signal, last_partial), text in zip(finished, texts):
+            signals = [sig for _s, sig, _p in finished]
+            confs: List[Optional[float]] = [None] * len(finished)
+            if self._confidences:
+                # Host features, the dense decode and the posterior passes.
+                feats = mfcc_batch(signals, cfg=self._mcfg, device=self._decoder.device)
+                scored = self._decoder.predict_batch_with_confidence(feats)
+                texts = ["".join(w for w, _s, _e, _c in words) for words in scored]
+                confs = [min((c for _w, _s, _e, c in words), default=0.0)
+                         for words in scored]
+            else:
+                # Offline-parity finals, decoded as one batch on the device:
+                # MFCC + emissions + trellis + word compaction.
+                texts = self._decoder.predict_signal_batch(signals, mcfg=self._mcfg)
+            for (session, signal, last_partial), text, conf in zip(finished, texts, confs):
                 out.setdefault(session, []).append(
                     UtteranceResult(
                         session=session, text=text,
                         num_samples=len(signal), last_partial=last_partial,
+                        confidence=conf,
                     )
                 )
         return out

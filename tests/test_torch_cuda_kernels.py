@@ -22,9 +22,13 @@ and -1 rows, T = 1, 1 to 2100 states, finals the band reaches), its E-step
 mode (gamma, xi sums, ll on the same cases, each with finite ll in at least
 half its rows: -inf and zero cells equal, the rest within
 1e-5 * max(1, |x|)) and one fused Baum-Welch iteration launching the E-step
-mode and not FB.
+mode and not FB; the search modes (the LM and BEAM decode modes and the LM
+stream mode, bitwise their plain versions; every case with finite scores in
+at least half its rows; 5003 states with the codes in the global scratch)
+and the bigram and beam decoders launching their modes and never the plain
+trellis.
 
-These are chip_smoke.py's phases 3-4, 7, 11-13, 17 and 19-20 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20 and 22 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -914,3 +918,151 @@ def test_fb_posteriors_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tfb.banded_fb_posteriors(log_b, c0, c1, c2[:1], lengths, final)
     with pytest.raises(ValueError):
         tfb.banded_fb_posteriors(log_b, c0, c1, c2, lengths.cpu(), final)
+
+
+# -- the search modes: LM decode, BEAM decode, LM stream ----------------------
+
+
+def _search_pair(comp, mode):
+    """(W, W) pair penalties of a bigram trained on random word strings
+    (word_pair_penalties, lm_weight 1); "ties" sets every pair equal, "zero"
+    sets some pair values to exactly 0."""
+    from cs304_tpu_torch.ops.lm import train_word_bigram, word_pair_penalties
+
+    rng = np.random.default_rng(len(comp.labels))
+    words = [lab for lab in comp.labels if lab != "S"]
+    corpus = [tuple(rng.choice(words, size=int(rng.integers(1, 8)))) for _ in range(200)]
+    pair = word_pair_penalties(comp, train_word_bigram(corpus, comp.labels), 1.0)
+    if mode == "ties":
+        pair[:] = np.float32(-7.0)
+    elif mode == "zero":
+        pair[:, :2] = 0.0
+        pair[1] = 0.0
+    return pair
+
+
+# name: (num_words, None for the flagship; B, T, pair mode or None, beam).
+# "lm-5003" keeps its codes and W int16 sources a step in the global scratch.
+SEARCH_CASES = {
+    "lm-flagship": (None, 33, 60, "trained", None),
+    "lm-ties": (None, 16, 40, "ties", None),
+    "lm-zero": (None, 16, 40, "zero", None),
+    "lm-98": (19, 9, 50, "trained", None),
+    "lm-503": (100, 8, 60, "trained", None),
+    "lm-5003": (1000, 2, 30, "trained", None),
+    "beam-50": (None, 33, 60, None, 50.0),
+    "beam-tight": (None, 33, 60, None, 6.0),
+    "beam-503": (100, 8, 60, None, 10.0),
+    "lm-beam": (None, 33, 60, "trained", 20.0),
+    "lm-beam-503": (100, 8, 40, "trained", 10.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEARCH_CASES))
+def test_search_decode_modes_are_bitwise_plain(dev, case):
+    from cs304_tpu_torch.ops.viterbi import lm_tables
+
+    words, b, t, mode, beam = SEARCH_CASES[case]
+    comp = flagship_composite() if words is None else _composite(words)
+    s = comp.num_states
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if mode == "ties":
+        log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
+    else:
+        log_b = 3 * torch.randn((b, t, s), generator=gen, device=dev)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = 1, t
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    coefs = pack_coefs(*topo, device=dev)
+    pair = _search_pair(comp, mode) if mode else None
+    n_words = len(comp.labels) if pair is not None else 0
+    assert (tsf.codes_scratch_bytes(b, t, s, n_words) > 0) == (case == "lm-5003")
+    counter = tsf.scanfree_decode_lm if pair is not None else tsf.scanfree_decode_beam
+    before = counter.launches
+    if pair is not None:
+        lm = lm_tables(pair, comp.word_of_state, comp.uppers, device=dev)
+        got = tsf.scanfree_decode_lm(log_b, coefs, lm, lengths, beam=beam)
+    else:
+        got = tsf.scanfree_decode_beam(log_b, coefs, comp.penalty, lengths, beam)
+    want = viterbi_composite_batch_fast(
+        log_b, *topo, comp.penalty, lengths, pair_penalty=pair,
+        word_of_state=comp.word_of_state, uppers=comp.uppers, beam=beam)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+    # No case compares -inf alone.
+    assert torch.isfinite(want[0]).float().mean().item() >= 0.5
+
+
+@pytest.mark.parametrize("num_words,ring,compact,mode", [
+    (11, torch.int8, True, "trained"),     # the flagship, one-warp teams
+    (11, torch.int8, False, "ties"),       # dense rows, equal pairs, integer ties
+    (11, torch.int32, True, "zero"),       # zero pair values
+    (100, torch.int32, True, "trained"),   # 503 states, a 4-warp team
+    (1000, torch.int32, False, "trained"),  # 5003 states, 20 warps, W = 1001
+])
+def test_stream_lm_mode_is_bitwise_plain(dev, num_words, ring, compact, mode):
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.streaming_batch import _advance_compact, _coeffs_of
+    from cs304_tpu_torch.ops.viterbi import lm_tables
+
+    comp = flagship_composite() if num_words == 11 else _composite(num_words)
+    s = comp.num_states
+    b, c, t_max = 6, 8, 40
+    coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                       device=dev)
+    pair = _search_pair(comp, mode)
+    lm = lm_tables(pair, comp.word_of_state, comp.uppers, device=dev)
+    lm_p = tuple(x.cpu() for x in lm)
+    alpha = torch.full((b, s), float("-inf"), device=dev)
+    ring_d = torch.full((b, t_max, s), -1, dtype=ring, device=dev)
+    alpha_p, ring_p, coefs_p = alpha.cpu(), ring_d.cpu(), coefs.cpu()
+    rng = np.random.default_rng(num_words + 7)
+    before, before_flat = tst.stream_advance_lm.launches, tst.stream_advance.launches
+    for slot_ids, t, valid in _stream_steps(rng, b, c, t_max, 10, compact):
+        shape = (len(slot_ids), c, s)
+        log_b = (rng.integers(-3, 1, shape) if mode == "ties" else 3 * rng.normal(size=shape))
+        log_b = torch.as_tensor(log_b.astype(np.float32))
+        tst.stream_advance_lm(alpha, ring_d, *(torch.as_tensor(x, device=dev)
+                                               for x in (slot_ids, t, valid)),
+                              log_b.to(dev), coefs, lm)
+        _advance_compact(alpha_p, ring_p, slot_ids, t, valid, log_b, coefs_p[6],
+                         coefs_p[4] > 0, coeffs=_coeffs_of(coefs_p, comp.penalty, lm_p))
+        torch.cuda.synchronize()
+        assert torch.equal(alpha.cpu(), alpha_p)
+        assert torch.equal(torch.signbit(alpha.cpu()), torch.signbit(alpha_p))
+        assert torch.equal(ring_d.cpu(), ring_p)
+    assert torch.isfinite(alpha_p).any(dim=1).float().mean().item() >= 0.5
+    assert tst.stream_advance_lm.launches == before + 10
+    assert tst.stream_advance.launches == before_flat
+
+
+def test_search_decoders_launch_their_modes_not_the_plain_trellis(dev, monkeypatch):
+    from cs304_tpu_torch.data.batching import make_signals
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.ops.lm import train_word_bigram
+
+    signals = list(make_signals(8, 1.5, seed=12))
+    rng = np.random.default_rng(5)
+    digits = [lab for lab in flagship_composite().labels if lab != "S"]
+    bigram = train_word_bigram(
+        ["".join(rng.choice(digits, size=int(rng.integers(1, 8)))) for _ in range(300)],
+        flagship_composite().labels)
+    cases = (({"bigram": bigram, "lm_weight": 2.0}, tsf.scanfree_decode_lm),
+             ({"beam": 50.0}, tsf.scanfree_decode_beam),
+             ({"bigram": bigram, "beam": 80.0}, tsf.scanfree_decode_lm))
+    want = [dm.ContinuousDecoder(flagship_models(), device="cpu", **kw)
+            .predict_signal_batch(signals) for kw, _c in cases]
+
+    def plain_on_card(*args, **kwargs):
+        raise AssertionError("the plain trellis ran on the card")
+
+    monkeypatch.setattr(dm, "viterbi_composite_batch_fast", plain_on_card)
+    monkeypatch.setattr(tsf, "_plain_search", plain_on_card)
+    for (kw, counter), texts in zip(cases, want):
+        dec = dm.ContinuousDecoder(flagship_models(), device="cuda", **kw)
+        assert dec.backend == "scanfree"
+        before = counter.launches
+        assert dec.predict_signal_batch(signals) == texts
+        assert counter.launches > before

@@ -117,10 +117,23 @@ def test_resolve_device_cuda_raises_without_card():
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("kwargs", [{"beam": 50.0}, {"bigram": object()}])
+@pytest.mark.parametrize("kwargs", [{"beam": 50.0}, {"bigram": "trained"}])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        ContinuousDecoder(flagship_models(), device="cpu", **kwargs)
+    """beam= and bigram= raised before the search slice was ported; now
+    they decode as the JAX decoder does (tests/test_torch_bigram_beam.py
+    holds every backend and the trellis bitwise)."""
+    from cs304_tpu.ops import lm as jlm
+    from cs304_tpu_torch.ops import lm as tlm
+
+    feats = _sampled_features(17, 4)
+    jkw, tkw = dict(kwargs), dict(kwargs)
+    if "bigram" in kwargs:
+        corpus, labels = ["12", "375", "4Z", "9O2", "186Z"], flagship_composite().labels
+        jkw["bigram"] = jlm.train_word_bigram(corpus, labels)
+        tkw["bigram"] = tlm.train_word_bigram(corpus, labels)
+    want = JDecoder(_jax_models(), penalty=-100.0, **jkw).predict_batch(feats)
+    assert ContinuousDecoder(flagship_models(), penalty=-100.0, device="cpu",
+                             **tkw).predict_batch(feats) == want
 
 
 def test_gmm_models_raise():

@@ -63,5 +63,16 @@ def test_lm_weight_without_bigram_matches_jax():
 
 
 def test_bigram_still_raises_with_lm_weight():
-    with pytest.raises(NotImplementedError):
-        ContinuousDecoder(flagship_models(), bigram=object(), lm_weight=0.5, device="cpu")
+    """A bigram with lm_weight raised before the search slice was ported;
+    now it weighs the LM as the JAX decoder does."""
+    from cs304_tpu.ops import lm as jlm
+    from cs304_tpu_torch.ops import lm as tlm
+
+    feats = _sampled_features(9, 6)
+    corpus = ["12", "4Z", "375", "9O2", "186Z", "54321"]
+    labels = sorted(m.label for m in flagship_models())
+    want = JDecoder(_jax_models(), penalty=-100.0, lm_weight=0.5,
+                    bigram=jlm.train_word_bigram(corpus, labels)).predict_batch(feats)
+    dec = ContinuousDecoder(flagship_models(), penalty=-100.0, lm_weight=0.5,
+                            bigram=tlm.train_word_bigram(corpus, labels), device="cpu")
+    assert dec.predict_batch(feats) == want

@@ -4,7 +4,9 @@ A fresh interpreter blocks both (``sys.modules[name] = None`` makes any
 import of them raise), imports every module of the port, runs a tiny CPU
 decode through the raw-audio entry point, a GMM decode and the Baum-Welch
 sentence forward-backward, and feeds two sessions of a ServingSessionPool
-through one utterance each.
+through one utterance each; then the search slice: a bigram + beam decode,
+n-best, posterior confidences, the counted, duration and grammar decodes, a
+lattice rescored with a bigram, and a bigram and a confidences serving pool.
 """
 import os
 import subprocess
@@ -45,6 +47,30 @@ for piece in (quiet(1600), loud, quiet(8000)):
         done.setdefault(s, []).extend(rs)
     pool.partials(sessions)
 assert sorted(done) == sessions and all(len(rs) == 1 for rs in done.values()), done
+from cs304_tpu_torch.ops import (grammar, lattice, lm, nbest, rescore, viterbi_counted,
+                                 viterbi_duration)
+labels = dec.composite.labels
+bg = lm.train_word_bigram(["12", "375", "4Z"], labels)
+feats = [rng.normal(size=(40, 39)).astype(np.float32) for _ in range(2)]
+sdec = ContinuousDecoder(flagship_models(), bigram=bg, beam=80.0, device="cpu")
+assert len(sdec.predict_batch(feats)) == 2
+assert dec.predict_nbest(feats[0], n=2)
+assert len(dec.predict_batch_with_confidence(feats)) == 2
+for texts in (dec.predict_batch_counted(feats, 2), dec.predict_batch_duration(feats, 2),
+              dec.predict_batch_grammar(feats, grammar.WordDFA.exact_count(2, labels))):
+    assert len(texts) == 2
+lat = lattice.forward_lattice(dec.composite, feats[0], beam=1e4, device="cpu")
+assert rescore.lattice_rescore(dec.composite, lat, features=feats[0], bigram=bg,
+                               device="cpu")[1] is not None
+lm_pool = ServingSessionPool(flagship_models(), num_slots=2, max_frames=256, bigram=bg,
+                             device="cpu")
+conf_pool = ServingSessionPool(flagship_models(), num_slots=2, max_frames=256,
+                               confidences=True, device="cpu")
+for p in (lm_pool, conf_pool):
+    s = p.open()
+    got = [r for piece in (quiet(1600), loud, quiet(8000)) for r in p.feed({s: piece}).get(s, [])]
+    assert len(got) == 1, got
+assert got[0].confidence is not None
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "cs304_tpu.")))
                 and sys.modules[m] is not None)

@@ -113,10 +113,20 @@ def test_partials_off_and_exact_match_jax(corpus):
 
 
 def test_unported_options_and_no_card_raise(monkeypatch):
-    for kw, item in (({"confidences": True}, "19"), ({"bigram": object()}, "19"),
-                     ({"mesh": object()}, "18")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            ServingSessionPool(MODELS, num_slots=2, device="cpu", **kw)
+    # mesh= still raises (item 18); confidences=True and bigram= raised
+    # before the search slice and now serve (test_torch_serving_search.py
+    # holds them against JAX's pool), but not together, as in JAX.
+    with pytest.raises(NotImplementedError, match="item 18"):
+        ServingSessionPool(MODELS, num_slots=2, device="cpu", mesh=object())
+    from cs304_tpu_torch.ops.lm import train_word_bigram
+
+    bigram = train_word_bigram(["12", "37"], sorted(m.label for m in MODELS))
+    for kw in ({"confidences": True}, {"bigram": bigram}):
+        pool = ServingSessionPool(MODELS, num_slots=2, device="cpu", **kw)
+        pool.close(pool.open())
+    with pytest.raises(ValueError, match="cannot combine"):
+        ServingSessionPool(MODELS, num_slots=2, device="cpu", confidences=True,
+                           bigram=bigram)
     with pytest.raises(ValueError, match="partials"):
         ServingSessionPool(MODELS, partials="sometimes", device="cpu")
     pool = ServingSessionPool(MODELS, num_slots=2, device="cpu")

@@ -316,11 +316,31 @@ def test_sparse_auto_picks_per_step_and_quad_emissions_match_jax():
 
 
 def test_unported_options_raise():
+    """mesh= still raises (item 18); bigram= raised before the search slice
+    was ported and now streams as the JAX pool does (its banded LM step;
+    tests/test_torch_serving_search.py holds the rest)."""
+    from cs304_tpu.ops import lm as jlm
+    from cs304_tpu_torch.ops import lm as tlm
+
     models = _models()
     comp = stack_word_models(models, -5.0)
-    for kw in ({"mesh": object()}, {"bigram": object()}):
-        with pytest.raises(NotImplementedError, match="item 1[89]"):
-            tsb.BatchedStreamingComposite(comp, num_slots=2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tsb.BatchedStreamingComposite(comp, num_slots=2, device="cpu", mesh=object())
+    corpus = ["12", "21", "1", "22S1"]
+    jpool, tpool = (jsb.BatchedStreamingComposite.from_models(
+        _jax_models(models), penalty=-5.0, num_slots=2, chunk_size=8, max_frames=64,
+        bigram=jlm.train_word_bigram(corpus, comp.labels), lm_weight=2.0),
+        tsb.BatchedStreamingComposite.from_models(
+            models, penalty=-5.0, num_slots=2, chunk_size=8, max_frames=64,
+            bigram=tlm.train_word_bigram(corpus, comp.labels), lm_weight=2.0,
+            device="cpu"))
+    assert tpool.step_impl == jpool.step_impl == "banded"
+    feats = _utterances(models, 1, np.random.default_rng(4))[0][:16]
+    js, ts = jpool.start(), tpool.start()
+    for lo in range(0, 16, 8):
+        jpool.step({js: feats[lo: lo + 8]})
+        tpool.step({ts: feats[lo: lo + 8]})
+    _same_results(jpool.finalize([js]), tpool.finalize([ts]))
     # GMM models and gmm_params stream (they raised before GMMs were
     # ported): K = 1 GMMs give the single-Gaussian pool's texts and scores
     # (tests/test_torch_gmm_decode.py holds K = 2 pools against JAX's).
@@ -344,6 +364,15 @@ def test_unported_options_raise():
     for score, text in results[1:]:
         assert text == results[0][1]
         np.testing.assert_allclose(score, results[0][0], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tsb._banded_coeffs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
-                           -5.0, pair_penalty=np.zeros((3, 3), np.float32))
+    # A pair penalty (it raised before the search slice) gives the JAX
+    # coefficients' LM tables.
+    pair = np.arange(9, dtype=np.float32).reshape(3, 3) - 12.0
+    got = tsb._banded_coeffs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                             -5.0, pair_penalty=pair, word_of_state=comp.word_of_state,
+                             uppers=comp.uppers)
+    want = jsb._banded_coeffs(jnp.asarray(comp.log_a), jnp.asarray(comp.lower_of_state),
+                              jnp.asarray(comp.is_entry), jnp.asarray(comp.is_exit), -5.0,
+                              pair_penalty=pair, word_of_state=comp.word_of_state,
+                              uppers=comp.uppers)
+    for g, w in zip(got[:4] + got[6], want[:4] + want[6]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

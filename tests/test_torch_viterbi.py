@@ -146,13 +146,27 @@ def test_single_utterance_backtrace_matches_batch():
 
 
 def test_unported_options_raise():
+    """beam= and pair_penalty= raised before the search slice was ported;
+    now they give the JAX fast step's scores and paths bitwise
+    (tests/test_torch_bigram_beam.py holds the rest)."""
     comp = _composite(2, (5,))
-    args = (torch.zeros(1, 4, comp.num_states), *_topology(comp)[:4], -1.0,
-            torch.tensor([4]))
-    with pytest.raises(NotImplementedError):
-        tv.viterbi_composite_batch_fast(*args, beam=10.0)
-    with pytest.raises(NotImplementedError):
-        tv.viterbi_composite_batch_fast(*args, pair_penalty=np.zeros((2, 2)))
+    rng = np.random.default_rng(6)
+    log_b = (rng.normal(size=(3, 12, comp.num_states)) * 3).astype(np.float32)
+    lengths = np.array([12, 7, 1], np.int32)
+    log_a, lower, entry, exit_, pen = _topology(comp)
+    pair = np.array([[-3.0, -9.0], [0.0, -1.0]], np.float32)
+    for kw in ({"beam": 10.0}, {"pair_penalty": pair}):
+        jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+        ws, wp = j_fast(jnp.asarray(log_b), jnp.asarray(log_a), jnp.asarray(lower),
+                        jnp.asarray(entry), jnp.asarray(exit_), jnp.float32(pen),
+                        jnp.asarray(lengths), word_of_state=jnp.asarray(comp.word_of_state),
+                        uppers=jnp.asarray(comp.uppers), **jkw)
+        gs, gp = tv.viterbi_composite_batch_fast(
+            torch.as_tensor(log_b), log_a, lower, entry, exit_, float(pen),
+            torch.as_tensor(lengths), word_of_state=comp.word_of_state,
+            uppers=comp.uppers, **kw)
+        np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
 
 
 def test_trellis_wrappers_cpu_dispatch_is_plain():

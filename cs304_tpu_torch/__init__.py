@@ -1,14 +1,90 @@
 """PyTorch + CUDA port of cs304_tpu for one NVIDIA H100.
 
 The batched continuous decoder (raw audio -> 39-dim MFCC -> full-covariance
-Gaussian emissions -> composite Viterbi -> word labels) runs on tensors; its
-three kernels (quadratic-form emissions, scan-free trellis forward and
-backtrace) are hand-written CUDA C++ under ``csrc/``, built with nvcc at first
-use. CPU tensors take each kernel's plain PyTorch version.
+Gaussian emissions -> composite Viterbi -> word labels), online serving,
+embedded Viterbi and Baum-Welch training, GMMs and the decoder's searches
+run on tensors. Every kernel the JAX package wrote in Pallas, and the
+trellis scans it left to XLA on the hot paths, is hand-written CUDA C++
+under ``csrc/`` (the emission kernels, the scan-free team kernel's decode,
+stream, sentence and search modes, the dense trellis, the forward-backward
+and its E-step), built with nvcc at first use. CPU tensors take each
+kernel's plain PyTorch version.
 
 This package imports neither ``jax`` nor ``cs304_tpu``; the JAX package is
-the reference it is tested against.
+the reference it is tested against. Its top-level names, as the JAX
+package's, resolve lazily (PEP 562): those whose modules are ported.
 """
+import importlib as _importlib
+
 from .device import fp32_exact, resolve_device
 
-__all__ = ["fp32_exact", "resolve_device"]
+# Public name -> defining submodule, resolved on first access.
+_EXPORTS = {
+    "MFCCConfig": ".ops.mfcc",
+    "mfcc_features": ".ops.mfcc",
+    "mfcc_batch": ".ops.mfcc",
+    "GaussianParams": ".ops.gaussian",
+    "gaussian_log_pdf": ".ops.gaussian",
+    "make_gaussian_params": ".ops.gaussian",
+    "viterbi_banded": ".ops.viterbi",
+    "viterbi_composite": ".ops.viterbi",
+    "WordHMM": ".models.hmm",
+    "CompositeHMM": ".models.hmm",
+    "stack_word_models": ".models.hmm",
+    "train_word_hmm": ".models.train_kmeans",
+    "SegmentalKMeansConfig": ".models.train_kmeans",
+    "ContinuousDecoder": ".models.decoder",
+    "WordDFA": ".ops.grammar",
+    "BatchedStreamingComposite": ".ops.streaming_batch",
+    "ServingSessionPool": ".serving",
+    "UtteranceResult": ".serving",
+    "ContinuousTrainer": ".models.train_continuous",
+    "insert_silence": ".models.train_continuous",
+    "TIDigits": ".data.ti_digits",
+    "DataLoader": ".data.ti_digits",
+    "TI_DIGITS_LABELS": ".data.ti_digits",
+    "SyntheticTIDigits": ".data.synthetic",
+    "pad_batch": ".data.batching",
+    "SignalSeparation": ".audio.endpointing",
+    "Segmentation": ".audio.capture",
+    "forward_backward": ".ops.forward_backward",
+    "forward_log_likelihood": ".ops.forward_backward",
+    "GMMWordHMM": ".models.gmm_hmm",
+    "train_gmm_hmm": ".models.gmm_hmm",
+    "train_gmm_hmm_baum_welch": ".models.gmm_hmm",
+    "Lattice": ".ops.lattice",
+    "nbest_lattice": ".ops.lattice",
+    "forward_lattice": ".ops.lattice",
+    "word_confidences": ".ops.lattice",
+    "word_confidences_batch": ".ops.lattice",
+    "spot_keyword": ".ops.lattice",
+    "consensus_decode": ".ops.lattice",
+    "viterbi_composite_counted": ".ops.viterbi_counted",
+    "word_occupancy_posteriors": ".ops.lattice",
+    "word_end_log_posteriors": ".ops.lattice",
+    "WordBigram": ".ops.lm",
+    "train_word_bigram": ".ops.lm",
+    "rescore_nbest": ".ops.lm",
+    "GMMContinuousTrainer": ".models.train_continuous_gmm",
+    "GMMContinuousTrainConfig": ".models.train_continuous_gmm",
+    "promote_to_gmm": ".models.train_continuous_gmm",
+    "save_models": ".utils.checkpoint",
+    "load_models": ".utils.checkpoint",
+    "save_model": ".utils.checkpoint",
+    "load_model": ".utils.checkpoint",
+    "sentence_hmm": ".models.hmm",
+    "nbest_decode": ".ops.nbest",
+    "StreamingComposite": ".ops.streaming",
+    "StreamingMFCC": ".ops.streaming_mfcc",
+}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        value = getattr(_importlib.import_module(_EXPORTS[name], __name__), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = sorted([*_EXPORTS, "fp32_exact", "resolve_device"])

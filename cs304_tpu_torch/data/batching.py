@@ -40,6 +40,16 @@ def pad_batch(
     return PaddedBatch(out, lengths)
 
 
+def pad_signals(signals: Sequence[np.ndarray], length_multiple: int = 2048) -> PaddedBatch:
+    """1-D raw-audio variant of pad_batch: (B, L_pad) zero-padded float32."""
+    lengths = np.array([len(s) for s in signals], np.int32)
+    l_pad = round_up(int(lengths.max()), length_multiple)
+    out = np.zeros((len(signals), l_pad), np.float32)
+    for i, s in enumerate(signals):
+        out[i, : len(s)] = s
+    return PaddedBatch(out, lengths)
+
+
 def make_signals(batch: int, seconds: float, seed: int = 7) -> np.ndarray:
     """(batch, seconds * 16 kHz) float32 two-tone clips with noise: the
     headline decode benchmark's synthetic audio."""

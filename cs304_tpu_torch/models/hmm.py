@@ -7,8 +7,8 @@ these arrays where an op needs them, on the device the caller picks.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +24,39 @@ def uniform_forward_log_a(num_states: int) -> np.ndarray:
     return log_a
 
 
+def _features_on(features, device):
+    """(features tensor, its device): a tensor stays where it is; an array
+    goes to ``device`` (the card unless "cpu")."""
+    import torch
+
+    from ..device import resolve_device
+
+    if isinstance(features, torch.Tensor):
+        return features, features.device
+    dev = resolve_device(device)
+    return torch.as_tensor(np.asarray(features, np.float32), device=dev), dev
+
+
+def _emission_params(model, device):
+    """The model's whitening GaussianParams on ``device``, made once per
+    device."""
+    from ..device import resolve_device
+    from ..ops.gaussian import make_gaussian_params
+
+    dev = resolve_device(device)
+    if dev not in model._emission_cache:
+        model._emission_cache[dev] = make_gaussian_params(model.means, model.covariances,
+                                                          device=dev)
+    return model._emission_cache[dev]
+
+
+def _log_likelihoods(model, features, device):
+    from ..ops.gaussian import gaussian_log_pdf
+
+    features, dev = _features_on(features, device)
+    return gaussian_log_pdf(_emission_params(model, dev), features)
+
+
 @dataclass
 class WordHMM:
     """A single left-to-right word model."""
@@ -32,10 +65,35 @@ class WordHMM:
     means: np.ndarray  # (S, D)
     covariances: np.ndarray  # (S, D, D)
     log_a: np.ndarray  # (S, S), -inf for zero-probability transitions
+    _emission_cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_states(self) -> int:
         return self.means.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[1]
+
+    def emission_params(self, device=None):
+        """Whitening GaussianParams of the states, on ``device`` (the card
+        unless "cpu"), made once per device."""
+        return _emission_params(self, device)
+
+    def log_likelihoods(self, features, device=None):
+        """(T, D) -> (T, S) emission log-densities, on the features' device
+        if they are a tensor, else on ``device``."""
+        return _log_likelihoods(self, features, device)
+
+    def predict(self, features, length=None, device=None):
+        """Viterbi score and state path (T,) of one utterance through the
+        word (entry pinned to state 0, score at the last state)."""
+        import torch
+
+        from ..ops.viterbi import viterbi_banded
+
+        log_b = self.log_likelihoods(features, device)
+        return viterbi_banded(log_b, torch.as_tensor(self.log_a, device=log_b.device), length)
 
 
 @dataclass
@@ -71,25 +129,26 @@ class CompositeHMM:
         )
         self._emission_cache = {}  # device -> whitening GaussianParams
 
+    def emission_params(self, device=None):
+        """Whitening GaussianParams of the states, on ``device`` (the card
+        unless "cpu"), made once per device."""
+        return _emission_params(self, device)
+
     def log_likelihoods(self, features, device=None):
         """(..., T, D) features -> (..., T, S) single-Gaussian log-densities
         (the whitening layout), on the features' device if they are a
         tensor, else on ``device`` (the card unless "cpu"). The n-best and
         lattice searches score with it when no log_b is given."""
-        import torch
+        return _log_likelihoods(self, features, device)
 
-        from ..device import resolve_device
-        from ..ops.gaussian import gaussian_log_pdf, make_gaussian_params
+    def viterbi(self, features, length=None, device=None):
+        """One utterance's composite decode: (score, path (T,) int32) of the
+        dense trellis (viterbi_composite) on the whitening emissions."""
+        from ..ops.viterbi import viterbi_composite
 
-        if isinstance(features, torch.Tensor):
-            dev = features.device
-        else:
-            dev = resolve_device(device)
-            features = torch.as_tensor(np.asarray(features, np.float32), device=dev)
-        if dev not in self._emission_cache:
-            self._emission_cache[dev] = make_gaussian_params(self.means, self.covariances,
-                                                             device=dev)
-        return gaussian_log_pdf(self._emission_cache[dev], features)
+        log_b = self.log_likelihoods(features, device)
+        return viterbi_composite(log_b, self.log_a, self.lower_of_state, self.is_entry,
+                                 self.is_exit, self.penalty, length)
 
     def path_to_labels(self, path: np.ndarray, skip_silence: bool = True) -> List[str]:
         """State path -> emitted word labels (host walk): a word is emitted at
@@ -109,6 +168,11 @@ class CompositeHMM:
         if skip_silence and self._silence_word is not None:
             emitted = emitted[emitted != self._silence_word]
         return [self.labels[w] for w in emitted]
+
+    def word_state_range(self, label: str) -> Tuple[int, int]:
+        """[first, last + 1) composite states of the word ``label``."""
+        w = self.labels.index(label)
+        return int(self.lowers[w]), int(self.uppers[w]) + 1
 
 
 def stack_word_models(
@@ -133,6 +197,22 @@ def stack_word_models(
         log_a=log_a,
         penalty=penalty,
     )
+
+
+def sentence_hmm(labels: str, models: Dict[str, WordHMM]) -> CompositeHMM:
+    """The word models concatenated in transcript order (the training-time
+    sentence HMM). Cross-word transitions inside the skip-2 band are free
+    (log 0), as the reference's sparse matrix returns 0 for every pair it
+    never stored; that is what lets alignments flow between words."""
+    composite = stack_word_models([models[lab] for lab in labels])
+    word_of = composite.word_of_state
+    cross = word_of[:, None] != word_of[None, :]
+    s = composite.num_states
+    frm = np.arange(s)[:, None]
+    to = np.arange(s)[None, :]
+    band = (frm <= to) & (frm >= to - 2)
+    composite.log_a = np.where(cross & band, 0.0, composite.log_a).astype(np.float32)
+    return composite
 
 
 def from_numpy_models(labels, means, covariances, log_a, weights=None) -> list:

@@ -94,7 +94,7 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cs304_emission_quad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.cs304_emission_quad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.cs304_emission_quad.restype = i
         lib.cs304_trellis_forward.argtypes = [p, p, f, p, p, p, i, i, i, i, p]
         lib.cs304_trellis_forward.restype = i
@@ -126,8 +126,10 @@ def load():
         lib.cs304_trellis_fb.restype = i
         lib.cs304_trellis_fb_posteriors.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
         lib.cs304_trellis_fb_posteriors.restype = i
-        lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.cs304_emission_split.restype = i
+        lib.cs304_emission_split_stages.argtypes = [i, i, i, i]
+        lib.cs304_emission_split_stages.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p
         _lib = lib

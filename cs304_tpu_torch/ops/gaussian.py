@@ -38,6 +38,14 @@ class GaussianParams(NamedTuple):
     whiten: torch.Tensor
     log_norm: torch.Tensor
 
+    @property
+    def num_states(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[1]
+
 
 class GaussianQuadParams(NamedTuple):
     """neg_half_p (S, D*D) flattened -0.5 P_s, lin (D, S) P_s mu_s as columns,

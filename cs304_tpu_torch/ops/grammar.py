@@ -206,3 +206,16 @@ def viterbi_composite_grammar_batch(
     scores, flat = final.max(dim=1)
     paths = packed_backtrace(bps, flat, lengths, quirk_backtrace) % s
     return scores, paths.to(torch.int32)
+
+
+def viterbi_composite_grammar(
+    log_b, log_a, lower_of_state, is_entry, is_exit, word_of_state,
+    next_state, accept, penalty, length=None, quirk_backtrace: bool = True,
+):
+    """One utterance: log_b (T, S) -> (score, path (T,) int32) of
+    viterbi_composite_grammar_batch on a batch of one."""
+    length = log_b.shape[0] if length is None else int(length)
+    scores, paths = viterbi_composite_grammar_batch(
+        log_b[None], log_a, lower_of_state, is_entry, is_exit, word_of_state,
+        next_state, accept, penalty, [length], quirk_backtrace)
+    return scores[0], paths[0]

@@ -133,6 +133,14 @@ class MFCCConfig:
     # "per_frame" (the reference's), "cmn" or "cmvn" (per utterance, masked).
     normalization: str = "per_frame"
 
+    @property
+    def feature_dim(self) -> int:
+        return 3 * self.n_mfcc
+
+    def num_frames(self, num_samples: int) -> int:
+        """Centered STFT frame count: 1 + len // hop."""
+        return 1 + num_samples // self.hop_length
+
 
 def _constants(cfg: MFCCConfig):
     n_bins = 1 + cfg.n_fft // 2

@@ -111,3 +111,17 @@ def viterbi_composite_counted_batch(
     start = (flat // s + lo) * s + flat % s
     paths = packed_backtrace(bps, start, lengths, quirk_backtrace) % s
     return scores, paths.to(torch.int32)
+
+
+def viterbi_composite_counted(
+    log_b, log_a, lower_of_state, is_entry, is_exit, counted_word_of_state,
+    penalty, n_words: int, length=None, quirk_backtrace: bool = True,
+    n_words_min: int | None = None,
+):
+    """One utterance: log_b (T, S) -> (score, path (T,) int32) of
+    viterbi_composite_counted_batch on a batch of one."""
+    length = log_b.shape[0] if length is None else int(length)
+    scores, paths = viterbi_composite_counted_batch(
+        log_b[None], log_a, lower_of_state, is_entry, is_exit, counted_word_of_state,
+        penalty, n_words, [length], quirk_backtrace, n_words_min)
+    return scores[0], paths[0]

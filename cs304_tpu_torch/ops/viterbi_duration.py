@@ -87,6 +87,19 @@ def viterbi_composite_duration_batch(
     return scores, paths.to(torch.int32)
 
 
+def viterbi_composite_duration(
+    log_b, log_a, lower_of_state, is_entry, is_exit, penalty, min_dur, max_dur,
+    length=None, d_cap: int = 8, quirk_backtrace: bool = True,
+):
+    """One utterance: log_b (T, S) -> (score, path (T,) int32) of
+    viterbi_composite_duration_batch on a batch of one."""
+    length = log_b.shape[0] if length is None else int(length)
+    scores, paths = viterbi_composite_duration_batch(
+        log_b[None], log_a, lower_of_state, is_entry, is_exit, penalty, min_dur, max_dur,
+        [length], d_cap, quirk_backtrace)
+    return scores[0], paths[0]
+
+
 def duration_arrays(composite, min_duration, max_duration=None,
                     constrain_silence: bool = False):
     """Per-state (min_dur, max_dur, d_cap) from scalar-or-dict knobs.

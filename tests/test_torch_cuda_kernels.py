@@ -34,6 +34,8 @@ with the card has no JAX, so run this file without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,7 @@ from cs304_tpu_torch.models.hmm import (
     uniform_forward_log_a,
 )
 from cs304_tpu_torch.models.train_fused import _banded_trellis_batch
+from cs304_tpu_torch.ops.cuda import _build
 from cs304_tpu_torch.ops.cuda import emission as em
 from cs304_tpu_torch.ops.cuda import trellis_banded as tb
 from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
@@ -88,16 +91,31 @@ def _composite(num_words, d=39, seed=0):
     return stack_word_models(models, penalty=-100.0)
 
 
+def _emission_composite(num_words, d):
+    """_composite(num_words, d), or for "SK116" the 116 columns the quad
+    tiers decode a K=2 GMM of the 58-state composite over (each Gaussian
+    twice, means jittered per component)."""
+    if num_words != "SK116":
+        return _composite(num_words, d)
+    comp = _composite(11, d)
+    rng = np.random.default_rng(6)
+    means = np.concatenate([comp.means + 0.1 * rng.normal(size=comp.means.shape)
+                            for _ in range(2)]).astype(np.float32)
+    return SimpleNamespace(num_states=2 * comp.num_states, means=means,
+                           covariances=np.concatenate([comp.covariances] * 2))
+
+
 # num_words, N, D: the flagship, 503 states, small D, N = 1, D = 1, D = 64
-# (the split kernel's narrower wgmma tiles), 5003 states; N = 1000 and 333
-# are off every frame tile.
+# at 58 and at 503 states (the split kernel's widest tiles at the largest
+# D), 5003 states, the K=2 GMM width (S*K = 116); N = 1000 and 333 are off
+# every frame tile.
 EMISSION_CASES = [(11, 1000, 39), (100, 200, 39), (1, 77, 5), (11, 1, 39), (11, 333, 1),
-                  (11, 500, 64), (1000, 64, 39)]
+                  (11, 500, 64), (1000, 64, 39), ("SK116", 1000, 39), (100, 200, 64)]
 
 
 @pytest.mark.parametrize("num_words,n,d", EMISSION_CASES)
 def test_emission_kernel_matches_plain(dev, num_words, n, d):
-    comp = _composite(num_words, d)
+    comp = _emission_composite(num_words, d)
     s = comp.num_states
     s_pad = -(-s // 128) * 128
     frames = torch.randn((n, d), generator=torch.Generator().manual_seed(n)).to(dev)
@@ -327,7 +345,7 @@ def test_decoder_scanfree_matches_fast_backend_on_card(dev):
 @pytest.mark.parametrize("precision", ["high", "default"])
 @pytest.mark.parametrize("num_words,n,d", EMISSION_CASES)
 def test_split_emission_kernel_matches_plain(dev, precision, num_words, n, d):
-    comp = _composite(num_words, d)
+    comp = _emission_composite(num_words, d)
     s = comp.num_states
     s_pad = -(-s // 128) * 128
     gen = torch.Generator().manual_seed(n)
@@ -349,6 +367,36 @@ def test_split_emission_kernel_matches_plain(dev, precision, num_words, n, d):
         a = em.gaussian_log_pdf_fused(*args, s_pad=s_pad, precision=tier)
         b = em.gaussian_log_pdf_fused(*args, s_pad=s_pad, precision=tier, x2_mode="selmm")
         assert torch.equal(a, b)
+
+
+# The operand cases of tests/test_torch_emission_fold.py's
+# test_split_operand_shape: (D, passes, states, state tile).
+SPLIT_OPERAND_CASES = [(39, 3, 50, 64), (39, 1, 116, 128), (64, 3, 503, 256),
+                       (64, 1, 5003, 256), (7, 3, 58, 64)]
+
+
+@pytest.mark.parametrize("d,passes,num_states,n_tile", SPLIT_OPERAND_CASES)
+def test_split_ring_holds_three_stages(dev, d, passes, num_states, n_tile):
+    """The split kernel sizes its B ring from what one block's shared
+    memory holds at the operand's K rows and D: at least the 3 stages its
+    launch needs, at full width (no narrower fallback), and it launches."""
+    s_pad = -(-num_states // 128) * 128
+    gen = torch.Generator().manual_seed(d)
+    nhp = torch.randn((d * d, s_pad), generator=gen)
+    lin = torch.randn((d, s_pad), generator=gen)
+    nhp[:, num_states:] = 0.0
+    lin[:, num_states:] = 0.0
+    tier = "high" if passes == 3 else "default"
+    const = torch.zeros(s_pad, device=dev)
+    folded = em.fold_quad_params(nhp.to(dev), lin.to(dev), const, tier, num_states)
+    assert folded.n_tile == n_tile
+    stages = _build.load().cs304_emission_split_stages(n_tile, d, folded.k_pad, passes)
+    assert 3 <= stages <= 16
+    frames = torch.randn((100, d), generator=gen).to(dev)
+    got = em.emission_split(frames, None, None, lin.to(dev), const, num_states, s_pad, passes,
+                            folded=folded)
+    torch.cuda.synchronize()
+    assert got.shape == (100, s_pad) and bool(torch.isfinite(got).all())
 
 
 # The dense kernel's branch by state count: trans resident in one CTA up to

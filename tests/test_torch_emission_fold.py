@@ -128,22 +128,61 @@ def _unlayout(t, k_pad, n_tile):
     return t.permute(1, 4, 0, 2, 3).reshape(k_pad, tiles * n_tile)
 
 
-def _kernel_emulation(folded, frames, lin, const):
-    """What the kernels compute from fold_quad_params' operand, with the
-    pair table indexing the frame staged with x[D] = 1 and x[D+1] = 0."""
+def _split_values(folded, frames):
+    """The split kernel's A values from its group descriptors: group g's
+    value t is x[i] * x[j0 + t] on the row staged as [x, 1, 0, ...] of
+    split_x_stride(D), or its bf16 rounding / residual by the group's flag,
+    at K row split_row_of(G)[g, t]."""
     n, d = frames.shape
-    staged = torch.cat([frames, torch.ones(n, 1), torch.zeros(n, 1)], 1)
-    i, j = _decode(folded.pairs)
-    a = staged[:, i] * staged[:, j]
-    k_pad = folded.pairs.shape[0]
+    xs = temission.split_x_stride(d)
+    staged = torch.cat([frames, torch.ones(n, 1), torch.zeros(n, xs - d - 1)], 1)
+    desc = folded.pairs.long()
+    i, j0, flag = desc & 0xFF, (desc >> 8) & 0xFF, desc >> 16
+    rows = temission.split_row_of(len(desc))
+    a = torch.zeros(n, folded.k_pad)
+    for t in range(4):
+        v = staged[:, i] * staged[:, j0 + t]
+        r = v.to(torch.bfloat16).float()
+        v = torch.where(flag == temission.GROUP_ROUND, r,
+                        torch.where(flag == temission.GROUP_RESIDUAL, v - r, v))
+        a[:, rows[:, t]] = v
+    return a
+
+
+def _kernel_emulation(folded, frames, lin, const):
+    """What the kernels compute from fold_quad_params' operand: K1 with the
+    pair table indexing the frame staged with x[D] = 1 and x[D+1] = 0, the
+    split kernel with its group descriptors (_split_values)."""
+    n, d = frames.shape
+    k_pad = folded.k_pad
     if folded.precision == "highest":
-        return a @ folded.weights[0][:, : lin.shape[1]]
-    w = [_unlayout(t, k_pad, folded.n_tile).float() for t in folded.weights]
+        staged = torch.cat([frames, torch.ones(n, 1), torch.zeros(n, 1)], 1)
+        i, j = _decode(folded.pairs)
+        return (staged[:, i] * staged[:, j]) @ folded.weights[0][:, : lin.shape[1]]
+    a = _split_values(folded, frames)
+    w = [_unlayout(t, k_pad, folded.n_tile)[:, : lin.shape[1]].float()
+         for t in folded.weights]
     a_hi, a_lo = temission.split_hi_lo(a)
     quad = a_hi.float() @ w[0]
     if folded.precision == "high":
-        return ((quad + a_hi.float() @ w[1]) + a_lo.float() @ w[0]) + frames @ lin + const
+        return ((quad + a_hi.float() @ w[1]) + a_lo.float() @ w[0]) + const
     return quad + const
+
+
+def test_split_thirds_are_exact_and_the_six_products_reach_float32():
+    """split_thirds keeps x's whole mantissa (x == t1 + t2 + t3 exactly),
+    and the "high" tier's six products of thirds reproduce x * l to within
+    a few float32 ulps, as Precision.HIGHEST's do."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor((rng.normal(size=4096) * 10.0 ** rng.integers(-3, 4, 4096))
+                        .astype(np.float32))
+    t = [p.double() for p in temission.split_thirds(x)]
+    assert torch.equal(t[0] + t[1] + t[2], x.double())
+    l = torch.as_tensor(rng.normal(size=4096).astype(np.float32)) * 7
+    u = [p.double() for p in temission.split_thirds(l)]
+    six = t[0] * u[0] + t[0] * u[1] + t[1] * u[0] + t[1] * u[1] + t[2] * u[0] + t[0] * u[2]
+    exact = x.double() * l.double()
+    assert bool(((six - exact).abs() <= 4 * 2.0 ** -24 * exact.abs()).all())
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
@@ -156,7 +195,7 @@ def test_kernel_operand_reproduces_plain_version(precision, name, s, d, n, s_pad
     means, covs, frames = _case(name, s, d, n)
     nhp, lin, const = temission.pack_quad_params(means, covs, s_pad)
     folded = temission.fold_quad_params(nhp, lin, const, precision, s)
-    assert folded.pairs.shape[0] % temission.K_STEP == 0
+    assert folded.k_pad % temission.K_STEP == 0
     x = torch.as_tensor(frames)
     temission.fp32_exact()
     got = _kernel_emulation(folded, x, lin, const)
@@ -169,22 +208,60 @@ def test_kernel_operand_reproduces_plain_version(precision, name, s, d, n, s_pad
     torch.testing.assert_close(got[:, :s], want[:, :s], rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("d,passes,n_tile", [(39, 3, 64), (39, 1, 64), (64, 3, 16),
-                                             (64, 1, 32), (7, 3, 64)])
-def test_split_operand_fits_shared_memory(d, passes, n_tile):
-    """The widest wgmma tile whose resident operand fits one block."""
-    k = d * (d + 1) // 2 + (d if passes == 1 else 0)
-    k_pad = -(-k // 16) * 16
-    rng = np.random.default_rng(0)
-    nhp = torch.as_tensor(rng.normal(size=(d * d, 64)).astype(np.float32))
-    lin = torch.as_tensor(rng.normal(size=(d, 64)).astype(np.float32))
+# (D, passes, states, state tile): the split kernel's operand cases, here
+# and in tests/test_torch_cuda_kernels.py (its ring's stages, on the card).
+SPLIT_OPERAND_CASES = [(39, 3, 50, 64), (39, 1, 116, 128), (64, 3, 503, 256),
+                       (64, 1, 5003, 256), (7, 3, 58, 64)]
+
+
+@pytest.mark.parametrize("d,passes,num_states,n_tile", SPLIT_OPERAND_CASES)
+def test_split_operand_shape(d, passes, num_states, n_tile):
+    """The split kernel's streamed operand: the state tile covering up to
+    256 states, every pair (i <= j) in exactly one group row with its folded
+    weight and every other pair row weighted zero, K padded to whole ring
+    stages, each stage's SPLIT_KC rows of a tile one contiguous chunk in the
+    core-matrix layout. That the ring holds at least 3 stages at full width
+    (no narrower fallback: D = 64 runs at 256 states too) is the kernel's
+    own decision, checked on the card (test_split_ring_holds_three_stages)."""
+    s_pad = -(-num_states // 128) * 128
+    rng = np.random.default_rng(d)
+    nhp = torch.as_tensor(rng.normal(size=(d * d, s_pad)).astype(np.float32))
+    lin = torch.as_tensor(rng.normal(size=(d, s_pad)).astype(np.float32))
+    nhp[:, num_states:] = 0.0
+    lin[:, num_states:] = 0.0
     tier = "high" if passes == 3 else "default"
-    folded = temission.fold_quad_params(nhp, lin, torch.zeros(64), tier, 50)
-    assert folded.n_tile == n_tile and folded.pairs.shape[0] == k_pad
-    assert temission.split_smem_bytes(k_pad, d, n_tile, passes) <= temission.SMEM_MAX
-    wider = [t for t in temission.SPLIT_N_TILES if t > n_tile]
-    assert all(temission.split_smem_bytes(k_pad, d, t, passes) > temission.SMEM_MAX
-               for t in wider)
+    folded = temission.fold_quad_params(nhp, lin, torch.zeros(s_pad), tier, num_states)
+    assert folded.n_tile == temission.split_n_tile(num_states) == n_tile
+    groups, k_lin = temission.split_groups(d, passes)
+    k_pad = 4 * len(groups)
+    assert folded.k_pad == k_pad and k_pad % temission.SPLIT_KC == 0
+    assert (folded.k_lin, folded.pairs.dtype, folded.pairs.shape[0]) == (k_lin, torch.int32,
+                                                                          k_pad // 4)
+    # Each pair's row, found from the descriptors, holds its folded weight.
+    rows = temission.split_row_of(len(groups))
+    sym = temission.fold_nhp(nhp, d)
+    w_hi, _w_lo, _g, _k = temission.split_weights(sym, lin, passes)
+    seen = set()
+    for g, (i, j0, flag) in enumerate(groups.tolist()):
+        for t in range(4):
+            if i < d and i <= j0 + t < d:
+                seen.add((i, j0 + t))
+                p = temission.sym_pairs(d)
+                idx = int(((p[0] == i) & (p[1] == j0 + t)).nonzero())
+                assert torch.equal(w_hi[rows[g, t]], sym[idx].to(torch.bfloat16))
+            elif i < d or i > d or j0 + t >= d:
+                assert not w_hi[rows[g, t]].any()
+    assert len(seen) == d * (d + 1) // 2
+    cols = -(-s_pad // n_tile) * n_tile
+    assert len(folded.weights) == (2 if passes == 3 else 1)
+    assert all(tuple(w.shape) == (cols // n_tile, k_pad * n_tile) for w in folded.weights)
+    padded = torch.nn.functional.pad(w_hi, (0, cols - s_pad))
+    kc = temission.SPLIT_KC
+    for t in range(cols // n_tile):
+        for c in (0, k_pad // kc - 1):
+            chunk = folded.weights[0][t, c * kc * n_tile:(c + 1) * kc * n_tile]
+            assert torch.equal(_unlayout(chunk[None], kc, n_tile),
+                               padded[c * kc:(c + 1) * kc, t * n_tile:(t + 1) * n_tile])
 
 
 def test_decoder_folds_only_on_the_card():

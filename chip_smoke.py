@@ -163,9 +163,39 @@ Phases (each prints its own numbers; any failure exits non-zero):
               final's |log Z|, capped at 4e-3; |log Z| and the ratio logged),
               the LM stream mode launched; each new mode's time, plain time
               and bound
+ 23. words    the banded word trellis (ops/viterbi.viterbi_banded_batch)
+              on K3 bitwise its plain version (scores on every row, paths
+              on every finite row), with the quirk (one decode launch) and
+              without (the backpointer mode + K2-bt): the k-means shape
+              (12 models x 64 utterances at S=5, per-row log_a), S=59 at
+              T=1 and with length-0 rows, S=1 and 2; phase 9's batched
+              k-means boot timed on K3 and on the plain trellis (a note);
+              ModelCollection on the flagship's 11 digit models over phase
+              5's 512 clips (5,632 K3 rows in one launch): labels equal to
+              the CPU port's, batch ms
+ 24. align    ForcedAligner on phase 9's models, card against CPU: segments
+              equal, scores within 1e-4 relative, one K3 launch a
+              transcript; one fused=False iteration (Viterbi, Baum-Welch) at
+              phase 8's corpus against the fused one (atol 2e-5 / 5e-5,
+              rtol 1e-4); map_adapt means card against CPU within 1e-4;
+              viterbi_composite_assoc against the sequential dense decode
+              (rtol 1e-4 / atol 1e-3, paths equal)
+ 25. DTW      the column kernel (csrc/dtw.cu) bitwise dtw_columns_plain with
+              and without pruning: the 11 digits' templates from phase 9's
+              corpus (4 takes each, H ~ 1,100) against a digit and against
+              the longest pipeline sentence (L ~ 200), 8,000 rows (8 a
+              thread), L = 1, one-frame words;
+              DTWRecognizer.search on the card equal to the CPU port's, its
+              launches counted (the main path); device time, plain time and
+              bound
+ 26. MFCC     precision "high" and "default" features within their stated
+              bounds of "highest" on phase 5's clips (high max 1e-2;
+              default mean 0.25, max 2.0); transcripts against highest's
+              (the flagship on the 512 clips, phase 9's models on its
+              evaluation clips, with accuracy): "high" must agree 1.0
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (fourteen kernels, each with
+The line before the last is the kernels' JSON record (fifteen kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -195,6 +225,10 @@ ACC_BAR = 0.85  # tests/test_continuous_pipeline.py, training speakers
 # float32 ulps of the final's |log Z| (phase 22), never wider than the
 # CONF_LOG_CAP the gate had before |log Z| was measured.
 CONF_ULPS, CONF_LOG_CAP = 4, 4e-3
+# log of float32's smallest normal number (1.18e-38) and of its smallest
+# subnormal (2^-149 = 1.4e-45).
+LOG_FLT_MIN = float(np.log(np.finfo(np.float32).tiny))
+LOG_SUBNORMAL_MIN = -149 * float(np.log(2.0))
 
 
 def log(phase, **kw):
@@ -603,6 +637,7 @@ def main():
         eager_ms=eager["chain"], decode_kernel_ms=timings["trellis_decode"][0])
 
     decode = {"comp": comp, "signals": signals, "sig_dev": sig_dev, "ns_dev": ns_dev,
+              "feat_list": feat_list,
               "frames": frames, "packed": packed, "lb3": lb3, "n_frames": n_frames,
               "rand_len": rand_len, "texts_sig": texts_sig, "dec": dec,
               "emission_cases": (("bench-shape", comp, feats_bench.reshape(-1, d)),
@@ -615,6 +650,7 @@ def main():
     serving_phase(dev, pipe)
     bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks)
     search_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
+    slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -918,7 +954,7 @@ def train_phases(dev, launches, timings, errs):
     errs["trellis_banded_decode"] = errs["trellis_banded_forward"] = k3_err
     return {"models": trainer.models(), "eval": pipe_eval, "k3_args": k3_args,
             "corpus": synth, "n_states": train_n_states, "boot": boot, "labeled": labeled,
-            "pipe_labeled": pipe_labeled}
+            "pipe_labeled": pipe_labeled, "digit_feats": feats, "seconds_boot": t_boot}
 
 
 def bound(bytes_moved, ops=()):
@@ -2848,6 +2884,404 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     log("phase", which="22 search", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+def word_trellis_problem(gen, b, t, s, log_a=None, zero_length=False):
+    """A banded word trellis input on the generator's device: log_b
+    (B, T, S), log_a (B, S, S) per row (random, -inf sprinkled on the band)
+    unless given, lengths with length-1 and (optionally) length-0 rows."""
+    dev = gen.device
+    if log_a is None:
+        log_a = torch.log(torch.rand((b, s, s), generator=gen, device=dev))
+        log_a[torch.rand((b, s, s), generator=gen, device=dev) < 0.05] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[1] = 1
+    if zero_length:
+        lengths[2::5] = 0
+    return 2 * torch.randn((b, t, s), generator=gen, device=dev), log_a, lengths
+
+
+def dtw_bound(h, n_frames, w):
+    """bound() of one DTW column run: the (L, H) distances and the two flag
+    rows read, end_rows read and the W costs written; per cell three mins,
+    an add and a compare at PEAK_FP32_ALU."""
+    return bound(4 * h * n_frames + 2 * h + 8 * w, [(5 * h * n_frames, PEAK_FP32_ALU)])
+
+
+def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
+    """Phases 23-26 (slice 4b): the banded word trellis on K3 and the
+    isolated-word classifier; forced alignment, the legacy trainer and MAP
+    adaptation; DTW and its column kernel; the MFCC precision tiers."""
+    from cs304_tpu_torch.models import train_kmeans as tk
+    from cs304_tpu_torch.models.adapt import map_adapt
+    from cs304_tpu_torch.models.align import ForcedAligner
+    from cs304_tpu_torch.models.collection import ModelCollection
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+    from cs304_tpu_torch.models.hmm import (
+        flagship_composite,
+        flagship_models,
+        uniform_forward_log_a,
+    )
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainConfig, ContinuousTrainer
+    from cs304_tpu_torch.models.train_kmeans import SegmentalKMeansConfig
+    from cs304_tpu_torch.ops import viterbi as vt
+    from cs304_tpu_torch.ops.cuda import dtw as cdtw
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.dtw import DTWRecognizer, dtw_columns_plain, pairwise_euclidean
+    from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf
+    from cs304_tpu_torch.ops.mfcc import MFCCConfig, mfcc_batch, mfcc_features_batch
+    from cs304_tpu_torch.ops.viterbi_assoc import viterbi_composite_assoc
+
+    t_phase = time.perf_counter()
+    k3 = (tb.banded_decode, tb.banded_forward, tsf.trellis_backtrace)
+
+    def k3_counts():
+        return {k.__name__: k.launches for k in k3}
+
+    def k3_delta(before):
+        return {k.__name__: k.launches - before[k.__name__] for k in k3}
+
+    # -- 23. the banded word trellis on K3, and the isolated-word classifier --
+    gen = torch.Generator(device=dev).manual_seed(23)
+    boot = pipe["digit_feats"]
+    km_cfg = SegmentalKMeansConfig(num_states=5, max_iterations=15, length_multiple=32)
+    # The k-means boot's rows: 12 five-state models (phase 9's 11 digits and
+    # a uniform one) x 64 utterances, a log_a a model.
+    km_log_a = torch.as_tensor(np.stack(
+        [pipe["models"][lab].log_a for lab in sorted(boot)] + [uniform_forward_log_a(5)]),
+        device=dev)
+    cases = {
+        "kmeans-12x64": word_trellis_problem(
+            gen, 12 * 64, 96, 5, km_log_a.repeat_interleave(64, dim=0)),
+        "59-t1-length-0": word_trellis_problem(gen, 17, 1, 59, zero_length=True),
+        "59-length-0": word_trellis_problem(gen, 64, 80, 59, zero_length=True),
+        "s1": word_trellis_problem(gen, 9, 20, 1),
+        "s2": word_trellis_problem(gen, 9, 20, 2, zero_length=True),
+    }
+    word_err = 0.0
+    for name, (log_b, log_a, lengths) in cases.items():
+        for quirk in (True, False):
+            want_s, want_p = vt.viterbi_banded_batch_plain(log_b, log_a, lengths, quirk)
+            before = k3_counts()
+            got_s, got_p = vt.viterbi_banded_batch(log_b, log_a, lengths, quirk)
+            torch.cuda.synchronize()
+            rose = k3_delta(before)
+            finite = torch.isfinite(want_s)
+            same = {"scores": torch.equal(got_s, want_s),
+                    "finite_paths": torch.equal(got_p[finite], want_p[finite])}
+            b_k, t_k, s_k = log_b.shape
+            reachable = t_k >= (s_k + 1) // 2
+            log("word-trellis", case=name, quirk=quirk, B=b_k, T=t_k, S=s_k,
+                finite_rows=int(finite.sum()), equal=json.dumps(same),
+                launches=json.dumps(rose))
+            if not all(same.values()):
+                raise SystemExit(f"the word trellis on K3 disagrees with its plain "
+                                 f"version ({name}, quirk={quirk})")
+            if reachable and int(finite.sum()) < b_k // 3:
+                raise SystemExit(f"word-trellis case {name} has too few finite rows")
+            if rose != ({"banded_decode": 1, "banded_forward": 0, "trellis_backtrace": 0}
+                        if quirk else
+                        {"banded_decode": 0, "banded_forward": 1, "trellis_backtrace": 1}):
+                raise SystemExit(f"the word trellis launched {rose} ({name}, quirk={quirk})")
+
+    # Phase 9's batched k-means boot through K3, beside the parent's plain
+    # trellis (dense_forward on the card): wall time, a note, not a claim.
+    def boot_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tk.train_digit_models(boot, km_cfg, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    before = k3_counts()
+    boot_k3, sec_k3 = boot_run()
+    boot_launches = k3_delta(before)
+    tk.viterbi_banded_batch = vt.viterbi_banded_batch_plain
+    try:
+        boot_plain, sec_plain = boot_run()
+    finally:
+        tk.viterbi_banded_batch = vt.viterbi_banded_batch
+    boot_same = all(np.array_equal(getattr(boot_k3[k], n), getattr(boot_plain[k], n))
+                    for k in boot_k3 for n in ("means", "covariances", "log_a"))
+    log("kmeans-boot", seconds_k3=f"{sec_k3:.3f}", seconds_plain_trellis=f"{sec_plain:.3f}",
+        phase9_seconds_boot_with_silence=f"{pipe['seconds_boot']:.3f}",
+        launches=json.dumps(boot_launches), models_equal=boot_same)
+    if boot_launches["banded_decode"] == 0:
+        raise SystemExit("the k-means boot never launched K3")
+
+    # ModelCollection: the flagship's 11 digit models over phase 5's clips.
+    digits = [m for m in flagship_models() if m.label != "S"]
+    clips = decode["feat_list"]
+    coll = ModelCollection.from_models(digits, device=dev)
+    before = k3_counts()
+    labels_card = coll.predict_batch(clips)
+    torch.cuda.synchronize()
+    coll_launches = k3_delta(before)
+    scores_card = coll.score_batch(clips)
+    coll_cpu = ModelCollection.from_models(digits, device="cpu")
+    labels_cpu = coll_cpu.predict_batch(clips)
+    scores_cpu = coll_cpu.score_batch(clips)
+    score_err = float(np.max(np.abs(scores_card - scores_cpu)))
+    coll_ms = window(lambda: [torch.as_tensor(coll.score_batch(clips))])
+    log("collection", clips=len(clips), models=coll.num_models,
+        k3_rows=len(clips) * coll.num_models, launches=json.dumps(coll_launches),
+        labels_equal_cpu=labels_card == labels_cpu, max_abs_score_err=score_err,
+        batch_ms=coll_ms, distinct_labels=len(set(labels_card)))
+    if labels_card != labels_cpu or coll_launches["banded_decode"] != 1:
+        raise SystemExit(f"ModelCollection on the card differs from the CPU port's or "
+                         f"did not launch K3 once: {coll_launches}")
+
+    # -- 24. alignment, the legacy trainer, MAP adaptation, the assoc decode --
+    models = pipe["models"]
+    aligner = {d: ForcedAligner(models, device=d) for d in (dev, "cpu")}
+    n_rows = n_finite = 0
+    align_err = 0.0
+    before = k3_counts()
+    for transcript, feats in pipe["pipe_labeled"].items():
+        card = aligner[dev].align_batch(feats, transcript)
+        cpu = aligner["cpu"].align_batch(feats, transcript)
+        for a, c in zip(card, cpu):
+            n_rows += 1
+            if np.isfinite(a.score) != np.isfinite(c.score):
+                raise SystemExit(f"ForcedAligner: finite on one side only ({transcript})")
+            if not np.isfinite(c.score):
+                continue
+            n_finite += 1
+            rel = abs(a.score - c.score) / max(1.0, abs(c.score))
+            align_err = max(align_err, rel)
+            if rel > 1e-4 or a.words != c.words:
+                raise SystemExit(f"ForcedAligner on the card differs from the CPU port's "
+                                 f"({transcript}: rel score err {rel})")
+    align_launches = k3_delta(before)
+    log("align", utterances=n_rows, finite=n_finite, max_rel_score_err=align_err,
+        segments_equal=True, launches=json.dumps(align_launches))
+    if align_launches["banded_decode"] != len(pipe["pipe_labeled"]) or n_finite < n_rows // 2:
+        raise SystemExit(f"alignment launched {align_launches} or has too few finite rows")
+
+    # One legacy (fused=False) iteration at train_bench's corpus, Viterbi and
+    # Baum-Welch, against the fused iteration (tests/test_fused_training.py:
+    # atol 2e-5 / rtol 1e-4; Baum-Welch atol 5e-5, as JAX holds its pair).
+    for update, tol in (("viterbi", 2e-5), ("baum_welch", 5e-5)):
+        trained, secs = {}, {}
+        for fused in (True, False):
+            cfg = ContinuousTrainConfig(max_iterations=1, silence_bootstrap=False,
+                                        cov_reg=0.1, update=update, fused=fused)
+            tr = ContinuousTrainer(dict(pipe["boot"]), cfg, device=dev)
+            before = k3_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(pipe["labeled"])
+            torch.cuda.synchronize()
+            secs[fused] = time.perf_counter() - t0
+            trained[fused] = (tr, k3_delta(before))
+        worst, ok = 0.0, True
+        for n in ("means_g", "covs_g", "log_a_g"):
+            x, y = getattr(trained[False][0], n), getattr(trained[True][0], n)
+            # Transition probabilities below float32's smallest normal: the
+            # fused M-step divides in float32 (train_fused.py's
+            # trans / row_sums), so such a probability is a subnormal with
+            # fewer significant bits the smaller it is, or 0 (log -inf)
+            # below the smallest subnormal; the legacy M-step divides in
+            # float64 and keeps it. So -inf on one side passes only against
+            # a probability float32 cannot hold (< 2^-149), and entries that
+            # are finite and subnormal in BOTH trainers are left out of the
+            # log-space comparison.
+            is_a = n == "log_a_g"
+            fx, fy = np.isfinite(x), np.isfinite(y)
+            one_side = fx != fy
+            under = one_side & (np.where(fx, x, y) < LOG_SUBNORMAL_MIN) & is_a
+            ok &= not bool((one_side & ~under).any())
+            sub_x, sub_y = (np.isfinite(v) & (v < LOG_FLT_MIN) for v in (x, y))
+            sub = sub_x & sub_y & is_a
+            fin = fx & fy & ~sub
+            ok &= bool(np.allclose(x[fin], y[fin], atol=tol, rtol=1e-4))
+            worst = max(worst, float(np.max(np.abs(x[fin] - y[fin]))))
+        # The witness: how many subnormal transitions each trainer makes, how
+        # far apart the left-out ones are, in log space and as probabilities
+        # in units of float32's smallest subnormal (2^-149), and the largest
+        # probability that is -inf on the other side, in the same units.
+        p_x, p_y = (np.exp(v[sub].astype(np.float64)) for v in (x, y))
+        p_under = np.exp(np.where(fx, x, y)[under].astype(np.float64))
+        log("legacy-train", update=update, params_match_fused=ok, max_abs_diff=worst,
+            subnormal_transitions_legacy=int(sub_x.sum()),
+            subnormal_transitions_fused=int(sub_y.sum()), left_out=int(sub.sum()),
+            left_out_max_abs_log_diff=float(np.max(np.abs(x[sub] - y[sub]), initial=0.0)),
+            left_out_max_prob_diff_in_2e_149=float(
+                np.max(np.abs(p_x - p_y), initial=0.0) / 2.0 ** -149),
+            left_out_min_prob=float(np.min(np.minimum(p_x, p_y), initial=np.inf)),
+            neg_inf_vs_finite=int(one_side.sum()),
+            neg_inf_on_fused_side=int((under & fx).sum()),
+            their_max_prob_in_2e_149=float(np.max(p_under, initial=0.0) / 2.0 ** -149),
+            tol=f"atol {tol} rtol 1e-4", seconds_legacy=f"{secs[False]:.3f}",
+            seconds_fused=f"{secs[True]:.3f}",
+            launches_legacy=json.dumps(trained[False][1]))
+        if not ok:
+            raise SystemExit(f"one legacy {update} iteration differs from the fused one")
+        if update == "viterbi" and trained[False][1]["banded_decode"] != len(pipe["labeled"]):
+            raise SystemExit("the legacy Viterbi pass did not launch K3 once a transcript")
+
+    off = np.zeros(39, np.float32)
+    off[:13] = np.random.default_rng(24).normal(0, 0.8, 13)
+    enroll = {tr: [f + off for f in feats[:3]]
+              for tr, feats in list(pipe["pipe_labeled"].items())[:3]}
+    adapted = {d: map_adapt(models, enroll, tau=10.0, device=d) for d in (dev, "cpu")}
+    adapt_err = max(float(np.max(np.abs(adapted[dev][k].means - adapted["cpu"][k].means)))
+                    for k in models)
+    log("adapt", max_abs_mean_err=adapt_err,
+        moved=not np.allclose(adapted[dev]["1"].means, models["1"].means))
+    if adapt_err > 1e-4:
+        raise SystemExit(f"map_adapt means on the card differ from the CPU port's: {adapt_err}")
+
+    # The associative-scan decode against the sequential dense decode (the
+    # flagship's topology and whitening emissions of 4 of phase 5's clips).
+    flag = flagship_composite()
+    params = flag.emission_params(dev)
+    assoc_ok, assoc_err = True, 0.0
+    for i in range(4):
+        f = torch.as_tensor(clips[i], device=dev)
+        log_b = gaussian_log_pdf(params, f)
+        topo = (flag.log_a, flag.lower_of_state, flag.is_entry, flag.is_exit, flag.penalty)
+        a_s, a_p = viterbi_composite_assoc(log_b, *topo)
+        w_s, w_p = vt.viterbi_composite(log_b, *topo, quirk_backtrace=False)
+        assoc_err = max(assoc_err, abs(float(a_s) - float(w_s)))
+        assoc_ok &= bool(np.isclose(float(a_s), float(w_s), rtol=1e-4, atol=1e-3))
+        assoc_ok &= bool(torch.equal(a_p, w_p))
+    log("assoc", clips=4, T=len(clips[0]), S=flag.num_states, matches=assoc_ok,
+        max_abs_score_err=assoc_err, tol="rtol 1e-4 atol 1e-3, paths equal")
+    if not assoc_ok:
+        raise SystemExit("viterbi_composite_assoc differs from the sequential decode")
+
+    # -- 25. DTW: the column kernel and the recognizer ------------------------
+    # Four takes of each digit as its templates (H ~ 1,100 rows), three
+    # other takes of each as samples, and phase 9's longest sentence as a
+    # long sample (L ~ 200).
+    rng = np.random.default_rng(25)
+    takes = 4
+    templates = [boot[lab][k] for lab in sorted(boot) for k in range(takes)]
+    samples = [(i, f) for i, lab in enumerate(sorted(boot))
+               for f in boot[lab][takes:takes + 3]]
+    rec = DTWRecognizer.from_features(templates, device=dev)
+    h = int(sum(rec.word_lengths))
+    dtw_err = 0.0
+
+    def dtw_check(name, recog, dist_t, factor_list=(4.0, 0.3)):
+        nonlocal dtw_err
+        for pruning in (True, False):
+            for factor in factor_list:
+                got = cdtw.dtw_columns(dist_t, recog._is_first, recog._is_second,
+                                       recog._end_rows, pruning, factor)
+                want = dtw_columns_plain(dist_t, recog._is_first, recog._is_second,
+                                         recog._end_rows, pruning, factor)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                fin = torch.isfinite(want)
+                if fin.any():
+                    dtw_err = max(dtw_err, float((got[fin] - want[fin]).abs().max()))
+                log("DTW", case=name, L=dist_t.shape[0], H=dist_t.shape[1],
+                    rows_a_thread=next(r for r in (1, 2, 4, 8) if r * 1024 >= dist_t.shape[1]),
+                    pruning=pruning, factor=factor, finite_words=int(fin.sum()),
+                    bitwise=same)
+                if not same:
+                    raise SystemExit(f"the DTW kernel differs from its plain version ({name})")
+                if factor == 4.0 and not fin.any():
+                    raise SystemExit(f"DTW case {name} has no finite word")
+
+    longest = max(samples, key=lambda x: len(x[1]))[1]
+    dist_long = pairwise_euclidean(torch.as_tensor(longest, device=dev), rec._templates)
+    dtw_check("digits", rec, dist_long)
+    sentence = max((f for fs in pipe["pipe_labeled"].values() for f in fs), key=len)
+    dist_sentence = pairwise_euclidean(torch.as_tensor(sentence, device=dev), rec._templates)
+    dtw_check("sentence-sample", rec, dist_sentence)
+    wide_sample = torch.as_tensor(rng.normal(size=(150, 39)).astype(np.float32), device=dev)
+    # 4 and 8 rows a thread, and the cap (cdtw.MAX_TEMPLATE_ROWS = 8192).
+    for n_words, word_len in ((20, 200), (32, 256), (40, 200)):
+        wide = DTWRecognizer.from_features(
+            [rng.normal(size=(word_len, 39)).astype(np.float32) for _ in range(n_words)],
+            device=dev)
+        dist_wide = pairwise_euclidean(wide_sample, wide._templates)
+        dtw_check(f"{n_words * word_len}-rows", wide, dist_wide)
+    # One-frame words (no second row), and L = 1 (only they can finish).
+    one = DTWRecognizer.from_features(
+        [templates[0][:1], templates[1], templates[takes][:1], templates[takes + 1]],
+        device=dev)
+    dist_one = pairwise_euclidean(torch.as_tensor(longest, device=dev), one._templates)
+    dtw_check("one-frame-words", one, dist_one)
+    dtw_check("L=1", one, dist_one[:1].contiguous())
+
+    # The main path: DTWRecognizer.search over the digit samples, counted.
+    cdtw.dtw_columns.launches = 0
+    found = [rec.search(f) for _i, f in samples]
+    torch.cuda.synchronize()
+    launches["dtw"] = cdtw.dtw_columns.launches
+    rec_cpu = DTWRecognizer.from_features(templates, device="cpu")
+    found_cpu = [rec_cpu.search(f) for _i, f in samples]
+    same_idx = [a[0] for a in found] == [c[0] for c in found_cpu]
+    acc = float(np.mean([a[0] // takes == i for a, (i, _f) in zip(found, samples)]))
+    log("DTW", path="DTWRecognizer.search", samples=len(samples), H=h,
+        L_max=max(len(f) for _i, f in samples), launches=launches["dtw"],
+        same_words_as_cpu=same_idx, accuracy=acc)
+    if not same_idx or launches["dtw"] != len(samples):
+        raise SystemExit("DTWRecognizer.search on the card differs from the CPU port's")
+    args = (dist_long, rec._is_first, rec._is_second, rec._end_rows)
+    timings["dtw"] = (device_ms(lambda: cdtw.dtw_columns(*args)),
+                      cuda_ms(lambda: dtw_columns_plain(*args), reps=3))
+    yardsticks["dtw"] = (None, *dtw_bound(h, dist_long.shape[0], len(templates)))
+    errs["dtw"] = dtw_err
+    n_long = dist_long.shape[0]
+    log("timing", kernel="dtw", shape=f"H={h} L={n_long} W={len(templates)}",
+        ms=timings["dtw"][0], plain_ms=timings["dtw"][1], bound_ms=yardsticks["dtw"][1],
+        bound_by=yardsticks["dtw"][2], us_per_column=timings["dtw"][0] / n_long * 1e3)
+    for name, recog, dist_t in (("sentence-sample", rec, dist_sentence),
+                                ("8000-rows", wide, dist_wide)):
+        n_cols, n_rows = dist_t.shape
+        ms = device_ms(lambda: cdtw.dtw_columns(dist_t, recog._is_first, recog._is_second,
+                                                recog._end_rows))
+        b_ms, b_by = dtw_bound(n_rows, n_cols, len(recog.word_lengths))
+        log("timing", kernel="dtw", shape=f"H={n_rows} L={n_cols}", case=name, ms=ms,
+            bound_ms=b_ms, bound_by=b_by, us_per_column=ms / n_cols * 1e3)
+
+    # -- 26. the MFCC precision tiers -----------------------------------------
+    # "high" is bf16_3x; "default", as in the JAX package, the float32 product
+    # of "highest".
+    sig, ns = decode["sig_dev"], decode["ns_dev"]
+    feats = {}
+    for tier in ("highest", "high", "default"):
+        cfg = MFCCConfig(precision=tier)
+        feats[tier], n_frames = mfcc_features_batch(sig, ns, cfg)
+        ms = cuda_ms(lambda: mfcc_features_batch(sig, ns, cfg), reps=5)
+        log("mfcc-tier", tier=tier, ms=ms)
+    high_err = float((feats["high"] - feats["highest"]).abs().max())
+    default_same = torch.equal(feats["default"], feats["highest"])
+    log("mfcc-tier", B=sig.shape[0], max_abs_high=high_err, default_equals_highest=default_same,
+        bounds="high max <= 1e-2 (tests/test_torch_mfcc_tiers.py); default bitwise highest")
+    if not (0 < high_err <= 1e-2 and default_same):
+        raise SystemExit("an MFCC tier is outside its stated bound of 'highest'")
+    # Transcripts: the flagship decode on phase 5's clips, and phase 9's
+    # models on its evaluation clips (accuracy), "high" against "highest".
+    nf = n_frames.tolist()
+    flag_dec = decode["dec"]
+    tiers = ("highest", "high")
+    texts = {t: flag_dec.predict_batch([f[:n].cpu().numpy() for f, n in zip(feats[t], nf)])
+             for t in tiers}
+    pipe_dec = ContinuousDecoder(models, penalty=-100.0, device=dev)
+    truths = pipe["eval"]["train_speakers"][0]
+    # Phase 9's evaluation clips again, through each tier's front end.
+    eval_clips = [pipe["corpus"].sentence_audio(tr, spk, jitter_seed=33)
+                  for tr in PIPELINE_TRANSCRIPTS for spk in range(6)]
+    eval_texts = {t: pipe_dec.predict_batch(mfcc_batch(eval_clips, cfg=MFCCConfig(precision=t),
+                                                       device=dev)) for t in tiers}
+    agree = (float(np.mean([a == b for a, b in zip(texts["high"], texts["highest"])])),
+             float(np.mean([a == b for a, b in zip(eval_texts["high"],
+                                                   eval_texts["highest"])])))
+    accuracy = {t: float(np.mean([p == q for p, q in zip(eval_texts[t], truths)]))
+                for t in tiers}
+    log("mfcc-tier", high_agreement_with_highest=json.dumps(agree),
+        phase9_accuracy=json.dumps(accuracy), clips=len(texts["highest"]),
+        eval_clips=len(eval_clips))
+    if agree != (1.0, 1.0):
+        raise SystemExit(f"'high' MFCC transcripts differ from 'highest': {agree}")
+    log("phase", which="23-26 slice 4b", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def report(kind, launches, timings, errs, yardsticks):
     """The kernels' JSON line and the final line."""
     meta = {
@@ -2879,6 +3313,9 @@ def report(kind, launches, timings, errs, yardsticks):
         "trellis_fb_posteriors": ("cs304_tpu_torch/csrc/trellis_fb.cu",
                                   "cs304_tpu/models/train_fused.py:369 (_banded_fb_batch) "
                                   "and :663-715 (gamma_of, the xi loop)"),
+        # No Pallas counterpart: the JAX package's DTW is a lax.scan.
+        "dtw": ("cs304_tpu_torch/csrc/dtw.cu",
+                "cs304_tpu/ops/dtw.py:47 (dtw_multi_template, lax.scan)"),
         # No Pallas counterpart: the JAX decoder runs bigram and beam
         # decoding on its banded lax.scan, and its bigram pool on the banded
         # step's lax.scan.

@@ -2,12 +2,14 @@
 
 The batched continuous decoder (raw audio -> 39-dim MFCC -> full-covariance
 Gaussian emissions -> composite Viterbi -> word labels), online serving,
-embedded Viterbi and Baum-Welch training, GMMs and the decoder's searches
-run on tensors. Every kernel the JAX package wrote in Pallas, and the
+embedded Viterbi and Baum-Welch training (fused, and the legacy
+per-transcript oracle), GMMs, the decoder's searches, isolated-word
+classification, forced alignment, MAP adaptation and template DTW run on
+tensors. Every kernel the JAX package wrote in Pallas, and the
 trellis scans it left to XLA on the hot paths, is hand-written CUDA C++
 under ``csrc/`` (the emission kernels, the scan-free team kernel's decode,
 stream, sentence and search modes, the dense trellis, the forward-backward
-and its E-step), built with nvcc at first use. CPU tensors take each
+and its E-step, the DTW column recursion), built with nvcc at first use. CPU tensors take each
 kernel's plain PyTorch version.
 
 This package imports neither ``jax`` nor ``cs304_tpu``; the JAX package is
@@ -38,6 +40,12 @@ _EXPORTS = {
     "BatchedStreamingComposite": ".ops.streaming_batch",
     "ServingSessionPool": ".serving",
     "UtteranceResult": ".serving",
+    "ForcedAligner": ".models.align",
+    "map_adapt": ".models.adapt",
+    "self_adapt": ".models.adapt",
+    "AlignResult": ".models.align",
+    "WordSegment": ".models.align",
+    "ModelCollection": ".models.collection",
     "ContinuousTrainer": ".models.train_continuous",
     "insert_silence": ".models.train_continuous",
     "TIDigits": ".data.ti_digits",
@@ -47,6 +55,7 @@ _EXPORTS = {
     "pad_batch": ".data.batching",
     "SignalSeparation": ".audio.endpointing",
     "Segmentation": ".audio.capture",
+    "DTWRecognizer": ".ops.dtw",
     "forward_backward": ".ops.forward_backward",
     "forward_log_likelihood": ".ops.forward_backward",
     "GMMWordHMM": ".models.gmm_hmm",

@@ -1,6 +1,6 @@
 """Shared model-dict stacking for sentence-topology consumers.
 
-The trainers (and later the aligner and MAP adaptation) all need the same
+The trainers, the aligner and MAP adaptation all need the same
 prologue: sort the labels, validate the silence model, stack every word
 model's parameters into padded (L, S_max, ...) global arrays, and gather them
 onto a transcript's sentence state space. A port of
@@ -10,7 +10,7 @@ dict with any GMM lifts every model to K_max mixtures.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -121,3 +121,28 @@ def stack_models(
         s_max=s_max, dim=dim, means=means, covariances=covs, log_a=log_a,
         weights=weights,
     )
+
+
+def enrollment_batches(
+    stacked: StackedModels,
+    labeled_features: Dict[str, Sequence[np.ndarray]],
+    insert_sil: bool,
+    cross_word: str,
+    length_multiple: int = 64,
+):
+    """Yield (topo, log_a_sent, emission, padded) per non-empty transcript
+    group — the shared enrollment/alignment loop."""
+    from ..data.batching import pad_batch
+
+    if not labeled_features:
+        raise ValueError("no enrollment utterances")
+    for transcript, features in labeled_features.items():
+        if not features:
+            continue
+        _sentence, topo, log_a_sent, emission = stacked.sentence_for(
+            transcript, insert_sil, cross_word
+        )
+        padded = pad_batch(
+            [np.asarray(f, np.float32) for f in features], length_multiple
+        )
+        yield topo, log_a_sent, emission, padded

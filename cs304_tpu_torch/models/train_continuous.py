@@ -11,17 +11,22 @@ Reference algorithm (hidden_markov_model.py:667-797):
     segmental k-means M-step as isolated training (:754-770)
   - training stops when every model's means are converged (allclose)
 
-This is the PyTorch port of cs304_tpu/models/train_continuous.py, fused path
-only: every iteration is models/train_fused.py's fused Viterbi iteration
+This is the PyTorch port of cs304_tpu/models/train_continuous.py. By default
+every iteration is models/train_fused.py's fused Viterbi iteration
 (alignment of every utterance, sufficient statistics, M-step, convergence
 test) on the trainer's device, whose sentence trellis is the banded CUDA
 kernel on a card, or with update="baum_welch" its fused Baum-Welch
-iteration, whose sentence forward-backward is the FB kernel on a card. GMM
-models train with models/train_continuous_gmm.py's GMMContinuousTrainer:
-given one, train() raises a ValueError that says so (the JAX trainer fails
-there too, with a ValueError of its own). Not ported yet, each raising
-NotImplementedError: mesh training and the fused=False legacy
-per-transcript oracle.
+iteration, whose sentence forward-backward is the FB kernel on a card.
+fused=False runs the legacy per-transcript oracle (_iteration): one
+alignment and statistics pass per transcript (_stats_pass: the banded word
+trellis of ops/viterbi.viterbi_banded_batch over the transcript's gathered
+sentence, one launch of the sentence kernel on a card; _stats_pass_bw: the
+dense forward-backward of ops/forward_backward.py), the statistics summed
+in float64 on the host, then a centered covariance pass around the new
+means. GMM models train with models/train_continuous_gmm.py's
+GMMContinuousTrainer: given one, train() raises a ValueError that says so
+(the JAX trainer fails there too, with a ValueError of its own). Mesh
+training is not ported yet and raises NotImplementedError.
 
 Convergence semantics divergence (documented): the reference counts
 convergence events CUMULATIVELY across iterations and stops when the running
@@ -38,13 +43,18 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..data.batching import pad_batch
 from ..device import fp32_exact, resolve_device
+from ..ops.forward_backward import forward_backward
+from ..ops.gaussian import gaussian_log_pdf, make_gaussian_params
+from ..ops.viterbi import banded_transition_matrix, viterbi_banded_batch
 from .hmm import WordHMM
 from .train_kmeans import HMMTrainMeanFail, SegmentalKMeansConfig, train_word_hmm
 
 logger = logging.getLogger(__name__)
 
 SILENCE_LABEL = "S"
+NEG = float("-inf")
 
 
 def insert_silence(labels):
@@ -101,9 +111,11 @@ class ContinuousTrainConfig:
     # forward-backward posteriors over the same banded sentence topology
     # (soft counts, floor 1e-4; cross-word xi excluded).
     update: str = "viterbi"
-    # The fused iteration (models/train_fused.py) is the port's only spine;
-    # fused=False (the JAX package's legacy per-transcript oracle) is not
-    # ported yet.
+    # Run each iteration as models/train_fused.py's fused iteration (every
+    # transcript aligned in one batch, statistics on the device). fused=False
+    # runs the legacy per-transcript oracle: an independent implementation
+    # (its own one-hot statistics, JAX's legacy formulas) kept for parity
+    # tests, MAP adaptation's statistics and benchmarks; single-host only.
     fused: bool = True
     # Emission layout inside the fused iteration. "whiten" (default):
     # float32 whitening matmul. "quad": the quadratic-form layout (plain
@@ -183,6 +195,147 @@ def _sentence_log_a(
     return np.where(allowed_cross, 0.0, out).astype(np.float32)
 
 
+def _pool_np(stat: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Host-side tie pooling (the legacy spine's analogue of
+    train_fused._pool_slots): scatter-add a leading-axis statistic over tie
+    groups and broadcast group totals back to member rows."""
+    flat = stat.reshape(ids.shape[0], -1)
+    pooled = np.zeros_like(flat)
+    np.add.at(pooled, ids, flat)
+    return pooled[ids].reshape(stat.shape)
+
+
+def _along_path(paths, *tables):
+    """Each (S_sent,) per-sentence-state table read along the (B, T) paths,
+    as int64 on the paths' device."""
+    path_l = paths.to(torch.int64)
+    return [torch.as_tensor(np.asarray(x), device=paths.device).to(torch.int64)[path_l]
+            for x in tables]
+
+
+def _stats_pass(
+    means_sent, covs_sent, log_a_sent, lab_of_state, loc_of_state, pos_of_state,
+    batch, lengths, num_labels: int, s_max: int,
+):
+    """Alignment + zeroth/first-order stats + within-segment transition counts
+    of one transcript's padded batch (B, T, D), on the batch's device.
+
+    Returns (counts (L, S), sums (L, S, D), trans (L, S, S), paths (B, T)):
+    counts and trans are sums of integer one-hots (exact histograms, no
+    atomics), returned as float32; sums a float32 one-hot matmul."""
+    fp32_exact()
+    dev = batch.device
+    b, t, d = batch.shape
+    f = num_labels * s_max
+    params = make_gaussian_params(means_sent, covs_sent, device=dev)
+    log_b = gaussian_log_pdf(params, batch)
+    _scores, paths = viterbi_banded_batch(
+        log_b, torch.as_tensor(log_a_sent, device=dev), lengths)
+
+    mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    lab, loc, pos = _along_path(paths, lab_of_state, loc_of_state, pos_of_state)
+    flat = lab * s_max + loc
+    oh = torch.nn.functional.one_hot(flat, f) * mask[..., None]  # int64
+    counts = oh.sum(dim=(0, 1)).to(torch.float32)
+    sums = oh.to(torch.float32).reshape(b * t, f).T @ batch.reshape(b * t, d)
+
+    # Transition counts within word instances: pair (t-1, t) counts iff both
+    # frames are real and belong to the same sentence position.
+    pair_live = (torch.arange(t - 1, device=dev)[None, :] < (lengths[:, None] - 1)) & (
+        pos[:, :-1] == pos[:, 1:])
+    from_flat = lab[:, :-1] * (s_max * s_max) + loc[:, :-1] * s_max + loc[:, 1:]
+    oh_pair = torch.nn.functional.one_hot(from_flat, f * s_max) * pair_live[..., None]
+    trans = oh_pair.sum(dim=(0, 1)).to(torch.float32)
+    return (counts.reshape(num_labels, s_max), sums.reshape(num_labels, s_max, d),
+            trans.reshape(num_labels, s_max, s_max), paths)
+
+
+def _m2_per_slot(weights, batch, means_flat):
+    """sum over frames of w[slot] (x - mean[slot])(x - mean[slot])^T, one
+    slot at a time: weights (B*T, F), batch (B*T, D), means (F, D) ->
+    (F, D, D)."""
+    f = weights.shape[1]
+    d = batch.shape[1]
+    m2 = torch.empty((f, d, d), dtype=torch.float32, device=batch.device)
+    for slot in range(f):
+        centered = batch - means_flat[slot]
+        m2[slot] = (centered * weights[:, slot, None]).T @ centered
+    return m2
+
+
+def _centered_m2_pass(
+    means_g, lab_of_state, loc_of_state, batch, lengths, paths,
+    num_labels: int, s_max: int,
+):
+    """Pass B: centered second moments around the NEW means (np.cov parity)
+    -> (L, S, D, D)."""
+    b, t, d = batch.shape
+    f = num_labels * s_max
+    lab, loc = _along_path(paths, lab_of_state, loc_of_state)
+    flat = lab * s_max + loc
+    mask = torch.arange(t, device=batch.device)[None, :] < lengths[:, None]
+    oh = torch.nn.functional.one_hot(flat, f).to(torch.float32) * mask[..., None]
+    means = torch.as_tensor(means_g, dtype=torch.float32, device=batch.device)
+    m2 = _m2_per_slot(oh.reshape(b * t, f), batch.reshape(b * t, d), means.reshape(f, d))
+    return m2.reshape(num_labels, s_max, d, d)
+
+
+def _stats_pass_bw(
+    means_sent, covs_sent, log_a_sent, lab_of_state, loc_of_state, pos_of_state,
+    batch, lengths, num_labels: int, s_max: int,
+):
+    """Baum-Welch analogue of _stats_pass: forward-backward posteriors over
+    the banded sentence topology (ops/forward_backward.py, termination
+    pinned to the last state) replace the hard Viterbi one-hots.
+
+    Returns (counts (L, S), sums (L, S, D), trans (L, S, S),
+    gamma_f (B, T, L*S) slot posteriors for the covariance pass, total
+    loglik)."""
+    fp32_exact()
+    dev = batch.device
+    s_sent = len(lab_of_state)
+    f = num_labels * s_max
+    params = make_gaussian_params(means_sent, covs_sent, device=dev)
+    log_b = gaussian_log_pdf(params, batch)
+    trans_eff = banded_transition_matrix(torch.as_tensor(log_a_sent, device=dev))
+    log_init = torch.full((s_sent,), NEG, dtype=torch.float32, device=dev)
+    log_init[0] = 0.0
+    log_final = torch.full((s_sent,), NEG, dtype=torch.float32, device=dev)
+    log_final[s_sent - 1] = 0.0
+    gamma, xi, ll = forward_backward(log_b, trans_eff, log_init, lengths,
+                                     log_final=log_final)
+    flat = torch.as_tensor(np.asarray(lab_of_state) * s_max + np.asarray(loc_of_state),
+                           device=dev).to(torch.int64)
+    slot_map = torch.nn.functional.one_hot(flat, f).to(torch.float32)  # (S_sent, F)
+    pos = torch.as_tensor(np.asarray(pos_of_state), device=dev)
+    same_pos = (pos[:, None] == pos[None, :]).to(torch.float32)
+    b, t, d = batch.shape
+    gamma_f = gamma @ slot_map  # (B, T, F)
+    counts = gamma_f.sum(dim=(0, 1))
+    sums = gamma_f.reshape(b * t, f).T @ batch.reshape(b * t, d)
+    trans_f = slot_map.T @ (xi * same_pos).sum(dim=0) @ slot_map  # (F, F)
+    trans4 = trans_f.reshape(num_labels, s_max, num_labels, s_max)
+    lidx = torch.arange(num_labels, device=dev)
+    trans = trans4[lidx, :, lidx, :]  # within-word blocks only
+    return (counts.reshape(num_labels, s_max), sums.reshape(num_labels, s_max, d),
+            trans, gamma_f, ll.sum())
+
+
+def _centered_m2_pass_weighted(
+    means_g, gamma_f, batch, lengths, num_labels: int, s_max: int,
+):
+    """Pass B for Baum-Welch: gamma-weighted centered second moments around
+    the NEW means (mirrors _centered_m2_pass with soft weights)
+    -> (L, S, D, D)."""
+    b, t, d = batch.shape
+    f = num_labels * s_max
+    mask = (torch.arange(t, device=batch.device)[None, :] < lengths[:, None])
+    w_all = (gamma_f * mask[..., None]).reshape(b * t, f)
+    means = torch.as_tensor(means_g, dtype=torch.float32, device=batch.device)
+    m2 = _m2_per_slot(w_all, batch.reshape(b * t, d), means.reshape(f, d))
+    return m2.reshape(num_labels, s_max, d, d)
+
+
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
 
@@ -218,10 +371,6 @@ class ContinuousTrainer:
             raise _not_ported(
                 "mesh (data-parallel) training",
                 "Queue 1, slice 3, item 18: parallel/data_parallel.py")
-        if not cfg.fused:
-            raise _not_ported(
-                "fused=False (the legacy per-transcript oracle)",
-                "Queue 1, slice 3: train_continuous._iteration")
         self.cfg = cfg
         self.device = resolve_device(device)
         fp32_exact()
@@ -360,13 +509,18 @@ class ContinuousTrainer:
                 "ContinuousTrainer trains single-Gaussian word models; these "
                 "models carry mixture weights: train them with "
                 "GMMContinuousTrainer (models/train_continuous_gmm.py)")
-        # Frame padding at 32 granularity: the fused iteration is topology-
-        # independent, so a coarser multiple would only add trellis steps.
-        batches = prepare_fused_corpus(
-            labeled_features, self.state_counts, self.label_index,
-            insert_silence if self.cfg.insert_silence else (lambda s: s),
-            min(self.cfg.length_multiple, 32), device=self.device,
-        )
+        use_fused = self.cfg.fused
+        if use_fused:
+            # Frame padding at 32 granularity: the fused iteration is
+            # topology-independent, so a coarser multiple would only add
+            # trellis steps.
+            batches = prepare_fused_corpus(
+                labeled_features, self.state_counts, self.label_index,
+                insert_silence if self.cfg.insert_silence else (lambda s: s),
+                min(self.cfg.length_multiple, 32), device=self.device,
+            )
+        else:
+            batches = self._prepare_batches(labeled_features)
         # The bootstrap applies whenever silence is IN the training topology:
         # interleaved automatically (insert_silence=True), or written
         # explicitly into the transcripts.
@@ -378,15 +532,19 @@ class ContinuousTrainer:
             and silence_in_topology
             and self.cfg.silence_label in self.label_index
         ):
-            self._bootstrap_silence_fused(batches)
+            if use_fused:
+                self._bootstrap_silence_fused(batches)
+            else:
+                self._bootstrap_silence(batches)
         # Device loop: with no per-iteration host work (no checkpointing,
         # empty-slot policy "keep") the remaining run goes through
         # fused_train_run, which reads back one flag per iteration.
-        if checkpoint_dir is None and self.cfg.on_empty_state == "keep":
+        if use_fused and checkpoint_dir is None and self.cfg.on_empty_state == "keep":
             return self._train_device_loop(batches)
         it = self._iterations_done
         for it in range(self._iterations_done + 1, self.cfg.max_iterations + 1):
-            all_converged = self._iteration_fused(batches)
+            all_converged = (self._iteration_fused(batches) if use_fused
+                             else self._iteration(batches))
             self._iterations_done = it
             if checkpoint_dir and (it % checkpoint_every == 0 or all_converged):
                 self.save_state(checkpoint_dir)
@@ -600,3 +758,169 @@ class ContinuousTrainer:
         self.log_a_g[i_s, :n_s, :n_s] = result.model.log_a
         self._invalidate_device_state()
         logger.info("silence bootstrap: retrained %s on %d runs", sil, len(runs))
+
+    # -- legacy per-transcript path (fused=False) -----------------------------
+    def _prepare_batches(self, labeled_features):
+        """One padded batch per transcript, on the trainer's device."""
+        batches = []
+        for transcript, feats in labeled_features.items():
+            sentence = (
+                insert_silence(transcript) if self.cfg.insert_silence else transcript
+            )
+            topo = _topology(sentence, self.state_counts, self.label_index)
+            padded = pad_batch(list(feats), self.cfg.length_multiple)
+            batches.append({
+                "sentence": sentence,
+                "topo": topo,
+                "batch": torch.as_tensor(padded.data, device=self.device),
+                "lengths": torch.as_tensor(padded.lengths, device=self.device),
+            })
+        return batches
+
+    def _sentence_args(self, topo):
+        """The transcript's gathered (means, covs, log_a) and state tables."""
+        return (
+            self.means_g[topo.lab_of_state, topo.loc_of_state],
+            self.covs_g[topo.lab_of_state, topo.loc_of_state],
+            _sentence_log_a(topo, self.log_a_g, self.cfg.cross_word),
+            topo.lab_of_state, topo.loc_of_state, topo.pos_of_state,
+        )
+
+    def _bootstrap_silence(self, batches) -> None:
+        """Re-estimate the silence model from long in-context S-aligned runs
+        (digits frozen), aligning transcript by transcript. See
+        ContinuousTrainConfig.silence_bootstrap."""
+        sil = self.cfg.silence_label
+        i_s = self.label_index[sil]
+        n_s = self.state_counts[sil]
+        min_run = self.cfg.silence_bootstrap_min_run
+        runs: List[np.ndarray] = []
+        for item in batches:
+            topo = item["topo"]
+            *_stats, paths = _stats_pass(
+                *self._sentence_args(topo), item["batch"], item["lengths"],
+                len(self.labels), self.s_max,
+            )
+            paths = paths.cpu().numpy()
+            batch_np = item["batch"].cpu().numpy()
+            lengths_np = item["lengths"].cpu().numpy()
+            lab_path = topo.lab_of_state[paths]
+            for b in range(paths.shape[0]):
+                is_sil = lab_path[b, : lengths_np[b]] == i_s
+                bounds = np.where(np.diff(is_sil.astype(int)) != 0)[0] + 1
+                for seg in np.split(np.arange(lengths_np[b]), bounds):
+                    if len(seg) >= min_run and is_sil[seg[0]]:
+                        runs.append(batch_np[b, seg])
+        if len(runs) < 3:
+            logger.warning("silence bootstrap skipped: only %d runs", len(runs))
+            return
+        result = train_word_hmm(
+            sil, runs,
+            SegmentalKMeansConfig(
+                num_states=n_s,
+                max_iterations=min(self.cfg.max_iterations, 15),
+                length_multiple=32,
+            ),
+            device=self.device,
+        )
+        self.means_g[i_s, :n_s] = result.model.means
+        self.covs_g[i_s, :n_s] = result.model.covariances
+        self.log_a_g[i_s, :n_s, :n_s] = result.model.log_a
+        self._invalidate_device_state()
+        logger.info("silence bootstrap: retrained %s on %d runs", sil, len(runs))
+
+    def _iteration(self, batches) -> bool:
+        """Legacy per-transcript iteration — the independently implemented
+        parity oracle for the fused iteration (float64 host-side statistics,
+        one statistics pass and one covariance pass per transcript)."""
+        l, s, d = self.means_g.shape[0], self.s_max, self.dim
+        baum_welch = self.cfg.update == "baum_welch"
+        count_floor = self._count_floor()
+        counts = np.zeros((l, s), np.float64)
+        sums = np.zeros((l, s, d), np.float64)
+        trans = np.zeros((l, s, s), np.float64)
+        weights_per_batch = []  # Viterbi: paths; BW: gamma_f slot posteriors
+        for item in batches:
+            stats_pass = _stats_pass_bw if baum_welch else _stats_pass
+            c, sm, tr, weights, *_ll = stats_pass(
+                *self._sentence_args(item["topo"]), item["batch"], item["lengths"], l, s)
+            weights_per_batch.append(weights)
+            counts += c.cpu().numpy().astype(np.float64)
+            sums += sm.cpu().numpy().astype(np.float64)
+            trans += tr.cpu().numpy().astype(np.float64)
+
+        if self._tie_flat is not None:
+            counts = _pool_np(counts.reshape(l * s), self._tie_flat).reshape(l, s)
+            sums = _pool_np(sums.reshape(l * s, d), self._tie_flat).reshape(l, s, d)
+        if self._trans_tie is not None:
+            trans = _pool_np(trans, self._trans_tie)
+
+        slot_used = self._slot_used()
+        empty = slot_used & (counts < count_floor)
+        if np.any(empty):
+            bad = np.argwhere(empty).tolist()
+            if self.cfg.on_empty_state == "fail":
+                raise HMMTrainMeanFail(f"(label, state) slots with no frames: {bad}")
+            logger.warning("keeping previous params for empty slots: %s", bad)
+
+        new_means = (
+            sums / np.maximum(counts, count_floor)[..., None]
+        ).astype(np.float32)
+        new_means = np.where(empty[..., None], self.means_g, new_means)
+
+        # Per-label convergence on means (reference allclose, :333).
+        converged = np.array([
+            np.allclose(new_means[i][slot_used[i]], self.means_g[i][slot_used[i]],
+                        rtol=self.cfg.rtol, atol=self.cfg.atol)
+            for i in range(l)
+        ])
+        if self._conv_tie is not None:
+            # Tie-connected labels freeze together (same rule as the fused
+            # bodies).
+            bad = np.zeros(l, np.int64)
+            np.add.at(bad, self._conv_tie, (~converged).astype(np.int64))
+            converged = bad[self._conv_tie] == 0
+        if converged.all():
+            return True
+
+        # Pass B: centered covariance around the new means.
+        m2 = np.zeros((l, s, d, d), np.float64)
+        for item, weights in zip(batches, weights_per_batch):
+            topo = item["topo"]
+            if baum_welch:
+                part = _centered_m2_pass_weighted(
+                    new_means, weights, item["batch"], item["lengths"], l, s)
+            else:
+                part = _centered_m2_pass(
+                    new_means, topo.lab_of_state, topo.loc_of_state,
+                    item["batch"], item["lengths"], weights, l, s)
+            m2 += part.cpu().numpy().astype(np.float64)
+        if self._tie_flat is not None:
+            # Tied slots share new_means, so pooled centered moments give the
+            # exact group covariance under either denominator.
+            m2 = _pool_np(m2.reshape(l * s, d, d), self._tie_flat).reshape(l, s, d, d)
+        # Viterbi keeps the reference's np.cov ddof=1 denominator; soft counts
+        # use the standard ML normalization.
+        denom = (np.maximum(counts, count_floor) if baum_welch
+                 else np.maximum(counts - 1.0, 1.0))[..., None, None]
+        new_covs = (m2 / denom + self.cfg.cov_reg * np.eye(d)).astype(np.float32)
+        new_covs = np.where(empty[..., None, None], self.covs_g, new_covs)
+
+        row_sums = trans.sum(axis=2, keepdims=True)
+        probs = trans / np.maximum(row_sums, count_floor)
+        with np.errstate(divide="ignore"):
+            new_log_a = np.where(probs > 0, np.log(probs), -np.inf).astype(np.float32)
+        # Rows with no observed outgoing transitions keep their previous row
+        # (an -inf row would make the state a trap).
+        no_out = (row_sums[..., 0] < count_floor) & slot_used
+        new_log_a = np.where(no_out[..., None], self.log_a_g, new_log_a)
+
+        # Converged models keep their parameters this iteration (the reference
+        # raises before assignment, hidden_markov_model.py:333-335).
+        upd = ~converged
+        self.means_g[upd] = new_means[upd]
+        self.covs_g[upd] = new_covs[upd]
+        self.log_a_g[upd] = new_log_a[upd]
+        # Padded slots keep identity covariance so Cholesky stays valid.
+        self.covs_g[~slot_used] = np.eye(d, dtype=np.float32)
+        return False

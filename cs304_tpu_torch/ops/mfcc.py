@@ -128,7 +128,11 @@ class MFCCConfig:
     normalize_eps: float = 1e-8
     # "matmul" (windowed DFT as float32 matmuls) or "fft" (torch.fft.rfft).
     spectrogram: str = "matmul"
-    # Only "highest" (float32, TF32 off) is ported.
+    # Matmul tier of the DFT, mel and DCT products (_dot): "high" is bf16_3x
+    # (hi*hi + hi*lo + lo*hi of a bf16 split, each product exact in
+    # float32); any other value ("highest", "default") is the float32
+    # product with TF32 off, as the JAX package's _precision maps every tier
+    # but "high" to HIGHEST. The deltas are exact float32 at every tier.
     precision: str = "highest"
     # "per_frame" (the reference's), "cmn" or "cmvn" (per utterance, masked).
     normalization: str = "per_frame"
@@ -192,10 +196,30 @@ def _half_blocks(signal: torch.Tensor, hop: int):
     return padded.reshape(signal.shape[0], -1, hop)
 
 
+PRECISIONS = ("highest", "high", "default")
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b at one of the JAX package's matmul tiers (MFCCConfig.precision).
+    "high" splits both operands into bfloat16 hi + lo
+    (ops/cuda/emission.split_hi_lo) and multiplies the parts as float32
+    matrices with TF32 off, so every product of two bf16 values is exact and
+    only the sums round: the TPU's bf16_3x. Every other tier is the float32
+    product (the JAX package's _precision: HIGHEST unless "high")."""
+    if precision != "high":
+        return a @ b
+    from .cuda.emission import split_hi_lo
+
+    a_hi, a_lo = (x.float() for x in split_hi_lo(a))
+    b_hi, b_lo = (x.float() for x in split_hi_lo(b))
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
 def _power_spectrogram(signal: torch.Tensor, cfg: MFCCConfig, consts):
     """(B, L) -> (B, T, n_bins) power spectrogram, centered, zero pad_mode."""
     hann, dft_cos, dft_sin = consts
     hop = cfg.hop_length
+    prec = cfg.precision
     length = signal.shape[-1]
     t_frames = 1 + length // hop
     if cfg.spectrogram == "fft":
@@ -210,10 +234,10 @@ def _power_spectrogram(signal: torch.Tensor, cfg: MFCCConfig, consts):
         # Frame t = blocks[t] ++ blocks[t+1]: each block meets each half of
         # the DFT matrix once, half the FLOPs of the (T, n_fft) product.
         blk = _half_blocks(signal, hop)[:, : t_frames + 1]
-        re_lo = blk @ dft_cos[:hop]
-        re_hi = blk @ dft_cos[hop:]
-        im_lo = blk @ dft_sin[:hop]
-        im_hi = blk @ dft_sin[hop:]
+        re_lo = _dot(blk, dft_cos[:hop], prec)
+        re_hi = _dot(blk, dft_cos[hop:], prec)
+        im_lo = _dot(blk, dft_sin[:hop], prec)
+        im_hi = _dot(blk, dft_sin[hop:], prec)
         re = re_lo[:, :-1] + re_hi[:, 1:]
         im = im_lo[:, :-1] + im_hi[:, 1:]
         return re * re + im * im
@@ -230,12 +254,12 @@ def _power_spectrogram(signal: torch.Tensor, cfg: MFCCConfig, consts):
         re = im = 0.0
         for b in range(parts):
             part = blocks[:, b : b + (t_frames - 1) * stride + 1 : stride]
-            re = re + part @ dft_cos[b * g : (b + 1) * g]
-            im = im + part @ dft_sin[b * g : (b + 1) * g]
+            re = re + _dot(part, dft_cos[b * g : (b + 1) * g], prec)
+            im = im + _dot(part, dft_sin[b * g : (b + 1) * g], prec)
         return re * re + im * im
     frames = _gather_frames(signal, cfg, t_frames)
-    re = frames @ dft_cos
-    im = frames @ dft_sin
+    re = _dot(frames, dft_cos, prec)
+    im = _dot(frames, dft_sin, prec)
     return re * re + im * im
 
 
@@ -292,10 +316,8 @@ def mfcc_features_batch(signals, num_samples, cfg: MFCCConfig = MFCCConfig()):
     """(B, L) padded signals + (B,) true lengths -> ((B, T, 39) features,
     (B,) int32 frame counts), T = 1 + L // hop; rows past a clip's count are 0.
     Runs on the signals' device."""
-    if cfg.precision != "highest":
-        raise NotImplementedError(
-            f"MFCC precision {cfg.precision!r} is not ported yet (only 'highest')"
-        )
+    if cfg.precision not in PRECISIONS:
+        raise ValueError(f"unknown MFCC precision {cfg.precision!r}; one of {PRECISIONS}")
     if cfg.normalization not in ("per_frame", "cmn", "cmvn"):
         raise ValueError(f"unknown normalization {cfg.normalization!r}")
     fp32_exact()
@@ -314,9 +336,9 @@ def mfcc_features_batch(signals, num_samples, cfg: MFCCConfig = MFCCConfig()):
     t_total = power.shape[1]
     frame_mask = torch.arange(t_total, device=dev)[None, :] < n_frames[:, None]
 
-    mel_power = power @ as_t(mel_fb).T
+    mel_power = _dot(power, as_t(mel_fb).T, cfg.precision)
     log_mel = _power_to_db(mel_power, frame_mask, cfg)
-    mfcc = log_mel @ as_t(dct_m).T
+    mfcc = _dot(log_mel, as_t(dct_m).T, cfg.precision)
 
     delta1 = _savgol_interp(mfcc, n_frames, d1, cfg.delta_width)
     delta2 = _savgol_interp(mfcc, n_frames, d2, cfg.delta_width)

@@ -42,7 +42,9 @@ step above lets the exit win), and an all -inf column points at 0.
 Two single-topology recursions sit beside it:
 
 - ``viterbi_banded(_batch)``: one left-to-right word HMM (the segmental
-  k-means E-step), the dense step over the skip-2 band;
+  k-means E-step, isolated-word scoring, forced alignment), the dense step
+  over the skip-2 band (``viterbi_banded_batch_plain``); on a card the
+  sentence kernel on the band's diagonals;
 - ``banded_sentence_forward``: the embedded trainer's sentence trellis with
   per-utterance destination-indexed diagonals c0/c1/c2 and no entry/exit
   pool, the plain version of the banded trellis kernel
@@ -409,6 +411,23 @@ def viterbi_composite(log_b, log_a, lower_of_state, is_entry, is_exit, penalty,
     return score[0], paths[0]
 
 
+def banded_diagonals(log_a, batch: int):
+    """The destination-indexed diagonals of banded_transition_matrix(log_a)
+    as contiguous (B, S) float32 rows (c0[j] = A[j, j], c1[j] = A[j-1, j],
+    c2[j] = A[j-2, j]; -inf where j - 1 or j - 2 falls off the band), from
+    a shared (S, S) log_a or a per-row (B, S, S) one: the sentence
+    kernel's c0 / c1 / c2 (ops/cuda/trellis_banded.py)."""
+    log_a = torch.as_tensor(log_a, dtype=torch.float32)
+    s = log_a.shape[-1]
+    log_a = log_a.expand(batch, s, s)
+    neg = torch.full((batch, s), NEG, dtype=torch.float32, device=log_a.device)
+    c0 = torch.diagonal(log_a, dim1=1, dim2=2).contiguous()
+    c1, c2 = neg, neg.clone()
+    c1[:, 1:] = torch.diagonal(log_a, offset=1, dim1=1, dim2=2)
+    c2[:, 2:] = torch.diagonal(log_a, offset=2, dim1=1, dim2=2)
+    return c0, c1, c2
+
+
 def viterbi_banded_batch(log_b, log_a, lengths, quirk_backtrace: bool = True):
     """Single left-to-right word HMM Viterbi over a padded batch.
 
@@ -416,8 +435,37 @@ def viterbi_banded_batch(log_b, log_a, lengths, quirk_backtrace: bool = True):
     lengths (B,) -> (scores (B,) = alpha at state S-1, paths (B, T) int32).
     Entry is pinned to state 0 and t=0 includes the entry self-loop
     (hidden_markov_model.py:81-83); a zero-probability self-loop counts as
-    log 1 there (the degenerate-safe init). Each step is dense_forward's
-    max-plus product."""
+    log 1 there (the degenerate-safe init).
+
+    A CUDA log_b runs the sentence kernel (ops/cuda/trellis_banded.py) on
+    banded_diagonals(log_a) with final state S-1: ONE launch of its decode
+    mode with the quirk, or its backpointer mode and K2-bt without it. A
+    CPU log_b runs viterbi_banded_batch_plain, which the kernel is bitwise
+    in scores and in the paths of every row with a finite score. A row
+    whose score is -inf may differ in its path: at a cell every
+    predecessor of which is -inf the plain version points at state 0 and
+    the kernel at max(j - 2, 0) (ROADMAP W3)."""
+    if not log_b.is_cuda:
+        return viterbi_banded_batch_plain(log_b, log_a, lengths, quirk_backtrace)
+    from .cuda import trellis_banded as tb
+    from .cuda.trellis_scanfree import trellis_backtrace
+
+    dev = log_b.device
+    b, _t, s = log_b.shape
+    log_b = log_b.to(torch.float32).contiguous()
+    c0, c1, c2 = banded_diagonals(torch.as_tensor(log_a, device=dev), b)
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32).contiguous()
+    final = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    if quirk_backtrace:
+        return tb.banded_decode(log_b, c0, c1, c2, lengths, final)
+    alpha, bp = tb.banded_forward(log_b, c0, c1, c2, lengths)
+    return alpha[:, s - 1], trellis_backtrace(bp, final, lengths, quirk=False)
+
+
+def viterbi_banded_batch_plain(log_b, log_a, lengths, quirk_backtrace: bool = True):
+    """viterbi_banded_batch's plain version, on any device: each step is
+    dense_forward's max-plus product over banded_transition_matrix(log_a),
+    then backtrace_batch from state S-1."""
     dev = log_b.device
     b, t_total, s = log_b.shape
     log_a = torch.as_tensor(log_a, dtype=torch.float32, device=dev)

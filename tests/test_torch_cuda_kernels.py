@@ -1114,3 +1114,141 @@ def test_search_decoders_launch_their_modes_not_the_plain_trellis(dev, monkeypat
         before = counter.launches
         assert dec.predict_signal_batch(signals) == texts
         assert counter.launches > before
+
+
+# The banded word trellis (ops/viterbi.viterbi_banded_batch) on K3: case ->
+# (rows B, T, S, per-row log_a, length-0 rows). "kmeans" is the segmental
+# k-means boot's shape (12 models x 64 utterances at 5 states, one log_a a
+# model); "59-t1" the sentence width at T = 1.
+WORD_TRELLIS = {
+    "kmeans": (12 * 64, 96, 5, True, False),
+    "59-t1": (17, 1, 59, False, True),
+    "59-zero-length": (33, 60, 59, False, True),
+    "s1": (9, 20, 1, True, False),
+    "s2": (9, 20, 2, True, True),
+    "s3-inf": (40, 30, 3, True, False),
+}
+
+
+def word_trellis_problem(gen, b, t, s, per_row, zero_length):
+    """log_b (B, T, S), a left-to-right log_a ((B, S, S) or (S, S)) with
+    -inf sprinkled on its band, lengths with short and (optionally)
+    length-0 rows."""
+    dev = gen.device
+    shape = (b, s, s) if per_row else (s, s)
+    log_a = torch.log(torch.rand(shape, generator=gen, device=dev))
+    log_a[torch.rand(shape, generator=gen, device=dev) < 0.05] = float("-inf")
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[1] = min(2, t)  # too short to reach state S-1 for S > 5
+    if zero_length:
+        lengths[2::5] = 0
+    return 2 * torch.randn((b, t, s), generator=gen, device=dev), log_a, lengths
+
+
+@pytest.mark.parametrize("quirk", [True, False])
+@pytest.mark.parametrize("case", sorted(WORD_TRELLIS))
+def test_word_trellis_runs_k3_bitwise_plain(dev, case, quirk, monkeypatch):
+    """viterbi_banded_batch on a CUDA tensor: one K3 decode launch with the
+    quirk, the backpointer mode and K2-bt without it, never dense_forward;
+    scores bitwise the plain version on every row, paths on every row with
+    a finite score (ROADMAP W3)."""
+    from cs304_tpu_torch.ops import viterbi as vt
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    log_b, log_a, lengths = word_trellis_problem(gen, *WORD_TRELLIS[case])
+    want_s, want_p = vt.viterbi_banded_batch_plain(log_b, log_a, lengths, quirk)
+    counters = (tb.banded_decode, tb.banded_forward, tsf.trellis_backtrace)
+    before = [c.launches for c in counters]
+
+    def no_dense(*_a, **_k):
+        raise AssertionError("dense_forward ran on a CUDA tensor")
+
+    monkeypatch.setattr(vt, "dense_forward", no_dense)
+    got_s, got_p = vt.viterbi_banded_batch(log_b, log_a, lengths, quirk)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == (
+        [1, 0, 0] if quirk else [0, 1, 1])
+    assert torch.equal(got_s, want_s)
+    finite = torch.isfinite(want_s)
+    b, t, s = log_b.shape
+    if t >= (s + 1) // 2:  # the band reaches state S-1 in (S + 1) // 2 frames
+        assert int(finite.sum()) >= b // 3
+    assert torch.equal(got_p[finite], want_p[finite])
+
+
+def dtw_problem(gen, word_lengths, n_frames, d=39):
+    """Random templates of the given word lengths on the generator's device
+    -> (their DTWRecognizer, dist_t (L, H) of one random sample of
+    n_frames against them)."""
+    from cs304_tpu_torch.ops.dtw import DTWRecognizer, pairwise_euclidean
+
+    dev = gen.device
+    tmpl = [torch.randn((n, d), generator=gen, device=dev).cpu().numpy()
+            for n in word_lengths]
+    rec = DTWRecognizer.from_features(tmpl, device=dev)
+    sample = torch.randn((n_frames, d), generator=gen, device=dev)
+    dist_t = pairwise_euclidean(sample, rec._templates)
+    return rec, dist_t
+
+
+DTW_CASES = {  # name -> (word lengths, sample frames); a column advances at
+    # most 2 template rows, so every case has words the sample can reach
+    "digits": ([80, 95, 70, 100, 88, 92, 75, 99, 84, 90, 97], 200),
+    "2000-rows": ([100] * 20, 120),  # 2 rows a thread
+    "4000-rows": ([200] * 20, 150),  # 4 rows a thread
+    "8000-rows": ([200] * 40, 150),  # 8 rows a thread
+    "8192-rows": ([256] * 32, 150),  # the cap: 1024 threads of 8 rows
+    "l1": ([40, 1, 60, 2], 1),
+    "one-frame-word": ([1, 30, 1, 1, 25], 40),
+}
+
+
+@pytest.mark.parametrize("pruning", [True, False])
+@pytest.mark.parametrize("case", sorted(DTW_CASES))
+def test_dtw_kernel_is_bitwise_plain(dev, case, pruning):
+    """The DTW column kernel: ONE launch a sample, costs bitwise
+    dtw_columns_plain on the same distances (several rows a thread at 8000
+    rows, L = 1, one-frame words with no second row)."""
+    from cs304_tpu_torch.ops import dtw as dt
+    from cs304_tpu_torch.ops.cuda import dtw as cdtw
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rec, dist_t = dtw_problem(gen, *DTW_CASES[case])
+    for factor in (4.0, 0.05):
+        before = cdtw.dtw_columns.launches
+        got = cdtw.dtw_columns(dist_t, rec._is_first, rec._is_second, rec._end_rows,
+                               pruning, factor)
+        assert cdtw.dtw_columns.launches == before + 1
+        want = dt.dtw_columns_plain(dist_t, rec._is_first, rec._is_second,
+                                    rec._end_rows, pruning, factor)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (got, want)
+        if factor == 4.0:
+            assert torch.isfinite(got).any()
+    # The recognizer on the card against one on the CPU: the distances
+    # differ by the two matmuls' rounding only.
+    on_card = dt.DTWRecognizer(rec.word_lengths, rec.templates, pruning, device=dev)
+    cpu = dt.DTWRecognizer(rec.word_lengths, rec.templates, pruning, device="cpu")
+    sample = torch.randn((DTW_CASES[case][1], 39), generator=gen, device=dev).cpu().numpy()
+    np.testing.assert_allclose(on_card.distances(sample), cpu.distances(sample), rtol=1e-5)
+    assert on_card.search(sample)[0] == cpu.search(sample)[0]
+
+
+def test_dtw_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from cs304_tpu_torch.ops.cuda import dtw as cdtw
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rec, dist_t = dtw_problem(gen, [5, 6], 4)
+    args = (rec._is_first, rec._is_second, rec._end_rows)
+    with pytest.raises(TypeError):
+        cdtw.dtw_columns(dist_t.double(), *args)
+    with pytest.raises(ValueError):
+        cdtw.dtw_columns(dist_t.T, *args)  # not contiguous
+    with pytest.raises(ValueError):
+        cdtw.dtw_columns(dist_t[:, :10], *args)  # flags of another H
+    with pytest.raises(TypeError):
+        cdtw.dtw_columns(dist_t, *args[:2], rec._end_rows.long())
+    big = torch.zeros((2, cdtw.MAX_TEMPLATE_ROWS + 1), device=dev)
+    flag = torch.zeros((cdtw.MAX_TEMPLATE_ROWS + 1,), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        cdtw.dtw_columns(big, flag, flag, rec._end_rows)

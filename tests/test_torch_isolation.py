@@ -6,7 +6,10 @@ decode through the raw-audio entry point, a GMM decode and the Baum-Welch
 sentence forward-backward, and feeds two sessions of a ServingSessionPool
 through one utterance each; then the search slice: a bigram + beam decode,
 n-best, posterior confidences, the counted, duration and grammar decodes, a
-lattice rescored with a bigram, and a bigram and a confidences serving pool.
+lattice rescored with a bigram, and a bigram and a confidences serving pool;
+then slice 4b: an isolated-word classification, a forced alignment, one
+legacy (fused=False) training iteration, MAP adaptation, a DTW search, the
+associative-scan decode and the "high" MFCC tier.
 """
 import os
 import subprocess
@@ -71,6 +74,32 @@ for p in (lm_pool, conf_pool):
     got = [r for piece in (quiet(1600), loud, quiet(8000)) for r in p.feed({s: piece}).get(s, [])]
     assert len(got) == 1, got
 assert got[0].confidence is not None
+from cs304_tpu_torch.models import (ContinuousTrainConfig, ContinuousTrainer, ForcedAligner,
+                                    ModelCollection, map_adapt)
+from cs304_tpu_torch.ops.dtw import DTWRecognizer
+from cs304_tpu_torch.ops.mfcc import MFCCConfig, mfcc_batch
+from cs304_tpu_torch.ops.viterbi_assoc import viterbi_composite_assoc
+words = {m.label: m for m in flagship_models()}
+coll = ModelCollection.from_models([m for m in flagship_models() if m.label != "S"],
+                                   device="cpu")
+assert coll.predict(feats[0]) in coll.labels
+enroll = {"12": [feats[0]], "4": [feats[1]]}
+res = ForcedAligner(words, device="cpu").align_batch(enroll["12"], "12")
+assert res[0].num_frames == 40
+legacy = ContinuousTrainer(words, ContinuousTrainConfig(fused=False, max_iterations=1,
+                                                        silence_bootstrap=False),
+                           device="cpu")
+assert legacy.train(enroll) == 1
+assert set(map_adapt(words, enroll, device="cpu")) == set(words)
+rec = DTWRecognizer.from_features([feats[0][:10], feats[1][:12]], device="cpu")
+assert rec.search(feats[1][:12])[0] == 1
+c = dec.composite
+lb = torch.as_tensor(rng.normal(size=(40, c.num_states)).astype(np.float32))
+score, path = viterbi_composite_assoc(lb, c.log_a, c.lower_of_state, c.is_entry,
+                                      c.is_exit, c.penalty)
+assert path.shape == (40,)
+assert mfcc_batch(list(make_signals(1, 0.5)), cfg=MFCCConfig(precision="high"),
+                  device="cpu")[0].shape[1] == 39
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "cs304_tpu.")))
                 and sys.modules[m] is not None)

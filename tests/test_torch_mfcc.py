@@ -81,8 +81,10 @@ def test_mfcc_constants_match_jax():
 
 
 def test_mfcc_rejects_unported_precision():
-    with pytest.raises(NotImplementedError):
+    """Every JAX tier is ported ("highest", "high", "default"); a name
+    outside them is refused."""
+    with pytest.raises(ValueError, match="precision"):
         tmfcc.mfcc_features_batch(
             torch.zeros(1, 4000), torch.tensor([4000]),
-            tmfcc.MFCCConfig(precision="high"),
+            tmfcc.MFCCConfig(precision="bf16"),
         )

@@ -138,17 +138,18 @@ def _gmm_word(label="9", d=6):
 
 @pytest.mark.parametrize("what", ["baum_welch", "mesh", "legacy", "gmm"])
 def test_unported_options_raise(what):
-    """mesh and fused=False are not ported. update="baum_welch" and GMM
-    models were refused before they were ported: Baum-Welch now trains as
-    the JAX trainer does (one iteration here; test_torch_train_bw.py holds
-    the rest), and GMM models fail in train() with a ValueError, as in the
-    JAX trainer, naming GMMContinuousTrainer."""
+    """mesh is not ported. update="baum_welch", fused=False and GMM models
+    were refused before they were ported: Baum-Welch and the legacy
+    per-transcript trainer now train as the JAX trainer does (one iteration
+    here; test_torch_train_bw.py and test_torch_train_legacy.py hold the
+    rest), and GMM models fail in train() with a ValueError, as in the JAX
+    trainer, naming GMMContinuousTrainer."""
     models = make_models(seed=0)
     cfg, kw = {}, {}
-    if what == "baum_welch":
+    if what in ("baum_welch", "legacy"):
         labeled = make_corpus(models, ["12", "3"], 2, seed=3)
-        cfg = dict(update="baum_welch", max_iterations=1, cov_reg=0.05,
-                   silence_bootstrap=False)
+        option = {"update": "baum_welch"} if what == "baum_welch" else {"fused": False}
+        cfg = dict(max_iterations=1, cov_reg=0.05, silence_bootstrap=False, **option)
         tt = ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu")
         jt = JTrainer(jax_models(models), JConfig(**cfg))
         assert tt.train(labeled) == jt.train(labeled) == 1
@@ -172,7 +173,5 @@ def test_unported_options_raise(what):
         return
     if what == "mesh":
         kw = dict(mesh=object())
-    elif what == "legacy":
-        cfg = dict(fused=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu", **kw)

@@ -6,7 +6,8 @@
 Phases (each prints its own numbers; any failure exits non-zero):
   1. card     nvidia-smi name and power limit, torch's device name
   2. build    nvcc builds every kernel from csrc/ (seconds, ptxas registers
-              and spills)
+              and spills; one line of registers, stack and spill bytes for
+              each LM instantiation of the team kernel)
   3. K1       emission kernel (on the folded operand) vs its plain version at
               the flagship's main-path shape, at bench.py's (N = 512 * 151),
               at the K=2 GMM width (S*K = 116 columns), at 503 / 5003
@@ -149,7 +150,11 @@ Phases (each prints its own numbers; any failure exits non-zero):
               the global scratch), beams of 50 and 5 (the share of final
               states pruned logged), LM + beam; 512 slots x 16 frames at 58
               states and 256 at 503 for the stream mode. Each case fails
-              unless half its rows are finite. ContinuousDecoder(bigram=) and
+              unless half its rows are finite; each LM case logs its pair
+              table's branch and fails off it (registers at the flagship in
+              both modes, shared memory for the decode mode at 503 states,
+              global at 5003 states and for the 503-state stream).
+              ContinuousDecoder(bigram=) and
               (beam=) on the 512 clips: transcripts equal to a device="cpu"
               decoder's, their mode launched, no plain trellis on the card,
               ms a batch; on phase 9's models the bigram decode's accuracy
@@ -162,7 +167,10 @@ Phases (each prints its own numbers; any failure exits non-zero):
               or log-confidences within CONF_ULPS float32 ulps of the
               final's |log Z|, capped at 4e-3; |log Z| and the ratio logged),
               the LM stream mode launched; each new mode's time, plain time
-              and bound
+              and bound, and every LM shape (decode with and without a beam
+              at the flagship, 503 and 5003 states, stream at 58, 503 and
+              5003) beside the flat mode's time at the same inputs (the beam
+              decode's for LM + beam), with its bound and table branch
  23. words    the banded word trellis (ops/viterbi.viterbi_banded_batch)
               on K3 bitwise its plain version (scores on every row, paths
               on every finite row), with the quirk (one decode launch) and
@@ -201,6 +209,7 @@ last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
 """
 import json
+import re
 import subprocess
 import time
 from types import SimpleNamespace
@@ -282,6 +291,38 @@ def window(fn):
         [o.cpu() for o in out]
         best = min(best, time.perf_counter() - t0)
     return best / 20 * 1e3
+
+
+# The team kernel's LM instantiations in ptxas' mangled names:
+# trellis_team_kernel<K, MODE, SENT, RingT, LM = true, BEAM>.
+LM_KERNEL = re.compile(r"trellis_team_kernelILi(\d)ELi(\d)ELb0E([ai])Lb1ELb([01])E")
+TEAM_MODES = {"1": "decode_shared", "2": "decode_global", "3": "stream"}
+
+
+def lm_kernel_resources(ptxas_log):
+    """Registers, stack frame and spill bytes of each LM instantiation of
+    the team kernel, from nvcc's -Xptxas=-v log (one dict each)."""
+    out, cur = [], None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            m = LM_KERNEL.search(line)
+            cur = None
+            if m:
+                k, mode, ring, beam = m.groups()
+                cur = {"lm_kernel": f"K={k}", "mode": TEAM_MODES[mode],
+                       "ring": {"a": "int8", "i": "int32"}[ring] if mode == "3" else None,
+                       "beam": beam == "1"}
+                out.append(cur)
+        elif cur is not None:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+            used = re.search(r"Used (\d+) registers", line)
+            if frame:
+                cur.update(stack_bytes=int(frame[1]), spill_stores=int(frame[2]),
+                           spill_loads=int(frame[3]))
+            if used:
+                cur["registers"] = int(used[1])
+    return out
 
 
 def random_composite(num_words, seed, d=39):
@@ -397,6 +438,8 @@ def main():
         for line in ptxas.read_text().splitlines():
             if any(w in line for w in ("Used", "Compiling entry", "spill", "wgmma", "Loss")):
                 print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+        for kern in lm_kernel_resources(ptxas.read_text()):
+            log("build", **kern)
 
     # Main-path inputs: the flagship and its features at the shapes
     # predict_signal_batch gives the kernels (1.5 s clips in a 2 s bucket).
@@ -2536,7 +2579,8 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     err = {"trellis_decode_lm": 0.0, "trellis_decode_beam": 0.0, "trellis_stream_lm": 0.0}
 
     # -- (a) the three variants against their plain versions ----------------
-    def search_check(name, comp, log_b, lengths, pair=None, beam=None, codes=None):
+    def search_check(name, comp, log_b, lengths, pair=None, beam=None, codes=None,
+                     table=None):
         s_k = comp.num_states
         topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
         coefs = pack_coefs(*topo, device=dev)
@@ -2560,12 +2604,15 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         b_k, t_k = log_b.shape[:2]
         w = len(comp.labels) if lm is not None else 0
         took = "shared" if tsf.codes_scratch_bytes(b_k, t_k, s_k, w) == 0 else "global"
+        # The LM's pair table: columns in registers (S <= 64, W <= 32),
+        # staged in shared memory after the codes, or read from global memory.
+        tab = tsf.lm_table_branch(t_k, s_k, w) if w else None
         pruned = None
         if beam is not None:
             alpha = forward_fast(log_b, coefs, comp.penalty, lengths, lm=lm, beam=beam)[0]
             pruned = (~torch.isfinite(alpha)).float().mean().item()
         log("search", case=name, mode=key.split("_")[-1] + ("+beam" if lm and beam else ""),
-            B=b_k, T=t_k, S=s_k, W=w or None, beam=beam, codes=took,
+            B=b_k, T=t_k, S=s_k, W=w or None, beam=beam, codes=took, table=tab,
             equal=json.dumps(same), finite_rows=finite.float().mean().item(),
             final_states_pruned=pruned, max_abs_err=e)
         if not all(same.values()) or finite.float().mean().item() < 0.5:
@@ -2573,6 +2620,9 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
                              f"its case compares -inf")
         if codes is not None and took != codes:
             raise SystemExit(f"phase 22: case {name} kept its codes in {took} memory, not {codes}")
+        if w and tab != table:
+            raise SystemExit(f"phase 22: case {name} read its pair table from {tab} memory, "
+                             f"not {table}")
 
     def rand_lengths(nb, t):
         ln = torch.randint(1, t + 1, (nb,), generator=gen, device=dev, dtype=torch.int32)
@@ -2581,28 +2631,33 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
 
     c503, c5003 = random_composite(100, 3), random_composite(1000, 3)
     s58 = flag.num_states
-    search_check("flagship-lm", flag, lb3, n_frames, pair_of(flag), codes="shared")
+    search_check("flagship-lm", flag, lb3, n_frames, pair_of(flag), codes="shared",
+                 table="registers")
     lbi = torch.randint(-3, 1, (64, t_total, s58), generator=gen, device=dev).float()
-    search_check("flagship-lm-ties", flag, lbi, rand_lengths(64, t_total), pair_of(flag, "ties"))
+    search_check("flagship-lm-ties", flag, lbi, rand_lengths(64, t_total), pair_of(flag, "ties"),
+                 table="registers")
     search_check("flagship-lm-zero", flag, 3 * torch.randn((64, t_total, s58), generator=gen,
                                                             device=dev),
-                 rand_lengths(64, t_total), pair_of(flag, "zero"))
+                 rand_lengths(64, t_total), pair_of(flag, "zero"), table="registers")
     lb503 = 3 * torch.randn((64, t_total, c503.num_states), generator=gen, device=dev)
     len503 = rand_lengths(64, t_total)
     pair503 = pair_of(c503)
-    search_check("503-lm", c503, lb503, len503, pair503)
-    search_check("5003-lm", c5003, 3 * torch.randn((4, 60, c5003.num_states), generator=gen,
-                                                     device=dev),
-                 rand_lengths(4, 60), pair_of(c5003), codes="global")
+    search_check("503-lm", c503, lb503, len503, pair503, table="shared")
+    lb5003 = 3 * torch.randn((4, 60, c5003.num_states), generator=gen, device=dev)
+    len5003 = rand_lengths(4, 60)
+    pair5003 = pair_of(c5003)
+    search_check("5003-lm", c5003, lb5003, len5003, pair5003, codes="global", table="global")
     search_check("flagship-beam-50", flag, lb3, n_frames, beam=50.0)
     lb_rand = 3 * torch.randn((b, t_total, s58), generator=gen, device=dev)
     len_rand = rand_lengths(b, t_total)
     search_check("flagship-beam-5", flag, lb_rand, len_rand, beam=5.0)
-    search_check("flagship-lm+beam-50", flag, lb3, n_frames, pair_of(flag), beam=50.0)
+    search_check("flagship-lm+beam-50", flag, lb3, n_frames, pair_of(flag), beam=50.0,
+                 table="registers")
     search_check("503-beam-10", c503, lb503, len503, beam=10.0)
 
-    def stream_lm_check(name, comp, slots, t_max, ring_dtype, n_steps=6, chunk=16):
+    def stream_lm_check(name, comp, slots, t_max, ring_dtype, table, n_steps=6, chunk=16):
         s_k = comp.num_states
+        tab = tsf.lm_table_branch(chunk, s_k, len(comp.labels), decode=False)
         coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
                            device=dev)
         lm = lm_tables(pair_of(comp), comp.word_of_state, comp.uppers, device=dev)
@@ -2626,14 +2681,16 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
             same["ring"] &= torch.equal(ring.cpu(), ring_p)
         live = torch.isfinite(alpha_p).any(dim=1).float().mean().item()
         log("search", case=name, mode="stream_lm", slots=slots, S=s_k, W=len(comp.labels),
-            ring=str(ring_dtype).split(".")[-1], steps=n_steps, equal=json.dumps(same),
-            live_slots=live)
-        if not all(same.values()) or live < 0.5:
+            ring=str(ring_dtype).split(".")[-1], steps=n_steps, table=tab,
+            equal=json.dumps(same), live_slots=live)
+        # The stream mode never stages the table (a 16-frame launch does not
+        # repay it): the register columns at W <= 32, else the cache.
+        if not all(same.values()) or live < 0.5 or tab != table:
             raise SystemExit(f"phase 22: the LM stream mode disagrees with its plain version "
-                             f"({name})")
+                             f"({name}), or read its pair table from {tab}, not {table}")
 
-    stream_lm_check("flagship-512-slots", flag, 512, 128, torch.int8)
-    stream_lm_check("503-256-slots", c503, 256, 128, torch.int32, n_steps=4)
+    stream_lm_check("flagship-512-slots", flag, 512, 128, torch.int8, "registers")
+    stream_lm_check("503-256-slots", c503, 256, 128, torch.int32, "global", n_steps=4)
 
     # -- (b) bigram and beam decoders on the 512 clips ------------------------
     signals, sig_dev, ns_dev = decode["signals"], decode["sig_dev"], decode["ns_dev"]
@@ -2874,12 +2931,65 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         lib_ms, b_ms, b_by = yardsticks[name]
         log("timing", kernel=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
             bound_by=b_by, launches=launches[name])
-    log("timing", kernel="trellis_decode_lm", shape="S=503 W=101 B=64 T=201", ms=t503[0],
-        plain_ms=t503[1], bound_ms=b503[0], bound_by=b503[1])
-    log("timing", kernel="trellis_stream_lm", shape="256 slots x 16 frames, S=503, W=101",
-        ms=s503_ms, bound_ms=s503_bound[0], bound_by=s503_bound[1])
-    log("timing", beside="flat modes at the same inputs", trellis_decode_ms=flat_ms,
-        trellis_stream_ms=flat_stream_ms, search_ms=json.dumps(search_ms))
+    # Every LM shape beside the flat mode at the same inputs (its chain: the
+    # serial floor the LM step adds to; the beam decode for LM + beam), its
+    # bound and its table's branch.
+    coefs5003 = pack_coefs(c5003.log_a, c5003.lower_of_state, c5003.is_entry, c5003.is_exit,
+                           device=dev)
+    lm5003 = lm_tables(pair5003, c5003.word_of_state, c5003.uppers, device=dev)
+    w5003 = len(c5003.labels)
+    st5003 = stream_args(c5003, 64, lm5003)
+    beam_big = 10.0
+    lm_rows = (
+        ("trellis_decode_lm", f"B={b} T={t_total} S={s58} W={w58}", *timings["trellis_decode_lm"],
+         flat_ms, yardsticks["trellis_decode_lm"][1:], tsf.lm_table_branch(t_total, s58, w58)),
+        ("trellis_decode_lm", f"B=64 T={t_total} S={c503.num_states} W={w503}", *t503,
+         device_ms(lambda: tsf.scanfree_decode(lb503, coefs503, c503.penalty, len503)), b503,
+         tsf.lm_table_branch(t_total, c503.num_states, w503)),
+        ("trellis_decode_lm", f"B=4 T=60 S={c5003.num_states} W={w5003}",
+         device_ms(lambda: tsf.scanfree_decode_lm(lb5003, coefs5003, lm5003, len5003), reps=5),
+         None,
+         device_ms(lambda: tsf.scanfree_decode(lb5003, coefs5003, c5003.penalty, len5003),
+                   reps=5),
+         search_decode_bound(4, 60, c5003.num_states, len5003, w5003),
+         tsf.lm_table_branch(60, c5003.num_states, w5003)),
+        ("trellis_stream_lm", f"512 slots x 16 frames, S={s58}, W={w58}",
+         *timings["trellis_stream_lm"], flat_stream_ms, yardsticks["trellis_stream_lm"][1:],
+         tsf.lm_table_branch(16, s58, w58, decode=False)),
+        ("trellis_stream_lm", f"256 slots x 16 frames, S={c503.num_states}, W={w503}", s503_ms,
+         None, device_ms(lambda: tst.stream_advance(*st503[:7], c503.penalty)), s503_bound,
+         tsf.lm_table_branch(16, c503.num_states, w503, decode=False)),
+        ("trellis_stream_lm", f"64 slots x 16 frames, S={c5003.num_states}, W={w5003}",
+         device_ms(lambda: tst.stream_advance_lm(*st5003)), None,
+         device_ms(lambda: tst.stream_advance(*st5003[:7], c5003.penalty)),
+         stream_lm_bound(64, 16, c5003.num_states, 4, w5003),
+         tsf.lm_table_branch(16, c5003.num_states, w5003, decode=False)),
+        ("trellis_decode_lm+beam", f"B={b} T={t_total} S={s58} W={w58} beam={beam_main}",
+         device_ms(lambda: tsf.scanfree_decode_lm(lb3, coefs58, lm58, n_frames, beam=beam_main)),
+         None, timings["trellis_decode_beam"][0],
+         search_decode_bound(b, t_total, s58, n_frames, w58, beam=True),
+         tsf.lm_table_branch(t_total, s58, w58)),
+        ("trellis_decode_lm+beam", f"B=64 T={t_total} S={c503.num_states} W={w503} "
+         f"beam={beam_big}",
+         device_ms(lambda: tsf.scanfree_decode_lm(lb503, coefs503, lm503, len503, beam=beam_big)),
+         None,
+         device_ms(lambda: tsf.scanfree_decode_beam(lb503, coefs503, c503.penalty, len503,
+                                                    beam_big)),
+         search_decode_bound(64, t_total, c503.num_states, len503, w503, beam=True),
+         tsf.lm_table_branch(t_total, c503.num_states, w503)),
+        ("trellis_decode_lm+beam", f"B=4 T=60 S={c5003.num_states} W={w5003} beam={beam_big}",
+         device_ms(lambda: tsf.scanfree_decode_lm(lb5003, coefs5003, lm5003, len5003,
+                                                  beam=beam_big), reps=5),
+         None,
+         device_ms(lambda: tsf.scanfree_decode_beam(lb5003, coefs5003, c5003.penalty, len5003,
+                                                    beam_big), reps=5),
+         search_decode_bound(4, 60, c5003.num_states, len5003, w5003, beam=True),
+         tsf.lm_table_branch(60, c5003.num_states, w5003)),
+    )
+    for name, shape, ms, plain_ms, flat_mode_ms, (b_ms, b_by), tab in lm_rows:
+        log("timing", kernel=name, shape=shape, ms=ms, plain_ms=plain_ms,
+            flat_mode_ms=flat_mode_ms, bound_ms=b_ms, bound_by=b_by, table=tab)
+    log("timing", what="python-loop searches at 64 clips", search_ms=json.dumps(search_ms))
     errs.update(err)
     log("phase", which="22 search", seconds=f"{time.perf_counter() - t_phase:.2f}")
 

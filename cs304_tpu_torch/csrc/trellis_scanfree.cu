@@ -42,18 +42,30 @@
 //
 //   LM (scanfree_decode_lm, stream_advance_lm): a bigram LM's entry update,
 //     replacing the flat penalty. The entry of word w takes max over source
-//     words v of (alpha[uppers[v]] + pair[v, w]), pair (W, W) float32 read
-//     through the read-only cache. Each step the team publishes its W exit
-//     values to shared memory, threads w = tt, tt + 32 * warps, ... each run
-//     one word's column in order, a strict > keeping the lowest v and its own
-//     sum (torch's max over a dim; all -inf -> source 0, so uppers[0]), and
-//     a second sync publishes the per-word values and source states. Code 3
-//     then names a per-(step, word) source: the decode mode stores W int16
-//     source states a step (T * W beside the codes; 4.8 KB an utterance at
-//     W = 12, T = 201, the global scratch past the shared budget) and the
-//     walk reads the one of its state's word (word_of); the stream mode
-//     writes the full source state into the ring. Replaces the JAX package's
-//     viterbi_composite_batch_fast with pair_penalty
+//     words v of (alpha[uppers[v]] + pair[v, w]), the lowest v attaining it
+//     with its own sum (torch's max over a dim; all -inf -> source 0, so
+//     uppers[0]). Each step the team publishes its W exit values to shared
+//     memory (the neighbours' exchange syncs them); thread w = tt, tt + 32 *
+//     warps, ... finds word w's source (lm_scan) and a second sync
+//     publishes the per-word values and source states. Where the plan puts
+//     the columns on chip (LmTable) the scan is two passes with no
+//     compare-and-select carried from one candidate to the next (a max, then
+//     an integer min over keys of the candidates equal to it): a one-warp
+//     team at W <= 32 (K = 2, the flagship) keeps each lane's pair column in
+//     registers for the whole time loop; a decode mode up to K = 4 stages
+//     the (W, W) table and uppers into shared memory once a block by
+//     cp.async before the time loop where the plan finds room after the
+//     codes (which keep their priority). Otherwise the same two passes read
+//     the columns through the read-only cache, but a K = 8 team and the
+//     K = 4 stream, which have no on-chip branch, read them one source at
+//     a time (a strict > in ascending v: two passes, reading each column
+//     twice, were slower there). Code 3 then names a per-(step, word)
+//     source: the decode mode stores W int16 source states a step (T * W
+//     beside the codes; 4.8 KB an utterance at W = 12, T = 201, the global
+//     scratch past the shared budget) and the walk reads the one of its
+//     state's word (word_of); the stream mode writes the full source state
+//     into the ring. Replaces the
+//     JAX package's viterbi_composite_batch_fast with pair_penalty
 //     (cs304_tpu/ops/viterbi.py:275) and its pool's banded step with lm
 //     (cs304_tpu/ops/streaming_batch.py:97 _banded_coeffs, :201 lax.scan);
 //     no Pallas kernel of either exists.
@@ -196,7 +208,7 @@ __host__ __device__ __forceinline__ size_t align16(size_t x) {
 // Time steps of emissions a lane holds in flight, K registers each.
 __host__ __device__ constexpr int prefetch_rows(int k) { return k == 8 ? 2 : (k == 4 ? 4 : 8); }
 
-// The forward's launch plan, fixed by (T, S, mode) alone.
+// The forward's launch plan, fixed by (T, S, mode, W) alone.
 struct Plan {
   int k;             // states per lane: 2 (S <= 64), 4 (S <= 2048) or 8
   int w;             // warps per utterance
@@ -205,15 +217,47 @@ struct Plan {
   int codes_shared;  // decode: codes and best exits in shared memory
   size_t codes_off;  // offset of the LM's exchange in a team's shared bytes
   size_t team_bytes;  // dynamic shared memory per utterance
+  int lm_table;      // LM: where the pair table is read (LmTable)
+  size_t smem;       // dynamic shared memory per block
 };
 
-// The LM's exchange: exit values, per-word values and source states, each
-// (2, W) for the step's parity.
+// Where an LM mode reads its (W, W) pair table: each lane's column in
+// registers for the whole launch (K = 2, W <= LM_REG_WORDS), staged with
+// uppers in shared memory once a block, or through the read-only cache.
+enum LmTable { LM_GLOBAL = 0, LM_SHARED = 1, LM_REGISTERS = 2 };
+
+// The LM's widest vocabulary whose pair columns a K = 2 team keeps in
+// registers (one word a lane).
+constexpr int LM_REG_WORDS = 32;
+
+// W rounded up to whole float4s: the row pitch of the LM's exit values.
+__host__ __device__ constexpr int lm_quads(int lm_words) { return (lm_words + 3) & ~3; }
+
+// The LM's exchange, for the step's parity: exit values (2, Wq) (16-byte
+// rows, -inf past W), per-word values and source states (2, W) each.
 __host__ __device__ constexpr size_t lm_bytes(int lm_words) {
-  return lm_words > 0 ? (((size_t)lm_words * 24 + 15) & ~(size_t)15) : 0;
+  return lm_words > 0
+             ? (((size_t)lm_quads(lm_words) * 8 + (size_t)lm_words * 16 + 15) & ~(size_t)15)
+             : 0;
 }
 
-// lm_words: 0, or W for the LM modes (W best-exit sources a step).
+// The LM's block-wide tables in shared memory: pair as Wq rows of W floats
+// (rows past W at -inf), then uppers (W ints); each a copy_span destination
+// (8 elements of slack).
+__host__ __device__ constexpr size_t lm_pair_span(int lm_words) {
+  return ((size_t)lm_quads(lm_words) * lm_words * 4 + 32 + 15) & ~(size_t)15;
+}
+__host__ __device__ constexpr size_t lm_table_bytes(int lm_words) {
+  return lm_pair_span(lm_words) + (((size_t)lm_words * 4 + 32 + 15) & ~(size_t)15);
+}
+
+// lm_words: 0, or W for the LM modes (W best-exit sources a step). The
+// codes are placed first, as without the table. A K = 2 team at W <= 32
+// keeps its columns in registers (both modes); otherwise a decode mode's
+// table follows the codes where the block's teams leave room for it, up to
+// K = 4 (a K = 8 team, 64 registers a thread, keeps the cache-read loop).
+// The stream mode never stages it: a launch of 16 frames did not repay the
+// staging (PERF.md).
 Plan make_plan(int T, int S, bool decode, int lm_words = 0) {
   Plan pl;
   pl.k = S <= 64 ? 2 : (S <= 2048 ? 4 : 8);
@@ -232,6 +276,15 @@ Plan make_plan(int T, int S, bool decode, int lm_words = 0) {
         break;
       }
     }
+  }
+  pl.smem = (size_t)pl.u * pl.team_bytes;
+  pl.lm_table = LM_GLOBAL;
+  if (lm_words > 0 && pl.k == 2 && lm_words <= LM_REG_WORDS) {
+    pl.lm_table = LM_REGISTERS;
+  } else if (decode && lm_words > 0 && pl.k <= 4 &&
+             pl.smem + lm_table_bytes(lm_words) <= SMEM_BUDGET) {
+    pl.lm_table = LM_SHARED;
+    pl.smem += lm_table_bytes(lm_words);
   }
   return pl;
 }
@@ -263,6 +316,7 @@ struct TeamArgs {
   int B, T, S, ld, quirk;
   int w, u, row_bytes;
   size_t codes_off, team_bytes;
+  int lm_table;
 };
 
 // coefs rows (each of length S): 0 diag_ne, 1 sub1, 2 sub2, 3 diag_e,
@@ -297,7 +351,12 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   __shared__ float2 bnd[2][32];
   __shared__ unsigned red_m[2][32];
 
-  constexpr int D = prefetch_rows(K);
+  // The LM decode modes and K = 2 LM streams prefetch two rows: at K = 2,
+  // eight rows left ptxas spilling a prefetched register right after its
+  // load (a synchronous load a step), and at K = 4 four rows took the
+  // registers the scan's loads need in flight; the K = 4 stream, 16 frames
+  // a launch, ran faster with four (PERF.md, the LM modes' redesign).
+  constexpr int D = (LM && (K == 2 || !STREAMS)) ? 2 : prefetch_rows(K);
   const float neg = -__int_as_float(0x7f800000);
   const int S = p.S, T = p.T;
   const bool one_warp = K == 2 || p.w == 1;
@@ -308,10 +367,30 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
   const int nt = 32 * p.w;
   const int tt = tw * 32 + lane;       // thread within the team
   const int b = blockIdx.x * p.u + team;
+  const int W = p.n_words;
+  // LM_SCAN: the builds with a register or shared branch (LmTable), whose
+  // entry update is the two-pass scan (lm_scan), on global columns too. The
+  // others (K = 8, 64 registers a thread, and the K = 4 stream) always read
+  // global columns and compile only the one-pass loop (PERF.md).
+  constexpr bool LM_SCAN = LM && (STREAMS ? K == 2 : K <= 4);
+  const int lm_table = LM_SCAN ? p.lm_table : LM_GLOBAL;
+  // LM_SHARED: the pair table and uppers, staged once a block while every
+  // thread of the block is still here.
+  unsigned char* const lm_tab = smem + (size_t)p.u * p.team_bytes;
+  const float* const lm_pair_s = (const float*)lm_tab + span_offset(p.pair);
+  const int* const lm_up_s = (const int*)(lm_tab + lm_pair_span(W)) + span_offset(p.uppers);
+  if (lm_table == LM_SHARED) {
+    copy_span(lm_tab, p.pair, W * W, threadIdx.x, blockDim.x);
+    copy_span(lm_tab + lm_pair_span(W), p.uppers, W, threadIdx.x, blockDim.x);
+    for (int i = W * W + threadIdx.x; i < lm_quads(W) * W; i += blockDim.x)
+      ((float*)lm_pair_s)[i] = -__int_as_float(0x7f800000);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
   if (b >= p.B) return;  // only a one-warp team leaves early: no block barrier
 
   // Best-exit sources a step: one, or one a word with the LM.
-  const int W = p.n_words;
   const int nb = LM ? W : 1;
   unsigned char* const team_smem = smem + (size_t)team * p.team_bytes;
   unsigned char* codes = nullptr;
@@ -323,10 +402,17 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     codes = p.codes_g + (size_t)b * T * p.row_bytes;
     bex = (short*)(p.codes_g + (size_t)p.B * T * p.row_bytes) + (size_t)b * T * nb;
   }
-  // The LM's exchange, (2, W) each: exit values, per-word values, sources.
+  // The LM's exchange: exit values (2, Wq), per-word values and sources
+  // (2, W) each. The exit rows' pads stay -inf (published by the first
+  // step's sync); the one-pass loop reads one value at a time, and builds
+  // without LM_SCAN keep the pitch W.
+  const int Wq = LM_SCAN ? lm_quads(W) : W;
   float* lm_ex = (float*)(team_smem + p.codes_off);
-  float* lm_val = lm_ex + 2 * W;
+  float* lm_val = lm_ex + 2 * Wq;
   int* lm_src = (int*)(lm_val + 2 * W);
+  if constexpr (LM_SCAN) {
+    for (int i = W + tt; i < Wq; i += nt) lm_ex[i] = lm_ex[Wq + i] = neg;
+  }
 
   const int length = p.lengths[b];
   const int steps = min(max(length, 1), T);  // rows 1..steps-1 are live
@@ -517,11 +603,118 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     }
   };
 
+  // LM_REGISTERS (K = 2, W <= LM_REG_WORDS: one word a lane, one warp):
+  // the lane's column pair[v, tt] (v < 32, -inf past W) in registers for
+  // the whole time loop, so a step loads only the exit values.
+  constexpr bool LM_REGS = LM_SCAN && K == 2;
+  const bool lm_regs = LM_REGS && lm_table == LM_REGISTERS;
+  float pcol[LM_REGS ? LM_REG_WORDS : 1];
+#pragma unroll
+  for (int i = 0; i < (LM_REGS ? LM_REG_WORDS : 1); ++i)
+    pcol[i] = lm_regs && i < W && tt < W ? __ldg(p.pair + i * W + tt) : neg;
+
+  // LM: word w's best source, one lane a word, in two passes over its
+  // candidates x_v = ex[v] + pair[v, w]: the max m by fmaxf in four
+  // independent running maxima, then the lowest v with x_v == m by an
+  // integer min over keys 2 v + sign(x_v), so the winner keeps its own sign
+  // of zero (m's sign is x_v's unless m is zero). Neither pass carries a
+  // compare and select from one candidate to the next: such a chain, its
+  // compares sharing the few predicate registers, ran the candidates one
+  // after another. This is the lowest v attaining the max with its own sum,
+  // and source 0 where every candidate is -inf (their keys are 2 v + 1), as
+  // torch's max over a dim. Where no candidate equals m (every real one NaN:
+  // fmaxf skips NaN and m stays -inf) the key names no word or a pad, and
+  // the source is 0, as the one-pass loop's strict > leaves it. The exit
+  // values come four at a time (a broadcast float4; the pads' -inf never
+  // win over a real -inf, whose v is lower); pair[v, w] from registers
+  // (pcol: a fully unrolled scan of exactly Wq / 4 groups, picked by one
+  // switch, since a uniform branch a group cost more than its group), from
+  // the shared table's column (rows past W at -inf) or from global memory
+  // (the last group's rows past W read as 0, their exit values being -inf).
+  auto lm_reduce = [&](auto groups, float& bv, int& bi) {
+    float m4[4] = {neg, neg, neg, neg};
+    groups([&](int v, float4 e, float p0, float p1, float p2, float p3) {
+      m4[0] = fmaxf(m4[0], e.x + p0);
+      m4[1] = fmaxf(m4[1], e.y + p1);
+      m4[2] = fmaxf(m4[2], e.z + p2);
+      m4[3] = fmaxf(m4[3], e.w + p3);
+    });
+    const float m = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+    auto key = [&](float x, int v) {
+      return x == m ? 2u * (unsigned)v + (__float_as_uint(x) >> 31) : ~0u;
+    };
+    unsigned k4[4] = {~0u, ~0u, ~0u, ~0u};
+    groups([&](int v, float4 e, float p0, float p1, float p2, float p3) {
+      k4[0] = min(k4[0], key(e.x + p0, v));
+      k4[1] = min(k4[1], key(e.y + p1, v + 1));
+      k4[2] = min(k4[2], key(e.z + p2, v + 2));
+      k4[3] = min(k4[3], key(e.w + p3, v + 3));
+    });
+    const unsigned k = min(min(k4[0], k4[1]), min(k4[2], k4[3]));
+    bi = (k >> 1) < (unsigned)W ? (int)(k >> 1) : 0;
+    bv = __uint_as_float((__float_as_uint(m) & 0x7fffffffu) | (k << 31));
+  };
+  auto lm_scan = [&](const float* ex, int w, float& bv, int& bi) {
+    const float4* ex4 = (const float4*)ex;
+    if constexpr (LM_REGS) {
+      if (lm_regs) {
+        auto regs = [&](auto n_groups) {
+          constexpr int NQ = decltype(n_groups)::value;
+          float4 e[NQ];
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) e[q] = ex4[q];
+          lm_reduce([&](auto f) {
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+              f(4 * q, e[q], pcol[4 * q], pcol[4 * q + 1], pcol[4 * q + 2], pcol[4 * q + 3]);
+          }, bv, bi);
+        };
+        static_assert(LM_REG_WORDS == 32, "one case a group count");
+        switch (Wq >> 2) {
+          case 1: regs(std::integral_constant<int, 1>{}); break;
+          case 2: regs(std::integral_constant<int, 2>{}); break;
+          case 3: regs(std::integral_constant<int, 3>{}); break;
+          case 4: regs(std::integral_constant<int, 4>{}); break;
+          case 5: regs(std::integral_constant<int, 5>{}); break;
+          case 6: regs(std::integral_constant<int, 6>{}); break;
+          case 7: regs(std::integral_constant<int, 7>{}); break;
+          default: regs(std::integral_constant<int, 8>{}); break;
+        }
+        return;
+      }
+    }
+    if (lm_table == LM_SHARED) {
+      lm_reduce([&](auto f) {
+        const float* c = lm_pair_s + w;
+#pragma unroll 4
+        for (int v = 0; v < Wq; v += 4, c += 4 * W)
+          f(v, ex4[v >> 2], c[0], c[W], c[2 * W], c[3 * W]);
+      }, bv, bi);
+    } else {
+      lm_reduce([&](auto f) {
+        const float* c = p.pair + w;
+        const int wf = W & ~3;
+        int v = 0;
+#pragma unroll 4
+        for (; v < wf; v += 4, c += 4 * W)
+          f(v, ex4[v >> 2], __ldg(c), __ldg(c + W), __ldg(c + 2 * W), __ldg(c + 3 * W));
+        if (v < W)
+          f(v, ex4[v >> 2], __ldg(c), v + 1 < W ? __ldg(c + W) : 0.f,
+            v + 2 < W ? __ldg(c + 2 * W) : 0.f, 0.f);
+      }, bv, bi);
+    }
+  };
+
   // LM: the per-word entry values and sources of step t, behind the
   // neighbours' exchange (whose sync publishes the exit values); a second
-  // sync publishes them. Decode mode stores each word's source state.
+  // sync publishes them. Decode mode stores each word's source state. The
+  // builds without LM_SCAN read each column in order, a strict > keeping
+  // the lowest v: there the two passes, reading a column twice, were
+  // slower (the K = 4 stream) or spilled (K = 8). An LM_SCAN build keeps no
+  // such loop beside its scan: with it, ptxas gave the K = 4 LM + beam
+  // decode 64 registers and spills, and the K = 2 register branch slowed.
   auto lm_entry = [&](int t, int parity, float& u1, float& u2) {
-    float* ex = lm_ex + parity * W;
+    float* ex = lm_ex + parity * Wq;
     float* val = lm_val + parity * W;
     int* src = lm_src + parity * W;
 #pragma unroll
@@ -530,17 +723,21 @@ __global__ void __launch_bounds__(K == 2 ? 128 : (K == 4 ? 512 : 1024))
     if (one_warp) __syncwarp();
     neighbours(parity, u1, u2);
     for (int w = tt; w < W; w += nt) {
-      float best = neg;
-      int v_best = 0;
-      for (int v = 0; v < W; ++v) {
-        const float c = ex[v] + __ldg(p.pair + (size_t)v * W + w);
-        if (c > best) {
-          best = c;
-          v_best = v;
+      float bv = neg;
+      int bi = 0;
+      if constexpr (LM_SCAN) {
+        lm_scan(ex, w, bv, bi);
+      } else {
+        for (int v = 0; v < W; ++v) {
+          const float c = ex[v] + __ldg(p.pair + (size_t)v * W + w);
+          if (c > bv) {
+            bv = c;
+            bi = v;
+          }
         }
       }
-      const int st = __ldg(p.uppers + v_best);
-      val[w] = best;
+      const int st = lm_table == LM_SHARED ? lm_up_s[bi] : __ldg(p.uppers + bi);
+      val[w] = bv;
       src[w] = st;
       if constexpr (DECODE) bex[(size_t)t * W + w] = (short)st;
     }
@@ -792,7 +989,8 @@ int launch_team(const Plan& pl, TeamArgs a, cudaStream_t stream) {
   a.row_bytes = pl.row_bytes;
   a.codes_off = pl.codes_off;
   a.team_bytes = pl.team_bytes;
-  const size_t smem = (size_t)pl.u * pl.team_bytes;
+  a.lm_table = pl.lm_table;
+  const size_t smem = pl.smem;
   const void* fn = (const void*)trellis_team_kernel<K, MODE, SENT, RingT, LM, BEAM>;
   const int err = set_smem(fn, smem);
   if (err) return err;
@@ -866,6 +1064,13 @@ extern "C" long long cs304_trellis_decode_scratch_bytes(int B, int T, int S, int
   const Plan pl = make_plan(T, S, true, W);
   if (pl.codes_shared) return 0;
   return (long long)B * T * pl.row_bytes + (long long)B * T * (W > 0 ? W : 1) * 2;
+}
+
+// Where an LM mode (decode != 0: the decode modes, else the stream mode)
+// reads its pair table at this shape: LmTable's LM_GLOBAL, LM_SHARED or
+// LM_REGISTERS.
+extern "C" int cs304_trellis_lm_table(int T, int S, int W, int decode) {
+  return make_plan(T, S, decode != 0, W).lm_table;
 }
 
 extern "C" int cs304_trellis_decode(

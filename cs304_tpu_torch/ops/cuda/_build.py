@@ -102,6 +102,8 @@ def load():
         lib.cs304_trellis_decode.restype = i
         lib.cs304_trellis_decode_scratch_bytes.argtypes = [i, i, i, i]
         lib.cs304_trellis_decode_scratch_bytes.restype = ctypes.c_longlong
+        lib.cs304_trellis_lm_table.argtypes = [i, i, i, i]
+        lib.cs304_trellis_lm_table.restype = i
         lib.cs304_trellis_backtrace.argtypes = [p, i, ctypes.c_longlong, p, p, p,
                                                 i, i, i, i, p]
         lib.cs304_trellis_backtrace.restype = i

@@ -42,7 +42,7 @@ from . import _build
 MAX_STATES = 8192
 
 __all__ = [
-    "MAX_STATES", "codes_scratch_bytes", "pack_coefs", "scanfree_decode",
+    "MAX_STATES", "codes_scratch_bytes", "lm_table_branch", "pack_coefs", "scanfree_decode",
     "scanfree_decode_beam", "scanfree_decode_lm",
     "trellis_backtrace", "trellis_forward", "viterbi_composite_batch_scanfree",
 ]
@@ -160,6 +160,19 @@ def codes_scratch_bytes(b: int, t_total: int, s: int, n_words: int = 0) -> int:
     best-exit sources a step): 0 where they stay in shared memory. The
     kernel's launch plan decides; a shape asks it once."""
     return int(_build.load().cs304_trellis_decode_scratch_bytes(b, t_total, s, n_words))
+
+
+@functools.lru_cache(maxsize=64)
+def lm_table_branch(t_total: int, s: int, n_words: int, decode: bool = True) -> str:
+    """Where an LM mode reads its (W, W) pair table at this shape, as the
+    kernel's launch plan decides: "registers" (each lane's column for the
+    whole launch: a one-warp team, S <= 64, at W <= 32, in both modes),
+    "shared" (a decode mode's table and uppers staged into shared memory
+    once a block, where they fit after its codes, which keep their branch)
+    or "global" (through the read-only cache)."""
+    lib = _build.load()
+    return ("global", "shared", "registers")[
+        lib.cs304_trellis_lm_table(t_total, s, n_words, int(decode))]
 
 
 def scanfree_decode(log_b, coefs, penalty, lengths, quirk_backtrace: bool = True):

@@ -24,9 +24,13 @@ half its rows: -inf and zero cells equal, the rest within
 1e-5 * max(1, |x|)) and one fused Baum-Welch iteration launching the E-step
 mode and not FB; the search modes (the LM and BEAM decode modes and the LM
 stream mode, bitwise their plain versions; every case with finite scores in
-at least half its rows; 5003 states with the codes in the global scratch)
-and the bigram and beam decoders launching their modes and never the plain
-trellis.
+at least half its rows; 5003 states with the codes in the global scratch;
+the LM entry update at W = 1 and 31 / 32 / 33, W off the four-source
+groups, steps whose every exit is -inf, signed-zero ties across source
+words, and each of the table's register / shared / global branches,
+asserted through lm_table_branch; a NaN frame keeping every source word in
+range, without a fault) and the bigram and beam decoders
+launching their modes and never the plain trellis.
 
 These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20 and 22 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
@@ -1085,6 +1089,278 @@ def test_stream_lm_mode_is_bitwise_plain(dev, num_words, ring, compact, mode):
     assert tst.stream_advance_lm.launches == before + 10
     assert tst.stream_advance.launches == before_flat
 
+
+# -- the LM entry update: W at a warp's edges, W off the four-source groups,
+# steps whose every exit is -inf, signed-zero ties across source words, and
+# each side of the pair table's shared / global branch --------------------
+
+
+def _word_topology(counts, seed):
+    """A composite of left-to-right words with the given state counts and
+    random self / next / skip log transitions (no Gaussians)."""
+    from cs304_tpu_torch.models.hmm import CompositeHMM
+
+    rng = np.random.default_rng(seed)
+    s = sum(counts)
+    log_a = np.full((s, s), -np.inf, np.float32)
+    base = 0
+    for n in counts:
+        for i in range(n):
+            for d in range(min(3, n - i)):
+                log_a[base + i, base + i + d] = np.log(rng.uniform(0.1, 1.0))
+        base += n
+    return CompositeHMM(labels=[f"w{i}" for i in range(len(counts))], state_counts=list(counts),
+                        means=np.zeros((s, 1), np.float32),
+                        covariances=np.ones((s, 1, 1), np.float32), log_a=log_a)
+
+
+def _signed(rng, shape, p_inf, p_neg):
+    """-inf with probability p_inf, else -0 with probability p_neg, else +0."""
+    zeros = np.where(rng.random(shape) < p_neg, np.float32(-0.0), np.float32(0.0))
+    return np.where(rng.random(shape) < p_inf, np.float32(-np.inf), zeros).astype(np.float32)
+
+
+def _lm_problem(dev, case, rng):
+    """(coefs (8, S), lm tables, emissions(rows, t) -> (rows, t, S) float32
+    numpy) of an LM case. "zeros-W": W one-state words whose states are
+    entry and exit with no self-loop, signed-zero t = 0 weights, emissions
+    and pair values (mostly -0, some -inf), so every step's candidates tie
+    at +-0 across source words. Otherwise LM_SPLIT_CASES' (state counts, pair,
+    emissions): pair "trained" is _search_pair's, "rand" normal with 10%
+    -inf; emissions "exits-inf" put -inf on every exit state at frame 5
+    (every candidate of step 6 is -inf)."""
+    from cs304_tpu_torch.ops.viterbi import lm_tables
+
+    if case.startswith("zeros-"):
+        w = int(case.split("-")[1])
+        neg = np.full(w, -np.inf, np.float32)
+        ones = np.ones(w, np.float32)
+        coefs = np.stack([neg, neg, neg, neg, ones, ones, _signed(rng, w, 0.0, 0.7),
+                          np.zeros(w, np.float32)])
+        lm = lm_tables(_signed(rng, (w, w), 0.3, 0.6), np.arange(w), np.arange(w), device=dev)
+        return (torch.as_tensor(coefs, device=dev), lm,
+                lambda rows, t: _signed(rng, (rows, t, w), 0.15, 0.8))
+    counts, pair_kind, emissions = LM_SPLIT_CASES[case]
+    comp = flagship_composite() if counts is None else _word_topology(counts, len(counts))
+    s, w = comp.num_states, len(comp.labels)
+    coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit, device=dev)
+    if pair_kind == "trained":
+        pair = _search_pair(comp, "trained")
+    else:
+        pair = (3 * rng.normal(size=(w, w)) - 2).astype(np.float32)
+        pair[rng.random((w, w)) < 0.1] = -np.inf
+
+    def emit(rows, t):
+        log_b = (3 * rng.normal(size=(rows, t, s))).astype(np.float32)
+        if emissions == "exits-inf" and t > 5:
+            log_b[:, 5, comp.uppers] = -np.inf
+        return log_b
+
+    return coefs, lm_tables(pair, comp.word_of_state, comp.uppers, device=dev), emit
+
+
+# case: (state counts or None for the flagship, pair, emissions). W = 1; W =
+# 31 / 32 / 33 two-state words (one-warp teams, one word a lane, lane 0
+# taking words 0 and 32 at 33); 30 five-state words + silence (W = 31 on a
+# two-warp team); 12 + silence (W = 13, off the four-source groups); every
+# exit -inf at frame 5 on the flagship and at 503 states; 200 words at T =
+# 27 / 28, either side of the decode table's shared / global branch with
+# the codes in shared memory, and 199 (off the groups) on its global side;
+# 222 words on the stream mode, which reads the table through the cache
+# past 32 words; the flagship and 503 states on random emissions; 40
+# one-state words (a one-warp team reading global columns in the stream mode).
+LM_SPLIT_CASES = {
+    "w1": ([3], "rand", "randn"),
+    "w31": ([2] * 31, "rand", "randn"),
+    "w32": ([2] * 32, "rand", "randn"),
+    "w33": ([2] * 33, "rand", "randn"),
+    "w31-two-warps": ([5] * 30 + [3], "rand", "randn"),
+    "w13": ([5] * 12 + [3], "trained", "randn"),
+    "flagship-exits-inf": (None, "trained", "exits-inf"),
+    "503-exits-inf": ([5] * 100 + [3], "rand", "exits-inf"),
+    "w200": ([5] * 199 + [3], "rand", "randn"),
+    "w199": ([5] * 198 + [3], "rand", "randn"),
+    "w40": ([1] * 40, "rand", "randn"),
+    "w222": ([5] * 221 + [3], "rand", "randn"),
+    "flagship": (None, "trained", "randn"),
+    "503": ([5] * 100 + [3], "rand", "randn"),
+}
+
+# name: (case, B, T, beam, the table's branch).
+LM_DECODE_SPLIT = {
+    "w1": ("w1", 9, 40, None, "registers"),
+    "w31": ("w31", 9, 40, None, "registers"),
+    "w32": ("w32", 9, 40, None, "registers"),
+    "w33": ("w33", 9, 40, 15.0, "shared"),
+    "w31-two-warps": ("w31-two-warps", 6, 40, None, "shared"),
+    "w13": ("w13", 9, 40, None, "registers"),
+    "flagship-exits-inf": ("flagship-exits-inf", 9, 40, None, "registers"),
+    "503-exits-inf": ("503-exits-inf", 4, 30, None, "shared"),
+    "zeros-12": ("zeros-12", 64, 8, None, "registers"),
+    "zeros-40": ("zeros-40", 64, 8, None, "shared"),
+    "w200-t27": ("w200", 3, 27, None, "shared"),
+    "w200-t28": ("w200", 3, 28, None, "global"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LM_DECODE_SPLIT))
+def test_lm_decode_split_is_bitwise_plain(dev, name):
+    case, b, t, beam, branch = LM_DECODE_SPLIT[name]
+    rng = np.random.default_rng(sorted(LM_DECODE_SPLIT).index(name))
+    coefs, lm, emit = _lm_problem(dev, case, rng)
+    s, w = coefs.shape[1], lm[0].shape[0]
+    assert tsf.lm_table_branch(t, s, w) == branch
+    assert tsf.codes_scratch_bytes(b, t, s, w) == 0
+    log_b = torch.as_tensor(emit(b, t), device=dev)
+    lengths = torch.as_tensor(rng.integers(1, t + 1, b), dtype=torch.int32, device=dev)
+    lengths[0], lengths[1] = 1, t
+    before = tsf.scanfree_decode_lm.launches
+    got = [x.cpu() for x in tsf.scanfree_decode_lm(log_b, coefs, lm, lengths, beam=beam)]
+    assert tsf.scanfree_decode_lm.launches == before + 1
+    want = tsf._plain_search(log_b.cpu(), coefs.cpu(), 0.0, lengths.cpu(), True,
+                             lm=tuple(x.cpu() for x in lm), beam=beam)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+    assert torch.isfinite(want[0]).float().mean().item() >= 0.5
+
+
+# name: (case, ring dtype, compact upload, the table's branch).
+LM_STREAM_SPLIT = {
+    "w1": ("w1", torch.int8, True, "registers"),
+    "w31": ("w31", torch.int8, False, "registers"),
+    "w32": ("w32", torch.int8, True, "registers"),
+    "w33": ("w33", torch.int32, True, "global"),
+    "w31-two-warps": ("w31-two-warps", torch.int32, False, "global"),
+    "w13": ("w13", torch.int8, True, "registers"),
+    "flagship-exits-inf": ("flagship-exits-inf", torch.int8, True, "registers"),
+    "zeros-12": ("zeros-12", torch.int8, True, "registers"),
+    "zeros-40": ("zeros-40", torch.int8, False, "global"),
+    "w222": ("w222", torch.int32, True, "global"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LM_STREAM_SPLIT))
+def test_lm_stream_split_is_bitwise_plain(dev, name):
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.streaming_batch import _advance_compact, _coeffs_of
+
+    case, ring, compact, branch = LM_STREAM_SPLIT[name]
+    rng = np.random.default_rng(sorted(LM_STREAM_SPLIT).index(name) + 50)
+    b, c, t_max = 6, 8, 40
+    coefs, lm, emit = _lm_problem(dev, case, rng)
+    s, w = coefs.shape[1], lm[0].shape[0]
+    assert tsf.lm_table_branch(c, s, w, decode=False) == branch
+    lm_p, coefs_p = tuple(x.cpu() for x in lm), coefs.cpu()
+    alpha = torch.full((b, s), float("-inf"), device=dev)
+    ring_d = torch.full((b, t_max, s), -1, dtype=ring, device=dev)
+    alpha_p, ring_p = alpha.cpu(), ring_d.cpu()
+    before = tst.stream_advance_lm.launches
+    for slot_ids, t, valid in _stream_steps(rng, b, c, t_max, 10, compact):
+        log_b = torch.as_tensor(emit(len(slot_ids), c))
+        tst.stream_advance_lm(alpha, ring_d, *(torch.as_tensor(x, device=dev)
+                                               for x in (slot_ids, t, valid)),
+                              log_b.to(dev), coefs, lm)
+        _advance_compact(alpha_p, ring_p, slot_ids, t, valid, log_b, coefs_p[6],
+                         coefs_p[4] > 0, coeffs=_coeffs_of(coefs_p, 0.0, lm_p))
+        torch.cuda.synchronize()
+        assert torch.equal(alpha.cpu(), alpha_p)
+        assert torch.equal(torch.signbit(alpha.cpu()), torch.signbit(alpha_p))
+        assert torch.equal(ring_d.cpu(), ring_p)
+    assert torch.isfinite(alpha_p).any(dim=1).float().mean().item() >= 0.5
+    assert tst.stream_advance_lm.launches == before + 10
+
+
+
+# name: (case, B, T, the table's branch): a NaN frame (every exit value NaN
+# at frame 5, so every candidate of step 6) in the first half of the rows;
+# W = 12 (no pad), 13 (pads in the register scan), 101 (the shared table)
+# and 199 (global columns, a tail group).
+LM_NAN_DECODE = {
+    "flagship": ("flagship", 8, 30, "registers"),
+    "w13": ("w13", 8, 30, "registers"),
+    "503": ("503", 4, 30, "shared"),
+    "w199-t29": ("w199", 4, 29, "global"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LM_NAN_DECODE))
+def test_lm_decode_nan_frame_keeps_sources_in_range(dev, name):
+    """A NaN frame leaves no candidate equal to the max: the kernel must
+    still name source word 0 (no read past uppers), finish without a fault
+    and walk only real states; the rows without NaN stay bitwise their
+    plain version."""
+    case, b, t, branch = LM_NAN_DECODE[name]
+    rng = np.random.default_rng(sorted(LM_NAN_DECODE).index(name) + 90)
+    coefs, lm, emit = _lm_problem(dev, case, rng)
+    s, w = coefs.shape[1], lm[0].shape[0]
+    assert tsf.lm_table_branch(t, s, w) == branch
+    log_b = emit(b, t)
+    log_b[: b // 2, 5] = np.nan
+    log_b = torch.as_tensor(log_b, device=dev)
+    lengths = torch.full((b,), t, dtype=torch.int32, device=dev)
+    lengths[-1] = t // 2
+    scores, paths = tsf.scanfree_decode_lm(log_b, coefs, lm, lengths)
+    torch.cuda.synchronize()
+    paths = paths.cpu()
+    assert bool(((paths[: b // 2] >= 0) & (paths[: b // 2] < s)).all())
+    want = tsf._plain_search(log_b[b // 2:].cpu(), coefs.cpu(), 0.0, lengths[b // 2:].cpu(),
+                             True, lm=tuple(x.cpu() for x in lm))
+    got = scores[b // 2:].cpu()
+    assert torch.equal(got, want[0]) and torch.equal(paths[b // 2:], want[1])
+    assert torch.equal(torch.signbit(got), torch.signbit(want[0]))
+    assert torch.isfinite(want[0]).float().mean().item() >= 0.5
+
+
+# name: (case, ring dtype, the table's branch): the stream mode with a NaN
+# last frame in every chunk from the third step on, in the slots of the
+# first half (so the next chunk's first step scans NaN exits).
+LM_NAN_STREAM = {
+    "flagship": ("flagship", torch.int8, "registers"),
+    "w13": ("w13", torch.int8, "registers"),
+    "w33": ("w33", torch.int32, "global"),
+    "w40": ("w40", torch.int8, "global"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LM_NAN_STREAM))
+def test_lm_stream_nan_frame_keeps_sources_in_range(dev, name):
+    """As the decode case: every ring row of a NaN slot names a real state
+    (or is untouched), the other slots' alpha and ring rows stay bitwise the
+    plain step's."""
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.streaming_batch import _advance_compact, _coeffs_of
+
+    case, ring, branch = LM_NAN_STREAM[name]
+    rng = np.random.default_rng(sorted(LM_NAN_STREAM).index(name) + 95)
+    b, c, t_max = 6, 8, 40
+    coefs, lm, emit = _lm_problem(dev, case, rng)
+    s, w = coefs.shape[1], lm[0].shape[0]
+    assert tsf.lm_table_branch(c, s, w, decode=False) == branch
+    lm_p, coefs_p = tuple(x.cpu() for x in lm), coefs.cpu()
+    alpha = torch.full((b, s), float("-inf"), device=dev)
+    ring_d = torch.full((b, t_max, s), -1, dtype=ring, device=dev)
+    alpha_p, ring_p = alpha.cpu(), ring_d.cpu()
+    nan_slots, saw_nan = b // 2, False
+    for step, (slot_ids, t, valid) in enumerate(_stream_steps(rng, b, c, t_max, 8, False)):
+        log_b = emit(len(slot_ids), c)
+        for i in np.flatnonzero((slot_ids < nan_slots) & (valid > 0)):
+            if step >= 2:
+                log_b[i, valid[i] - 1] = np.nan
+        log_b = torch.as_tensor(log_b)
+        tst.stream_advance_lm(alpha, ring_d, *(torch.as_tensor(x, device=dev)
+                                               for x in (slot_ids, t, valid)),
+                              log_b.to(dev), coefs, lm)
+        _advance_compact(alpha_p, ring_p, slot_ids, t, valid, log_b, coefs_p[6],
+                         coefs_p[4] > 0, coeffs=_coeffs_of(coefs_p, 0.0, lm_p))
+        torch.cuda.synchronize()
+        got_a, got_r = alpha.cpu(), ring_d.cpu()
+        assert bool(((got_r[:nan_slots] >= -1) & (got_r[:nan_slots] < s)).all())
+        assert torch.equal(got_a[nan_slots:], alpha_p[nan_slots:])
+        assert torch.equal(torch.signbit(got_a[nan_slots:]), torch.signbit(alpha_p[nan_slots:]))
+        assert torch.equal(got_r[nan_slots:], ring_p[nan_slots:])
+        saw_nan |= bool(torch.isnan(got_a[:nan_slots]).any())
+    assert saw_nan
+    assert torch.isfinite(alpha_p[nan_slots:]).any(dim=1).float().mean().item() >= 0.5
 
 def test_search_decoders_launch_their_modes_not_the_plain_trellis(dev, monkeypatch):
     from cs304_tpu_torch.data.batching import make_signals

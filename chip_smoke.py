@@ -201,6 +201,30 @@ Phases (each prints its own numbers; any failure exits non-zero):
               default mean 0.25, max 2.0); transcripts against highest's
               (the flagship on the 512 clips, phase 9's models on its
               evaluation clips, with accuracy): "high" must agree 1.0
+ 27. phones   benchmarks/phone_tier.py's default configuration (30 words
+              of 3-5 phones, the last 3 held out as OOV, 4 + 2 speakers,
+              3 takes, 12 training sentences, 10 iterations, cov_reg 0.1,
+              penalty -100, seed 5) with every tier: the word tier, the
+              monophones, biphones, triphones, tied triphones (4 a phone),
+              senones (4 leaves a state) and a K=2 GMM phone tier, trained
+              on the card; the last fused K3 launch of the phone and the
+              tied senone tier bitwise the plain trellis on CPU copies of
+              its inputs; the phone tier trained again on the CPU, the
+              card's parameters within rtol 1e-4 / atol 1e-5 of it; one
+              tied iteration and the tie pooling timed; every lexicon word
+              composed and decoded with the default emissions="whiten"
+              (the benchmark's) and with "quad" (K1) on the in-vocab and
+              OOV sentences (and the senone tier's tree-synthesis
+              ablation); the benchmark's gates for both (phone tier >=
+              0.85 in-vocab, OOV exact >= 0.3, each context-dependent tier
+              >= 0.85); 8 in-vocab + 8 OOV clips of every tier and form
+              equal to the CPU port's; tied senone slots and transitions
+              bitwise shared, a second senone training bitwise the first;
+              K3 launched in every training, K2 in every decode and K1 in
+              every quad decode, no plain trellis or plain emission on a
+              CUDA tensor; one line a tier and form (train s, iterations,
+              params, composite states, decode ms a batch, accuracies)
+              with the card's name and power limit
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
 The line before the last is the kernels' JSON record (fifteen kernels, each with
@@ -694,6 +718,7 @@ def main():
     bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks)
     search_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
     slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks)
+    phone_tier_phase(dev, smi)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -3390,6 +3415,421 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
     if agree != (1.0, 1.0):
         raise SystemExit(f"'high' MFCC transcripts differ from 'highest': {agree}")
     log("phase", which="23-26 slice 4b", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
+# Phase 27: benchmarks/phone_tier.py's default configuration with every tier
+# on (--biphones --triphones --senones 4 --tie-triphones 4), and its gates
+# (phone_tier.py:472-478).
+PHONE_TIER = SimpleNamespace(
+    num_words=30, oov_words=3, phones_per_word=(3, 5), num_phones=24, train_speakers=4,
+    test_speakers=2,
+    takes=3, train_sentences=12, eval_sentences=10, iterations=10, cov_reg=0.1,
+    penalty=-100.0, seed=5, senones=4, senone_min_gain=0.0, senone_min_count=8.0,
+    tie_triphones=4, gmm_iterations=4, agree_clips=8)
+PHONE_GATE, OOV_GATE = 0.85, 0.3  # the context-dependent tiers share PHONE_GATE
+
+
+def check_launches(what, rose, need):
+    """Fail unless every counter named in need rose."""
+    missing = [k for k in need if rose[k] == 0]
+    if missing:
+        raise SystemExit(f"phase 27: {what} never launched {missing}: {rose}")
+
+
+def phone_tier_phase(dev, card, cfg=PHONE_TIER):
+    """Phase 27: benchmarks/phone_tier.py's flow with the port's modules,
+    every tier trained and decoded on the card; its accuracy gates, card
+    transcripts against the CPU port's, senone ties and determinism, and the
+    launches of K3 (training) and K1 / K2 (decoding) in every tier. Every
+    plain trellis (and the plain emission) is guarded: a call on a CUDA
+    tensor fails the phase.
+
+    Training is held against the plain path too: the last fused
+    iteration's K3 launch of the phone tier and of the (tied) senone tier
+    bitwise the plain trellis on CPU copies of its inputs, and the phone
+    tier trained once more on the CPU from the same boot and features,
+    within the CPU tests' rtol 1e-4 / atol 1e-5. One tied iteration and
+    its pooling are timed.
+
+    Each tier decodes twice: with the decoder's default
+    emissions="whiten", as phone_tier.py decodes (no emission kernel: the
+    whitening is one matmul), and with emissions="quad", which runs K1.
+    The gates and the CPU agreement hold for both."""
+    from cs304_tpu_torch.audio.endpointing import SignalSeparation
+    from cs304_tpu_torch.data.wordvocab import make_lexicon, make_word_corpus
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.models import train_fused as tf
+    from cs304_tpu_torch.models.biphone import compose_word_models_biphone, train_biphone_models
+    from cs304_tpu_torch.models.lexicon import (
+        compose_word_models,
+        train_phone_models,
+        uniform_phone_boot,
+    )
+    from cs304_tpu_torch.models.senone import (
+        compose_word_models_senone,
+        senone_table,
+        senone_unit_table,
+        train_senone_models,
+    )
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainConfig, ContinuousTrainer
+    from cs304_tpu_torch.models.train_kmeans import (
+        SegmentalKMeansConfig,
+        train_digit_models,
+        train_word_hmm,
+    )
+    from cs304_tpu_torch.models.triphone import (
+        compose_word_models_triphone,
+        tie_and_train_triphones,
+        train_triphone_models,
+    )
+    from cs304_tpu_torch.ops import viterbi as vt
+    from cs304_tpu_torch.ops.cuda import emission as em
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.mfcc import mfcc_batch
+    from cs304_tpu_torch.reporting.metrics import corpus_wer
+
+    t_phase = time.perf_counter()
+    counters = {"K3": tb.banded_decode, "K3-bp": tb.banded_forward, "K1": em.emission,
+                "K1-split": em.emission_split, "K2": tsf.scanfree_decode}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    def delta(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in counters}
+
+    plain_on_card = {}
+
+    def guard(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card[name] = plain_on_card.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        setattr(mod, name, counted)
+        return mod, name, fn
+
+    recorded = {}
+
+    def record(mod, name):
+        """Keep the arguments and result of the last mod.name call; the
+        call itself is unchanged (no extra launch)."""
+        fn = getattr(mod, name)
+
+        def kept(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            recorded[name] = (args, kwargs, out)
+            return out
+        setattr(mod, name, kept)
+        return mod, name, fn
+
+    def k3_against_plain(tier):
+        """The tier's last fused-iteration K3 launch (its own inputs and
+        output) against the plain trellis, _banded_trellis_final, on CPU
+        copies of the same inputs: scores and paths bitwise."""
+        args, _, (scores, paths) = recorded.pop("banded_decode")
+        if args[0].device != scores.device or scores.device.type != dev.type:
+            raise SystemExit(f"phase 27: the {tier} tier's trellis did not run on {dev}")
+        want_s, want_p = tf._banded_trellis_final(*(a.cpu() for a in args))
+        same = {"scores": torch.equal(scores.cpu(), want_s),
+                "paths": torch.equal(paths.cpu(), want_p)}
+        b, t, s = args[0].shape
+        log("phone-tier", stage="K3-vs-plain", tier=tier, B=b, T=t, S_sent=s,
+            utterances=int((args[4] > 0).sum()), equal=json.dumps(same))
+        if not all(same.values()):
+            raise SystemExit(f"phase 27: K3 differs from the plain trellis on the {tier} "
+                             f"tier's training batch: {same}")
+
+    saved = [guard(m, n) for m, n in (
+        (tb, "banded_sentence_forward"), (tb, "backtrace_batch"),
+        (vt, "viterbi_banded_batch_plain"), (tf, "_banded_trellis_final"),
+        (tsf, "_plain_search"), (tsf, "forward_fast"), (dm, "viterbi_composite_batch_fast"),
+        (em, "emission_plain"))]
+    saved += [record(tf, "banded_decode"), record(tf, "fused_train_run")]
+    try:
+        # -- the corpus, the boots and the training sentences (phone_tier.py) --
+        t0 = time.perf_counter()
+        corpus = make_word_corpus(cfg.num_words, num_train_speakers=cfg.train_speakers,
+                                  num_test_speakers=cfg.test_speakers, takes_per_digit=cfg.takes,
+                                  phones_per_word=cfg.phones_per_word,
+                                  num_phones=cfg.num_phones)
+        lex = make_lexicon(cfg.num_words, phones_per_word=cfg.phones_per_word,
+                           num_phones=cfg.num_phones)
+        labels = corpus.labels
+        oov = labels[-cfg.oov_words:]
+        train_words = [w for w in labels if w not in oov]
+        covered = {p for w in oov for p in lex[w]} <= {p for w in train_words for p in lex[w]}
+        sep = SignalSeparation()
+        stripped = {w: mfcc_batch(sep.remove_empty_batch(corpus.train_dataset[w]), device=dev)
+                    for w in train_words}
+        raw = {w: mfcc_batch(corpus.train_dataset[w], device=dev) for w in train_words}
+        noises = [x for x in sep.get_all_noises() if len(x) >= 9 * sep.frame_size]
+        before = counts()
+        silence = train_word_hmm("S", mfcc_batch(noises, device=dev), SegmentalKMeansConfig(
+            num_states=3, max_iterations=12, length_multiple=32), device=dev).model
+        check_launches("the silence model's k-means", delta(before), ["K3"])
+        rng = np.random.default_rng(cfg.seed)
+        sentences, seen = [], set()
+        while len(sentences) < cfg.train_sentences:
+            tr = tuple(str(x) for x in rng.choice(train_words, size=3))
+            if tr not in seen:
+                seen.add(tr)
+                sentences.append(tr)
+        labeled = {(w,): raw[w] for w in train_words}
+        labeled.update({tr: mfcc_batch([corpus.sentence_audio(tr, spk, jitter_seed=cfg.seed * 1000)
+                                        for spk in range(cfg.train_speakers)], device=dev)
+                        for tr in sentences})
+        # The held-out speakers' sentences, in-vocabulary and with OOV words,
+        # drawn on from the same generator as phone_tier.py draws them.
+        test_speakers = range(cfg.train_speakers, cfg.train_speakers + cfg.test_speakers)
+        truths, clips, k = [], [], 0
+        while len(truths) < cfg.eval_sentences * cfg.test_speakers:
+            tr = tuple(str(x) for x in rng.choice(train_words, size=3))
+            for spk in test_speakers:
+                truths.append("".join(tr))
+                clips.append(corpus.sentence_audio(tr, spk, jitter_seed=cfg.seed * 1000 + 200 + k))
+            k += 1
+        oov_truths, oov_clips = [], []
+        for k in range(cfg.eval_sentences):
+            tr = (str(rng.choice(oov)), str(rng.choice(train_words)), str(rng.choice(oov)))
+            for spk in test_speakers:
+                oov_truths.append("".join(tr))
+                oov_clips.append(corpus.sentence_audio(tr, spk,
+                                                       jitter_seed=cfg.seed * 1000 + 300 + k))
+        feats, oov_feats = mfcc_batch(clips, device=dev), mfcc_batch(oov_clips, device=dev)
+        log("phone-tier", stage="setup", words=len(train_words), oov=json.dumps(oov),
+            phones=len(lex.phones), oov_phones_covered=covered, train_utterances=sum(
+                len(v) for v in labeled.values()), transcripts=len(labeled),
+            eval_clips=len(feats), oov_clips=len(oov_feats),
+            seconds=f"{time.perf_counter() - t0:.2f}", card=card)
+
+        train_cfg = ContinuousTrainConfig(max_iterations=cfg.iterations, cov_reg=cfg.cov_reg)
+        tiers, stats = {}, {}
+
+        def timed_train(name, fn):
+            before = counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stats[name] = {"train_s": time.perf_counter() - t0, "train_launches": delta(before)}
+            check_launches(f"the {name} tier's training", stats[name]["train_launches"], ["K3"])
+            return out
+
+        def params_of(models):
+            return int(sum(m.means.size + m.covariances.size + np.isfinite(m.log_a).sum()
+                           for m in models.values()))
+
+        # -- training, every tier on the card --------------------------------
+        def word_tier():
+            models = train_digit_models(stripped, SegmentalKMeansConfig(
+                num_states=5, max_iterations=12, length_multiple=32), device=dev)
+            models["S"] = silence
+            tr = ContinuousTrainer(models, train_cfg, device=dev)
+            n = tr.train(labeled)
+            return tr.models(), n
+
+        tiers["word"], it = timed_train("word", word_tier)
+        stats["word"].update(iterations=it, params=params_of(tiers["word"]))
+
+        phone_boot = uniform_phone_boot(stripped, lex)
+        phone_boot["S"] = silence
+        phones, it = timed_train("phone", lambda: train_phone_models(
+            phone_boot, labeled, lex, train_cfg, device=dev))
+        stats["phone"].update(iterations=it, params=params_of(phones))
+        k3_against_plain("phone")
+        # The phone tier once more on the CPU: the same boot and features.
+        t0 = time.perf_counter()
+        phones_cpu, it_cpu = train_phone_models(phone_boot, labeled, lex, train_cfg,
+                                                device="cpu")
+        cpu_s = time.perf_counter() - t0
+        recorded.pop("banded_decode", None)
+        worst, close = 0.0, it_cpu == it and sorted(phones_cpu) == sorted(phones)
+        for p in phones:
+            for n in ("means", "covariances", "log_a"):
+                got, want = getattr(phones[p], n), getattr(phones_cpu[p], n)
+                fin = np.isfinite(want)
+                close &= bool(np.array_equal(np.isfinite(got), fin) and np.allclose(
+                    got[fin], want[fin], rtol=1e-4, atol=1e-5))
+                err = np.abs(got[fin] - want[fin]) / (1e-5 + 1e-4 * np.abs(want[fin]))
+                worst = max(worst, float(err.max(initial=0.0)))
+        log("phone-tier", stage="card-vs-cpu-training", tier="phone", iterations=it,
+            cpu_iterations=it_cpu, params_within_tolerance=close, tolerance="rtol 1e-4 atol 1e-5",
+            worst_share_of_tolerance=worst, cpu_train_s=f"{cpu_s:.3f}")
+        if not close:
+            raise SystemExit("phase 27: the phone tier trained on the card is not within "
+                             "rtol 1e-4 / atol 1e-5 of its CPU training")
+        tiers["phone"] = compose_word_models(lex, phones)
+        bi, it = timed_train("biphone", lambda: train_biphone_models(
+            phones, labeled, lex, train_cfg, device=dev))
+        stats["biphone"].update(iterations=it, params=params_of(bi), units=len(bi) - 1)
+        tiers["biphone"] = compose_word_models_biphone(lex, bi, phones)
+        tri, it = timed_train("triphone", lambda: train_triphone_models(
+            phones, labeled, lex, train_cfg, device=dev))
+        stats["triphone"].update(iterations=it, params=params_of(tri), units=len(tri) - 1)
+        tiers["triphone"] = compose_word_models_triphone(lex, tri, phones, biphone_models=bi)
+        tied, tied_lex, mapping = timed_train("tied_triphone", lambda: tie_and_train_triphones(
+            phones, labeled, lex, max_per_phone=cfg.tie_triphones, config=train_cfg, device=dev))
+        reachable = {lab for seq in tied_lex.entries.values() for lab in seq}
+        stats["tied_triphone"].update(params=params_of({lab: tied[lab] for lab in reachable}),
+                                      clusters=len(set(mapping.values())))
+        tiers["tied_triphone"] = compose_word_models(tied_lex, tied)
+
+        def senone_tier():
+            return train_senone_models(phones, labeled, lex, max_per_state=cfg.senones,
+                                       min_gain=cfg.senone_min_gain,
+                                       min_count=cfg.senone_min_count, config=train_cfg,
+                                       device=dev)
+
+        sen, tying, it = timed_train("senone", senone_tier)
+        k3_against_plain("senone")
+        run_args, run_kwargs, _ = recorded.pop("fused_train_run")
+        plan = run_kwargs["tie_flat"]
+        if plan is None or run_kwargs["trans_tie"] is None:
+            raise SystemExit("phase 27: the senone tier trained without ties")
+        # One tied fused iteration, and the pooling alone on the m2 shape.
+        iteration = {k: v for k, v in run_kwargs.items()
+                     if k not in ("max_iterations", "update")}
+
+        def one_iteration(**over):
+            return lambda: tf.fused_viterbi_iteration(*run_args, **{**iteration, **over})
+
+        f_rows, dim = plan.group_of.numel(), run_args[0].shape[-1]
+        m2 = torch.randn((f_rows, dim, dim), device=dev)
+        pool_ms = cuda_ms(lambda: tf._pool_slots(m2, plan))
+        index_add_ms = cuda_ms(lambda: torch.zeros_like(m2).index_add_(
+            0, plan.group_of, m2)[plan.group_of])
+        tied_ms = cuda_ms(one_iteration(), reps=10)
+        untied_ms = cuda_ms(one_iteration(tie_flat=None, trans_tie=None, conv_tie=None),
+                            reps=10)
+        log("phone-tier", stage="tie-pooling", rows=f_rows, groups=len(plan.members[0]),
+            largest_group=len(plan.members), rows_gathered=sum(len(m) for m in plan.members),
+            pool_m2_ms=pool_ms, index_add_m2_ms=index_add_ms, tied_iteration_ms=tied_ms,
+            untied_iteration_ms=untied_ms, card=card)
+        sen_params = senone_table(sen, tying)
+        d = next(iter(sen.values())).dim
+        stats["senone"].update(iterations=it, units=len(sen) - 1, senones=tying.num_senones(),
+                               params=int(len(sen_params) * (d + d * d) + sum(
+                                   np.isfinite(phones[p].log_a).sum() for p in lex.phones)))
+        tiers["senone"] = compose_word_models_senone(lex, sen, tying, phones)
+        tiers["senone_synthesis"] = compose_word_models_senone(lex, sen, tying, phones,
+                                                               unseen="synthesize")
+        _, n_synth = senone_unit_table(lex, sen, tying, phones, unseen="synthesize")
+
+        # Tied slots are bitwise shared across units, and tied transitions.
+        owners = {}
+        for key, name in tying.senone_of.items():
+            unit, st = key.rsplit("/", 1)
+            owners.setdefault(name, []).append((unit, int(st)))
+        shared_groups = [o for o in owners.values() if len(o) > 1]
+        ties_ok = all(np.array_equal(sen[u].means[s], sen[u0].means[s0])
+                      and np.array_equal(sen[u].covariances[s], sen[u0].covariances[s0])
+                      for (u0, s0), *rest in shared_groups for u, s in rest)
+        by_phone = {}
+        for unit in sen:
+            if unit != "S":
+                by_phone.setdefault(unit.split("-")[1].split("+")[0], []).append(unit)
+        ties_ok &= all(np.array_equal(sen[u].log_a, sen[us[0]].log_a)
+                       for us in by_phone.values() for u in us[1:])
+        # A second senone training on the card: bitwise the first.
+        sen2, tying2, it2 = senone_tier()
+        same = (it2 == it and tying2.senone_of == tying.senone_of and sorted(sen2) == sorted(sen)
+                and all(np.array_equal(getattr(sen[u], n), getattr(sen2[u], n))
+                        for u in sen for n in ("means", "covariances", "log_a")))
+        log("phone-tier", stage="senone-ties", shared_senones=len(shared_groups),
+            shared_slots=sum(len(o) for o in shared_groups), ties_bitwise=ties_ok,
+            second_training_bitwise=same, senones=tying.num_senones(), card=card)
+        if not shared_groups or not ties_ok or not same:
+            raise SystemExit("phase 27: senone ties not bitwise shared, or a second senone "
+                             "training on the card differs from the first")
+
+        # A K=2 GMM phone tier (train_phone_models' gmm_mixtures stage).
+        def gmm_tier():
+            boot = uniform_phone_boot(stripped, lex)
+            boot["S"] = silence
+            return train_phone_models(boot, labeled, lex, ContinuousTrainConfig(
+                max_iterations=cfg.gmm_iterations, cov_reg=cfg.cov_reg), gmm_mixtures=2,
+                device=dev)
+
+        gmm_phones, it = timed_train("phone_gmm2", gmm_tier)
+        stats["phone_gmm2"].update(iterations=it, params=int(sum(
+            m.means.size + m.covariances.size + m.weights.size + np.isfinite(m.log_a).sum()
+            for m in gmm_phones.values())))
+        tiers["phone_gmm2"] = compose_word_models(lex, gmm_phones)
+
+        # -- decoding on the card: in-vocab, OOV, and the CPU port's agreement,
+        # with the default emissions (phone_tier.py's) and with K1's --------
+        n_agree = cfg.agree_clips
+        accs, oov_accs, agreement = {}, {}, {}
+        phone_oov_wer = None
+        for name, models in tiers.items():
+            for form, kernels in (("whiten", ["K2"]), ("quad", ["K1", "K2"])):
+                key = (name, form)
+                dec = dm.ContinuousDecoder(models, penalty=cfg.penalty, emissions=form,
+                                           device=dev)
+                before = counts()
+                preds = dec.predict_batch(feats)
+                oov_preds = dec.predict_batch(oov_feats)
+                rose = delta(before)
+                check_launches(f"the {name} tier's {form} decode", rose, kernels)
+                torch.cuda.synchronize()
+                best = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    dec.predict_batch(feats)
+                    best = min(best, time.perf_counter() - t0)
+                cpu = dm.ContinuousDecoder(models, penalty=cfg.penalty, emissions=form,
+                                           device="cpu")
+                cpu_preds = cpu.predict_batch(feats[:n_agree] + oov_feats[:n_agree])
+                agreement[key] = float(np.mean([a == b for a, b in zip(
+                    preds[:n_agree] + oov_preds[:n_agree], cpu_preds)]))
+                accs[key] = float(np.mean([p == t for p, t in zip(preds, truths)]))
+                oov_accs[key] = float(np.mean([p == t for p, t in zip(oov_preds, oov_truths)]))
+                if key == ("phone", "whiten"):
+                    phone_oov_wer = corpus_wer([
+                        ([t[i:i + 3] for i in range(0, len(t), 3)],
+                         [p[i:i + 3] for i in range(0, len(p), 3)])
+                        for t, p in zip(oov_truths, oov_preds)])["wer"]
+                st = stats.get(name, {})
+                log("phone-tier", tier=name, emissions=form,
+                    train_s=f"{st.get('train_s', 0.0):.3f}",
+                    iterations=st.get("iterations"), params=st.get("params"),
+                    composite_states=dec.composite.num_states,
+                    decode_ms_a_batch=f"{best * 1e3:.2f}", batch=len(feats),
+                    in_vocab_acc=accs[key],
+                    oov_acc=oov_accs[key] if name != "word" else "n/a",
+                    cpu_agreement=agreement[key], agree_clips=2 * n_agree,
+                    train_launches=json.dumps(st.get("train_launches")),
+                    decode_launches=json.dumps(rose),
+                    **{k: st[k] for k in ("units", "clusters", "senones") if k in st},
+                    card=card)
+        log("phone-tier", stage="oov", phone_tier_oov_exact=oov_accs["phone", "whiten"],
+            phone_tier_oov_wer=phone_oov_wer, senone_synthesized_units=n_synth,
+            senone_tier_oov_exact_tree_synthesis=oov_accs["senone_synthesis", "whiten"],
+            plain_on_card=json.dumps(plain_on_card), card=card)
+        gates = {}
+        for form in ("whiten", "quad"):
+            gates[f"phone_tier/{form}"] = accs["phone", form] >= PHONE_GATE
+            gates[f"oov/{form}"] = oov_accs["phone", form] >= OOV_GATE
+            gates.update({f"{t}_tier/{form}": accs[t, form] >= PHONE_GATE
+                          for t in ("biphone", "triphone", "tied_triphone", "senone")})
+        log("phone-tier", gates=json.dumps(gates), bars=f"in-vocab >= {PHONE_GATE}, "
+            f"phone OOV exact >= {OOV_GATE} (benchmarks/phone_tier.py:472-478)")
+        if not all(gates.values()):
+            raise SystemExit(f"phase 27: a phone_tier.py gate failed: {gates}")
+        if any(a != 1.0 for a in agreement.values()):
+            raise SystemExit(f"phase 27: card transcripts differ from the CPU port's: "
+                             f"{ {'/'.join(k): a for k, a in agreement.items()} }")
+        if plain_on_card:
+            raise SystemExit(f"phase 27: a plain version ran on the card: {plain_on_card}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    log("phase", which="27 phone tiers", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        card=card)
 
 
 def report(kind, launches, timings, errs, yardsticks):

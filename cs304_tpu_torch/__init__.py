@@ -4,8 +4,10 @@ The batched continuous decoder (raw audio -> 39-dim MFCC -> full-covariance
 Gaussian emissions -> composite Viterbi -> word labels), online serving,
 embedded Viterbi and Baum-Welch training (fused, and the legacy
 per-transcript oracle), GMMs, the decoder's searches, isolated-word
-classification, forced alignment, MAP adaptation and template DTW run on
-tensors. Every kernel the JAX package wrote in Pallas, and the
+classification, forced alignment, MAP adaptation, template DTW and the
+phone tiers (a lexicon over shared phones, biphones, triphones, tied
+triphones and senones, trained and decoded through the same trainer and
+decoder) run on tensors. Every kernel the JAX package wrote in Pallas, and the
 trellis scans it left to XLA on the hot paths, is hand-written CUDA C++
 under ``csrc/`` (the emission kernels, the scan-free team kernel's decode,
 stream, sentence and search modes, the dense trellis, the forward-backward
@@ -74,9 +76,24 @@ _EXPORTS = {
     "WordBigram": ".ops.lm",
     "train_word_bigram": ".ops.lm",
     "rescore_nbest": ".ops.lm",
+    "wer": ".reporting.metrics",
+    "corpus_wer": ".reporting.metrics",
+    "edit_ops": ".reporting.metrics",
     "GMMContinuousTrainer": ".models.train_continuous_gmm",
     "GMMContinuousTrainConfig": ".models.train_continuous_gmm",
     "promote_to_gmm": ".models.train_continuous_gmm",
+    "Lexicon": ".models.lexicon",
+    "compose_word_models": ".models.lexicon",
+    "uniform_phone_boot": ".models.lexicon",
+    "train_phone_models": ".models.lexicon",
+    "train_biphone_models": ".models.biphone",
+    "compose_word_models_biphone": ".models.biphone",
+    "biphone_lexicon": ".models.biphone",
+    "train_triphone_models": ".models.triphone",
+    "compose_word_models_triphone": ".models.triphone",
+    "triphone_lexicon": ".models.triphone",
+    "make_word_corpus": ".data.wordvocab",
+    "make_lexicon": ".data.wordvocab",
     "save_models": ".utils.checkpoint",
     "load_models": ".utils.checkpoint",
     "save_model": ".utils.checkpoint",

@@ -362,6 +362,7 @@ class ContinuousTrainer:
         counts and share one transition matrix. A resumed trainer must be
         constructed with the same ties."""
         from .stacking import stack_models  # deferred: stacking imports us
+        from .train_fused import tie_plan
 
         if cfg.update not in ("viterbi", "baum_welch"):
             raise ValueError(
@@ -398,6 +399,9 @@ class ContinuousTrainer:
         self._conv_tie = self._build_convergence_groups(
             state_ties, transition_ties
         )
+        # The fused iterations' fixed-order pooling plans (train_fused.TiePlan).
+        self._tie_plans = tuple(tie_plan(t, self.device)
+                                for t in (self._tie_flat, self._trans_tie))
 
     def _build_state_ties(self, state_ties) -> np.ndarray | None:
         """(label, state) -> key dict into a (L*s_max,) int32 tie map whose
@@ -665,8 +669,7 @@ class ContinuousTrainer:
             atol=float(self.cfg.atol),
             num_labels=len(self.labels), s_max=self.s_max,
             cross_word=self.cfg.cross_word, emissions=self.cfg.emissions,
-            tie_flat=self._tensor(self._tie_flat, torch.int64),
-            trans_tie=self._tensor(self._trans_tie, torch.int64),
+            tie_flat=self._tie_plans[0], trans_tie=self._tie_plans[1],
             conv_tie=self._tensor(self._conv_tie, torch.int64),
         )
 

@@ -34,15 +34,16 @@ card one launch of the E-step mode of ops/cuda/trellis_fb.py, which hands
 back gamma, the per-diagonal xi sums and ll, alpha and beta never written.
 
 Every reduction is a matmul, a sum or an integer histogram, none a float
-atomic, so two runs on one card give bitwise equal parameters (state ties
-pool with index_add_, whose float atomics on a card are not ordered).
+atomic, so two runs on one card give bitwise equal parameters. State and
+transition ties pool in a fixed order too (_pool_slots over a TiePlan: each
+group's members added in ascending row order by gathers, no scatter-add).
 Everything is float32 with TF32 off (the JAX program's HIGHEST precision).
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -300,15 +301,56 @@ def _training_fb(log_b, c0, c1, c2, lengths, n_states):
     raise ValueError(f"unknown forward-backward backend {_FB_BACKEND!r}")
 
 
+@dataclass(frozen=True)
+class TiePlan:
+    """A tie map's groups laid out once for a sum in a fixed order. Groups
+    are ordered by size, largest first, so the groups with a k-th member
+    are a prefix: ``members[k]`` holds the k-th smallest row of each of
+    them. ``group_of`` maps each row to its group's position."""
+
+    group_of: torch.Tensor                 # (N,) int64
+    members: Tuple[torch.Tensor, ...]      # members[k]: (n_k,) int64, n_k falling
+
+
+def tie_plan(tie, device=None):
+    """tie (N,) group ids (an array or a tensor; untied rows carry unique
+    ids) -> a TiePlan on ``device`` (the tensor's own by default). One host
+    read of the map; None and a TiePlan pass through."""
+    if tie is None or isinstance(tie, TiePlan):
+        return tie
+    if device is None:
+        device = tie.device if isinstance(tie, torch.Tensor) else torch.device("cpu")
+    ids = tie.cpu().numpy() if isinstance(tie, torch.Tensor) else np.asarray(tie)
+    _keys, group = np.unique(ids.astype(np.int64), return_inverse=True)
+    sizes = np.bincount(group)
+    by_size = np.argsort(-sizes, kind="stable")  # groups, largest first
+    position = np.empty_like(by_size)
+    position[by_size] = np.arange(len(by_size))
+    group_of = position[group.reshape(-1)]
+    order = np.argsort(group_of, kind="stable")  # rows by group, ascending within
+    starts = np.cumsum(sizes[by_size]) - sizes[by_size]
+    rank = np.arange(len(order)) - starts[group_of[order]]
+    members = tuple(order[rank == k] for k in range(int(sizes.max())))
+    as_dev = lambda a: torch.as_tensor(a.astype(np.int64), device=device)  # noqa: E731
+    return TiePlan(as_dev(group_of), tuple(as_dev(m) for m in members))
+
+
 def _pool_slots(stat, tie):
     """Parameter tying: sum a statistic over the tie groups of its leading
-    axis and broadcast each group total back to the members. tie (N,) maps
-    every row (a flat (label, state) slot, or a label for transition tying)
-    to a group id in [0, N); untied rows carry unique ids (singleton groups),
-    which pool to themselves."""
-    tie = tie.to(torch.int64)
-    pooled = torch.zeros_like(stat).index_add_(0, tie, stat)
-    return pooled[tie]
+    axis and broadcast each group total back to the members. tie: a TiePlan,
+    or (N,) group ids for every row (a flat (label, state) slot, or a label
+    for transition tying; untied rows carry unique ids, singleton groups,
+    which pool to themselves).
+
+    Each group's rows add in ascending order, ((0 + x0) + x1) + ..., one
+    gather and add a member rank over the groups that have it: the order a
+    sequential scatter-add takes, N rows read in all, and the same on a card
+    in every run (no float atomics)."""
+    plan = tie_plan(tie)
+    acc = stat[plan.members[0]] + 0.0  # 0 + x0: a -0.0 start becomes +0.0
+    for rows in plan.members[1:]:
+        acc[: len(rows)] += stat[rows]
+    return acc[plan.group_of]
 
 
 def _couple_convergence(converged_l, conv_tie):
@@ -417,10 +459,10 @@ def _iteration_body(
 ):
     """One fused Viterbi iteration (see fused_viterbi_iteration).
 
-    tie_flat (F,) / trans_tie (L,) int, optional: state-level emission tying
-    and label-level transition tying — statistics pool over tie groups
-    before the M-step (see _pool_slots), so tied slots train as ONE shared
-    distribution. conv_tie (L,) int, optional: convergence-coupling groups —
+    tie_flat (F,) / trans_tie (L,) int or their TiePlans, optional:
+    state-level emission tying and label-level transition tying — statistics
+    pool over tie groups before the M-step (see _pool_slots), so tied slots
+    train as ONE shared distribution. conv_tie (L,) int, optional: convergence-coupling groups —
     labels sharing a tie group freeze TOGETHER; untied labels keep the
     reference's per-label freeze semantics."""
     fp32_exact()
@@ -429,6 +471,7 @@ def _iteration_body(
     n_chunks, c, t, _ = batch.shape
     b = n_chunks * c
     dev = batch.device
+    tie_flat, trans_tie = tie_plan(tie_flat), tie_plan(trans_tie)
 
     lb_sent = _gather_sentence_emissions(
         means_g, covs_g, lab_tab, loc_tab, batch, topo_id, s_max,
@@ -614,6 +657,7 @@ def _bw_body(
     n_chunks, c, t, _ = batch.shape
     b = n_chunks * c
     dev = batch.device
+    tie_flat, trans_tie = tie_plan(tie_flat), tie_plan(trans_tie)
 
     lb_sent = _gather_sentence_emissions(
         means_g, covs_g, lab_tab, loc_tab, batch, topo_id, s_max, form=emissions,

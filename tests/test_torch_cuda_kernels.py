@@ -30,7 +30,9 @@ groups, steps whose every exit is -inf, signed-zero ties across source
 words, and each of the table's register / shared / global branches,
 asserted through lm_table_branch; a NaN frame keeping every source word in
 range, without a fault) and the bigram and beam decoders
-launching their modes and never the plain trellis.
+launching their modes and never the plain trellis; the trainer's tie
+pooling (bitwise a sequential scatter-add) and two tied trainings, Viterbi
+and Baum-Welch, bitwise equal.
 
 These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20 and 22 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
@@ -1528,3 +1530,61 @@ def test_dtw_wrapper_rejects_what_the_kernel_does_not_take(dev):
     flag = torch.zeros((cdtw.MAX_TEMPLATE_ROWS + 1,), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         cdtw.dtw_columns(big, flag, flag, rec._end_rows)
+
+
+def test_tie_pooling_is_fixed_order_on_the_card(dev):
+    """_pool_slots on a CUDA tensor sums each tie group in ascending row
+    order: bitwise a sequential scatter-add on the CPU, in every call, for
+    even groups and for one large group among singletons."""
+    from cs304_tpu_torch.models.train_fused import _pool_slots, tie_plan
+
+    rng = np.random.default_rng(3)
+    for n, skewed in ((1, False), (7, False), (330, False), (330, True)):
+        tie = (np.where(rng.random(n) < 0.5, 0, np.arange(n)) if skewed
+               else rng.integers(0, max(n // 3, 1), n))
+        stat = torch.from_numpy(rng.normal(size=(n, 39, 39)).astype(np.float32))
+        t = torch.from_numpy(tie)
+        want = torch.zeros_like(stat).index_add_(0, t, stat)[t]
+        plan = tie_plan(tie, dev)
+        first = _pool_slots(stat.to(dev), plan)
+        again = _pool_slots(stat.to(dev), t.to(dev))
+        assert torch.equal(first.cpu(), want) and torch.equal(again.cpu(), want)
+
+
+@pytest.mark.parametrize("update", ["viterbi", "baum_welch"])
+def test_tied_training_is_bitwise_reproducible_on_the_card(dev, update):
+    """Two ContinuousTrainer runs with state and transition ties on the card
+    give bitwise equal parameters (tie pooling has no float atomics)."""
+    from cs304_tpu_torch.models.train_continuous import (
+        ContinuousTrainConfig,
+        ContinuousTrainer,
+        insert_silence,
+    )
+
+    models = {m.label: m for m in flagship_models(seed=0)}
+    rng = np.random.default_rng(4)
+    labeled = {}
+    for tr in ("14", "27Z", "3", "5698"):
+        feats = []
+        for _ in range(8):
+            frames = [models[w].means[i] + rng.normal(0, 0.7, size=(3, 39))
+                      for w in insert_silence(tr) for i in range(models[w].num_states)]
+            feats.append(np.concatenate(frames).astype(np.float32))
+        labeled[tr] = feats
+    digits = [lab for lab in models if lab != "S"]
+    state_ties = {(lab, st): f"g{st}-{i % 3}" for i, lab in enumerate(digits)
+                  for st in range(models[lab].num_states)}
+    trans_ties = {lab: i % 2 for i, lab in enumerate(digits)}
+    cfg = ContinuousTrainConfig(max_iterations=3, cov_reg=0.05, update=update,
+                                silence_bootstrap=False)
+    runs = []
+    for _ in range(2):
+        tr = ContinuousTrainer(models, cfg, state_ties=state_ties,
+                               transition_ties=trans_ties, device=dev)
+        tr.train(labeled)
+        runs.append(tr)
+    for name in ("means_g", "covs_g", "log_a_g"):
+        a, b = getattr(runs[0], name), getattr(runs[1], name)
+        assert np.array_equal(a, b, equal_nan=True), name
+    i0, i3 = runs[0].label_index[digits[0]], runs[0].label_index[digits[3]]
+    assert np.array_equal(runs[0].means_g[i0, 1], runs[0].means_g[i3, 1])

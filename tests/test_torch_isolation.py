@@ -9,7 +9,8 @@ n-best, posterior confidences, the counted, duration and grammar decodes, a
 lattice rescored with a bigram, and a bigram and a confidences serving pool;
 then slice 4b: an isolated-word classification, a forced alignment, one
 legacy (fused=False) training iteration, MAP adaptation, a DTW search, the
-associative-scan decode and the "high" MFCC tier.
+associative-scan decode and the "high" MFCC tier; then the phone tiers: a
+generated lexicon, a senone tier trained and decoded, its WER.
 """
 import os
 import subprocess
@@ -100,6 +101,30 @@ score, path = viterbi_composite_assoc(lb, c.log_a, c.lower_of_state, c.is_entry,
 assert path.shape == (40,)
 assert mfcc_batch(list(make_signals(1, 0.5)), cfg=MFCCConfig(precision="high"),
                   device="cpu")[0].shape[1] == 39
+from cs304_tpu_torch.data.wordvocab import make_lexicon
+from cs304_tpu_torch.models import lexicon, senone
+from cs304_tpu_torch.models.hmm import WordHMM, uniform_forward_log_a
+from cs304_tpu_torch.reporting.metrics import corpus_wer
+assert make_lexicon(6, phones_per_word=(2, 3), num_phones=6).words[0] == "bab"
+def phone(label, center):
+    means = np.array([[center, st, 0.0] for st in range(3)], np.float32)
+    return WordHMM(label=label, means=means, log_a=uniform_forward_log_a(3),
+                   covariances=np.tile(np.eye(3, dtype=np.float32) * 0.2, (3, 1, 1)))
+def utt(centers):
+    f = np.asarray([[c, st, 0.0] for c in centers for st in range(3) for _ in range(3)],
+                   np.float32)
+    return f + rng.normal(0, 0.05, f.shape).astype(np.float32)
+plex = lexicon.Lexicon({"xa": ("pX", "pA"), "xc": ("pX", "pC")})
+boot = {"pX": phone("pX", 6.0), "pA": phone("pA", 0.0), "pC": phone("pC", 3.0),
+        "S": phone("S", -12.0)}
+plabeled = {("xa",): [utt((-12, 4, 0, -12)) for _ in range(3)],
+            ("xc",): [utt((-12, 8, 3, -12)) for _ in range(3)]}
+units, tying, _ = senone.train_senone_models(
+    boot, plabeled, plex, min_count=2.0,
+    config=ContinuousTrainConfig(max_iterations=1, length_multiple=32), device="cpu")
+pdec = ContinuousDecoder(senone.compose_word_models_senone(plex, units, tying, boot),
+                         penalty=-5.0, device="cpu")
+assert corpus_wer([(["xa"], [pdec.predict(utt((-12, 4, 0, -12)))])])["ref_words"] == 1
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "cs304_tpu.")))
                 and sys.modules[m] is not None)

@@ -248,6 +248,12 @@ def test_exports_are_the_jax_names_of_ported_modules():
     ported = {n: m for n, m in _JAX_EXPORTS.items()
               if (pkg / (m[1:].replace(".", "/") + ".py")).exists()}
     assert cs304_tpu_torch._EXPORTS == ported
+    # The phone tiers and the WER metrics are among them.
+    assert {"Lexicon", "compose_word_models", "uniform_phone_boot", "train_phone_models",
+            "train_biphone_models", "compose_word_models_biphone", "biphone_lexicon",
+            "train_triphone_models", "compose_word_models_triphone", "triphone_lexicon",
+            "make_word_corpus", "make_lexicon", "wer", "corpus_wer",
+            "edit_ops"} <= set(cs304_tpu_torch._EXPORTS)
     assert {"fp32_exact", "resolve_device"} <= set(cs304_tpu_torch.__all__)
 
 

@@ -165,6 +165,31 @@ def test_one_fused_iteration_matches_jax(setup, cross_word, ties):
         np.testing.assert_array_equal(got[0][0, 0], got[0][1, 0])
 
 
+@pytest.mark.parametrize("layout", ["singletons", "few_groups", "one_large_group"])
+def test_pool_slots_fixed_order(layout):
+    """The tie pooling over a TiePlan is bitwise a sequential scatter-add
+    (each group's rows in ascending order, -0.0 starts pooled to +0.0) and
+    within rtol 1e-6 / atol 1e-6 of JAX's segment sum; every row is
+    gathered once whatever the group sizes."""
+    rng = np.random.default_rng(7)
+    n = 60
+    tie = {"singletons": np.arange(n),
+           "few_groups": rng.integers(0, 5, n),
+           "one_large_group": np.where(rng.random(n) < 0.6, 3, np.arange(n))}[layout]
+    stat = rng.normal(size=(n, 4, 4)).astype(np.float32)
+    stat[::7] = -0.0
+    t = torch.from_numpy(tie)
+    want = torch.zeros(n, 4, 4).index_add_(0, t, torch.from_numpy(stat))[t]
+    plan = tf.tie_plan(tie)
+    got = tf._pool_slots(torch.from_numpy(stat), plan)
+    assert torch.equal(got, want) and torch.equal(got.signbit(), want.signbit())
+    assert sorted(torch.cat(plan.members).tolist()) == list(range(n))
+    assert [len(m) for m in plan.members] == sorted((len(m) for m in plan.members),
+                                                    reverse=True)
+    jax_pooled = np.asarray(jf._pool_slots(jnp.asarray(stat), jnp.asarray(tie, jnp.int32)))
+    np.testing.assert_allclose(got.numpy(), jax_pooled, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("form", ["whiten", "quad"])
 def test_gather_sentence_emissions_match_jax(setup, form):
     """Whitening within rtol 1e-5 / atol 1e-4 (float32 sum order); the

@@ -225,6 +225,20 @@ Phases (each prints its own numbers; any failure exits non-zero):
               CUDA tensor; one line a tier and form (train s, iterations,
               params, composite states, decode ms a batch, accuracies)
               with the card's name and power limit
+ 28. CLI      the README's Quickstart chain through the port's scripts'
+              main(argv), in process, on the synthetic corpus (no --device:
+              the card): project3_train, project5_train_no_empty,
+              project6_train (Viterbi with --state-dir, Baum-Welch, K=2
+              GMM), project5_test_ndigits (--csv-out, --bigram-lm),
+              transcribe (plain, --fast, --confidence --timings, --beam,
+              --known-count, --grammar-strings, --min-duration, --device
+              cpu), align, adapt_speaker, project6_interactive, train_phones,
+              demo_serving (project3_predict and the penalty sweep where
+              matplotlib is installed; their classifier checked either way);
+              n-digit CSV accuracy >= 0.9, align 3 7 5, transcripts equal to
+              the decoder's, project6_train bitwise the trainer's, the CPU
+              run equal and off the card, each script's kernels launched,
+              no plain version on the card; one [cli] line a script
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
 The line before the last is the kernels' JSON record (fifteen kernels, each with
@@ -266,6 +280,20 @@ LOG_SUBNORMAL_MIN = -149 * float(np.log(2.0))
 
 def log(phase, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def guard(plain_on_card, mod, name):
+    """Replace mod.name (a plain version) by a wrapper that counts, in
+    plain_on_card[name], its calls with a CUDA tensor among the positional
+    arguments; returns (mod, name, the original) to restore it."""
+    fn = getattr(mod, name)
+
+    def counted(*args, **kwargs):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            plain_on_card[name] = plain_on_card.get(name, 0) + 1
+        return fn(*args, **kwargs)
+    setattr(mod, name, counted)
+    return mod, name, fn
 
 
 def cuda_ms(fn, reps=20):
@@ -719,6 +747,7 @@ def main():
     search_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
     slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks)
     phone_tier_phase(dev, smi)
+    cli_phase(dev, smi)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -1839,22 +1868,13 @@ def serving_phase(dev, pipe):
     # versions the wrappers reach, by CUDA argument.
     plain_on_card = {}
 
-    def guard(mod, name):
-        fn = getattr(mod, name)
-
-        def counted(*args, **kwargs):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                plain_on_card[name] = plain_on_card.get(name, 0) + 1
-            return fn(*args, **kwargs)
-        setattr(mod, name, counted)
-        return mod, name, fn
-
     counters = {"trellis_dense_forward": tdn.trellis_dense_forward,
                 "trellis_backtrace": tsf.trellis_backtrace,
                 "trellis_decode": tsf.scanfree_decode, "trellis_stream": tst.stream_advance}
-    saved = [guard(m, n) for m, n in ((sb, "_advance"), (sb, "_advance_banded"),
-                                      (sb, "_advance_compact"), (tdn, "dense_forward"),
-                                      (tsf, "backtrace_batch"), (tsf, "forward_fast"))]
+    saved = [guard(plain_on_card, m, n)
+             for m, n in ((sb, "_advance"), (sb, "_advance_banded"), (sb, "_advance_compact"),
+                          (tdn, "dense_forward"), (tsf, "backtrace_batch"),
+                          (tsf, "forward_fast"))]
     try:
         pool = ServingSessionPool(models, num_slots=64, max_frames=4096, device="cuda")
         for c in counters.values():
@@ -2722,16 +2742,6 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     bigram = digit_bigram(flag)
     plain_on_card = {}
 
-    def guard(mod, name):
-        fn = getattr(mod, name)
-
-        def counted(*args, **kwargs):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                plain_on_card[name] = plain_on_card.get(name, 0) + 1
-            return fn(*args, **kwargs)
-        setattr(mod, name, counted)
-        return mod, name, fn
-
     counters = {"trellis_decode_lm": tsf.scanfree_decode_lm,
                 "trellis_decode_beam": tsf.scanfree_decode_beam,
                 "trellis_decode": tsf.scanfree_decode}
@@ -2742,8 +2752,9 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         cpu_texts = dm.ContinuousDecoder(flagship_models(), penalty=-100.0, device="cpu",
                                          **kw).predict_signal_batch(list(signals))
         dec = dm.ContinuousDecoder(flagship_models(), penalty=-100.0, device="cuda", **kw)
-        saved = [guard(dm, "viterbi_composite_batch_fast"), guard(tsf, "_plain_search"),
-                 guard(tsf, "forward_fast")]
+        saved = [guard(plain_on_card, dm, "viterbi_composite_batch_fast"),
+                 guard(plain_on_card, tsf, "_plain_search"),
+                 guard(plain_on_card, tsf, "forward_fast")]
         try:
             for c in counters.values():
                 c.launches = 0
@@ -3430,10 +3441,11 @@ PHONE_GATE, OOV_GATE = 0.85, 0.3  # the context-dependent tiers share PHONE_GATE
 
 
 def check_launches(what, rose, need):
-    """Fail unless every counter named in need rose."""
+    """Fail unless every counter named in need rose (what names the phase
+    and the run)."""
     missing = [k for k in need if rose[k] == 0]
     if missing:
-        raise SystemExit(f"phase 27: {what} never launched {missing}: {rose}")
+        raise SystemExit(f"{what} never launched {missing}: {rose}")
 
 
 def phone_tier_phase(dev, card, cfg=PHONE_TIER):
@@ -3503,16 +3515,6 @@ def phone_tier_phase(dev, card, cfg=PHONE_TIER):
 
     plain_on_card = {}
 
-    def guard(mod, name):
-        fn = getattr(mod, name)
-
-        def counted(*args, **kwargs):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                plain_on_card[name] = plain_on_card.get(name, 0) + 1
-            return fn(*args, **kwargs)
-        setattr(mod, name, counted)
-        return mod, name, fn
-
     recorded = {}
 
     def record(mod, name):
@@ -3544,7 +3546,7 @@ def phone_tier_phase(dev, card, cfg=PHONE_TIER):
             raise SystemExit(f"phase 27: K3 differs from the plain trellis on the {tier} "
                              f"tier's training batch: {same}")
 
-    saved = [guard(m, n) for m, n in (
+    saved = [guard(plain_on_card, m, n) for m, n in (
         (tb, "banded_sentence_forward"), (tb, "backtrace_batch"),
         (vt, "viterbi_banded_batch_plain"), (tf, "_banded_trellis_final"),
         (tsf, "_plain_search"), (tsf, "forward_fast"), (dm, "viterbi_composite_batch_fast"),
@@ -3571,7 +3573,7 @@ def phone_tier_phase(dev, card, cfg=PHONE_TIER):
         before = counts()
         silence = train_word_hmm("S", mfcc_batch(noises, device=dev), SegmentalKMeansConfig(
             num_states=3, max_iterations=12, length_multiple=32), device=dev).model
-        check_launches("the silence model's k-means", delta(before), ["K3"])
+        check_launches("phase 27: the silence model's k-means", delta(before), ["K3"])
         rng = np.random.default_rng(cfg.seed)
         sentences, seen = [], set()
         while len(sentences) < cfg.train_sentences:
@@ -3616,7 +3618,7 @@ def phone_tier_phase(dev, card, cfg=PHONE_TIER):
             out = fn()
             torch.cuda.synchronize()
             stats[name] = {"train_s": time.perf_counter() - t0, "train_launches": delta(before)}
-            check_launches(f"the {name} tier's training", stats[name]["train_launches"], ["K3"])
+            check_launches(f"phase 27: the {name} tier's training", stats[name]["train_launches"], ["K3"])
             return out
 
         def params_of(models):
@@ -3774,7 +3776,7 @@ def phone_tier_phase(dev, card, cfg=PHONE_TIER):
                 preds = dec.predict_batch(feats)
                 oov_preds = dec.predict_batch(oov_feats)
                 rose = delta(before)
-                check_launches(f"the {name} tier's {form} decode", rose, kernels)
+                check_launches(f"phase 27: the {name} tier's {form} decode", rose, kernels)
                 torch.cuda.synchronize()
                 best = float("inf")
                 for _ in range(3):
@@ -3830,6 +3832,276 @@ def phone_tier_phase(dev, card, cfg=PHONE_TIER):
             setattr(mod, name, fn)
     log("phase", which="27 phone tiers", seconds=f"{time.perf_counter() - t_phase:.2f}",
         card=card)
+
+
+# Phase 28: WAVs of 3-digit sentences by the synthetic corpus's test speakers
+# (6 and 7 of 6 + 2): (transcript, speaker, jitter seed).
+CLI_SENTENCES = (("375", 6, 3), ("9O2", 7, 4), ("186", 6, 5), ("4Z8", 7, 6))
+CLI_ACC_BAR = 0.9  # tests/test_cli_chain.py:106, the n-digit CSVs
+CLI_BUDGET_S = 60.0  # what phase 28 may add to the script's run
+CLI_KMEANS = ["--set", "train.max_iterations=6", "--set", "train.length_multiple=32"]
+CLI_EMBEDDED = ["--set", "continuous.max_iterations=3", "--set", "continuous.cov_reg=0.1"]
+
+
+def transcripts_of(out):
+    """transcribe's printed lines -> [(wav, transcript)]."""
+    return [tuple(line.split("  [")[0].rsplit(": ", 1)) for line in out.strip().splitlines()
+            if ".wav: " in line]
+
+
+def cli_phase(dev, card):
+    """Phase 28: the README's Quickstart chain through the port's scripts,
+    each script's main(argv) called in this process on the synthetic
+    corpus, with tests/test_cli_chain.py's tiny settings: project3_train
+    (and project3_predict and project5_find_trans_penalty where matplotlib
+    is installed), project5_train_no_empty, project6_train (Viterbi with
+    --state-dir, Baum-Welch, --gmm-mixtures 2), project5_test_ndigits
+    (--csv-out, --bigram-lm), transcribe on WAVs of 3-digit test-speaker
+    sentences (plain, --fast, --confidence --timings, --beam 50,
+    --known-count 3, --grammar-strings, --min-duration 2, and plain and
+    each constrained one again with --device cpu), align, adapt_speaker, project6_interactive --wav with
+    n-best, confidences, a keyword and a lattice, train_phones at its
+    default 30 words with 3 iterations, demo_serving. The card runs pass no
+    --device (the default is the card).
+
+    Gates: every script returns; the n-digit CSVs' accuracy >= 0.9 on both
+    splits; align gives 3 7 5 with increasing frames; transcribe's
+    transcripts equal ContinuousDecoder(device=card).predict_batch on the
+    same checkpoint and per-file features; project6_train's Viterbi
+    parameters bitwise a direct ContinuousTrainer run on the card; each
+    --device cpu transcribe (plain, counted, grammar, duration) equal to
+    the card's and neither launching a card kernel nor allocating card
+    memory; each script launched the
+    kernels its path runs (the counted, grammar and duration decodes and
+    n-best run no hand kernel yet: ROADMAP Queue 2 B); no plain trellis,
+    emission, forward-backward or pool step on a CUDA tensor; the phase
+    within CLI_BUDGET_S. One [cli] line a script: wall seconds and
+    launches."""
+    import importlib
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from cs304_tpu_torch.audio.wav import read_wav, write_wav_int16
+    from cs304_tpu_torch.data.synthetic import SyntheticTIDigits
+    from cs304_tpu_torch.data.ti_digits import DIGIT_LABELS
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.models import train_fused as tf
+    from cs304_tpu_torch.models.collection import ModelCollection
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainConfig, ContinuousTrainer
+    from cs304_tpu_torch.ops import streaming_batch as sb
+    from cs304_tpu_torch.ops import viterbi as vt
+    from cs304_tpu_torch.ops.cuda import emission as em
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.mfcc import mfcc_batch
+    from cs304_tpu_torch.reporting.csvnia import CSVReader
+    from cs304_tpu_torch.scripts._common import run_in_process
+    from cs304_tpu_torch.utils.checkpoint import load_models
+    from cs304_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    counters = {"K3": tb.banded_decode, "K3-bp": tb.banded_forward,
+                "K2": tsf.scanfree_decode, "K2-lm": tsf.scanfree_decode_lm,
+                "K2-beam": tsf.scanfree_decode_beam, "K2-fwd": tsf.trellis_forward,
+                "K2-bt": tsf.trellis_backtrace, "K1": em.emission, "K1-split": em.emission_split,
+                "K4": tdn.trellis_dense_forward, "E-step": tfb.banded_fb_posteriors,
+                "FB": tfb.banded_fb, "STREAM": tst.stream_advance}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    plain_on_card = {}
+
+    plain = [(tb, "banded_sentence_forward"), (tb, "backtrace_batch"),
+             (vt, "viterbi_banded_batch_plain"), (tf, "_banded_trellis_final"),
+             (tsf, "_plain_search"), (tsf, "forward_fast"),
+             (dm, "viterbi_composite_batch_fast"), (em, "emission_plain"),
+             (tdn, "dense_forward"), (tfb, "banded_fb_plain"),
+             (tfb, "banded_fb_posteriors_plain"), (tf, "banded_fb_plain"),
+             (tf, "banded_fb_posteriors_plain"), (sb, "_advance"), (sb, "_advance_banded"),
+             (sb, "_advance_compact")]
+    saved = [guard(plain_on_card, m, n) for m, n in plain]
+    tmp = tempfile.mkdtemp(prefix="cli_phase_")
+    log_file = os.path.join(tmp, "runtime.log")
+
+    def run(script, argv, need, label=None):
+        """One script's main(argv) in process: its printed lines, and the
+        launches of each kernel during the run (checked against need)."""
+        main = importlib.import_module(f"cs304_tpu_torch.scripts.{script}").main
+        before = counts()
+        t0 = time.perf_counter()
+        out = run_in_process(main, [*argv, "--log-file", log_file])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        now = counts()
+        rose = {k: now[k] - before[k] for k in counters}
+        name = label or script
+        log("cli", script=name, s=f"{wall:.3f}",
+            launches=",".join(f"{k}:{v}" for k, v in rose.items() if v) or "none")
+        for line in out.strip().splitlines()[-3:]:
+            print("   |", line[:160], flush=True)
+        check_launches(f"phase 28: {name}", rose, need)
+        return out, rose
+
+    try:
+        corpus = SyntheticTIDigits(num_train_speakers=6, num_test_speakers=2,
+                                   takes_per_digit=3, with_sentences=True)
+        ck3, ck5, ck6 = (os.path.join(tmp, n) for n in ("ck3", "ck5", "ck6"))
+        run("project3_train", ["--synthetic", "--checkpoint-dir", ck3, *CLI_KMEANS], ["K3"])
+        # What project3_predict computes, on the card and on the CPU
+        # (where matplotlib is absent the script itself cannot run).
+        digits = load_models(ck3, labels=list(DIGIT_LABELS))
+        mc = ModelCollection.from_models([digits[w] for w in DIGIT_LABELS], device=dev)
+        mc_cpu = ModelCollection.from_models([digits[w] for w in DIGIT_LABELS], device="cpu")
+        for split, data in (("train", corpus.train_dataset), ("test", corpus.test_dataset)):
+            truths = [w for w in DIGIT_LABELS for _ in data[w]]
+            feats = mfcc_batch([c for w in DIGIT_LABELS for c in data[w]], device=dev)
+            labels = mc.predict_batch(feats)
+            if labels != mc_cpu.predict_batch(feats):
+                raise SystemExit(f"phase 28: ModelCollection on the card differs from the "
+                                 f"CPU's on the {split} split")
+            log("cli", check="project3_predict", split=split, clips=len(truths),
+                accuracy=float(np.mean([a == b for a, b in zip(labels, truths)])),
+                cpu_labels_equal=True)
+        run("project5_train_no_empty", ["--synthetic", "--checkpoint-dir", ck5, *CLI_KMEANS],
+            ["K3"])
+        state = os.path.join(tmp, "state")
+        run("project6_train", ["--synthetic", "--checkpoint-dir", ck5, "--out-dir", ck6,
+                               "--state-dir", state, *CLI_EMBEDDED], ["K3"])
+        # Library parity: the same trainer on the same inputs, bitwise.
+        cfg = Config()
+        cfg.apply_overrides(CLI_EMBEDDED[1::2])
+        mcfg = cfg.frontend.mfcc_config()
+        labeled = {t: mfcc_batch(u, cfg=mcfg, device=dev) for n in range(2, 8)
+                   for t, u in corpus.train_dataset.get_all_n_digits(n).items()}
+        trainer = ContinuousTrainer(load_models(ck5), ContinuousTrainConfig(
+            max_iterations=cfg.continuous.max_iterations, cov_reg=cfg.continuous.cov_reg,
+            silence_bootstrap=cfg.continuous.silence_bootstrap,
+            insert_silence=cfg.continuous.insert_silence, update=cfg.continuous.update),
+            device=dev)
+        trainer.train(labeled, checkpoint_dir=os.path.join(tmp, "state_library"))
+        want, got = trainer.models(), load_models(ck6)
+        same = sorted(want) == sorted(got) and all(
+            np.array_equal(np.asarray(getattr(want[w], f), np.float32), getattr(got[w], f))
+            for w in want for f in ("means", "covariances", "log_a"))
+        log("cli", check="project6_train_vs_ContinuousTrainer", bitwise=same, labels=len(got))
+        if not same:
+            raise SystemExit("phase 28: project6_train's parameters differ from a direct "
+                             "ContinuousTrainer run on the card")
+        run("project6_train", ["--synthetic", "--checkpoint-dir", ck5, "--out-dir",
+                               os.path.join(tmp, "ck6_bw"), "--set",
+                               "continuous.update=baum_welch", *CLI_EMBEDDED],
+            ["E-step"], label="project6_train_baum_welch")
+        run("project6_train", ["--synthetic", "--checkpoint-dir", ck5, "--out-dir",
+                               os.path.join(tmp, "ck6_gmm"), "--gmm-mixtures", "2",
+                               *CLI_EMBEDDED], ["K3"], label="project6_train_gmm2")
+        nd = os.path.join(tmp, "ndigits")
+        run("project5_test_ndigits", ["--synthetic", "--checkpoint-dir", ck6,
+                                      "--n-digits", "4", "--csv-out", nd], ["K2"])
+        for split in ("train", "test"):
+            rows = list(CSVReader(f"{nd}.{split}.csv"))
+            acc = float(np.mean([r["Ground Truth"] == r["Predict"] for r in rows]))
+            log("cli", check="ndigits_csv", split=split, rows=len(rows), accuracy=acc,
+                bar=CLI_ACC_BAR)
+            if not rows or acc < CLI_ACC_BAR:
+                raise SystemExit(f"phase 28: {split} n-digit CSV accuracy {acc} < {CLI_ACC_BAR}")
+        run("project5_test_ndigits", ["--synthetic", "--checkpoint-dir", ck6, "--n-digits", "4",
+                                      "--bigram-lm"], ["K2-lm"], label="project5_test_ndigits_lm")
+        if importlib.util.find_spec("matplotlib") is not None:
+            cwd = os.getcwd()
+            os.chdir(tmp)  # the plots go to ./plots
+            try:
+                run("project3_predict", ["--synthetic", "--checkpoint-dir", ck3], ["K3"])
+                run("project5_find_trans_penalty", [
+                    "--synthetic", "--checkpoint-dir", ck6, "--stop", "-200", "--step", "-100",
+                    "--max-per-label", "2"], ["K2"])
+            finally:
+                os.chdir(cwd)
+        else:
+            log("cli", not_run="project3_predict,project5_find_trans_penalty",
+                reason="no_matplotlib")
+
+        # -- decoding WAVs ----------------------------------------------------
+        wavs = []
+        for text, spk, seed in CLI_SENTENCES:
+            wavs.append(os.path.join(tmp, f"{text}.wav"))
+            write_wav_int16(wavs[-1], corpus.sentence_audio(text, spk, jitter_seed=seed), 16000)
+        base = ["--checkpoint-dir", ck6] + [a for w in wavs for a in ("--wav", w)]
+        out, _ = run("transcribe", base, ["K2"])
+        texts = transcripts_of(out)
+        feats = []
+        for w in wavs:
+            rate, signal = read_wav(w)
+            feats.append(mfcc_batch([signal], cfg=replace(mcfg, sample_rate=float(rate)),
+                                    device=dev)[0])
+        library = dm.ContinuousDecoder(load_models(ck6), penalty=-100.0,
+                                       device=dev).predict_batch(feats)
+        log("cli", check="transcribe_vs_ContinuousDecoder", equal=[t for _w, t in texts] == library,
+            exact=sum(t == s[0] for (_w, t), s in zip(texts, CLI_SENTENCES)), of=len(wavs))
+        if [t for _w, t in texts] != library or [w for w, _t in texts] != wavs:
+            raise SystemExit(f"phase 28: transcribe {texts} != predict_batch {library}")
+        run("transcribe", base + ["--fast"], ["K1-split", "K2"], label="transcribe_fast")
+        run("transcribe", base + ["--confidence", "--timings"], ["K4", "K2-bt"],
+            label="transcribe_confidence_timings")
+        run("transcribe", base + ["--beam", "50"], ["K2-beam"], label="transcribe_beam")
+        # Device parity: the plain decode and each constrained one
+        # (counted, grammar, duration) with --device cpu on the same WAVs
+        # print the card's transcripts and touch the card nowhere.
+        grammar = ",".join(s[0] for s in CLI_SENTENCES)
+        for what, opts in (("", []), ("_known_count", ["--known-count", "3"]),
+                           ("_grammar", ["--grammar-strings", grammar]),
+                           ("_min_duration", ["--min-duration", "2"])):
+            on_card = texts
+            if opts:
+                out, _ = run("transcribe", base + opts, [], label=f"transcribe{what}")
+                on_card = transcripts_of(out)
+            allocations = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+            out_cpu, rose = run("transcribe", base + opts + ["--device", "cpu"], [],
+                                label=f"transcribe{what}_cpu")
+            touched = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - allocations
+            equal = transcripts_of(out_cpu) == on_card
+            log("cli", check=f"transcribe{what}_cpu_vs_card", equal=equal,
+                card_kernels=sum(rose.values()), card_allocations=touched)
+            if not equal or any(rose.values()) or touched:
+                raise SystemExit(f"phase 28: transcribe{what} --device cpu differs from the "
+                                 f"card's, or touched the card ({rose}, {touched} allocations)")
+        align_csv = os.path.join(tmp, "align.csv")
+        run("align", ["--checkpoint-dir", ck6, "--wav", wavs[0], "--transcript", "375",
+                      "--states", "--csv-out", align_csv], ["K3"])
+        rows = list(CSVReader(align_csv))
+        words = [r["word"] for r in rows]
+        spans = [(r["start_frame"], r["end_frame"]) for r in rows]
+        ordered = all(s < e for s, e in spans) and all(
+            a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        log("cli", check="align", words="".join(words), frames=spans, increasing=ordered)
+        if words != ["3", "7", "5"] or not ordered:
+            raise SystemExit(f"phase 28: align gave {words} {spans}")
+        run("adapt_speaker", ["--checkpoint-dir", ck6, "--out-dir", os.path.join(tmp, "adapted"),
+                              "--wav", wavs[0], "--transcript", "375", "--tau", "10"], ["K3"])
+        run("project6_interactive", ["--checkpoint-dir", ck6, "--wav", wavs[0], "--nbest", "3",
+                                     "--confidence", "--spot", "7", "--lattice-dot",
+                                     os.path.join(tmp, "lattice.dot")], ["K4", "K2-bt"])
+        run("train_phones", ["--iterations", "3", "--out-dir", os.path.join(tmp, "phones")],
+            ["K3"])
+        run("demo_serving", ["--checkpoint-dir", ck6], ["K4", "K2-bt", "K2"])
+        if plain_on_card:
+            raise SystemExit(f"phase 28: a plain version ran on the card: {plain_on_card}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log("phase", which="28 command line", seconds=f"{seconds:.2f}", budget=CLI_BUDGET_S,
+        plain_on_card=json.dumps(plain_on_card), card=card)
+    if seconds > CLI_BUDGET_S:
+        raise SystemExit(f"phase 28: {seconds:.1f} s, over its {CLI_BUDGET_S} s budget")
 
 
 def report(kind, launches, timings, errs, yardsticks):

@@ -12,11 +12,15 @@ trellis scans it left to XLA on the hot paths, is hand-written CUDA C++
 under ``csrc/`` (the emission kernels, the scan-free team kernel's decode,
 stream, sentence and search modes, the dense trellis, the forward-backward
 and its E-step, the DTW column recursion), built with nvcc at first use. CPU tensors take each
-kernel's plain PyTorch version.
+kernel's plain PyTorch version. The project scripts run as
+``python -m cs304_tpu_torch.scripts.<name>`` (``scripts/``), beside the
+typed config, profiling, the reference-compatible names (``compat``) and
+the reporting tools.
 
 This package imports neither ``jax`` nor ``cs304_tpu``; the JAX package is
 the reference it is tested against. Its top-level names, as the JAX
-package's, resolve lazily (PEP 562): those whose modules are ported.
+package's, resolve lazily (PEP 562): all but the data-parallel ones
+(``make_mesh``, ``dp_*``), whose module is not ported yet.
 """
 import importlib as _importlib
 
@@ -57,6 +61,11 @@ _EXPORTS = {
     "pad_batch": ".data.batching",
     "SignalSeparation": ".audio.endpointing",
     "Segmentation": ".audio.capture",
+    "CSVReader": ".reporting.csvnia",
+    "CSVWriter": ".reporting.csvnia",
+    "plot_confusion_matrix_from_lists": ".reporting.visualizer",
+    "plot_line": ".reporting.visualizer",
+    "confusion_matrix": ".reporting.visualizer",
     "DTWRecognizer": ".ops.dtw",
     "forward_backward": ".ops.forward_backward",
     "forward_log_likelihood": ".ops.forward_backward",
@@ -98,7 +107,11 @@ _EXPORTS = {
     "load_models": ".utils.checkpoint",
     "save_model": ".utils.checkpoint",
     "load_model": ".utils.checkpoint",
+    "Config": ".utils.config",
     "sentence_hmm": ".models.hmm",
+    "plot_spectrogram": ".reporting.spectrograms",
+    "plot_mel_spectrogram": ".reporting.spectrograms",
+    "plot_mfcc": ".reporting.spectrograms",
     "nbest_decode": ".ops.nbest",
     "StreamingComposite": ".ops.streaming",
     "StreamingMFCC": ".ops.streaming_mfcc",

@@ -32,14 +32,17 @@ asserted through lm_table_branch; a NaN frame keeping every source word in
 range, without a fault) and the bigram and beam decoders
 launching their modes and never the plain trellis; the trainer's tie
 pooling (bitwise a sequential scatter-add) and two tied trainings, Viterbi
-and Baum-Welch, bitwise equal.
+and Baum-Welch, bitwise equal; the transcribe script (plain and with
+--confidence --timings) with --device cuda and --device cpu on the same
+WAVs: the same printed lines, the decode kernel launched on the card only.
 
-These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20 and 22 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22 and 28 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 """
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -1588,3 +1591,52 @@ def test_tied_training_is_bitwise_reproducible_on_the_card(dev, update):
         assert np.array_equal(a, b, equal_nan=True), name
     i0, i3 = runs[0].label_index[digits[0]], runs[0].label_index[digits[3]]
     assert np.array_equal(runs[0].means_g[i0, 1], runs[0].means_g[i3, 1])
+
+
+@pytest.mark.parametrize("extra", [[], ["--confidence", "--timings"]])
+def test_transcribe_card_equals_cpu(dev, tmp_path, extra):
+    """The transcribe script on a 3-word checkpoint and two 3-digit WAVs:
+    --device cuda prints the lines --device cpu prints (transcripts, and
+    with --confidence --timings the same confidences and word times), the
+    decode kernel (K2, or K4 + K2-bt for the confidences) launched on the
+    card and no card kernel in the CPU run."""
+    from cs304_tpu_torch.audio.wav import write_wav_int16
+    from cs304_tpu_torch.data.synthetic import SyntheticTIDigits
+    from cs304_tpu_torch.models.train_kmeans import SegmentalKMeansConfig, train_word_hmm
+    from cs304_tpu_torch.ops.mfcc import mfcc_batch
+    from cs304_tpu_torch.scripts import transcribe
+    from cs304_tpu_torch.scripts._common import run_in_process
+    from cs304_tpu_torch.utils.checkpoint import save_models
+
+    corpus = SyntheticTIDigits(num_train_speakers=2, num_test_speakers=1, takes_per_digit=2)
+    cfg = SegmentalKMeansConfig(num_states=5, max_iterations=4, length_multiple=32)
+    save_models({w: train_word_hmm(w, mfcc_batch(corpus.train_dataset[w], device=dev), cfg,
+                                   device=dev).model for w in "357"}, str(tmp_path / "ckpt"))
+    argv = ["--checkpoint-dir", str(tmp_path / "ckpt"), "--log-file", str(tmp_path / "rt.log")]
+    for text, seed in (("375", 3), ("753", 4)):
+        write_wav_int16(str(tmp_path / f"{text}.wav"),
+                        corpus.sentence_audio(text, 0, jitter_seed=seed), 16000)
+        argv += ["--wav", str(tmp_path / f"{text}.wav")]
+    kernels = (tsf.scanfree_decode, tdn.trellis_dense_forward, tsf.trellis_backtrace)
+    out = {}
+    for device in ("cuda", "cpu"):
+        for k in kernels:
+            k.launches = 0
+        out[device] = run_in_process(transcribe.main, argv + extra + ["--device", device])
+        torch.cuda.synchronize()
+        out[device, "launches"] = [k.launches for k in kernels]
+    # Transcripts and word times equal; a confidence moves in steps of
+    # float32 ulps of |log Z| (2^-8 at these utterances): 4 ulps and the
+    # print's rounding, as phase 22 holds the card's confidences.
+    got, want = out["cuda"].splitlines(), out["cpu"].splitlines()
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        g_conf, w_conf = (re.findall(r"\[([\d.]+)", x) for x in (g, w))
+        assert re.sub(r"\[[\d.]+", "[", g) == re.sub(r"\[[\d.]+", "[", w)
+        assert all(abs(float(a) - float(b)) <= 4 * 2.0 ** -8 + 1e-3
+                   for a, b in zip(g_conf, w_conf))
+    assert out["cpu", "launches"] == [0, 0, 0]
+    if extra:
+        assert out["cuda", "launches"][1] > 0 and out["cuda", "launches"][2] > 0
+    else:
+        assert out["cuda", "launches"][0] > 0

@@ -10,7 +10,11 @@ lattice rescored with a bigram, and a bigram and a confidences serving pool;
 then slice 4b: an isolated-word classification, a forced alignment, one
 legacy (fused=False) training iteration, MAP adaptation, a DTW search, the
 associative-scan decode and the "high" MFCC tier; then the phone tiers: a
-generated lexicon, a senone tier trained and decoded, its WER.
+generated lexicon, a senone tier trained and decoded, its WER; then the
+command line (the walk imports cs304_tpu_torch.scripts.* and the config,
+profiling, compat and reporting modules): a checkpoint saved, a WAV written
+and transcribed through the transcribe script's main with --device cpu, the
+typed config and the compat layer's MFCC.
 """
 import os
 import subprocess
@@ -125,6 +129,22 @@ units, tying, _ = senone.train_senone_models(
 pdec = ContinuousDecoder(senone.compose_word_models_senone(plex, units, tying, boot),
                          penalty=-5.0, device="cpu")
 assert corpus_wer([(["xa"], [pdec.predict(utt((-12, 4, 0, -12)))])])["ref_words"] == 1
+import contextlib, io, os, tempfile
+from cs304_tpu_torch import Config, compat
+from cs304_tpu_torch.audio.wav import write_wav_int16
+from cs304_tpu_torch.scripts import transcribe
+from cs304_tpu_torch.utils.checkpoint import save_models
+assert Config().frontend.mfcc_config().n_mfcc == 13
+assert compat.MFCC(make_signals(1, 0.5)[0], 16000, device="cpu").feature_vector.shape[0] == 39
+with tempfile.TemporaryDirectory() as tmp:
+    save_models(flagship_models(), os.path.join(tmp, "ckpt"))
+    write_wav_int16(os.path.join(tmp, "a.wav"), make_signals(1, 0.5)[0], 16000)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        transcribe.main(["--checkpoint-dir", os.path.join(tmp, "ckpt"), "--device", "cpu",
+                         "--wav", os.path.join(tmp, "a.wav"),
+                         "--log-file", os.path.join(tmp, "rt.log")])
+    assert out.getvalue().startswith(os.path.join(tmp, "a.wav") + ": "), out.getvalue()
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "cs304_tpu.")))
                 and sys.modules[m] is not None)

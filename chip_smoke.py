@@ -239,6 +239,22 @@ Phases (each prints its own numbers; any failure exits non-zero):
               the decoder's, project6_train bitwise the trainer's, the CPU
               run equal and off the card, each script's kernels launched,
               no plain version on the card; one [cli] line a script
+ 29. DP       data parallelism (parallel/data_parallel.py): a 1-rank NCCL
+              group from make_mesh(); the Viterbi, Baum-Welch and K=2 GMM
+              trainers over it on phase 8's corpus bitwise the
+              single-device trainers, with the same K3 / E-step launches;
+              dp_composite_decode at the flagship (B=512) bitwise K4 +
+              K2-bt on the same log_b and launching them; a
+              ServingSessionPool(mesh=) on phase 18's traffic equal to the
+              pool without a mesh; the Viterbi iteration's ms with and
+              without the mesh and the collectives' ms an iteration; then
+              two spawned gloo ranks on cuda:0, Viterbi (3 iterations) and
+              Baum-Welch (1; 3 logged beside one device's spread under
+              another chunking) over the 2-rank mesh: ranks bitwise equal,
+              within rtol 1e-4 / atol 2e-5 of the single-device trainer, K3
+              and the E-step launched (gloo gathering the CUDA tensors);
+              no plain version on a CUDA tensor; every group destroyed
+              before the report
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
 The line before the last is the kernels' JSON record (fifteen kernels, each with
@@ -748,6 +764,7 @@ def main():
     slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks)
     phone_tier_phase(dev, smi)
     cli_phase(dev, smi)
+    data_parallel_phase(dev, smi, decode, pipe)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -4102,6 +4119,346 @@ def cli_phase(dev, card):
         plain_on_card=json.dumps(plain_on_card), card=card)
     if seconds > CLI_BUDGET_S:
         raise SystemExit(f"phase 28: {seconds:.1f} s, over its {CLI_BUDGET_S} s budget")
+
+
+DP_ITERATIONS = 3  # phases 8 and 20's run length
+DP_GLOO_RANKS = 2
+DP_GLOO_TIMEOUT_S = 240
+
+
+# The gloo ranks' runs: (update, iterations). Baum-Welch is held to the
+# bound after one iteration; after three it is logged beside the distance
+# that another chunking of the corpus (another summation order) gives on one
+# device: Baum-Welch on this corpus magnifies a last-bit difference from one
+# iteration to the next, past the bound either way.
+DP_GLOO_RUNS = {"viterbi": ("viterbi", DP_ITERATIONS), "baum_welch_1": ("baum_welch", 1),
+                "baum_welch": ("baum_welch", DP_ITERATIONS)}
+
+
+def dp_trainer_config(update, iterations=DP_ITERATIONS):
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainConfig
+
+    return ContinuousTrainConfig(max_iterations=iterations, silence_bootstrap=False,
+                                 cov_reg=0.1, on_empty_state="keep", update=update)
+
+
+def dp_params(trainer):
+    return tuple(np.asarray(getattr(trainer, n)) for n in ("means_g", "covs_g", "log_a_g"))
+
+
+def same_bits(a, b):
+    return all(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+               for x, y in zip(a, b))
+
+
+def within(got, want, rtol=1e-4, atol=2e-5):
+    """tests/test_fused_training.py:74-80's bound (the CPU mesh tests'):
+    -inf at the same places, the rest within rtol / atol."""
+    ok, worst = True, 0.0
+    for g, w in zip(got, want):
+        fin = np.isfinite(w)
+        ok &= bool((np.isfinite(g) == fin).all())
+        ok &= bool(np.allclose(g[fin], w[fin], rtol=rtol, atol=atol))
+        worst = max(worst, float(np.abs(g[fin] - w[fin]).max()))
+    return ok, worst
+
+
+def dp_gloo_rank(rank, folder):
+    """One of phase 29's gloo ranks, both on cuda:0: DP_GLOO_RUNS' trainers
+    over the 2-rank mesh on phase 8's corpus, their parameters, iterations
+    and kernel launches written to folder."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from cs304_tpu_torch.device import fp32_exact
+    from cs304_tpu_torch.models.hmm import flagship_models
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainer
+    from cs304_tpu_torch.ops.cuda import _build
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+    from cs304_tpu_torch.parallel import data_parallel as dp
+
+    dist.init_process_group("gloo", init_method=f"file://{folder}/store", rank=rank,
+                            world_size=DP_GLOO_RANKS,
+                            timeout=timedelta(seconds=DP_GLOO_TIMEOUT_S // 2))
+    _build.load()
+    fp32_exact()
+    mesh = dp.make_mesh(devices=["cuda:0"] * DP_GLOO_RANKS)
+    boot = {m.label: m for m in flagship_models(seed=0)}
+    labeled = training_corpus(boot)
+    out = {"device": str(dp.mesh_device(mesh)), "backend": dist.get_backend()}
+    for name, (update, iterations) in DP_GLOO_RUNS.items():
+        tb.banded_decode.launches = tfb.banded_fb_posteriors.launches = 0
+        tr = ContinuousTrainer(dict(boot), dp_trainer_config(update, iterations), mesh=mesh)
+        n = tr.train(labeled)
+        out[name] = (n, dp_params(tr), {"K3": tb.banded_decode.launches,
+                                        "E-step": tfb.banded_fb_posteriors.launches})
+    dist.destroy_process_group()
+    with open(f"{folder}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def data_parallel_phase(dev, card, decode, pipe):
+    """Phase 29: data parallelism (parallel/data_parallel.py) on the card.
+
+    A 1-rank NCCL group through make_mesh(): the Viterbi, Baum-Welch and
+    K=2 GMM trainers over the mesh on phase 8's corpus, their parameters and
+    iteration counts bitwise the single-device trainers' with the same K3
+    and E-step launches (on one rank the sum is the identity);
+    dp_composite_decode at the flagship (B=512, phase 5's features) with
+    paths bitwise viterbi_composite_batch_pallas on the same whitening
+    log_b, launching K4 and K2-bt; a ServingSessionPool over the mesh on
+    phase 18's traffic with finals and partials equal to the pool without a
+    mesh. The Viterbi iteration's wall time with and without the mesh, and
+    the collectives' ms an iteration (each gather timed between two
+    synchronizes, in a separate run). No plain version may run on a CUDA
+    tensor.
+
+    Then two gloo ranks, both on cuda:0, spawned here: each trains Viterbi
+    (3 iterations) and Baum-Welch (1 and 3) over the 2-rank mesh; both
+    ranks' parameters must be bitwise equal, with K3 and the E-step
+    launched, and within the CPU mesh tests' bound (rtol 1e-4, atol 2e-5)
+    of the single-device trainer's, except Baum-Welch after 3 iterations,
+    whose distance is logged beside the single-device trainer's own
+    distance to a run with another chunking (DP_GLOO_RUNS)."""
+    import functools
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from cs304_tpu_torch.models import train_fused as tf
+    from cs304_tpu_torch.models.hmm import flagship_models
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainer
+    from cs304_tpu_torch.models.train_continuous_gmm import (
+        GMMContinuousTrainConfig,
+        GMMContinuousTrainer,
+        promote_to_gmm,
+    )
+    from cs304_tpu_torch.ops import streaming_batch as sb
+    from cs304_tpu_torch.ops import viterbi as vt
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.cuda import trellis_stream as tst
+    from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf, make_gaussian_params
+    from cs304_tpu_torch.parallel import data_parallel as dp
+    from cs304_tpu_torch.serving import ServingSessionPool
+
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        raise SystemExit("phase 29: a process group exists before make_mesh()")
+    mesh = dp.make_mesh()
+    log("dp", group="make_mesh()", ranks=mesh.size(), backend=dist.get_backend(),
+        device=dp.mesh_device(mesh), card=repr(card))
+    if mesh.size() != 1 or dist.get_backend() != "nccl" or dp.mesh_device(mesh) != dev:
+        raise SystemExit(f"phase 29: make_mesh() gave {mesh} on {dp.mesh_device(mesh)}")
+    boot = {m.label: m for m in flagship_models(seed=0)}
+    labeled = training_corpus(boot)
+    plain_on_card = {}
+    saved = [guard(plain_on_card, m, n) for m, n in (
+        (tf, "_banded_trellis_final"), (tf, "banded_fb_posteriors_plain"),
+        (tfb, "banded_fb_posteriors_plain"), (tb, "banded_sentence_forward"),
+        (tdn, "dense_forward"), (tsf, "backtrace_batch"), (tsf, "forward_fast"),
+        (vt, "viterbi_composite_batch"), (sb, "_advance"), (sb, "_advance_banded"),
+        (sb, "_advance_compact"))]
+    counters = {"K3": tb.banded_decode, "E-step": tfb.banded_fb_posteriors,
+                "K4": tdn.trellis_dense_forward, "K2-bt": tsf.trellis_backtrace,
+                "K2": tsf.scanfree_decode, "STREAM": tst.stream_advance}
+
+    def launched():
+        return {k: c.launches for k, c in counters.items()}
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    try:
+        # -- the trainers: one rank's mesh against the single device -------
+        single = {}
+        for update in ("viterbi", "baum_welch"):
+            runs = {}
+            for name, kw in (("single", dict(device=dev)), ("mesh", dict(mesh=mesh))):
+                zero()
+                tr = ContinuousTrainer(dict(boot), dp_trainer_config(update), **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = tr.train(labeled)
+                torch.cuda.synchronize()
+                runs[name] = (n, dp_params(tr), launched(), time.perf_counter() - t0, tr)
+            (n_s, p_s, l_s, _t, tr_s), (n_m, p_m, l_m, _t2, _tr) = runs["single"], runs["mesh"]
+            single[update] = (n_s, p_s, tr_s)
+            kernel = "K3" if update == "viterbi" else "E-step"
+            ok = n_s == n_m and same_bits(p_s, p_m) and l_s == l_m and l_m[kernel] > 0
+            log("dp", trainer=update, ranks=1, iterations=f"{n_m}/{n_s}",
+                params_bitwise_single=same_bits(p_s, p_m), launches_mesh=json.dumps(l_m),
+                launches_single=json.dumps(l_s))
+            if not ok:
+                raise SystemExit(f"phase 29: the {update} trainer over a 1-rank mesh is not "
+                                 f"bitwise the single-device trainer (or launched no {kernel})")
+        gmm_runs = {}
+        for name, kw in (("single", dict(device=dev)), ("mesh", dict(mesh=mesh))):
+            zero()
+            tr = GMMContinuousTrainer(promote_to_gmm(single["viterbi"][2].models(), 2),
+                                      GMMContinuousTrainConfig(max_iterations=DP_ITERATIONS,
+                                                               cov_reg=0.1), **kw)
+            n = tr.train(labeled)
+            gmm_runs[name] = (n, tuple(getattr(tr, a) for a in
+                                       ("means_g", "covs_g", "weights_g", "log_a_g")),
+                              launched())
+        (n_s, p_s, l_s), (n_m, p_m, l_m) = gmm_runs["single"], gmm_runs["mesh"]
+        log("dp", trainer="gmm K=2", ranks=1, iterations=f"{n_m}/{n_s}",
+            params_bitwise_single=same_bits(p_s, p_m), launches_mesh=json.dumps(l_m))
+        if not (n_s == n_m and same_bits(p_s, p_m) and l_s == l_m and l_m["K3"] > 0):
+            raise SystemExit("phase 29: the GMM trainer over a 1-rank mesh is not bitwise "
+                             "the single-device trainer")
+
+        # The gloo ranks' yardsticks on one device: Baum-Welch after one
+        # iteration, and after three with another chunking of the corpus.
+        tr = ContinuousTrainer(dict(boot), dp_trainer_config("baum_welch", 1), device=dev)
+        single["baum_welch_1"] = (tr.train(labeled), dp_params(tr), tr)
+        chunked = functools.partial(tf.prepare_fused_corpus, chunk_utts=32)
+        unchunked, tf.prepare_fused_corpus = tf.prepare_fused_corpus, chunked
+        try:
+            tr = ContinuousTrainer(dict(boot), dp_trainer_config("baum_welch"), device=dev)
+            tr.train(labeled)
+        finally:
+            tf.prepare_fused_corpus = unchunked
+        chunk_spread = within(dp_params(tr), single["baum_welch"][1])[1]
+
+        # -- the Viterbi iteration's wall time, with and without the mesh ----
+        def iteration_ms(**kw):
+            tr = ContinuousTrainer(dict(boot), dp_trainer_config("viterbi"), **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = tr.train(labeled)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        it_ms = {"single": [], "mesh": []}
+        for name in ("single", "mesh", "mesh", "single", "single", "mesh"):
+            it_ms[name].append(iteration_ms(**({"mesh": mesh} if name == "mesh"
+                                               else {"device": dev})))
+        gathers = {"calls": 0, "ms": 0.0, "bytes": 0}
+        untimed = dp._all_gather
+
+        def timed_gather(x, m):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = untimed(x, m)
+            torch.cuda.synchronize()
+            gathers["ms"] += (time.perf_counter() - t0) * 1e3
+            gathers["calls"] += 1
+            gathers["bytes"] += x.numel() * x.element_size()
+            return out
+
+        dp._all_gather = timed_gather
+        try:
+            tr = ContinuousTrainer(dict(boot), dp_trainer_config("viterbi"), mesh=mesh)
+            n_timed = tr.train(labeled)
+        finally:
+            dp._all_gather = untimed
+        log("timing", what="viterbi iteration (phase 8's corpus)", card=repr(card),
+            ms_single=min(it_ms["single"]), ms_mesh_1rank=min(it_ms["mesh"]),
+            ms_single_all=json.dumps([round(x, 3) for x in it_ms["single"]]),
+            ms_mesh_all=json.dumps([round(x, 3) for x in it_ms["mesh"]]))
+        log("timing", what="collectives a viterbi iteration (1 NCCL rank, each gather "
+            "between two synchronizes)", card=repr(card),
+            gathers=gathers["calls"] / n_timed, ms=gathers["ms"] / n_timed,
+            bytes=gathers["bytes"] / n_timed)
+
+        # -- dp_composite_decode at the flagship -------------------------------
+        comp = decode["comp"]
+        b, t_total = decode["lb3"].shape[:2]
+        batch = decode["frames"].reshape(b, t_total, -1)
+        lengths = decode["n_frames"].to(torch.int32)
+        zero()
+        scores, paths = dp.dp_composite_decode(
+            comp.means, comp.covariances, comp.log_a, comp.lower_of_state, comp.is_entry,
+            comp.is_exit, comp.penalty, batch, lengths, mesh)
+        torch.cuda.synchronize()
+        dec_launches = launched()
+        log_b = gaussian_log_pdf(make_gaussian_params(comp.means, comp.covariances,
+                                                      device=dev), batch)
+        w_scores, w_paths = tdn.viterbi_composite_batch_pallas(
+            log_b, comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+            comp.penalty, lengths)
+        dec_ok = torch.equal(paths, w_paths) and torch.equal(scores, w_scores)
+        log("dp", what="dp_composite_decode", B=b, T=t_total, paths_bitwise=dec_ok,
+            launches=json.dumps(dec_launches), finite=bool(torch.isfinite(scores).all()))
+        if not (dec_ok and dec_launches["K4"] > 0 and dec_launches["K2-bt"] > 0):
+            raise SystemExit("phase 29: dp_composite_decode differs from K4 + K2-bt, or did "
+                             "not launch them")
+
+        # -- the serving pool over the mesh, phase 18's traffic ----------------
+        audio, warm = serving_traffic(pipe["corpus"])
+        serve = {}
+        for name, kw in (("mesh", dict(mesh=mesh)), ("single", dict(device="cuda"))):
+            zero()
+            pool = ServingSessionPool(pipe["models"], num_slots=64, max_frames=4096, **kw)
+            results, polls, wall, round_ms = drive_sessions(pool, range(SERVE_SESSIONS),
+                                                            audio, warm)
+            serve[name] = ([[(r.text, r.num_samples, r.last_partial) for r in rs]
+                            for rs in results], polls, round_ms, launched())
+        serve_ok = serve["mesh"][:2] == serve["single"][:2]
+        n_finals = sum(len(rs) for rs in serve["mesh"][0])
+        log("dp", what="ServingSessionPool(mesh=)", sessions=SERVE_SESSIONS, finals=n_finals,
+            finals_and_partials_equal_single=serve_ok,
+            launches=json.dumps(serve["mesh"][3]))
+        log("timing", what="serving feed() round", card=repr(card),
+            ms_mesh_1rank=serve["mesh"][2], ms_single=serve["single"][2])
+        if not serve_ok or n_finals < SERVE_SESSIONS:
+            raise SystemExit("phase 29: the serving pool over the mesh differs from the pool "
+                             "without one")
+        if not all(serve["mesh"][3][k] > 0 for k in ("K4", "K2-bt", "K2")):
+            raise SystemExit(f"phase 29: a kernel of the meshed serving path never launched: "
+                             f"{serve['mesh'][3]}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        dist.destroy_process_group()
+    if plain_on_card:
+        raise SystemExit(f"phase 29: a plain version ran on a CUDA tensor: {plain_on_card}")
+
+    # -- two gloo ranks on cuda:0 ---------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dp_gloo_") as folder:
+        ctx = mp.start_processes(dp_gloo_rank, args=(folder,), nprocs=DP_GLOO_RANKS,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=max(0.0, DP_GLOO_TIMEOUT_S
+                                           - (time.perf_counter() - t0))):
+                if time.perf_counter() - t0 >= DP_GLOO_TIMEOUT_S:
+                    raise SystemExit(f"phase 29: the gloo ranks still ran after "
+                                     f"{DP_GLOO_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = []
+        for rank in range(DP_GLOO_RANKS):
+            with open(f"{folder}/rank{rank}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    for name, (update, iterations) in DP_GLOO_RUNS.items():
+        n_s, p_s, _tr = single[name]
+        (n0, p0, l0), (n1, p1, l1) = ranks[0][name], ranks[1][name]
+        ok, worst = within(p0, p_s)
+        held = not (update == "baum_welch" and iterations > 1)
+        kernel = "K3" if update == "viterbi" else "E-step"
+        log("dp", trainer=update, iterations=f"{n0}/{n1}/{n_s}", ranks=DP_GLOO_RANKS,
+            backend=ranks[0]["backend"], devices=f"{ranks[0]['device']},{ranks[1]['device']}",
+            ranks_bitwise=n0 == n1 and same_bits(p0, p1), within_single=ok,
+            max_abs_delta_single=worst, gated=held,
+            single_device_chunk_32_delta=None if held else chunk_spread,
+            launches=json.dumps([l0, l1]), seconds=f"{time.perf_counter() - t0:.1f}")
+        if not (n0 == n1 == n_s and same_bits(p0, p1) and (ok or not held)
+                and l0[kernel] > 0 and l1[kernel] > 0):
+            raise SystemExit(f"phase 29: the {update} trainer over 2 gloo ranks ({iterations} "
+                             f"iterations): ranks differ, or stray from the single-device "
+                             f"trainer, or launched no {kernel}")
+    log("timing", what="phase 29", card=repr(card), seconds=time.perf_counter() - t_phase)
 
 
 def report(kind, launches, timings, errs, yardsticks):

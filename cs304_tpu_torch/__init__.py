@@ -17,10 +17,14 @@ kernel's plain PyTorch version. The project scripts run as
 typed config, profiling, the reference-compatible names (``compat``) and
 the reporting tools.
 
+Data parallelism (``parallel/``: ``make_mesh``, ``dp_kmeans_step``,
+``dp_composite_decode``, and ``mesh=`` on the trainers and the serving pools)
+runs over ``torch.distributed`` ranks, one process each.
+
 This package imports neither ``jax`` nor ``cs304_tpu``; the JAX package is
-the reference it is tested against. Its top-level names, as the JAX
-package's, resolve lazily (PEP 562): all but the data-parallel ones
-(``make_mesh``, ``dp_*``), whose module is not ported yet.
+the reference it is tested against. Its top-level names are the JAX
+package's, and ``fp32_exact`` and ``resolve_device`` besides; they resolve
+lazily (PEP 562).
 """
 import importlib as _importlib
 
@@ -115,6 +119,9 @@ _EXPORTS = {
     "nbest_decode": ".ops.nbest",
     "StreamingComposite": ".ops.streaming",
     "StreamingMFCC": ".ops.streaming_mfcc",
+    "make_mesh": ".parallel.data_parallel",
+    "dp_kmeans_step": ".parallel.data_parallel",
+    "dp_composite_decode": ".parallel.data_parallel",
 }
 
 

@@ -25,8 +25,11 @@ dense forward-backward of ops/forward_backward.py), the statistics summed
 in float64 on the host, then a centered covariance pass around the new
 means. GMM models train with models/train_continuous_gmm.py's
 GMMContinuousTrainer: given one, train() raises a ValueError that says so
-(the JAX trainer fails there too, with a ValueError of its own). Mesh
-training is not ported yet and raises NotImplementedError.
+(the JAX trainer fails there too, with a ValueError of its own). With
+mesh= (parallel/data_parallel.make_mesh) the fused iterations run over a
+data-parallel mesh: each rank aligns its block of the corpus, the
+statistics are summed over the ranks, and every rank holds the same
+parameters (models/train_fused.py's *_sharded entry points).
 
 Convergence semantics divergence (documented): the reference counts
 convergence events CUMULATIVELY across iterations and stops when the running
@@ -336,14 +339,10 @@ def _centered_m2_pass_weighted(
     return m2.reshape(num_labels, s_max, d, d)
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
-
-
 class ContinuousTrainer:
     """Embedded re-estimation of word (+ silence) models from transcripts,
     on ``device`` (the first card by default; ``device="cpu"`` for the
-    CPU)."""
+    CPU), or on this rank's device of ``mesh``."""
 
     def __init__(
         self,
@@ -360,7 +359,16 @@ class ContinuousTrainer:
         mentioned stay untied. transition_ties: optional label -> group key;
         tied labels (which must have equal state counts) pool transition
         counts and share one transition matrix. A resumed trainer must be
-        constructed with the same ties."""
+        constructed with the same ties.
+
+        mesh: optional data-parallel mesh (parallel/data_parallel.make_mesh):
+        every rank constructs the trainer alike and calls train() with the
+        same corpus; each aligns its block of utterances and the statistics
+        are summed over the ranks (replacing the reference's per-transcript
+        process pool, hidden_markov_model.py:746-750). The trainer runs on
+        the rank's mesh device, which an explicit device= must name. Requires
+        cfg.fused (the default); only rank 0 writes save_state's file."""
+        from ..parallel.data_parallel import site_device
         from .stacking import stack_models  # deferred: stacking imports us
         from .train_fused import tie_plan
 
@@ -368,12 +376,16 @@ class ContinuousTrainer:
             raise ValueError(
                 f"update={cfg.update!r} is not one of 'viterbi'/'baum_welch'"
             )
-        if mesh is not None:
-            raise _not_ported(
-                "mesh (data-parallel) training",
-                "Queue 1, slice 3, item 18: parallel/data_parallel.py")
+        if mesh is not None and not cfg.fused:
+            raise ValueError(
+                "fused=False is the single-host parity oracle (kept as an "
+                "independent implementation for tests/benchmarks); mesh "
+                "training requires fused=True (the default)"
+            )
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (site_device(mesh, device) if mesh is not None
+                       else resolve_device(device))
         fp32_exact()
         self._iterations_done = 0
         # Final-iteration starvation report: filled by the device-loop spine
@@ -506,6 +518,7 @@ class ContinuousTrainer:
         checkpoint_dir: when given, saves resumable trainer state (an .npz,
         see save_state) every `checkpoint_every` iterations; a later trainer
         can continue via `resume(checkpoint_dir)`."""
+        from ..parallel.data_parallel import mesh_size
         from .train_fused import prepare_fused_corpus
 
         if self.means_g.ndim != 3:
@@ -522,6 +535,7 @@ class ContinuousTrainer:
                 labeled_features, self.state_counts, self.label_index,
                 insert_silence if self.cfg.insert_silence else (lambda s: s),
                 min(self.cfg.length_multiple, 32), device=self.device,
+                num_shards=mesh_size(self.mesh) if self.mesh is not None else 1,
             )
         else:
             batches = self._prepare_batches(labeled_features)
@@ -559,15 +573,14 @@ class ContinuousTrainer:
         return it
 
     def _train_device_loop(self, fused) -> int:
-        from .train_fused import fused_train_run
+        from .train_fused import fused_train_run, fused_train_run_sharded
 
         remaining = self.cfg.max_iterations - self._iterations_done
         if remaining <= 0:
             return self._iterations_done
-        means, covs, log_a, counts, n_it, converged = fused_train_run(
-            *self._fused_args(fused), max_iterations=int(remaining),
-            update=self.cfg.update, **self._fused_kwargs(),
-        )
+        means, covs, log_a, counts, n_it, converged = self._on_mesh(
+            fused_train_run, fused_train_run_sharded, fused,
+            max_iterations=int(remaining), update=self.cfg.update)
         self._dev_state = (means, covs, log_a)
         counts = counts.cpu().numpy()
         empty = self._slot_used() & (counts < self._count_floor())
@@ -595,9 +608,14 @@ class ContinuousTrainer:
 
     # -- resumable state ---------------------------------------------------
     def save_state(self, folder: str) -> None:
+        """Resumable trainer state in ``folder``; over a mesh, rank 0
+        writes it (every rank holds the same parameters)."""
+        from ..parallel.data_parallel import mesh_rank
         from ..utils.checkpoint import save_trainer_state
 
         self._sync_from_device()
+        if self.mesh is not None and mesh_rank(self.mesh) != 0:
+            return
         save_trainer_state(
             {
                 "means_g": self.means_g,
@@ -691,16 +709,22 @@ class ContinuousTrainer:
             self.covs_g = covs.cpu().numpy().astype(np.float32)
             self.log_a_g = log_a.cpu().numpy().astype(np.float32)
 
-    def _run_fused(self, fused):
-        from .train_fused import fused_viterbi_iteration
+    def _on_mesh(self, single, sharded, fused, **kw):
+        """single(...) on the trainer's device, or sharded(..., mesh) over
+        the trainer's mesh."""
+        if self.mesh is None:
+            return single(*self._fused_args(fused), **self._fused_kwargs(), **kw)
+        return sharded(*self._fused_args(fused), self.mesh, **self._fused_kwargs(), **kw)
 
-        return fused_viterbi_iteration(*self._fused_args(fused),
-                                       **self._fused_kwargs())
+    def _run_fused(self, fused):
+        from .train_fused import fused_viterbi_iteration, fused_viterbi_iteration_sharded
+
+        return self._on_mesh(fused_viterbi_iteration, fused_viterbi_iteration_sharded, fused)
 
     def _run_fused_bw(self, fused):
-        from .train_fused import fused_bw_iteration
+        from .train_fused import fused_bw_iteration, fused_bw_iteration_sharded
 
-        return fused_bw_iteration(*self._fused_args(fused), **self._fused_kwargs())
+        return self._on_mesh(fused_bw_iteration, fused_bw_iteration_sharded, fused)
 
     def _iteration_fused(self, fused) -> bool:
         run = self._run_fused_bw if self.cfg.update == "baum_welch" else self._run_fused

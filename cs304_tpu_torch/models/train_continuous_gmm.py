@@ -1,6 +1,7 @@
 """Embedded continuous training with K-mixture GMM emissions.
 
-A port of cs304_tpu/models/train_continuous_gmm.py (single device). GMM
+A port of cs304_tpu/models/train_continuous_gmm.py (one device, or a
+data-parallel mesh through the *_sharded entry points). GMM
 emissions drop into the fused embedded-training design of
 models/train_fused.py: one iteration aligns the whole corpus with the
 sentence trellis under the GMM emission densities (hard state assignment;
@@ -31,7 +32,9 @@ from .train_continuous import HMMTrainMeanFail, insert_silence
 from .train_fused import (
     NEG,
     _histogram,
+    _identity,
     _sentence_trans_diagonals,
+    _sharded,
     _training_trellis,
     prepare_fused_corpus,
 )
@@ -105,8 +108,11 @@ def _gmm_body(
     batch, lengths, topo_id,
     *, cov_reg: float, rtol: float, atol: float,
     num_labels: int, s_max: int, num_mix: int, cross_word: str,
+    reduce_fn=_identity,
 ):
-    """One embedded GMM iteration on the tensors' device.
+    """One embedded GMM iteration on the tensors' device; reduce_fn sums
+    the statistics over a mesh where the JAX body psums them (counts, sums
+    and transition counts after pass A, the second moments after pass B).
 
     Shapes: means_g (L, S, K, D), covs_g (L, S, K, D, D), weights_g (L, S, K).
     Returns (new_means, new_covs, new_weights, new_log_a, counts (L, S, K),
@@ -158,7 +164,10 @@ def _gmm_body(
     pair_live = (torch.arange(t - 1, device=dev)[None, :] < (lengths_flat[:, None] - 1)) & (
         pos_p[:, :-1] == pos_p[:, 1:])
     from_flat = lab_p[:, :-1] * (s_max * s_max) + loc_p[:, :-1] * s_max + loc_p[:, 1:]
-    trans = _histogram(from_flat, pair_live, f * s_max).reshape(l, s, s)
+    counts_fk = reduce_fn(counts_fk)
+    sums = reduce_fn(sums)
+    trans = reduce_fn(_histogram(from_flat, pair_live, f * s_max)).to(
+        torch.float32).reshape(l, s, s)
 
     # ---- M-step: means / weights + convergence ----
     counts = counts_fk.reshape(l, s, k)
@@ -183,6 +192,7 @@ def _gmm_body(
         xc = batch[i].reshape(c * t, d) - c_glob
         x2 = (xc[:, :, None] * xc[:, None, :]).reshape(c * t, d * d)
         sxx = sxx + w_c[i].T @ x2
+    sxx = reduce_fn(sxx)
     m2 = (sxx.reshape(fk, d, d)
           - counts_fk.reshape(fk)[:, None, None] * (d_fk[:, :, None] * d_fk[:, None, :])
           ).reshape(l, s, k, d, d)
@@ -238,21 +248,73 @@ def fused_gmm_train_run(
     (the iteration that detects convergence counts, as in the JAX package's
     while loop). Returns (means, covs, weights, log_a, counts, iterations,
     converged); the last two are a Python int and bool."""
+    return _gmm_run(
+        means_g, covs_g, weights_g, log_a_g, slot_used,
+        lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+        batch, lengths, topo_id,
+        cov_reg=cov_reg, rtol=rtol, atol=atol, num_labels=num_labels, s_max=s_max,
+        num_mix=num_mix, cross_word=cross_word, max_iterations=max_iterations)
+
+
+def _gmm_run(means_g, covs_g, weights_g, log_a_g, *tables, max_iterations: int,
+             num_labels: int, s_max: int, num_mix: int, **kw):
+    """fused_gmm_train_run's loop (kw: _gmm_body's keywords, reduce_fn
+    among them for the sharded run)."""
     means, covs, weights, log_a = means_g, covs_g, weights_g, log_a_g
     counts = torch.zeros((num_labels, s_max, num_mix), dtype=torch.float32,
                          device=means_g.device)
     it, converged = 0, False
     while it < max_iterations and not converged:
         means, covs, weights, log_a, counts, converged_l, _ = _gmm_body(
-            means, covs, weights, log_a, slot_used,
-            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
-            batch, lengths, topo_id,
-            cov_reg=cov_reg, rtol=rtol, atol=atol,
-            num_labels=num_labels, s_max=s_max, num_mix=num_mix, cross_word=cross_word,
-        )
+            means, covs, weights, log_a, *tables,
+            num_labels=num_labels, s_max=s_max, num_mix=num_mix, **kw)
         it += 1
         converged = bool(converged_l.all())
     return means, covs, weights, log_a, counts, it, converged
+
+
+def fused_gmm_iteration_sharded(
+    means_g, covs_g, weights_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id, mesh,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, num_mix: int, cross_word: str = "exit_only",
+):
+    """fused_gmm_iteration over a data-parallel mesh (the sharding of
+    train_fused.fused_viterbi_iteration_sharded); the paths are gathered to
+    the full (n_chunks, C, T) on every rank."""
+    from ..parallel.data_parallel import gather_rows, reducer
+
+    args = (means_g, covs_g, weights_g, log_a_g, slot_used,
+            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+            batch, lengths, topo_id)
+    *out, paths = _gmm_body(
+        *_sharded(args, mesh),
+        cov_reg=cov_reg, rtol=rtol, atol=atol, num_labels=num_labels, s_max=s_max,
+        num_mix=num_mix, cross_word=cross_word, reduce_fn=reducer(mesh))
+    return (*out, gather_rows(paths, mesh))
+
+
+def fused_gmm_train_run_sharded(
+    means_g, covs_g, weights_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id, mesh,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, num_mix: int, cross_word: str,
+    max_iterations: int,
+):
+    """fused_gmm_train_run over a data-parallel mesh: every rank runs the
+    same iterations on its block of chunks."""
+    from ..parallel.data_parallel import reducer
+
+    args = (means_g, covs_g, weights_g, log_a_g, slot_used,
+            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+            batch, lengths, topo_id)
+    return _gmm_run(
+        *_sharded(args, mesh),
+        cov_reg=cov_reg, rtol=rtol, atol=atol, num_labels=num_labels, s_max=s_max,
+        num_mix=num_mix, cross_word=cross_word, max_iterations=max_iterations,
+        reduce_fn=reducer(mesh))
 
 
 @dataclass(frozen=True)
@@ -273,8 +335,10 @@ class GMMContinuousTrainConfig:
 
 class GMMContinuousTrainer:
     """Embedded re-estimation of K-mixture GMM word models from transcripts,
-    on ``device`` (the first card by default; ``device="cpu"`` for the CPU).
-    The same external shape as ContinuousTrainer (train / models)."""
+    on ``device`` (the first card by default; ``device="cpu"`` for the CPU),
+    or over a data-parallel ``mesh`` on this rank's mesh device, as
+    ContinuousTrainer. The same external shape as ContinuousTrainer (train /
+    models)."""
 
     def __init__(
         self,
@@ -283,12 +347,12 @@ class GMMContinuousTrainer:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (data-parallel) training is not ported yet (ROADMAP Queue 1, "
-                "slice 3, item 18: parallel/data_parallel.py)")
+        from ..parallel.data_parallel import site_device
+
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (site_device(mesh, device) if mesh is not None
+                       else resolve_device(device))
         self.labels: List[str] = sorted(models)
         self.label_index = {lab: i for i, lab in enumerate(self.labels)}
         self.state_counts = {lab: models[lab].num_states for lab in self.labels}
@@ -345,6 +409,11 @@ class GMMContinuousTrainer:
             fused.batch, fused.lengths, fused.topo_id,
         )
 
+    def _on_mesh(self, single, sharded, fused, **kw):
+        if self.mesh is None:
+            return single(*self._args(fused), **self._kwargs(), **kw)
+        return sharded(*self._args(fused), self.mesh, **self._kwargs(), **kw)
+
     def _kwargs(self):
         cfg = self.cfg
         return dict(cov_reg=float(cfg.cov_reg), rtol=float(cfg.rtol), atol=float(cfg.atol),
@@ -359,6 +428,8 @@ class GMMContinuousTrainer:
 
     def train(self, labeled_features: Dict[str, Sequence[np.ndarray]]) -> int:
         """Run embedded GMM refinement; returns the iterations performed."""
+        from ..parallel.data_parallel import mesh_size
+
         cfg = self.cfg
         fused = prepare_fused_corpus(
             labeled_features, self.state_counts, self.label_index,
@@ -368,6 +439,7 @@ class GMMContinuousTrainer:
             # shrink the chunk to keep a chunk's memory at the K = 1 level.
             chunk_utts=max(8, 64 // max(self.k, 1)),
             device=self.device,
+            num_shards=mesh_size(self.mesh) if self.mesh is not None else 1,
         )
         if cfg.on_empty_state == "keep":
             # The device loop: one flag read back an iteration ("fail" needs
@@ -376,7 +448,7 @@ class GMMContinuousTrainer:
         it = self._iterations_done
         for it in range(self._iterations_done + 1, cfg.max_iterations + 1):
             (new_means, new_covs, new_weights, new_log_a, counts, converged_l,
-             _paths) = fused_gmm_iteration(*self._args(fused), **self._kwargs())
+             _paths) = self._on_mesh(fused_gmm_iteration, fused_gmm_iteration_sharded, fused)
             state_tot = counts.cpu().numpy().sum(axis=-1)
             converged_l = converged_l.cpu().numpy()
             empty_states = self._slot_used() & (state_tot < 1)
@@ -396,8 +468,9 @@ class GMMContinuousTrainer:
         remaining = self.cfg.max_iterations - self._iterations_done
         if remaining <= 0:
             return self._iterations_done
-        means, covs, weights, log_a, counts, n_it, converged = fused_gmm_train_run(
-            *self._args(fused), **self._kwargs(), max_iterations=int(remaining))
+        means, covs, weights, log_a, counts, n_it, converged = self._on_mesh(
+            fused_gmm_train_run, fused_gmm_train_run_sharded, fused,
+            max_iterations=int(remaining))
         state_tot = counts.cpu().numpy().sum(axis=-1)
         empty_states = self._slot_used() & (state_tot < 1)
         if np.any(empty_states):

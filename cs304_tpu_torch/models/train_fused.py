@@ -3,7 +3,7 @@ re-estimation pass over the whole corpus on one device, with one small host
 read per iteration.
 
 A port of cs304_tpu/models/train_fused.py (Viterbi and Baum-Welch updates,
-single device).
+on one device or over a data-parallel mesh: the *_sharded entry points).
 The reference semantics are unchanged (those of the JAX package's fused
 program, itself parity-tested against its legacy per-transcript oracle and
 reference hidden_markov_model.py:584-797):
@@ -38,6 +38,12 @@ atomic, so two runs on one card give bitwise equal parameters. State and
 transition ties pool in a fixed order too (_pool_slots over a TiePlan: each
 group's members added in ascending row order by gathers, no scatter-add).
 Everything is float32 with TF32 off (the JAX program's HIGHEST precision).
+
+Over a mesh (parallel/data_parallel.py) every rank runs the same iteration on
+its own block of chunks, and each sufficient statistic is summed over the
+ranks (reduce_fn) exactly where the JAX program psums it: before the tie
+pooling, in rank order, so every rank holds the same parameters bit for bit
+and takes the same convergence decision.
 """
 from __future__ import annotations
 
@@ -89,6 +95,10 @@ _FB_BACKEND = "kernel"
 _BW_FLOOR = 1e-4
 
 
+def _identity(x):
+    return x
+
+
 @dataclass
 class FusedCorpus:
     """Device-resident corpus + topology tables for fused_viterbi_iteration."""
@@ -115,6 +125,7 @@ def prepare_fused_corpus(
     length_multiple: int = 128,
     chunk_utts: int = 64,
     device=None,
+    num_shards: int = 1,
 ) -> FusedCorpus:
     """Pack every transcript's utterances into one padded corpus on
     ``device``.
@@ -123,7 +134,9 @@ def prepare_fused_corpus(
     global sentence-state budget S_sent (the longest sentence); shorter
     sentences are padded with unreachable states. The utterance count is
     padded to a whole number of chunks with length-0 utterances, which
-    contribute nothing to the statistics."""
+    contribute nothing to the statistics; num_shards > 1 pads the chunk
+    count to a multiple of the mesh size, so the chunks divide over the
+    ranks."""
     from .train_continuous import _entry_exit, _topology
 
     dev = resolve_device(device)
@@ -147,7 +160,7 @@ def prepare_fused_corpus(
     t_max = -(-max(lengths_all) // length_multiple) * length_multiple
     b = len(feats_all)
     c = min(chunk_utts, -(-b // 8) * 8)
-    b_pad = -(-b // c) * c
+    b_pad = -(-b // (c * num_shards)) * (c * num_shards)
     batch = np.zeros((b_pad, t_max, d), np.float32)
     for i, x in enumerate(feats_all):
         batch[i, : x.shape[0]] = x
@@ -396,18 +409,19 @@ def _gather_sentence_emissions(means_g, covs_g, lab_tab, loc_tab,
 
 
 def _histogram(idx, mask, n: int) -> torch.Tensor:
-    """Float32 counts of idx over [0, n) where mask holds: the sum of the
-    masked one-hots, exact (integer-valued) and order-free on any device."""
+    """int64 counts of idx over [0, n) where mask holds: the sum of the
+    masked one-hots, exact and order-free on any device (and summed over a
+    mesh as integers)."""
     idx = torch.where(mask, idx, torch.full_like(idx, n))
-    return torch.bincount(idx.reshape(-1), minlength=n + 1)[:n].to(torch.float32)
+    return torch.bincount(idx.reshape(-1), minlength=n + 1)[:n]
 
 
 def _pass_a(paths_flat, lab_u, loc_u, pos_u, batch, lengths_flat, s_max: int,
             f: int):
     """Zeroth/first-order statistics and transition counts of the hard
     alignment: paths (B, T) over per-utterance tables (B, S_sent) ->
-    (counts_f (F,), sums (F, D), trans_f (F * s_max,), one-hots (B, T, F)
-    masked to real frames, slot of every frame (B, T))."""
+    (counts_f (F,) int64, sums (F, D), trans_f (F * s_max,) int64, one-hots
+    (B, T, F) masked to real frames, slot of every frame (B, T))."""
     b, t = paths_flat.shape
     d = batch.shape[-1]
     dev = batch.device
@@ -456,8 +470,13 @@ def _iteration_body(
     num_labels: int, s_max: int, cross_word: str,
     emissions: str = "whiten",
     tie_flat=None, trans_tie=None, conv_tie=None,
+    reduce_fn=_identity,
 ):
     """One fused Viterbi iteration (see fused_viterbi_iteration).
+
+    reduce_fn sums each sufficient statistic over the mesh (identity on one
+    device): the counts and transition counts as integers, the frame sums and
+    second moments as float32, each before the tie pooling.
 
     tie_flat (F,) / trans_tie (L,) int or their TiePlans, optional:
     state-level emission tying and label-level transition tying — statistics
@@ -496,6 +515,9 @@ def _iteration_body(
         paths_flat, lab_tab[topo_flat], loc_tab[topo_flat], pos_tab[topo_flat],
         batch, lengths_flat, s_max, f,
     )
+    counts_f = reduce_fn(counts_f).to(torch.float32)
+    sums = reduce_fn(sums)
+    trans_f = reduce_fn(trans_f).to(torch.float32)
     if tie_flat is not None:
         counts_f = _pool_slots(counts_f, tie_flat)
         sums = _pool_slots(sums, tie_flat)
@@ -515,7 +537,7 @@ def _iteration_body(
         converged_l = _couple_convergence(converged_l, conv_tie)
 
     # ---- pass B
-    m2_flat = _pass_b(batch, flat, oh, new_means.reshape(f, d))
+    m2_flat = reduce_fn(_pass_b(batch, flat, oh, new_means.reshape(f, d)))
     if tie_flat is not None:
         # Tied slots share new_means, so each pooled m2 is centered at its
         # group mean — the group covariance with np.cov ddof=1 on the GROUP
@@ -636,8 +658,10 @@ def _bw_body(
     num_labels: int, s_max: int, cross_word: str,
     emissions: str = "whiten",
     tie_flat=None, trans_tie=None, conv_tie=None,
+    reduce_fn=_identity,
 ):
-    """One fused Baum-Welch iteration (see fused_bw_iteration).
+    """One fused Baum-Welch iteration (see fused_bw_iteration); reduce_fn
+    as in _iteration_body (ll_sum, soft counts, sums, transition mass, sxx).
 
     Soft forward-backward posteriors over the banded sentence topology
     replace the hard Viterbi one-hots. Cross-word xi mass is excluded from
@@ -670,11 +694,14 @@ def _bw_body(
     # ---- E-step: gamma and the per-diagonal xi sums; padding utterances
     # (ll = -inf) count nothing and add 0 to the summed log-likelihood.
     gam, xi, ll = _training_fb(lb_sent, *diags, lengths_flat, n_states_t[topo_flat])
-    ll_sum = torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll)).sum()
+    ll_sum = reduce_fn(torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll)).sum())
 
     # ---- pass A: soft counts / frame sums / within-word transition mass
     counts_f, sums, trans_f, gam_f = _bw_pass_a(
         gam, xi, lab_u, loc_u, samew_u, batch, s_max, f)
+    counts_f = reduce_fn(counts_f)
+    sums = reduce_fn(sums)
+    trans_f = reduce_fn(trans_f)
     if tie_flat is not None:
         counts_f = _pool_slots(counts_f, tie_flat)
         sums = _pool_slots(sums, tie_flat)
@@ -697,7 +724,7 @@ def _bw_body(
     total = torch.clamp(counts_f.sum(), min=_BW_FLOOR)
     c_glob = sums.sum(dim=0) / total
     d_f = new_means_flat - c_glob
-    sxx_flat = _bw_pass_b(batch, gam_f, c_glob)
+    sxx_flat = reduce_fn(_bw_pass_b(batch, gam_f, c_glob))
     if tie_flat is not None:
         # Koenig holds for any fixed centring point: pooled sxx with the
         # pooled counts and the shared group mean is the group covariance.
@@ -766,6 +793,19 @@ def fused_train_run(
 
     Returns (means, covs, log_a, counts, iterations, converged); the last two
     are a Python int and bool."""
+    return _train_run(
+        means_g, covs_g, log_a_g, slot_used,
+        lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+        batch, lengths, topo_id,
+        cov_reg=cov_reg, rtol=rtol, atol=atol, num_labels=num_labels, s_max=s_max,
+        cross_word=cross_word, max_iterations=max_iterations, update=update,
+        emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie, conv_tie=conv_tie,
+    )
+
+
+def _train_run(means_g, covs_g, log_a_g, *tables, max_iterations: int, update: str,
+               num_labels: int, s_max: int, reduce_fn=_identity, **kw):
+    """fused_train_run's loop, with reduce_fn for the sharded run."""
     bodies = {"viterbi": _iteration_body, "baum_welch": _bw_body}
     if update not in bodies:
         raise ValueError(f"update={update!r} is not one of {sorted(bodies)}")
@@ -776,14 +816,111 @@ def fused_train_run(
     it, converged = 0, False
     while it < max_iterations and not converged:
         means, covs, log_a, counts, converged_l, _ = body_fn(
-            means, covs, log_a, slot_used,
-            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
-            batch, lengths, topo_id,
-            cov_reg=cov_reg, rtol=rtol, atol=atol,
-            num_labels=num_labels, s_max=s_max, cross_word=cross_word,
-            emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie,
-            conv_tie=conv_tie,
-        )
+            means, covs, log_a, *tables, num_labels=num_labels, s_max=s_max,
+            reduce_fn=reduce_fn, **kw)
         it += 1
         converged = bool(converged_l.all())
     return means, covs, log_a, counts, it, converged
+
+
+# -- over a data-parallel mesh (parallel/data_parallel.py) ---------------------
+#
+# SPMD: every rank calls these with the same full corpus and the same
+# replicated parameters and tables; each rank takes its contiguous block of
+# the chunk axis (shard_rows: batch.shape[0] must divide over the ranks, as
+# prepare_fused_corpus(num_shards=mesh size) pads it), and reduce_fn sums the
+# statistics over the ranks in rank order. Returned parameters, counts and
+# flags are bitwise the same on every rank, so every rank runs the same
+# number of iterations and joins every collective; a rank whose block is
+# all padding (length-0 utterances) computes zero statistics and still
+# joins them.
+
+def _sharded(args, mesh):
+    """The iteration's positional arguments with the corpus (the last three)
+    cut to this rank's block of chunks."""
+    from ..parallel.data_parallel import shard_rows
+
+    *replicated, batch, lengths, topo_id = args
+    return (*replicated, *(shard_rows(x, mesh) for x in (batch, lengths, topo_id)))
+
+
+def fused_viterbi_iteration_sharded(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id, mesh,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str = "exit_only",
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """fused_viterbi_iteration over a data-parallel mesh: each rank aligns
+    its block of chunks, the sufficient statistics are summed over the
+    ranks, and the M-step runs replicated. Returns what
+    fused_viterbi_iteration returns, the paths gathered to the full
+    (n_chunks, C, T) on every rank."""
+    from ..parallel.data_parallel import gather_rows, reducer
+
+    args = (means_g, covs_g, log_a_g, slot_used,
+            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+            batch, lengths, topo_id)
+    *out, paths = _iteration_body(
+        *_sharded(args, mesh),
+        cov_reg=cov_reg, rtol=rtol, atol=atol,
+        num_labels=num_labels, s_max=s_max, cross_word=cross_word,
+        emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie,
+        conv_tie=conv_tie, reduce_fn=reducer(mesh),
+    )
+    return (*out, gather_rows(paths, mesh))
+
+
+def fused_bw_iteration_sharded(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id, mesh,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str = "exit_only",
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """fused_bw_iteration over a data-parallel mesh (soft statistics and the
+    log-likelihood summed over the ranks); every output replicated."""
+    from ..parallel.data_parallel import reducer
+
+    args = (means_g, covs_g, log_a_g, slot_used,
+            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+            batch, lengths, topo_id)
+    return _bw_body(
+        *_sharded(args, mesh),
+        cov_reg=cov_reg, rtol=rtol, atol=atol,
+        num_labels=num_labels, s_max=s_max, cross_word=cross_word,
+        emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie,
+        conv_tie=conv_tie, reduce_fn=reducer(mesh),
+    )
+
+
+def fused_train_run_sharded(
+    means_g, covs_g, log_a_g, slot_used,
+    lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+    batch, lengths, topo_id, mesh,
+    cov_reg: float, rtol: float, atol: float,
+    num_labels: int, s_max: int, cross_word: str,
+    max_iterations: int, update: str = "viterbi",
+    emissions: str = "whiten",
+    tie_flat=None, trans_tie=None, conv_tie=None,
+):
+    """fused_train_run over a data-parallel mesh: every rank loops over the
+    same iterations (the replicated convergence flags decide), summing the
+    statistics over the ranks in each. Returns what fused_train_run
+    returns."""
+    from ..parallel.data_parallel import reducer
+
+    args = (means_g, covs_g, log_a_g, slot_used,
+            lab_tab, loc_tab, pos_tab, samew_tab, cross_tab, n_states_t,
+            batch, lengths, topo_id)
+    return _train_run(
+        *_sharded(args, mesh),
+        cov_reg=cov_reg, rtol=rtol, atol=atol, num_labels=num_labels, s_max=s_max,
+        cross_word=cross_word, max_iterations=max_iterations, update=update,
+        emissions=emissions, tie_flat=tie_flat, trans_tie=trans_tie, conv_tie=conv_tie,
+        reduce_fn=reducer(mesh),
+    )

@@ -36,12 +36,6 @@ from .hmm import WordHMM, uniform_forward_log_a
 
 logger = logging.getLogger(__name__)
 
-_MESH_NOT_PORTED = (
-    "mesh (data-parallel) training is not ported yet "
-    "(ROADMAP Queue 1, slice 3, item 18: parallel/data_parallel.py)"
-)
-
-
 class HMMTrainMeanFail(RuntimeError):
     """A state received zero frames during alignment (reference
     hidden_markov_model.py:214-217); the embedded trainer raises it for a
@@ -167,24 +161,41 @@ def train_word_hmm(
 ) -> TrainResult:
     """Train one word model from its utterances' (T_i, D) features, on
     ``device`` (reference HiddenMarkovModelTrainable.from_data,
-    hidden_markov_model.py:233-281)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    hidden_markov_model.py:233-281).
+
+    With ``mesh`` (parallel/data_parallel.make_mesh; every rank calls this
+    with the same features) the utterances shard over the ranks, padded to a
+    multiple of the mesh size with length-0 rows, and each iteration's
+    statistics are summed over them (dp_kmeans_step, whose covariance
+    recentres moments taken around the previous means, where the
+    single-device step keeps np.cov's two-pass form). The final score is
+    then nan, as in the JAX package."""
+    from ..parallel.data_parallel import dp_kmeans_step, mesh_size, site_device
+
+    dev = site_device(mesh, device) if mesh is not None else resolve_device(device)
     means, covs, log_a = init_parameters(np.asarray(features[0]), cfg)
     padded = pad_batch([np.asarray(f, np.float32) for f in features],
                        cfg.length_multiple)
-    batch = _tensor(padded.data, dev)
-    lengths = _tensor(padded.lengths, dev, torch.int32)
+    data, lens = padded.data, padded.lengths
+    if mesh is not None and len(lens) % mesh_size(mesh):
+        pad_n = mesh_size(mesh) - len(lens) % mesh_size(mesh)
+        data = np.concatenate([data, np.zeros((pad_n,) + data.shape[1:], np.float32)])
+        lens = np.concatenate([lens, np.zeros(pad_n, np.int32)])
+    batch = _tensor(data, dev)
+    lengths = _tensor(lens, dev, torch.int32)
 
     converged = False
     it = 0
     score = float("-inf")
     for it in range(1, cfg.max_iterations + 1):
-        new_means, new_covs, new_log_a, counts, score = kmeans_step(
-            _tensor(means, dev), _tensor(covs, dev), _tensor(log_a, dev),
-            batch, lengths, cfg.num_states, cfg.cov_reg,
-        )
+        params = (_tensor(means, dev), _tensor(covs, dev), _tensor(log_a, dev))
+        if mesh is not None:
+            new_means, new_covs, new_log_a, counts = dp_kmeans_step(
+                *params, batch, lengths, mesh, cfg.num_states, cfg.cov_reg)
+            score = float("nan")
+        else:
+            new_means, new_covs, new_log_a, counts, score = kmeans_step(
+                *params, batch, lengths, cfg.num_states, cfg.cov_reg)
         counts_np = counts.cpu().numpy()
         if np.any(counts_np == 0):
             raise HMMTrainMeanFail(

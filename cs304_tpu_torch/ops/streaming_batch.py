@@ -28,6 +28,13 @@ the card the pool never calls them.
 
 The JAX package's asynchronous readback of the step-fused partials is a
 non-blocking copy into pinned host buffers followed by a CUDA event here.
+
+With mesh= (parallel/data_parallel.make_mesh) the slots shard over the ranks
+as P("data") shards the JAX pool's: rank r holds alpha and the ring of the
+contiguous block [r n/w, (r+1) n/w) only and steps it. The host mirror
+(clocks, free list, stream ids) is replicated: every rank makes the same
+calls with the same feeds (SPMD). A finalize runs on each rank's block and
+gathers the results, so each slot's answer comes from the rank that owns it.
 """
 from __future__ import annotations
 
@@ -51,10 +58,6 @@ from .words import ids_to_strings, words_from_paths
 logger = logging.getLogger(__name__)
 
 __all__ = ["BatchedStreamingComposite", "ring_dtype"]
-
-_MESH_NOT_PORTED = ("mesh= (slots sharded over devices) is not ported yet "
-                    "(ROADMAP Queue 1, item 18: parallel/data_parallel.py)")
-
 
 def ring_dtype(num_states: int) -> torch.dtype:
     """Backpointer storage dtype: state indices (+ the -1 seed sentinel)."""
@@ -221,12 +224,33 @@ class BatchedStreamingComposite:
         the banded step, as in the JAX package: on the card the LM variant
         of the stream mode (ops/cuda/trellis_stream.stream_advance_lm).
 
-        Not ported (NotImplementedError): mesh= (item 18)."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
-        self.device = resolve_device(device)
-        self.composite = composite
+        mesh: optional data-parallel mesh (parallel/data_parallel.make_mesh)
+        over which the slots shard; num_slots must divide over the ranks.
+        The pool then runs on the rank's mesh device, which an explicit
+        device= must name. sparse_upload=True is refused over a mesh (its
+        compact rows index the whole pool); "auto" keeps the dense upload
+        of each rank's block."""
         self.num_slots = int(num_slots)
+        self.mesh = mesh
+        self._lo, self._hi = 0, self.num_slots  # this rank's block of slots
+        if mesh is not None:
+            from ..parallel.data_parallel import mesh_rank, mesh_size, site_device
+
+            self.device = site_device(mesh, device)
+            w = mesh_size(mesh)
+            if self.num_slots % w:
+                raise ValueError(f"num_slots={self.num_slots} must divide evenly over the "
+                                 f"{w}-rank mesh")
+            if sparse_upload is True:
+                raise ValueError(
+                    "sparse_upload uses pool-wide slot indices — not implemented over "
+                    "a mesh (slots are already partitioned); use sparse_upload='auto'")
+            block = self.num_slots // w
+            self._lo = mesh_rank(mesh) * block
+            self._hi = self._lo + block
+        else:
+            self.device = resolve_device(device)
+        self.composite = composite
         self.chunk_size = int(chunk_size)
         self.max_frames = int(max_frames)
         self.max_words = int(max_words)
@@ -269,8 +293,9 @@ class BatchedStreamingComposite:
             self._emission = make_gaussian_params(c.means, c.covariances, device=dev)
         self._lowers = torch.as_tensor(c.lowers, dtype=torch.int32, device=dev)
         self._uppers = torch.as_tensor(c.uppers, dtype=torch.int32, device=dev)
-        self._alpha = torch.full((self.num_slots, s), NEG, dtype=torch.float32, device=dev)
-        self._ring = torch.full((self.num_slots, self.max_frames, s), -1,
+        local = self._hi - self._lo
+        self._alpha = torch.full((local, s), NEG, dtype=torch.float32, device=dev)
+        self._ring = torch.full((local, self.max_frames, s), -1,
                                 dtype=ring_dtype(s), device=dev)
         self._t = np.zeros(self.num_slots, np.int32)  # exact host mirror
         self._free: List[int] = list(range(self.num_slots))[::-1]
@@ -286,7 +311,7 @@ class BatchedStreamingComposite:
         self._dim = c.means.shape[-1]
         if sparse_upload not in (True, False, "auto"):
             raise ValueError(f"unknown sparse_upload {sparse_upload!r}")
-        self._sparse = sparse_upload in (True, "auto")
+        self._sparse = sparse_upload is True or (sparse_upload == "auto" and mesh is None)
         # "auto" picks PER STEP: the compact path only when the fed set is
         # genuinely sparse; sparse_upload=True forces it.
         self._sparse_forced = sparse_upload is True
@@ -305,8 +330,11 @@ class BatchedStreamingComposite:
             models = list(models.values())
         models = sorted(models, key=lambda m: m.label)
         if any(getattr(m, "weights", None) is not None for m in models):
+            from ..parallel.data_parallel import site_device
+
             views, (means, covs, weights) = _lift_to_gmm(models)
-            dev = resolve_device(kwargs.pop("device", None))
+            device, mesh = kwargs.pop("device", None), kwargs.get("mesh")
+            dev = site_device(mesh, device) if mesh is not None else resolve_device(device)
             return cls(stack_word_models(views, penalty),
                        gmm_params=make_gmm_params(means, covs, weights, device=dev),
                        device=dev, **kwargs)
@@ -391,9 +419,11 @@ class BatchedStreamingComposite:
             slot_ids = np.full(k_pad, self.num_slots, np.int32)
             slot_ids[: len(ids)] = ids
         else:
-            ids = list(range(self.num_slots))
-            rows = self.num_slots
-            slot_ids = np.arange(self.num_slots, dtype=np.int32)
+            # The dense upload of this rank's block (the whole pool without
+            # a mesh).
+            ids = list(range(self._lo, self._hi))
+            rows = len(ids)
+            slot_ids = np.arange(rows, dtype=np.int32)
         feats = np.zeros((rows, c_pad, self._dim), np.float32)
         t_rows = np.zeros(rows, np.int32)
         valid_rows = np.zeros(rows, np.int32)
@@ -475,17 +505,22 @@ class BatchedStreamingComposite:
             c.labels.index("S")
             if (skip_silence and "S" in c.labels) else -1
         )
-        t_dev = upload(self._t, self.device)
-        # Walk a 512-frame bucket over the deepest fill (in place: K2-bt
-        # takes the ring's slot stride).
+        t_dev = upload(self._t[self._lo: self._hi], self.device)
+        # Walk a 512-frame bucket over the deepest fill of the pool (in
+        # place: K2-bt takes the ring's slot stride).
         t_bucket = min(
             self.max_frames,
             max(512, -(-int(self._t.max(initial=0)) // 512) * 512),
         )
-        return _finalize_batch(
+        out = _finalize_batch(
             self._alpha, self._ring[:, :t_bucket], t_dev, self._is_exit,
             None, self._lowers, self._uppers, sil, any_state, self.max_words,
         )
+        if self.mesh is None:
+            return out
+        from ..parallel.data_parallel import gather_rows
+
+        return tuple(gather_rows(x, self.mesh) for x in out)
 
     def finalize(self, slots: Sequence[int],
                  skip_silence: bool = True) -> Dict[int, tuple]:

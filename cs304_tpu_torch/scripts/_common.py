@@ -37,7 +37,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument(
         "--device", default=None,
         help="torch device to run on (default: the first CUDA card, and an "
-             "error without one; 'cpu' runs on the CPU)",
+             "error without one; 'cpu' runs on the CPU, e.g. with "
+             "'torchrun --nproc-per-node 4 -m cs304_tpu_torch.scripts."
+             "project6_train --data-parallel --device cpu' to exercise "
+             "--data-parallel on CPU ranks without a card)",
     )
     return p
 

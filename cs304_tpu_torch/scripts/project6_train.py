@@ -1,5 +1,11 @@
 """Embedded continuous training over all multi-digit transcripts, booting from
-project5 checkpoints; interrupt-safe save (reference scripts/project6_train.py)."""
+project5 checkpoints; interrupt-safe save (reference scripts/project6_train.py).
+
+--data-parallel trains over a data-parallel mesh of torch.distributed ranks:
+under ``torchrun --nproc-per-node N -m cs304_tpu_torch.scripts.project6_train
+--data-parallel ...`` each rank aligns its block of the corpus (one card a
+rank, or CPU ranks with --device cpu); under plain ``python`` the mesh has
+one rank. Rank 0 alone writes the checkpoint and the trainer state."""
 from cs304_tpu_torch.scripts._common import (
     run_main, adopt_checkpoint_frontend, base_parser, frontend_manifest,
     load_config, load_corpus,
@@ -25,18 +31,40 @@ def main(argv=None) -> None:
                              "into K mixtures and refine with the embedded "
                              "GMM trainer (beyond-reference capability)")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="shard the corpus over several devices; not "
-                             "ported yet: the flag raises (ROADMAP item 18, "
-                             "parallel/data_parallel.py)")
+                        help="shard the corpus over the ranks of a "
+                             "torch.distributed group (one rank a device, "
+                             "launched by torchrun; statistics summed over "
+                             "the ranks). Single-rank runs work too, for "
+                             "parity checks.")
     args = parser.parse_args(argv)
     if args.resume and not args.state_dir:
         raise SystemExit("--resume requires --state-dir")
-    if args.data_parallel:
-        # Never train on one device while claiming to shard.
-        raise NotImplementedError(
-            "--data-parallel: data-parallel training is not ported yet "
-            "(ROADMAP Queue 1, item 18: parallel/data_parallel.py)")
+    asked = args.device
     cfg = load_config(args)
+    if not args.data_parallel:
+        train(args, cfg, None)
+        return
+    import torch.distributed as dist
+
+    from cs304_tpu_torch.parallel.data_parallel import make_mesh, site_device
+
+    # The ranks' devices come from the mesh (cuda:LOCAL_RANK under torchrun);
+    # an explicit --device must agree with this rank's.
+    owned = not dist.is_initialized()
+    mesh = make_mesh(device_type=args.device.type)
+    try:
+        args.device = site_device(mesh, asked)
+        train(args, cfg, mesh)
+    finally:
+        if owned:  # the group this run made
+            dist.destroy_process_group()
+
+
+def train(args, cfg, mesh) -> None:
+    """The training run, on one device or over the data-parallel mesh."""
+    from cs304_tpu_torch.parallel.data_parallel import mesh_rank
+
+    writes = mesh is None or mesh_rank(mesh) == 0
     corpus = load_corpus(args, cfg)
     out_dir = args.out_dir or f"{cfg.checkpoint_dir}_continuous"
 
@@ -52,6 +80,8 @@ def main(argv=None) -> None:
     print(f"training on {len(labeled)} transcripts, "
           f"{sum(len(v) for v in labeled.values())} utterances")
 
+    if mesh is not None:
+        print(f"data-parallel mesh over {mesh.size()} device(s)")
     trainer = ContinuousTrainer(
         models,
         ContinuousTrainConfig(
@@ -61,6 +91,7 @@ def main(argv=None) -> None:
             insert_silence=cfg.continuous.insert_silence,
             update=cfg.continuous.update,
         ),
+        mesh=mesh,
         device=args.device,
     )
     if args.resume:
@@ -87,15 +118,17 @@ def main(argv=None) -> None:
                     cov_reg=cfg.continuous.cov_reg,
                     insert_silence=cfg.continuous.insert_silence,
                 ),
+                mesh=mesh,
                 device=args.device,
             )
             gmm_iters = gmm_trainer.train(labeled)
             print(f"GMM refinement (K={args.gmm_mixtures}) finished after "
                   f"{gmm_iters} iterations")
             final_models = gmm_trainer.models()
-        save_models(final_models, out_dir, frontend=frontend_manifest(cfg),
-                    tier="words", provenance={"script": "project6_train.py"})
-        print(f"saved to {out_dir}")
+        if writes:
+            save_models(final_models, out_dir, frontend=frontend_manifest(cfg),
+                        tier="words", provenance={"script": "project6_train.py"})
+            print(f"saved to {out_dir}")
 
 
 if __name__ == "__main__":

@@ -49,10 +49,6 @@ from .ops.streaming_mfcc import StreamingMFCC, mel_peak
 
 logger = logging.getLogger(__name__)
 
-_MESH_NOT_PORTED = ("mesh= is not ported yet "
-                    "(ROADMAP Queue 1, item 18: parallel/data_parallel.py)")
-
-
 @dataclass(frozen=True)
 class UtteranceResult:
     session: int
@@ -68,7 +64,7 @@ class UtteranceResult:
 
 
 class ServingSessionPool:
-    """Many concurrent raw-audio sessions on one card.
+    """Many concurrent raw-audio sessions on one card (or a mesh of them).
 
     >>> pool = ServingSessionPool(models)
     >>> a, b = pool.open(), pool.open()
@@ -121,7 +117,11 @@ class ServingSessionPool:
         not combine (ValueError): the posterior pass decodes the
         flat-penalty measure.
 
-        Not ported (NotImplementedError): mesh= (item 18)."""
+        mesh: optional data-parallel mesh (parallel/data_parallel.make_mesh)
+        over which the streaming pool's slots shard (num_slots must divide
+        over the ranks). Every rank makes the same calls with the same
+        audio; the finals' decoder runs replicated on each rank's mesh
+        device, which an explicit device= must name."""
         if partials not in (True, False, "exact", "pipelined"):
             raise ValueError(f"unknown partials mode {partials!r}")
         self._partials_exact = partials == "exact"
@@ -132,7 +132,9 @@ class ServingSessionPool:
                 "silently drop the LM from final texts"
             )
         if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+            from .parallel.data_parallel import site_device
+
+            device = site_device(mesh, device)
         self._confidences = confidences
         self._decoder = ContinuousDecoder(
             models, penalty=penalty, bigram=bigram, lm_weight=lm_weight, device=device
@@ -148,7 +150,7 @@ class ServingSessionPool:
             BatchedStreamingComposite.from_models(
                 models, penalty=penalty, num_slots=num_slots,
                 chunk_size=32, max_frames=max_frames, bigram=bigram,
-                lm_weight=lm_weight, device=device,
+                lm_weight=lm_weight, mesh=mesh, device=device,
             )
             if self._partials_enabled else None
         )

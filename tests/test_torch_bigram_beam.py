@@ -29,19 +29,7 @@ from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
 from test_torch_decoder import _jax_models, _sampled_features
 from test_torch_gmm_decode import _gmm_models, _to_jax
 from test_torch_viterbi import _composite, _topology, j_fast
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while a search module runs: its steps are loops of
-    small ops, and the suite's workers share the host's cores, where every
-    worker's idle OpenMP threads contend for them (measured: six such files
-    in parallel 214 s with the default threads, 31 s with one). Restored
-    after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _pair(comp, mode, seed=0):

@@ -41,6 +41,7 @@ from test_torch_lexicon import (
     mini_corpus,
     to_jax,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @functools.lru_cache(maxsize=1)
@@ -127,7 +128,7 @@ def test_train_biphone_models_validates():
         pbi.train_biphone_models(phones, {("zz",): feats}, lex, device="cpu")
     with pytest.raises(ValueError, match="silence model"):
         pbi.train_biphone_models({"p0": phones["p0"]}, {("aa",): feats}, lex, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # not a data-parallel mesh
         pbi.train_biphone_models(phones, {("aa",): feats}, lex, mesh=object(), device="cpu")
 
 

@@ -14,9 +14,11 @@ tests/test_tidigits_tree.py: 2 training speakers and 1 test speaker, takes
   (Booting each from its own project5 checkpoint is not the same input: a
   7.6e-6 difference in a boot mean can move a segment boundary of the
   embedded training on this 2-speaker corpus.)
-- --data-parallel exits 1 with the item-18 message; --resume on the state
-  folder that the JAX package's project6_train wrote (Orbax) exits 1 with
-  "no trainer state at ...", and never trains from another state.
+- --data-parallel trains on a 1-rank mesh (tests/test_torch_parallel*.py
+  hold the mesh against JAX's), and its checkpoint is bitwise the run
+  without the flag; --resume on the state folder that the JAX package's
+  project6_train wrote (Orbax) exits 1 with "no trainer state at ...", and
+  never trains from another state.
 """
 import os
 
@@ -136,13 +138,28 @@ def _run_main(argv, tmp, capsys):
 
 
 def test_data_parallel_and_orbax_resume_exit_1(trained, capsys, monkeypatch):
+    """--data-parallel trains (a 1-rank mesh, bitwise the run without the
+    flag); --resume on Orbax state exits 1."""
+    from cs304_tpu_torch.utils.checkpoint import load_models
+
     monkeypatch.delenv("CS304_TRACEBACK", raising=False)
     tmp, root = trained["tmp"], trained["root"]
     base = ["--data-root", root, "--checkpoint-dir", str(tmp / "jax" / "ck5"),
             "--out-dir", str(tmp / "never"), *EMBEDDED]
-    rc, out, err = _run_main(base + ["--data-parallel"], tmp, capsys)
-    assert rc == 1
-    assert err.startswith("error: --data-parallel") and "item 18" in err
+    dp = ["--data-root", root, "--checkpoint-dir", str(tmp / "jax" / "ck5"),
+          "--out-dir", str(tmp / "dp" / "ck6"), "--state-dir", str(tmp / "dp" / "state"),
+          *EMBEDDED, *trained["log"], "--data-parallel"]
+    out = run_in_process(port_main("project6_train"), dp)
+    lines = out.replace(str(tmp / "dp"), "<out>").splitlines()
+    assert lines.pop(1) == "data-parallel mesh over 1 device(s)"
+    want = trained["out"]["project6_train", "port"].replace(str(tmp / "port"), "<out>")
+    assert lines == want.splitlines()
+    got, single = load_models(str(tmp / "dp" / "ck6")), load_models(str(tmp / "port" / "ck6"))
+    assert sorted(got) == sorted(single)
+    for label, m in single.items():
+        for name in ("means", "covariances", "log_a"):
+            assert np.array_equal(getattr(got[label], name), getattr(m, name)), (label, name)
+    assert os.listdir(tmp / "dp" / "state") == ["trainer_state.npz"]
     rc, out, err = _run_main(base + ["--state-dir", str(tmp / "jax" / "state"), "--resume"],
                              tmp, capsys)
     assert rc == 1

@@ -16,6 +16,7 @@ from cs304_tpu_torch.data.batching import make_signals
 from cs304_tpu_torch.device import resolve_device
 from cs304_tpu_torch.models.decoder import ContinuousDecoder
 from cs304_tpu_torch.models.hmm import flagship_composite, flagship_models
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _jax_models():

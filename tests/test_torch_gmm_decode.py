@@ -34,6 +34,7 @@ from cs304_tpu_torch.ops.streaming_batch import BatchedStreamingComposite
 from cs304_tpu_torch.serving import ServingSessionPool
 from cs304_tpu_torch.utils import checkpoint as tck
 from test_torch_decoder import _sampled_features
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _gmm_models(mixed=False):

@@ -14,7 +14,8 @@ generated lexicon, a senone tier trained and decoded, its WER; then the
 command line (the walk imports cs304_tpu_torch.scripts.* and the config,
 profiling, compat and reporting modules): a checkpoint saved, a WAV written
 and transcribed through the transcribe script's main with --device cpu, the
-typed config and the compat layer's MFCC.
+typed config and the compat layer's MFCC; then data parallelism: a word
+model trained and a batch decoded over a 1-rank CPU mesh.
 """
 import os
 import subprocess
@@ -145,6 +146,19 @@ with tempfile.TemporaryDirectory() as tmp:
                          "--wav", os.path.join(tmp, "a.wav"),
                          "--log-file", os.path.join(tmp, "rt.log")])
     assert out.getvalue().startswith(os.path.join(tmp, "a.wav") + ": "), out.getvalue()
+import torch.distributed as dist
+from cs304_tpu_torch import dp_composite_decode, make_mesh
+from cs304_tpu_torch.models.train_kmeans import SegmentalKMeansConfig, train_word_hmm
+mesh = make_mesh(device_type="cpu")
+word = train_word_hmm("xa", [utt((4, 0, 8)) for _ in range(3)],
+                      SegmentalKMeansConfig(num_states=3, max_iterations=2, length_multiple=8),
+                      mesh=mesh)
+c = dec.composite
+scores, paths = dp_composite_decode(c.means, c.covariances, c.log_a, c.lower_of_state,
+                                    c.is_entry, c.is_exit, c.penalty,
+                                    np.zeros((2, 5, 39), np.float32), np.array([5, 3]), mesh)
+assert np.isnan(word.final_score) and paths.shape == (2, 5), (word, paths.shape)
+dist.destroy_process_group()
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "cs304_tpu.")))
                 and sys.modules[m] is not None)

@@ -242,5 +242,6 @@ def test_train_phone_models_errors():
     feats = [np.zeros((20, 3), np.float32)]
     with pytest.raises(ValueError, match="same phone sequence"):
         plx.train_phone_models(phones, {("aa",): feats, ("bb",): feats}, lex, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= takes a data-parallel mesh (tests/test_torch_parallel_train.py).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         plx.train_phone_models(phones, {("aa",): feats}, lex, mesh=object(), device="cpu")

@@ -37,6 +37,7 @@ from test_torch_lexicon import (
     mini_corpus,
     to_jax,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PENALTY = -100.0
 

@@ -36,6 +36,7 @@ from test_torch_lexicon import (
     mini_corpus,
     to_jax,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @functools.lru_cache(maxsize=1)

@@ -16,6 +16,7 @@ from cs304_tpu.serving import ServingSessionPool as JaxServingSessionPool
 from cs304_tpu_torch.data.synthetic import SyntheticTIDigits
 from cs304_tpu_torch.models.hmm import flagship_models
 from cs304_tpu_torch.serving import ServingSessionPool
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 SR = 16000
 MODELS = flagship_models()
@@ -113,10 +114,11 @@ def test_partials_off_and_exact_match_jax(corpus):
 
 
 def test_unported_options_and_no_card_raise(monkeypatch):
-    # mesh= still raises (item 18); confidences=True and bigram= raised
+    # mesh= takes a data-parallel mesh (tests/test_torch_parallel.py serves
+    # over one), not any object; confidences=True and bigram= raised
     # before the search slice and now serve (test_torch_serving_search.py
     # holds them against JAX's pool), but not together, as in JAX.
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServingSessionPool(MODELS, num_slots=2, device="cpu", mesh=object())
     from cs304_tpu_torch.ops.lm import train_word_bigram
 

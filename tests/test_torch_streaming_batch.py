@@ -10,7 +10,8 @@ against the JAX package's (cs304_tpu/ops/streaming_batch.py), on the CPU.
   step_impl and the compact against the dense upload give JAX's texts, with
   scores within rel 1e-5 (emissions differ in the last bits between the two
   frameworks; tests/test_streaming_batch.py holds the JAX pool so).
-- The options not ported raise NotImplementedError.
+- mesh= takes a data-parallel mesh (tests/test_torch_parallel.py holds
+  the pool over one); anything else is a TypeError.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -316,15 +317,16 @@ def test_sparse_auto_picks_per_step_and_quad_emissions_match_jax():
 
 
 def test_unported_options_raise():
-    """mesh= still raises (item 18); bigram= raised before the search slice
-    was ported and now streams as the JAX pool does (its banded LM step;
+    """mesh= takes a data-parallel mesh (tests/test_torch_parallel.py), not
+    any object (TypeError); bigram= raised before the search slice was
+    ported and now streams as the JAX pool does (its banded LM step;
     tests/test_torch_serving_search.py holds the rest)."""
     from cs304_tpu.ops import lm as jlm
     from cs304_tpu_torch.ops import lm as tlm
 
     models = _models()
     comp = stack_word_models(models, -5.0)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsb.BatchedStreamingComposite(comp, num_slots=2, device="cpu", mesh=object())
     corpus = ["12", "21", "1", "22S1"]
     jpool, tpool = (jsb.BatchedStreamingComposite.from_models(

@@ -248,6 +248,8 @@ def test_exports_are_the_jax_names_of_ported_modules():
     ported = {n: m for n, m in _JAX_EXPORTS.items()
               if (pkg / (m[1:].replace(".", "/") + ".py")).exists()}
     assert cs304_tpu_torch._EXPORTS == ported
+    # Every JAX name: data parallelism (parallel/) is ported too.
+    assert cs304_tpu_torch._EXPORTS == _JAX_EXPORTS
     # The phone tiers and the WER metrics are among them.
     assert {"Lexicon", "compose_word_models", "uniform_phone_boot", "train_phone_models",
             "train_biphone_models", "compose_word_models_biphone", "biphone_lexicon",

@@ -39,6 +39,7 @@ from test_torch_train_fused import (
     make_models,
     setup,  # noqa: F401  (the module fixture)
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _fb_problem(b, t, s, seed, zero_length=False):

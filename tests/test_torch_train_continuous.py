@@ -138,7 +138,9 @@ def _gmm_word(label="9", d=6):
 
 @pytest.mark.parametrize("what", ["baum_welch", "mesh", "legacy", "gmm"])
 def test_unported_options_raise(what):
-    """mesh is not ported. update="baum_welch", fused=False and GMM models
+    """mesh= takes a data-parallel mesh (parallel/data_parallel.py;
+    tests/test_torch_parallel_train.py trains on one): anything else is a
+    TypeError. update="baum_welch", fused=False and GMM models
     were refused before they were ported: Baum-Welch and the legacy
     per-transcript trainer now train as the JAX trainer does (one iteration
     here; test_torch_train_bw.py and test_torch_train_legacy.py hold the
@@ -171,7 +173,5 @@ def test_unported_options_raise(what):
             ContinuousTrainer(models, ContinuousTrainConfig(max_iterations=1),
                               device="cpu").train(labeled)
         return
-    if what == "mesh":
-        kw = dict(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu", **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ContinuousTrainer(models, ContinuousTrainConfig(**cfg), device="cpu", mesh=object())

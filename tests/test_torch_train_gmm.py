@@ -147,7 +147,8 @@ def test_empty_state_fail_raises():
     with pytest.raises(HMMTrainMeanFail):
         tg.GMMContinuousTrainer(models, tg.GMMContinuousTrainConfig(on_empty_state="fail"),
                                 device="cpu").train(labeled)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # mesh= takes a data-parallel mesh (tests/test_torch_parallel_train.py).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tg.GMMContinuousTrainer(models, mesh=object(), device="cpu")
     # ContinuousTrainer given GMM models fails in train() with a ValueError,
     # as the JAX trainer does, and names the trainer to use.

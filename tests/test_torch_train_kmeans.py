@@ -68,7 +68,8 @@ def test_train_word_hmm_matches_jax():
     m_w, m_g = want.model, got.model
     _assert_close((m_w.means, m_w.covariances, m_w.log_a),
                   (m_g.means, m_g.covariances, m_g.log_a))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= takes a data-parallel mesh (tests/test_torch_parallel.py).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tk.train_word_hmm("S", feats, mesh=object())
 
 

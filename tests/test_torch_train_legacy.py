@@ -24,6 +24,7 @@ from cs304_tpu_torch.models.train_continuous import (
 )
 from test_torch_train_continuous import _copy
 from test_torch_train_fused import jax_models, make_corpus, make_models
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 CASES = {  # name -> (transcripts, utterances each, corpus seed, config, tol vs fused)
     "plain": (["12", "321", "13"], 5, 1, {}, 2e-5),
@@ -111,9 +112,14 @@ def test_legacy_checkpointed_run_and_empty_state_fail(tmp_path):
 
 
 def test_mesh_with_legacy_still_raises():
+    """The legacy trainer is single-host: mesh= with fused=False raises the
+    JAX trainer's ValueError, before the mesh is looked at."""
     models, _ = _corpus("plain")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="fused=True") as got:
         ContinuousTrainer(_copy(models), _cfg({}, False), mesh=object(), device="cpu")
+    with pytest.raises(ValueError) as want:
+        JTrainer(jax_models(models), _cfg({}, False, JConfig), mesh=object())
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("transcript", ["321", "13"])

@@ -18,6 +18,7 @@ import torch
 from cs304_tpu_torch.models.hmm import flagship_composite
 from cs304_tpu_torch.ops import viterbi as tv
 from test_torch_viterbi import _composite, _topology, j_fast, j_scanfree
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _decode_codes(codes, best_exit):

@@ -30,6 +30,7 @@ from test_torch_lexicon import (
     mini_corpus,
     to_jax,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def test_unit_naming_and_lexicons_match_jax():
@@ -109,7 +110,7 @@ def test_tie_and_train_triphones_matches_jax():
     assert lex_got.entries == lex_want.entries
     assert oov[0] in lex_got
     assert_models_close(got, want)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # not a data-parallel mesh
         ptri.tie_and_train_triphones(phones, labeled, lex, max_per_phone=2,
                                      config=ContinuousTrainConfig(**cfg), mesh=object(),
                                      device="cpu")

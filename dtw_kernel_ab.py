@@ -8,11 +8,12 @@ one card.
 Each ``--lib`` source is compiled by nvcc with the port's flags
 (``cs304_tpu_torch/ops/cuda/_build.py``) into a library of its own under
 ``cs304_tpu_torch/_build/ab/`` (one nvcc per source, all started
-together) and must export ``cs304_dtw``: with ``cs304_dtw_abi() == 2`` the
-current signature (dist, row stride, is_first, is_second, end_rows, out,
-H, L, W, pruning, factor, stream), without it the first one (dist,
-is_first, is_second, end_rows, col scratch, out, H, L, W, pruning, factor,
-stream). So a checkout of an earlier commit times beside this one.
+together) and must export ``cs304_dtw``: the current signature (dist, row
+stride, is_first, is_second, end_rows, out, H, L, W, pruning, factor,
+stream), or for the libraries named in ``--first-abi`` the one before it
+(dist, is_first, is_second, end_rows, col scratch, out, H, L, W, pruning,
+factor, stream), so that ``csrc/dtw.cu`` of an earlier commit times
+beside this one.
 
 The shapes are those of ``chip_smoke.py`` phase 25 (random features, word
 lengths and samples from a seed; the kernel's work does not depend on the
@@ -57,7 +58,7 @@ def digit_lengths(rng):
     return [int(n) for n in lengths]
 
 
-def build(libs):
+def build(libs, first_abi):
     from cs304_tpu_torch.ops.cuda._build import BUILD_DIR, NVCC_FLAGS, _nvcc
 
     out_dir = BUILD_DIR / "ab"
@@ -78,14 +79,9 @@ def build(libs):
               flush=True)
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        abi = 1
-        if hasattr(lib, "cs304_dtw_abi"):
-            lib.cs304_dtw_abi.restype = i
-            abi = lib.cs304_dtw_abi()
-        if abi == 2:
-            lib.cs304_dtw.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p]
-        else:
-            lib.cs304_dtw.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+        abi = 1 if name in first_abi else 2
+        lib.cs304_dtw.argtypes = ([p, p, p, p, p, p, i, i, i, i, f, p] if abi == 1
+                                  else [p, i, p, p, p, p, i, i, i, i, f, p])
         lib.cs304_dtw.restype = i
         loaded[name] = (lib, abi)
     return loaded
@@ -96,6 +92,10 @@ def launcher(lib, abi, dist_t, rec, pruning=True, factor=4.0):
     w = rec._end_rows.shape[0]
     col = torch.empty((h,), dtype=torch.float32, device=dist_t.device)
     out = torch.empty((w,), dtype=torch.float32, device=dist_t.device)
+    if abi == 2:  # rows 16 bytes aligned, as DTWRecognizer.distances writes them
+        from cs304_tpu_torch.ops.cuda.dtw import aligned_rows
+
+        dist_t = aligned_rows(n_frames, h, dist_t.device).copy_(dist_t)
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
@@ -147,6 +147,8 @@ def main():
                     help="NAME=SOURCE.cu, optionally @-DFLAG=V[@...] after the source")
     ap.add_argument("--order", required=True, help="comma-separated library names")
     ap.add_argument("--check", default="", help="libraries that must be bitwise plain")
+    ap.add_argument("--first-abi", default="",
+                    help="libraries whose cs304_dtw has the earlier signature")
     ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=25)
@@ -166,7 +168,7 @@ def main():
     unknown = set(order + check) - set(libs)
     if unknown:
         raise SystemExit(f"--order / --check name no --lib: {sorted(unknown)}")
-    loaded = build(libs)
+    loaded = build(libs, args.first_abi.split(","))
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     name_of_card = card()

@@ -191,11 +191,19 @@ Phases (each prints its own numbers; any failure exits non-zero):
  25. DTW      the column kernel (csrc/dtw.cu) bitwise dtw_columns_plain with
               and without pruning: the 11 digits' templates from phase 9's
               corpus (4 takes each, H ~ 1,100) against a digit and against
-              the longest pipeline sentence (L ~ 200), 8,000 rows (8 a
-              thread), L = 1, one-frame words;
-              DTWRecognizer.search on the card equal to the CPU port's, its
-              launches counted (the main path); device time, plain time and
-              bound
+              the longest pipeline sentence (L ~ 200), 4,000 to 8,192 rows,
+              12,000 (past the earlier 8,192-row cap), 18,000 and 20,000
+              (the 64-rows-a-lane tier with a ring of 3 and of 2 columns)
+              and 32,768 (the cap),
+              L = 1, one-frame words, and a zero-distance sample (integer
+              features, a word's own frames: cost exactly 0, a zero prune
+              threshold); DTWRecognizer.search on the card equal to the CPU
+              port's, its launches counted (the main path), and again at
+              11 words x 10 templates of 80-100 frames (H ~ 9,900); a
+              search's host wall split into upload, distances, kernel and
+              readback; device time, plain time, bound and µs a column
+              beside the serial floor recorded in PERF.md (a constant from
+              the redesign's step 0, not measured in this run)
  26. MFCC     precision "high" and "default" features within their stated
               bounds of "highest" on phase 5's clips (high max 1e-2;
               default mean 0.25, max 2.0); transcripts against highest's
@@ -3340,13 +3348,19 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
                 if fin.any():
                     dtw_err = max(dtw_err, float((got[fin] - want[fin]).abs().max()))
                 log("DTW", case=name, L=dist_t.shape[0], H=dist_t.shape[1],
-                    rows_a_thread=next(r for r in (1, 2, 4, 8) if r * 1024 >= dist_t.shape[1]),
                     pruning=pruning, factor=factor, finite_words=int(fin.sum()),
                     bitwise=same)
                 if not same:
                     raise SystemExit(f"the DTW kernel differs from its plain version ({name})")
                 if factor == 4.0 and not fin.any():
                     raise SystemExit(f"DTW case {name} has no finite word")
+        return got
+
+    def random_words(n_words, lengths, integer=False):
+        draw = ((lambda n: rng.integers(-3, 4, (n, 39)).astype(np.float32)) if integer
+                else (lambda n: rng.normal(size=(n, 39)).astype(np.float32)))
+        feats = [draw(int(n)) for n in np.broadcast_to(lengths, (n_words,))]
+        return feats, DTWRecognizer.from_features(feats, device=dev)
 
     longest = max(samples, key=lambda x: len(x[1]))[1]
     dist_long = pairwise_euclidean(torch.as_tensor(longest, device=dev), rec._templates)
@@ -3355,13 +3369,16 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
     dist_sentence = pairwise_euclidean(torch.as_tensor(sentence, device=dev), rec._templates)
     dtw_check("sentence-sample", rec, dist_sentence)
     wide_sample = torch.as_tensor(rng.normal(size=(150, 39)).astype(np.float32), device=dev)
-    # 4 and 8 rows a thread, and the cap (cdtw.MAX_TEMPLATE_ROWS = 8192).
-    for n_words, word_len in ((20, 200), (32, 256), (40, 200)):
-        wide = DTWRecognizer.from_features(
-            [rng.normal(size=(word_len, 39)).astype(np.float32) for _ in range(n_words)],
-            device=dev)
-        dist_wide = pairwise_euclidean(wide_sample, wide._templates)
-        dtw_check(f"{n_words * word_len}-rows", wide, dist_wide)
+    # 2 to 16 runs of 4 rows a lane: the earlier kernel's 8,192-row cap and
+    # past it; the unstaged tier of 64 rows a lane (past 16,384 rows) with
+    # a ring of 3 and of 2 column slots (18,000 and 20,000 rows), and at the
+    # cap (cdtw.MAX_TEMPLATE_ROWS = 32768: 16 warps, a one-column ring).
+    wide = {}
+    for n_words, word_len in ((20, 200), (32, 256), (40, 200), (60, 200), (90, 200),
+                              (100, 200), (128, 256)):
+        _feats, wide[n_words * word_len] = random_words(n_words, word_len)
+        dist_wide = pairwise_euclidean(wide_sample, wide[n_words * word_len]._templates)
+        dtw_check(f"{n_words * word_len}-rows", wide[n_words * word_len], dist_wide)
     # One-frame words (no second row), and L = 1 (only they can finish).
     one = DTWRecognizer.from_features(
         [templates[0][:1], templates[1], templates[takes][:1], templates[takes + 1]],
@@ -3369,6 +3386,13 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
     dist_one = pairwise_euclidean(torch.as_tensor(longest, device=dev), one._templates)
     dtw_check("one-frame-words", one, dist_one)
     dtw_check("L=1", one, dist_one[:1].contiguous())
+    # Zero distances: integer features and word 2's own frames as the
+    # sample, so its path costs exactly 0 and the prune threshold is a zero.
+    zero_feats, zero = random_words(6, [30, 25, 40, 35, 28, 33], integer=True)
+    got = dtw_check("zero-distance", zero, pairwise_euclidean(
+        torch.as_tensor(zero_feats[2], device=dev), zero._templates))
+    if float(got[2]) != 0.0:
+        raise SystemExit("DTW zero-distance case: word 2 does not cost 0 on its own frames")
 
     # The main path: DTWRecognizer.search over the digit samples, counted.
     cdtw.dtw_columns.launches = 0
@@ -3384,23 +3408,87 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
         same_words_as_cpu=same_idx, accuracy=acc)
     if not same_idx or launches["dtw"] != len(samples):
         raise SystemExit("DTWRecognizer.search on the card differs from the CPU port's")
-    args = (dist_long, rec._is_first, rec._is_second, rec._end_rows)
+
+    # The search past the earlier cap: 11 words x 10 templates of 80-100
+    # frames; each sample a time-warped noisy copy of one template.
+    big_feats, big = random_words(110, rng.integers(80, 101, 110))
+    big_cpu = DTWRecognizer.from_features(big_feats, device="cpu")
+    before = cdtw.dtw_columns.launches
+    picks = list(range(0, 110, 10))
+    warped = [np.repeat(big_feats[k], 2, axis=0)[::3] for k in picks]
+    big_samples = [(w + rng.normal(0, 0.1, w.shape)).astype(np.float32) for w in warped]
+    big_found = [big.search(f)[0] for f in big_samples]
+    big_launches = cdtw.dtw_columns.launches - before
+    big_cpu_found = [big_cpu.search(f)[0] for f in big_samples]
+    log("DTW", path="DTWRecognizer.search", H=int(big._templates.shape[0]),
+        samples=len(big_samples), launches=big_launches, words=big_found,
+        same_words_as_cpu=big_found == big_cpu_found, found_own=big_found == picks)
+    if big_found != big_cpu_found or big_launches != len(big_samples):
+        raise SystemExit("DTWRecognizer.search past 8,192 rows differs from the CPU port's")
+
+    # A search's host wall split (digit samples): the sample's upload, the
+    # distances, the kernel, the readback, each ended by a synchronize.
+    from cs304_tpu_torch.device import upload
+
+    split = {"upload": [], "distances": [], "kernel": [], "readback": [], "search": []}
+    for _rep in range(3):
+        for _i, f in samples:
+            t0 = time.perf_counter()
+            x = upload(np.asarray(f, np.float32), dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dist_t = pairwise_euclidean(x, rec._templates, rec._templates_sq,
+                                        out=cdtw.aligned_rows(x.shape[0], h, dev))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = cdtw.dtw_columns(dist_t, rec._is_first, rec._is_second, rec._end_rows)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            out.cpu().numpy()
+            t4 = time.perf_counter()
+            rec.search(f)
+            t5 = time.perf_counter()
+            for key, dt_s in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+                split[key].append(dt_s * 1e3)
+    log("DTW", host_split_ms={k: float(np.median(v)) for k, v in split.items()},
+        samples=len(samples), reps=3, statistic="median ms a search",
+        note="stages each end in a synchronize; search is rec.search as a user calls it")
+
+    # Timed on rows 16 bytes apart, as DTWRecognizer.distances writes them
+    # (a contiguous (L, 1134) is re-laid by the wrapper first, a copy the
+    # search does not make).
+    def aligned(dist_t):
+        return cdtw.aligned_rows(*dist_t.shape, dev).copy_(dist_t)
+
+    args = (aligned(dist_long), rec._is_first, rec._is_second, rec._end_rows)
     timings["dtw"] = (device_ms(lambda: cdtw.dtw_columns(*args)),
                       cuda_ms(lambda: dtw_columns_plain(*args), reps=3))
     yardsticks["dtw"] = (None, *dtw_bound(h, dist_long.shape[0], len(templates)))
     errs["dtw"] = dtw_err
-    n_long = dist_long.shape[0]
-    log("timing", kernel="dtw", shape=f"H={h} L={n_long} W={len(templates)}",
-        ms=timings["dtw"][0], plain_ms=timings["dtw"][1], bound_ms=yardsticks["dtw"][1],
-        bound_by=yardsticks["dtw"][2], us_per_column=timings["dtw"][0] / n_long * 1e3)
-    for name, recog, dist_t in (("sentence-sample", rec, dist_sentence),
-                                ("8000-rows", wide, dist_wide)):
+    # The serial floor a column is a recorded constant, not measured here:
+    # the bare column skeleton (a barrier, a warp reduction, the
+    # shared-memory exchange) of the earlier design, timed on an NVIDIA H100
+    # 80GB HBM3 at 700.00 W (PERF.md section 6, the DTW redesign's step 0).
+    floors = {"digits": 0.180, "sentence-sample": 0.140, "8000-rows": 0.207}
+    log("DTW", recorded_serial_floor_us_per_column=floors,
+        card="NVIDIA H100 80GB HBM3, 700.00 W", source="PERF.md section 6",
+        note="a constant beside this run's us_per_column, not measured in this run")
+    for name, recog, dist_t in (("digits", rec, dist_long),
+                                ("sentence-sample", rec, dist_sentence),
+                                ("8000-rows", wide[8000], pairwise_euclidean(
+                                    wide_sample, wide[8000]._templates)),
+                                ("32768-rows", wide[32768], pairwise_euclidean(
+                                    wide_sample, wide[32768]._templates))):
         n_cols, n_rows = dist_t.shape
-        ms = device_ms(lambda: cdtw.dtw_columns(dist_t, recog._is_first, recog._is_second,
-                                                recog._end_rows))
+        rows = aligned(dist_t)
+        ms = (timings["dtw"][0] if name == "digits" else
+              device_ms(lambda: cdtw.dtw_columns(rows, recog._is_first, recog._is_second,
+                                                 recog._end_rows)))
         b_ms, b_by = dtw_bound(n_rows, n_cols, len(recog.word_lengths))
         log("timing", kernel="dtw", shape=f"H={n_rows} L={n_cols}", case=name, ms=ms,
-            bound_ms=b_ms, bound_by=b_by, us_per_column=ms / n_cols * 1e3)
+            bound_ms=b_ms, bound_by=b_by, us_per_column=ms / n_cols * 1e3,
+            recorded_serial_floor_us_per_column=floors.get(name, "none recorded"),
+            **({"plain_ms": timings["dtw"][1]} if name == "digits" else {}))
 
     # -- 26. the MFCC precision tiers -----------------------------------------
     # "high" is bf16_3x; "default", as in the JAX package, the float32 product

@@ -132,7 +132,7 @@ def load():
         lib.cs304_emission_split.restype = i
         lib.cs304_emission_split_stages.argtypes = [i, i, i, i]
         lib.cs304_emission_split_stages.restype = i
-        lib.cs304_dtw.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.cs304_dtw.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p]
         lib.cs304_dtw.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p

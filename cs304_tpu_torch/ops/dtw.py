@@ -30,19 +30,25 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..device import fp32_exact, resolve_device
+from ..device import fp32_exact, resolve_device, upload
 
 INF = float("inf")
 
 
-def pairwise_euclidean(templates: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
-    """(H, D) x (L, D) -> (H, L) Euclidean distances via one float32 matmul
-    (TF32 off)."""
+def pairwise_euclidean(a: torch.Tensor, b: torch.Tensor,
+                       b_sq: torch.Tensor | None = None,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, D) x (M, D) -> (N, M) Euclidean distances between the rows of a
+    and of b via one float32 matmul (TF32 off); the recognizer passes the
+    sample as a and the templates as b, for (L, H). ``b_sq``: b's squared
+    row norms, ``torch.sum(b * b, dim=1)``, where the caller keeps them;
+    ``out``: an (N, M) tensor (or view) the distances are written to."""
     fp32_exact()
-    t2 = torch.sum(templates * templates, dim=1)[:, None]
-    s2 = torch.sum(sample * sample, dim=1)[None, :]
-    cross = templates @ sample.T
-    return torch.sqrt(torch.clamp(t2 + s2 - 2.0 * cross, min=0.0))
+    a2 = torch.sum(a * a, dim=1)[:, None]
+    if b_sq is None:
+        b_sq = torch.sum(b * b, dim=1)
+    cross = a @ b.T
+    return torch.sqrt(torch.clamp(a2 + b_sq[None, :] - 2.0 * cross, min=0.0), out=out)
 
 
 def dtw_columns_plain(dist_t, is_first, is_second, end_rows, pruning: bool = True,
@@ -84,12 +90,13 @@ def dtw_multi_template(dist, is_first, is_second, end_rows, pruning: bool = True
     end_rows: (W,) int32 last row of each word.
     Returns (W,) accumulated distances (word w aligned over the full sample),
     on dist's device: the column kernel on a CUDA tensor (after a transpose
-    to its column-major layout), dtw_columns_plain on a CPU one."""
-    from .cuda.dtw import dtw_columns
+    to its column-major layout, rows 16 bytes aligned), dtw_columns_plain on
+    a CPU one."""
+    from .cuda.dtw import aligned_rows, dtw_columns
 
     dev = dist.device
     return dtw_columns(
-        dist.T.contiguous(),
+        aligned_rows(dist.shape[1], dist.shape[0], dev).copy_(dist.T),
         torch.as_tensor(is_first, device=dev), torch.as_tensor(is_second, device=dev),
         torch.as_tensor(end_rows, device=dev).to(torch.int32), pruning=pruning,
         pruning_factor=pruning_factor)
@@ -139,6 +146,8 @@ class DTWRecognizer:
         end_rows = (starts + np.asarray(self.word_lengths) - 1).astype(np.int32)
         dev = self.device
         self._templates = torch.as_tensor(np.asarray(self.templates, np.float32), device=dev)
+        # Every search's distances use the templates' squared norms: kept.
+        self._templates_sq = torch.sum(self._templates * self._templates, dim=1)
         self._is_first = torch.as_tensor(is_first.astype(np.uint8), device=dev)
         self._is_second = torch.as_tensor(is_second.astype(np.uint8), device=dev)
         self._end_rows = torch.as_tensor(end_rows, device=dev)
@@ -146,12 +155,13 @@ class DTWRecognizer:
     def distances(self, sample_features: np.ndarray) -> np.ndarray:
         """(W,) alignment costs of the sample against every template word.
         The distances come out column-major, (L, H), as the column
-        recursion reads them."""
-        from .cuda.dtw import dtw_columns
+        recursion reads them, in rows 16 bytes aligned (``aligned_rows``)."""
+        from .cuda.dtw import aligned_rows, dtw_columns
 
-        sample = torch.as_tensor(np.asarray(sample_features, np.float32),
-                                 device=self.device)
-        dist_t = pairwise_euclidean(sample, self._templates)  # (L, H)
+        sample = upload(np.asarray(sample_features, np.float32), self.device)
+        dist_t = pairwise_euclidean(
+            sample, self._templates, self._templates_sq,
+            out=aligned_rows(sample.shape[0], self._templates.shape[0], self.device))
         out = dtw_columns(dist_t, self._is_first, self._is_second, self._end_rows,
                           pruning=self.pruning, pruning_factor=self.pruning_factor)
         return out.cpu().numpy()

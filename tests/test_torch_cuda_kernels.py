@@ -1457,30 +1457,53 @@ def test_word_trellis_runs_k3_bitwise_plain(dev, case, quirk, monkeypatch):
     assert torch.equal(got_p[finite], want_p[finite])
 
 
-def dtw_problem(gen, word_lengths, n_frames, d=39):
-    """Random templates of the given word lengths on the generator's device
-    -> (their DTWRecognizer, dist_t (L, H) of one random sample of
-    n_frames against them)."""
+def dtw_problem(gen, word_lengths, n_frames, d=39, kind="random"):
+    """Templates of the given word lengths on the generator's device -> (their
+    DTWRecognizer, dist_t (L, H) of one sample against them). kind "random":
+    random templates and a random sample of n_frames; "self": integer-valued
+    templates and word 2's own frames as the sample (n_frames unused), so
+    its distances are exactly 0 along its path and the prune threshold is a
+    zero; "negative": dist_t drawn directly, normal with a tenth each of
+    -0.0 and +0.0 (negative costs, signed zeros)."""
     from cs304_tpu_torch.ops.dtw import DTWRecognizer, pairwise_euclidean
 
     dev = gen.device
-    tmpl = [torch.randn((n, d), generator=gen, device=dev).cpu().numpy()
-            for n in word_lengths]
+    if kind == "self":
+        tmpl = [torch.randint(-3, 4, (n, d), generator=gen, device=dev).float().cpu().numpy()
+                for n in word_lengths]
+    else:
+        tmpl = [torch.randn((n, d), generator=gen, device=dev).cpu().numpy()
+                for n in word_lengths]
     rec = DTWRecognizer.from_features(tmpl, device=dev)
-    sample = torch.randn((n_frames, d), generator=gen, device=dev)
+    if kind == "negative":
+        dist_t = torch.randn((n_frames, rec._templates.shape[0]), generator=gen, device=dev)
+        u = torch.rand(dist_t.shape, generator=gen, device=dev)
+        dist_t = torch.where(u < 0.1, -0.0, torch.where(u < 0.2, 0.0, dist_t))
+        return rec, dist_t
+    sample = (torch.as_tensor(tmpl[2], device=dev) if kind == "self"
+              else torch.randn((n_frames, d), generator=gen, device=dev))
     dist_t = pairwise_euclidean(sample, rec._templates)
     return rec, dist_t
 
 
-DTW_CASES = {  # name -> (word lengths, sample frames); a column advances at
-    # most 2 template rows, so every case has words the sample can reach
-    "digits": ([80, 95, 70, 100, 88, 92, 75, 99, 84, 90, 97], 200),
-    "2000-rows": ([100] * 20, 120),  # 2 rows a thread
-    "4000-rows": ([200] * 20, 150),  # 4 rows a thread
-    "8000-rows": ([200] * 40, 150),  # 8 rows a thread
-    "8192-rows": ([256] * 32, 150),  # the cap: 1024 threads of 8 rows
-    "l1": ([40, 1, 60, 2], 1),
-    "one-frame-word": ([1, 30, 1, 1, 25], 40),
+DTW_CASES = {  # name -> (word lengths, sample frames, kind); a column advances
+    # at most 2 template rows, so every case has words the sample can reach
+    "digits": ([80, 95, 70, 100, 88, 92, 75, 99, 84, 90, 97], 200, "random"),  # 2 rows a lane
+    "2000-rows": ([100] * 20, 120, "random"),  # 4 rows a lane
+    "4000-rows": ([200] * 20, 150, "random"),  # 8 rows a lane
+    "8000-rows": ([200] * 40, 150, "random"),  # 16 rows a lane, 16 warps
+    "8192-rows": ([256] * 32, 150, "random"),  # the earlier kernel's cap
+    "8193-rows": ([256] * 32 + [1], 150, "random"),  # past it: 32 rows a lane
+    "12000-rows": ([200] * 60, 150, "random"),  # 32 rows a lane, bit masks
+    "18000-rows": ([200] * 90, 150, "random"),  # 64 rows a lane, a 3-slot ring
+    "20000-rows": ([200] * 100, 150, "random"),  # 64 rows a lane, a 2-slot ring
+    "32768-rows": ([256] * 128, 150, "random"),  # the cap: 64 rows a lane, a 1-slot ring
+    "h1133": ([103] * 11, 120, "random"),  # H not a multiple of 4: rows re-laid
+    "l400": ([80, 95, 70, 100, 88, 92, 75, 99, 84, 90, 97], 400, "random"),  # past the ring
+    "zero-distance": ([30, 25, 40, 35], 0, "self"),  # costs of exactly 0, a zero threshold
+    "negative": ([60, 45, 70, 50, 64], 90, "negative"),  # negative costs, signed zeros
+    "l1": ([40, 1, 60, 2], 1, "random"),
+    "one-frame-word": ([1, 30, 1, 1, 25], 40, "random"),
 }
 
 
@@ -1488,14 +1511,17 @@ DTW_CASES = {  # name -> (word lengths, sample frames); a column advances at
 @pytest.mark.parametrize("case", sorted(DTW_CASES))
 def test_dtw_kernel_is_bitwise_plain(dev, case, pruning):
     """The DTW column kernel: ONE launch a sample, costs bitwise
-    dtw_columns_plain on the same distances (several rows a thread at 8000
-    rows, L = 1, one-frame words with no second row)."""
+    dtw_columns_plain on the same distances (several runs a lane, past the
+    earlier 8,192-row cap up to the 32,768-row one, H off a multiple of 4,
+    more columns than the ring holds, exact-zero and negative costs, L = 1,
+    one-frame words with no second row)."""
     from cs304_tpu_torch.ops import dtw as dt
     from cs304_tpu_torch.ops.cuda import dtw as cdtw
 
+    lengths, n_frames, kind = DTW_CASES[case]
     gen = torch.Generator(device=dev).manual_seed(11)
-    rec, dist_t = dtw_problem(gen, *DTW_CASES[case])
-    for factor in (4.0, 0.05):
+    rec, dist_t = dtw_problem(gen, lengths, n_frames, kind=kind)
+    for factor in (4.0, 0.05) + ((-0.5,) if kind == "negative" else ()):
         before = cdtw.dtw_columns.launches
         got = cdtw.dtw_columns(dist_t, rec._is_first, rec._is_second, rec._end_rows,
                                pruning, factor)
@@ -1504,13 +1530,15 @@ def test_dtw_kernel_is_bitwise_plain(dev, case, pruning):
                                     rec._end_rows, pruning, factor)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (got, want)
-        if factor == 4.0:
+        if factor == 4.0 and (kind != "negative" or not pruning):
             assert torch.isfinite(got).any()
+        if kind == "self":
+            assert float(got[2]) == 0.0  # word 2 along its own frames
     # The recognizer on the card against one on the CPU: the distances
     # differ by the two matmuls' rounding only.
     on_card = dt.DTWRecognizer(rec.word_lengths, rec.templates, pruning, device=dev)
     cpu = dt.DTWRecognizer(rec.word_lengths, rec.templates, pruning, device="cpu")
-    sample = torch.randn((DTW_CASES[case][1], 39), generator=gen, device=dev).cpu().numpy()
+    sample = torch.randn((max(n_frames, 1), 39), generator=gen, device=dev).cpu().numpy()
     np.testing.assert_allclose(on_card.distances(sample), cpu.distances(sample), rtol=1e-5)
     assert on_card.search(sample)[0] == cpu.search(sample)[0]
 
@@ -1531,7 +1559,7 @@ def test_dtw_wrapper_rejects_what_the_kernel_does_not_take(dev):
         cdtw.dtw_columns(dist_t, *args[:2], rec._end_rows.long())
     big = torch.zeros((2, cdtw.MAX_TEMPLATE_ROWS + 1), device=dev)
     flag = torch.zeros((cdtw.MAX_TEMPLATE_ROWS + 1,), dtype=torch.uint8, device=dev)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=str(cdtw.MAX_TEMPLATE_ROWS)):
         cdtw.dtw_columns(big, flag, flag, rec._end_rows)
 
 

@@ -81,3 +81,78 @@ def test_recognizer_rejects_an_empty_template(rng, lengths):
     no frames (its last row outside [0, H)) is refused up front."""
     with pytest.raises(ValueError, match="at least one frame"):
         tdtw.DTWRecognizer.from_features(_templates(rng, lengths), device="cpu")
+
+
+def _past_the_old_cap(rng, d=13, integer=False):
+    """11 words x 10 templates of 80-100 frames: H past 8,192 rows."""
+    lengths = rng.integers(80, 101, 110)
+    if integer:
+        return [rng.integers(-3, 4, (n, d)).astype(np.float32) for n in lengths]
+    return _templates(rng, lengths, d)
+
+
+@pytest.mark.parametrize("pruning", [True, False])
+def test_recognizer_matches_jax_past_8192_rows(rng, pruning):
+    templates = _past_the_old_cap(rng)
+    assert sum(len(t) for t in templates) > 8192
+    port = tdtw.DTWRecognizer.from_features(templates, pruning=pruning, device="cpu")
+    jax = jdtw.DTWRecognizer.from_features(templates, pruning=pruning)
+    for k in (0, 57, 109):
+        # Template k warped to 2/3 of its frames, with noise: the search finds it.
+        warped = np.repeat(templates[k], 2, axis=0)[::3]
+        sample = (warped + rng.normal(0, 0.1, warped.shape)).astype(np.float32)
+        np.testing.assert_allclose(port.distances(sample), jax.distances(sample), rtol=1e-5)
+        idx, cost = port.search(sample)
+        assert idx == jax.search(sample)[0] == k
+        assert cost == pytest.approx(jax.search(sample)[1], rel=1e-5)
+
+
+@pytest.mark.parametrize("pruning", [True, False])
+def test_zero_distance_sample_matches_jax(rng, pruning):
+    """The sample is one template's own frames (integer features, so their
+    distances are exactly 0): cost 0 for that word in both packages, whose
+    prune threshold is then a zero."""
+    templates = _past_the_old_cap(rng, integer=True)
+    port = tdtw.DTWRecognizer.from_features(templates, pruning=pruning, device="cpu")
+    jax = jdtw.DTWRecognizer.from_features(templates, pruning=pruning)
+    for k in (3, 88):
+        got = port.distances(templates[k])
+        np.testing.assert_array_equal(got, jax.distances(templates[k]))
+        assert got[k] == 0.0
+        assert port.search(templates[k]) == (k, 0.0)
+
+
+def test_cached_template_norms_leave_distances_bitwise(rng):
+    """DTWRecognizer.distances keeps the templates' squared norms and writes
+    its distances into 16-byte-aligned rows: the distances, and the costs,
+    are bitwise pairwise_euclidean computed in full."""
+    templates = _templates(rng, [9, 12, 7, 14, 11])  # H = 53, not a multiple of 4
+    rec = tdtw.DTWRecognizer.from_features(templates, device="cpu")
+    for n_frames in (1, 23):
+        sample = rng.normal(size=(n_frames, 13)).astype(np.float32)
+        full = tdtw.pairwise_euclidean(torch.as_tensor(sample), rec._templates)
+        kept = tdtw.pairwise_euclidean(torch.as_tensor(sample), rec._templates,
+                                       rec._templates_sq, out=torch.empty_like(full))
+        assert torch.equal(full, kept)
+        want = dtw_columns(full, rec._is_first, rec._is_second, rec._end_rows)
+        np.testing.assert_array_equal(rec.distances(sample), want.numpy())
+
+
+@pytest.mark.parametrize("factor", [4.0, 0.4, -0.5])
+@pytest.mark.parametrize("pruning", [True, False])
+def test_columns_are_bitwise_jax_on_negative_distances(pruning, factor):
+    """Distances with negative entries and signed zeros (a tenth each of -0.0
+    and +0.0): the column minimum over negatives, and a zero threshold of
+    either sign, prune as JAX does."""
+    rng = np.random.default_rng(17)
+    rec = jdtw.DTWRecognizer.from_features(_templates(rng, [6, 9, 5, 11, 8]))
+    dist = rng.normal(size=(39, 24)).astype(np.float32)
+    u = rng.random(dist.shape)
+    dist[u < 0.1] = -0.0
+    dist[(u >= 0.1) & (u < 0.2)] = 0.0
+    want = np.asarray(jdtw.dtw_multi_template(
+        dist, rec._is_first, rec._is_second, rec._end_rows, pruning=pruning,
+        pruning_factor=factor))
+    got = tdtw.dtw_multi_template(torch.as_tensor(dist), rec._is_first, rec._is_second,
+                                  rec._end_rows, pruning=pruning, pruning_factor=factor)
+    np.testing.assert_array_equal(got.numpy(), want)

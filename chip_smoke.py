@@ -89,13 +89,15 @@ Phases (each prints its own numbers; any failure exits non-zero):
  17. stream   the stream mode of the scan-free team kernel (the serving
               pool's banded step) bitwise _advance_compact on CPU copies
               (alpha with its signs of zero, the ring): 58 states with the
-              int8 ring, 503 and 5003 with int32, staggered starts, chunks of
+              int8 ring, 373, 503 and 5003 with int32, staggered starts, chunks of
               1-32 frames, idle and recycled slots, compact and dense rows, a
               zero penalty, integer ties; the dense step through K4 bitwise
               _advance; K2-bt on int8 and int32 ring slices bitwise
               backtrace_batch; device times at streaming_bench.py's shapes
-              (128 / 512 / 1024 slots, chunk 16, 58 states) and 256 slots at
-              503; whole banded pools on the card at 58 and 503 states give
+              (128 / 512 / 1024 slots, chunk 16, 58 states), 256 slots at
+              503 and 64 at 5003, each with its bound, µs a step and its
+              build's registers and spill bytes (phase 2 logs every stream
+              and beam instantiation's); whole banded pools on the card at 58 and 503 states give
               the CPU pools' texts and launch the stream mode and K2-bt;
               real-time streams of both step_impls, and a torch.profiler
               trace of one pool step of each
@@ -170,7 +172,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
               and bound, and every LM shape (decode with and without a beam
               at the flagship, 503 and 5003 states, stream at 58, 503 and
               5003) beside the flat mode's time at the same inputs (the beam
-              decode's for LM + beam), with its bound and table branch
+              decode's for LM + beam), with its bound and table branch; the
+              BEAM decode at 503 and 5003 states beside the flat mode, with
+              its bound
  23. words    the banded word trellis (ops/viterbi.viterbi_banded_batch)
               on K3 bitwise its plain version (scores on every row, paths
               on every finite row), with the quirk (one decode launch) and
@@ -369,25 +373,29 @@ def window(fn):
     return best / 20 * 1e3
 
 
-# The team kernel's LM instantiations in ptxas' mangled names:
-# trellis_team_kernel<K, MODE, SENT, RingT, LM = true, BEAM>.
-LM_KERNEL = re.compile(r"trellis_team_kernelILi(\d)ELi(\d)ELb0E([ai])Lb1ELb([01])E")
-TEAM_MODES = {"1": "decode_shared", "2": "decode_global", "3": "stream"}
+# The team kernel's instantiations in ptxas' mangled names:
+# trellis_team_kernel<K, MODE, SENT, RingT, LM, BEAM[, WIDE]>.
+TEAM_KERNEL = re.compile(r"trellis_team_kernelILi(\d)ELi(\d)ELb([01])E([ai])Lb([01])ELb([01])E"
+                         r"(?:Lb([01])E)?")
+TEAM_MODES = {"0": "backpointers", "1": "decode_shared", "2": "decode_global", "3": "stream"}
+# Phase 2's reading of the build log, for the rows that print their build's
+# spill bytes (phase 17).
+BUILD_RESOURCES = []
 
 
-def lm_kernel_resources(ptxas_log):
-    """Registers, stack frame and spill bytes of each LM instantiation of
-    the team kernel, from nvcc's -Xptxas=-v log (one dict each)."""
+def team_kernel_resources(ptxas_log):
+    """Registers, stack frame and spill bytes of each instantiation of the
+    team kernel, from nvcc's -Xptxas=-v log (one dict each)."""
     out, cur = [], None
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
-            m = LM_KERNEL.search(line)
+            m = TEAM_KERNEL.search(line)
             cur = None
             if m:
-                k, mode, ring, beam = m.groups()
-                cur = {"lm_kernel": f"K={k}", "mode": TEAM_MODES[mode],
+                k, mode, sent, ring, lm, beam, wide = m.groups()
+                cur = {"K": int(k), "mode": TEAM_MODES[mode], "sent": sent == "1",
                        "ring": {"a": "int8", "i": "int32"}[ring] if mode == "3" else None,
-                       "beam": beam == "1"}
+                       "lm": lm == "1", "beam": beam == "1", "wide": wide == "1"}
                 out.append(cur)
         elif cur is not None:
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -399,6 +407,16 @@ def lm_kernel_resources(ptxas_log):
             if used:
                 cur["registers"] = int(used[1])
     return out
+
+
+def stream_build(s, ring_bytes):
+    """BUILD_RESOURCES' flat stream instantiation that S states and a ring of
+    ring_bytes elements launch (K by S, the WIDE build past 20 warps of 8)."""
+    k = 2 if s <= 64 else (4 if s <= 2048 else 8)
+    wide = k == 8 and -(-s // 256) > 20
+    ring = "int8" if ring_bytes == 1 else "int32"
+    return next((r for r in BUILD_RESOURCES if r["mode"] == "stream" and not r["lm"]
+                 and r["K"] == k and r["ring"] == ring and r["wide"] == wide), {})
 
 
 def random_composite(num_words, seed, d=39):
@@ -514,8 +532,17 @@ def main():
         for line in ptxas.read_text().splitlines():
             if any(w in line for w in ("Used", "Compiling entry", "spill", "wgmma", "Loss")):
                 print("  ptxas:", line.split("ptxas info    :")[-1].strip())
-        for kern in lm_kernel_resources(ptxas.read_text()):
-            log("build", **kern)
+        BUILD_RESOURCES[:] = team_kernel_resources(ptxas.read_text())
+        for kern in BUILD_RESOURCES:
+            if kern["lm"]:
+                log("build", lm_kernel=f"K={kern['K']}", mode=kern["mode"], ring=kern["ring"],
+                    beam=kern["beam"], **{k: kern.get(k) for k in (
+                        "stack_bytes", "spill_stores", "spill_loads", "registers")})
+            elif kern["mode"] == "stream" or kern["beam"]:
+                log("build", team_kernel=f"K={kern['K']}", mode=kern["mode"],
+                    ring=kern["ring"], beam=kern["beam"], wide=kern["wide"],
+                    **{k: kern.get(k) for k in (
+                        "stack_bytes", "spill_stores", "spill_loads", "registers")})
 
     # Main-path inputs: the flagship and its features at the shapes
     # predict_signal_batch gives the kernels (1.5 s clips in a 2 s bucket).
@@ -1577,6 +1604,7 @@ def stream_phase(dev, launches, timings, errs, yardsticks):
     )
 
     flag, c503, c5003 = flagship_composite(), random_composite(100, 3), random_composite(1000, 3)
+    c373 = random_composite(74, 3)  # the phone tiers' width: 3 warps of 4 states
     stream_err = 0.0
 
     def stream_check(name, comp, b, t_max, ring_dtype, penalty, compact, ties, dense=False):
@@ -1635,6 +1663,7 @@ def stream_phase(dev, launches, timings, errs, yardsticks):
             ("flagship-int8-compact", flag, 64, 400, torch.int8, -100.0, True, False),
             ("flagship-int8-dense-ties", flag, 64, 400, torch.int8, -100.0, False, True),
             ("flagship-int8-zero-penalty", flag, 64, 400, torch.int8, 0.0, True, True),
+            ("373-int32-compact", c373, 16, 300, torch.int32, -100.0, True, False),
             ("503-int32-compact", c503, 16, 300, torch.int32, -100.0, True, False),
             ("503-int32-dense-zero-penalty", c503, 16, 300, torch.int32, 0.0, False, True),
             ("5003-int32-compact", c5003, 8, 200, torch.int32, -100.0, True, False),
@@ -1725,17 +1754,22 @@ def stream_phase(dev, launches, timings, errs, yardsticks):
                          capture_output=True, text=True).stdout.strip()
     for comp, b, t_max, ring_dtype in ((flag, 128, 1024, torch.int8), (flag, 512, 1024, torch.int8),
                                        (flag, 1024, 1024, torch.int8),
-                                       (c503, 256, 2048, torch.int32)):
+                                       (c503, 256, 2048, torch.int32),
+                                       (c5003, 64, 512, torch.int32)):
         s = comp.num_states
         kt = kernel_times(comp, b, t_max, ring_dtype)
         rb = 1 if ring_dtype == torch.int8 else 4
         b_ms, b_by = stream_bound(b, 16, s, rb)
         steps = {impl: pool_step_ms(comp, b, t_max, impl)
                  for impl in (("dense", "banded") if s <= 127 else ("banded",))}
+        build = stream_build(s, rb)
         log("timing", what="pool step", S=s, slots=b, chunk=16, T_max=t_max,
             ring=str(ring_dtype).split(".")[-1], card=repr(smi),
             stream_ms=kt["stream"], stream_plain_ms=kt["stream_plain"],
             stream_bound_ms=b_ms, stream_bound_by=b_by,
+            stream_us_per_step=kt["stream"] / 16 * 1e3,
+            build_registers=build.get("registers"), build_spill_stores=build.get("spill_stores"),
+            build_spill_loads=build.get("spill_loads"),
             k4_ms=kt.get("k4"), k4_step_eager_ms=kt.get("k4_step_eager"),
             k2bt_ring_ms=kt.get("k2bt_ring"),
             **{f"pool_step_ms_{k}": v for k, v in steps.items()},
@@ -3001,18 +3035,23 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     w5003 = len(c5003.labels)
     st5003 = stream_args(c5003, 64, lm5003)
     beam_big = 10.0
+    # The BEAM decode mode past one warp (4 and 20 warps), beside the flat
+    # decode mode at the same inputs; also the LM + beam rows' flat mode.
+    beam503_ms = device_ms(lambda: tsf.scanfree_decode_beam(lb503, coefs503, c503.penalty,
+                                                            len503, beam_big))
+    beam5003_ms = device_ms(lambda: tsf.scanfree_decode_beam(lb5003, coefs5003, c5003.penalty,
+                                                             len5003, beam_big), reps=5)
+    flat503_ms = device_ms(lambda: tsf.scanfree_decode(lb503, coefs503, c503.penalty, len503))
+    flat5003_ms = device_ms(lambda: tsf.scanfree_decode(lb5003, coefs5003, c5003.penalty,
+                                                        len5003), reps=5)
     lm_rows = (
         ("trellis_decode_lm", f"B={b} T={t_total} S={s58} W={w58}", *timings["trellis_decode_lm"],
          flat_ms, yardsticks["trellis_decode_lm"][1:], tsf.lm_table_branch(t_total, s58, w58)),
         ("trellis_decode_lm", f"B=64 T={t_total} S={c503.num_states} W={w503}", *t503,
-         device_ms(lambda: tsf.scanfree_decode(lb503, coefs503, c503.penalty, len503)), b503,
-         tsf.lm_table_branch(t_total, c503.num_states, w503)),
+         flat503_ms, b503, tsf.lm_table_branch(t_total, c503.num_states, w503)),
         ("trellis_decode_lm", f"B=4 T=60 S={c5003.num_states} W={w5003}",
          device_ms(lambda: tsf.scanfree_decode_lm(lb5003, coefs5003, lm5003, len5003), reps=5),
-         None,
-         device_ms(lambda: tsf.scanfree_decode(lb5003, coefs5003, c5003.penalty, len5003),
-                   reps=5),
-         search_decode_bound(4, 60, c5003.num_states, len5003, w5003),
+         None, flat5003_ms, search_decode_bound(4, 60, c5003.num_states, len5003, w5003),
          tsf.lm_table_branch(60, c5003.num_states, w5003)),
         ("trellis_stream_lm", f"512 slots x 16 frames, S={s58}, W={w58}",
          *timings["trellis_stream_lm"], flat_stream_ms, yardsticks["trellis_stream_lm"][1:],
@@ -3033,19 +3072,21 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         ("trellis_decode_lm+beam", f"B=64 T={t_total} S={c503.num_states} W={w503} "
          f"beam={beam_big}",
          device_ms(lambda: tsf.scanfree_decode_lm(lb503, coefs503, lm503, len503, beam=beam_big)),
-         None,
-         device_ms(lambda: tsf.scanfree_decode_beam(lb503, coefs503, c503.penalty, len503,
-                                                    beam_big)),
+         None, beam503_ms,
          search_decode_bound(64, t_total, c503.num_states, len503, w503, beam=True),
          tsf.lm_table_branch(t_total, c503.num_states, w503)),
         ("trellis_decode_lm+beam", f"B=4 T=60 S={c5003.num_states} W={w5003} beam={beam_big}",
          device_ms(lambda: tsf.scanfree_decode_lm(lb5003, coefs5003, lm5003, len5003,
                                                   beam=beam_big), reps=5),
-         None,
-         device_ms(lambda: tsf.scanfree_decode_beam(lb5003, coefs5003, c5003.penalty, len5003,
-                                                    beam_big), reps=5),
+         None, beam5003_ms,
          search_decode_bound(4, 60, c5003.num_states, len5003, w5003, beam=True),
          tsf.lm_table_branch(60, c5003.num_states, w5003)),
+        ("trellis_decode_beam", f"B=64 T={t_total} S={c503.num_states} beam={beam_big}",
+         beam503_ms, None, flat503_ms,
+         search_decode_bound(64, t_total, c503.num_states, len503, beam=True), None),
+        ("trellis_decode_beam", f"B=4 T=60 S={c5003.num_states} beam={beam_big}",
+         beam5003_ms, None, flat5003_ms,
+         search_decode_bound(4, 60, c5003.num_states, len5003, beam=True), None),
     )
     for name, shape, ms, plain_ms, flat_mode_ms, (b_ms, b_by), tab in lm_rows:
         log("timing", kernel=name, shape=shape, ms=ms, plain_ms=plain_ms,

@@ -652,21 +652,34 @@ def _stream_steps(rng, b, c, t_max, n_steps, compact):
         clock += valid
 
 
-@pytest.mark.parametrize("num_words,ring,penalty,compact,ties", [
-    (11, torch.int8, -100.0, True, False),     # the flagship, K=2 one-warp teams
-    (11, torch.int32, -100.0, False, True),    # dense upload, integer ties
-    (11, torch.int8, 0.0, True, True),         # zero penalty: the butterfly fork
-    (19, torch.int8, -100.0, False, False),    # 98 states, K=4, one warp
-    (100, torch.int32, -100.0, True, False),   # 503 states, a 4-warp team
-    (1000, torch.int32, 0.0, True, False),     # 5003 states, K=8, 20 warps
+@pytest.mark.parametrize("num_words,ring,penalty,compact,ties,c,clamp", [
+    (11, torch.int8, -100.0, True, False, 8, False),    # the flagship, K=2 one-warp teams
+    (11, torch.int32, -100.0, False, True, 8, False),   # dense upload, integer ties
+    (11, torch.int8, 0.0, True, True, 8, False),        # zero penalty: the butterfly fork
+    (19, torch.int8, -100.0, False, False, 8, False),   # 98 states, K=4, one warp
+    (100, torch.int32, -100.0, True, False, 8, False),  # 503 states, a 4-warp team
+    (1000, torch.int32, 0.0, True, False, 8, False),    # 5003 states, K=8, 20 warps
+    (11, torch.int8, -100.0, True, False, 32, True),    # the flagship, 32 frames, clamped
+    (74, torch.int32, -100.0, True, False, 16, True),   # 373 states, 3 warps (the phone tiers)
+    (74, torch.int32, 0.0, False, True, 32, False),     # 373 states, zero penalty, ties
+    (410, torch.int32, -100.0, True, False, 16, True),  # 2053: the first K=8 width, 9 warps
+    (410, torch.int8, -100.0, False, False, 32, False),  # K=8's int8 build (ids wrap as the cast)
+    (1000, torch.int32, -100.0, False, True, 32, True),  # 5003 states, the value path, ties
+    (1637, torch.int32, -100.0, True, False, 32, True),  # 8188: 32 warps, 32 frames in 2 launches
+    (1637, torch.int32, 0.0, False, False, 16, False),  # 8188 states, zero penalty
 ])
-def test_stream_mode_is_bitwise_plain(dev, num_words, ring, penalty, compact, ties):
+def test_stream_mode_is_bitwise_plain(dev, num_words, ring, penalty, compact, ties, c, clamp):
+    """The stream mode bitwise _advance_compact (alpha with its signs of
+    zero, and the ring) over 10 pool steps of c frames: staggered starts,
+    fresh rows, idle rows of valid 0, a recycled slot; with clamp, one more
+    step whose rows pass T_max (their frames land on its last row) beside
+    rows of valid 0."""
     from cs304_tpu_torch.ops.cuda import trellis_stream as tst
     from cs304_tpu_torch.ops.streaming_batch import _advance_compact, _coeffs_of
 
     comp = _composite(num_words)
     s = comp.num_states
-    b, c, t_max = 6, 8, 40
+    b, t_max = 6, 40
     coefs = pack_coefs(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
                        device=dev)
     alpha = torch.full((b, s), float("-inf"), device=dev)
@@ -675,7 +688,12 @@ def test_stream_mode_is_bitwise_plain(dev, num_words, ring, penalty, compact, ti
     coefs_p = coefs.cpu()
     rng = np.random.default_rng(num_words)
     before = tst.stream_advance.launches
-    for slot_ids, t, valid in _stream_steps(rng, b, c, t_max, 10, compact):
+    steps = list(_stream_steps(rng, b, c, t_max, 10, compact))
+    if clamp:
+        ids = np.arange(b, dtype=np.int32)
+        steps.append((ids, np.full(b, t_max - 3, np.int32),
+                      np.where(ids % 3 == 2, 0, c).astype(np.int32)))
+    for slot_ids, t, valid in steps:
         shape = (len(slot_ids), c, s)
         log_b = (rng.integers(-3, 1, shape) if ties else 3 * rng.normal(size=shape))
         log_b = torch.as_tensor(log_b.astype(np.float32))
@@ -688,7 +706,7 @@ def test_stream_mode_is_bitwise_plain(dev, num_words, ring, penalty, compact, ti
         assert torch.equal(alpha.cpu(), alpha_p)
         assert torch.equal(torch.signbit(alpha.cpu()), torch.signbit(alpha_p))
         assert torch.equal(ring_d.cpu(), ring_p)
-    assert tst.stream_advance.launches == before + 10
+    assert tst.stream_advance.launches == before + len(steps)
 
 
 @pytest.mark.parametrize("compact", [False, True])
@@ -998,8 +1016,14 @@ def _search_pair(comp, mode):
     return pair
 
 
-# name: (num_words, None for the flagship; B, T, pair mode or None, beam).
-# "lm-5003" keeps its codes and W int16 sources a step in the global scratch.
+# name: (num_words, None for the flagship or a tuple of word state counts;
+# B, T, pair mode or None ("int": integer log_b, no LM), beam[, penalty]).
+# "lm-5003" and "beam-5003-t60" keep their codes (and the LM's W int16
+# sources a step) in the global scratch. "beam-0": 40 one-state words
+# (every state an exit), integer ties, only the step's max kept;
+# "beam-exits-cut": every exit at -30 at frame 5, so the beam prunes every
+# exit there and step 6 takes the (-inf, 0) exit.
+GLOBAL_SEARCH = {"lm-5003", "beam-5003-t60"}
 SEARCH_CASES = {
     "lm-flagship": (None, 33, 60, "trained", None),
     "lm-ties": (None, 16, 40, "ties", None),
@@ -1012,6 +1036,13 @@ SEARCH_CASES = {
     "beam-503": (100, 8, 60, None, 10.0),
     "lm-beam": (None, 33, 60, "trained", 20.0),
     "lm-beam-503": (100, 8, 40, "trained", 10.0),
+    "beam-2053": (410, 4, 40, None, 10.0),
+    "beam-5003": (1000, 2, 30, None, 10.0),
+    "beam-5003-t60": (1000, 2, 60, None, 10.0),
+    "beam-0": ((1,) * 40, 16, 40, "int", 0.0),
+    "beam-zero-penalty": (None, 33, 60, None, 8.0, 0.0),
+    "beam-503-zero-penalty": (100, 8, 60, None, 10.0, 0.0),
+    "beam-exits-cut": (None, 33, 60, None, 10.0),
 }
 
 
@@ -1019,30 +1050,38 @@ SEARCH_CASES = {
 def test_search_decode_modes_are_bitwise_plain(dev, case):
     from cs304_tpu_torch.ops.viterbi import lm_tables
 
-    words, b, t, mode, beam = SEARCH_CASES[case]
-    comp = flagship_composite() if words is None else _composite(words)
+    words, b, t, mode, beam, *penalty = SEARCH_CASES[case]
+    if words is None:
+        comp = flagship_composite()
+    elif isinstance(words, tuple):
+        comp = _word_topology(words, len(words))
+    else:
+        comp = _composite(words)
+    penalty = penalty[0] if penalty else comp.penalty
     s = comp.num_states
     gen = torch.Generator(device=dev).manual_seed(4)
-    if mode == "ties":
+    if mode in ("ties", "int"):
         log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
     else:
         log_b = 3 * torch.randn((b, t, s), generator=gen, device=dev)
+    if case == "beam-exits-cut":
+        log_b[:, 5, torch.as_tensor(comp.uppers, device=dev).long()] = -30.0
     lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
     lengths[0], lengths[1] = 1, t
     topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
     coefs = pack_coefs(*topo, device=dev)
-    pair = _search_pair(comp, mode) if mode else None
+    pair = _search_pair(comp, mode) if mode in ("trained", "ties", "zero") else None
     n_words = len(comp.labels) if pair is not None else 0
-    assert (tsf.codes_scratch_bytes(b, t, s, n_words) > 0) == (case == "lm-5003")
+    assert (tsf.codes_scratch_bytes(b, t, s, n_words) > 0) == (case in GLOBAL_SEARCH)
     counter = tsf.scanfree_decode_lm if pair is not None else tsf.scanfree_decode_beam
     before = counter.launches
     if pair is not None:
         lm = lm_tables(pair, comp.word_of_state, comp.uppers, device=dev)
         got = tsf.scanfree_decode_lm(log_b, coefs, lm, lengths, beam=beam)
     else:
-        got = tsf.scanfree_decode_beam(log_b, coefs, comp.penalty, lengths, beam)
+        got = tsf.scanfree_decode_beam(log_b, coefs, penalty, lengths, beam)
     want = viterbi_composite_batch_fast(
-        log_b, *topo, comp.penalty, lengths, pair_penalty=pair,
+        log_b, *topo, penalty, lengths, pair_penalty=pair,
         word_of_state=comp.word_of_state, uppers=comp.uppers, beam=beam)
     torch.cuda.synchronize()
     assert counter.launches == before + 1

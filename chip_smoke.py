@@ -89,15 +89,16 @@ Phases (each prints its own numbers; any failure exits non-zero):
  17. stream   the stream mode of the scan-free team kernel (the serving
               pool's banded step) bitwise _advance_compact on CPU copies
               (alpha with its signs of zero, the ring): 58 states with the
-              int8 ring, 373, 503 and 5003 with int32, staggered starts, chunks of
-              1-32 frames, idle and recycled slots, compact and dense rows, a
-              zero penalty, integer ties; the dense step through K4 bitwise
-              _advance; K2-bt on int8 and int32 ring slices bitwise
-              backtrace_batch; device times at streaming_bench.py's shapes
-              (128 / 512 / 1024 slots, chunk 16, 58 states), 256 slots at
-              503 and 64 at 5003, each with its bound, µs a step and its
-              build's registers and spill bytes (phase 2 logs every stream
-              and beam instantiation's); whole banded pools on the card at 58 and 503 states give
+              int8 ring, 373, 503 and 5003 with int32, staggered starts,
+              chunks of 1-32 frames, idle and recycled slots, compact and
+              dense rows, a zero penalty, integer ties; the dense step
+              through K4 bitwise _advance; K2-bt on int8 and int32 ring
+              slices bitwise backtrace_batch; device times at
+              streaming_bench.py's shapes (128 / 512 / 1024 slots, chunk 16,
+              58 states), 256 slots at 503 and 64 at 5003, each with its
+              bound, µs a step and its build's registers and spill bytes
+              (phase 2 logs every stream and beam instantiation's); whole
+              banded pools on the card at 58 and 503 states give
               the CPU pools' texts and launch the stream mode and K2-bt;
               real-time streams of both step_impls, and a torch.profiler
               trace of one pool step of each

@@ -88,50 +88,55 @@ def _raise_on_failure(code: int, cmd, log: str) -> None:
         raise RuntimeError(f"nvcc failed (rc={code}): {' '.join(cmd)}\n{log}")
 
 
-_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# Each C entry point's (argtypes, restype).
-SIGNATURES = {
-    "cs304_emission_quad": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_forward": ([_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_decode": ([_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_decode_scratch_bytes": ([_I, _I, _I, _I], _LL),
-    "cs304_trellis_lm_table": ([_I, _I, _I, _I], _I),
-    "cs304_trellis_backtrace": ([_P, _I, _LL, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_stream": ([_P, _P, _I, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
-                             _I),
-    "cs304_trellis_search_decode": ([_P, _P, _F, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_stream_lm": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_sentence_forward": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "cs304_trellis_sentence_decode": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-                                      _I),
-    "cs304_trellis_dense_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "cs304_trellis_dense_branch": ([_I], _I),
-    "cs304_trellis_fb": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "cs304_trellis_fb_posteriors": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "cs304_emission_split": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                             _I),
-    "cs304_emission_split_stages": ([_I, _I, _I, _I], _I),
-    "cs304_dtw": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
-    "cs304_error_string": ([_I], ctypes.c_char_p),
-}
-
-
-def bind(lib, names=None):
-    """Set argtypes and restype of the entry points named (every one in
-    SIGNATURES by default) on a loaded library; returns it."""
-    for name in SIGNATURES if names is None else names:
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = SIGNATURES[name]
-    return lib
-
-
 def load():
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        _lib = bind(ctypes.CDLL(str(build())))
+        lib = ctypes.CDLL(str(build()))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.cs304_emission_quad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.cs304_emission_quad.restype = i
+        lib.cs304_trellis_forward.argtypes = [p, p, f, p, p, p, i, i, i, i, p]
+        lib.cs304_trellis_forward.restype = i
+        lib.cs304_trellis_decode.argtypes = [p, p, f, p, p, p, p, i, i, i, i, i, p]
+        lib.cs304_trellis_decode.restype = i
+        lib.cs304_trellis_decode_scratch_bytes.argtypes = [i, i, i, i]
+        lib.cs304_trellis_decode_scratch_bytes.restype = ctypes.c_longlong
+        lib.cs304_trellis_lm_table.argtypes = [i, i, i, i]
+        lib.cs304_trellis_lm_table.restype = i
+        lib.cs304_trellis_backtrace.argtypes = [p, i, ctypes.c_longlong, p, p, p,
+                                                i, i, i, i, p]
+        lib.cs304_trellis_backtrace.restype = i
+        lib.cs304_trellis_stream.argtypes = [p, p, i, p, p, p, p, p, f,
+                                             i, i, i, i, i, i, p]
+        lib.cs304_trellis_stream.restype = i
+        lib.cs304_trellis_search_decode.argtypes = [p, p, f, p, p, p, i, f, i, p, p, p, p,
+                                                    i, i, i, i, i, p]
+        lib.cs304_trellis_search_decode.restype = i
+        lib.cs304_trellis_stream_lm.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i,
+                                                i, i, i, i, i, i, p]
+        lib.cs304_trellis_stream_lm.restype = i
+        lib.cs304_trellis_sentence_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_sentence_forward.restype = i
+        lib.cs304_trellis_sentence_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_sentence_decode.restype = i
+        lib.cs304_trellis_dense_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.cs304_trellis_dense_forward.restype = i
+        lib.cs304_trellis_dense_branch.argtypes = [i]
+        lib.cs304_trellis_dense_branch.restype = i
+        lib.cs304_trellis_fb.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_fb.restype = i
+        lib.cs304_trellis_fb_posteriors.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_fb_posteriors.restype = i
+        lib.cs304_emission_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.cs304_emission_split.restype = i
+        lib.cs304_emission_split_stages.argtypes = [i, i, i, i]
+        lib.cs304_emission_split_stages.restype = i
+        lib.cs304_dtw.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p]
+        lib.cs304_dtw.restype = i
+        lib.cs304_error_string.argtypes = [i]
+        lib.cs304_error_string.restype = ctypes.c_char_p
+        _lib = lib
     return _lib
 
 

@@ -14,7 +14,9 @@ multiple of the utterances a block or cluster carries, T = 1, length-0 and
 -1 rows, signed zeros; scores, full paths, alphas with their signs of zero
 and backpointers bitwise equal), and the K5/K6 wrappers; the serving pool's
 step (the stream mode on each team size and ring dtype, a zero penalty and
-ties; K4's dense step; K2-bt walking int8 and int32 ring slices in place),
+ties; 373, 2053 and 8188 states, 16 and 32 frames a launch, rows past T_max
+and rows of valid 0; K4's dense step; K2-bt walking int8 and int32 ring
+slices in place),
 the single-stream decoder on the card, and the serving entry points'
 default device; the Baum-Welch sentence forward-backward (FB: -inf cells
 equal, the rest within 1e-5 * max(1, |x|) of its plain version; length-0
@@ -25,6 +27,8 @@ half its rows: -inf and zero cells equal, the rest within
 mode and not FB; the search modes (the LM and BEAM decode modes and the LM
 stream mode, bitwise their plain versions; every case with finite scores in
 at least half its rows; 5003 states with the codes in the global scratch;
+the beam at 2053 and 5003 states, a beam of 0, zero penalties, and a step
+whose every exit the beam prunes;
 the LM entry update at W = 1 and 31 / 32 / 33, W off the four-source
 groups, steps whose every exit is -inf, signed-zero ties across source
 words, and each of the table's register / shared / global branches,

@@ -163,7 +163,10 @@ Phases (each prints its own numbers; any failure exits non-zero):
               ms a batch; on phase 9's models the bigram decode's accuracy
               >= 0.85, and the ms and launches of predict_batch_with_confidence
               (K4 + K2-bt), predict_nbest, counted, duration and grammar
-              decodes at 64 clips; phase 18's traffic under
+              decodes at 64 clips (the last three on the PLANES /
+              DURATION kernels and K2-bt, their launches counted, their
+              transcripts equal to a device="cpu" decoder's, no plain
+              constrained trellis on a CUDA tensor); phase 18's traffic under
               ServingSessionPool(bigram=) and (confidences=True), 16 sessions
               on the card equal to a CPU pool's (the bigram pool's first 4;
               every confidence pool's session, confidences within 1e-4,
@@ -244,8 +247,8 @@ Phases (each prints its own numbers; any failure exits non-zero):
               project6_train (Viterbi with --state-dir, Baum-Welch, K=2
               GMM), project5_test_ndigits (--csv-out, --bigram-lm),
               transcribe (plain, --fast, --confidence --timings, --beam,
-              --known-count, --grammar-strings, --min-duration, --device
-              cpu), align, adapt_speaker, project6_interactive, train_phones,
+              --known-count, --grammar-strings, --min-duration (PLANES /
+              DURATION and K2-bt launched), --device cpu), align, adapt_speaker, project6_interactive, train_phones,
               demo_serving (project3_predict and the penalty sweep where
               matplotlib is installed; their classifier checked either way);
               n-digit CSV accuracy >= 0.9, align 3 7 5, transcripts equal to
@@ -268,9 +271,28 @@ Phases (each prints its own numbers; any failure exits non-zero):
               and the E-step launched (gloo gathering the CUDA tensors);
               no plain version on a CUDA tensor; every group destroyed
               before the report
+ 30. constr.  the constrained searches' kernels (csrc/trellis_constrained.cu)
+              against their plain versions through the ops' dispatchers,
+              first on the main path's inputs (the emissions phase 22's
+              counted, menu-grammar and duration decodes of 64 clips hand
+              them), then PLANES (counted decoding N = 1..7 and a count range, the
+              6-string menu grammar) and DURATION (min 2; min 3 / max 6 a
+              word) at the flagship on phase 6's emissions read at their
+              row stride, integer ties, 503 states (B = 16, T = 201; N <= 4,
+              a 3-position grammar, min 3 / max 6) and 5003 states (B = 2,
+              T = 60; N = 2, min 2, and min 3 / max 6 past K2-bt's rows,
+              walked by the forward with alpha in the global scratch);
+              ragged lengths and a length-1 row with no admissible path;
+              scores bitwise with their signs, paths on every finite row;
+              each case's walk, alpha memory and launches; device time of
+              each kernel (CUDA-graph replays on tables built once) beside
+              its plain loop's eager time, its bound, and µs a step. (Phase
+              22 runs them on phase 9's 64 clips: transcripts equal to a
+              device="cpu" decoder's, PLANES / DURATION and K2-bt launched,
+              no plain constrained trellis on the card.)
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (fifteen kernels, each with
+The line before the last is the kernels' JSON record (seventeen kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -797,6 +819,7 @@ def main():
     serving_phase(dev, pipe)
     bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks)
     search_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
+    constrained_phase(dev, decode, pipe, timings, errs, yardsticks)
     slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks)
     phone_tier_phase(dev, smi)
     cli_phase(dev, smi)
@@ -2646,7 +2669,11 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     9's models; bigram and confidence serving."""
     from cs304_tpu_torch.models import decoder as dm
     from cs304_tpu_torch.models.hmm import flagship_models
+    from cs304_tpu_torch.ops import grammar as gm
     from cs304_tpu_torch.ops import streaming_batch as sb
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
     from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
     from cs304_tpu_torch.ops.cuda import trellis_stream as tst
@@ -2866,47 +2893,78 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     feats = pipe["eval"]["train_speakers"][1] + pipe["eval"]["unseen_speakers"][1]
     clips, clip_truths = (feats * 2)[:64], (truths * 2)[:64]
     kernel_counters = {"dense": tdn.trellis_dense_forward, "backtrace": tsf.trellis_backtrace,
-                       "decode": tsf.scanfree_decode}
+                       "decode": tsf.scanfree_decode, "planes": tcs.planes_decode,
+                       "duration": tcs.duration_decode}
     grammar = WordDFA.from_strings(PIPELINE_TRANSCRIPTS, labels)
     by_count = {}
     for i, tr in enumerate(clip_truths):
         by_count.setdefault(len(tr), []).append(i)
 
-    def counted_all():
+    def counted_all(dec):
         out = [""] * len(clips)
         for n, idx in by_count.items():
-            for i, text in zip(idx, flat_dec.predict_batch_counted([clips[i] for i in idx], n)):
+            for i, text in zip(idx, dec.predict_batch_counted([clips[i] for i in idx], n)):
                 out[i] = text
         return out
 
+    constrained = {
+        "counted (64 clips, true counts)": (counted_all, ["planes", "backtrace"]),
+        "duration (64 clips, min 2)": (lambda d: d.predict_batch_duration(clips, 2),
+                                       ["duration", "backtrace"]),
+        "grammar (64 clips, 6-string menu)": (lambda d: d.predict_batch_grammar(clips, grammar),
+                                              ["planes", "backtrace"]),
+    }
     runs = {
         "confidences (64 clips)": lambda: flat_dec.predict_batch_with_confidence(clips),
         "nbest (1 clip, n=4)": lambda: flat_dec.predict_nbest(clips[0], n=4),
-        "counted (64 clips, true counts)": counted_all,
-        "duration (64 clips, min 2)": lambda: flat_dec.predict_batch_duration(clips, 2),
-        "grammar (64 clips, 6-string menu)": lambda: flat_dec.predict_batch_grammar(clips,
-                                                                                    grammar),
+        **{what: (lambda f=f: f(flat_dec)) for what, (f, _need) in constrained.items()},
     }
-    search_ms = {}
-    for what, fn in runs.items():
-        fn()
-        best, out = float("inf"), None
-        for _ in range(2):
-            for c in kernel_counters.values():
-                c.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-        search_ms[what] = best
-        if what.startswith("nbest"):
-            acc_x = float(out[0][1] == clip_truths[0])
-        else:
-            texts = ["".join(w for w, *_r in u) for u in out] if what.startswith("conf") else out
-            acc_x = float(np.mean([p == t for p, t in zip(texts, clip_truths)]))
-        log("search", run=what, ms=best, exact_seq_acc=acc_x,
-            launches=json.dumps({n: c.launches for n, c in kernel_counters.items()}))
+    # The constrained decodes' transcripts on the CPU (plain trellises).
+    cpu_dec = dm.ContinuousDecoder(models, penalty=-100.0, device="cpu")
+    cpu_texts = {what: f(cpu_dec) for what, (f, _need) in constrained.items()}
+    constrained_plain = {}
+    saved = [guard(constrained_plain, m, n) for m, n in (
+        (tvc, "viterbi_composite_counted_batch_plain"),
+        (gm, "viterbi_composite_grammar_batch_plain"),
+        (tvd, "viterbi_composite_duration_batch_plain"))]
+    search_ms, run_launches = {}, {}
+    try:
+        for what, fn in runs.items():
+            fn()
+            best, out = float("inf"), None
+            for _ in range(2):
+                for c in kernel_counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) * 1e3)
+                run_launches[what] = {n: c.launches for n, c in kernel_counters.items()}
+            search_ms[what] = best
+            if what.startswith("nbest"):
+                acc_x = float(out[0][1] == clip_truths[0])
+            else:
+                texts = (["".join(w for w, *_r in u) for u in out] if what.startswith("conf")
+                         else out)
+                acc_x = float(np.mean([p == t for p, t in zip(texts, clip_truths)]))
+            extra = {}
+            if what in constrained:
+                extra["transcripts_equal_cpu"] = out == cpu_texts[what]
+                if not extra["transcripts_equal_cpu"]:
+                    raise SystemExit(f"phase 22: the {what} decode on the card differs from "
+                                     f"the CPU decoder's")
+                check_launches(f"phase 22: {what}", run_launches[what], constrained[what][1])
+            log("search", run=what, ms=best, exact_seq_acc=acc_x,
+                launches=json.dumps(run_launches[what]), **extra)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    if constrained_plain:
+        raise SystemExit(f"phase 22: a plain constrained trellis ran on the card: "
+                         f"{constrained_plain}")
+    launches["trellis_planes"] = sum(run_launches[w]["planes"] for w in constrained)
+    launches["trellis_duration"] = sum(run_launches[w]["duration"] for w in constrained)
     conf_launches = {}
     for c in kernel_counters.values():
         c.launches = 0
@@ -3092,9 +3150,272 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     for name, shape, ms, plain_ms, flat_mode_ms, (b_ms, b_by), tab in lm_rows:
         log("timing", kernel=name, shape=shape, ms=ms, plain_ms=plain_ms,
             flat_mode_ms=flat_mode_ms, bound_ms=b_ms, bound_by=b_by, table=tab)
-    log("timing", what="python-loop searches at 64 clips", search_ms=json.dumps(search_ms))
+    log("timing", what="searches at 64 clips (counted, duration and grammar on their kernels; "
+        "confidences and n-best Python loops over T)",
+        search_ms=json.dumps(search_ms))
     errs.update(err)
     log("phase", which="22 search", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
+def planes_step_ops(ftab, ints):
+    """The FP32 adds and compares one step of PLANES needs on its host
+    tables (trellis_constrained.planes_tables), each counted once:
+    A  a compare a (plane, exit) for each plane's best exit;
+    B  a compare a routed source plane, then the penalty added once a
+       (plane, word) pair;
+    C  at each cell with k stay candidates (c2, c1, c0 finite: j-2, j-1, j
+       on the word's band, an entry's self-loop) k adds of the move and
+       k - 1 compares, the log_b add, and at an entry one compare against
+       its cross move (the penalty already added in B)."""
+    k = np.isfinite(ftab[:3]).sum(0)
+    entry = ints["itab"][0] >= 0
+    g = len(ints["accept"])
+    w = (len(ints["route_off"]) - 1) // g
+    cell = k + np.maximum(k - 1, 0) + 1 + entry
+    return int(g * cell.sum() + g * len(ints["exits"]) + len(ints["route_src"]) + g * w)
+
+
+def duration_step_ops(ftab, ints, d):
+    """The FP32 adds and compares one step of DURATION needs on its host
+    tables (trellis_constrained.duration_tables) at D = d slots, each
+    counted once:
+    A  a compare a completed slot (d + 1 >= min_dur) of each state, then a
+       penalty add and a compare an exit (the best exit sum);
+    C  slot 0 of a non-entry j: k adds (the k finite advances from j-2,
+       j-1) and k - 1 compares; of an entry that is an exit, an add and a
+       compare each other exit (a plain entry takes A's best exit sum);
+       slots d >= 1: the stay's add where d + 1 <= max_dur, a compare at
+       the saturating slot D - 1 of an unbounded state; a log_b add a
+       cell."""
+    flags, lo, hi = ints["itab"].astype(np.int64)
+    entry, exit_, unbounded = (flags & 1) > 0, (flags & 2) > 0, (flags & 4) > 0
+    n_exit, s = len(ints["exits"]), ftab.shape[1]
+    completed = np.clip(d - np.maximum(lo - 1, 0), 0, None).sum()
+    k = np.isfinite(ftab[:2]).sum(0)
+    advance = np.where(entry, np.where(exit_, 2 * (n_exit - 1), 0), k + np.maximum(k - 1, 0))
+    stays = (np.arange(2, d + 1)[None, :] <= hi[:, None]).sum()
+    saturate = unbounded.sum() if d >= 2 else 0
+    return int(completed + 2 * n_exit + advance.sum() + stays + saturate + s * d)
+
+
+def constrained_bound(b, t, s, lengths, cells, ops_step):
+    """bound() of one constrained decode: the live log_b rows in, scores
+    and paths out, and ops_step operations (planes_step_ops /
+    duration_step_ops) a live step at PEAK_FP32_ALU, the t = 0 seed and
+    the final left out; and the same with the int32 backpointers of every
+    live step written once (the kernels' own traffic)."""
+    live = int(lengths.clamp(min=1, max=t).sum().item())
+    io = 4 * live * s + 4 * b * t + 4 * b
+    ops = [((live - b) * ops_step, PEAK_FP32_ALU)]
+    return bound(io, ops), bound(io + 4 * (live - b) * cells, ops)
+
+
+def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
+    """Phase 30: the PLANES kernel (counted and grammar decoding) and the
+    DURATION kernel (csrc/trellis_constrained.cu) against their plain
+    versions through the ops' dispatchers: scores bitwise with their signs
+    of zero, paths on every finite row; the flagship on phase 6's emissions
+    (a column slice of the padded log_b, read at its row stride) with ragged
+    lengths and a length-1 row (no admissible path), integer ties; 503 and
+    5003 states (5003 at D = 6 past K2-bt's rows: the forward walks, alpha
+    in the global scratch). Each case logs its walk, its alpha buffers'
+    memory and its launches; then each kernel's device time (CUDA-graph
+    replays of planes_forward / duration_forward on tables built once)
+    beside its plain version's eager time, and its bound. First the main
+    path's own inputs: the emissions phase 22's decodes hand the kernels
+    (its 64 clips of phase 9's models, padded to 128 frames; counted by
+    each clip's true count, the menu grammar, min 2)."""
+    from cs304_tpu_torch.data.batching import pad_batch
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.ops import grammar as tg
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+
+    t_phase = time.perf_counter()
+    flag, lb3 = decode["comp"], decode["lb3"]
+    gen = torch.Generator(device=dev).manual_seed(30)
+    err = {"trellis_planes": 0.0, "trellis_duration": 0.0}
+
+    def topo(c):
+        return c.log_a, c.lower_of_state, c.is_entry, c.is_exit
+
+    def counted(comp, n, n_min=None):
+        cw = comp.word_of_state != comp.labels.index("S")
+        args = (*topo(comp), cw, comp.penalty, n)
+        word, ns, acc = tvc.chain_grammar(cw, n, n_min)
+        ops = planes_step_ops(*tcs.planes_tables(*topo(comp), word, ns, acc))
+        return ("trellis_planes", (n + 1) * comp.num_states, ops,
+                lambda lb, ln: tvc.viterbi_composite_counted_batch(lb, *args, ln,
+                                                                   n_words_min=n_min),
+                lambda lb, ln: tvc.viterbi_composite_counted_batch_plain(lb, *args, ln,
+                                                                         n_words_min=n_min),
+                lambda: tcs.planes_operands(*topo(comp), word, ns, acc, dev), comp.penalty)
+
+    def grammar(comp, dfa):
+        args = (*topo(comp), comp.word_of_state, dfa.next_state, dfa.accept)
+        ops = planes_step_ops(*tcs.planes_tables(*args))
+        return ("trellis_planes", dfa.num_planes * comp.num_states, ops,
+                lambda lb, ln: tg.viterbi_composite_grammar_batch(lb, *args, comp.penalty, ln),
+                lambda lb, ln: tg.viterbi_composite_grammar_batch_plain(lb, *args, comp.penalty,
+                                                                        ln),
+                lambda: tcs.planes_operands(*args, dev), comp.penalty)
+
+    def duration(comp, min_d, max_d=None):
+        mn, mx, dc = tvd.duration_arrays(comp, min_d, max_d)
+        args = (*topo(comp), comp.penalty, mn, mx)
+        ops = duration_step_ops(*tcs.duration_tables(*topo(comp), mn, mx), dc)
+        return ("trellis_duration", comp.num_states * dc, ops,
+                lambda lb, ln: tvd.viterbi_composite_duration_batch(lb, *args, ln, d_cap=dc),
+                lambda lb, ln: tvd.viterbi_composite_duration_batch_plain(lb, *args, ln,
+                                                                          d_cap=dc),
+                lambda: tcs.duration_operands(*topo(comp), mn, mx, dc, dev), comp.penalty)
+
+    def check(name, spec, log_b, lengths, no_path_rows=False, walk="k2bt"):
+        key, cells, _ops, run, plain, tabs_fn, _pen = spec
+        counter = tcs.planes_decode if key == "trellis_planes" else tcs.duration_decode
+        before = (counter.launches, tsf.trellis_backtrace.launches)
+        got = run(log_b, lengths)
+        torch.cuda.synchronize()
+        rose = {"kernel": counter.launches - before[0],
+                "K2-bt": tsf.trellis_backtrace.launches - before[1]}
+        want = plain(log_b, lengths)
+        torch.cuda.synchronize()
+        finite = torch.isfinite(want[0])
+        same = {"scores": torch.equal(got[0], want[0]),
+                "score_signs": torch.equal(torch.signbit(got[0]), torch.signbit(want[0])),
+                "finite_paths": torch.equal(got[1][finite], want[1][finite])}
+        both = finite & torch.isfinite(got[0])
+        e = (got[0] - want[0])[both].abs().max().item() if both.any() else 0.0
+        err[key] = max(err[key], e)
+        b_k, t_k, s_k = log_b.shape
+        took = "forward" if cells > tcs.k2bt_max_cells(dev) else "k2bt"
+        tabs = tabs_fn()
+        alpha = "global" if (
+            tcs.planes_scratch_bytes(b_k, s_k, tabs.depth, tabs.words) if key == "trellis_planes"
+            else tcs.duration_scratch_bytes(b_k, s_k, tabs.depth)) else "shared"
+        log("constrained", case=name, kernel=key, B=b_k, T=t_k, S=s_k, cells=cells, walk=took,
+            alpha=alpha, launches=json.dumps(rose), equal=json.dumps(same),
+            finite_rows=finite.float().mean().item(), no_path_rows=int((~finite).sum()),
+            max_abs_err=e)
+        if not all(same.values()) or not finite.any():
+            raise SystemExit(f"phase 30: {key} disagrees with its plain version ({name}), or "
+                             f"its case compares -inf alone")
+        if rose != {"kernel": 1, "K2-bt": int(took == "k2bt")} or took != walk:
+            raise SystemExit(f"phase 30: case {name} launched {rose} and walked by {took}, "
+                             f"not by {walk}")
+        if no_path_rows and finite.all():
+            raise SystemExit(f"phase 30: case {name} has no row without an admissible path")
+
+    def ragged(nb, t):
+        ln = torch.randint(1, t + 1, (nb,), generator=gen, device=dev, dtype=torch.int32)
+        ln[0] = t
+        if nb > 2:
+            ln[1] = 1  # too short for any admissible path
+        return ln
+
+    # The main path's inputs, as ContinuousDecoder._constrained makes them.
+    main_dec = dm.ContinuousDecoder(pipe["models"], penalty=-100.0, device=dev)
+    pc = main_dec.composite
+    truths = pipe["eval"]["train_speakers"][0] + pipe["eval"]["unseen_speakers"][0]
+    feats = pipe["eval"]["train_speakers"][1] + pipe["eval"]["unseen_speakers"][1]
+    clips, clip_truths = (feats * 2)[:64], (truths * 2)[:64]
+
+    def main_inputs(idx):
+        batch, lengths = main_dec._to_device(pad_batch([np.asarray(clips[i]) for i in idx],
+                                                       128))
+        return main_dec._emissions(batch), lengths
+
+    menu_main = tg.WordDFA.from_strings(PIPELINE_TRANSCRIPTS, pc.labels)
+    lb_main, len_main = main_inputs(range(len(clips)))
+    by_count = {}
+    for i, tr in enumerate(clip_truths):
+        by_count.setdefault(len(tr), []).append(i)
+    main_counted = {n: main_inputs(idx) for n, idx in sorted(by_count.items())}
+    for n, (lb_n, len_n) in main_counted.items():
+        check(f"main-counted-{n}", counted(pc, n), lb_n, len_n)
+    check("main-menu", grammar(pc, menu_main), lb_main, len_main)
+    check("main-duration-min-2", duration(pc, 2), lb_main, len_main)
+
+    s58, t_total = flag.num_states, lb3.shape[1]
+    digits = [lab for lab in flag.labels if lab != "S"]
+    menu = tg.WordDFA.from_strings(PIPELINE_TRANSCRIPTS, flag.labels)
+    lb58 = lb3[:128, :, :s58]  # phase 6's emissions at their row stride of 128
+    len58 = ragged(128, t_total)
+    ties58 = torch.randint(-3, 1, (128, t_total, s58), generator=gen, device=dev).float()
+    for n in range(1, 8):
+        check(f"flagship-counted-{n}", counted(flag, n), lb58, len58, no_path_rows=True)
+    check("flagship-count-range-2-7", counted(flag, 7, 2), lb58, len58, no_path_rows=True)
+    check("flagship-counted-3-ties", counted(flag, 3), ties58, len58, no_path_rows=True)
+    check("flagship-menu", grammar(flag, menu), lb58, len58, no_path_rows=True)
+    check("flagship-menu-ties", grammar(flag, menu), ties58, len58, no_path_rows=True)
+    check("flagship-duration-min-2", duration(flag, 2), lb58, len58, no_path_rows=True)
+    check("flagship-duration-min-3-max-6-a-word",
+          duration(flag, {w: 3 for w in digits}, {w: 6 for w in digits}), lb58, len58,
+          no_path_rows=True)
+    check("flagship-duration-ties", duration(flag, 2, 4), ties58, len58, no_path_rows=True)
+    c503, c5003 = random_composite(100, 3), random_composite(1000, 3)
+    rng = np.random.default_rng(30)
+    vocab = [lab for lab in c503.labels if lab != "S"]
+    pos503 = tg.WordDFA.from_positions(
+        [tuple(rng.choice(vocab, size=len(vocab) // 3, replace=False)) for _ in range(3)],
+        c503.labels)
+    lb503 = 3 * torch.randn((16, t_total, c503.num_states), generator=gen, device=dev)
+    len503 = ragged(16, t_total)
+    for n in (2, 4):
+        check(f"503-counted-{n}", counted(c503, n), lb503, len503, no_path_rows=True)
+    check("503-count-range-1-4", counted(c503, 4, 1), lb503, len503, no_path_rows=True)
+    check("503-positions", grammar(c503, pos503), lb503, len503, no_path_rows=True)
+    check("503-duration-min-2", duration(c503, 2), lb503, len503, no_path_rows=True)
+    check("503-duration-min-3-max-6", duration(c503, 3, 6), lb503, len503, no_path_rows=True)
+    lb5003 = 3 * torch.randn((2, 60, c5003.num_states), generator=gen, device=dev)
+    len5003 = ragged(2, 60)
+    check("5003-counted-2", counted(c5003, 2), lb5003, len5003)
+    check("5003-duration-min-2", duration(c5003, 2), lb5003, len5003)
+    check("5003-duration-min-3-max-6", duration(c5003, 3, 6), lb5003, len5003, walk="forward")
+
+    # -- timing: device time on tables built once, beside the plain loop -----
+    lb64, len64 = lb3[:64, :, :s58], decode["n_frames"][:64]
+    t_main = lb_main.shape[1]
+    rows = (
+        ("trellis_planes", f"phase 22's menu grammar ({menu_main.num_planes} planes), "
+         f"B=64, T={t_main}", grammar(pc, menu_main), lb_main, len_main),
+        ("trellis_duration", f"phase 22's min 2 (D=2), B=64, T={t_main}", duration(pc, 2),
+         lb_main, len_main),
+        *(("trellis_planes", f"phase 22's counted N={n} ({n + 1} planes), "
+           f"B={lb_n.shape[0]}, T={lb_n.shape[1]}", counted(pc, n), lb_n, len_n)
+          for n, (lb_n, len_n) in main_counted.items()),
+        ("trellis_planes", "flagship counted N=7 (8 planes), B=64, T=201", counted(flag, 7),
+         lb64, len64),
+        ("trellis_planes", f"flagship menu ({menu.num_planes} planes), B=64, T=201",
+         grammar(flag, menu), lb64, len64),
+        ("trellis_planes", "503 states counted N=4, B=16, T=201", counted(c503, 4), lb503,
+         len503),
+        ("trellis_planes", "5003 states counted N=2, B=2, T=60", counted(c5003, 2), lb5003,
+         len5003),
+        ("trellis_duration", "flagship min 2 (D=2), B=64, T=201", duration(flag, 2), lb64,
+         len64),
+        ("trellis_duration", "503 states min 3 max 6 (D=6), B=16, T=201",
+         duration(c503, 3, 6), lb503, len503),
+        ("trellis_duration", "5003 states min 2 (D=2), B=2, T=60", duration(c5003, 2), lb5003,
+         len5003),
+    )
+    for key, shape, (_k, cells, per_step, _run, plain, tabs_fn, pen), lb, ln in rows:
+        tabs = tabs_fn()
+        fwd = tcs.planes_forward if key == "trellis_planes" else tcs.duration_forward
+        ms = device_ms(lambda: fwd(lb, tabs, pen, ln), reps=5)
+        plain_ms = cuda_ms(lambda: plain(lb, ln), reps=2)
+        b_k, t_k, s_k = lb.shape
+        (b_ms, b_by), (bp_ms, _by) = constrained_bound(b_k, t_k, s_k, ln, cells, per_step)
+        log("timing", kernel=key, shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bound_with_backpointers_ms=bp_ms,
+            us_per_step=ms / (int(ln.clamp(max=t_k).max()) - 1) * 1e3)
+        if key not in timings:  # the first row of each kernel is its record
+            timings[key] = (ms, plain_ms)
+            yardsticks[key] = (None, b_ms, b_by)
+    errs.update(err)
+    log("phase", which="30 constrained", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
 def word_trellis_problem(gen, b, t, s, log_a=None, zero_length=False):
@@ -4019,11 +4340,12 @@ def cli_phase(dev, card):
     --device cpu transcribe (plain, counted, grammar, duration) equal to
     the card's and neither launching a card kernel nor allocating card
     memory; each script launched the
-    kernels its path runs (the counted, grammar and duration decodes and
-    n-best run no hand kernel yet: ROADMAP Queue 2 B); no plain trellis,
-    emission, forward-backward or pool step on a CUDA tensor; the phase
-    within CLI_BUDGET_S. One [cli] line a script: wall seconds and
-    launches."""
+    kernels its path runs (the counted and grammar decodes the PLANES
+    kernel and K2-bt, the duration decode the DURATION kernel and K2-bt;
+    n-best runs no hand kernel yet: ROADMAP Queue 2 B); no
+    plain trellis (the constrained ones included), emission,
+    forward-backward or pool step on a CUDA tensor; the phase within
+    CLI_BUDGET_S. One [cli] line a script: wall seconds and launches."""
     import importlib
     import importlib.util
     import os
@@ -4038,10 +4360,14 @@ def cli_phase(dev, card):
     from cs304_tpu_torch.models import train_fused as tf
     from cs304_tpu_torch.models.collection import ModelCollection
     from cs304_tpu_torch.models.train_continuous import ContinuousTrainConfig, ContinuousTrainer
+    from cs304_tpu_torch.ops import grammar as gm
     from cs304_tpu_torch.ops import streaming_batch as sb
     from cs304_tpu_torch.ops import viterbi as vt
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
     from cs304_tpu_torch.ops.cuda import emission as em
     from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
     from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
     from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
@@ -4058,7 +4384,8 @@ def cli_phase(dev, card):
                 "K2-beam": tsf.scanfree_decode_beam, "K2-fwd": tsf.trellis_forward,
                 "K2-bt": tsf.trellis_backtrace, "K1": em.emission, "K1-split": em.emission_split,
                 "K4": tdn.trellis_dense_forward, "E-step": tfb.banded_fb_posteriors,
-                "FB": tfb.banded_fb, "STREAM": tst.stream_advance}
+                "FB": tfb.banded_fb, "STREAM": tst.stream_advance,
+                "PLANES": tcs.planes_decode, "DURATION": tcs.duration_decode}
 
     def counts():
         torch.cuda.synchronize()
@@ -4073,7 +4400,9 @@ def cli_phase(dev, card):
              (tdn, "dense_forward"), (tfb, "banded_fb_plain"),
              (tfb, "banded_fb_posteriors_plain"), (tf, "banded_fb_plain"),
              (tf, "banded_fb_posteriors_plain"), (sb, "_advance"), (sb, "_advance_banded"),
-             (sb, "_advance_compact")]
+             (sb, "_advance_compact"), (tvc, "viterbi_composite_counted_batch_plain"),
+             (gm, "viterbi_composite_grammar_batch_plain"),
+             (tvd, "viterbi_composite_duration_batch_plain")]
     saved = [guard(plain_on_card, m, n) for m, n in plain]
     tmp = tempfile.mkdtemp(prefix="cli_phase_")
     log_file = os.path.join(tmp, "runtime.log")
@@ -4199,15 +4528,17 @@ def cli_phase(dev, card):
             label="transcribe_confidence_timings")
         run("transcribe", base + ["--beam", "50"], ["K2-beam"], label="transcribe_beam")
         # Device parity: the plain decode and each constrained one
-        # (counted, grammar, duration) with --device cpu on the same WAVs
-        # print the card's transcripts and touch the card nowhere.
+        # (counted, grammar, duration: the PLANES or DURATION kernel and
+        # K2-bt on the card) with --device cpu on the same WAVs print the
+        # card's transcripts and touch the card nowhere.
         grammar = ",".join(s[0] for s in CLI_SENTENCES)
-        for what, opts in (("", []), ("_known_count", ["--known-count", "3"]),
-                           ("_grammar", ["--grammar-strings", grammar]),
-                           ("_min_duration", ["--min-duration", "2"])):
+        for what, opts, need in (
+                ("", [], []), ("_known_count", ["--known-count", "3"], ["PLANES", "K2-bt"]),
+                ("_grammar", ["--grammar-strings", grammar], ["PLANES", "K2-bt"]),
+                ("_min_duration", ["--min-duration", "2"], ["DURATION", "K2-bt"])):
             on_card = texts
             if opts:
-                out, _ = run("transcribe", base + opts, [], label=f"transcribe{what}")
+                out, _ = run("transcribe", base + opts, need, label=f"transcribe{what}")
                 on_card = transcripts_of(out)
             allocations = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
             out_cpu, rose = run("transcribe", base + opts + ["--device", "cpu"], [],
@@ -4637,6 +4968,13 @@ def report(kind, launches, timings, errs, yardsticks):
         "trellis_stream_lm": ("cs304_tpu_torch/csrc/trellis_scanfree.cu",
                               "cs304_tpu/ops/streaming_batch.py:97 (_banded_coeffs with lm) "
                               "and :201 (lax.scan)"),
+        # No Pallas counterpart: the JAX package's constrained searches are
+        # lax.scans; counted decoding is grammar decoding on a chain.
+        "trellis_planes": ("cs304_tpu_torch/csrc/trellis_constrained.cu",
+                           "cs304_tpu/ops/viterbi_counted.py:124 and "
+                           "cs304_tpu/ops/grammar.py:237 (lax.scans)"),
+        "trellis_duration": ("cs304_tpu_torch/csrc/trellis_constrained.cu",
+                             "cs304_tpu/ops/viterbi_duration.py:145 (lax.scan)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

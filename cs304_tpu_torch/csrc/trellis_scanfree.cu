@@ -1554,18 +1554,50 @@ extern "C" int cs304_trellis_stream_lm(
 // of utterance b at element b * ustride + t * S (ustride = T * S for a
 // forward's (B, T, S) output; T_max * S walks ring[:, :T] of a ring in
 // place).
-extern "C" int cs304_trellis_backtrace(
-    const void* bp, int elem_bytes, long long ustride, const void* best,
-    const void* lengths, void* path, int B, int T, int S, int quirk, void* stream) {
-  if (elem_bytes != 1 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+// K2-bt's staging at S states of elem_bytes-byte backpointers: R rows a
+// tile, buf_ints words a tile buffer, smem bytes of dynamic shared memory.
+struct BtPlan {
+  int R;
+  int buf_ints;
+  size_t smem;
+};
+
+static BtPlan bt_plan(long long S, int elem_bytes) {
   const size_t row = (size_t)S * elem_bytes;  // bytes a time step
   const size_t buf_cap = BT_BUDGET / BT_TILES;  // bytes a tile buffer
   size_t r = buf_cap > row + 32 ? (buf_cap - 32) / row : 1;
   if (r > BT_MAX_ROWS) r = BT_MAX_ROWS;
-  const int R = (int)r;
   // The tile's words plus 8 (its head offset and an int8 span's ragged ends).
-  const int buf_ints = (int)(((r * row + 3) / 4 + 8 + 3) & ~(size_t)3);
-  const size_t smem = BT_TILES * (size_t)buf_ints * 4;
+  const size_t buf_ints = ((r * row + 3) / 4 + 8 + 3) & ~(size_t)3;
+  return {(int)r, (int)buf_ints, BT_TILES * buf_ints * 4};
+}
+
+// The widest row K2-bt walks on the current device: the most states whose
+// staging fits the shared memory a block may opt into there -> *out.
+extern "C" int cs304_trellis_backtrace_max_states(int elem_bytes, void* out) {
+  if (elem_bytes != 1 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long lo = 1, hi = INT_MAX;  // bt_plan(lo) fits; find the last S that does
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo + 1) / 2;
+    if (bt_plan(mid, elem_bytes).smem <= (size_t)optin) lo = mid;
+    else hi = mid - 1;
+  }
+  *(int*)out = (int)lo;
+  return 0;
+}
+
+extern "C" int cs304_trellis_backtrace(
+    const void* bp, int elem_bytes, long long ustride, const void* best,
+    const void* lengths, void* path, int B, int T, int S, int quirk, void* stream) {
+  if (elem_bytes != 1 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  const BtPlan plan = bt_plan(S, elem_bytes);
+  const int R = plan.R, buf_ints = plan.buf_ints;
+  const size_t smem = plan.smem;
   const void* fn = elem_bytes == 1 ? (const void*)trellis_backtrace_kernel<int8_t>
                                    : (const void*)trellis_backtrace_kernel<int>;
   const int err = set_smem(fn, smem);

@@ -107,6 +107,8 @@ def load():
         lib.cs304_trellis_backtrace.argtypes = [p, i, ctypes.c_longlong, p, p, p,
                                                 i, i, i, i, p]
         lib.cs304_trellis_backtrace.restype = i
+        lib.cs304_trellis_backtrace_max_states.argtypes = [i, p]
+        lib.cs304_trellis_backtrace_max_states.restype = i
         lib.cs304_trellis_stream.argtypes = [p, p, i, p, p, p, p, p, f,
                                              i, i, i, i, i, i, p]
         lib.cs304_trellis_stream.restype = i
@@ -134,6 +136,16 @@ def load():
         lib.cs304_emission_split_stages.restype = i
         lib.cs304_dtw.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p]
         lib.cs304_dtw.restype = i
+        lib.cs304_trellis_planes.argtypes = [p, p, p, p, p, p, p, p, f, i, i, i, i, i, i, i,
+                                             p, p, p, p, i, p, p]
+        lib.cs304_trellis_planes.restype = i
+        lib.cs304_trellis_planes_scratch_bytes.argtypes = [i, i, i, i]
+        lib.cs304_trellis_planes_scratch_bytes.restype = ctypes.c_longlong
+        lib.cs304_trellis_duration.argtypes = [p, p, p, p, p, f, i, i, i, i, i, i,
+                                               p, p, p, p, i, p, p]
+        lib.cs304_trellis_duration.restype = i
+        lib.cs304_trellis_duration_scratch_bytes.argtypes = [i, i, i]
+        lib.cs304_trellis_duration_scratch_bytes.restype = ctypes.c_longlong
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p
         _lib = lib

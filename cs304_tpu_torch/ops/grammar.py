@@ -9,8 +9,10 @@ routes each plane's best word exit through the DFA's transition table.
 Silence is grammar-transparent (its column is the identity). Entry seeding,
 the exits-over-self-loop tie order and the backtrace quirk follow
 ops/viterbi.py; every argmax is a first max. WordDFA and its builders are
-NumPy, copied; the trellis is a batch (B, G, S) advanced by a Python loop
-over T on log_b's device.
+NumPy, copied. On a CUDA log_b the trellis is one launch of the PLANES
+kernel (ops/cuda/trellis_constrained.planes_decode) and one of K2-bt; its
+plain version, viterbi_composite_grammar_batch_plain, advances a batch
+(B, G, S) by a Python loop over T, for the CPU and the tests.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .cuda.trellis_constrained import planes_decode
 from .viterbi import NEG
 from .viterbi_counted import _stay_matrix, _topology, packed_backtrace
 
@@ -165,7 +168,24 @@ def viterbi_composite_grammar_batch(
     (B, T, S) float32, word_of_state (S,), next_state (G, W) int (-1 =
     disallowed; the silence column the identity), accept (G,) bool,
     lengths (B,) -> (scores (B,), paths (B, T) int32); a score is -inf where
-    no accepted path exists in the utterance's frames."""
+    no accepted path exists in the utterance's frames. A CUDA log_b runs
+    the PLANES kernel, bitwise the plain version in scores and in the paths
+    of every row with a finite score (ROADMAP W3); a CPU log_b the plain
+    version."""
+    if not log_b.is_cuda:
+        return viterbi_composite_grammar_batch_plain(
+            log_b, log_a, lower_of_state, is_entry, is_exit, word_of_state, next_state,
+            accept, penalty, lengths, quirk_backtrace)
+    return planes_decode(log_b, log_a, lower_of_state, is_entry, is_exit, word_of_state,
+                         next_state, accept, penalty, lengths, quirk_backtrace)
+
+
+def viterbi_composite_grammar_batch_plain(
+    log_b, log_a, lower_of_state, is_entry, is_exit, word_of_state,
+    next_state, accept, penalty, lengths, quirk_backtrace: bool = True,
+):
+    """viterbi_composite_grammar_batch's plain version, on log_b's device:
+    the (B, G, S) trellis advanced by a Python loop over T."""
     b, t_total, s = log_b.shape
     dev = log_b.device
     lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)

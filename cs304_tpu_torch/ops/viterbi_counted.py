@@ -12,13 +12,20 @@ plane x composite state, and a step is
 Termination takes the best word exit in plane N. Backpointers pack
 (plane, state) into one int32. Entry seeding, the exits-over-self-loop tie
 order and the backtrace quirk follow ops/viterbi.py; every argmax is a
-first max (torch's max over a dim), as jnp.argmax. The batch is one tensor
-(B, N + 1, S) advanced by a Python loop over T, on log_b's device.
+first max (torch's max over a dim), as jnp.argmax.
+
+Counted decoding is grammar decoding under the chain automaton
+(chain_grammar): on a CUDA log_b it is one launch of the PLANES kernel
+(ops/cuda/trellis_constrained.planes_decode) and one of K2-bt. Its plain
+version, viterbi_composite_counted_batch_plain, advances the batch as one
+tensor (B, N + 1, S) by a Python loop over T; the CPU and the tests run it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .cuda.trellis_constrained import planes_decode
 from .viterbi import NEG, backtrace_batch
 
 
@@ -57,6 +64,24 @@ def packed_backtrace(bps, start, lengths, quirk: bool):
     return backtrace_batch(bps, start.to(torch.int32), lengths, quirk).to(torch.int64)
 
 
+def chain_grammar(counted_word_of_state, n_words: int, n_words_min: int | None = None):
+    """The word counter as a word automaton over two word classes (0:
+    silence and every uncounted word, 1: a counted word) -> (word_of_state
+    (S,) int32, next_state (N + 1, 2) int32, accept (N + 1,) bool): a
+    counted word moves plane c to c + 1 (none past N), the others keep the
+    plane; planes n_words_min (default n_words) .. n_words accept."""
+    if isinstance(counted_word_of_state, torch.Tensor):
+        counted_word_of_state = counted_word_of_state.cpu().numpy()
+    counted = np.asarray(counted_word_of_state).astype(bool)
+    g = n_words + 1
+    next_state = np.full((g, 2), -1, np.int32)
+    next_state[:, 0] = np.arange(g)
+    next_state[:-1, 1] = np.arange(1, g)
+    accept = np.zeros(g, bool)
+    accept[(n_words if n_words_min is None else n_words_min): g] = True
+    return counted.astype(np.int32), next_state, accept
+
+
 def viterbi_composite_counted_batch(
     log_b, log_a, lower_of_state, is_entry, is_exit, counted_word_of_state,
     penalty, n_words: int, lengths, quirk_backtrace: bool = True,
@@ -66,7 +91,26 @@ def viterbi_composite_counted_batch(
     n_words_min, between n_words_min and n_words): log_b (B, T, S) float32,
     counted_word_of_state (S,) bool (False for silence), lengths (B,) ->
     (scores (B,), paths (B, T) int32); a score is -inf where no admissible
-    path exists in the utterance's frames."""
+    path exists in the utterance's frames. A CUDA log_b runs the PLANES
+    kernel on chain_grammar's automaton, bitwise the plain version in
+    scores and in the paths of every row with a finite score (ROADMAP W3);
+    a CPU log_b the plain version."""
+    if not log_b.is_cuda:
+        return viterbi_composite_counted_batch_plain(
+            log_b, log_a, lower_of_state, is_entry, is_exit, counted_word_of_state,
+            penalty, n_words, lengths, quirk_backtrace, n_words_min)
+    word, next_state, accept = chain_grammar(counted_word_of_state, n_words, n_words_min)
+    return planes_decode(log_b, log_a, lower_of_state, is_entry, is_exit, word, next_state,
+                         accept, penalty, lengths, quirk_backtrace)
+
+
+def viterbi_composite_counted_batch_plain(
+    log_b, log_a, lower_of_state, is_entry, is_exit, counted_word_of_state,
+    penalty, n_words: int, lengths, quirk_backtrace: bool = True,
+    n_words_min: int | None = None,
+):
+    """viterbi_composite_counted_batch's plain version, on log_b's device:
+    the (B, N + 1, S) trellis advanced by a Python loop over T."""
     b, t_total, s = log_b.shape
     dev = log_b.device
     c_planes = n_words + 1

@@ -12,8 +12,11 @@ trellis composed with per-state duration counters,
 
 M is the composite transition rule without its diagonal. min_dur = 1 and an
 unbounded max_dur reproduce the unconstrained dense decode. Backpointers
-pack (state, duration) into one int32; every argmax is a first max. The
-batch (B, S, D) advances by a Python loop over T on log_b's device.
+pack (state, duration) into one int32; every argmax is a first max. On a
+CUDA log_b the lattice is one launch of the DURATION kernel
+(ops/cuda/trellis_constrained.duration_decode) and one of K2-bt; its plain
+version, viterbi_composite_duration_batch_plain, advances a batch
+(B, S, D) by a Python loop over T, for the CPU and the tests.
 
 A repeated single-state word (exit == entry) cannot be expressed and is
 rejected by duration_arrays.
@@ -23,10 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# UNBOUNDED, the max_dur sentinel (no upper duration limit), is the kernel's.
+from .cuda.trellis_constrained import UNBOUNDED, duration_decode
 from .viterbi import NEG, composite_transition_matrix
 from .viterbi_counted import _topology, packed_backtrace
-
-UNBOUNDED = np.int32(2**30)  # max_dur sentinel: no upper duration limit
 
 
 def viterbi_composite_duration_batch(
@@ -36,7 +39,23 @@ def viterbi_composite_duration_batch(
     """log_b (B, T, S) float32, min_dur / max_dur (S,) int (max_dur may be
     UNBOUNDED), lengths (B,) -> (scores (B,), paths (B, T) int32). d_cap
     must exceed every finite max_dur and be >= every min_dur
-    (duration_arrays)."""
+    (duration_arrays). A CUDA log_b runs the DURATION kernel, bitwise the
+    plain version in scores and in the paths of every row with a finite
+    score (ROADMAP W3); a CPU log_b the plain version."""
+    if not log_b.is_cuda:
+        return viterbi_composite_duration_batch_plain(
+            log_b, log_a, lower_of_state, is_entry, is_exit, penalty, min_dur, max_dur,
+            lengths, d_cap, quirk_backtrace)
+    return duration_decode(log_b, log_a, lower_of_state, is_entry, is_exit, penalty,
+                           min_dur, max_dur, lengths, d_cap, quirk_backtrace)
+
+
+def viterbi_composite_duration_batch_plain(
+    log_b, log_a, lower_of_state, is_entry, is_exit, penalty,
+    min_dur, max_dur, lengths, d_cap: int = 8, quirk_backtrace: bool = True,
+):
+    """viterbi_composite_duration_batch's plain version, on log_b's
+    device: the (B, S, D) lattice advanced by a Python loop over T."""
     b, t_total, s = log_b.shape
     dev = log_b.device
     d = d_cap

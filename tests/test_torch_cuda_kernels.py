@@ -36,11 +36,20 @@ asserted through lm_table_branch; a NaN frame keeping every source word in
 range, without a fault) and the bigram and beam decoders
 launching their modes and never the plain trellis; the trainer's tie
 pooling (bitwise a sequential scatter-add) and two tied trainings, Viterbi
-and Baum-Welch, bitwise equal; the transcribe script (plain and with
+and Baum-Welch, bitwise equal; the constrained searches' kernels (PLANES:
+counted decoding N = 1..7 and a range, the menu grammar and position
+grammars; DURATION: floors and ceilings) bitwise their plain versions in
+scores and finite paths at 58, 503 and 5003 states, integer ties, T = 1,
+lengths 0, -1 and past T, -inf emissions, a column slice read at its row
+stride, K2-bt's widest row of cells and the
+forward's own walk past it, a cross move with two source planes and a
+duration advance whose sums tie under a -3e9 penalty, and the decoder's
+counted / grammar / duration decodes launching them and never a plain
+trellis; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
 WAVs: the same printed lines, the decode kernel launched on the card only.
 
-These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22 and 28 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22, 28 and 30 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -1711,3 +1720,263 @@ def test_transcribe_card_equals_cpu(dev, tmp_path, extra):
         assert out["cuda", "launches"][1] > 0 and out["cuda", "launches"][2] > 0
     else:
         assert out["cuda", "launches"][0] > 0
+
+
+# -- the constrained searches: PLANES (counted, grammar) and DURATION ---------
+# chip_smoke.py's PIPELINE_TRANSCRIPTS: the 6-string menu grammar.
+MENU = ["12", "4Z", "375", "9O2", "186Z", "54321"]
+
+# name: (num_words (None: the flagship), B, T, kind, its argument, tie-heavy
+# log_b). counted: (N, n_words_min); grammar: "menu" or "positions" (three
+# positions of random word subsets); duration: (min, max). The 5003-state
+# duration at D = 6 (30,018 cells) keeps alpha in the global scratch and
+# walks its path in the forward, past K2-bt's rows; on an H100 (K2-bt
+# takes 29,048 cells) "k2bt-edge" (500 planes x 58 states, 29,000 cells)
+# is K2-bt's widest use, "walk-edge" (501 planes, 29,058 cells) the
+# forward's walk with a global scratch.
+CONSTRAINED_CASES = {
+    **{f"counted-{n}": (None, 16, 120, "counted", (n, None), False) for n in range(1, 8)},
+    "counted-range": (None, 16, 120, "counted", (5, 2), False),
+    "counted-ties": (None, 16, 80, "counted", (3, None), True),
+    "grammar-menu": (None, 16, 120, "grammar", "menu", False),
+    "grammar-menu-ties": (None, 16, 80, "grammar", "menu", True),
+    "duration-min2": (None, 16, 120, "duration", (2, None), False),
+    "duration-min3-max6": (None, 16, 120, "duration", (3, 6), False),
+    "duration-ties": (None, 16, 80, "duration", (2, 4), True),
+    "counted-503": (100, 8, 120, "counted", (4, None), False),
+    "grammar-503": (100, 8, 120, "grammar", "positions", False),
+    "duration-503": (100, 8, 120, "duration", (3, 6), False),
+    "counted-5003": (1000, 2, 30, "counted", (2, None), False),
+    "grammar-5003": (1000, 2, 30, "grammar", "positions", False),
+    "duration-5003": (1000, 2, 30, "duration", (2, None), False),
+    "duration-5003-walk": (1000, 2, 40, "duration", (3, 6), False),
+    "k2bt-edge": (None, 1, 20, "counted", (499, 1), False),
+    "walk-edge": (None, 1, 20, "counted", (500, 1), False),
+}
+
+
+def _constrained_problem(dev, case):
+    """(composite, log_b, lengths, run(log_b, lengths) on the dispatchers,
+    counter, cells)."""
+    from cs304_tpu_torch.ops import grammar as tg
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
+
+    words, b, t, kind, arg, ties = CONSTRAINED_CASES[case]
+    comp = flagship_composite() if words is None else _composite(words)
+    s = comp.num_states
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    if ties:
+        log_b = torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float()
+    else:
+        log_b = 3 * torch.randn((b, t, s), generator=gen, device=dev)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0] = t
+    if b > 2:
+        lengths[1] = 1
+    if kind == "counted":
+        n, n_min = arg
+        counted = comp.word_of_state != comp.labels.index("S")
+        return comp, log_b, lengths, (lambda lb, ln: tvc.viterbi_composite_counted_batch(
+            lb, *topo, counted, comp.penalty, n, ln, n_words_min=n_min)), (
+            lambda lb, ln: tvc.viterbi_composite_counted_batch_plain(
+                lb, *topo, counted, comp.penalty, n, ln, n_words_min=n_min)), \
+            tcs.planes_decode, (n + 1) * s
+    if kind == "grammar":
+        if arg == "menu":
+            dfa = tg.WordDFA.from_strings(MENU, comp.labels)
+        else:
+            rng = np.random.default_rng(s)
+            vocab = [lab for lab in comp.labels if lab != "S"]
+            dfa = tg.WordDFA.from_positions(
+                [tuple(rng.choice(vocab, size=len(vocab) // 3, replace=False))
+                 for _ in range(3)], comp.labels)
+        args = (*topo, comp.word_of_state, dfa.next_state, dfa.accept, comp.penalty)
+        return comp, log_b, lengths, (
+            lambda lb, ln: tg.viterbi_composite_grammar_batch(lb, *args, ln)), (
+            lambda lb, ln: tg.viterbi_composite_grammar_batch_plain(lb, *args, ln)), \
+            tcs.planes_decode, dfa.num_planes * s
+    min_dur, max_dur, d_cap = tvd.duration_arrays(comp, *arg)
+    args = (*topo, comp.penalty, min_dur, max_dur)
+    return comp, log_b, lengths, (
+        lambda lb, ln: tvd.viterbi_composite_duration_batch(lb, *args, ln, d_cap=d_cap)), (
+        lambda lb, ln: tvd.viterbi_composite_duration_batch_plain(lb, *args, ln,
+                                                                  d_cap=d_cap)), \
+        tcs.duration_decode, s * d_cap
+
+
+def _same_as_plain(got, want):
+    """Scores bitwise (signs of zero too), paths on every finite row."""
+    finite = torch.isfinite(want[0])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+    assert torch.equal(got[1][finite], want[1][finite])
+    return finite
+
+
+@pytest.mark.parametrize("case", sorted(CONSTRAINED_CASES))
+def test_constrained_kernels_are_bitwise_plain(dev, case):
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
+
+    comp, log_b, lengths, run, plain, counter, cells = _constrained_problem(dev, case)
+    walk = cells > tcs.k2bt_max_cells(dev)
+    before = (counter.launches, tsf.trellis_backtrace.launches)
+    got = run(log_b, lengths)
+    torch.cuda.synchronize()
+    assert counter.launches == before[0] + 1
+    assert tsf.trellis_backtrace.launches == before[1] + (0 if walk else 1)
+    finite = _same_as_plain(got, plain(log_b, lengths))
+    assert finite.any()
+    if case.startswith(("counted-7", "duration-min3")):
+        assert not finite.all()  # rows too short for any admissible path
+    # A column slice of a padded tensor is read in place, at its row stride.
+    padded = torch.zeros((*log_b.shape[:2], log_b.shape[2] + 5), device=dev)
+    padded[..., : log_b.shape[2]] = log_b
+    _same_as_plain(run(padded[..., : log_b.shape[2]], lengths), got)
+
+
+def test_constrained_kernels_break_ties_as_the_plain_versions(dev):
+    """A grammar whose cross move has two source planes and a duration
+    advance whose exits' sums tie, both under a -3e9 penalty (the max over
+    raw alpha, then the add, for the planes; the sums compared for the
+    advance)."""
+    from test_torch_constrained_kernels import COMPOSITES, _grammars, sum_tie_problem
+
+    from cs304_tpu_torch.ops import grammar as tg
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+
+    comp = COMPOSITES["huge-penalty"]()
+    dfa = _grammars(comp.labels)["merge"]
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    rng = np.random.default_rng(3)
+    lengths = torch.as_tensor(np.asarray([13, 8, 2, 13, 1, 5] * 16, np.int32), device=dev)
+    log_b = torch.as_tensor((rng.normal(size=(96, 13, comp.num_states)) * 3).astype(np.float32),
+                            device=dev)
+    args = (*topo, comp.word_of_state, dfa.next_state, dfa.accept, comp.penalty, lengths)
+    _same_as_plain(tg.viterbi_composite_grammar_batch(log_b, *args),
+                   tg.viterbi_composite_grammar_batch_plain(log_b, *args))
+    comp, lb, ln, min_dur, max_dur, d_cap = sum_tie_problem()
+    args = (torch.as_tensor(lb, device=dev), comp.log_a, comp.lower_of_state, comp.is_entry,
+            comp.is_exit, comp.penalty, min_dur, max_dur, torch.as_tensor(ln, device=dev))
+    got = tvd.viterbi_composite_duration_batch(*args, d_cap=d_cap)
+    _same_as_plain(got, tvd.viterbi_composite_duration_batch_plain(*args, d_cap=d_cap))
+    assert got[1][0, :3].tolist() == [0, 1, 4]
+
+
+@pytest.mark.parametrize("t", [1, 7])
+def test_constrained_kernels_take_edge_lengths_and_inf(dev, t):
+    """T = 1, lengths 0, -1, 1 and past T, -inf sprinkled in log_b, on a
+    composite with a one-state word (a path of one frame exists): the
+    counted, grammar and duration dispatchers bitwise their plain
+    versions."""
+    from test_torch_constrained_kernels import COMPOSITES
+
+    from cs304_tpu_torch.ops import grammar as tg
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+
+    comp = COMPOSITES["one-state-word"]()
+    s = comp.num_states
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    gen = torch.Generator(device=dev).manual_seed(t)
+    log_b = 3 * torch.randn((8, t, s), generator=gen, device=dev)
+    log_b[torch.rand((8, t, s), generator=gen, device=dev) < 0.1] = float("-inf")
+    lengths = torch.tensor([t, 0, -1, 1, t + 3, t, 1, t], dtype=torch.int32, device=dev)
+    counted = comp.word_of_state != comp.labels.index("S")
+    dfa = tg.WordDFA.from_strings(["2", "21", "312"], comp.labels)
+    one = np.ones(s, np.int32)
+    runs = (
+        (lambda f, lb: f(lb, *topo, counted, comp.penalty, 1, lengths),
+         tvc.viterbi_composite_counted_batch, tvc.viterbi_composite_counted_batch_plain),
+        (lambda f, lb: f(lb, *topo, comp.word_of_state, dfa.next_state, dfa.accept,
+                         comp.penalty, lengths),
+         tg.viterbi_composite_grammar_batch, tg.viterbi_composite_grammar_batch_plain),
+        (lambda f, lb: f(lb, *topo, comp.penalty, one, np.full(s, tvd.UNBOUNDED), lengths,
+                         d_cap=2),
+         tvd.viterbi_composite_duration_batch, tvd.viterbi_composite_duration_batch_plain),
+    )
+    for call, kernel, plain in runs:
+        finite = _same_as_plain(call(kernel, log_b), call(plain, log_b))
+        assert finite.any()
+
+
+def _sampled_clips(n, seed):
+    """Flagship-model frames along random word sequences (1-4 words)."""
+    rng = np.random.default_rng(seed)
+    models = flagship_models()
+    out = []
+    for _ in range(n):
+        frames = []
+        for _ in range(int(rng.integers(1, 5))):
+            m = models[int(rng.integers(len(models)))]
+            for st in range(m.num_states):
+                k = int(rng.integers(2, 6))
+                frames.append(m.means[st] + 0.7 * rng.normal(size=(k, m.means.shape[1])))
+        out.append(np.concatenate(frames).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("gmm", [False, True])
+def test_constrained_decoders_launch_their_kernels_not_the_plain(dev, monkeypatch, gmm):
+    """predict_batch_counted / _grammar / _duration on the card, single
+    Gaussians and a K=2 GMM: the CPU decoder's transcripts, the PLANES or
+    DURATION kernel and K2-bt launched, no plain trellis on a CUDA tensor;
+    the single-utterance trellises launch them too."""
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.models.train_continuous_gmm import promote_to_gmm
+    from cs304_tpu_torch.ops import grammar as tg
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
+
+    models = flagship_models()
+    if gmm:
+        models = promote_to_gmm({m.label: m for m in models}, 2, jitter=0.3, seed=1)
+    clips = _sampled_clips(12, 7)
+    labels = flagship_composite().labels
+    menu = tg.WordDFA.from_strings(MENU + ["7", "38"], labels)
+    runs = {
+        "counted": (lambda d: d.predict_batch_counted(clips, 2), tcs.planes_decode),
+        "grammar": (lambda d: d.predict_batch_grammar(clips, menu), tcs.planes_decode),
+        "duration": (lambda d: d.predict_batch_duration(clips, 2, {"1": 6}),
+                     tcs.duration_decode),
+    }
+    cpu = dm.ContinuousDecoder(models, penalty=-100.0, device="cpu")
+    want = {k: fn(cpu) for k, (fn, _c) in runs.items()}
+    comp = flagship_composite()
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
+    one = 3 * torch.randn((40, comp.num_states), generator=torch.Generator().manual_seed(9))
+    counted = comp.word_of_state != comp.labels.index("S")
+    min_dur, max_dur, d_cap = tvd.duration_arrays(comp, 2)
+    singles = {
+        "counted": (lambda lb: tvc.viterbi_composite_counted(
+            lb, *topo, counted, comp.penalty, 2, length=31), tcs.planes_decode),
+        "grammar": (lambda lb: tg.viterbi_composite_grammar(
+            lb, *topo, comp.word_of_state, menu.next_state, menu.accept, comp.penalty),
+            tcs.planes_decode),
+        "duration": (lambda lb: tvd.viterbi_composite_duration(
+            lb, *topo, comp.penalty, min_dur, max_dur, d_cap=d_cap), tcs.duration_decode),
+    }
+    want_single = {k: fn(one) for k, (fn, _c) in singles.items()}
+
+    def plain_on_card(*args, **kwargs):
+        raise AssertionError("a plain constrained trellis ran on the card")
+
+    for mod, name in ((tvc, "viterbi_composite_counted_batch_plain"),
+                      (tg, "viterbi_composite_grammar_batch_plain"),
+                      (tvd, "viterbi_composite_duration_batch_plain")):
+        monkeypatch.setattr(mod, name, plain_on_card)
+    card = dm.ContinuousDecoder(models, penalty=-100.0, device="cuda")
+    for what, (fn, counter) in runs.items():
+        before = (counter.launches, tsf.trellis_backtrace.launches)
+        assert fn(card) == want[what], what
+        assert counter.launches > before[0] and tsf.trellis_backtrace.launches > before[1]
+    for what, (fn, counter) in singles.items():
+        before = counter.launches
+        score, path = fn(one.to(dev))
+        assert counter.launches == before + 1, what
+        assert torch.isfinite(want_single[what][0]), what
+        assert score.item() == want_single[what][0].item(), what
+        assert torch.equal(path.cpu(), want_single[what][1]), what

@@ -248,7 +248,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
               GMM), project5_test_ndigits (--csv-out, --bigram-lm),
               transcribe (plain, --fast, --confidence --timings, --beam,
               --known-count, --grammar-strings, --min-duration (PLANES /
-              DURATION and K2-bt launched), --device cpu), align, adapt_speaker, project6_interactive, train_phones,
+              DURATION launched, no K2-bt), --device cpu), align, adapt_speaker, project6_interactive, train_phones,
               demo_serving (project3_predict and the penalty sweep where
               matplotlib is installed; their classifier checked either way);
               n-digit CSV accuracy >= 0.9, align 3 7 5, transcripts equal to
@@ -430,6 +430,52 @@ def team_kernel_resources(ptxas_log):
             if used:
                 cur["registers"] = int(used[1])
     return out
+
+
+def ptxas_resources(ptxas_log, pattern):
+    """Registers, stack frame and spill bytes of the first entry function
+    whose name matches pattern in nvcc's -Xptxas=-v log."""
+    out, on = {}, False
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            if on:
+                break
+            on = bool(pattern.search(line))
+        elif on:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+            used = re.search(r"Used (\d+) registers", line)
+            if frame:
+                out.update(stack_bytes=int(frame[1]), spill_stores=int(frame[2]),
+                           spill_loads=int(frame[3]))
+            if used:
+                out["registers"] = int(used[1])
+    return out
+
+
+def constrained_resources(key, plan, tabs, penalty):
+    """ptxas' registers and spills of the team instantiation a plan launches
+    on tabs at penalty, and of the simple branch's kernel (phase 30's timing
+    rows)."""
+    from cs304_tpu_torch.ops.cuda import _build
+
+    path = _build.library_path().with_suffix(".log")
+    text = path.read_text() if path.exists() else ""
+    # Mangled names: planes_team_kernel<K, CLUSTERED, KEY>,
+    # duration_team_kernel<K, DM, SLOTS_SMEM, TWO>; the simple branch's
+    # trellis_planes_kernel / trellis_duration_kernel.
+    k = plan["k"]
+    if key == "trellis_planes":
+        team = (rf"planes_team_kernelILi{k}ELb{int(plan['branch'] == 'cluster')}E"
+                rf"Lb{int(penalty != 0)}E")
+        simple = r"trellis_planes_kernelE"
+    else:
+        dm = next(p for p in (2, 4, 6, 8) if tabs.depth <= p)
+        team = (rf"duration_team_kernelILi{k}ELi{dm}ELb{int(k == 8 and dm >= 4)}E"
+                rf"Lb{int(tabs.entry_exit or penalty == 0)}E")
+        simple = r"trellis_duration_kernelE"
+    return {"team": ptxas_resources(text, re.compile(team)) if plan["branch"] != "simple"
+            else {}, "simple": ptxas_resources(text, re.compile(simple))}
 
 
 def stream_build(s, ring_bytes):
@@ -2907,12 +2953,13 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
                 out[i] = text
         return out
 
+    # The kernels walk their codes: no K2-bt launch (checked below).
     constrained = {
-        "counted (64 clips, true counts)": (counted_all, ["planes", "backtrace"]),
+        "counted (64 clips, true counts)": (counted_all, ["planes"]),
         "duration (64 clips, min 2)": (lambda d: d.predict_batch_duration(clips, 2),
-                                       ["duration", "backtrace"]),
+                                       ["duration"]),
         "grammar (64 clips, 6-string menu)": (lambda d: d.predict_batch_grammar(clips, grammar),
-                                              ["planes", "backtrace"]),
+                                              ["planes"]),
     }
     runs = {
         "confidences (64 clips)": lambda: flat_dec.predict_batch_with_confidence(clips),
@@ -2955,6 +3002,9 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
                     raise SystemExit(f"phase 22: the {what} decode on the card differs from "
                                      f"the CPU decoder's")
                 check_launches(f"phase 22: {what}", run_launches[what], constrained[what][1])
+                if run_launches[what]["backtrace"]:
+                    raise SystemExit(f"phase 22: {what} launched K2-bt, where its kernel walks "
+                                     f"its codes: {run_launches[what]}")
             log("search", run=what, ms=best, exact_seq_acc=acc_x,
                 launches=json.dumps(run_launches[what]), **extra)
     finally:
@@ -2965,6 +3015,7 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
                          f"{constrained_plain}")
     launches["trellis_planes"] = sum(run_launches[w]["planes"] for w in constrained)
     launches["trellis_duration"] = sum(run_launches[w]["duration"] for w in constrained)
+    constrained_split(dev, flat_dec, clips, by_count, grammar, search_ms)
     conf_launches = {}
     for c in kernel_counters.values():
         c.launches = 0
@@ -3157,6 +3208,102 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     log("phase", which="22 search", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+def constrained_split(dev, dec, clips, by_count, grammar, search_ms):
+    """Phase 22's constrained decodes at 64 clips, their host wall split
+    into the decoder's parts (ContinuousDecoder._constrained, rebuilt here
+    with clocks; measurement only): pad and features' upload; host tables
+    (chain_grammar / duration_arrays, planes_tables / duration_tables with
+    routing_table); the tables' upload; emissions; the kernel and its walk;
+    the readback and path_to_labels; the unconstrained fallback of rows
+    with no admissible path. Device parts by CUDA events, host parts by the
+    host clock after a synchronize; best of three passes."""
+    from cs304_tpu_torch.data.batching import pad_batch
+    from cs304_tpu_torch.ops import viterbi_counted as tvc
+    from cs304_tpu_torch.ops import viterbi_duration as tvd
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
+
+    c = dec.composite
+    topo = (c.log_a, c.lower_of_state, c.is_entry, c.is_exit)
+    counted = c.word_of_state != (c._silence_word if c._silence_word is not None else -1)
+
+    def one(idx, kind):
+        """One _constrained call's parts (ms) for clips idx."""
+        parts = {}
+        feats = [clips[i] for i in idx]
+
+        def host(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        def device(name, fn):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + e0.elapsed_time(e1)
+            parts[name + " (host)"] = (parts.get(name + " (host)", 0.0)
+                                       + (time.perf_counter() - t0) * 1e3)
+            return out
+
+        padded = host("pad + features in", lambda: pad_batch([np.asarray(f) for f in feats], 128))
+        batch, lengths = host("pad + features in", lambda: dec._to_device(padded))
+        if kind == "duration":
+            mn, mx, dc = host("host tables", lambda: tvd.duration_arrays(c, 2))
+            ftab, ints = host("host tables", lambda: tcs.duration_tables(*topo, mn, mx))
+            tabs = host("tables upload", lambda: tcs._upload(
+                dev, ftab, ints, dc, 0, ((ints["itab"][0] & 3) == 3).any()))
+        else:
+            if kind == "grammar":
+                word, ns, acc = c.word_of_state, grammar.next_state, grammar.accept
+            else:
+                word, ns, acc = host("host tables", lambda: tvc.chain_grammar(counted, kind))
+            ftab, ints = host("host tables", lambda: tcs.planes_tables(*topo, word, ns, acc))
+            g = len(ints["accept"])
+            tabs = host("tables upload", lambda: tcs._upload(
+                dev, ftab, ints, g, (len(ints["route_off"]) - 1) // g))
+        log_b = device("emissions", lambda: dec._emissions(batch))
+        fwd = tcs.duration_forward if kind == "duration" else tcs.planes_forward
+        scores, paths = device("kernel + walk", lambda: fwd(log_b, tabs, c.penalty, lengths))
+
+        def readback():
+            sc, pa = scores.cpu().numpy(), paths.cpu().numpy()
+            return sc, [("".join(c.path_to_labels(pa[i, : padded.lengths[i]]))
+                         if np.isfinite(sc[i]) else None) for i in range(len(feats))]
+
+        sc, texts = host("readback + path_to_labels", readback)
+        missing = [feats[i] for i in range(len(feats)) if texts[i] is None]
+        if missing:
+            host("fallback (unconstrained)", lambda: dec.predict_batch(missing))
+        return parts
+
+    runs = {
+        "counted (64 clips, true counts)": [(idx, n) for n, idx in sorted(by_count.items())],
+        "duration (64 clips, min 2)": [(list(range(len(clips))), "duration")],
+        "grammar (64 clips, 6-string menu)": [(list(range(len(clips))), "grammar")],
+    }
+    for what, calls in runs.items():
+        best = None
+        for _ in range(3):
+            parts = {}
+            for idx, kind in calls:
+                for k, v in one(idx, kind).items():
+                    parts[k] = parts.get(k, 0.0) + v
+            if best is None or sum(v for k, v in parts.items() if "(host)" not in k) < sum(
+                    v for k, v in best.items() if "(host)" not in k):
+                best = parts
+        lead = max((k for k in best if "(host)" not in k), key=best.get)
+        log("split", run=what, wall_ms=search_ms.get(what), lead=repr(lead),
+            **{k.replace(" ", "_").replace("+", "and").replace("(", "").replace(")", ""): v
+               for k, v in best.items()})
+
+
 def planes_step_ops(ftab, ints):
     """The FP32 adds and compares one step of PLANES needs on its host
     tables (trellis_constrained.planes_tables), each counted once:
@@ -3202,12 +3349,14 @@ def constrained_bound(b, t, s, lengths, cells, ops_step):
     """bound() of one constrained decode: the live log_b rows in, scores
     and paths out, and ops_step operations (planes_step_ops /
     duration_step_ops) a live step at PEAK_FP32_ALU, the t = 0 seed and
-    the final left out; and the same with the int32 backpointers of every
-    live step written once (the kernels' own traffic)."""
+    the final left out; the same with one code byte a cell of every live
+    step written once (the team branches' traffic); and with the int32
+    backpointers instead (the simple branch's)."""
     live = int(lengths.clamp(min=1, max=t).sum().item())
     io = 4 * live * s + 4 * b * t + 4 * b
     ops = [((live - b) * ops_step, PEAK_FP32_ALU)]
-    return bound(io, ops), bound(io + 4 * (live - b) * cells, ops)
+    return (bound(io, ops), bound(io + (live - b) * cells, ops),
+            bound(io + 4 * (live - b) * cells, ops))
 
 
 def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
@@ -3272,7 +3421,11 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
                                                                           d_cap=dc),
                 lambda: tcs.duration_operands(*topo(comp), mn, mx, dc, dev), comp.penalty)
 
-    def check(name, spec, log_b, lengths, no_path_rows=False, walk="k2bt"):
+    def plan_of(key, tabs, t_k):
+        planes = key == "trellis_planes"
+        return (tcs.planes_plan if planes else tcs.duration_plan)(t_k, tabs.s, tabs.depth)
+
+    def check(name, spec, log_b, lengths, no_path_rows=False, branch="team", some_finite=True):
         key, cells, _ops, run, plain, tabs_fn, _pen = spec
         counter = tcs.planes_decode if key == "trellis_planes" else tcs.duration_decode
         before = (counter.launches, tsf.trellis_backtrace.launches)
@@ -3290,21 +3443,21 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
         e = (got[0] - want[0])[both].abs().max().item() if both.any() else 0.0
         err[key] = max(err[key], e)
         b_k, t_k, s_k = log_b.shape
-        took = "forward" if cells > tcs.k2bt_max_cells(dev) else "k2bt"
         tabs = tabs_fn()
-        alpha = "global" if (
-            tcs.planes_scratch_bytes(b_k, s_k, tabs.depth, tabs.words) if key == "trellis_planes"
-            else tcs.duration_scratch_bytes(b_k, s_k, tabs.depth)) else "shared"
-        log("constrained", case=name, kernel=key, B=b_k, T=t_k, S=s_k, cells=cells, walk=took,
-            alpha=alpha, launches=json.dumps(rose), equal=json.dumps(same),
+        plan = plan_of(key, tabs, t_k)
+        took = tcs.walk_of(key == "trellis_planes", tabs, t_k, dev)
+        log("constrained", case=name, kernel=key, branch=plan["branch"], B=b_k, T=t_k, S=s_k,
+            cells=cells, walk=took, codes=plan["codes"], K=plan["k"], warps=plan["warps"],
+            **({"ctas": plan["ctas"]} if "ctas" in plan else {"teams": plan["teams"]}),
+            threads=plan["threads"], launches=json.dumps(rose), equal=json.dumps(same),
             finite_rows=finite.float().mean().item(), no_path_rows=int((~finite).sum()),
             max_abs_err=e)
-        if not all(same.values()) or not finite.any():
+        if not all(same.values()) or (some_finite and not finite.any()):
             raise SystemExit(f"phase 30: {key} disagrees with its plain version ({name}), or "
                              f"its case compares -inf alone")
-        if rose != {"kernel": 1, "K2-bt": int(took == "k2bt")} or took != walk:
-            raise SystemExit(f"phase 30: case {name} launched {rose} and walked by {took}, "
-                             f"not by {walk}")
+        if rose != {"kernel": 1, "K2-bt": int(took == "k2bt")} or plan["branch"] != branch:
+            raise SystemExit(f"phase 30: case {name} launched {rose} on the {plan['branch']} "
+                             f"branch, walked by {took}, not the {branch} branch")
         if no_path_rows and finite.all():
             raise SystemExit(f"phase 30: case {name} has no row without an admissible path")
 
@@ -3371,9 +3524,32 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
     check("503-duration-min-3-max-6", duration(c503, 3, 6), lb503, len503, no_path_rows=True)
     lb5003 = 3 * torch.randn((2, 60, c5003.num_states), generator=gen, device=dev)
     len5003 = ragged(2, 60)
-    check("5003-counted-2", counted(c5003, 2), lb5003, len5003)
+    check("5003-counted-2", counted(c5003, 2), lb5003, len5003, branch="cluster")
     check("5003-duration-min-2", duration(c5003, 2), lb5003, len5003)
-    check("5003-duration-min-3-max-6", duration(c5003, 3, 6), lb5003, len5003, walk="forward")
+    # 30,018 cells: past K2-bt's rows the PR-19 forward walked; the team does.
+    check("5003-duration-min-3-max-6", duration(c5003, 3, 6), lb5003, len5003)
+    # The edges of the team branches: B = 1; T = 1 with a length-0 row; a
+    # length-0 row among ragged lengths; a cluster of two CTAs at 503 states
+    # (10 planes of 4 warps); 8 slots a state at 503 and 5003 states (the
+    # 5003-state slots in shared memory); more planes than a cross code
+    # names (65): the kept PR-19 kernel and K2-bt.
+    check("flagship-counted-2-B1", counted(flag, 2), lb58[:1], len58[:1])
+    len_t1 = torch.ones(16, dtype=torch.int32, device=dev)
+    len_t1[3] = 0
+    check("flagship-counted-1-T1", counted(flag, 1), lb58[:16, :1], len_t1, some_finite=False)
+    check("flagship-duration-min-2-T1", duration(flag, 2), lb58[:16, :1], len_t1,
+          some_finite=False)
+    len_zero = len58.clone()
+    len_zero[2] = 0
+    check("flagship-counted-3-zero-row", counted(flag, 3), lb58, len_zero, no_path_rows=True)
+    check("flagship-duration-min-2-zero-row", duration(flag, 2), lb58, len_zero,
+          no_path_rows=True)
+    check("503-counted-9-cluster", counted(c503, 9), lb503[:4], len503[:4], branch="cluster")
+    check("503-duration-min-3-max-8", duration(c503, 3, 8), lb503, len503, no_path_rows=True)
+    check("5003-duration-min-3-max-8", duration(c5003, 3, 8), lb5003, len5003)
+    check("5003-counted-3-B1", counted(c5003, 3), lb5003[:1], len5003[:1], branch="cluster")
+    check("flagship-count-range-1-64-simple", counted(flag, 64, 1), lb58[:16], len58[:16],
+          branch="simple")
 
     # -- timing: device time on tables built once, beside the plain loop -----
     lb64, len64 = lb3[:64, :, :s58], decode["n_frames"][:64]
@@ -3401,16 +3577,32 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
         ("trellis_duration", "5003 states min 2 (D=2), B=2, T=60", duration(c5003, 2), lb5003,
          len5003),
     )
+    # Each row in turns, the PR-19 kernel (the simple branch, forced: its
+    # forward and K2-bt or its own walk) and the team branch, a n n a.
     for key, shape, (_k, cells, per_step, _run, plain, tabs_fn, pen), lb, ln in rows:
         tabs = tabs_fn()
-        fwd = tcs.planes_forward if key == "trellis_planes" else tcs.duration_forward
-        ms = device_ms(lambda: fwd(lb, tabs, pen, ln), reps=5)
-        plain_ms = cuda_ms(lambda: plain(lb, ln), reps=2)
+        planes = key == "trellis_planes"
         b_k, t_k, s_k = lb.shape
-        (b_ms, b_by), (bp_ms, _by) = constrained_bound(b_k, t_k, s_k, ln, cells, per_step)
-        log("timing", kernel=key, shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, bound_with_backpointers_ms=bp_ms,
-            us_per_step=ms / (int(ln.clamp(max=t_k).max()) - 1) * 1e3)
+
+        def fwd(simple):
+            return lambda: tcs.forward_branch(planes, lb, tabs, pen, ln, simple=simple)
+
+        turns = [device_ms(fwd(simple), reps=5) for simple in (True, False, False, True)]
+        ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = cuda_ms(lambda: plain(lb, ln), reps=2)
+        (b_ms, b_by), (bc_ms, _by), (bp_ms, _by) = constrained_bound(b_k, t_k, s_k, ln, cells,
+                                                                      per_step)
+        plan = plan_of(key, tabs, t_k)
+        res = constrained_resources(key, plan, tabs, pen)
+        steps = int(ln.clamp(max=t_k).max()) - 1
+        log("timing", kernel=key, shape=shape, branch=plan["branch"], ms=ms,
+            ms_turns=json.dumps([turns[1], turns[2]]), parent_ms=parent_ms,
+            parent_turns=json.dumps([turns[0], turns[3]]), plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bound_with_codes_ms=bc_ms, bound_with_backpointers_ms=bp_ms,
+            us_per_step=ms / steps * 1e3, parent_us_per_step=parent_ms / steps * 1e3,
+            slower_than_parent=min(turns[1:3]) > max(turns[0], turns[3]),
+            **{f"team_{k}": v for k, v in res["team"].items()},
+            **{f"parent_{k}": v for k, v in res["simple"].items()})
         if key not in timings:  # the first row of each kernel is its record
             timings[key] = (ms, plain_ms)
             yardsticks[key] = (None, b_ms, b_by)
@@ -4528,17 +4720,20 @@ def cli_phase(dev, card):
             label="transcribe_confidence_timings")
         run("transcribe", base + ["--beam", "50"], ["K2-beam"], label="transcribe_beam")
         # Device parity: the plain decode and each constrained one
-        # (counted, grammar, duration: the PLANES or DURATION kernel and
-        # K2-bt on the card) with --device cpu on the same WAVs print the
-        # card's transcripts and touch the card nowhere.
+        # (counted, grammar, duration: the PLANES or DURATION kernel on the
+        # card, which walks its own path: no K2-bt) with --device cpu on the
+        # same WAVs print the card's transcripts and touch the card nowhere.
         grammar = ",".join(s[0] for s in CLI_SENTENCES)
         for what, opts, need in (
-                ("", [], []), ("_known_count", ["--known-count", "3"], ["PLANES", "K2-bt"]),
-                ("_grammar", ["--grammar-strings", grammar], ["PLANES", "K2-bt"]),
-                ("_min_duration", ["--min-duration", "2"], ["DURATION", "K2-bt"])):
+                ("", [], []), ("_known_count", ["--known-count", "3"], ["PLANES"]),
+                ("_grammar", ["--grammar-strings", grammar], ["PLANES"]),
+                ("_min_duration", ["--min-duration", "2"], ["DURATION"])):
             on_card = texts
             if opts:
-                out, _ = run("transcribe", base + opts, need, label=f"transcribe{what}")
+                out, rose = run("transcribe", base + opts, need, label=f"transcribe{what}")
+                if rose["K2-bt"]:
+                    raise SystemExit(f"phase 28: transcribe{what} launched K2-bt where its "
+                                     f"kernel walks: {rose}")
                 on_card = transcripts_of(out)
             allocations = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
             out_cpu, rose = run("transcribe", base + opts + ["--device", "cpu"], [],

@@ -14,11 +14,14 @@ kernels (csrc/trellis_constrained.cu) and their host tables.
 
 Each wrapper builds its tables on the host once a call (stay and advance
 coefficients from the composite's band, the routing table, the duration
-masks), uploads them in one float and one int32 buffer, launches the
-forward (scores, packed start cells, int32 backpointers over the cells),
-and walks the backpointers with K2-bt (trellis_scanfree.trellis_backtrace)
-with cells in place of states; past the widest row K2-bt stages
-(k2bt_max_cells, which the library reports) the forward walks them itself.
+masks), uploads them in one float and one int32 buffer and launches the
+kernel once: its team branches (planes_plan / duration_plan) write one
+byte a (step, cell) and walk them back in the same launch, returning scores
+and paths. Shapes past the teams (planes_plan's and duration_plan's
+"simple" branch) take the plane-product / duration-lattice kernel of int32
+backpointers over the cells, walked by K2-bt
+(trellis_scanfree.trellis_backtrace), or past the widest row K2-bt stages
+(k2bt_max_cells, which the library reports) by that forward itself.
 Scores are bitwise the plain version's, paths wherever the score is finite
 (ROADMAP W3: at -inf cells the plain argmax points at index 0). The
 wrappers take CUDA tensors only: the dispatchers in ops/viterbi_counted,
@@ -40,9 +43,9 @@ from .trellis_scanfree import trellis_backtrace
 UNBOUNDED = np.int32(2**30)  # max_dur sentinel: no upper duration limit
 
 __all__ = ["UNBOUNDED", "DeviceTables", "duration_decode", "duration_forward",
-           "duration_operands", "duration_tables", "k2bt_max_cells", "planes_decode",
-           "planes_forward", "planes_operands", "planes_tables", "routing_table",
-           "stay_coefs"]
+           "duration_operands", "duration_plan", "duration_tables", "forward_branch",
+           "k2bt_max_cells", "planes_decode", "planes_forward", "planes_operands",
+           "planes_plan", "planes_tables", "routing_table", "stay_coefs", "walk_of"]
 
 
 def _host(x, dtype=None):
@@ -187,7 +190,8 @@ class DeviceTables:
     """A kernel's host tables on the card: the float buffer ftab, the int32
     buffer ints and each int piece's address in it (ptrs), for S states
     and ``depth`` planes (PLANES: G, with W words) or slots (DURATION: D,
-    W = 0)."""
+    W = 0); entry_exit: some entry state is also an exit (DURATION's team
+    then keeps the best two exit sums a step)."""
     ftab: torch.Tensor
     ints: torch.Tensor
     ptrs: dict
@@ -195,9 +199,10 @@ class DeviceTables:
     depth: int
     words: int
     n_exit: int
+    entry_exit: bool = False
 
 
-def _upload(dev, ftab, ints, depth, words):
+def _upload(dev, ftab, ints, depth, words, entry_exit=False):
     """One float and one int32 buffer on dev -> DeviceTables."""
     ftab_d = torch.as_tensor(np.ascontiguousarray(ftab, np.float32)).to(dev)
     flat = np.concatenate([np.ravel(v).astype(np.int32) for v in ints.values()] +
@@ -207,7 +212,8 @@ def _upload(dev, ftab, ints, depth, words):
     for name, v in ints.items():
         ptrs[name] = ints_d.data_ptr() + 4 * off
         off += np.size(v)
-    return DeviceTables(ftab_d, ints_d, ptrs, ftab.shape[1], depth, words, len(ints["exits"]))
+    return DeviceTables(ftab_d, ints_d, ptrs, ftab.shape[1], depth, words, len(ints["exits"]),
+                        bool(entry_exit))
 
 
 def planes_operands(log_a, lower_of_state, is_entry, is_exit, word_of_state, next_state,
@@ -225,20 +231,55 @@ def duration_operands(log_a, lower_of_state, is_entry, is_exit, min_dur, max_dur
     if int(d_cap) < 1:
         raise ValueError(f"d_cap must be >= 1, got {d_cap}")
     ftab, ints = duration_tables(log_a, lower_of_state, is_entry, is_exit, min_dur, max_dur)
-    return _upload(torch.device(device), ftab, ints, int(d_cap), 0)
+    return _upload(torch.device(device), ftab, ints, int(d_cap), 0,
+                   ((ints["itab"][0] & 3) == 3).any())
+
+
+BRANCHES = ("team", "cluster", "simple")
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(planes: bool, t: int, s: int, depth: int, stage: int) -> dict:
+    out = (ctypes.c_int * 7)()
+    lib = _build.load()
+    fn = lib.cs304_trellis_planes_plan if planes else lib.cs304_trellis_duration_plan
+    _build.check(fn(t, s, depth, stage, out), fn.__name__)
+    return {"branch": BRANCHES[out[0]], "codes": "shared" if out[1] else "global",
+            "k": out[2], "warps": out[3], ("ctas" if planes else "teams"): out[4],
+            "threads": out[5], "stage_rows": out[6]}
+
+
+def planes_plan(t: int, s: int, g: int, stage: int = -1) -> dict:
+    """PLANES' launch plan at T steps, S states and G planes: the branch
+    ("team": one CTA an utterance; "cluster": a cluster of CTAs; "simple":
+    the plane-product kernel of int32 backpointers and K2-bt, for G > 64,
+    S > 32,767 or planes past what eight CTAs hold), where its codes live,
+    states a lane, warps a plane, CTAs an utterance, threads a CTA, and the
+    rows of global codes the walk stages at a time in shared memory (stage:
+    -1 the plan's choice, 0 none, 1 where they fit)."""
+    return _plan(True, t, s, g, stage)
+
+
+def duration_plan(t: int, s: int, d: int, stage: int = -1) -> dict:
+    """DURATION's launch plan at T steps, S states and D slots: the branch
+    ("team", or "simple" past 8 slots or 20 warps of 8 states), where its
+    codes live, states a lane, warps a team, teams a block, threads a
+    block, and the rows the walk stages (as planes_plan)."""
+    return _plan(False, t, s, d, stage)
 
 
 @functools.lru_cache(maxsize=64)
-def planes_scratch_bytes(b: int, s: int, g: int, w: int) -> int:
+def planes_scratch_bytes(b: int, t: int, s: int, g: int, w: int, simple: bool = False) -> int:
     """Bytes of global scratch a PLANES launch needs at this shape: 0 where
-    its alpha buffers and step tables fit in shared memory."""
-    return int(_build.load().cs304_trellis_planes_scratch_bytes(b, s, g, w))
+    the team's codes (the simple branch's alpha buffers and step tables)
+    fit in shared memory."""
+    return int(_build.load().cs304_trellis_planes_scratch_bytes(b, t, s, g, w, int(simple)))
 
 
 @functools.lru_cache(maxsize=64)
-def duration_scratch_bytes(b: int, s: int, d: int) -> int:
+def duration_scratch_bytes(b: int, t: int, s: int, d: int, simple: bool = False) -> int:
     """planes_scratch_bytes for the DURATION kernel."""
-    return int(_build.load().cs304_trellis_duration_scratch_bytes(b, s, d))
+    return int(_build.load().cs304_trellis_duration_scratch_bytes(b, t, s, d, int(simple)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -253,14 +294,29 @@ def _k2bt_max_states(index: int) -> int:
 def k2bt_max_cells(device) -> int:
     """The widest row of int32 backpointers K2-bt walks on device (its two
     tile buffers in the shared memory a block may opt into there); past it
-    the forward walks the path itself."""
+    the simple branch's forward walks the path itself."""
     index = torch.device(device).index
     return _k2bt_max_states(torch.cuda.current_device() if index is None else index)
 
 
-def _forward(planes, log_b, tabs, penalty, lengths, quirk):
-    """One launch of PLANES (planes=True) or DURATION on tabs, then the walk
-    -> (scores (B,), packed cell paths (B, T) int32)."""
+def walk_of(planes: bool, tabs, t: int, device) -> str:
+    """Who walks a decode's path: "kernel" (the team branches walk their
+    codes), "k2bt" or "forward" (the simple branch: K2-bt over its int32
+    backpointers, or its forward past K2-bt's widest row)."""
+    plan = (planes_plan if planes else duration_plan)(t, tabs.s, tabs.depth)
+    if plan["branch"] != "simple":
+        return "kernel"
+    return "forward" if tabs.s * tabs.depth > k2bt_max_cells(device) else "k2bt"
+
+
+def forward_branch(planes, log_b, tabs, penalty, lengths, quirk=True, simple=False,
+                   stage=-1):
+    """One launch of PLANES (planes=True) or DURATION on tabs -> (scores
+    (B,), paths (B, T) int32 states). The team branches walk their codes in
+    the launch; the simple branch (its plan's, or forced by simple=True, as
+    a timing compares the two) writes int32 backpointers over the cells and
+    walks them with K2-bt, or in its forward past K2-bt's widest row.
+    stage: as planes_plan's, for a timing of the walk's two forms."""
     log_b, b, t_total, s, ld = _rows(log_b)
     if tabs.s != s or tabs.ftab.device != log_b.device:
         raise ValueError(f"tables for {tabs.s} states on {tabs.ftab.device}, log_b for {s} "
@@ -269,19 +325,41 @@ def _forward(planes, log_b, tabs, penalty, lengths, quirk):
     lengths = torch.as_tensor(lengths, device=dev).to(torch.int32).contiguous()
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} vs batch {b}")
-    cells = s * tabs.depth
+    plan = (planes_plan if planes else duration_plan)(t_total, s, tabs.depth, stage)
+    simple = simple or plan["branch"] == "simple"
     lib = _build.load()
     scores = torch.empty((b,), dtype=torch.float32, device=dev)
+    n_scratch = (planes_scratch_bytes(b, t_total, s, tabs.depth, tabs.words, simple) if planes
+                 else duration_scratch_bytes(b, t_total, s, tabs.depth, simple))
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev) if n_scratch else None
+    p = tabs.ptrs
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    fn = planes_decode if planes else duration_decode
+    if not simple:
+        paths = torch.empty((b, t_total), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            if planes:
+                code = lib.cs304_trellis_planes_team(
+                    log_b.data_ptr(), lengths.data_ptr(), tabs.ftab.data_ptr(), p["itab"],
+                    p["exits"], p["route_off"], p["route_src"], p["accept"], float(penalty),
+                    b, t_total, s, ld, tabs.depth, tabs.words, tabs.n_exit, scores.data_ptr(),
+                    paths.data_ptr(), int(quirk), ptr(scratch), int(stage), stream)
+            else:
+                code = lib.cs304_trellis_duration_team(
+                    log_b.data_ptr(), lengths.data_ptr(), tabs.ftab.data_ptr(), p["itab"],
+                    float(penalty), b, t_total, s, ld, tabs.depth, int(tabs.entry_exit),
+                    scores.data_ptr(), paths.data_ptr(), int(quirk), ptr(scratch), int(stage),
+                    stream)
+        _build.check(code, fn.__name__)
+        fn.launches += 1
+        return scores, paths
+    cells = s * tabs.depth
     start = torch.empty((b,), dtype=torch.int32, device=dev)
     bps = torch.empty((b, t_total, cells), dtype=torch.int32, device=dev)
     # Past K2-bt's widest row the forward walks the path itself.
     path = (torch.empty((b, t_total), dtype=torch.int32, device=dev)
             if cells > k2bt_max_cells(dev) else None)
-    n_scratch = (planes_scratch_bytes(b, s, tabs.depth, tabs.words) if planes
-                 else duration_scratch_bytes(b, s, tabs.depth))
-    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev) if n_scratch else None
-    p = tabs.ptrs
-    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if planes:
@@ -296,25 +374,22 @@ def _forward(planes, log_b, tabs, penalty, lengths, quirk):
                 p["exits"], float(penalty), b, t_total, s, ld, tabs.depth, tabs.n_exit,
                 scores.data_ptr(), start.data_ptr(), bps.data_ptr(), ptr(path), int(quirk),
                 ptr(scratch), stream)
-    fn = planes_decode if planes else duration_decode
     _build.check(code, fn.__name__)
     fn.launches += 1
     if path is None:
         path = trellis_backtrace(bps, start, lengths, quirk)
-    return scores, path
+    return scores, (path % s if planes else torch.div(path, tabs.depth, rounding_mode="floor"))
 
 
 def planes_forward(log_b, tabs, penalty, lengths, quirk_backtrace: bool = True):
-    """The PLANES kernel and K2-bt on planes_operands' tables: log_b
-    (B, T, S) float32 on the card -> (scores (B,), paths (B, T) int32)."""
-    scores, cells = _forward(True, log_b, tabs, penalty, lengths, quirk_backtrace)
-    return scores, cells % tabs.s
+    """The PLANES kernel on planes_operands' tables: log_b (B, T, S) float32
+    on the card -> (scores (B,), paths (B, T) int32)."""
+    return forward_branch(True, log_b, tabs, penalty, lengths, quirk_backtrace)
 
 
 def duration_forward(log_b, tabs, penalty, lengths, quirk_backtrace: bool = True):
-    """The DURATION kernel and K2-bt on duration_operands' tables."""
-    scores, cells = _forward(False, log_b, tabs, penalty, lengths, quirk_backtrace)
-    return scores, torch.div(cells, tabs.depth, rounding_mode="floor")
+    """The DURATION kernel on duration_operands' tables."""
+    return forward_branch(False, log_b, tabs, penalty, lengths, quirk_backtrace)
 
 
 def planes_decode(log_b, log_a, lower_of_state, is_entry, is_exit, word_of_state,
@@ -322,7 +397,8 @@ def planes_decode(log_b, log_a, lower_of_state, is_entry, is_exit, word_of_state
     """Grammar (and counted) decoding: viterbi_composite_grammar_batch's
     arguments, log_b on the card -> (scores (B,) float32, paths (B, T)
     int32): one launch of the PLANES kernel (counted in
-    planes_decode.launches) and one of K2-bt."""
+    planes_decode.launches), which walks the path itself (the simple
+    branch: and one of K2-bt)."""
     _need_cuda(log_b)
     tabs = planes_operands(log_a, lower_of_state, is_entry, is_exit, word_of_state,
                            next_state, accept, log_b.device)
@@ -336,8 +412,8 @@ def duration_decode(log_b, log_a, lower_of_state, is_entry, is_exit, penalty, mi
                     max_dur, lengths, d_cap: int = 8, quirk_backtrace: bool = True):
     """Duration decoding: viterbi_composite_duration_batch's arguments ->
     (scores (B,) float32, paths (B, T) int32), log_b on the card: one launch
-    of the DURATION kernel (counted in duration_decode.launches) and one of
-    K2-bt."""
+    of the DURATION kernel (counted in duration_decode.launches), which
+    walks the path itself (the simple branch: and one of K2-bt)."""
     _need_cuda(log_b)
     tabs = duration_operands(log_a, lower_of_state, is_entry, is_exit, min_dur, max_dur,
                              d_cap, log_b.device)

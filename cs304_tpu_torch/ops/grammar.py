@@ -10,9 +10,10 @@ Silence is grammar-transparent (its column is the identity). Entry seeding,
 the exits-over-self-loop tie order and the backtrace quirk follow
 ops/viterbi.py; every argmax is a first max. WordDFA and its builders are
 NumPy, copied. On a CUDA log_b the trellis is one launch of the PLANES
-kernel (ops/cuda/trellis_constrained.planes_decode) and one of K2-bt; its
-plain version, viterbi_composite_grammar_batch_plain, advances a batch
-(B, G, S) by a Python loop over T, for the CPU and the tests.
+kernel (ops/cuda/trellis_constrained.planes_decode), which walks its own
+path (past its team branches: and one of K2-bt); its plain version,
+viterbi_composite_grammar_batch_plain, advances a batch (B, G, S) by a
+Python loop over T, for the CPU and the tests.
 """
 from __future__ import annotations
 

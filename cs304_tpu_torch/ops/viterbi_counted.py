@@ -16,9 +16,10 @@ first max (torch's max over a dim), as jnp.argmax.
 
 Counted decoding is grammar decoding under the chain automaton
 (chain_grammar): on a CUDA log_b it is one launch of the PLANES kernel
-(ops/cuda/trellis_constrained.planes_decode) and one of K2-bt. Its plain
-version, viterbi_composite_counted_batch_plain, advances the batch as one
-tensor (B, N + 1, S) by a Python loop over T; the CPU and the tests run it.
+(ops/cuda/trellis_constrained.planes_decode), which walks its own path
+(past its team branches: and one of K2-bt). Its plain version,
+viterbi_composite_counted_batch_plain, advances the batch as one tensor
+(B, N + 1, S) by a Python loop over T; the CPU and the tests run it.
 """
 from __future__ import annotations
 

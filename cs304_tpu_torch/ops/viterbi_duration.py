@@ -12,11 +12,13 @@ trellis composed with per-state duration counters,
 
 M is the composite transition rule without its diagonal. min_dur = 1 and an
 unbounded max_dur reproduce the unconstrained dense decode. Backpointers
-pack (state, duration) into one int32; every argmax is a first max. On a
+pack (state, duration) into one int32 (the kernel's team branch: one byte
+a cell); every argmax is a first max. On a
 CUDA log_b the lattice is one launch of the DURATION kernel
-(ops/cuda/trellis_constrained.duration_decode) and one of K2-bt; its plain
-version, viterbi_composite_duration_batch_plain, advances a batch
-(B, S, D) by a Python loop over T, for the CPU and the tests.
+(ops/cuda/trellis_constrained.duration_decode), which walks its own path
+(past its team branches: and one of K2-bt); its plain version,
+viterbi_composite_duration_batch_plain, advances a batch (B, S, D) by a
+Python loop over T, for the CPU and the tests.
 
 A repeated single-state word (exit == entry) cannot be expressed and is
 rejected by duration_arrays.

@@ -9,15 +9,19 @@ the CPU through their host tables and their step order.
   planes the plain grammar trellis's ``route`` selects, for WordDFA's
   builders; the stay and advance coefficients are the plain versions'
   transition matrices on their band.
-- The kernels' step order, emulated in numpy float32 on those tables
-  (PLANES: each plane's best exit, each (plane, word)'s best source plane
-  with the penalty added after the max, stay against cross with the exit
-  winning ties; DURATION: each state's best completed slot, the advance
-  comparing sums, the stay shift with its saturation), walked as K2-bt
-  walks: bitwise the plain versions in scores and in the paths of every
-  finite row, on random composites (a one-state word included) with
-  tie-heavy emissions, ragged lengths, rows with no admissible path and a
-  penalty large enough that a + p == b + p for a != b.
+- The team kernels' step order, emulated in numpy float32 on those tables
+  (PLANES: each warp's best exit, one barrier, then each entry's cross
+  move over its source planes' folded partials with the penalty added
+  after the max, stay against cross with the exit winning ties; DURATION:
+  inside the lane each state's best completed slot, the stay shift with
+  its saturation and the best two exit sums, then the advance comparing
+  sums, an entry that is an exit taking the second best where the best is
+  its own), one code byte a cell and the per-step best exits walked back
+  with K2-bt's semantics: bitwise the plain versions in scores and in the
+  paths of every finite row, on random composites (a one-state word
+  included) with tie-heavy emissions, ragged lengths, rows with no
+  admissible path, a penalty large enough that a + p == b + p for a != b,
+  and a path through the second-best exit.
 
 The JAX package is these searches' oracle in tests/test_torch_constrained.py;
 the kernels themselves run in tests/test_torch_cuda_kernels.py on the card.
@@ -62,6 +66,9 @@ COMPOSITES = {
     "one-state-word": lambda: _composite(1, states=(3, 1, 4, 2)),
     "huge-penalty": lambda: _composite(2, penalty=-3e9),
     "flagship": flagship_composite,
+    # 302 states: four states a lane, a plane of three warps.
+    "wide": lambda: _composite(3, labels=tuple(str(i) for i in range(30)) + ("S",),
+                               states=(10,) * 30 + (2,)),
 }
 
 
@@ -173,22 +180,25 @@ def test_coefficients_are_the_plain_matrices_on_their_band(name):
 
 
 # -- the kernels' step order --------------------------------------------------
-def _walk(bps, length, start, quirk):
-    """K2-bt's walk over one utterance's rows (T, cells)."""
-    t_total = bps.shape[0]
-    p = np.full(t_total, start, np.int64)
-    state, at_second = start, start
-    second = min(max(length - 2, 0), t_total - 1)
-    for t in range(min(length, t_total) - 1, 0, -1):
-        p[t] = state
+BIG = np.iinfo(np.int64).max
+
+
+def _walk_codes(t_n, length, steps, start, quirk, prev, state_of):
+    """The team kernels' walk (csrc/trellis_constrained.cu:walk_codes, K2-bt's
+    semantics and quirk): prev(t, cell) steps back from row t."""
+    p = np.full(t_n, state_of(start), np.int64)
+    second = min(max(length - 2, 0), t_n - 1)
+    cell, at_second = start, state_of(start)
+    for t in range(steps - 1, 0, -1):
+        p[t] = state_of(cell)
         if t == second:
-            at_second = state
-        state = int(bps[t, state])
-    p[0] = state
+            at_second = p[t]
+        cell = prev(t, cell)
+    p[0] = state_of(cell)
     if second == 0:
-        at_second = state
+        at_second = p[0]
     last = max(length - 1, 0)
-    if quirk and last < t_total:
+    if quirk and last < t_n:
         p[last] = at_second
     return p
 
@@ -197,125 +207,178 @@ def _better(v, i, bv, bi):
     return v > bv or (v == bv and i < bi)
 
 
+def _first_best(vals, idx):
+    """better()'s winner over (vals, idx) pairs given in ascending idx: the
+    max, the lowest index holding it, that index's own value (its sign of
+    zero); (-inf, BIG) for none."""
+    if len(vals) == 0:
+        return NEG, BIG
+    at = int(np.argmax(vals == vals.max()))
+    return vals[at], int(idx[at])
+
+
+def _lane_states(s):
+    return 2 if s <= 64 else (4 if s <= 2048 else 8)
+
+
 def emulate_planes(log_b, lengths, ftab, tab, penalty, quirk=True):
-    """The PLANES kernel, step by step, in numpy float32."""
+    """The PLANES team kernel, step by step, in numpy float32: each warp's
+    best exit over its 32 K states of a plane (the per-warp partials), ONE
+    barrier, then each cell's stay (j-2, j-1, j; a strict > from -inf) and
+    each entry's cross move over its (plane, word)'s source planes in
+    ascending order (each source's best exit folded from its warps'
+    partials, a strict > on the raw maxima, the penalty after), the exit
+    winning a tie; one code byte a cell (0-2 the stay from j - c, 3 | g' << 2
+    the cross) and one int16 best exit a plane a step, walked back."""
     word, seed = tab["itab"]
     exits, off, src, acc = tab["exits"], tab["route_off"], tab["route_src"], tab["accept"]
     g_n, (b_n, t_n, s) = len(acc), log_b.shape
     w_n = (len(off) - 1) // g_n
     c2, c1, c0, a0 = ftab
     pen = F32(penalty)
+    span = 32 * _lane_states(s)
+    wp = -(-s // span)
+    warp_exits = [exits[(exits >= w * span) & (exits < (w + 1) * span)] for w in range(wp)]
+    sources = [src[off[p]: off[p + 1]] for p in range(g_n * w_n)]
     j = np.arange(s)
+    ent = word >= 0
     scores, paths = np.zeros(b_n, F32), np.zeros((b_n, t_n), np.int64)
     for b in range(b_n):
         alpha = np.where(seed[None, :] == np.arange(g_n)[:, None], log_b[b, 0] + a0, NEG)
-        bps = np.zeros((t_n, g_n * s), np.int64)
-        for t in range(1, min(lengths[b], t_n)):
-            # A: each plane's best exit, the lowest exit index.
-            be_val, be_idx = np.full(g_n, NEG), np.zeros(g_n, np.int64)
+        steps = min(max(int(lengths[b]), 1), t_n)
+        codes = np.zeros((t_n, g_n, s), np.int64)
+        bex = np.zeros((t_n, g_n), np.int64)
+
+        def plane_best():
+            """Each warp's partial, then each plane's fold of its warps'."""
+            out = []
             for g in range(g_n):
-                bv, bi = NEG, np.iinfo(np.int64).max
-                for x in exits:
-                    if _better(alpha[g, x], x, bv, bi):
-                        bv, bi = alpha[g, x], x
-                be_val[g], be_idx[g] = bv, (0 if bi == np.iinfo(np.int64).max else bi)
-            # B: the best source plane (raw maxima), then the penalty.
-            cross_val, cross_cell = np.zeros(g_n * w_n, F32), np.zeros(g_n * w_n, np.int64)
-            for p in range(g_n * w_n):
-                best, sp = NEG, 0
-                for g2 in src[off[p]: off[p + 1]]:
-                    if be_val[g2] > best:
-                        best, sp = be_val[g2], g2
-                cross_val[p], cross_cell[p] = best + pen, sp * s + be_idx[sp]
-            # C: stay (j-2, j-1, j; a strict > from -inf) against cross.
+                parts = [_first_best(alpha[g, xs], xs) for xs in warp_exits]
+                out.append(_first_best(np.asarray([v for v, _i in parts], F32),
+                                       np.asarray([i for _v, i in parts])))
+            return out
+
+        for t in range(1, steps):
+            best = plane_best()  # published before the barrier
+            bex[t] = [i if v > NEG else 0 for v, i in best]
             stay = np.full((g_n, s), NEG)
-            si = np.broadcast_to(j, (g_n, s)).copy()
+            code = np.zeros((g_n, s), np.int64)
             for k, coef in ((2, c2), (1, c1), (0, c0)):
                 prev = np.full((g_n, s), NEG)
                 prev[:, k:] = alpha[:, : s - k]
                 v = prev + coef
                 take = v > stay
-                stay, si = np.where(take, v, stay), np.where(take, j - k, si)
-            frm = np.arange(g_n)[:, None] * s + si
-            m = stay.copy()
-            ent = word >= 0
-            key = np.arange(g_n)[:, None] * w_n + np.where(ent, word, 0)[None, :]
-            cross = cross_val[key]
-            use = ent[None, :] & (cross >= stay)
-            frm = np.where(use, cross_cell[key], frm)
-            m = np.where(ent[None, :], np.maximum(stay, cross), m)
-            alpha = (m + log_b[b, t]).astype(F32)
-            bps[t] = frm.ravel()
-        bv, bi = NEG, np.iinfo(np.int64).max
-        for g in np.nonzero(acc)[0]:
-            for x in exits:
-                if _better(alpha[g, x], g * s + x, bv, bi):
-                    bv, bi = alpha[g, x], g * s + x
-        bi = 0 if bi == np.iinfo(np.int64).max else bi
+                stay, code = np.where(take, v, stay), np.where(take, k, code)
+            new = stay.copy()
+            for g in range(g_n):
+                for jj in np.nonzero(ent)[0]:
+                    bv, sp = NEG, 0
+                    for g2 in sources[g * w_n + word[jj]]:
+                        if best[g2][0] > bv:
+                            bv, sp = best[g2][0], g2
+                    cross = F32(bv + pen)
+                    if cross >= stay[g, jj]:
+                        code[g, jj] = 3 | (sp << 2)
+                    new[g, jj] = np.maximum(stay[g, jj], cross)
+            alpha = (new + log_b[b, t]).astype(F32)
+            codes[t] = code
+        bv, cell = NEG, BIG
+        for g, (v, i) in enumerate(plane_best()):
+            if acc[g] and i != BIG and _better(v, g * s + i, bv, cell):
+                bv, cell = v, g * s + i
         scores[b] = bv
-        paths[b] = _walk(bps, int(lengths[b]), int(bi), quirk) % s
+
+        def prev(t, c):
+            g, jj = divmod(c, s)
+            k = codes[t, g, jj]
+            if k & 3 == 3:
+                return (k >> 2) * s + bex[t, k >> 2]
+            return g * s + max(jj - (k & 3), 0)
+
+        paths[b] = _walk_codes(t_n, int(lengths[b]), steps, 0 if cell == BIG else cell, quirk,
+                               prev, lambda c: c % s)
     return scores, paths
 
 
-def emulate_duration(log_b, lengths, ftab, tab, penalty, d_n, quirk=True):
-    """The DURATION kernel, step by step, in numpy float32."""
+def emulate_duration(log_b, lengths, ftab, tab, penalty, d_n, quirk=True, walked=None):
+    """The DURATION team kernel, step by step, in numpy float32: inside each
+    lane each state's best completed slot, the stay shift of slots >= 1 and
+    the best exit sums, the best two where an entry is also an exit; after
+    the barrier slot 0 (an entry the best exit sum, an entry that is an exit
+    the second best where the best is its own; a non-entry the advance from
+    j-2, then j-1, sums compared); one code byte a cell (d >= 1: 0 the
+    shift, 1 the saturated stay; d = 0: kind | slot << 3, kind 1 / 2 the
+    advance from j - kind, 3 / 4 the best / second-best exit cell of the
+    step's two), walked back. walked, a list, collects the codes the walks
+    read."""
     flags, min_dur, max_dur = tab["itab"]
     exits = tab["exits"]
     m2, m1, diag, a0 = ftab
     pen = F32(penalty)
     b_n, t_n, s = log_b.shape
-    big = np.iinfo(np.int64).max
+    two = bool(((flags & 3) == 3).any())
     scores, paths = np.zeros(b_n, F32), np.zeros((b_n, t_n), np.int64)
     for b in range(b_n):
         alpha = np.full((s, d_n), NEG)
         alpha[:, 0] = np.where(flags & 1, log_b[b, 0] + a0, NEG)
-        bps = np.zeros((t_n, s * d_n), np.int64)
-        for t in range(1, min(lengths[b], t_n)):
-            # A: each state's best completed slot; the best exit sum.
+        steps = min(max(int(lengths[b]), 1), t_n)
+        codes = np.zeros((t_n, s, d_n), np.int64)
+        bex = np.zeros((t_n, 2), np.int64)
+        for t in range(1, steps):
+            # Inside the lane: best completed slots, stays, exit sums.
             bc_val, bc_d = np.full(s, NEG), np.zeros(s, np.int64)
-            ev, ei = NEG, big
+            new = np.full((s, d_n), NEG)
             for st in range(s):
                 for d in range(max(min_dur[st] - 1, 0), d_n):
                     if alpha[st, d] > bc_val[st]:
                         bc_val[st], bc_d[st] = alpha[st, d], d
-                if flags[st] & 2 and _better(bc_val[st] + pen, st, ev, ei):
-                    ev, ei = bc_val[st] + pen, st
-            ei = 0 if ei == big else ei
-            new = np.full((s, d_n), NEG)
-            frm = np.zeros((s, d_n), np.int64)
-            for st in range(s):
-                # Slot 0: the advance, sums compared.
-                best, sp = NEG, 0
-                if flags[st] & 3 == 1:
-                    best, sp = ev, ei
-                elif flags[st] & 1:
-                    for x in exits:
-                        if x != st and bc_val[x] + pen > best:
-                            best, sp = bc_val[x] + pen, x
-                else:
-                    for k, coef in ((2, m2), (1, m1)):
-                        if st >= k and bc_val[st - k] + coef[st] > best:
-                            best, sp = bc_val[st - k] + coef[st], st - k
-                new[st, 0], frm[st, 0] = best, sp * d_n + bc_d[sp]
-                # Slots >= 1: the stay shift, saturating when unbounded.
                 for d in range(1, d_n):
-                    sh, f = alpha[st, d - 1], st * d_n + d - 1
+                    sh = alpha[st, d - 1]
                     if d == d_n - 1 and flags[st] & 4:
-                        sat = alpha[st, d]
-                        sh = np.maximum(sh, sat)
-                        f = st * d_n + d if sat > alpha[st, d - 1] else f
+                        sh = np.maximum(sh, alpha[st, d])
+                        codes[t, st, d] = int(alpha[st, d] > alpha[st, d - 1])
                     new[st, d] = sh + diag[st] if d + 1 <= max_dur[st] else NEG
-                    frm[st, d] = f
+            top = [(NEG, BIG), (NEG, BIG)]
+            for x in exits:  # better()'s best two, (sum, cell)
+                v, c = F32(bc_val[x] + pen), x * d_n + bc_d[x]
+                if _better(v, c, *top[0]):
+                    top = [(v, c), top[0]]
+                elif two and _better(v, c, *top[1]):
+                    top[1] = (v, c)
+            bex[t] = [0 if c == BIG else c for _v, c in top]
+            # After the barrier: slot 0.
+            for st in range(s):
+                if flags[st] & 1:
+                    own = bool(flags[st] & 2) and top[0][1] // d_n == st
+                    new[st, 0], codes[t, st, 0] = top[1][0] if own else top[0][0], 4 if own else 3
+                else:
+                    best, code = NEG, 0
+                    for k, coef in ((2, m2), (1, m1)):
+                        u = bc_val[st - k] + coef[st] if st >= k else NEG
+                        if u > best:
+                            best, code = u, k | (bc_d[st - k] << 3)
+                    new[st, 0], codes[t, st, 0] = best, code
             alpha = (new + log_b[b, t][:, None]).astype(F32)
-            bps[t] = frm.ravel()
-        bv, bi = NEG, big
+        bv, cell = NEG, BIG
         for x in exits:
             for d in range(d_n):
-                if d + 1 >= min_dur[x] and _better(alpha[x, d], x * d_n + d, bv, bi):
-                    bv, bi = alpha[x, d], x * d_n + d
-        bi = 0 if bi == big else bi
+                if d + 1 >= min_dur[x] and _better(alpha[x, d], x * d_n + d, bv, cell):
+                    bv, cell = alpha[x, d], x * d_n + d
         scores[b] = bv
-        paths[b] = _walk(bps, int(lengths[b]), int(bi), quirk) // d_n
+
+        def prev(t, c):
+            st, d = divmod(c, d_n)
+            k = codes[t, st, d]
+            if walked is not None:
+                walked.append((d, k))
+            if d > 0:
+                return c if k else c - 1
+            if k & 7 in (3, 4):
+                return bex[t, (k & 7) - 3]
+            return max(st - (k & 7), 0) * d_n + (k >> 3)
+
+        paths[b] = _walk_codes(t_n, int(lengths[b]), steps, 0 if cell == BIG else cell, quirk,
+                               prev, lambda c: c // d_n)
     return scores, paths
 
 
@@ -329,6 +392,8 @@ PLANE_CASES = {
     "count-huge-penalty": ("huge-penalty", "count", 2, False),
     "merge": ("random", "merge", None, True),
     "merge-huge-penalty": ("huge-penalty", "merge", None, False),
+    "wide-count-2": ("wide", "count", 2, False),
+    "wide-merge-ties": ("wide", "merge", None, True),
 }
 
 
@@ -366,6 +431,7 @@ DURATION_CASES = {
     "per-word-silence": ("random", {"1": 3, "2": 1}, 4, True, True),
     "huge-penalty": ("huge-penalty", 1, 2, True, False),
     "one-state-word": ("one-state-word", 2, None, False, True),
+    "wide-min-2-max-4": ("wide", 2, 4, False, False),
 }
 
 
@@ -423,6 +489,41 @@ def test_duration_advance_compares_sums():
     np.testing.assert_array_equal(np.asarray(want[1])[0, :3], [0, 1, 4])
     ftab, tab = tcs.duration_tables(*_topo(comp), min_dur, max_dur)
     _assert_same(emulate_duration(log_b, lengths, ftab, tab, comp.penalty, d_cap), want)
+
+
+def entry_exit_problem():
+    """A one-state word "2" (state 2, an entry and an exit, at most 2
+    frames) whose own exit sum is the best at t = 2 (it sat there at
+    t = 0, 1): its entry at t = 2 takes the second-best exit, word "1"'s
+    (state 1). The only finite paths: 0, 1, then 2 at t = 2 and 3 (its two
+    frames), then silence 3, 4."""
+    log_a = np.full((5, 5), -np.inf, F32)
+    log_a[0, 0: 2] = np.log(F32(0.5))
+    log_a[1, 1] = log_a[2, 2] = log_a[4, 4] = 0.0
+    log_a[3, 3: 5] = np.log(F32(0.5))
+    comp = CompositeHMM(["1", "2", "S"], [2, 1, 2], np.zeros((5, 1), F32),
+                        np.ones((5, 1, 1), F32), log_a, -30.0)
+    log_b = np.full((1, 6, 5), -np.inf, F32)
+    log_b[0, 0, [0, 2]] = 0.0
+    log_b[0, 1, [1, 2]] = F32(-1.0), F32(0.0)
+    log_b[0, 2, 2] = log_b[0, 3, 2] = log_b[0, 4, 3] = log_b[0, 5, 4] = 0.0
+    min_dur, max_dur = np.ones(5, np.int32), np.full(5, tvd.UNBOUNDED)
+    max_dur[2] = 2
+    return comp, log_b, np.asarray([6], np.int32), min_dur, max_dur, 2
+
+
+def test_duration_entry_that_is_an_exit_takes_the_second_best():
+    comp, log_b, lengths, min_dur, max_dur, d_cap = entry_exit_problem()
+    want = tvd.viterbi_composite_duration_batch_plain(
+        torch.as_tensor(log_b), *_topo(comp), comp.penalty, min_dur, max_dur, lengths,
+        d_cap=d_cap)
+    assert np.isfinite(np.asarray(want[0])).all()
+    np.testing.assert_array_equal(np.asarray(want[1])[0], [0, 1, 2, 2, 3, 3])  # the quirk
+    ftab, tab = tcs.duration_tables(*_topo(comp), min_dur, max_dur)
+    walked = []
+    _assert_same(emulate_duration(log_b, lengths, ftab, tab, comp.penalty, d_cap,
+                                  walked=walked), want)
+    assert (0, 4) in walked  # the second-best exit, on the path
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -41,8 +41,10 @@ counted decoding N = 1..7 and a range, the menu grammar and position
 grammars; DURATION: floors and ceilings) bitwise their plain versions in
 scores and finite paths at 58, 503 and 5003 states, integer ties, T = 1,
 lengths 0, -1 and past T, -inf emissions, a column slice read at its row
-stride, K2-bt's widest row of cells and the
-forward's own walk past it, a cross move with two source planes and a
+stride, the team, cluster and simple branches (B = 1, a cluster of CTAs,
+8 slots at 503 and 5003 states, the simple branch on K2-bt's widest row
+and its forward's walk past it, each team case beside the forced simple
+branch), a cross move with two source planes and a
 duration advance whose sums tie under a -3e9 penalty, and the decoder's
 counted / grammar / duration decodes launching them and never a plain
 trellis; the transcribe script (plain and with
@@ -1727,44 +1729,78 @@ def test_transcribe_card_equals_cpu(dev, tmp_path, extra):
 MENU = ["12", "4Z", "375", "9O2", "186Z", "54321"]
 
 # name: (num_words (None: the flagship), B, T, kind, its argument, tie-heavy
-# log_b). counted: (N, n_words_min); grammar: "menu" or "positions" (three
-# positions of random word subsets); duration: (min, max). The 5003-state
-# duration at D = 6 (30,018 cells) keeps alpha in the global scratch and
-# walks its path in the forward, past K2-bt's rows; on an H100 (K2-bt
-# takes 29,048 cells) "k2bt-edge" (500 planes x 58 states, 29,000 cells)
-# is K2-bt's widest use, "walk-edge" (501 planes, 29,058 cells) the
-# forward's walk with a global scratch.
+# log_b[, options: "edges" (the last row of length 0), "penalty" (in place
+# of the composite's)]). counted: (N, n_words_min);
+# grammar: "menu" or "positions" (three positions of random word subsets);
+# duration: (min, max). Each case's branch (planes_plan / duration_plan) is
+# in CONSTRAINED_BRANCH: the flagship's planes are one warp each, 503 states
+# (not a multiple of 32 K) four warps a plane, N = 9 at 503 states two CTAs
+# of a cluster, 5003 states one CTA a plane (a cluster of three or four);
+# DURATION's teams hold 8 slots at 503 and 5003 states (d_cap = 8, the
+# 5003-state slots in shared memory), and 5003 states at D = 6 (30,018
+# cells, which the simple branch walked in its forward past K2-bt's 29,048)
+# are walked by the team; 103 states are one warp of four states (a
+# plane, a DURATION team); 11 planes at 503 states leave a cluster's last
+# CTA a plane idle; a zero penalty takes the exits' butterflies (PLANES)
+# and the best-two path (DURATION). "k2bt-edge" (500 planes x 58 states, 29,000
+# cells) and "walk-edge" (501 planes, 29,058 cells) have more planes than a
+# cross code names: the simple branch, walked by K2-bt and by its forward.
 CONSTRAINED_CASES = {
     **{f"counted-{n}": (None, 16, 120, "counted", (n, None), False) for n in range(1, 8)},
     "counted-range": (None, 16, 120, "counted", (5, 2), False),
     "counted-ties": (None, 16, 80, "counted", (3, None), True),
+    "counted-b1": (None, 1, 60, "counted", (2, None), False),
+    "counted-t1": (None, 4, 1, "counted", (1, None), False, {"edges": True}),
     "grammar-menu": (None, 16, 120, "grammar", "menu", False),
     "grammar-menu-ties": (None, 16, 80, "grammar", "menu", True),
     "duration-min2": (None, 16, 120, "duration", (2, None), False),
     "duration-min3-max6": (None, 16, 120, "duration", (3, 6), False),
     "duration-ties": (None, 16, 80, "duration", (2, 4), True),
+    "duration-b1": (None, 1, 60, "duration", (2, None), False),
+    "duration-t1": (None, 5, 1, "duration", (2, None), False, {"edges": True}),
+    "duration-edges": (None, 6, 40, "duration", (2, 3), False, {"edges": True}),
+    "counted-103": (20, 8, 80, "counted", (3, None), False),
+    "duration-103": (20, 8, 80, "duration", (2, 5), False),
+    "grammar-menu-zero-penalty": (None, 16, 80, "grammar", "menu", True, {"penalty": 0.0}),
+    "duration-zero-penalty": (None, 16, 80, "duration", (2, None), True, {"penalty": 0.0}),
     "counted-503": (100, 8, 120, "counted", (4, None), False),
+    "counted-503-idle-plane": (100, 2, 40, "counted", (10, None), False),
+    "counted-503-zero-penalty": (100, 4, 60, "counted", (3, None), False, {"penalty": 0.0}),
+    "duration-503-zero-penalty": (100, 4, 60, "duration", (2, None), False, {"penalty": 0.0}),
+    "counted-503-cluster": (100, 4, 60, "counted", (9, None), False, {"edges": True}),
     "grammar-503": (100, 8, 120, "grammar", "positions", False),
     "duration-503": (100, 8, 120, "duration", (3, 6), False),
+    "duration-503-d8": (100, 4, 80, "duration", (3, 8), False, {"edges": True}),
     "counted-5003": (1000, 2, 30, "counted", (2, None), False),
+    "counted-5003-b1": (1000, 1, 20, "counted", (3, None), False),
     "grammar-5003": (1000, 2, 30, "grammar", "positions", False),
     "duration-5003": (1000, 2, 30, "duration", (2, None), False),
     "duration-5003-walk": (1000, 2, 40, "duration", (3, 6), False),
+    "duration-5003-d8": (1000, 2, 40, "duration", (3, 8), False, {"edges": True}),
     "k2bt-edge": (None, 1, 20, "counted", (499, 1), False),
     "walk-edge": (None, 1, 20, "counted", (500, 1), False),
+}
+CONSTRAINED_BRANCH = {
+    **{c: "team" for c in CONSTRAINED_CASES},
+    "counted-503-cluster": "cluster", "counted-503-idle-plane": "cluster",
+    "counted-5003": "cluster", "counted-5003-b1": "cluster",
+    "grammar-5003": "cluster", "k2bt-edge": "simple", "walk-edge": "simple",
 }
 
 
 def _constrained_problem(dev, case):
     """(composite, log_b, lengths, run(log_b, lengths) on the dispatchers,
-    counter, cells)."""
+    plain(log_b, lengths), counter, plan, cells, simple(log_b, lengths) on
+    the forced simple branch, PR 19's kernel and K2-bt)."""
     from cs304_tpu_torch.ops import grammar as tg
     from cs304_tpu_torch.ops import viterbi_counted as tvc
     from cs304_tpu_torch.ops import viterbi_duration as tvd
     from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
 
-    words, b, t, kind, arg, ties = CONSTRAINED_CASES[case]
+    words, b, t, kind, arg, ties, *opts = CONSTRAINED_CASES[case]
+    opts = opts[0] if opts else {}
     comp = flagship_composite() if words is None else _composite(words)
+    pen = opts.get("penalty", comp.penalty)
     s = comp.num_states
     topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit)
     gen = torch.Generator(device=dev).manual_seed(len(case))
@@ -1776,14 +1812,20 @@ def _constrained_problem(dev, case):
     lengths[0] = t
     if b > 2:
         lengths[1] = 1
+    if opts.get("edges"):
+        lengths[-1] = 0
     if kind == "counted":
         n, n_min = arg
         counted = comp.word_of_state != comp.labels.index("S")
+        word, ns, acc = tvc.chain_grammar(counted, n, n_min)
         return comp, log_b, lengths, (lambda lb, ln: tvc.viterbi_composite_counted_batch(
-            lb, *topo, counted, comp.penalty, n, ln, n_words_min=n_min)), (
+            lb, *topo, counted, pen, n, ln, n_words_min=n_min)), (
             lambda lb, ln: tvc.viterbi_composite_counted_batch_plain(
-                lb, *topo, counted, comp.penalty, n, ln, n_words_min=n_min)), \
-            tcs.planes_decode, (n + 1) * s
+                lb, *topo, counted, pen, n, ln, n_words_min=n_min)), \
+            tcs.planes_decode, tcs.planes_plan(t, s, n + 1), (n + 1) * s, \
+            lambda lb, ln: tcs.forward_branch(
+                True, lb, tcs.planes_operands(*topo, word, ns, acc, dev), pen, ln,
+                simple=True)
     if kind == "grammar":
         if arg == "menu":
             dfa = tg.WordDFA.from_strings(MENU, comp.labels)
@@ -1793,18 +1835,23 @@ def _constrained_problem(dev, case):
             dfa = tg.WordDFA.from_positions(
                 [tuple(rng.choice(vocab, size=len(vocab) // 3, replace=False))
                  for _ in range(3)], comp.labels)
-        args = (*topo, comp.word_of_state, dfa.next_state, dfa.accept, comp.penalty)
+        args = (*topo, comp.word_of_state, dfa.next_state, dfa.accept, pen)
         return comp, log_b, lengths, (
             lambda lb, ln: tg.viterbi_composite_grammar_batch(lb, *args, ln)), (
             lambda lb, ln: tg.viterbi_composite_grammar_batch_plain(lb, *args, ln)), \
-            tcs.planes_decode, dfa.num_planes * s
+            tcs.planes_decode, tcs.planes_plan(t, s, dfa.num_planes), dfa.num_planes * s, \
+            lambda lb, ln: tcs.forward_branch(True, lb, tcs.planes_operands(*args[:-1], dev),
+                                              pen, ln, simple=True)
     min_dur, max_dur, d_cap = tvd.duration_arrays(comp, *arg)
-    args = (*topo, comp.penalty, min_dur, max_dur)
+    args = (*topo, pen, min_dur, max_dur)
     return comp, log_b, lengths, (
         lambda lb, ln: tvd.viterbi_composite_duration_batch(lb, *args, ln, d_cap=d_cap)), (
         lambda lb, ln: tvd.viterbi_composite_duration_batch_plain(lb, *args, ln,
                                                                   d_cap=d_cap)), \
-        tcs.duration_decode, s * d_cap
+        tcs.duration_decode, tcs.duration_plan(t, s, d_cap), s * d_cap, \
+        lambda lb, ln: tcs.forward_branch(
+            False, lb, tcs.duration_operands(*topo, min_dur, max_dur, d_cap, dev), pen,
+            ln, simple=True)
 
 
 def _same_as_plain(got, want):
@@ -1820,21 +1867,29 @@ def _same_as_plain(got, want):
 def test_constrained_kernels_are_bitwise_plain(dev, case):
     from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
 
-    comp, log_b, lengths, run, plain, counter, cells = _constrained_problem(dev, case)
-    walk = cells > tcs.k2bt_max_cells(dev)
+    _comp, log_b, lengths, run, plain, counter, plan, cells, simple = _constrained_problem(
+        dev, case)
+    assert plan["branch"] == CONSTRAINED_BRANCH[case]
+    k2bt = plan["branch"] == "simple" and cells <= tcs.k2bt_max_cells(dev)
     before = (counter.launches, tsf.trellis_backtrace.launches)
     got = run(log_b, lengths)
     torch.cuda.synchronize()
     assert counter.launches == before[0] + 1
-    assert tsf.trellis_backtrace.launches == before[1] + (0 if walk else 1)
+    assert tsf.trellis_backtrace.launches == before[1] + int(k2bt)
     finite = _same_as_plain(got, plain(log_b, lengths))
-    assert finite.any()
+    # No composite here has a one-frame path (T = 1 compares -inf rows;
+    # test_constrained_kernels_take_edge_lengths_and_inf has one).
+    assert finite.any() or log_b.shape[1] == 1
     if case.startswith(("counted-7", "duration-min3")):
         assert not finite.all()  # rows too short for any admissible path
     # A column slice of a padded tensor is read in place, at its row stride.
     padded = torch.zeros((*log_b.shape[:2], log_b.shape[2] + 5), device=dev)
     padded[..., : log_b.shape[2]] = log_b
     _same_as_plain(run(padded[..., : log_b.shape[2]], lengths), got)
+    if plan["branch"] != "simple":
+        # The simple branch (PR 19's kernel and K2-bt) on the same inputs:
+        # the same scores and paths.
+        _same_as_plain(simple(log_b, lengths), got)
 
 
 def test_constrained_kernels_break_ties_as_the_plain_versions(dev):
@@ -1922,8 +1977,9 @@ def _sampled_clips(n, seed):
 def test_constrained_decoders_launch_their_kernels_not_the_plain(dev, monkeypatch, gmm):
     """predict_batch_counted / _grammar / _duration on the card, single
     Gaussians and a K=2 GMM: the CPU decoder's transcripts, the PLANES or
-    DURATION kernel and K2-bt launched, no plain trellis on a CUDA tensor;
-    the single-utterance trellises launch them too."""
+    DURATION kernel launched and no K2-bt (the kernels walk their codes),
+    no plain trellis on a CUDA tensor; the single-utterance trellises
+    launch them too."""
     from cs304_tpu_torch.models import decoder as dm
     from cs304_tpu_torch.models.train_continuous_gmm import promote_to_gmm
     from cs304_tpu_torch.ops import grammar as tg
@@ -1972,7 +2028,7 @@ def test_constrained_decoders_launch_their_kernels_not_the_plain(dev, monkeypatc
     for what, (fn, counter) in runs.items():
         before = (counter.launches, tsf.trellis_backtrace.launches)
         assert fn(card) == want[what], what
-        assert counter.launches > before[0] and tsf.trellis_backtrace.launches > before[1]
+        assert counter.launches > before[0] and tsf.trellis_backtrace.launches == before[1]
     for what, (fn, counter) in singles.items():
         before = counter.launches
         score, path = fn(one.to(dev))

@@ -279,17 +279,21 @@ Phases (each prints its own numbers; any failure exits non-zero):
               6-string menu grammar) and DURATION (min 2; min 3 / max 6 a
               word) at the flagship on phase 6's emissions read at their
               row stride, integer ties, 503 states (B = 16, T = 201; N <= 4,
-              a 3-position grammar, min 3 / max 6) and 5003 states (B = 2,
-              T = 60; N = 2, min 2, and min 3 / max 6 past K2-bt's rows,
-              walked by the forward with alpha in the global scratch);
-              ragged lengths and a length-1 row with no admissible path;
-              scores bitwise with their signs, paths on every finite row;
-              each case's walk, alpha memory and launches; device time of
-              each kernel (CUDA-graph replays on tables built once) beside
-              its plain loop's eager time, its bound, and µs a step. (Phase
-              22 runs them on phase 9's 64 clips: transcripts equal to a
-              device="cpu" decoder's, PLANES / DURATION and K2-bt launched,
-              no plain constrained trellis on the card.)
+              a 3-position grammar, min 3 / max 6 and max 8) and 5003 states
+              (B = 2, T = 60; N = 2, min 2, min 3 / max 6 and max 8); the
+              edges B = 1, T = 1, length-0 rows and a cluster of two CTAs;
+              the simple branch past the teams (65 and 501 planes, D = 9 at
+              503 and 5003 states), walked by K2-bt and, past its widest
+              row, by the forward; ragged lengths and a length-1 row with
+              no admissible path; scores bitwise with their signs, paths on
+              every finite row; each case's branch (team, cluster, simple),
+              walk and launches; device time of each kernel (CUDA-graph
+              replays on tables built once) in turns beside the simple
+              branch's (the PR-19 kernel), its plain loop's eager time, its
+              bound, µs a step and ptxas' registers and spills. (Phase 22
+              runs them on phase 9's 64 clips: transcripts equal to a
+              device="cpu" decoder's, PLANES / DURATION launched and no
+              K2-bt, no plain constrained trellis on the card.)
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
 The line before the last is the kernels' JSON record (seventeen kernels, each with
@@ -453,29 +457,31 @@ def ptxas_resources(ptxas_log, pattern):
     return out
 
 
-def constrained_resources(key, plan, tabs, penalty):
-    """ptxas' registers and spills of the team instantiation a plan launches
-    on tabs at penalty, and of the simple branch's kernel (phase 30's timing
-    rows)."""
+def constrained_resources(key, tabs, t, penalty):
+    """ptxas' registers and spills of the team instantiation a launch on
+    tabs at T steps and penalty takes (its template arguments as the
+    library's team_instance reports them), and of the simple branch's
+    kernel (phase 30's timing rows)."""
     from cs304_tpu_torch.ops.cuda import _build
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
 
     path = _build.library_path().with_suffix(".log")
     text = path.read_text() if path.exists() else ""
+    planes = key == "trellis_planes"
+    inst = tcs.team_instance(planes, tabs, t, penalty)
     # Mangled names: planes_team_kernel<K, CLUSTERED, KEY>,
     # duration_team_kernel<K, DM, SLOTS_SMEM, TWO>; the simple branch's
     # trellis_planes_kernel / trellis_duration_kernel.
-    k = plan["k"]
-    if key == "trellis_planes":
-        team = (rf"planes_team_kernelILi{k}ELb{int(plan['branch'] == 'cluster')}E"
-                rf"Lb{int(penalty != 0)}E")
-        simple = r"trellis_planes_kernelE"
-    else:
-        dm = next(p for p in (2, 4, 6, 8) if tabs.depth <= p)
-        team = (rf"duration_team_kernelILi{k}ELi{dm}ELb{int(k == 8 and dm >= 4)}E"
-                rf"Lb{int(tabs.entry_exit or penalty == 0)}E")
-        simple = r"trellis_duration_kernelE"
-    return {"team": ptxas_resources(text, re.compile(team)) if plan["branch"] != "simple"
-            else {}, "simple": ptxas_resources(text, re.compile(simple))}
+    team = {}
+    if inst is not None:
+        k, a, b, c = inst
+        name = (rf"planes_team_kernelILi{k}ELb{a}ELb{b}E" if planes
+                else rf"duration_team_kernelILi{k}ELi{a}ELb{b}ELb{c}E")
+        team = ptxas_resources(text, re.compile(name))
+        if text and not team:
+            raise SystemExit(f"phase 30: no ptxas entry for {name} in {path.name}")
+    simple = r"trellis_planes_kernelE" if planes else r"trellis_duration_kernelE"
+    return {"team": team, "simple": ptxas_resources(text, re.compile(simple))}
 
 
 def stream_build(s, ring_bytes):
@@ -3257,17 +3263,14 @@ def constrained_split(dev, dec, clips, by_count, grammar, search_ms):
         if kind == "duration":
             mn, mx, dc = host("host tables", lambda: tvd.duration_arrays(c, 2))
             ftab, ints = host("host tables", lambda: tcs.duration_tables(*topo, mn, mx))
-            tabs = host("tables upload", lambda: tcs._upload(
-                dev, ftab, ints, dc, 0, ((ints["itab"][0] & 3) == 3).any()))
+            tabs = host("tables upload", lambda: tcs.duration_upload(ftab, ints, dc, dev))
         else:
             if kind == "grammar":
                 word, ns, acc = c.word_of_state, grammar.next_state, grammar.accept
             else:
                 word, ns, acc = host("host tables", lambda: tvc.chain_grammar(counted, kind))
             ftab, ints = host("host tables", lambda: tcs.planes_tables(*topo, word, ns, acc))
-            g = len(ints["accept"])
-            tabs = host("tables upload", lambda: tcs._upload(
-                dev, ftab, ints, g, (len(ints["route_off"]) - 1) // g))
+            tabs = host("tables upload", lambda: tcs.planes_upload(ftab, ints, dev))
         log_b = device("emissions", lambda: dec._emissions(batch))
         fwd = tcs.duration_forward if kind == "duration" else tcs.planes_forward
         scores, paths = device("kernel + walk", lambda: fwd(log_b, tabs, c.penalty, lengths))
@@ -3366,11 +3369,12 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
     of zero, paths on every finite row; the flagship on phase 6's emissions
     (a column slice of the padded log_b, read at its row stride) with ragged
     lengths and a length-1 row (no admissible path), integer ties; 503 and
-    5003 states (5003 at D = 6 past K2-bt's rows: the forward walks, alpha
-    in the global scratch). Each case logs its walk, its alpha buffers'
-    memory and its launches; then each kernel's device time (CUDA-graph
-    replays of planes_forward / duration_forward on tables built once)
-    beside its plain version's eager time, and its bound. First the main
+    5003 states; the team branches' edges; the simple branch past the
+    teams, walked by K2-bt and past its widest row by the forward. Each
+    case logs its branch, its walk and its launches; then each kernel's
+    device time (CUDA-graph replays of forward_branch on tables built once)
+    in turns beside the simple branch's, its plain version's eager time,
+    and its bound. First the main
     path's own inputs: the emissions phase 22's decodes hand the kernels
     (its 64 clips of phase 9's models, padded to 128 frames; counted by
     each clip's true count, the menu grammar, min 2)."""
@@ -3425,7 +3429,8 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
         planes = key == "trellis_planes"
         return (tcs.planes_plan if planes else tcs.duration_plan)(t_k, tabs.s, tabs.depth)
 
-    def check(name, spec, log_b, lengths, no_path_rows=False, branch="team", some_finite=True):
+    def check(name, spec, log_b, lengths, no_path_rows=False, branch="team", walk="kernel",
+              some_finite=True):
         key, cells, _ops, run, plain, tabs_fn, _pen = spec
         counter = tcs.planes_decode if key == "trellis_planes" else tcs.duration_decode
         before = (counter.launches, tsf.trellis_backtrace.launches)
@@ -3455,9 +3460,11 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
         if not all(same.values()) or (some_finite and not finite.any()):
             raise SystemExit(f"phase 30: {key} disagrees with its plain version ({name}), or "
                              f"its case compares -inf alone")
-        if rose != {"kernel": 1, "K2-bt": int(took == "k2bt")} or plan["branch"] != branch:
+        if (rose != {"kernel": 1, "K2-bt": int(took == "k2bt")} or plan["branch"] != branch
+                or took != walk):
             raise SystemExit(f"phase 30: case {name} launched {rose} on the {plan['branch']} "
-                             f"branch, walked by {took}, not the {branch} branch")
+                             f"branch, walked by {took}, not the {branch} branch walked by "
+                             f"{walk}")
         if no_path_rows and finite.all():
             raise SystemExit(f"phase 30: case {name} has no row without an admissible path")
 
@@ -3531,8 +3538,12 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
     # The edges of the team branches: B = 1; T = 1 with a length-0 row; a
     # length-0 row among ragged lengths; a cluster of two CTAs at 503 states
     # (10 planes of 4 warps); 8 slots a state at 503 and 5003 states (the
-    # 5003-state slots in shared memory); more planes than a cross code
-    # names (65): the kept PR-19 kernel and K2-bt.
+    # 5003-state slots in shared memory); the kept PR-19 kernels (the
+    # simple branch) past the teams: more planes than a cross code names
+    # (65 planes, walked by K2-bt; 501 planes x 58 states = 29,058 cells,
+    # past K2-bt's widest row, walked by the forward) and more slots than a
+    # team holds (D = 9: 4,527 cells at 503 states, walked by K2-bt; 45,027
+    # at 5003, walked by the forward).
     check("flagship-counted-2-B1", counted(flag, 2), lb58[:1], len58[:1])
     len_t1 = torch.ones(16, dtype=torch.int32, device=dev)
     len_t1[3] = 0
@@ -3549,7 +3560,13 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
     check("5003-duration-min-3-max-8", duration(c5003, 3, 8), lb5003, len5003)
     check("5003-counted-3-B1", counted(c5003, 3), lb5003[:1], len5003[:1], branch="cluster")
     check("flagship-count-range-1-64-simple", counted(flag, 64, 1), lb58[:16], len58[:16],
-          branch="simple")
+          branch="simple", walk="k2bt")
+    check("flagship-count-range-1-500-simple", counted(flag, 500, 1), lb58[:16], len58[:16],
+          branch="simple", walk="forward")
+    check("503-duration-min-3-max-9-simple", duration(c503, 3, 9), lb503, len503,
+          no_path_rows=True, branch="simple", walk="k2bt")
+    check("5003-duration-min-3-max-9-simple", duration(c5003, 3, 9), lb5003, len5003,
+          branch="simple", walk="forward")
 
     # -- timing: device time on tables built once, beside the plain loop -----
     lb64, len64 = lb3[:64, :, :s58], decode["n_frames"][:64]
@@ -3593,7 +3610,7 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
         (b_ms, b_by), (bc_ms, _by), (bp_ms, _by) = constrained_bound(b_k, t_k, s_k, ln, cells,
                                                                       per_step)
         plan = plan_of(key, tabs, t_k)
-        res = constrained_resources(key, plan, tabs, pen)
+        res = constrained_resources(key, tabs, t_k, pen)
         steps = int(ln.clamp(max=t_k).max()) - 1
         log("timing", kernel=key, shape=shape, branch=plan["branch"], ms=ms,
             ms_turns=json.dumps([turns[1], turns[2]]), parent_ms=parent_ms,

@@ -528,10 +528,10 @@ constexpr int DURATION_MAX_SLOTS = 8;   // D in registers (or shared slots) up t
 enum Branch { TEAM = 0, CLUSTER = 1, SIMPLE = 2 };
 
 // The widest row of codes (bytes a step) whose walk stages tiles in shared
-// memory when the codes are in global memory: measured on an H100 with
-// constrained_ab.py, staging won at rows of 1,216 (PLANES) and 3,072 /
-// 4,096 bytes (DURATION) and lost at 2,560 and 15,360 (PLANES) and 10,240
-// (DURATION), where the walk read its codes in place at L1 / L2 latency.
+// memory when the codes are in global memory: timed on an H100 80GB HBM3
+// at 700 W, staging won at rows of 1,216 (PLANES) and 3,072 / 4,096 bytes
+// (DURATION) and lost at 2,560 and 15,360 (PLANES) and 10,240 (DURATION),
+// where the walk read its codes in place at L1 / L2 latency.
 constexpr size_t PLANES_STAGE_MAX_ROW = 2048;
 constexpr size_t DURATION_STAGE_MAX_ROW = 4096;
 
@@ -557,6 +557,13 @@ __host__ __device__ constexpr int slot_pitch(int d) {
   return d <= 2 ? 2 : (d <= 4 ? 4 : (d <= 6 ? 6 : 8));
 }
 __host__ __device__ constexpr bool slots_shared(int k, int dm) { return k == 8 && dm >= 4; }
+// The exits' reduction: PLANES takes redux keys (KEY) at a non-zero penalty;
+// DURATION the best two (TWO) where an entry is also an exit or the penalty
+// is zero, else the key path.
+constexpr bool planes_key(float penalty) { return penalty != 0.f; }
+constexpr bool duration_two(bool entry_exit, float penalty) {
+  return entry_exit || penalty == 0.f;
+}
 
 __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
@@ -682,9 +689,7 @@ struct PlanesPlan {
   size_t smem;       // dynamic shared memory a CTA
 };
 
-// stage: -1 the plan's choice, 0 the walk reads the codes where they are,
-// 1 it stages them where they fit (a timing compares the two).
-PlanesPlan planes_plan(int T, int S, int G, int stage = -1) {
+PlanesPlan planes_plan(int T, int S, int G) {
   PlanesPlan pl = {};
   pl.k = lane_states(S);
   pl.wp = (S + 32 * pl.k - 1) / (32 * pl.k);
@@ -706,9 +711,9 @@ PlanesPlan planes_plan(int T, int S, int G, int stage = -1) {
   pl.utt_bytes = pl.bex_off + align16((size_t)T * G * 2);
   pl.codes_smem = pl.c == 1 && pl.off_codes + pl.utt_bytes <= WS_SMEM_BUDGET;
   const size_t row = (size_t)G * pl.sp;
-  const bool want = stage == 1 || (stage < 0 && row <= PLANES_STAGE_MAX_ROW);
-  pl.stage_rows = pl.codes_smem || pl.off_codes + row > WS_SMEM_BUDGET || !want
-                      ? 0 : (int)min((size_t)T, (WS_SMEM_BUDGET - pl.off_codes) / row);
+  const bool stage = !pl.codes_smem && row <= PLANES_STAGE_MAX_ROW &&
+                     pl.off_codes + row <= WS_SMEM_BUDGET;
+  pl.stage_rows = stage ? (int)min((size_t)T, (WS_SMEM_BUDGET - pl.off_codes) / row) : 0;
   pl.smem = pl.off_codes + (pl.codes_smem ? pl.utt_bytes : (size_t)pl.stage_rows * row);
   return pl;
 }
@@ -1089,7 +1094,7 @@ struct DurationPlan {
   size_t bex_off, utt_bytes, off_slots, smem;
 };
 
-DurationPlan duration_plan(int T, int S, int D, int stage = -1) {
+DurationPlan duration_plan(int T, int S, int D) {
   DurationPlan pl = {};
   pl.k = duration_lane_states(S);
   pl.w = (S + 32 * pl.k - 1) / (32 * pl.k);
@@ -1117,9 +1122,9 @@ DurationPlan duration_plan(int T, int S, int D, int stage = -1) {
   // Past the codes' room the walk stages tiles of rows over the slots (dead
   // by then), each team its own.
   const size_t per_team = WS_SMEM_BUDGET / pl.u;
-  const bool want = stage == 1 || (stage < 0 && pl.row <= DURATION_STAGE_MAX_ROW);
-  pl.stage_rows = pl.codes_smem || (size_t)pl.row > per_team || !want
-                      ? 0 : (int)min((size_t)T, per_team / pl.row);
+  const bool stage = !pl.codes_smem && (size_t)pl.row <= DURATION_STAGE_MAX_ROW &&
+                     (size_t)pl.row <= per_team;
+  pl.stage_rows = stage ? (int)min((size_t)T, per_team / pl.row) : 0;
   if (pl.stage_rows) pl.smem = max(pl.smem, (size_t)pl.u * pl.stage_rows * pl.row);
   return pl;
 }
@@ -1541,7 +1546,7 @@ int launch_planes(const PlanesTeamArgs& a, int B, cudaStream_t stream) {
 
 template <bool CLUSTERED>
 int launch_planes_c(const PlanesTeamArgs& a, int B, cudaStream_t s) {
-  const bool key = a.penalty != 0.f;
+  const bool key = planes_key(a.penalty);
   switch (a.pl.k) {
     case 2: return key ? launch_planes<2, CLUSTERED, true>(a, B, s)
                        : launch_planes<2, CLUSTERED, false>(a, B, s);
@@ -1595,9 +1600,10 @@ extern "C" long long cs304_trellis_duration_scratch_bytes(int B, int T, int S, i
 // The plan at a shape: out[0] the branch (0 team, 1 cluster, 2 simple),
 // out[1] codes in shared memory, out[2] states a lane, out[3] warps a plane
 // (PLANES) or a team (DURATION), out[4] CTAs an utterance (PLANES) or
-// utterances a block (DURATION), out[5] threads a block.
-extern "C" int cs304_trellis_planes_plan(int T, int S, int G, int stage, int* out) {
-  const PlanesPlan pl = planes_plan(T, S, G, stage);
+// utterances a block (DURATION), out[5] threads a block, out[6] rows of
+// global codes the walk stages at a time (0: none).
+extern "C" int cs304_trellis_planes_plan(int T, int S, int G, int* out) {
+  const PlanesPlan pl = planes_plan(T, S, G);
   out[0] = pl.branch;
   out[1] = pl.codes_smem;
   out[2] = pl.k;
@@ -1608,8 +1614,8 @@ extern "C" int cs304_trellis_planes_plan(int T, int S, int G, int stage, int* ou
   return 0;
 }
 
-extern "C" int cs304_trellis_duration_plan(int T, int S, int D, int stage, int* out) {
-  const DurationPlan pl = duration_plan(T, S, D, stage);
+extern "C" int cs304_trellis_duration_plan(int T, int S, int D, int* out) {
+  const DurationPlan pl = duration_plan(T, S, D);
   out[0] = pl.branch;
   out[1] = pl.codes_smem;
   out[2] = pl.k;
@@ -1620,12 +1626,37 @@ extern "C" int cs304_trellis_duration_plan(int T, int S, int D, int stage, int* 
   return 0;
 }
 
+// The template arguments of the team kernel a launch at this shape takes
+// (the plans' and the exits' reductions' choices): PLANES
+// planes_team_kernel<out[0] K, out[1] CLUSTERED, out[2] KEY>; DURATION
+// duration_team_kernel<out[0] K, out[1] DM, out[2] SLOTS_SMEM, out[3] TWO>
+// (entry_exit: some entry state is also an exit). -1: the simple branch.
+extern "C" int cs304_trellis_team_instance(int planes, int T, int S, int depth, float penalty,
+                                           int entry_exit, int* out) {
+  if (planes) {
+    const PlanesPlan pl = planes_plan(T, S, depth);
+    if (pl.branch == SIMPLE) return -1;
+    out[0] = pl.k;
+    out[1] = pl.branch == CLUSTER;
+    out[2] = planes_key(penalty);
+    out[3] = 0;
+    return 0;
+  }
+  const DurationPlan pl = duration_plan(T, S, depth);
+  if (pl.branch == SIMPLE) return -1;
+  out[0] = pl.k;
+  out[1] = pl.dm;
+  out[2] = slots_shared(pl.k, pl.dm);
+  out[3] = duration_two(entry_exit != 0, penalty);
+  return 0;
+}
+
 // The team branches: scores and walked paths (states) in one launch.
 extern "C" int cs304_trellis_planes_team(
     const void* log_b, const void* lengths, const void* ftab, const void* itab,
     const void* exits, const void* route_off, const void* route_src, const void* accept,
     float penalty, int B, int T, int S, int ld, int G, int W, int n_exit, void* scores,
-    void* paths, int quirk, void* scratch, int stage, void* stream) {
+    void* paths, int quirk, void* scratch, void* stream) {
   PlanesTeamArgs a;
   a.log_b = (const float*)log_b;
   a.lengths = (const int*)lengths;
@@ -1646,7 +1677,7 @@ extern "C" int cs304_trellis_planes_team(
   a.paths = (int*)paths;
   a.quirk = quirk;
   a.codes_g = (unsigned char*)scratch;
-  a.pl = planes_plan(T, S, G, stage);
+  a.pl = planes_plan(T, S, G);
   if (a.pl.branch == SIMPLE || (!a.pl.codes_smem && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -1654,12 +1685,11 @@ extern "C" int cs304_trellis_planes_team(
                                 : launch_planes_c<false>(a, B, s);
 }
 
-// two: some entry state is also an exit (the best two exit sums a step).
-// The key path needs neither that nor a zero penalty.
+// entry_exit: some entry state is also an exit (duration_two).
 extern "C" int cs304_trellis_duration_team(
     const void* log_b, const void* lengths, const void* ftab, const void* itab,
-    float penalty, int B, int T, int S, int ld, int D, int two, void* scores, void* paths,
-    int quirk, void* scratch, int stage, void* stream) {
+    float penalty, int B, int T, int S, int ld, int D, int entry_exit, void* scores,
+    void* paths, int quirk, void* scratch, void* stream) {
   DurationTeamArgs a;
   a.log_b = (const float*)log_b;
   a.lengths = (const int*)lengths;
@@ -1675,11 +1705,11 @@ extern "C" int cs304_trellis_duration_team(
   a.paths = (int*)paths;
   a.quirk = quirk;
   a.codes_g = (unsigned char*)scratch;
-  a.pl = duration_plan(T, S, D, stage);
+  a.pl = duration_plan(T, S, D);
   if (a.pl.branch == SIMPLE || (!a.pl.codes_smem && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  two = two || penalty == 0.f;
+  const bool two = duration_two(entry_exit != 0, penalty);
   switch (a.pl.k) {
     case 2: return two ? launch_duration_k<2, true>(a, s) : launch_duration_k<2, false>(a, s);
     case 4: return two ? launch_duration_k<4, true>(a, s) : launch_duration_k<4, false>(a, s);

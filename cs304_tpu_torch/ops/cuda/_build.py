@@ -146,15 +146,17 @@ def load():
         lib.cs304_trellis_duration.restype = i
         lib.cs304_trellis_duration_scratch_bytes.argtypes = [i, i, i, i, i]
         lib.cs304_trellis_duration_scratch_bytes.restype = ctypes.c_longlong
-        lib.cs304_trellis_planes_plan.argtypes = [i, i, i, i, p]
+        lib.cs304_trellis_planes_plan.argtypes = [i, i, i, p]
         lib.cs304_trellis_planes_plan.restype = i
-        lib.cs304_trellis_duration_plan.argtypes = [i, i, i, i, p]
+        lib.cs304_trellis_duration_plan.argtypes = [i, i, i, p]
         lib.cs304_trellis_duration_plan.restype = i
+        lib.cs304_trellis_team_instance.argtypes = [i, i, i, i, f, i, p]
+        lib.cs304_trellis_team_instance.restype = i
         lib.cs304_trellis_planes_team.argtypes = [p, p, p, p, p, p, p, p, f, i, i, i, i, i, i,
-                                                  i, p, p, i, p, i, p]
+                                                  i, p, p, i, p, p]
         lib.cs304_trellis_planes_team.restype = i
         lib.cs304_trellis_duration_team.argtypes = [p, p, p, p, f, i, i, i, i, i, i, p, p, i,
-                                                    p, i, p]
+                                                    p, p]
         lib.cs304_trellis_duration_team.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p

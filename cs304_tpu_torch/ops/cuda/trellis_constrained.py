@@ -43,9 +43,10 @@ from .trellis_scanfree import trellis_backtrace
 UNBOUNDED = np.int32(2**30)  # max_dur sentinel: no upper duration limit
 
 __all__ = ["UNBOUNDED", "DeviceTables", "duration_decode", "duration_forward",
-           "duration_operands", "duration_plan", "duration_tables", "forward_branch",
-           "k2bt_max_cells", "planes_decode", "planes_forward", "planes_operands",
-           "planes_plan", "planes_tables", "routing_table", "stay_coefs", "walk_of"]
+           "duration_operands", "duration_plan", "duration_tables", "duration_upload",
+           "forward_branch", "k2bt_max_cells", "planes_decode", "planes_forward",
+           "planes_operands", "planes_plan", "planes_tables", "planes_upload", "routing_table",
+           "stay_coefs", "team_instance", "walk_of"]
 
 
 def _host(x, dtype=None):
@@ -204,6 +205,7 @@ class DeviceTables:
 
 def _upload(dev, ftab, ints, depth, words, entry_exit=False):
     """One float and one int32 buffer on dev -> DeviceTables."""
+    dev = torch.device(dev)
     ftab_d = torch.as_tensor(np.ascontiguousarray(ftab, np.float32)).to(dev)
     flat = np.concatenate([np.ravel(v).astype(np.int32) for v in ints.values()] +
                           [np.zeros(1, np.int32)])
@@ -216,56 +218,80 @@ def _upload(dev, ftab, ints, depth, words, entry_exit=False):
                         bool(entry_exit))
 
 
+def planes_upload(ftab, ints, device) -> DeviceTables:
+    """planes_tables' (ftab, ints) on device."""
+    g = len(ints["accept"])
+    return _upload(device, ftab, ints, g, (len(ints["route_off"]) - 1) // g)
+
+
+def duration_upload(ftab, ints, d_cap, device) -> DeviceTables:
+    """duration_tables' (ftab, ints) on device, for d_cap slots."""
+    if int(d_cap) < 1:
+        raise ValueError(f"d_cap must be >= 1, got {d_cap}")
+    return _upload(device, ftab, ints, int(d_cap), 0, ((ints["itab"][0] & 3) == 3).any())
+
+
 def planes_operands(log_a, lower_of_state, is_entry, is_exit, word_of_state, next_state,
                     accept, device) -> DeviceTables:
     """planes_tables uploaded to device."""
-    ftab, ints = planes_tables(log_a, lower_of_state, is_entry, is_exit, word_of_state,
-                               next_state, accept)
-    g = len(ints["accept"])
-    return _upload(torch.device(device), ftab, ints, g, (len(ints["route_off"]) - 1) // g)
+    return planes_upload(*planes_tables(log_a, lower_of_state, is_entry, is_exit, word_of_state,
+                                        next_state, accept), device)
 
 
 def duration_operands(log_a, lower_of_state, is_entry, is_exit, min_dur, max_dur, d_cap,
                       device) -> DeviceTables:
     """duration_tables uploaded to device, for d_cap slots."""
-    if int(d_cap) < 1:
-        raise ValueError(f"d_cap must be >= 1, got {d_cap}")
-    ftab, ints = duration_tables(log_a, lower_of_state, is_entry, is_exit, min_dur, max_dur)
-    return _upload(torch.device(device), ftab, ints, int(d_cap), 0,
-                   ((ints["itab"][0] & 3) == 3).any())
+    return duration_upload(*duration_tables(log_a, lower_of_state, is_entry, is_exit, min_dur,
+                                            max_dur), d_cap, device)
 
 
 BRANCHES = ("team", "cluster", "simple")
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(planes: bool, t: int, s: int, depth: int, stage: int) -> dict:
+def _plan(planes: bool, t: int, s: int, depth: int) -> dict:
     out = (ctypes.c_int * 7)()
     lib = _build.load()
     fn = lib.cs304_trellis_planes_plan if planes else lib.cs304_trellis_duration_plan
-    _build.check(fn(t, s, depth, stage, out), fn.__name__)
+    _build.check(fn(t, s, depth, out), fn.__name__)
     return {"branch": BRANCHES[out[0]], "codes": "shared" if out[1] else "global",
             "k": out[2], "warps": out[3], ("ctas" if planes else "teams"): out[4],
             "threads": out[5], "stage_rows": out[6]}
 
 
-def planes_plan(t: int, s: int, g: int, stage: int = -1) -> dict:
+def planes_plan(t: int, s: int, g: int) -> dict:
     """PLANES' launch plan at T steps, S states and G planes: the branch
     ("team": one CTA an utterance; "cluster": a cluster of CTAs; "simple":
     the plane-product kernel of int32 backpointers and K2-bt, for G > 64,
     S > 32,767 or planes past what eight CTAs hold), where its codes live,
     states a lane, warps a plane, CTAs an utterance, threads a CTA, and the
-    rows of global codes the walk stages at a time in shared memory (stage:
-    -1 the plan's choice, 0 none, 1 where they fit)."""
-    return _plan(True, t, s, g, stage)
+    rows of global codes the walk stages at a time in shared memory (0:
+    it reads them in place)."""
+    return _plan(True, t, s, g)
 
 
-def duration_plan(t: int, s: int, d: int, stage: int = -1) -> dict:
+def duration_plan(t: int, s: int, d: int) -> dict:
     """DURATION's launch plan at T steps, S states and D slots: the branch
     ("team", or "simple" past 8 slots or 20 warps of 8 states), where its
     codes live, states a lane, warps a team, teams a block, threads a
     block, and the rows the walk stages (as planes_plan)."""
-    return _plan(False, t, s, d, stage)
+    return _plan(False, t, s, d)
+
+
+@functools.lru_cache(maxsize=256)
+def _instance(planes: bool, t: int, s: int, depth: int, penalty: float, entry_exit: bool):
+    out = (ctypes.c_int * 4)()
+    code = _build.load().cs304_trellis_team_instance(int(planes), t, s, depth, penalty,
+                                                     int(entry_exit), out)
+    return None if code < 0 else tuple(out)
+
+
+def team_instance(planes: bool, tabs, t: int, penalty) -> tuple | None:
+    """The template arguments of the team kernel a launch on tabs at T steps
+    and penalty takes, as the library decides them: PLANES (K, CLUSTERED,
+    KEY, 0), DURATION (K, DM, SLOTS_SMEM, TWO); None on the simple branch."""
+    return _instance(bool(planes), int(t), tabs.s, tabs.depth, float(penalty),
+                     bool(tabs.entry_exit))
 
 
 @functools.lru_cache(maxsize=64)
@@ -309,14 +335,12 @@ def walk_of(planes: bool, tabs, t: int, device) -> str:
     return "forward" if tabs.s * tabs.depth > k2bt_max_cells(device) else "k2bt"
 
 
-def forward_branch(planes, log_b, tabs, penalty, lengths, quirk=True, simple=False,
-                   stage=-1):
+def forward_branch(planes, log_b, tabs, penalty, lengths, quirk=True, simple=False):
     """One launch of PLANES (planes=True) or DURATION on tabs -> (scores
     (B,), paths (B, T) int32 states). The team branches walk their codes in
     the launch; the simple branch (its plan's, or forced by simple=True, as
     a timing compares the two) writes int32 backpointers over the cells and
-    walks them with K2-bt, or in its forward past K2-bt's widest row.
-    stage: as planes_plan's, for a timing of the walk's two forms."""
+    walks them with K2-bt, or in its forward past K2-bt's widest row."""
     log_b, b, t_total, s, ld = _rows(log_b)
     if tabs.s != s or tabs.ftab.device != log_b.device:
         raise ValueError(f"tables for {tabs.s} states on {tabs.ftab.device}, log_b for {s} "
@@ -325,7 +349,7 @@ def forward_branch(planes, log_b, tabs, penalty, lengths, quirk=True, simple=Fal
     lengths = torch.as_tensor(lengths, device=dev).to(torch.int32).contiguous()
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} vs batch {b}")
-    plan = (planes_plan if planes else duration_plan)(t_total, s, tabs.depth, stage)
+    plan = (planes_plan if planes else duration_plan)(t_total, s, tabs.depth)
     simple = simple or plan["branch"] == "simple"
     lib = _build.load()
     scores = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -344,13 +368,12 @@ def forward_branch(planes, log_b, tabs, penalty, lengths, quirk=True, simple=Fal
                     log_b.data_ptr(), lengths.data_ptr(), tabs.ftab.data_ptr(), p["itab"],
                     p["exits"], p["route_off"], p["route_src"], p["accept"], float(penalty),
                     b, t_total, s, ld, tabs.depth, tabs.words, tabs.n_exit, scores.data_ptr(),
-                    paths.data_ptr(), int(quirk), ptr(scratch), int(stage), stream)
+                    paths.data_ptr(), int(quirk), ptr(scratch), stream)
             else:
                 code = lib.cs304_trellis_duration_team(
                     log_b.data_ptr(), lengths.data_ptr(), tabs.ftab.data_ptr(), p["itab"],
                     float(penalty), b, t_total, s, ld, tabs.depth, int(tabs.entry_exit),
-                    scores.data_ptr(), paths.data_ptr(), int(quirk), ptr(scratch), int(stage),
-                    stream)
+                    scores.data_ptr(), paths.data_ptr(), int(quirk), ptr(scratch), stream)
         _build.check(code, fn.__name__)
         fn.launches += 1
         return scores, paths

@@ -1744,7 +1744,9 @@ MENU = ["12", "4Z", "375", "9O2", "186Z", "54321"]
 # CTA a plane idle; a zero penalty takes the exits' butterflies (PLANES)
 # and the best-two path (DURATION). "k2bt-edge" (500 planes x 58 states, 29,000
 # cells) and "walk-edge" (501 planes, 29,058 cells) have more planes than a
-# cross code names: the simple branch, walked by K2-bt and by its forward.
+# cross code names: the simple branch, walked by K2-bt and by its forward;
+# D = 9 is past a team's slots: the simple branch, walked by K2-bt at 503
+# states (4,527 cells) and by its forward at 5003 (45,027).
 CONSTRAINED_CASES = {
     **{f"counted-{n}": (None, 16, 120, "counted", (n, None), False) for n in range(1, 8)},
     "counted-range": (None, 16, 120, "counted", (5, 2), False),
@@ -1779,12 +1781,15 @@ CONSTRAINED_CASES = {
     "duration-5003-d8": (1000, 2, 40, "duration", (3, 8), False, {"edges": True}),
     "k2bt-edge": (None, 1, 20, "counted", (499, 1), False),
     "walk-edge": (None, 1, 20, "counted", (500, 1), False),
+    "duration-503-d9": (100, 4, 60, "duration", (3, 9), False),
+    "duration-5003-d9": (1000, 2, 30, "duration", (3, 9), False),
 }
 CONSTRAINED_BRANCH = {
     **{c: "team" for c in CONSTRAINED_CASES},
     "counted-503-cluster": "cluster", "counted-503-idle-plane": "cluster",
     "counted-5003": "cluster", "counted-5003-b1": "cluster",
     "grammar-5003": "cluster", "k2bt-edge": "simple", "walk-edge": "simple",
+    "duration-503-d9": "simple", "duration-5003-d9": "simple",
 }
 
 
@@ -1890,6 +1895,33 @@ def test_constrained_kernels_are_bitwise_plain(dev, case):
         # The simple branch (PR 19's kernel and K2-bt) on the same inputs:
         # the same scores and paths.
         _same_as_plain(simple(log_b, lengths), got)
+
+
+def test_constrained_team_instance_follows_the_plan(dev):
+    """The team kernel's template arguments as the library reports them:
+    states a lane by S, a cluster past one CTA, redux keys at a non-zero
+    penalty (PLANES); the slot pitch, shared slots at K = 8 from 4 slots,
+    the best two where an entry is an exit or the penalty is zero
+    (DURATION); None on the simple branch."""
+    from types import SimpleNamespace
+
+    from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
+
+    def inst(planes, s, depth, t, penalty, entry_exit=False):
+        tabs = SimpleNamespace(s=s, depth=depth, entry_exit=entry_exit)
+        return tcs.team_instance(planes, tabs, t, penalty)
+
+    assert inst(True, 58, 8, 201, -100.0) == (2, 0, 1, 0)
+    assert inst(True, 58, 8, 201, 0.0) == (2, 0, 0, 0)
+    assert inst(True, 503, 5, 201, -1.0) == (4, 0, 1, 0)
+    assert inst(True, 5003, 3, 60, -100.0) == (8, 1, 1, 0)
+    assert inst(True, 58, 65, 60, -100.0) is None
+    assert inst(False, 58, 2, 201, -100.0) == (2, 2, 0, 0)
+    assert inst(False, 58, 2, 201, -100.0, entry_exit=True) == (2, 2, 0, 1)
+    assert inst(False, 58, 2, 201, 0.0) == (2, 2, 0, 1)
+    assert inst(False, 503, 5, 201, -1.0) == (4, 6, 0, 0)
+    assert inst(False, 5003, 8, 60, -1.0) == (8, 8, 1, 0)
+    assert inst(False, 5003, 9, 60, -1.0) is None
 
 
 def test_constrained_kernels_break_ties_as_the_plain_versions(dev):

@@ -162,11 +162,13 @@ Phases (each prints its own numbers; any failure exits non-zero):
               decoder's, their mode launched, no plain trellis on the card,
               ms a batch; on phase 9's models the bigram decode's accuracy
               >= 0.85, and the ms and launches of predict_batch_with_confidence
-              (K4 + K2-bt), predict_nbest, counted, duration and grammar
-              decodes at 64 clips (the last three on the PLANES /
-              DURATION kernels and K2-bt, their launches counted, their
-              transcripts equal to a device="cpu" decoder's, no plain
-              constrained trellis on a CUDA tensor); phase 18's traffic under
+              (K4 + K2-bt and LSUM) at 64 clips, predict_nbest (KBEST) and
+              forward_lattice(posteriors=True) (LMAX and LSUM) on one clip,
+              counted, duration and grammar decodes at 64 clips (on the
+              PLANES / DURATION kernels, their transcripts equal to a
+              device="cpu" decoder's), each with its kernels launched and
+              no plain constrained, posterior or n-best loop on a CUDA
+              tensor; phase 18's traffic under
               ServingSessionPool(bigram=) and (confidences=True), 16 sessions
               on the card equal to a CPU pool's (the bigram pool's first 4;
               every confidence pool's session, confidences within 1e-4,
@@ -246,9 +248,12 @@ Phases (each prints its own numbers; any failure exits non-zero):
               the card): project3_train, project5_train_no_empty,
               project6_train (Viterbi with --state-dir, Baum-Welch, K=2
               GMM), project5_test_ndigits (--csv-out, --bigram-lm),
-              transcribe (plain, --fast, --confidence --timings, --beam,
-              --known-count, --grammar-strings, --min-duration (PLANES /
-              DURATION launched, no K2-bt), --device cpu), align, adapt_speaker, project6_interactive, train_phones,
+              transcribe (plain, --fast, --confidence --timings (LSUM
+              launched), --beam, --known-count, --grammar-strings,
+              --min-duration (PLANES / DURATION launched, no K2-bt),
+              --device cpu), align, adapt_speaker, project6_interactive
+              (--nbest --confidence --spot --lattice-dot: KBEST, LSUM and
+              LMAX launched), train_phones,
               demo_serving (project3_predict and the penalty sweep where
               matplotlib is installed; their classifier checked either way);
               n-digit CSV accuracy >= 0.9, align 3 7 5, transcripts equal to
@@ -294,9 +299,24 @@ Phases (each prints its own numbers; any failure exits non-zero):
               runs them on phase 9's 64 clips: transcripts equal to a
               device="cpu" decoder's, PLANES / DURATION launched and no
               K2-bt, no plain constrained trellis on the card.)
+ 31. lattice  the posterior and n-best searches' kernels
+              (csrc/trellis_lattice.cu) against their plain versions through
+              their dispatchers: LSUM (the sum-semiring passes: the same
+              -inf cells, the rest within LSUM_REL * max(1, |x|)), LMAX (the
+              max-plus lattice passes) and KBEST (the k-best forward)
+              bitwise, every row included; first on the main path's inputs
+              (phase 22's 64 clips, 128-padded and scored in one call; its
+              first clip for LMAX and for KBEST at K = 8), then the flagship
+              on phase 6's emissions (B = 64, T = 201; K = 6, 8, 16), 375
+              and 503 states (B = 16, T = 201), 5003 states (B = 2, T = 60;
+              KBEST's rows in a device scratch at K = 8 and 16); the edges:
+              single-state words under a -25 and a 0 penalty, length-2 rows,
+              integer ties, K = 1, T = 1; each kernel's device time beside
+              its plain loop's eager time, its bound, µs a step and ptxas'
+              registers and spills
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (seventeen kernels, each with
+The line before the last is the kernels' JSON record (twenty kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -872,6 +892,7 @@ def main():
     bw_gmm_phases(dev, pipe, launches, timings, errs, yardsticks)
     search_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
     constrained_phase(dev, decode, pipe, timings, errs, yardsticks)
+    lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks)
     slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks)
     phone_tier_phase(dev, smi)
     cli_phase(dev, smi)
@@ -2722,11 +2743,13 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     from cs304_tpu_torch.models import decoder as dm
     from cs304_tpu_torch.models.hmm import flagship_models
     from cs304_tpu_torch.ops import grammar as gm
+    from cs304_tpu_torch.ops import lattice as tla
     from cs304_tpu_torch.ops import streaming_batch as sb
     from cs304_tpu_torch.ops import viterbi_counted as tvc
     from cs304_tpu_torch.ops import viterbi_duration as tvd
     from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
     from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
     from cs304_tpu_torch.ops.cuda import trellis_stream as tst
     from cs304_tpu_torch.ops.grammar import WordDFA
@@ -2946,7 +2969,8 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     clips, clip_truths = (feats * 2)[:64], (truths * 2)[:64]
     kernel_counters = {"dense": tdn.trellis_dense_forward, "backtrace": tsf.trellis_backtrace,
                        "decode": tsf.scanfree_decode, "planes": tcs.planes_decode,
-                       "duration": tcs.duration_decode}
+                       "duration": tcs.duration_decode, "lsum": tlk.lattice_sum_passes,
+                       "lmax": tlk.lattice_max_passes, "kbest": tlk.kbest_forward}
     grammar = WordDFA.from_strings(PIPELINE_TRANSCRIPTS, labels)
     by_count = {}
     for i, tr in enumerate(clip_truths):
@@ -2967,9 +2991,18 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         "grammar (64 clips, 6-string menu)": (lambda d: d.predict_batch_grammar(clips, grammar),
                                               ["planes"]),
     }
+    # The posterior and n-best searches on their kernels (phase 31 holds
+    # them against their plain versions).
+    searches = {
+        "confidences (64 clips)": (lambda: flat_dec.predict_batch_with_confidence(clips),
+                                   ["dense", "backtrace", "lsum"]),
+        "nbest (1 clip, n=4)": (lambda: flat_dec.predict_nbest(clips[0], n=4), ["kbest"]),
+        "forward lattice + posteriors (1 clip)": (
+            lambda: tla.forward_lattice(flat_dec.composite, clips[0], posteriors=True,
+                                        device=dev), ["lmax", "lsum"]),
+    }
     runs = {
-        "confidences (64 clips)": lambda: flat_dec.predict_batch_with_confidence(clips),
-        "nbest (1 clip, n=4)": lambda: flat_dec.predict_nbest(clips[0], n=4),
+        **{what: f for what, (f, _need) in searches.items()},
         **{what: (lambda f=f: f(flat_dec)) for what, (f, _need) in constrained.items()},
     }
     # The constrained decodes' transcripts on the CPU (plain trellises).
@@ -2979,7 +3012,9 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     saved = [guard(constrained_plain, m, n) for m, n in (
         (tvc, "viterbi_composite_counted_batch_plain"),
         (gm, "viterbi_composite_grammar_batch_plain"),
-        (tvd, "viterbi_composite_duration_batch_plain"))]
+        (tvd, "viterbi_composite_duration_batch_plain"),
+        (tlk, "lattice_sum_passes_plain"), (tlk, "lattice_max_passes_plain"),
+        (tlk, "kbest_forward_plain"))]
     search_ms, run_launches = {}, {}
     try:
         for what, fn in runs.items():
@@ -2997,11 +3032,15 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
             search_ms[what] = best
             if what.startswith("nbest"):
                 acc_x = float(out[0][1] == clip_truths[0])
+            elif what.startswith("forward lattice"):
+                acc_x = float(out.contains(clip_truths[0]))
             else:
                 texts = (["".join(w for w, *_r in u) for u in out] if what.startswith("conf")
                          else out)
                 acc_x = float(np.mean([p == t for p, t in zip(texts, clip_truths)]))
             extra = {}
+            if what in searches:
+                check_launches(f"phase 22: {what}", run_launches[what], searches[what][1])
             if what in constrained:
                 extra["transcripts_equal_cpu"] = out == cpu_texts[what]
                 if not extra["transcripts_equal_cpu"]:
@@ -3017,18 +3056,15 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     if constrained_plain:
-        raise SystemExit(f"phase 22: a plain constrained trellis ran on the card: "
-                         f"{constrained_plain}")
+        raise SystemExit(f"phase 22: a plain constrained, posterior or n-best search ran on "
+                         f"the card: {constrained_plain}")
     launches["trellis_planes"] = sum(run_launches[w]["planes"] for w in constrained)
     launches["trellis_duration"] = sum(run_launches[w]["duration"] for w in constrained)
+    launches["lattice_sum"] = run_launches["confidences (64 clips)"]["lsum"]
+    launches["lattice_max"] = run_launches["forward lattice + posteriors (1 clip)"]["lmax"]
+    launches["kbest"] = run_launches["nbest (1 clip, n=4)"]["kbest"]
     constrained_split(dev, flat_dec, clips, by_count, grammar, search_ms)
-    conf_launches = {}
-    for c in kernel_counters.values():
-        c.launches = 0
-    flat_dec.predict_batch_with_confidence(clips)
-    conf_launches = {n: c.launches for n, c in kernel_counters.items()}
-    if not (conf_launches["dense"] and conf_launches["backtrace"]):
-        raise SystemExit(f"phase 22: confidences never launched K4 / K2-bt: {conf_launches}")
+    search_split(dev, flat_dec, clips, search_ms)
 
     # -- (d) phase 18's traffic under bigram and confidence serving -----------
     audio, warm = serving_traffic(pipe["corpus"])
@@ -3207,8 +3243,8 @@ def search_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     for name, shape, ms, plain_ms, flat_mode_ms, (b_ms, b_by), tab in lm_rows:
         log("timing", kernel=name, shape=shape, ms=ms, plain_ms=plain_ms,
             flat_mode_ms=flat_mode_ms, bound_ms=b_ms, bound_by=b_by, table=tab)
-    log("timing", what="searches at 64 clips (counted, duration and grammar on their kernels; "
-        "confidences and n-best Python loops over T)",
+    log("timing", what="searches at 64 clips, one clip for n-best and the forward lattice (all "
+        "on their kernels: PLANES, DURATION, LSUM after K4 + K2-bt, KBEST, LMAX + LSUM)",
         search_ms=json.dumps(search_ms))
     errs.update(err)
     log("phase", which="22 search", seconds=f"{time.perf_counter() - t_phase:.2f}")
@@ -3298,6 +3334,89 @@ def constrained_split(dev, dec, clips, by_count, grammar, search_ms):
             for idx, kind in calls:
                 for k, v in one(idx, kind).items():
                     parts[k] = parts.get(k, 0.0) + v
+            if best is None or sum(v for k, v in parts.items() if "(host)" not in k) < sum(
+                    v for k, v in best.items() if "(host)" not in k):
+                best = parts
+        lead = max((k for k in best if "(host)" not in k), key=best.get)
+        log("split", run=what, wall_ms=search_ms.get(what), lead=repr(lead),
+            **{k.replace(" ", "_").replace("+", "and").replace("(", "").replace(")", ""): v
+               for k, v in best.items()})
+
+
+def search_split(dev, dec, clips, search_ms):
+    """Phase 22's confidences (64 clips) and n-best (one clip, n = 4) with
+    their host wall split into their parts (ops/lattice.py
+    word_confidences_batch and ops/nbest.py nbest_decode rebuilt here with
+    clocks; measurement only). Confidences: pad and features in, emissions
+    (one call), the dense decode (K4 + K2-bt and the paths' readback),
+    LSUM, the word-end lambdas formed on the card and their (B, T, W)
+    readback, the host span walk; n-best: emissions, KBEST, the readback of
+    alpha and bps, the host backtrace and dedupe. Device parts by CUDA
+    events, host parts by the host clock after a synchronize; best of three
+    passes."""
+    from cs304_tpu_torch.data.batching import pad_batch
+    from cs304_tpu_torch.ops import lattice as tla
+    from cs304_tpu_torch.ops import nbest as tnb
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+    comp = dec.composite
+
+    def clocks(parts):
+        def host(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        def device(name, fn):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + e0.elapsed_time(e1)
+            parts[name + " (host)"] = (parts.get(name + " (host)", 0.0)
+                                       + (time.perf_counter() - t0) * 1e3)
+            return out
+        return host, device
+
+    def confidences():
+        parts = {}
+        host, device = clocks(parts)
+        padded = host("pad + features in", lambda: pad_batch([np.asarray(f) for f in clips], 128))
+        x, ln = host("pad + features in", lambda: (torch.as_tensor(padded.data, device=dev),
+                                                   torch.as_tensor(padded.lengths, device=dev)))
+        lb = device("emissions", lambda: comp.log_likelihoods(x))
+        paths = device("K4 + K2-bt + paths readback", lambda: tla._viterbi_no_quirk(comp, lb, ln))
+        out = device("LSUM", lambda: tla._sum_passes(comp, lb, ln))
+        device("lambdas + readback",
+               lambda: tla._word_end_lambdas(comp, out[0], out[2], out[3], ln).cpu().numpy())
+        host("span walk", lambda: [tla.path_word_spans(comp, paths[i, :n])
+                                   for i, n in enumerate(padded.lengths)])
+        return parts
+
+    def nbest():
+        parts = {}
+        host, device = clocks(parts)
+        lb = device("emissions", lambda: comp.log_likelihoods(np.asarray(clips[0]), device=dev))
+        topo = tlk.topology_of(comp, dev)
+        alpha, bps = device("KBEST", lambda: tnb.kbest_composite_forward(
+            lb, comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit, comp.penalty,
+            k=8, topology=topo))
+        a, b = device("alpha + bps readback", lambda: (alpha.cpu().numpy(), bps.cpu().numpy()))
+        host("host backtrace + dedupe", lambda: [
+            "".join(comp.path_to_labels(p))
+            for _s, p in tnb.nbest_paths(a, b, comp.is_exit, lb.shape[0], 8)])
+        return parts
+
+    for what, fn in (("confidences (64 clips)", confidences), ("nbest (1 clip, n=4)", nbest)):
+        best = None
+        for _ in range(3):
+            parts = fn()
             if best is None or sum(v for k, v in parts.items() if "(host)" not in k) < sum(
                     v for k, v in best.items() if "(host)" not in k):
                 best = parts
@@ -3625,6 +3744,324 @@ def constrained_phase(dev, decode, pipe, timings, errs, yardsticks):
             yardsticks[key] = (None, b_ms, b_by)
     errs.update(err)
     log("phase", which="30 constrained", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
+# LSUM on the card against its plain version (csrc/trellis_lattice.cu): the
+# same -inf cells, the rest within LSUM_REL * max(1, |x|) (expf / logf
+# rounding; the sums run in the same order).
+LSUM_REL = 1e-5
+
+
+def lattice_composite(counts, penalty=-100.0, seed=31):
+    """A composite of words with these state counts: the lattice kernels take
+    its topology only (log_b is given), so the words' densities are random."""
+    from cs304_tpu_torch.models.hmm import WordHMM, stack_word_models, uniform_forward_log_a
+
+    rng = np.random.default_rng(seed)
+    return stack_word_models(
+        [WordHMM(f"w{i}", rng.normal(size=(n, 4)).astype(np.float32),
+                 np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)), uniform_forward_log_a(n))
+         for i, n in enumerate(counts)], penalty=penalty)
+
+
+def lattice_sum_bound(b, t, topo, lengths):
+    """bound() of one LSUM call: log_b read and alphas and beta_em written
+    (B, T, S each), beta_entry, log Z, lengths and the topology table; and
+    the operations at PEAK_FP32_ALU, an add, a max, an exp or a log one
+    each: a live forward step 16 a non-entry cell and 4 W_x + 8 an entry's
+    (its exits' add, subtract, exp and add), a backward step (all T - 1) 16
+    a non-exit row and 4 W_e + 20 an exit's, and beta_entry's and log Z's
+    sums 4 W a row. A pool past DENSE_POOL_MAX members is factorized: 4 W
+    a step once, and 12 (forward) or 24 (backward) a pool cell."""
+    from cs304_tpu_torch.ops.cuda.trellis_lattice import DENSE_POOL_MAX
+
+    s, wx, we = topo.num_states, topo.exits.numel(), topo.entries.numel()
+    fwd = int((lengths.clamp(min=1, max=t) - 1).sum().item())
+    f_entry, f_pool = (4 * wx + 8, 0) if wx <= DENSE_POOL_MAX else (12, 4 * wx)
+    b_exit, b_pool = (4 * we + 20, 0) if we <= DENSE_POOL_MAX else (24, 4 * we)
+    ops = (fwd * ((s - we) * 16 + we * f_entry + f_pool)
+           + b * (t - 1) * ((s - wx) * 16 + wx * b_exit + b_pool) + 4 * (b * t * we + b * wx))
+    return bound(12 * b * t * s + 4 * b * t + 8 * b + 52 * s + 4 * (wx + we),
+                 [(ops, PEAK_FP32_ALU)])
+
+
+def lattice_max_bound(t, topo, length):
+    """bound() of one LMAX call: log_b read, alphas and entry times written
+    (T, S each), beta_entry, the topology table; and at PEAK_FP32_ALU a live
+    forward step's 6 operations a state (three adds, two compares, the
+    emission's add), an exit's add and compare into the pool and an entry's
+    compare, and a backward step's 6 a state and a compare an exit and an
+    entry."""
+    s, wx, we = topo.num_states, topo.exits.numel(), topo.entries.numel()
+    live = max(min(int(length), t), 1) - 1
+    ops = live * (6 * s + 2 * wx + we) + (t - 1) * (6 * s + wx + we)
+    return bound(12 * t * s + 4 * t + 52 * s + 4 * (wx + we), [(ops, PEAK_FP32_ALU)])
+
+
+def kbest_bound(t, topo, k):
+    """bound() of one KBEST call: log_b read, bps (T, S, K) and alpha (S, K)
+    written, the topology table; and at PEAK_FP32_ALU a step's 6 K
+    operations a state (its candidates' adds, the merge's compares, the
+    emission's add) and a compare a value of the exit pool (W_x K)."""
+    s, wx = topo.num_states, topo.exits.numel()
+    return bound(4 * t * s + 4 * t * s * k + 4 * s * k + 36 * s + 4 * wx,
+                 [((t - 1) * (6 * k * s + wx * k), PEAK_FP32_ALU)])
+
+
+def lattice_resources(kernel, s):
+    """ptxas' registers and spills of the instantiation a launch at S states
+    takes (lattice_sum_kernel / lattice_max_kernel at K states a thread,
+    kbest_kernel)."""
+    from cs304_tpu_torch.ops.cuda import _build
+
+    path = _build.library_path().with_suffix(".log")
+    text = path.read_text() if path.exists() else ""
+    if kernel == "kbest":
+        return ptxas_resources(text, re.compile(r"kbest_kernelE"))
+    k = 1 if s <= 1024 else 2 if s <= 2048 else 4 if s <= 4096 else 8
+    name = {"lattice_sum": "lattice_sum_kernel", "lattice_max": "lattice_max_kernel"}[kernel]
+    return ptxas_resources(text, re.compile(rf"{name}ILi{k}E"))
+
+
+def tensor_bits_equal(a, b):
+    """Equal values with their signs of zero (floats), or equal integers."""
+    if a.dtype.is_floating_point:
+        return torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+    return torch.equal(a, b)
+
+
+def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
+    """Phase 31: the posterior and n-best searches' kernels
+    (csrc/trellis_lattice.cu) against their plain versions through their
+    dispatchers (ops/cuda/trellis_lattice.py): LSUM (the sum passes) with the
+    same -inf cells and the rest within LSUM_REL * max(1, |x|), LMAX (the
+    max-plus passes) and KBEST (the k-best forward) bitwise, every row past
+    the lengths included. First on the main path's own inputs (phase 22's
+    64 clips of phase 9's models, 128-padded and scored in one call as
+    word_confidences_batch does; its first clip for LMAX and for KBEST at
+    K = 8, predict_nbest(n=4)'s), then the flagship on phase 6's emissions
+    (B = 64, T = 201; K = 6 and 16, --nbest 3's and nbest_lattice's), 375
+    states (B = 16, T = 201), 503 states (B = 16, T = 201), 5003 states (B =
+    2, T = 60); the edges: single-state words whose self-loop beats the
+    penalty and whose penalty beats it, length-2 rows, integer-valued
+    emissions for ties, K = 1 / 6 / 16, T = 1. Each case logs its launches
+    and its error; then each kernel's device time (CUDA-graph replays) beside
+    its plain loop's eager time, its bound, µs a step and ptxas' registers
+    and spills."""
+    from cs304_tpu_torch.data.batching import pad_batch
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.ops.cuda import _build
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    err = {"lattice_sum": 0.0, "lattice_max": 0.0, "kbest": 0.0}
+    plain_ms = {}
+
+    def topo_of(comp):
+        return tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry,
+                                    comp.is_exit, comp.word_of_state, device=dev)
+
+    def plain_timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_ms[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def check_sum(name, comp, lb, ln, some_finite=True):
+        topo = topo_of(comp)
+        before = tlk.lattice_sum_passes.launches
+        got = tlk.lattice_sum_passes(lb, topo, comp.penalty, ln)
+        torch.cuda.synchronize()
+        rose = tlk.lattice_sum_passes.launches - before
+        want = plain_timed(("lattice_sum", name),
+                           lambda: tlk.lattice_sum_passes_plain(lb, topo, comp.penalty, ln))
+        same_inf, bitwise, worst, e = True, True, 0.0, 0.0
+        for g, w in zip(got, want):
+            same_inf &= torch.equal(torch.isfinite(g), torch.isfinite(w))
+            bitwise &= tensor_bits_equal(g, w)
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if fin.any():
+                d = (g - w)[fin].abs()
+                e = max(e, d.max().item())
+                worst = max(worst, (d / w[fin].abs().clamp(min=1.0)).max().item())
+        err["lattice_sum"] = max(err["lattice_sum"], e)
+        b_k, t_k, s_k = lb.shape
+        log("lattice", case=name, kernel="lattice_sum", B=b_k, T=t_k, S=s_k,
+            exits=topo.exits.numel(), launches=rose, same_inf_cells=same_inf, bitwise=bitwise,
+            max_abs_err=e, max_rel_err=worst, finite_log_z=int(torch.isfinite(want[3]).sum()))
+        if rose != 1 or not same_inf or worst > LSUM_REL or (some_finite and not
+                                                             torch.isfinite(want[3]).any()):
+            raise SystemExit(f"phase 31: LSUM disagrees with its plain version ({name}): "
+                             f"launches {rose}, same -inf cells {same_inf}, rel {worst}")
+
+    def check_max(name, comp, lb, length):
+        topo = topo_of(comp)
+        before = tlk.lattice_max_passes.launches
+        got = tlk.lattice_max_passes(lb, topo, comp.penalty, length)
+        torch.cuda.synchronize()
+        rose = tlk.lattice_max_passes.launches - before
+        want = plain_timed(("lattice_max", name),
+                           lambda: tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length))
+        names = ("alphas", "ets", "beta_entry", "score")
+        same = {n: tensor_bits_equal(g, w) for n, g, w in zip(names, got, want)}
+        fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        e = (got[0] - want[0])[fin].abs().max().item() if fin.any() else 0.0
+        err["lattice_max"] = max(err["lattice_max"], e)
+        log("lattice", case=name, kernel="lattice_max", T=lb.shape[0], S=lb.shape[1],
+            length=length, launches=rose, equal=json.dumps(same), max_abs_err=e,
+            score=want[3].item())
+        if rose != 1 or not all(same.values()) or (lb.shape[0] > 1 and
+                                                   not torch.isfinite(want[3]).item()):
+            raise SystemExit(f"phase 31: LMAX disagrees with its plain version ({name})")
+
+    def check_kbest(name, comp, lb, k, length=None):
+        topo = topo_of(comp)
+        before = tlk.kbest_forward.launches
+        got = tlk.kbest_forward(lb, topo, comp.penalty, k, length)
+        torch.cuda.synchronize()
+        rose = tlk.kbest_forward.launches - before
+        want = plain_timed(("kbest", name),
+                           lambda: tlk.kbest_forward_plain(lb, topo, comp.penalty, k, length))
+        same = {"alpha": tensor_bits_equal(got[0], want[0]),
+                "bps": tensor_bits_equal(got[1], want[1])}
+        fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        e = (got[0] - want[0])[fin].abs().max().item() if fin.any() else 0.0
+        err["kbest"] = max(err["kbest"], e)
+        scratch = _build.load().cs304_kbest_scratch_words(lb.shape[1], k)
+        log("lattice", case=name, kernel="kbest", T=lb.shape[0], S=lb.shape[1], K=k,
+            length=length, launches=rose, equal=json.dumps(same), max_abs_err=e,
+            rows="global" if scratch else "shared", finite_slots=int(fin.sum()))
+        if rose != 1 or not all(same.values()) or not torch.isfinite(want[0]).any():
+            raise SystemExit(f"phase 31: KBEST disagrees with its plain version ({name})")
+
+    def ragged(nb, t, floor=2):
+        ln = torch.randint(floor, t + 1, (nb,), generator=gen, device=dev, dtype=torch.int32)
+        ln[0] = t
+        return ln
+
+    # The main path's inputs, as word_confidences_batch and predict_nbest
+    # make them: phase 22's 64 clips, padded to 128 frames, scored in one call.
+    main_dec = dm.ContinuousDecoder(pipe["models"], penalty=-100.0, device=dev)
+    pc = main_dec.composite
+    feats = pipe["eval"]["train_speakers"][1] + pipe["eval"]["unseen_speakers"][1]
+    clips = (feats * 2)[:64]
+    padded = pad_batch([np.asarray(c) for c in clips], 128)
+    lb_main = pc.log_likelihoods(torch.as_tensor(padded.data, device=dev))
+    len_main = torch.as_tensor(padded.lengths, device=dev)
+    lb_clip = pc.log_likelihoods(np.asarray(clips[0]), device=dev)
+    check_sum("main-confidences-64-clips", pc, lb_main, len_main)
+    check_max("main-forward-lattice-clip-0", pc, lb_clip, lb_clip.shape[0])
+    check_kbest("main-nbest-clip-0-K8", pc, lb_clip, 8)
+
+    flag, lb3, n_frames = decode["comp"], decode["lb3"], decode["n_frames"]
+    s58, t_total = flag.num_states, lb3.shape[1]
+    lb58 = lb3[:64, :, :s58].contiguous()
+    len58 = n_frames[:64].to(torch.int32).contiguous()
+    check_sum("flagship-B64", flag, lb58, len58)
+    check_max("flagship", flag, lb58[0].contiguous(), int(len58[0]))
+    for k in (6, 8, 16):
+        check_kbest(f"flagship-K{k}", flag, lb58[1].contiguous(), k, int(len58[1]))
+    c375 = lattice_composite([5] * 75)
+    c503, c5003 = random_composite(100, 3), random_composite(1000, 3)
+    lb375 = 3 * torch.randn((16, t_total, c375.num_states), generator=gen, device=dev)
+    len375 = ragged(16, t_total)
+    lb503 = 3 * torch.randn((16, t_total, c503.num_states), generator=gen, device=dev)
+    len503 = ragged(16, t_total)
+    lb5003 = 3 * torch.randn((2, 60, c5003.num_states), generator=gen, device=dev)
+    len5003 = ragged(2, 60)
+    for name, comp, lb, ln in (("375", c375, lb375, len375), ("503", c503, lb503, len503),
+                               ("5003", c5003, lb5003, len5003)):
+        check_sum(f"{name}-states", comp, lb, ln)
+        check_max(f"{name}-states", comp, lb[0].contiguous(), int(ln[0]))
+        check_kbest(f"{name}-states-K8", comp, lb[1].contiguous(), 8, int(ln[1]))
+    check_kbest("5003-states-K16", c5003, lb5003[0].contiguous(), 16)
+
+    # The edges: single-state words (their self-loop 0 beats a -25 penalty,
+    # or a 0 penalty beats it), length-2 rows, integer ties, K = 1, T = 1.
+    ties58 = torch.randint(-3, 1, (16, 64, s58), generator=gen, device=dev).float()
+    len_ties = ragged(16, 64)
+    len_ties[1:4] = 2
+    check_sum("flagship-ties-length-2-rows", flag, ties58, len_ties)
+    check_max("flagship-ties", flag, ties58[0].contiguous(), 64)
+    check_max("flagship-length-2", flag, ties58[1].contiguous(), 2)
+    for k in (1, 6, 16):
+        check_kbest(f"flagship-ties-K{k}", flag, ties58[2].contiguous(), k, 50)
+    for pen in (-25.0, 0.0):
+        single = lattice_composite([1, 3, 1, 5, 1, 3], penalty=pen)
+        lb_1 = torch.randint(-3, 1, (8, 64, single.num_states), generator=gen,
+                             device=dev).float()
+        len_1 = ragged(8, 64)
+        len_1[2] = 2
+        check_sum(f"single-state-words-pen{pen:g}", single, lb_1, len_1)
+        check_max(f"single-state-words-pen{pen:g}", single, lb_1[0].contiguous(), 64)
+        for k in (1, 6, 16):
+            check_kbest(f"single-state-words-pen{pen:g}-K{k}", single, lb_1[1].contiguous(), k)
+    check_sum("flagship-T1", flag, lb58[:4, :1].contiguous(),  # only entries live: Z = 0
+              torch.ones(4, dtype=torch.int32, device=dev), some_finite=False)
+    check_max("flagship-T1", flag, lb58[0, :1].contiguous(), 1)
+    check_kbest("flagship-T1-K8", flag, lb58[0, :1].contiguous(), 8)
+
+    # -- timing: device time (CUDA-graph replays) beside the plain loop ------
+    tp_main, tp58 = topo_of(pc), topo_of(flag)
+    tp503, tp5003 = topo_of(c503), topo_of(c5003)
+    len0 = lb_clip.shape[0]
+    # Host ints before any capture: a capture may not synchronize.
+    l58, l58b, l503, l503b, l5003 = (int(x) for x in (len58[0], len58[1], len503[0],
+                                                      len503[1], len5003[0]))
+    rows = (
+        ("lattice_sum", "main-confidences-64-clips", f"phase 22's 64 clips, B=64, "
+         f"T={lb_main.shape[1]}, S={pc.num_states}",
+         lambda: tlk.lattice_sum_passes(lb_main, tp_main, pc.penalty, len_main),
+         lattice_sum_bound(64, lb_main.shape[1], tp_main, len_main), lb_main.shape[1] - 1,
+         pc.num_states),
+        ("lattice_sum", "flagship-B64", f"flagship B=64, T={t_total}, S={s58}",
+         lambda: tlk.lattice_sum_passes(lb58, tp58, flag.penalty, len58),
+         lattice_sum_bound(64, t_total, tp58, len58), t_total - 1, s58),
+        ("lattice_sum", "503-states", f"503 states B=16, T={t_total}",
+         lambda: tlk.lattice_sum_passes(lb503, tp503, c503.penalty, len503),
+         lattice_sum_bound(16, t_total, tp503, len503), t_total - 1, c503.num_states),
+        ("lattice_sum", "5003-states", "5003 states B=2, T=60",
+         lambda: tlk.lattice_sum_passes(lb5003, tp5003, c5003.penalty, len5003),
+         lattice_sum_bound(2, 60, tp5003, len5003), 59, c5003.num_states),
+        ("lattice_max", "main-forward-lattice-clip-0", f"phase 22's clip 0, T={len0}",
+         lambda: tlk.lattice_max_passes(lb_clip, tp_main, pc.penalty, len0),
+         lattice_max_bound(len0, tp_main, len0), len0 - 1, pc.num_states),
+        ("lattice_max", "flagship", f"flagship T={t_total}, length {l58}",
+         lambda: tlk.lattice_max_passes(lb58[0], tp58, flag.penalty, l58),
+         lattice_max_bound(t_total, tp58, l58), t_total - 1, s58),
+        ("lattice_max", "503-states", f"503 states T={t_total}",
+         lambda: tlk.lattice_max_passes(lb503[0], tp503, c503.penalty, l503),
+         lattice_max_bound(t_total, tp503, l503), t_total - 1, c503.num_states),
+        ("lattice_max", "5003-states", "5003 states T=60",
+         lambda: tlk.lattice_max_passes(lb5003[0], tp5003, c5003.penalty, l5003),
+         lattice_max_bound(60, tp5003, l5003), 59, c5003.num_states),
+        ("kbest", "main-nbest-clip-0-K8", f"phase 22's clip 0, T={len0}, K=8",
+         lambda: tlk.kbest_forward(lb_clip, tp_main, pc.penalty, 8),
+         kbest_bound(len0, tp_main, 8), len0 - 1, pc.num_states),
+        ("kbest", "flagship-K16", f"flagship T={t_total}, K=16",
+         lambda: tlk.kbest_forward(lb58[1], tp58, flag.penalty, 16, l58b),
+         kbest_bound(t_total, tp58, 16), t_total - 1, s58),
+        ("kbest", "503-states-K8", f"503 states T={t_total}, K=8",
+         lambda: tlk.kbest_forward(lb503[1], tp503, c503.penalty, 8, l503b),
+         kbest_bound(t_total, tp503, 8), t_total - 1, c503.num_states),
+        ("kbest", "5003-states-K16", "5003 states T=60, K=16",
+         lambda: tlk.kbest_forward(lb5003[0], tp5003, c5003.penalty, 16),
+         kbest_bound(60, tp5003, 16), 59, c5003.num_states),
+    )
+    for key, case, shape, fn, (b_ms, b_by), steps, s_k in rows:
+        ms = device_ms(fn, reps=5)
+        res = lattice_resources(key, s_k)
+        log("timing", kernel=key, shape=shape, ms=ms, plain_ms=plain_ms[(key, case)],
+            bound_ms=b_ms, bound_by=b_by, us_per_step=ms / steps * 1e3,
+            **{f"ptxas_{k}": v for k, v in res.items()})
+        if key not in timings:  # the first row of each kernel, the main path's, is its record
+            timings[key] = (ms, plain_ms[(key, case)])
+            yardsticks[key] = (None, b_ms, b_by)
+    errs.update(err)
+    log("phase", which="31 lattice", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
 def word_trellis_problem(gen, b, t, s, log_a=None, zero_length=False):
@@ -4550,8 +4987,9 @@ def cli_phase(dev, card):
     the card's and neither launching a card kernel nor allocating card
     memory; each script launched the
     kernels its path runs (the counted and grammar decodes the PLANES
-    kernel and K2-bt, the duration decode the DURATION kernel and K2-bt;
-    n-best runs no hand kernel yet: ROADMAP Queue 2 B); no
+    kernel, the duration decode the DURATION kernel, --confidence LSUM,
+    project6_interactive's n-best KBEST and its keyword and forward lattice
+    LMAX and LSUM); no
     plain trellis (the constrained ones included), emission,
     forward-backward or pool step on a CUDA tensor; the phase within
     CLI_BUDGET_S. One [cli] line a script: wall seconds and launches."""
@@ -4579,6 +5017,7 @@ def cli_phase(dev, card):
     from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
     from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
     from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
     from cs304_tpu_torch.ops.cuda import trellis_stream as tst
     from cs304_tpu_torch.ops.mfcc import mfcc_batch
@@ -4594,7 +5033,9 @@ def cli_phase(dev, card):
                 "K2-bt": tsf.trellis_backtrace, "K1": em.emission, "K1-split": em.emission_split,
                 "K4": tdn.trellis_dense_forward, "E-step": tfb.banded_fb_posteriors,
                 "FB": tfb.banded_fb, "STREAM": tst.stream_advance,
-                "PLANES": tcs.planes_decode, "DURATION": tcs.duration_decode}
+                "PLANES": tcs.planes_decode, "DURATION": tcs.duration_decode,
+                "LSUM": tlk.lattice_sum_passes, "LMAX": tlk.lattice_max_passes,
+                "KBEST": tlk.kbest_forward}
 
     def counts():
         torch.cuda.synchronize()
@@ -4611,7 +5052,9 @@ def cli_phase(dev, card):
              (tf, "banded_fb_posteriors_plain"), (sb, "_advance"), (sb, "_advance_banded"),
              (sb, "_advance_compact"), (tvc, "viterbi_composite_counted_batch_plain"),
              (gm, "viterbi_composite_grammar_batch_plain"),
-             (tvd, "viterbi_composite_duration_batch_plain")]
+             (tvd, "viterbi_composite_duration_batch_plain"),
+             (tlk, "lattice_sum_passes_plain"), (tlk, "lattice_max_passes_plain"),
+             (tlk, "kbest_forward_plain")]
     saved = [guard(plain_on_card, m, n) for m, n in plain]
     tmp = tempfile.mkdtemp(prefix="cli_phase_")
     log_file = os.path.join(tmp, "runtime.log")
@@ -4733,7 +5176,7 @@ def cli_phase(dev, card):
         if [t for _w, t in texts] != library or [w for w, _t in texts] != wavs:
             raise SystemExit(f"phase 28: transcribe {texts} != predict_batch {library}")
         run("transcribe", base + ["--fast"], ["K1-split", "K2"], label="transcribe_fast")
-        run("transcribe", base + ["--confidence", "--timings"], ["K4", "K2-bt"],
+        run("transcribe", base + ["--confidence", "--timings"], ["K4", "K2-bt", "LSUM"],
             label="transcribe_confidence_timings")
         run("transcribe", base + ["--beam", "50"], ["K2-beam"], label="transcribe_beam")
         # Device parity: the plain decode and each constrained one
@@ -4777,7 +5220,8 @@ def cli_phase(dev, card):
                               "--wav", wavs[0], "--transcript", "375", "--tau", "10"], ["K3"])
         run("project6_interactive", ["--checkpoint-dir", ck6, "--wav", wavs[0], "--nbest", "3",
                                      "--confidence", "--spot", "7", "--lattice-dot",
-                                     os.path.join(tmp, "lattice.dot")], ["K4", "K2-bt"])
+                                     os.path.join(tmp, "lattice.dot")],
+            ["K4", "K2-bt", "LSUM", "LMAX", "KBEST"])
         run("train_phones", ["--iterations", "3", "--out-dir", os.path.join(tmp, "phones")],
             ["K3"])
         run("demo_serving", ["--checkpoint-dir", ck6], ["K4", "K2-bt", "K2"])
@@ -5187,6 +5631,16 @@ def report(kind, launches, timings, errs, yardsticks):
                            "cs304_tpu/ops/grammar.py:237 (lax.scans)"),
         "trellis_duration": ("cs304_tpu_torch/csrc/trellis_constrained.cu",
                              "cs304_tpu/ops/viterbi_duration.py:145 (lax.scan)"),
+        # No Pallas counterpart: the JAX package's posterior and n-best
+        # searches are lax.scans.
+        "lattice_sum": ("cs304_tpu_torch/csrc/trellis_lattice.cu",
+                        "cs304_tpu/ops/lattice.py:312 (_sum_passes_masked, lax.scans :336, "
+                        ":348; vmapped by :361)"),
+        "lattice_max": ("cs304_tpu_torch/csrc/trellis_lattice.cu",
+                        "cs304_tpu/ops/lattice.py:227 (_lattice_passes_impl, lax.scans :274, "
+                        ":292)"),
+        "kbest": ("cs304_tpu_torch/csrc/trellis_lattice.cu",
+                  "cs304_tpu/ops/nbest.py:27 (kbest_composite_forward, lax.scan :124)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

@@ -40,11 +40,13 @@ a bigram alone runs the dense plain path on the (S, S) pair matrix
 with a beam the banded semantics (the JAX decoder switches to "fast" there
 and reports it; this one keeps the name it was given). The n-best, lattice
 confidence, counted, duration and grammar decodes use the flat penalty, as
-in the JAX package: predict_nbest (ops/nbest.py),
-predict_batch_with_confidence (ops/lattice.py; K4 + K2-bt on the card),
-predict_batch_counted (ops/viterbi_counted.py), predict_batch_duration
-(ops/viterbi_duration.py) and predict_batch_grammar (ops/grammar.py), each
-a batched PyTorch step in a Python loop over T.
+in the JAX package: predict_nbest (ops/nbest.py; the KBEST kernel on the
+card), predict_batch_with_confidence (ops/lattice.py; K4 + K2-bt, then the
+LSUM kernel on the card), predict_batch_counted (ops/viterbi_counted.py)
+and predict_batch_grammar (ops/grammar.py; the PLANES kernel on the card),
+predict_batch_duration (ops/viterbi_duration.py; the DURATION kernel); on
+the CPU each runs its plain version, a batched PyTorch step in a Python
+loop over T.
 """
 from __future__ import annotations
 
@@ -527,7 +529,8 @@ class ContinuousDecoder:
 
     def predict_nbest(self, features, n: int = 4, beam_k: int | None = None):
         """N-best word strings for one utterance: [(score, text), ...]
-        (ops/nbest.py), scored with the decoder's densities (GMMs' own) and
+        (ops/nbest.py: the KBEST kernel on the card, then the backtrace on
+        the host), scored with the decoder's densities (GMMs' own) and
         the flat penalty; apply a bigram afterwards with
         ops.lm.rescore_nbest."""
         from ..ops.nbest import nbest_decode
@@ -540,7 +543,7 @@ class ContinuousDecoder:
         """Batched decode with per-word posterior confidences:
         [[(label, start, end, confidence), ...] per utterance]
         (ops/lattice.word_confidences_batch: the dense max-plus decode, K4 +
-        K2-bt on the card, and the sum-semiring passes), under the
+        K2-bt on the card, and the sum-semiring passes, the LSUM kernel), under the
         flat-penalty measure; GMM-aware."""
         from ..ops.lattice import word_confidences_batch
 

@@ -20,9 +20,12 @@ word confidences, keyword spotting and consensus decoding.
   (ops/cuda/trellis_dense.dense_decode_pallas), its plain version on the
   CPU, so the dense tie rules hold.
 
-Every pass is a torch step in a Python loop over T, on the device the caller
-names (the card unless "cpu"), or on log_b's device where log_b is a
-tensor. Sums differ from the JAX package's only by logsumexp's order.
+The passes run on the device the caller names (the card unless "cpu"), or
+on log_b's device where log_b is a tensor: on the card one launch of the
+LSUM kernel (sum passes), the LMAX kernel (max-plus passes) or the KBEST
+kernel (the k-best forward), ops/cuda/trellis_lattice.py; on the CPU their
+plain versions. Sums differ from the JAX package's only by their order
+(stated in trellis_lattice.lattice_sum_passes_plain).
 """
 from __future__ import annotations
 
@@ -33,9 +36,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .logmath import logsumexp
+from .cuda.trellis_lattice import lattice_max_passes, lattice_sum_passes, topology_of
 from .nbest import emissions_of, kbest_composite_forward, nbest_paths
-from .viterbi import NEG, composite_transition_matrix
+from .viterbi import NEG
 
 
 @dataclass(frozen=True)
@@ -177,20 +180,6 @@ def path_word_spans(composite, path: np.ndarray) -> List[Tuple[int, int, int]]:
     return spans
 
 
-def _topology(composite, dev):
-    """The dense (S, S) matrix, the degenerate-safe t = 0 self-loops and the
-    entry / exit masks on ``dev``."""
-    log_a = torch.as_tensor(composite.log_a, dtype=torch.float32, device=dev)
-    trans = composite_transition_matrix(
-        log_a, composite.lower_of_state, composite.is_entry, composite.is_exit,
-        composite.penalty, device=dev)
-    diag = torch.diagonal(log_a)
-    diag_init = torch.where(torch.isfinite(diag), diag, torch.zeros_like(diag))
-    is_entry = torch.as_tensor(composite.is_entry, device=dev)
-    is_exit = torch.as_tensor(composite.is_exit, device=dev)
-    return trans, diag_init, is_entry, is_exit
-
-
 def nbest_lattice(composite, features, n: int = 8, beam_k: int | None = None,
                   log_b=None, quirk_backtrace: bool = True, device=None) -> Lattice:
     """Build a pruned word lattice from the n best distinct state paths.
@@ -201,6 +190,7 @@ def nbest_lattice(composite, features, n: int = 8, beam_k: int | None = None,
     alpha, backptrs = kbest_composite_forward(
         log_b, composite.log_a, composite.lower_of_state, composite.is_entry,
         composite.is_exit, composite.penalty, k=beam_k,
+        topology=topology_of(composite, log_b.device),
     )
     t_total = int(np.asarray(features).shape[0])
     hyps = nbest_paths(alpha.cpu().numpy(), backptrs.cpu().numpy(), composite.is_exit,
@@ -221,123 +211,85 @@ def nbest_lattice(composite, features, n: int = 8, beam_k: int | None = None,
     )
 
 
-def _lattice_passes(log_b, trans, diag_init, is_entry, is_exit, word_of,
-                    lower_of_state, upper_of_state, length: int):
-    """Forward max-plus pass with a word-entry-time carry, and the backward
-    pass. log_b (T, S) -> (alphas (T, S), entry_times (T, S) int32,
-    beta_entry (T,): the best continuation from any word entry at each
-    frame, emission included, and score: the Viterbi total). Rows at
-    t >= length are garbage: read only frames < length."""
-    t_total, s = log_b.shape
-    dev = log_b.device
-    sidx = torch.arange(s, device=dev)
-    alpha = torch.where(is_entry, log_b[0] + diag_init, NEG)
-    et = torch.zeros((s,), dtype=torch.int64, device=dev)
-    alphas = torch.empty((t_total, s), device=dev)
-    ets = torch.empty((t_total, s), dtype=torch.int32, device=dev)
-    alphas[0], ets[0] = alpha, et
-    for t in range(1, t_total):
-        new_alpha, bp = torch.max(alpha[:, None] + trans, dim=0)
-        new_alpha = new_alpha + log_b[t]
-        # A new word instance starts when the predecessor lies in another
-        # word, or on an exit -> entry re-entry of the same word.
-        new_inst = (bp != sidx) & ((word_of[bp] != word_of)
-                                   | ((bp == upper_of_state) & (sidx == lower_of_state)))
-        new_et = torch.where(new_inst, t, et[bp])
-        if t < length:
-            alpha, et = new_alpha, new_et
-        alphas[t], ets[t] = alpha, et
-
-    # beta[t, s]: best score over frames t+1.. from state s, ending at an exit.
-    beta_last = torch.where(is_exit, 0.0, NEG)
-    beta = beta_last
-    beta_em = torch.empty((t_total, s), device=dev)
-    for t in range(t_total - 1, 0, -1):
-        here = beta_last if t == length - 1 else beta
-        beta_em[t] = log_b[t] + here
-        beta = torch.max(trans + beta_em[t][None, :], dim=1).values
-    beta_em[0] = log_b[0] + beta
-    beta_entry = torch.where(is_entry[None, :], beta_em, NEG).max(dim=1).values
-    score = torch.where(is_exit, alpha, NEG).max()
-    return alphas, ets, beta_entry, score
+def _lattice_passes(composite, log_b, length: int):
+    """The max-plus passes of one utterance (trellis_lattice
+    lattice_max_passes: LMAX on the card): log_b (T, S) -> (alphas (T, S),
+    entry_times (T, S) int32, beta_entry (T,): the best continuation from
+    any word entry at each frame, emission included, and score: the Viterbi
+    total). Rows at t >= length are garbage: read only frames < length."""
+    return lattice_max_passes(log_b, topology_of(composite, log_b.device), composite.penalty,
+                              length)
 
 
-def _sum_passes(log_b, trans, diag_init, is_entry, is_exit, lengths):
-    """Length-masked sum-semiring passes over padded utterances: log_b
-    (B, T, S), lengths (B,) -> (alphas (B, T, S), beta_em (B, T, S),
+def _sum_passes(composite, log_b, lengths):
+    """Length-masked sum-semiring passes over padded utterances (trellis_lattice
+    lattice_sum_passes: LSUM on the card): log_b (B, T, S), lengths (B,)
+    int32 on log_b's device -> (alphas (B, T, S), beta_em (B, T, S),
     beta_entry (B, T), log_z (B,)). Forward steps at t >= length freeze the
     carry; the backward re-seeds the exit terminal at t == length - 1, so
     padding never reaches live frames (rows at t >= length are garbage).
     Needs length >= 2 where T > length."""
-    b, t_total, s = log_b.shape
-    dev = log_b.device
-    lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)
-    alpha = torch.where(is_entry, log_b[:, 0] + diag_init, NEG)
-    alphas = torch.empty((b, t_total, s), device=dev)
-    alphas[:, 0] = alpha
-    for t in range(1, t_total):
-        new_alpha = logsumexp(alpha[:, :, None] + trans, axis=1) + log_b[:, t]
-        alpha = torch.where((t < lengths)[:, None], new_alpha, alpha)
-        alphas[:, t] = alpha
-    terminal = torch.where(is_exit, 0.0, NEG).expand(b, s)
-    beta = terminal
-    beta_em = torch.empty((b, t_total, s), device=dev)
-    for t in range(t_total - 1, 0, -1):
-        here = torch.where((t == lengths - 1)[:, None], terminal, beta)
-        beta_em[:, t] = log_b[:, t] + here
-        beta = logsumexp(trans + beta_em[:, t][:, None, :], axis=2)
-    beta_em[:, 0] = log_b[:, 0] + beta
-    beta_entry = logsumexp(torch.where(is_entry, beta_em, NEG), axis=2)
-    log_z = logsumexp(torch.where(is_exit, alpha, NEG), axis=1)
-    return alphas, beta_em, beta_entry, log_z
+    return lattice_sum_passes(log_b, topology_of(composite, log_b.device), composite.penalty,
+                              lengths)
+
+
+def _word_end_lambdas(composite, alphas, beta_entry, log_z, lengths):
+    """(B, T, W) log P(word w ends at frame t | X) on the passes' device:
+    alpha at w's exit + penalty + beta_entry[t + 1] - log Z for t <
+    length - 1, alpha - log Z at t = length - 1, -inf past it."""
+    dev = alphas.device
+    b, t_total, _s = alphas.shape
+    uppers = torch.as_tensor(np.asarray(composite.uppers), device=dev).to(torch.int64)
+    a_exit = alphas[:, :, uppers]
+    beta_next = torch.cat([beta_entry[:, 1:], beta_entry.new_full((b, 1), NEG)], dim=1)
+    steps = torch.arange(t_total, device=dev)[None, :, None]
+    last = lengths.to(torch.int64)[:, None, None] - 1
+    cross = a_exit + composite.penalty + beta_next[:, :, None] - log_z[:, None, None]
+    end = a_exit - log_z[:, None, None]
+    return torch.where(steps < last, cross,
+                       torch.where(steps == last, end, torch.full_like(end, NEG)))
 
 
 def word_confidences_batch(composite, features, log_b=None,
                            skip_silence: bool = True, device=None):
     """Per-word posterior confidences for a ragged list of utterances:
     [[(label, start_frame, end_frame, confidence), ...] per utterance].
-    One dense max-plus decode (no quirk) and one batch of sum-semiring
-    passes over the 128-padded batch. log_b optionally overrides the
+    The 128-padded batch is scored in one emission call, then one dense
+    max-plus decode (no quirk) and one batch of sum-semiring passes; the
+    word-end log posteriors are formed at the exits on the passes' device
+    and only they, (B, T, W), come back. log_b optionally overrides the
     emissions as a ragged list (e.g. GMM densities); a list of tensors keeps
     their device."""
+    from ..data.batching import pad_batch
+
     feats = [np.asarray(f) for f in features]
     lengths = np.asarray([f.shape[0] for f in feats], np.int32)
     if (lengths < 2).any():
         raise ValueError("word_confidences_batch needs utterances of >= 2 frames")
-    t_max = -(-int(lengths.max()) // 128) * 128
     if log_b is None:
         dev = resolve_device(device)
-        log_b_list = [composite.log_likelihoods(f, device=dev) for f in feats]
+        padded = pad_batch(feats, 128)
+        log_b_pad = composite.log_likelihoods(torch.as_tensor(padded.data, device=dev))
     else:
         log_b_list = [emissions_of(composite, f, lb, device)[0] for f, lb in zip(feats, log_b)]
         dev = log_b_list[0].device
-    s = log_b_list[0].shape[1]
-    log_b_pad = torch.zeros((len(feats), t_max, s), device=dev)
-    for i, lb in enumerate(log_b_list):
-        log_b_pad[i, : lb.shape[0]] = lb
-    trans, diag_init, is_entry, is_exit = _topology(composite, dev)
+        t_max = -(-int(lengths.max()) // 128) * 128
+        log_b_pad = torch.zeros((len(feats), t_max, log_b_list[0].shape[1]), device=dev)
+        for i, lb in enumerate(log_b_list):
+            log_b_pad[i, : lb.shape[0]] = lb
     lengths_d = torch.as_tensor(lengths, device=dev)
     paths = _viterbi_no_quirk(composite, log_b_pad, lengths_d)
-    alphas, _beta_em, beta_entry, log_z = _sum_passes(log_b_pad, trans, diag_init,
-                                                      is_entry, is_exit, lengths_d)
-    alphas = alphas.cpu().numpy()
-    beta_entry = beta_entry.cpu().numpy()
-    log_z = log_z.cpu().numpy()
-    uppers = np.asarray(composite.uppers)
+    alphas, _beta_em, beta_entry, log_z = _sum_passes(composite, log_b_pad, lengths_d)
+    lam = _word_end_lambdas(composite, alphas, beta_entry, log_z, lengths_d).cpu().numpy()
 
     out = []
     for i, l in enumerate(lengths):
-        a_exit = alphas[i, :l][:, uppers]
-        lam = np.full((l, len(uppers)), -np.inf)
-        lam[: l - 1] = (a_exit[: l - 1] + composite.penalty
-                        + beta_entry[i, 1:l, None] - log_z[i])
-        lam[l - 1] = a_exit[l - 1] - log_z[i]
         words = []
         for st, en, w in path_word_spans(composite, paths[i, :l]):
             if skip_silence and composite._silence_word is not None \
                     and w == composite._silence_word:
                 continue
-            conf = float(np.exp(min(lam[en - 1, w], 0.0)))
+            conf = float(np.exp(min(lam[i, en - 1, w], 0.0)))
             words.append((composite.labels[w], st, en, conf))
         out.append(words)
     return out
@@ -354,10 +306,9 @@ def _sum_quantities(composite, features, log_b=None, length=None, device=None):
         # The backward re-seed lives at t == length - 1 >= 1.
         raise ValueError("padded posterior passes need length >= 2")
     log_b, dev = emissions_of(composite, feats, log_b, device)
-    trans, diag_init, is_entry, is_exit = _topology(composite, dev)
     alphas, beta_em, beta_entry, log_z = _sum_passes(
-        log_b[None], trans, diag_init, is_entry, is_exit,
-        torch.tensor([int(length)], device=dev))
+        composite, log_b[None].contiguous(),
+        torch.tensor([int(length)], dtype=torch.int32, device=dev))
     return (log_b.cpu().numpy(), alphas[0].cpu().numpy(), beta_em[0].cpu().numpy(),
             beta_entry[0].cpu().numpy(), float(log_z[0]))
 
@@ -468,13 +419,8 @@ def forward_lattice(composite, features, beam: float = 50.0, log_b=None,
     t_total = feats.shape[0] if length is None else int(length)
     if t_total < 2 and feats.shape[0] > t_total:
         raise ValueError("padded forward_lattice needs length >= 2")
-    log_b, dev = emissions_of(composite, feats, log_b, device)
-    trans, diag_init, is_entry, is_exit = _topology(composite, dev)
-    as_dev = lambda x: torch.as_tensor(np.asarray(x), device=dev).to(torch.int64)  # noqa: E731
-    upper_of_state = composite.uppers[composite.word_of_state]
-    alphas, ets, beta_entry, score = _lattice_passes(
-        log_b, trans, diag_init, is_entry, is_exit, as_dev(composite.word_of_state),
-        as_dev(composite.lower_of_state), as_dev(upper_of_state), t_total)
+    log_b, _dev = emissions_of(composite, feats, log_b, device)
+    alphas, ets, beta_entry, score = _lattice_passes(composite, log_b.contiguous(), t_total)
     alphas = alphas.cpu().numpy()
     ets = ets.cpu().numpy()
     beta_entry = beta_entry.cpu().numpy()

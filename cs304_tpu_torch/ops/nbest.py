@@ -2,12 +2,15 @@
 
 The port of the JAX package's ops/nbest.py. Every state carries its K best
 distinct path prefixes; a step merges the banded predecessors' beams (and,
-for word-entry states, the shared top-K word-exit pool + penalty). The T
-loop is a Python loop of whole-state-vector torch ops on one utterance.
+for word-entry states, the shared top-K word-exit pool + penalty). The
+forward is ops/cuda/trellis_lattice.kbest_forward: one launch of the KBEST
+kernel on the card, on the CPU its plain version (a Python loop over T of
+whole-state-vector torch ops). The backtrace (nbest_paths) walks the
+read-back backpointers on the host.
 
 jax.lax.top_k returns the lower index first on a tie; torch.topk promises no
-order there, so the top K here is a stable descending sort (equal values
-keep their index order), the same selection.
+order there, so the top K is a stable descending sort (equal values keep
+their index order), the same selection.
 
 Hypotheses are distinct STATE paths; distinct paths may decode to the same
 word string, and ``nbest_decode`` dedupes at the string level.
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .viterbi import NEG, pack_coefs
+from .cuda.trellis_lattice import kbest_forward, lattice_topology, top_k, topology_of  # noqa: F401
 
 
 def emissions_of(composite, features, log_b=None, device=None):
@@ -36,68 +39,18 @@ def emissions_of(composite, features, log_b=None, device=None):
     return torch.as_tensor(np.array(log_b, np.float32), device=dev), dev
 
 
-def top_k(x: torch.Tensor, k: int):
-    """The k largest values of the last axis and their indices, best first,
-    the lower index first among equal values (jax.lax.top_k's order)."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
-
-
 def kbest_composite_forward(log_b, log_a, lower_of_state, is_entry, is_exit,
-                            penalty, length=None, k: int = 4):
+                            penalty, length=None, k: int = 4, topology=None):
     """Forward pass with K hypotheses per state, on log_b's device.
 
     log_b (T, S) float32 -> (alpha (S, K) final scores, bp (T, S, K) int32
-    encoding pred_state * K + pred_k, -1 on the seed frame)."""
-    t_total, s = log_b.shape
-    dev = log_b.device
-    length = t_total if length is None else int(length)
-    log_a = torch.as_tensor(log_a, dtype=torch.float32, device=dev)
-    coefs = pack_coefs(log_a, lower_of_state, is_entry, is_exit, device=dev)
-    diag_ne, sub1, sub2, diag_e = coefs[0], coefs[1], coefs[2], coefs[3]
-    entry, exit_ = coefs[4] > 0, coefs[5] > 0
-    diag = torch.diagonal(log_a)
-    penalty = torch.as_tensor(penalty, dtype=torch.float32, device=dev)
-    to = torch.arange(s, device=dev)
-    lanes = torch.arange(k, device=dev)
-    pred_state_ne = torch.stack([(to - 2).clamp(min=0), (to - 1).clamp(min=0), to], dim=1)
-    both = entry & exit_
-    slot_ids = to[:, None] * k + lanes[None, :]  # (S, K)
-    # Single-state words (entry and exit): a pool candidate and a self-loop
-    # candidate can carry the same predecessor; the pool keeps it when the
-    # penalty is at least the self-loop (same alpha on both sides).
-    pool_beats = (penalty >= diag)[:, None]
-    neg_row = torch.full((1, k), NEG, device=dev)
-
-    alpha = torch.full((s, k), NEG, device=dev)
-    alpha[:, 0] = torch.where(entry, log_b[0] + coefs[6], NEG)
-    bps = torch.empty((t_total, s, k), dtype=torch.int32, device=dev)
-    bps[0] = -1
-    for t in range(1, t_total):
-        a1 = torch.cat([neg_row, alpha[:-1]], dim=0)
-        a2 = torch.cat([neg_row, neg_row, alpha[:-2]], dim=0)[:s]
-        cand_ne = torch.cat([a2 + sub2[:, None], a1 + sub1[:, None],
-                             alpha + diag_ne[:, None]], dim=1)  # (S, 3K)
-        top_ne, idx_ne = top_k(cand_ne, k)
-        bp_ne = pred_state_ne.gather(1, idx_ne // k) * k + idx_ne % k
-
-        pool = torch.where(exit_[:, None], alpha, NEG).reshape(-1)
-        pool_top, pool_idx = top_k(pool, k)
-        c_pen = pool_top + penalty
-        c_self = alpha + diag_e[:, None]
-        dup_self = both[:, None] & (slot_ids[:, :, None] == pool_idx[None, None, :]).any(-1)
-        c_self = torch.where(dup_self & pool_beats, NEG, c_self)
-        dup_pool = both[:, None] & (pool_idx[None, :] // k == to[:, None])
-        c_pen_row = torch.where(dup_pool & ~pool_beats, NEG, c_pen[None, :].expand(s, k))
-        top_e, idx_e = top_k(torch.cat([c_pen_row, c_self], dim=1), k)
-        bp_pool = pool_idx[None, :].expand(s, k).gather(1, idx_e.clamp(max=k - 1))
-        bp_e = torch.where(idx_e < k, bp_pool, to[:, None] * k + (idx_e - k))
-
-        entry_col = entry[:, None]
-        bps[t] = torch.where(entry_col, bp_e, bp_ne).to(torch.int32)
-        if t < length:
-            alpha = torch.where(entry_col, top_e, top_ne) + log_b[t][:, None]
-    return alpha, bps
+    encoding pred_state * K + pred_k, -1 on the seed frame). topology: the
+    composite's LatticeTopology on log_b's device (trellis_lattice
+    topology_of), else built from the arguments."""
+    if topology is None:
+        topology = lattice_topology(log_a, lower_of_state, is_entry, is_exit,
+                                    device=log_b.device)
+    return kbest_forward(log_b.contiguous(), topology, penalty, k, length)
 
 
 def nbest_paths(
@@ -147,6 +100,7 @@ def nbest_decode(composite, features, n: int = 4, beam_k: int | None = None,
     alpha, backptrs = kbest_composite_forward(
         log_b, composite.log_a, composite.lower_of_state, composite.is_entry,
         composite.is_exit, composite.penalty, k=beam_k,
+        topology=topology_of(composite, log_b.device),
     )
     hyps = nbest_paths(
         alpha.cpu().numpy(), backptrs.cpu().numpy(), composite.is_exit,

@@ -31,7 +31,8 @@ mixed model sets serve through the same path: the pool and the decoder
 both lift them (K-mixture whitening emissions before the same steps).
 With bigram= the pool's step is the LM variant of the stream mode and the
 finals the decoder's LM decode mode; with confidences=True the finals are
-the dense decode (K4 + K2-bt) with posterior confidences (ops/lattice.py).
+the dense decode (K4 + K2-bt) with posterior confidences (ops/lattice.py:
+the LSUM kernel).
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ class ServingSessionPool:
         confidences=True scores every final with the minimum per-word
         posterior of ContinuousDecoder.predict_batch_with_confidence (the
         dense decode, K4 + K2-bt on the card, and the sum-semiring passes of
-        ops/lattice.py) on host-MFCC features. bigram (+ lm_weight): finals
+        ops/lattice.py, the LSUM kernel) on host-MFCC features. bigram (+ lm_weight): finals
         and partials decode under the bigram's per-pair penalties (the
         decoder's LM decode mode, the pool's LM stream mode). The two do
         not combine (ValueError): the posterior pass decodes the

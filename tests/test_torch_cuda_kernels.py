@@ -47,11 +47,16 @@ and its forward's walk past it, each team case beside the forced simple
 branch), a cross move with two source planes and a
 duration advance whose sums tie under a -3e9 penalty, and the decoder's
 counted / grammar / duration decodes launching them and never a plain
-trellis; the transcribe script (plain and with
+trellis; the posterior and n-best searches' kernels (LSUM: the same -inf
+cells, the rest within 1e-5 * max(1, |x|) of its plain version; LMAX and
+KBEST bitwise; 58, 503 and 5003 states, single-state words under both
+penalty cases, length-1 and -2 rows, K = 1, 6, 16, T = 1) and the decoder's
+confidences, n-best, forward lattice and keyword passes launching them
+with no plain loop on the card; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
 WAVs: the same printed lines, the decode kernel launched on the card only.
 
-These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22, 28 and 30 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22, 28, 30 and 31 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -2068,3 +2073,105 @@ def test_constrained_decoders_launch_their_kernels_not_the_plain(dev, monkeypatc
         assert torch.isfinite(want_single[what][0]), what
         assert score.item() == want_single[what][0].item(), what
         assert torch.equal(path.cpu(), want_single[what][1]), what
+
+
+# -- the posterior and n-best searches: LSUM, LMAX and KBEST -----------------
+def _lattice_composite(counts, penalty):
+    rng = np.random.default_rng(31)
+    return stack_word_models(
+        [WordHMM(f"w{i}", rng.normal(size=(n, 4)).astype(np.float32),
+                 np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)), uniform_forward_log_a(n))
+         for i, n in enumerate(counts)], penalty=penalty)
+
+
+# name: (composite (None: the flagship), B, T, integer-valued log_b); the
+# single-state words' self-loop (0) beats a -25 penalty and a 0 penalty
+# beats it; 503 and 5003 states (KBEST's rows in a device scratch at K = 16).
+LATTICE_CASES = {
+    "flagship": (None, 16, 120, False),
+    "flagship-ties": (None, 16, 60, True),
+    "single-state-words": (([1, 3, 1, 5, 1, 3], -25.0), 8, 50, True),
+    "single-state-pool-beats": (([1, 3, 1, 5, 1, 3], 0.0), 8, 50, True),
+    "503": (([5] * 100 + [3], -100.0), 4, 80, False),
+    "5003": (([5] * 1000 + [3], -100.0), 2, 30, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LATTICE_CASES))
+def test_lattice_kernels_match_plain(dev, case):
+    """LSUM against lattice_sum_passes_plain (the same -inf cells, the rest
+    within 1e-5 * max(1, |x|), every row with a length-2 and a length-1
+    row), LMAX and KBEST (K = 1, 6, 16; T = 1) bitwise theirs, one launch
+    each."""
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+    spec, b, t, ties = LATTICE_CASES[case]
+    comp = flagship_composite() if spec is None else _lattice_composite(*spec)
+    topo = tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                                comp.word_of_state, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    s = comp.num_states
+    lb = (torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float() if ties
+          else 3 * torch.randn((b, t, s), generator=gen, device=dev))
+    lengths = torch.randint(2, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = t, 2
+    before = [c.launches for c in (tlk.lattice_sum_passes, tlk.lattice_max_passes,
+                                   tlk.kbest_forward)]
+    got = tlk.lattice_sum_passes(lb, topo, comp.penalty, lengths)
+    want = tlk.lattice_sum_passes_plain(lb, topo, comp.penalty, lengths)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        fin = torch.isfinite(w)
+        assert ((g - w)[fin].abs() <= 1e-5 * w[fin].abs().clamp(min=1.0)).all()
+    assert torch.isfinite(want[3]).all()
+    for length in (t, 2):
+        got = tlk.lattice_max_passes(lb[0], topo, comp.penalty, length)
+        want = tlk.lattice_max_passes_plain(lb[0], topo, comp.penalty, length)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for k, tt in ((1, t), (6, t), (16, t), (8, 1)):
+        got = tlk.kbest_forward(lb[1, :tt].contiguous(), topo, comp.penalty, k, tt - 3)
+        want = tlk.kbest_forward_plain(lb[1, :tt].contiguous(), topo, comp.penalty, k, tt - 3)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    after = [c.launches for c in (tlk.lattice_sum_passes, tlk.lattice_max_passes,
+                                  tlk.kbest_forward)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 2, 4]
+
+
+def test_posterior_and_nbest_searches_launch_their_kernels(dev, monkeypatch):
+    """The decoder's confidences (LSUM), n-best (KBEST), the forward
+    lattice and keyword spotting (LMAX and LSUM) on the card: the CPU
+    decoder's transcripts, confidences within 1e-4 (or 4 float32 ulps of
+    |log Z|'s scale, 4e-3), the forward lattice's arcs equal; no plain
+    loop on a CUDA tensor."""
+    from cs304_tpu_torch.models import decoder as dm
+    from cs304_tpu_torch.ops import lattice as tla
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+    models = flagship_models()
+    clips = _sampled_clips(8, 5)
+    cpu = dm.ContinuousDecoder(models, penalty=-100.0, device="cpu")
+    want_conf = cpu.predict_batch_with_confidence(clips)
+    want_nbest = cpu.predict_nbest(clips[0], n=3)
+    want_lat = tla.forward_lattice(cpu.composite, clips[0], posteriors=True, device="cpu")
+
+    def plain_on_card(*args, **kwargs):
+        raise AssertionError("a plain posterior or n-best loop ran on the card")
+
+    for name in ("lattice_sum_passes_plain", "lattice_max_passes_plain",
+                 "kbest_forward_plain"):
+        monkeypatch.setattr(tlk, name, plain_on_card)
+    counters = (tlk.lattice_sum_passes, tlk.lattice_max_passes, tlk.kbest_forward)
+    before = [c.launches for c in counters]
+    card = dm.ContinuousDecoder(models, penalty=-100.0, device="cuda")
+    got_conf = card.predict_batch_with_confidence(clips)
+    for g_utt, w_utt in zip(got_conf, want_conf):
+        assert [g[:3] for g in g_utt] == [w[:3] for w in w_utt]
+        assert all(abs(g[3] - w[3]) <= 1e-4 or abs(np.log(g[3]) - np.log(w[3])) <= 4e-3
+                   for g, w in zip(g_utt, w_utt))
+    got_nbest = card.predict_nbest(clips[0], n=3)
+    assert [t for _s, t in got_nbest] == [t for _s, t in want_nbest]
+    got_lat = tla.forward_lattice(card.composite, clips[0], posteriors=True, device=dev)
+    assert [(a.start, a.end, a.label) for a in got_lat.sorted_arcs()] == \
+        [(a.start, a.end, a.label) for a in want_lat.sorted_arcs()]
+    rose = [c.launches - b_ for c, b_ in zip(counters, before)]
+    assert rose[0] >= 2 and rose[1] == 1 and rose[2] == 1, rose

@@ -1,0 +1,537 @@
+"""The posterior and n-best searches' kernels (csrc/trellis_lattice.cu), held
+on the CPU through their plain versions and their step order.
+
+- The plain versions of ops/cuda/trellis_lattice.py against the JAX
+  functions they replace, on the same log_b made with numpy from a seed:
+  lattice_sum_passes_plain (LSUM) against _sum_passes_batch within rtol
+  1e-5 / atol 1e-6 with the same -inf cells; lattice_max_passes_plain
+  (LMAX) against _lattice_passes_impl and kbest_forward_plain (KBEST)
+  against kbest_composite_forward bitwise (alphas, entry times and every
+  backpointer slot). Cases: a 3-word composite, single-state words whose
+  self-loop beats the penalty and whose penalty beats the self-loop,
+  ragged lengths with a length-2 row, integer-valued log_b for ties, K in
+  {1, 4, 6, 16}, T = 1 for LMAX and KBEST.
+- LSUM's factorized pools (past 32 exits or entries: one shared pool sum
+  a step) on 40-word composites, both kinds of single-state words
+  included: all four outputs against JAX with the same -inf cells,
+  beta_entry and log Z at RTOL / ATOL, alphas and beta_em at RTOL / ATOL
+  of the cell's log-sum-exp magnitude (a cell is lse + log_b, and where the
+  emission cancels the lse, float32 rounding of the lse, in JAX's order as
+  in any other, exceeds RTOL of the cell); and against the dense order, the
+  same -inf cells, the rest within that bound and within 1e-5 * max(1,
+  |x|). ``PYTHONPATH=. python tests/test_torch_lattice_kernels.py`` prints the
+  readings behind the bound: each output's worst error against JAX, and
+  JAX's and the port's against a float64 evaluation of JAX's recurrence, in
+  units of RTOL / ATOL of the cell.
+- The kernels' step order emulated in numpy float32: KBEST's pool as a
+  merge of the warps' merges of sorted exit rows with its -inf tail filled
+  in flat order, each state's three-block or two-list merge with the
+  duplicate-prefix masks as slot < c_j; LMAX's banded argmax and best exit
+  pool with the lowest index on a tie: bitwise the plain versions.
+- The dispatchers: CPU tensors run the plain versions and count no launch;
+  a CUDA tensor with no kernel library raises, and no plain loop runs.
+
+The kernels themselves run against the plain versions in
+tests/test_torch_cuda_kernels.py on the card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cs304_tpu.ops import lattice as jl
+from cs304_tpu.ops import nbest as jnb
+from cs304_tpu.ops.viterbi import composite_transition_matrix as j_trans
+from cs304_tpu_torch.ops.cuda import _build
+from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+from test_torch_viterbi import _composite
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+RTOL, ATOL = 1e-5, 1e-6  # tests/test_torch_lattice.py's
+
+# name: (words, states a word, penalty or None for the composite's -25)
+COMPOSITES = {
+    "three-words": (3, (3, 4, 2), None),
+    "single-state-self-beats": (5, (1, 3), None),  # diag 0 > -25: own cell
+    "single-state-pool-beats": (5, (1, 3), 0.0),   # penalty 0 >= diag 0: the pool
+    "twelve-words": (12, (5, 5, 3), None),
+}
+# Past 32 exits (entries) LSUM factorizes its pools.
+FACTORIZED = {
+    "forty-words": (40, (3, 2), None),
+    "forty-single-state-self-beats": (40, (1, 3), None),
+    "forty-single-state-pool-beats": (40, (1, 3), 0.0),
+}
+
+
+def _comp(name):
+    words, spw, pen = {**COMPOSITES, **FACTORIZED}[name]
+    comp = _composite(words, spw)
+    if pen is not None:
+        comp.penalty = pen
+    return comp
+
+
+def _log_b(rng, shape, ties):
+    x = rng.integers(-3, 1, shape) if ties else rng.normal(size=shape) * 3
+    return x.astype(np.float32)
+
+
+def _jax_topology(comp):
+    log_a = jnp.asarray(comp.log_a)
+    trans = j_trans(log_a, jnp.asarray(comp.lower_of_state), jnp.asarray(comp.is_entry),
+                    jnp.asarray(comp.is_exit), comp.penalty)
+    diag = jnp.diagonal(log_a)
+    return trans, jnp.where(jnp.isfinite(diag), diag, 0.0)
+
+
+def _topo(comp):
+    return tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                                comp.word_of_state, device="cpu")
+
+
+def _close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+
+
+def _lse_scales(want, log_b, lengths):
+    """Each LSUM output's magnitude for RTOL: max(|x|, |lse|) for alphas
+    and beta_em, whose cells are lse + log_b (an alphas row frozen at t >=
+    length keeps its last live row's), |x| for beta_entry and log Z."""
+    alphas, beta_em, beta_entry, log_z = (np.asarray(w, np.float64) for w in want)
+    log_b = np.asarray(log_b, np.float64)
+    with np.errstate(invalid="ignore"):
+        a = np.maximum(np.abs(alphas), np.abs(alphas - log_b))
+        for i, n in enumerate(np.asarray(lengths)):
+            a[i, n:] = a[i, n - 1]
+        b = np.maximum(np.abs(beta_em), np.abs(beta_em - log_b))
+    return a, b, np.abs(beta_entry), np.abs(log_z)
+
+
+def _worst(got, want, scale):
+    """The same -inf cells, and the worst |got - want| / (ATOL + RTOL *
+    scale) over the finite ones."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    return float((np.abs(got[fin] - want[fin]) / (ATOL + RTOL * scale[fin])).max(initial=0.0))
+
+
+# -- the plain versions against JAX ---------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(COMPOSITES))
+@pytest.mark.parametrize("ties", [False, True])
+def test_sum_passes_plain_matches_jax(name, ties):
+    comp = _comp(name)
+    rng = np.random.default_rng(len(name) + ties)
+    lengths = np.array([40, 2, 27, 33], np.int32)  # a length-2 row among ragged ones
+    log_b = _log_b(rng, (4, 40, comp.num_states), ties)
+    trans, diag_init = _jax_topology(comp)
+    want = jax.jit(jl._sum_passes_batch)(
+        jnp.asarray(log_b), trans, diag_init, jnp.asarray(comp.is_entry),
+        jnp.asarray(comp.is_exit), jnp.asarray(lengths))
+    got = tlk.lattice_sum_passes_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty,
+                                       torch.as_tensor(lengths))
+    for g, w in zip(got, want):  # every row, the garbage ones past length included
+        _close(g.numpy(), w)
+    assert np.isfinite(np.asarray(want[3])).all()
+
+
+def _factorized_case(name, ties):
+    comp = _comp(name)
+    assert comp.is_exit.sum() > tlk.DENSE_POOL_MAX
+    rng = np.random.default_rng(len(name) + ties)
+    lengths = np.array([40, 2, 27, 33], np.int32)
+    return comp, _log_b(rng, (4, 40, comp.num_states), ties), lengths
+
+
+def _jax_sum_passes(comp, log_b, lengths):
+    trans, diag_init = _jax_topology(comp)
+    return jax.jit(jl._sum_passes_batch)(
+        jnp.asarray(log_b), trans, diag_init, jnp.asarray(comp.is_entry),
+        jnp.asarray(comp.is_exit), jnp.asarray(lengths))
+
+
+@pytest.mark.parametrize("name", sorted(FACTORIZED))
+@pytest.mark.parametrize("ties", [False, True])
+def test_factorized_sum_passes_match_jax(name, ties):
+    """Past DENSE_POOL_MAX members, all four outputs against JAX: the same
+    -inf cells; beta_entry and log Z at RTOL / ATOL; alphas and beta_em at
+    RTOL / ATOL of max(|x|, |lse|) (_lse_scales)."""
+    comp, log_b, lengths = _factorized_case(name, ties)
+    want = _jax_sum_passes(comp, log_b, lengths)
+    got = tlk.lattice_sum_passes_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty,
+                                       torch.as_tensor(lengths))
+    for g, w, scale in zip(got, want, _lse_scales(want, log_b, lengths)):
+        assert _worst(g.numpy(), w, scale) <= 1.0
+    _close(got[2].numpy(), want[2])
+    _close(got[3].numpy(), want[3])
+    assert np.isfinite(np.asarray(want[3])).all()
+
+
+@pytest.mark.parametrize("name", sorted(FACTORIZED))
+@pytest.mark.parametrize("ties", [False, True])
+def test_factorized_pools_match_the_dense_order(name, ties, monkeypatch):
+    """Past DENSE_POOL_MAX members LSUM shares one pool sum a step (O(W),
+    not O(W^2)); against the dense order on the same inputs: the same -inf
+    cells, the rest within 1e-5 * max(1, |x|) and within RTOL / ATOL of
+    the cell's log-sum-exp magnitude (_lse_scales: two summation orders of
+    terms near |lse|, which exceeds the cell where the emission cancels
+    it), and log Z against JAX at RTOL / ATOL."""
+    comp, log_b_np, lengths_np = _factorized_case(name, ties)
+    log_b, lengths = torch.as_tensor(log_b_np), torch.as_tensor(lengths_np)
+    got = tlk.lattice_sum_passes_plain(log_b, _topo(comp), comp.penalty, lengths)
+    monkeypatch.setattr(tlk, "DENSE_POOL_MAX", 10**6)
+    dense = tlk.lattice_sum_passes_plain(log_b, _topo(comp), comp.penalty, lengths)
+    for g, d, scale in zip(got, dense, _lse_scales(dense, log_b_np, lengths_np)):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(d))
+        fin = torch.isfinite(d)
+        assert ((g - d)[fin].abs() <= 1e-5 * d[fin].abs().clamp(min=1.0)).all()
+        assert _worst(g.numpy(), d.numpy(), scale) <= 1.0
+    want = _jax_sum_passes(comp, log_b_np, lengths_np)
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(COMPOSITES))
+@pytest.mark.parametrize("t,length,ties", [(30, 30, False), (30, 17, True), (2, 2, False),
+                                           (1, 1, False)])
+def test_max_passes_plain_is_bitwise_jax(name, t, length, ties):
+    comp = _comp(name)
+    rng = np.random.default_rng(t + length)
+    log_b = _log_b(rng, (t, comp.num_states), ties)
+    trans, diag_init = _jax_topology(comp)
+    upper = np.asarray(comp.uppers)[comp.word_of_state]
+    want = jl._lattice_passes_impl(
+        jnp.asarray(log_b), trans, diag_init, jnp.asarray(comp.is_entry),
+        jnp.asarray(comp.is_exit), jnp.asarray(comp.word_of_state),
+        jnp.asarray(comp.lower_of_state), jnp.asarray(upper), length)
+    got = tlk.lattice_max_passes_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty,
+                                       length)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert t == 1 or np.isfinite(np.asarray(want[3]))  # at T = 1 only entries are live
+
+
+@pytest.mark.parametrize("name", sorted(COMPOSITES))
+@pytest.mark.parametrize("k", [1, 4, 6, 16])
+def test_kbest_plain_is_bitwise_jax(name, k):
+    comp = _comp(name)
+    rng = np.random.default_rng(k)
+    ties = k in (4, 16)
+    for t, length in ((25, None), (25, 13), (1, None)):
+        log_b = _log_b(rng, (t, comp.num_states), ties)
+        want = jnb.kbest_composite_forward(
+            jnp.asarray(log_b), jnp.asarray(comp.log_a), jnp.asarray(comp.lower_of_state),
+            jnp.asarray(comp.is_entry), jnp.asarray(comp.is_exit), comp.penalty,
+            length=length, k=k)
+        got = tlk.kbest_forward_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty, k,
+                                      length)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+# -- the kernels' step order emulated in numpy ---------------------------------
+
+
+def _threads(s):
+    return min(1024, 32 * -(-s // 32))
+
+
+def kbest_emulated(log_b, comp, k, length=None):
+    """KBEST's step as csrc/trellis_lattice.cu runs it, in numpy float32:
+    (alpha (S, K), bps (T, S, K))."""
+    t_total, s = log_b.shape
+    length = t_total if length is None else length
+    coefs = _topo(comp).coefs.numpy()
+    c0, c1, c2, de, entry, exit_, dinit = coefs[:7]
+    entry, exit_ = entry > 0, exit_ > 0
+    pen = np.float32(comp.penalty)
+    exits = np.flatnonzero(exit_)
+    nt = _threads(s)
+    neg = np.float32(-np.inf)
+    cur = np.full((s, k), neg, np.float32)
+    cur[:, 0] = np.where(entry, log_b[0] + dinit, neg)
+    bps = np.full((t_total, s, k), -1, np.int64)
+
+    def merge(lists):  # each list [(value, flat)] sorted by (value desc, flat asc)
+        heads = [0] * len(lists)
+        out = []
+        while len(out) < k:
+            best = None
+            for w, lst in enumerate(lists):
+                if heads[w] < len(lst):
+                    v, f = lst[heads[w]]
+                    if best is None or v > best[0] or (v == best[0] and f < best[1]):
+                        best = (v, f, w)
+            if best is None:
+                break
+            out.append(best[:2])
+            heads[best[2]] += 1
+        return out
+
+    for t in range(1, t_total):
+        warps = {}
+        for i, x in enumerate(exits):  # a thread's rows: ordinals tid + r nt
+            row = [(cur[x, r], x * k + r) for r in range(k) if cur[x, r] != neg]
+            warps.setdefault((i % nt) // 32, []).append(row)
+        pool = merge([merge(rows) for _w, rows in sorted(warps.items())])
+        for sx in range(s):  # the -inf tail: the lowest flat indices at -inf
+            first = int(np.sum(cur[sx] != neg)) if exit_[sx] else 0
+            for slot in range(first, k):
+                if len(pool) < k:
+                    pool.append((neg, sx * k + slot))
+        new = np.empty_like(cur)
+        for j in range(s):
+            vals, codes = [], []
+            if not entry[j]:
+                blocks = [(cur[j - 2] if j >= 2 else np.full(k, neg, np.float32)) + c2[j],
+                          (cur[j - 1] if j >= 1 else np.full(k, neg, np.float32)) + c1[j],
+                          cur[j] + c0[j]]
+                preds = [max(j - 2, 0), max(j - 1, 0), j]
+                h = [0, 0, 0]
+                for _q in range(k):
+                    b = 0
+                    for bb in (1, 2):
+                        if blocks[bb][h[bb]] > blocks[b][h[b]]:
+                            b = bb
+                    vals.append(blocks[b][h[b]])
+                    codes.append(preds[b] * k + h[b])
+                    h[b] += 1
+            else:
+                both = exit_[j]
+                beats = pen >= de[j]
+                cj = sum(f // k == j for _v, f in pool) if both else 0
+                a = [neg if (both and not beats and f // k == j) else np.float32(v + pen)
+                     for v, f in pool]
+                b = [neg if (both and beats and i < cj) else cur[j, i] + de[j]
+                     for i in range(k)]
+                fa = [i for i in range(k) if a[i] != neg]
+                fb = [i for i in range(k) if b[i] != neg]
+                while len(vals) < k and (fa or fb):
+                    if fa and (not fb or a[fa[0]] >= b[fb[0]]):
+                        i = fa.pop(0)
+                        vals.append(a[i])
+                        codes.append(pool[i][1])
+                    else:
+                        i = fb.pop(0)
+                        vals.append(b[i])
+                        codes.append(j * k + i)
+                tail = ([(neg, pool[i][1]) for i in range(k) if a[i] == neg]
+                        + [(neg, j * k + i) for i in range(k) if b[i] == neg])
+                for v, c in tail[: k - len(vals)]:
+                    vals.append(v)
+                    codes.append(c)
+            bps[t, j] = codes
+            new[j] = np.asarray(vals, np.float32) + log_b[t, j]
+        if t < length:
+            cur = new
+    return cur, bps
+
+
+@pytest.mark.parametrize("name", ["single-state-pool-beats", "single-state-self-beats",
+                                  "three-words"])
+@pytest.mark.parametrize("k,ties", [(1, True), (4, True), (6, False), (16, True)])
+def test_kbest_kernel_order_is_bitwise_plain(name, k, ties):
+    comp = _comp(name)
+    rng = np.random.default_rng(31 + k)
+    log_b = _log_b(rng, (14, comp.num_states), ties)
+    want = tlk.kbest_forward_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty, k, 9)
+    got = kbest_emulated(log_b, comp, k, 9)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def lmax_forward_emulated(log_b, comp, length):
+    """LMAX's forward as csrc/trellis_lattice.cu runs it, in numpy float32:
+    the band's first max, an entry's own cell against the best exit by
+    (alpha + penalty, lowest index), 0 for an all -inf column."""
+    t_total, s = log_b.shape
+    coefs = _topo(comp).coefs.numpy()
+    c0, c1, c2, de, entry, exit_, dinit = coefs[:7]
+    entry, exit_ = entry > 0, exit_ > 0
+    pen = np.float32(comp.penalty)
+    neg = np.float32(-np.inf)
+    own_cell = np.where(entry, np.maximum(np.where(exit_, pen, neg), de), neg)
+    word, lower = comp.word_of_state, comp.lower_of_state
+    upper = np.asarray(comp.uppers)[word]
+    alpha = np.where(entry, log_b[0] + dinit, neg).astype(np.float32)
+    et = np.zeros(s, np.int64)
+    alphas, ets = [alpha], [et]
+    for t in range(1, t_total):
+        if t < length:
+            u = [(alpha[x] + pen, x) for x in np.flatnonzero(exit_)]
+            pv, pi = max(u, key=lambda p: (p[0], -p[1]))
+            new, new_et = np.empty_like(alpha), np.empty_like(et)
+            for j in range(s):
+                if not entry[j]:
+                    v, p = neg, 0
+                    if j >= 2:
+                        v, p = alpha[j - 2] + c2[j], j - 2
+                    if j >= 1 and alpha[j - 1] + c1[j] > v:
+                        v, p = alpha[j - 1] + c1[j], j - 1
+                    if alpha[j] + c0[j] > v:
+                        v, p = alpha[j] + c0[j], j
+                else:
+                    v, p = pv, pi
+                    own = alpha[j] + own_cell[j]
+                    if own > v or (own == v and j < p):
+                        v, p = own, j
+                if v == neg:
+                    p = 0
+                fresh = p != j and (word[p] != word[j] or (p == upper[j] and j == lower[j]))
+                new[j], new_et[j] = v + log_b[t, j], t if fresh else et[p]
+            alpha, et = new, new_et
+        alphas.append(alpha)
+        ets.append(et)
+    return np.stack(alphas), np.stack(ets)
+
+
+@pytest.mark.parametrize("name", sorted(COMPOSITES))
+@pytest.mark.parametrize("ties", [False, True])
+def test_lmax_kernel_order_is_bitwise_plain(name, ties):
+    comp = _comp(name)
+    rng = np.random.default_rng(7 + ties)
+    log_b = _log_b(rng, (24, comp.num_states), ties)
+    want = tlk.lattice_max_passes_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty, 19)
+    alphas, ets = lmax_forward_emulated(log_b, comp, 19)
+    np.testing.assert_array_equal(alphas, want[0].numpy())
+    np.testing.assert_array_equal(ets, want[1].numpy())
+
+
+# -- dispatch -------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    comp = _comp("three-words")
+    topo = _topo(comp)
+    log_b = torch.as_tensor(_log_b(np.random.default_rng(0), (2, 9, comp.num_states), False))
+    lengths = torch.tensor([9, 5], dtype=torch.int32)
+    counters = (tlk.lattice_sum_passes, tlk.lattice_max_passes, tlk.kbest_forward)
+    before = [c.launches for c in counters]
+    got = tlk.lattice_sum_passes(log_b, topo, comp.penalty, lengths)
+    want = tlk.lattice_sum_passes_plain(log_b, topo, comp.penalty, lengths)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = tlk.lattice_max_passes(log_b[0], topo, comp.penalty, 9)
+    want = tlk.lattice_max_passes_plain(log_b[0], topo, comp.penalty, 9)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = tlk.kbest_forward(log_b[0], topo, comp.penalty, 4)
+    want = tlk.kbest_forward_plain(log_b[0], topo, comp.penalty, 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [c.launches for c in counters] == before
+
+
+class _OnCard:
+    """A stand-in for a CUDA tensor on a host without a card: what the
+    dispatchers read of one."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t):
+        self._t = t
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def is_contiguous(self):
+        return True
+
+    def numel(self):
+        return self._t.numel()
+
+    def contiguous(self):
+        return self
+
+
+def test_a_cuda_tensor_without_kernels_raises(monkeypatch):
+    comp = _comp("three-words")
+    topo = _topo(comp)
+    card = tlk.LatticeTopology(*(_OnCard(x) for x in (topo.coefs, topo.ints, topo.exits,
+                                                      topo.entries)))
+    log_b = _OnCard(torch.zeros((2, 9, comp.num_states)))
+    lengths = _OnCard(torch.ones(2, dtype=torch.int32))
+
+    def no_library():
+        raise RuntimeError("no kernel library")
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("a plain loop ran on a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    for name in ("lattice_sum_passes_plain", "lattice_max_passes_plain",
+                 "kbest_forward_plain"):
+        monkeypatch.setattr(tlk, name, no_plain)
+    counters = (tlk.lattice_sum_passes, tlk.lattice_max_passes, tlk.kbest_forward)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tlk.lattice_sum_passes(log_b, card, comp.penalty, lengths)
+    one = _OnCard(torch.zeros((9, comp.num_states)))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tlk.lattice_max_passes(one, card, comp.penalty, 9)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tlk.kbest_forward(one, card, comp.penalty, 4)
+    assert [c.launches for c in counters] == before
+    s_big = tlk.MAX_LATTICE_STATES + 1
+    wide = tlk.LatticeTopology(_OnCard(torch.zeros((8, s_big))),
+                               _OnCard(torch.zeros((3, s_big), dtype=torch.int32)),
+                               *(_OnCard(torch.zeros(1, dtype=torch.int32)) for _ in range(2)))
+    with pytest.raises(ValueError, match=str(tlk.MAX_LATTICE_STATES)):
+        tlk.lattice_max_passes(_OnCard(torch.zeros((1, s_big))), wide, 0.0, 1)
+
+
+# -- the readings behind LSUM's bound ---------------------------------------------
+
+
+def _sum_passes_f64(comp, log_b, lengths):
+    """JAX's _sum_passes_masked recurrence on the dense matrix in numpy
+    float64: (alphas, beta_em, beta_entry, log_z)."""
+    trans, diag_init = (np.asarray(x, np.float64) for x in _jax_topology(comp))
+    entry, exit_ = np.asarray(comp.is_entry), np.asarray(comp.is_exit)
+    lse = np.logaddexp.reduce
+    log_b = log_b.astype(np.float64)
+    b, t_total, s = log_b.shape
+    alphas, beta_em = np.empty((b, t_total, s)), np.empty((b, t_total, s))
+    for i, n in enumerate(lengths):
+        alpha = np.where(entry, log_b[i, 0] + diag_init, -np.inf)
+        alphas[i, 0] = alpha
+        for t in range(1, t_total):
+            if t < n:
+                alpha = lse(alpha[:, None] + trans, axis=0) + log_b[i, t]
+            alphas[i, t] = alpha
+        terminal = np.where(exit_, 0.0, -np.inf)
+        beta = terminal
+        for t in range(t_total - 1, 0, -1):
+            beta_em[i, t] = log_b[i, t] + (terminal if t == n - 1 else beta)
+            beta = lse(trans + beta_em[i, t][None, :], axis=1)
+        beta_em[i, 0] = log_b[i, 0] + beta
+    beta_entry = lse(np.where(entry, beta_em, -np.inf), axis=2)
+    log_z = lse(np.where(exit_, alphas[np.arange(b), -1], -np.inf), axis=1)
+    return alphas, beta_em, beta_entry, log_z
+
+
+def readings():
+    """Print, for each factorized case and output, the worst error in units
+    of RTOL / ATOL: the port's plain version against JAX on |x| and on
+    _lse_scales, and JAX's and the port's against float64 on |x|."""
+    outputs = ("alphas", "beta_em", "beta_entry", "log_z")
+    for name in sorted(FACTORIZED):
+        for ties in (False, True):
+            comp, log_b, lengths = _factorized_case(name, ties)
+            want = [np.asarray(w) for w in _jax_sum_passes(comp, log_b, lengths)]
+            got = [g.numpy() for g in tlk.lattice_sum_passes_plain(
+                torch.as_tensor(log_b), _topo(comp), comp.penalty, torch.as_tensor(lengths))]
+            exact = _sum_passes_f64(comp, log_b, lengths)
+            for k, scale in enumerate(_lse_scales(want, log_b, lengths)):
+                plain = np.abs(want[k])
+                print(f"{name} ties={ties} {outputs[k]}: cells {np.isfinite(want[k]).sum()}, "
+                      f"port-JAX {_worst(got[k], want[k], plain):.3f} "
+                      f"(lse {_worst(got[k], want[k], scale):.3f}), "
+                      f"JAX-f64 {_worst(want[k], exact[k], np.abs(exact[k])):.3f}, "
+                      f"port-f64 {_worst(got[k], exact[k], np.abs(exact[k])):.3f}")
+
+
+if __name__ == "__main__":
+    readings()

@@ -309,11 +309,17 @@ Phases (each prints its own numbers; any failure exits non-zero):
               first clip for LMAX and for KBEST at K = 8), then the flagship
               on phase 6's emissions (B = 64, T = 201; K = 6, 8, 16), 375
               and 503 states (B = 16, T = 201), 5003 states (B = 2, T = 60;
-              KBEST's rows in a device scratch at K = 8 and 16); the edges:
-              single-state words under a -25 and a 0 penalty, length-2 rows,
-              integer ties, K = 1, T = 1; each kernel's device time beside
-              its plain loop's eager time, its bound, µs a step and ptxas'
-              registers and spills
+              KBEST past 32 exit rows on its simple branch, the first
+              design, its rows in a device scratch at K = 8 and 16); the
+              edges: single-state words under a -25 and a 0 penalty,
+              length-2 rows, integer ties, K = 1 / 2 / 4 / 6 / 16 / 32 / 33
+              (every bucket of KBEST's team branch and one past it), T = 1,
+              each LSUM / KBEST case logging its branch; each kernel's
+              device time beside its plain loop's eager time, its bound, µs
+              a step and ptxas' registers and spills, LSUM and KBEST in
+              turns p n n p beside the first design (simple=True) with the
+              skeleton's µs a step (the step's barriers and shared
+              exchanges alone)
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
 The line before the last is the kernels' JSON record (twenty kernels, each with
@@ -3350,7 +3356,8 @@ def search_split(dev, dec, clips, search_ms):
     clocks; measurement only). Confidences: pad and features in, emissions
     (one call), the dense decode (K4 + K2-bt and the paths' readback),
     LSUM, the word-end lambdas formed on the card and their (B, T, W)
-    readback, the host span walk; n-best: emissions, KBEST, the readback of
+    readback, the host span walk (one mask over the padded paths,
+    path_word_spans_batch); n-best: emissions, KBEST, the readback of
     alpha and bps, the host backtrace and dedupe. Device parts by CUDA
     events, host parts by the host clock after a synchronize; best of three
     passes."""
@@ -3395,8 +3402,7 @@ def search_split(dev, dec, clips, search_ms):
         out = device("LSUM", lambda: tla._sum_passes(comp, lb, ln))
         device("lambdas + readback",
                lambda: tla._word_end_lambdas(comp, out[0], out[2], out[3], ln).cpu().numpy())
-        host("span walk", lambda: [tla.path_word_spans(comp, paths[i, :n])
-                                   for i, n in enumerate(padded.lengths)])
+        host("span walk", lambda: tla.path_word_spans_batch(comp, paths, padded.lengths))
         return parts
 
     def nbest():
@@ -3808,19 +3814,45 @@ def kbest_bound(t, topo, k):
                  [((t - 1) * (6 * k * s + wx * k), PEAK_FP32_ALU)])
 
 
-def lattice_resources(kernel, s):
-    """ptxas' registers and spills of the instantiation a launch at S states
-    takes (lattice_sum_kernel / lattice_max_kernel at K states a thread,
-    kbest_kernel)."""
+def lattice_resources(kernel, s, plan=None):
+    """ptxas' registers and spills of the instantiations a launch at S
+    states takes: lattice_max_kernel at K states a thread; LSUM and KBEST
+    on their team branch (the plan's lattice_sum_team_kernel<K, bucket,
+    cells a lane> / kbest_team_kernel<bucket>) and on the simple branch (the first design's
+    lattice_sum_kernel<K> / kbest_kernel)."""
     from cs304_tpu_torch.ops.cuda import _build
 
     path = _build.library_path().with_suffix(".log")
     text = path.read_text() if path.exists() else ""
-    if kernel == "kbest":
-        return ptxas_resources(text, re.compile(r"kbest_kernelE"))
     k = 1 if s <= 1024 else 2 if s <= 2048 else 4 if s <= 4096 else 8
-    name = {"lattice_sum": "lattice_sum_kernel", "lattice_max": "lattice_max_kernel"}[kernel]
-    return ptxas_resources(text, re.compile(rf"{name}ILi{k}E"))
+    if kernel == "lattice_max":
+        return {"team": ptxas_resources(text, re.compile(rf"lattice_max_kernelILi{k}E"))}
+    if kernel == "kbest":
+        team, simple = rf"kbest_team_kernelILi{plan['bucket']}E", r"kbest_kernelE"
+    else:
+        team = (rf"lattice_sum_team_kernelILi{plan['k']}ELi{plan['bucket']}E"
+                rf"Li{plan['cells_a_lane']}E")
+        simple = rf"lattice_sum_kernelILi{k}E"
+    return {"team": (ptxas_resources(text, re.compile(team)) if plan["branch"] == "team"
+                     else {}),
+            "simple": ptxas_resources(text, re.compile(simple))}
+
+
+def lattice_skeleton_ms(dev, blocks, pair, threads, steps, barriers):
+    """Device time of a team step's skeleton (cs304_lattice_skeleton: the
+    same grid and threads, `barriers` barriers and shared exchanges a step
+    and nothing else) over `steps` steps: the step's serial floor."""
+    from cs304_tpu_torch.ops.cuda import _build
+
+    lib = _build.load()
+    out = torch.empty(blocks * threads * (2 if pair else 1), device=dev)
+
+    def run():
+        _build.check(lib.cs304_lattice_skeleton(blocks, int(pair), threads, steps, barriers,
+                                                out.data_ptr(),
+                                                torch.cuda.current_stream().cuda_stream),
+                     "lattice_skeleton")
+    return device_ms(run, reps=5)
 
 
 def tensor_bits_equal(a, b):
@@ -3844,10 +3876,12 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     states (B = 16, T = 201), 503 states (B = 16, T = 201), 5003 states (B =
     2, T = 60); the edges: single-state words whose self-loop beats the
     penalty and whose penalty beats it, length-2 rows, integer-valued
-    emissions for ties, K = 1 / 6 / 16, T = 1. Each case logs its launches
-    and its error; then each kernel's device time (CUDA-graph replays) beside
-    its plain loop's eager time, its bound, µs a step and ptxas' registers
-    and spills."""
+    emissions for ties, K = 1 / 2 / 4 / 6 / 16 / 32 / 33, T = 1. Each case
+    logs its launches, its error and (LSUM, KBEST) its plan's branch; then
+    each kernel's device time (CUDA-graph replays) beside its plain loop's
+    eager time, its bound, µs a step and ptxas' registers and spills, LSUM
+    and KBEST in turns p n n p beside their first design (simple=True, the
+    parent) with the serial floor of the step's skeleton."""
     from cs304_tpu_torch.data.batching import pad_batch
     from cs304_tpu_torch.models import decoder as dm
     from cs304_tpu_torch.ops.cuda import _build
@@ -3889,8 +3923,9 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
                 worst = max(worst, (d / w[fin].abs().clamp(min=1.0)).max().item())
         err["lattice_sum"] = max(err["lattice_sum"], e)
         b_k, t_k, s_k = lb.shape
+        plan = tlk.lattice_sum_plan(s_k, topo.exits.numel(), topo.entries.numel())
         log("lattice", case=name, kernel="lattice_sum", B=b_k, T=t_k, S=s_k,
-            exits=topo.exits.numel(), launches=rose, same_inf_cells=same_inf, bitwise=bitwise,
+            exits=topo.exits.numel(), branch=plan["branch"], bucket=plan["bucket"], launches=rose, same_inf_cells=same_inf, bitwise=bitwise,
             max_abs_err=e, max_rel_err=worst, finite_log_z=int(torch.isfinite(want[3]).sum()))
         if rose != 1 or not same_inf or worst > LSUM_REL or (some_finite and not
                                                              torch.isfinite(want[3]).any()):
@@ -3930,10 +3965,11 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
         e = (got[0] - want[0])[fin].abs().max().item() if fin.any() else 0.0
         err["kbest"] = max(err["kbest"], e)
-        scratch = _build.load().cs304_kbest_scratch_words(lb.shape[1], k)
+        plan = tlk.kbest_plan(lb.shape[1], k, topo.exits.numel())
         log("lattice", case=name, kernel="kbest", T=lb.shape[0], S=lb.shape[1], K=k,
             length=length, launches=rose, equal=json.dumps(same), max_abs_err=e,
-            rows="global" if scratch else "shared", finite_slots=int(fin.sum()))
+            branch=plan["branch"], bucket=plan["bucket"], rows=plan["rows"],
+            finite_slots=int(fin.sum()))
         if rose != 1 or not all(same.values()) or not torch.isfinite(want[0]).any():
             raise SystemExit(f"phase 31: KBEST disagrees with its plain version ({name})")
 
@@ -3987,7 +4023,7 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     check_sum("flagship-ties-length-2-rows", flag, ties58, len_ties)
     check_max("flagship-ties", flag, ties58[0].contiguous(), 64)
     check_max("flagship-length-2", flag, ties58[1].contiguous(), 2)
-    for k in (1, 6, 16):
+    for k in (1, 2, 4, 6, 16, 32, 33):  # every K bucket and one past the largest
         check_kbest(f"flagship-ties-K{k}", flag, ties58[2].contiguous(), k, 50)
     for pen in (-25.0, 0.0):
         single = lattice_composite([1, 3, 1, 5, 1, 3], penalty=pen)
@@ -4004,59 +4040,86 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     check_max("flagship-T1", flag, lb58[0, :1].contiguous(), 1)
     check_kbest("flagship-T1-K8", flag, lb58[0, :1].contiguous(), 8)
 
-    # -- timing: device time (CUDA-graph replays) beside the plain loop ------
+    # -- timing: device time (CUDA-graph replays) beside the plain loop; LSUM
+    # and KBEST in turns beside the first design (simple=True), p n n p ----
     tp_main, tp58 = topo_of(pc), topo_of(flag)
     tp503, tp5003 = topo_of(c503), topo_of(c5003)
     len0 = lb_clip.shape[0]
     # Host ints before any capture: a capture may not synchronize.
     l58, l58b, l503, l503b, l5003 = (int(x) for x in (len58[0], len58[1], len503[0],
                                                       len503[1], len5003[0]))
+
+    def lsum(lb, tp, pen, ln):
+        return lambda simple: lambda: tlk.lattice_sum_passes(lb, tp, pen, ln, simple=simple)
+
+    def lmax(lb, tp, pen, n):
+        return lambda _simple: lambda: tlk.lattice_max_passes(lb, tp, pen, n)
+
+    def kbest(lb, tp, pen, k, n=None):
+        return lambda simple: lambda: tlk.kbest_forward(lb, tp, pen, k, n, simple=simple)
+
     rows = (
         ("lattice_sum", "main-confidences-64-clips", f"phase 22's 64 clips, B=64, "
          f"T={lb_main.shape[1]}, S={pc.num_states}",
-         lambda: tlk.lattice_sum_passes(lb_main, tp_main, pc.penalty, len_main),
+         lsum(lb_main, tp_main, pc.penalty, len_main),
          lattice_sum_bound(64, lb_main.shape[1], tp_main, len_main), lb_main.shape[1] - 1,
-         pc.num_states),
+         tp_main, 64, None),
         ("lattice_sum", "flagship-B64", f"flagship B=64, T={t_total}, S={s58}",
-         lambda: tlk.lattice_sum_passes(lb58, tp58, flag.penalty, len58),
-         lattice_sum_bound(64, t_total, tp58, len58), t_total - 1, s58),
+         lsum(lb58, tp58, flag.penalty, len58),
+         lattice_sum_bound(64, t_total, tp58, len58), t_total - 1, tp58, 64, None),
         ("lattice_sum", "503-states", f"503 states B=16, T={t_total}",
-         lambda: tlk.lattice_sum_passes(lb503, tp503, c503.penalty, len503),
-         lattice_sum_bound(16, t_total, tp503, len503), t_total - 1, c503.num_states),
+         lsum(lb503, tp503, c503.penalty, len503),
+         lattice_sum_bound(16, t_total, tp503, len503), t_total - 1, tp503, 16, None),
         ("lattice_sum", "5003-states", "5003 states B=2, T=60",
-         lambda: tlk.lattice_sum_passes(lb5003, tp5003, c5003.penalty, len5003),
-         lattice_sum_bound(2, 60, tp5003, len5003), 59, c5003.num_states),
+         lsum(lb5003, tp5003, c5003.penalty, len5003),
+         lattice_sum_bound(2, 60, tp5003, len5003), 59, tp5003, 2, None),
         ("lattice_max", "main-forward-lattice-clip-0", f"phase 22's clip 0, T={len0}",
-         lambda: tlk.lattice_max_passes(lb_clip, tp_main, pc.penalty, len0),
-         lattice_max_bound(len0, tp_main, len0), len0 - 1, pc.num_states),
+         lmax(lb_clip, tp_main, pc.penalty, len0),
+         lattice_max_bound(len0, tp_main, len0), len0 - 1, tp_main, 1, None),
         ("lattice_max", "flagship", f"flagship T={t_total}, length {l58}",
-         lambda: tlk.lattice_max_passes(lb58[0], tp58, flag.penalty, l58),
-         lattice_max_bound(t_total, tp58, l58), t_total - 1, s58),
+         lmax(lb58[0], tp58, flag.penalty, l58),
+         lattice_max_bound(t_total, tp58, l58), t_total - 1, tp58, 1, None),
         ("lattice_max", "503-states", f"503 states T={t_total}",
-         lambda: tlk.lattice_max_passes(lb503[0], tp503, c503.penalty, l503),
-         lattice_max_bound(t_total, tp503, l503), t_total - 1, c503.num_states),
+         lmax(lb503[0], tp503, c503.penalty, l503),
+         lattice_max_bound(t_total, tp503, l503), t_total - 1, tp503, 1, None),
         ("lattice_max", "5003-states", "5003 states T=60",
-         lambda: tlk.lattice_max_passes(lb5003[0], tp5003, c5003.penalty, l5003),
-         lattice_max_bound(60, tp5003, l5003), 59, c5003.num_states),
+         lmax(lb5003[0], tp5003, c5003.penalty, l5003),
+         lattice_max_bound(60, tp5003, l5003), 59, tp5003, 1, None),
         ("kbest", "main-nbest-clip-0-K8", f"phase 22's clip 0, T={len0}, K=8",
-         lambda: tlk.kbest_forward(lb_clip, tp_main, pc.penalty, 8),
-         kbest_bound(len0, tp_main, 8), len0 - 1, pc.num_states),
+         kbest(lb_clip, tp_main, pc.penalty, 8),
+         kbest_bound(len0, tp_main, 8), len0 - 1, tp_main, 1, 8),
         ("kbest", "flagship-K16", f"flagship T={t_total}, K=16",
-         lambda: tlk.kbest_forward(lb58[1], tp58, flag.penalty, 16, l58b),
-         kbest_bound(t_total, tp58, 16), t_total - 1, s58),
+         kbest(lb58[1], tp58, flag.penalty, 16, l58b),
+         kbest_bound(t_total, tp58, 16), t_total - 1, tp58, 1, 16),
         ("kbest", "503-states-K8", f"503 states T={t_total}, K=8",
-         lambda: tlk.kbest_forward(lb503[1], tp503, c503.penalty, 8, l503b),
-         kbest_bound(t_total, tp503, 8), t_total - 1, c503.num_states),
+         kbest(lb503[1], tp503, c503.penalty, 8, l503b),
+         kbest_bound(t_total, tp503, 8), t_total - 1, tp503, 1, 8),
         ("kbest", "5003-states-K16", "5003 states T=60, K=16",
-         lambda: tlk.kbest_forward(lb5003[0], tp5003, c5003.penalty, 16),
-         kbest_bound(60, tp5003, 16), 59, c5003.num_states),
+         kbest(lb5003[0], tp5003, c5003.penalty, 16),
+         kbest_bound(60, tp5003, 16), 59, tp5003, 1, 16),
     )
-    for key, case, shape, fn, (b_ms, b_by), steps, s_k in rows:
-        ms = device_ms(fn, reps=5)
-        res = lattice_resources(key, s_k)
+    for key, case, shape, fn, (b_ms, b_by), steps, tp, blocks, k in rows:
+        s_k, n_x, n_e = tp.num_states, tp.exits.numel(), tp.entries.numel()
+        plan = (tlk.kbest_plan(s_k, k, n_x) if key == "kbest"
+                else tlk.lattice_sum_plan(s_k, n_x, n_e) if key == "lattice_sum" else None)
+        res = lattice_resources(key, s_k, plan)
+        extra = {f"ptxas_{k_}": v for k_, v in res["team"].items()}
+        if plan is None:
+            ms = device_ms(fn(False), reps=5)
+        else:
+            turns = [device_ms(fn(simple), reps=5) for simple in (True, False, False, True)]
+            ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            floor_ms = lattice_skeleton_ms(dev, blocks, key == "lattice_sum", plan["threads"],
+                                           steps, 2 if key == "kbest" else 1)
+            extra.update(branch=plan["branch"], bucket=plan["bucket"], threads=plan["threads"],
+                         ms_turns=json.dumps([turns[1], turns[2]]), parent_ms=parent_ms,
+                         parent_turns=json.dumps([turns[0], turns[3]]),
+                         parent_us_per_step=parent_ms / steps * 1e3,
+                         slower_than_parent=min(turns[1:3]) > max(turns[0], turns[3]),
+                         skeleton_us_per_step=floor_ms / steps * 1e3,
+                         **{f"parent_ptxas_{k_}": v for k_, v in res["simple"].items()})
         log("timing", kernel=key, shape=shape, ms=ms, plain_ms=plain_ms[(key, case)],
-            bound_ms=b_ms, bound_by=b_by, us_per_step=ms / steps * 1e3,
-            **{f"ptxas_{k}": v for k, v in res.items()})
+            bound_ms=b_ms, bound_by=b_by, us_per_step=ms / steps * 1e3, **extra)
         if key not in timings:  # the first row of each kernel, the main path's, is its record
             timings[key] = (ms, plain_ms[(key, case)])
             yardsticks[key] = (None, b_ms, b_by)

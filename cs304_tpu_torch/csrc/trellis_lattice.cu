@@ -53,19 +53,28 @@
 // LMAX and KBEST are max / compare / add only, bitwise their plain
 // versions.
 //
-// Design (a simple first design: right first, fast later).
-// - LSUM: a block a row's forward and a block its backward (grid (B, 2)),
-//   K = 1 / 2 / 4 / 8 states a thread (S <= 8,192), the carry in shared
-//   memory (a double buffer, so ONE __syncthreads a step) and in the
-//   owners' registers. A step's block-wide max over the exits (forward) or
-//   entries (backward) is reduced beside the cells: each warp's max goes to
-//   a parity slot before the barrier and every warp folds the slots after
-//   it. Up to 32 members an entry column's (an exit row's) sum walks the
-//   exit (entry) list from shared memory in the owning thread, O(W) a pool
-//   cell; past it every warp sums the factorized pool at the step's start
-//   (W / 32 expf a lane and a butterfly, no second barrier). The backward's beta_entry
-//   rows are summed after the loop, a row a thread, from beta_em in device
-//   memory.
+// Design. LSUM and KBEST have a team branch (below) and keep their first
+// design as the simple branch: where the team branch does not apply, and
+// behind simple != 0 (timing beside it, tests).
+// - LSUM, team branch: a block a row's forward and a block its backward
+//   (grid (B, 2)); band threads (K = 1 / 2 / 4 / 8 states each) beside pool
+//   warps, one barrier a step, the carry in a shared double buffer. The band
+//   threads hold the non-pool states (forward: the non-entries; backward:
+//   the non-exit rows) and their coefficients, loaded once (in shared memory
+//   at K = 8: no spill at 1,024 threads); the pool warps hold the pool's
+//   cells (entry columns; exit rows), so the two kinds of cell run at once on
+//   warps of their own. A dense pool (both lists at most DENSE_POOL_MAX):
+//   one pool warp, lane i holding member i and cell i; the step's max is a
+//   redux.sync; a cell's terms are shuffled from the members' lanes, their
+//   expfs issued independently (unrolled over the bucket 8 / 16 / 32) and
+//   added in the dense order. A factorized pool (both lists past it): up to
+//   8 pool warps, each folding the step's max (every warp's pool members'
+//   max, put in a parity slot beside its cells before the barrier) and
+//   summing P in the lane order, then up to 4 cells a lane; at 896 threads
+//   at most (72 registers). beta_entry is summed after the loop, a row a
+//   thread (in the loop it would lengthen the pool warp's chain).
+//   First design (simple): K states a thread, entry and band cells on the
+//   same warps, the dense walk serial, every warp summing P.
 // - LMAX: one block for the forward and one for the backward of the
 //   utterance, the same layout and one barrier a step. The forward's pool
 //   is the best exit by (alpha + penalty, lowest index), reduced like
@@ -75,28 +84,43 @@
 //   beats the penalty its own exit term is strictly below its own cell.
 //   The entry-time carry is read from the previous step's shared row at
 //   the argmax.
-// - KBEST: one block, the hypothesis rows (S x K) in shared memory where
-//   they fit, else in a device scratch (read through L1 after the step's
-//   barrier). A step: (1) each warp merges its lanes' exit rows (each row
-//   non-increasing) into its top K by K rounds of a warp argmax on
-//   (value desc, flat index asc); (2) warp 0 merges the warps' lists the
-//   same way into the pool's top K, then fills the -inf tail with the
-//   lowest flat indices whose value is -inf (masked non-exit rows
-//   included), as lax.top_k's stable order does; (3) each state merges
-//   its candidates: a non-entry the three sorted blocks (s-2, s-1, s), the
-//   earlier block on a tie; an entry the finite parts of [pool + penalty,
-//   own K self-loops] with the duplicate-prefix masks, the pool on a tie,
-//   then the -inf candidates in index order (masked ones included). A row
-//   j's pool members are its slots [0, c_j) (a row enters the pool as a
-//   prefix, and the -inf fill continues it), so the self-loop mask is
-//   slot < c_j. Three barriers a step.
+// - KBEST, team branch (K in a bucket of 1 / 2 / 4 / 8 / 16 / 32, surplus
+//   slots masked; codes pred_state K + pred_slot in the caller's K; keys
+//   state KB + slot, so no division by a runtime K in the step): one block,
+//   a team of KB lanes a state (lane r slot r), the rows [S][KB] and each
+//   row's finite count in shared memory. A step, two barriers: (1) the pool
+//   by every thread: each finite value of an exit row is a candidate whose
+//   rank is its slot plus the values of the other rows that beat it (value
+//   desc, flat index asc: a lower row on a tie), counted by four lanes that
+//   binary-search a share of the rows in lock step; ranks below K land in
+//   the pool, and one warp fills the -inf tail with the lowest flat indices
+//   at -inf (a scan over states); past 32 exit rows (up to 128) a barrier
+//   more: first the rows' heads (kept by the merges) are ranked by every
+//   thread, and the candidates are those of the K best-headed rows, a row
+//   whose head ranks h its first K - h values; (2) every state by ranks, entries and
+//   non-entries in one warp-uniform code path (full-warp shuffles of width
+//   KB: no collective loops): a non-entry's 3K candidates of blocks (s-2,
+//   s-1, s) each count, by six binary searches in lock step over the team's
+//   shuffles, the values of the other two sorted blocks that beat it (value
+//   desc, block asc, slot asc); an entry's [pool + penalty, own K
+//   self-loops] (value desc, the pool first, index asc) count in the
+//   other list's unmasked sorted values, and the masks (the duplicate-prefix
+//   rule: a row's pool members are its slots [0, c_j)) by the team's
+//   ballots; -inf candidates rank after the finite ones in index order.
+//   Past K = 32, 128 exit rows or rows beyond shared memory, the first design
+//   (simple): a thread a state, K rounds of three-block merges, the pool by
+//   2K rounds of warp argmax, three barriers a step.
 //
-// What bounds them on this card: the chain of dependent steps (latency):
-// LSUM and LMAX one barrier, a few shared loads and (LSUM) expf / logf
-// a step; LSUM's pool cells walk their pool serially (up to 32 members) or
-// each warp sums the factorized pool, W / 32 expf a lane a step; KBEST
-// 2K rounds of warp argmaxes and three barriers. The bytes (log_b read,
-// the passes' rows written once) are far below it.
+// What bounds them on this card: the chain of dependent steps (latency),
+// not bytes (log_b read, the passes' rows written once, far below it).
+// LSUM a step: the barrier, a band cell's two shared loads and three expf
+// and a logf; a dense pool cell's redux, its members' shuffles and W expf
+// issued apart, then W dependent adds (the dense order); a factorized
+// pool's W / 32 expf a lane and the butterfly. KBEST a step: two barriers,
+// a team's six lock-step binary searches of log2(KB) + 1 shuffles, and the
+// pool's candidates' searches (each lane a quarter of the rows, log2(KB) +
+// 1 shared loads each); ~30 warps share four schedulers, so the step is
+// issue-bound, and a state past the block's teams takes another round.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -198,6 +222,31 @@ __device__ __forceinline__ float lane_pool_sum(const float* vals, const int* lis
   float acc = 0.f;
   if (isfinite(mp))
     for (int i = lane; i < n; i += 32) acc = acc + expf((vals[list[i]] + pen) - mp);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) acc = acc + __shfl_xor_sync(FULL, acc, off);
+  return acc;
+}
+
+// lane_pool_sum's sum in the same order (member i into lane i mod 32 from
+// +0, then the butterfly), four members' loads and expfs issued together.
+__device__ __forceinline__ float lane_pool_sum4(const float* vals, const int* list, int n,
+                                               float pen, float mp) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  if (isfinite(mp)) {
+    int i = lane;
+    for (; i + 96 < n; i += 128) {
+      const float u0 = vals[list[i]], u1 = vals[list[i + 32]];
+      const float u2 = vals[list[i + 64]], u3 = vals[list[i + 96]];
+      const float e0 = expf((u0 + pen) - mp), e1 = expf((u1 + pen) - mp);
+      const float e2 = expf((u2 + pen) - mp), e3 = expf((u3 + pen) - mp);
+      acc = acc + e0;
+      acc = acc + e1;
+      acc = acc + e2;
+      acc = acc + e3;
+    }
+    for (; i < n; i += 32) acc = acc + expf((vals[list[i]] + pen) - mp);
+  }
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) acc = acc + __shfl_xor_sync(FULL, acc, off);
   return acc;
@@ -485,6 +534,520 @@ __global__ void __launch_bounds__(MAX_THREADS) lattice_sum_kernel(SumArgs a) {
     sum_forward<K>(a, buf, wslot, list);
   } else {
     sum_backward<K>(a, buf, wslot, list);
+  }
+}
+
+// -- LSUM, the team branch ----------------------------------------------------
+
+constexpr int SUM_POOL_WARPS_MAX = 8;
+constexpr int SUM_CELLS_A_LANE = 4;  // a factorized pool's cells a pool lane at most
+// A factorized build's threads at most: 72 registers a thread, not 64.
+constexpr int SUM_FACTORIZED_THREADS = 896;
+
+// The max of the warp's values, every lane (redux.sync on order-preserving
+// keys: exact, as a max is).
+__device__ __forceinline__ float warp_max_redux(float v) {
+  const int b = __float_as_int(v);
+  const int k = __reduce_max_sync(FULL, b >= 0 ? b : b ^ 0x7fffffff);
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// The team branch's launch: band threads [0, band) K states each, then the
+// pool warps; the pool is dense (both lists at most DENSE_POOL_MAX members,
+// unrolled over the bucket WB) or factorized (both past it, WB = 0, one or
+// at most SUM_CELLS_A_LANE cells a pool lane, the build's CPL); else the
+// simple branch.
+struct SumPlan {
+  int team, ks, wb, npw, cpl, band, threads;
+  size_t smem;
+};
+
+SumPlan sum_plan(int S, int nx, int ne) {
+  SumPlan p{};
+  const int cells = nx > ne ? nx : ne;
+  if (nx <= DENSE_POOL_MAX && ne <= DENSE_POOL_MAX) {
+    p.wb = cells <= 8 ? 8 : cells <= 16 ? 16 : 32;
+    p.npw = 1;
+    p.cpl = 1;
+  } else if (nx > DENSE_POOL_MAX && ne > DENSE_POOL_MAX) {
+    p.wb = 0;
+    p.npw = (cells + 31) / 32 < SUM_POOL_WARPS_MAX ? (cells + 31) / 32 : SUM_POOL_WARPS_MAX;
+    p.cpl = (cells + 32 * p.npw - 1) / (32 * p.npw);
+  } else {
+    return p;  // one list dense, the other not: the simple branch
+  }
+  if (p.cpl > SUM_CELLS_A_LANE) return p;
+  const int limit = p.wb ? MAX_THREADS : SUM_FACTORIZED_THREADS;
+  for (int ks = 1; ks <= 8; ks <<= 1) {
+    const int band = 32 * (((S + ks - 1) / ks + 31) / 32);
+    if (band + 32 * p.npw <= limit) {
+      p.team = 1;
+      p.ks = ks;
+      p.band = band;
+      p.threads = band + 32 * p.npw;
+      // The rows [2][S], at K = 8 the band's coefficients [3][S] and its
+      // beta [S], the warps' max slots [2][32], the members.
+      p.smem = (2 * (size_t)S + (ks == 8 ? 4 * (size_t)S : 0) + 64) * sizeof(float) +
+               (size_t)cells * sizeof(int);
+      return p;
+    }
+  }
+  return p;
+}
+
+// A band thread's K states j = tid + k band: its band coefficients in
+// registers, or at K = 8 in shared memory (no spill at 1,024 threads; there
+// the band's carry stays in shared memory too and its emissions are loaded
+// in the step).
+template <int KS>
+struct BandCoefs {
+  float r[KS < 8 ? 3 * KS : 1];
+  float* sm;
+  int S;
+  __device__ __forceinline__ void set(int k, int j, float c0, float c1, float c2) {
+    if (KS < 8) {
+      r[3 * k] = c0;
+      r[3 * k + 1] = c1;
+      r[3 * k + 2] = c2;
+    } else {
+      sm[j] = c0;
+      sm[S + j] = c1;
+      sm[2 * S + j] = c2;
+    }
+  }
+  __device__ __forceinline__ float get(int k, int j, int which) const {
+    if (KS < 8) return r[3 * k + which];
+    return sm[which * S + j];
+  }
+};
+
+template <int KS, int WB, int CPL>
+__device__ void sum_team_forward(const SumArgs& a, float* buf, int* list, float* csm,
+                                 float* wslot, int nb, int npw, int cpl) {
+  const Topo& tp = a.tp;
+  const int S = tp.S, T = a.T, b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int nx = tp.n_exits, ne = tp.n_entries;
+  const float pen = a.pen;
+  const float* lb = a.log_b + (size_t)b * T * S;
+  float* out = a.alphas + (size_t)b * T * S;
+  const int tl = min(a.lengths[b], T);
+  const bool band = tid < nb;
+  for (int i = tid; i < nx; i += blockDim.x) list[i] = tp.exits[i];
+
+  // Band: the non-entries among j = tid + k nb, their carry and next
+  // emission in va / vb; coefficients (sub2, sub1, diag_ne) loaded once.
+  // Pool: lane l's cells, the entries pw 32 + l + c 32 npw, the same in va /
+  // vb (one set of registers for either role); at WB > 0 lane i also holds
+  // exit i (its member).
+  constexpr int NV = KS > CPL ? KS : CPL;
+  float va[NV], vb[NV];
+  float* al = va;
+  float* lbn = vb;
+  float* pal = va;
+  float* plbn = vb;
+  unsigned mine = 0, pool_of = 0;  // the band's states, and those in the pool
+  BandCoefs<KS> bc;
+  bc.sm = csm;
+  bc.S = S;
+  int pe[CPL];
+  int xm = 0;
+  // At K = 8 a factorized pool's carries stay in shared memory too (the
+  // alpha rows; emissions loaded in the step): no spill at 896 threads.
+  constexpr bool PSM = KS == 8 && !WB;
+  if (band) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const int j = tid + k * nb;
+      al[k] = neg_inf();
+      lbn[k] = 0.f;
+      if (j < S && !tp.is_entry(j)) {
+        mine |= 1u << k;
+        if (tp.is_exit(j)) pool_of |= 1u << k;
+        bc.set(k, j, tp.c(0, j), tp.c(1, j), tp.c(2, j));
+        buf[j] = neg_inf();
+        out[j] = neg_inf();
+        if (KS < 8 && T > 1) lbn[k] = lb[(size_t)S + j];
+      }
+    }
+  } else {
+    const int first = ((tid - nb) >> 5) * 32 + lane;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int i = first + c * 32 * npw;
+      pe[c] = c < cpl && i < ne ? tp.entries[i] : -1;
+      pal[c] = neg_inf();
+      plbn[c] = 0.f;
+      if (pe[c] >= 0) {
+        const int e = pe[c];
+        pal[c] = lb[e] + tp.c(6, e);
+        buf[e] = pal[c];
+        out[e] = pal[c];
+        if (!PSM && T > 1) plbn[c] = lb[(size_t)S + e];
+      }
+    }
+    if (WB) xm = lane < nx ? tp.exits[lane] : 0;
+  }
+  // A dense pool cell's place in the dense order: its own cell replaces
+  // exit ppos (own_exit) or goes before it; its dense own cell d[e].
+  int ppos = 0;
+  bool own_exit = false;
+  float d_own = 0.f;
+  if (WB && !band && pe[0] >= 0) {
+    const int e = pe[0];
+    for (int i = 0; i < nx; ++i) ppos += tp.exits[i] < e;
+    own_exit = tp.is_exit(e);
+    d_own = tp.own_cell(e, pen);
+  }
+  // A factorized pool's max: each warp's exits' max into a parity slot
+  // beside its cells, folded by the pool warps after the barrier.
+  const int warp = tid >> 5, nw = blockDim.x >> 5;
+  if (!WB) {
+    float mx = neg_inf();
+    if (!band) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (pe[c] >= 0 && tp.is_exit(pe[c])) mx = fmaxf(mx, pal[c]);
+    }
+    mx = warp_max_redux(mx);
+    if (lane == 0) wslot[warp] = mx;
+  }
+  __syncthreads();
+
+  for (int t = 1; t < tl; ++t) {
+    const float* ac = buf + ((t - 1) & 1) * S;
+    float* an = buf + (t & 1) * S;
+    float mx = neg_inf();
+    if (band) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        if (!(mine >> k & 1u)) continue;
+        const int j = tid + k * nb;
+        float lbt;
+        if (KS < 8) {
+          lbt = lbn[k];
+          if (t + 1 < tl) lbn[k] = lb[(size_t)(t + 1) * S + j];
+        } else {
+          lbt = lb[(size_t)t * S + j];
+        }
+        const float t2 = (j >= 2 ? ac[j - 2] : neg_inf()) + bc.get(k, j, 2);
+        const float t1 = (j >= 1 ? ac[j - 1] : neg_inf()) + bc.get(k, j, 1);
+        const float v = lse3_seq(t2, t1, (KS < 8 ? al[k] : ac[j]) + bc.get(k, j, 0)) + lbt;
+        if (KS < 8) al[k] = v;
+        an[j] = v;
+        out[(size_t)t * S + j] = v;
+        if (pool_of >> k & 1u) mx = fmaxf(mx, v);
+      }
+    } else if (WB) {
+      // One pool warp: exit i's alpha in lane i, the cell's terms' expfs
+      // issued apart, added in the dense index order.
+      const float am = lane < nx ? ac[xm] : neg_inf();
+      const float mp = warp_max_redux(am) + pen;
+      const float own = pal[0] + d_own;
+      const float m = fmaxf(mp, own);
+      const float e_own = expf(own - m);
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < WB; ++i) {
+        const float term = expf((__shfl_sync(FULL, am, i) + pen) - m);
+        if (i == ppos && !own_exit) acc = acc + e_own;
+        if (i < nx) acc = acc + ((i == ppos && own_exit) ? e_own : term);
+      }
+      if (ppos == WB && !own_exit) acc = acc + e_own;
+      if (pe[0] >= 0) {
+        const int e = pe[0];
+        const float lbt = plbn[0];
+        if (t + 1 < tl) plbn[0] = lb[(size_t)(t + 1) * S + e];
+        pal[0] = (isfinite(m) ? m + logf(acc) : neg_inf()) + lbt;
+        an[e] = pal[0];
+        out[(size_t)t * S + e] = pal[0];
+      }
+    } else {
+      // Factorized: each pool warp sums P in the lane order, then its cells.
+      const float mp =
+          warp_max_redux(lane < nw ? wslot[((t - 1) & 1) * 32 + lane] : neg_inf()) + pen;
+      const float pool = lane_pool_sum4(ac, list, nx, pen, mp);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int e = pe[c];
+        if (e < 0) continue;
+        const bool ext = tp.is_exit(e), excl = ext && tp.c(3, e) > pen;
+        const float own = (ext && !excl) ? neg_inf() : (PSM ? ac[e] : pal[c]) + tp.own_cell(e, pen);
+        const float m = fmaxf(mp, own);
+        float v = neg_inf();
+        if (isfinite(m)) {
+          const float pe_ = excl ? pool_sum_without(ac, list, nx, pen, mp, e) : pool;
+          const float part = isfinite(mp) ? __fmul_rn(pe_, expf(mp - m)) : 0.f;
+          v = m + logf((0.f + part) + expf(own - m));
+        }
+        float lbt;
+        if (PSM) {
+          lbt = lb[(size_t)t * S + e];
+        } else {
+          lbt = plbn[c];
+          if (t + 1 < tl) plbn[c] = lb[(size_t)(t + 1) * S + e];
+        }
+        const float al_e = v + lbt;
+        if (!PSM) pal[c] = al_e;
+        an[e] = al_e;
+        out[(size_t)t * S + e] = al_e;
+        if (ext) mx = fmaxf(mx, al_e);
+      }
+    }
+    if (!WB) {
+      mx = warp_max_redux(mx);
+      if (lane == 0) wslot[(t & 1) * 32 + warp] = mx;
+    }
+    __syncthreads();
+  }
+  // Steps at t >= length keep the carry.
+  for (int t = max(tl, 1); t < T; ++t) {
+    if (band) {
+      const float* fin = buf + ((max(tl, 1) - 1) & 1) * S;
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        if (mine >> k & 1u)
+          out[(size_t)t * S + tid + k * nb] = KS < 8 ? al[k] : fin[tid + k * nb];
+    } else {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (pe[c] >= 0)
+          out[(size_t)t * S + pe[c]] = PSM ? buf[((max(tl, 1) - 1) & 1) * S + pe[c]] : pal[c];
+    }
+  }
+  if (tid == nb) {
+    const float* fin = buf + ((max(tl, 1) - 1) & 1) * S;
+    float amax = neg_inf();
+    for (int i = 0; i < nx; ++i) amax = fmaxf(amax, fin[list[i]]);
+    float z = neg_inf();
+    if (isfinite(amax)) {
+      float acc = 0.f;
+      for (int i = 0; i < nx; ++i) acc = acc + expf(fin[list[i]] - amax);
+      z = amax + logf(acc);
+    }
+    a.log_z[b] = z;
+  }
+}
+
+template <int KS, int WB, int CPL>
+__device__ void sum_team_backward(const SumArgs& a, float* buf, int* list, float* csm,
+                                  float* wslot, int nb, int npw, int cpl) {
+  float* bsm = csm + 3 * a.tp.S;  // the band's beta at K = 8
+  const Topo& tp = a.tp;
+  const int S = tp.S, T = a.T, b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int nx = tp.n_exits, ne = tp.n_entries;
+  const float pen = a.pen;
+  const float* lb = a.log_b + (size_t)b * T * S;
+  float* out = a.beta_em + (size_t)b * T * S;
+  const int len = a.lengths[b];
+  const bool band = tid < nb;
+  for (int i = tid; i < ne; i += blockDim.x) list[i] = tp.entries[i];
+
+  // Band: the non-exit rows among j = tid + k nb, their beta and next
+  // emission in va / vb; coefficients c[j] (diag_ne, or the own cell at an
+  // entry), sub1[j+1], sub2[j+2] loaded once. Pool: lane l's cells, the
+  // exits pw 32 + l + c 32 npw, the same in va / vb; at WB > 0 lane i also
+  // holds entry i (its member).
+  constexpr int NV = KS > CPL ? KS : CPL;
+  float va[NV], vb[NV];
+  float* beta = va;
+  float* lbn = vb;
+  float* pbeta = va;
+  float* plbn = vb;
+  unsigned mine = 0, pool_of = 0;  // the band's states, and those in the pool
+  BandCoefs<KS> bc;
+  bc.sm = csm;
+  bc.S = S;
+  int px[CPL];
+  int em = 0;
+  // At K = 8 a factorized pool's betas stay in shared memory too (the
+  // band's beta row; emissions loaded in the step): no spill at 896 threads.
+  constexpr bool PSM = KS == 8 && !WB;
+  if (band) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const int j = tid + k * nb;
+      beta[k] = neg_inf();
+      lbn[k] = 0.f;
+      if (j < S && !tp.is_exit(j)) {
+        mine |= 1u << k;
+        if (tp.is_entry(j)) pool_of |= 1u << k;
+        bc.set(k, j, tp.is_entry(j) ? tp.own_cell(j, pen) : tp.c(0, j),
+               j + 1 < S ? tp.c(1, j + 1) : 0.f, j + 2 < S ? tp.c(2, j + 2) : 0.f);
+        if (KS < 8) lbn[k] = lb[(size_t)(T - 1) * S + j];
+        else bsm[j] = neg_inf();
+      }
+    }
+  } else {
+    const int first = ((tid - nb) >> 5) * 32 + lane;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int i = first + c * 32 * npw;
+      px[c] = c < cpl && i < nx ? tp.exits[i] : -1;
+      pbeta[c] = px[c] >= 0 ? 0.f : neg_inf();
+      plbn[c] = !PSM && px[c] >= 0 ? lb[(size_t)(T - 1) * S + px[c]] : 0.f;
+      if (PSM && px[c] >= 0) bsm[px[c]] = 0.f;
+    }
+    if (WB) em = lane < ne ? tp.entries[lane] : 0;
+  }
+  // A dense pool row's place in the dense order: band cell k goes before
+  // entry p_k (the entries at or below x + k come first), the entry x itself
+  // (skip) is the band's own cell.
+  int p0 = 0, p1 = 0, p2 = 0, skip = -1;
+  float q0 = 0.f, q1 = 0.f, q2 = 0.f;
+  if (WB && !band && px[0] >= 0) {
+    const int x = px[0];
+    for (int i = 0; i < ne; ++i) {
+      const int e = tp.entries[i];
+      p0 += e <= x;
+      p1 += e <= x + 1;
+      p2 += e <= x + 2;
+      if (e == x) skip = i;
+    }
+    q0 = tp.is_entry(x) ? tp.own_cell(x, pen) : tp.c(0, x);
+    q1 = x + 1 < S ? tp.c(1, x + 1) : 0.f;
+    q2 = x + 2 < S ? tp.c(2, x + 2) : 0.f;
+  }
+
+  // A factorized pool's max: each warp's entries' max into a parity slot
+  // beside its rows, folded by the pool warps after the barrier.
+  const int warp = tid >> 5, nw = blockDim.x >> 5;
+  bool px_entry[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) px_entry[c] = !band && px[c] >= 0 && tp.is_entry(px[c]);
+  for (int t = T - 1;; --t) {
+    float* bb = buf + (t & 1) * S;
+    // beta_em = log_b[t] + beta (the exit terminal again at t == length - 1).
+    const bool term = t >= 1 && t == len - 1;
+    float mx = neg_inf();
+    if (band) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        if (!(mine >> k & 1u)) continue;
+        const int j = tid + k * nb;
+        float bem;
+        if (KS < 8) {
+          bem = lbn[k] + (term ? neg_inf() : beta[k]);
+          if (t >= 1) lbn[k] = lb[(size_t)(t - 1) * S + j];
+        } else {
+          bem = lb[(size_t)t * S + j] + (term ? neg_inf() : bsm[j]);
+        }
+        bb[j] = bem;
+        out[(size_t)t * S + j] = bem;
+        if (pool_of >> k & 1u) mx = fmaxf(mx, bem);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int x = px[c];
+        if (x < 0) continue;
+        float bem;
+        if (PSM) {
+          bem = lb[(size_t)t * S + x] + (term ? 0.f : bsm[x]);
+        } else {
+          bem = plbn[c] + (term ? 0.f : pbeta[c]);
+          if (t >= 1) plbn[c] = lb[(size_t)(t - 1) * S + x];
+        }
+        bb[x] = bem;
+        out[(size_t)t * S + x] = bem;
+        if (px_entry[c]) mx = fmaxf(mx, bem);
+      }
+    }
+    if (t == 0) break;
+    if (!WB) {
+      mx = warp_max_redux(mx);
+      if (lane == 0) wslot[(t & 1) * 32 + warp] = mx;
+    }
+    __syncthreads();
+    if (band) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        if (!(mine >> k & 1u)) continue;
+        const int j = tid + k * nb;
+        const float t0 = bc.get(k, j, 0) + bb[j];
+        const float t1 = j + 1 < S ? bc.get(k, j, 1) + bb[j + 1] : neg_inf();
+        const float t2 = j + 2 < S ? bc.get(k, j, 2) + bb[j + 2] : neg_inf();
+        const float v = lse3_seq(t0, t1, t2);
+        if (KS < 8) beta[k] = v;
+        else bsm[j] = v;
+      }
+    } else if (WB) {
+      // One pool warp: entry i's beta_em in lane i, the row's terms' expfs
+      // issued apart, added in the dense index order.
+      const float bm = lane < ne ? bb[em] : neg_inf();
+      const float mq = warp_max_redux(bm) + pen;
+      const int x = px[0];
+      const int xs = x < 0 ? 0 : x;
+      const float t0 = q0 + bb[xs];
+      const float t1 = x >= 0 && x + 1 < S ? q1 + bb[x + 1] : neg_inf();
+      const float t2 = x >= 0 && x + 2 < S ? q2 + bb[x + 2] : neg_inf();
+      const float m = fmaxf(fmaxf(fmaxf(t0, t1), t2), mq);
+      const float e0 = expf(t0 - m), e1 = expf(t1 - m), e2 = expf(t2 - m);
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < WB; ++i) {
+        const float term_i = expf((pen + __shfl_sync(FULL, bm, i)) - m);
+        if (i == p0) acc = acc + e0;
+        if (i == p1) acc = acc + e1;
+        if (i == p2) acc = acc + e2;
+        if (i < ne && i != skip) acc = acc + term_i;
+      }
+      if (p0 == WB) acc = acc + e0;
+      if (p1 == WB) acc = acc + e1;
+      if (p2 == WB) acc = acc + e2;
+      pbeta[0] = isfinite(m) ? m + logf(acc) : neg_inf();
+    } else {
+      // Factorized: each pool warp sums Q in the lane order, then its rows.
+      const float mq =
+          warp_max_redux(lane < nw ? wslot[(t & 1) * 32 + lane] : neg_inf()) + pen;
+      const float pool = lane_pool_sum4(bb, list, ne, pen, mq);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int x = px[c];
+        if (x < 0) continue;
+        float t0, t1, t2;
+        band_row(tp, x, pen, bb[x], bb, t0, t1, t2);
+        const bool ent = tp.is_entry(x), excl = ent && tp.c(3, x) > pen;
+        if (ent && !excl) t0 = neg_inf();
+        const float m = fmaxf(fmaxf(fmaxf(t0, t1), t2), mq);
+        float v = neg_inf();
+        if (isfinite(m)) {
+          const float qe = excl ? pool_sum_without(bb, list, ne, pen, mq, x) : pool;
+          const float part = isfinite(mq) ? __fmul_rn(qe, expf(mq - m)) : 0.f;
+          v = m + logf(((expf(t0 - m) + expf(t1 - m)) + expf(t2 - m)) + part);
+        }
+        if (PSM) bsm[x] = v;
+        else pbeta[c] = v;
+      }
+    }
+  }
+  __syncthreads();  // the beta_em rows in device memory, read back below
+  for (int t = tid; t < T; t += blockDim.x) {
+    const float* row = out + (size_t)t * S;
+    float bm = neg_inf();
+    for (int i = 0; i < ne; ++i) bm = fmaxf(bm, row[list[i]]);
+    float v = neg_inf();
+    if (isfinite(bm)) {
+      float acc = 0.f;
+      for (int i = 0; i < ne; ++i) acc = acc + expf(row[list[i]] - bm);
+      v = bm + logf(acc);
+    }
+    a.beta_entry[(size_t)b * T + t] = v;
+  }
+}
+
+template <int KS, int WB, int CPL>
+__global__ void __launch_bounds__(WB ? MAX_THREADS : SUM_FACTORIZED_THREADS)
+    lattice_sum_team_kernel(SumArgs a, int nb, int npw, int cpl) {
+  extern __shared__ float smem[];
+  const int S = a.tp.S;
+  float* buf = smem;                                   // [2][S]
+  float* csm = smem + 2 * S;                           // [4][S] at K = 8
+  float* wslot = csm + (KS == 8 ? 4 * S : 0);          // [2][32], factorized
+  int* list = (int*)(wslot + 64);                      // the pool's members
+  if (blockIdx.y == 0) {
+    sum_team_forward<KS, WB, CPL>(a, buf, list, csm, wslot, nb, npw, cpl);
+  } else {
+    sum_team_backward<KS, WB, CPL>(a, buf, list, csm, wslot, nb, npw, cpl);
   }
 }
 
@@ -916,6 +1479,458 @@ __global__ void __launch_bounds__(MAX_THREADS) kbest_kernel(KArgs a) {
     for (int r = 0; r < K; ++r) a.alpha[(size_t)j * K + r] = cur[(size_t)j * K + r];
 }
 
+// -- KBEST, the team branch ---------------------------------------------------
+
+constexpr int KBEST_BUCKET_MAX = 32;  // K past it: the simple branch
+constexpr int KBEST_TEAM_EXITS = 32;  // exit rows ranked directly (two barriers a step)
+// Past 32, the heads ranked first (three barriers): O(R^2 / threads) a step,
+// faster than the first design at 75 and 101 exit rows, slower at 1,001.
+constexpr int KBEST_WIDE_EXITS = 128;
+constexpr int KBEST_POOL_LANES = 4;   // lanes that rank one pool candidate
+
+__host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x >> 1); }
+
+int kbest_bucket(int K) {
+  int kb = 1;
+  while (kb < K) kb <<= 1;
+  return kb <= KBEST_BUCKET_MAX ? kb : 0;
+}
+
+// The team branch's shared memory, in 4-byte words: the rows [2][S KB],
+// the finite counts [2][S] (bytes), the exit list and the pool (values,
+// keys); past 32 exits also each state's exit ordinal (-1 off the exits),
+// the exit rows' heads [2][R] and the K best-headed rows.
+struct KLayout {
+  int rows, fcnt, exits, pool_v, pool_k, ex_ord, heads, rowof, words;
+};
+
+__host__ __device__ inline KLayout kbest_layout(int S, int kb, int R) {
+  KLayout L;
+  int w = 0;
+  L.rows = w;
+  w += 2 * S * kb;
+  L.fcnt = w;
+  w += (2 * S + 3) / 4;
+  L.exits = w;
+  w += R;
+  L.pool_v = w;
+  w += kb;
+  L.pool_k = w;
+  w += kb;
+  L.ex_ord = L.heads = L.rowof = w;
+  if (R > KBEST_TEAM_EXITS) {
+    w += S;
+    L.heads = w;
+    w += 2 * R;
+    L.rowof = w;
+    w += kb;
+  }
+  L.words = w;
+  return L;
+}
+
+// The team branch up to K = 32 and KBEST_WIDE_EXITS exit rows, its rows in
+// shared memory; else the simple branch.
+struct KPlan {
+  int team, kb, threads;
+  size_t smem;
+};
+
+KPlan kbest_plan(int S, int K, int R) {
+  KPlan p{};
+  p.kb = kbest_bucket(K);
+  if (!p.kb || R > KBEST_WIDE_EXITS) return p;
+  p.smem = (size_t)kbest_layout(S, p.kb, R).words * 4;
+  if (p.smem > KBEST_SMEM_MAX) return p;
+  p.team = 1;
+  const long long want = 32 * (((long long)S * p.kb + 31) / 32);
+  p.threads = want < MAX_THREADS ? (int)want : MAX_THREADS;
+  return p;
+}
+
+struct KTeamArgs {
+  const float* log_b;  // (T, S)
+  Topo tp;
+  float pen;
+  int len, K, T;
+  float* alpha;  // (S, K)
+  int* bps;      // (T, S, K)
+};
+
+// The team's lanes with pred, as bits from the team's first lane (the whole
+// warp votes: the merges are warp-uniform).
+template <int KB>
+__device__ __forceinline__ unsigned team_bits(int base, bool pred) {
+  const unsigned b = __ballot_sync(FULL, pred) >> base;
+  return KB == 32 ? b : b & ((1u << KB) - 1u);
+}
+
+// N binary searches in lock step over the team's KB lanes (a[n]
+// non-increasing across them): lo[n] = #{i : a[n]_i > v[n]} (>= for the n
+// set in GE), a prefix. The steps KB/2 .. 1 find it up to KB - 1, one check
+// of the last lane (shuffled first) the rest; each step issues the N
+// shuffles back to back. A team's surplus lanes (slots past K) hold -inf:
+// they never count for >, and for >= only on a -inf query, whose rank
+// lands past K either way.
+constexpr unsigned TEAM_GE = 0b110100u;
+
+template <int KB, int N>
+__device__ __forceinline__ void team_counts(const float (&a)[N], const float (&v)[N],
+                                            int (&lo)[N]) {
+  float last[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    lo[n] = 0;
+    last[n] = __shfl_sync(FULL, a[n], KB - 1, KB);
+  }
+#pragma unroll
+  for (int step = KB / 2; step >= 1; step >>= 1) {
+    float x[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) x[n] = __shfl_sync(FULL, a[n], lo[n] + step - 1, KB);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (TEAM_GE >> n & 1u ? x[n] >= v[n] : x[n] > v[n]) lo[n] += step;
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (lo[n] == KB - 1 && (TEAM_GE >> n & 1u ? last[n] >= v[n] : last[n] > v[n])) lo[n] = KB;
+}
+
+// The pool's top K of the exit rows (value desc, flat index asc), by every
+// thread: each finite (row r, slot m) is a candidate, its rank m plus the
+// values of the other rows that beat it (a row before r on a tie), counted by
+// KBEST_POOL_LANES lanes, each binary-searching a share of the rows in lock
+// step; ranks below K land in the pool.
+template <int KB, int NR, bool RANKED>
+__device__ void pool_select(const float* rows, const unsigned char* fcnt, const int* exits, int R,
+                            int K, float* pool_v, int* pool_k) {
+  // NR rows a lane: R <= NR LPC. RANKED: exits[h] has the h-th best head,
+  // so its values past slot K - h cannot place.
+  constexpr int LPC = KBEST_POOL_LANES, LOG = ilog2(KB);
+  const int tid = threadIdx.x, lane = tid & 31, nt = blockDim.x;
+  // Trip counts uniform across the block (ptxas then keeps the shuffles
+  // plain, with no collective loop).
+  const int units = R * KB * LPC, rounds = (units + nt - 1) / nt;
+  for (int it = 0; it < rounds; ++it) {
+    if ((tid & ~31) + it * nt >= units) break;  // the warp has no candidate left
+    const int u = (tid & ~31) + it * nt + lane;
+    const int c = u / LPC, sub = u % LPC;
+    const int r = c >> LOG, m = c & (KB - 1);
+    const int x = r < R ? exits[r] : 0;
+    const bool valid = r < R && m < (RANKED ? K - r : K) && m < fcnt[x];
+    const float v = valid ? rows[x * KB + m] : neg_inf();
+    int hb[NR], lim[NR], lo[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r2 = sub + LPC * i;
+      const bool on = valid && r2 < R && r2 != r;
+      const int x2 = on ? exits[r2] : 0;
+      hb[i] = x2 * KB;
+      lim[i] = on ? fcnt[x2] : 0;
+      lo[i] = 0;
+    }
+#pragma unroll
+    for (int step = KB; step >= 1; step >>= 1) {
+      float y[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int idx = lo[i] + step - 1;
+        y[i] = idx < lim[i] ? rows[hb[i] + idx] : neg_inf();
+      }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int idx = lo[i] + step - 1;
+        const bool earlier = hb[i] < x * KB;  // the lower state first on a tie
+        if (idx < lim[i] && (y[i] > v || (earlier && y[i] == v))) lo[i] += step;
+      }
+    }
+    int q = 0;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) q += lo[i];
+#pragma unroll
+    for (int off = 1; off < LPC; off <<= 1) q += __shfl_xor_sync(FULL, q, off);
+    q += m;
+    if (valid && sub == 0 && q < K) {
+      pool_v[q] = v;
+      pool_k[q] = x * KB + m;
+    }
+  }
+}
+
+// The pool's -inf tail, positions nfin..K-1, by warp 0: the lowest flat
+// indices at -inf (non-exit rows whole, an exit row past its finite
+// values), a scan over states in chunks of 32; at once where state 0 is
+// not an exit (its K slots are the tail).
+template <int KB>
+__device__ void pool_tail(const Topo& tp, const unsigned char* fcnt, int K, int nfin,
+                          float* pool_v, int* pool_k) {
+  const int lane = threadIdx.x & 31;
+  int q = nfin;
+  if (!tp.is_exit(0)) {
+    for (int p = q + lane; p < K; p += 32) {
+      pool_v[p] = neg_inf();
+      pool_k[p] = p - q;
+    }
+    return;
+  }
+  for (int s0 = 0; s0 < tp.S && q < K; s0 += 32) {
+    const int s = s0 + lane;
+    int c = 0, first = 0;
+    if (s < tp.S) {
+      first = tp.is_exit(s) ? fcnt[s] : 0;
+      c = K - first;
+    }
+    int inc = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, off);
+      if (lane >= off) inc += y;
+    }
+    for (int p = q + inc - c; p < q + inc && p < K; ++p) {
+      pool_v[p] = neg_inf();
+      pool_k[p] = s * KB + first + (p - (q + inc - c));
+    }
+    q = min(q + __shfl_sync(FULL, inc, 31), K);
+  }
+}
+
+// The finite values of the rows in list[0..n) (n <= 32), up to K, by a warp.
+__device__ __forceinline__ int finite_values(const unsigned char* fcnt, const int* list, int n,
+                                             int K) {
+  const int lane = threadIdx.x & 31;
+  int total = lane < n ? fcnt[list[lane]] : 0;
+#pragma unroll
+  for (int off = 16; off; off >>= 1) total += __shfl_xor_sync(FULL, total, off);
+  return total < K ? total : K;
+}
+
+// The pool past 32 exit rows, (1) of two phases: the exit rows' heads (kept
+// by the merges) ranked against each other by every thread, lower row
+// first on a tie; rowof[h] gets the state of the row whose head ranks h < K
+// (the rows a top-K value can come from; -1 past the finite heads).
+__device__ void rank_heads(const float* heads, const int* exits, int R, int K, int* rowof) {
+  for (int u = threadIdx.x; u < R; u += blockDim.x) {
+    const float hv = heads[u];
+    int rank = 0;
+    for (int v = 0; v < R; ++v) {
+      const float hw = heads[v];
+      rank += hw > hv || (hw == hv && v < u);
+    }
+    if (hv != neg_inf() && rank < K) rowof[rank] = exits[u];
+  }
+}
+
+template <int KB>
+__global__ void __launch_bounds__(MAX_THREADS) kbest_team_kernel(KTeamArgs a) {
+  extern __shared__ float smem[];
+  constexpr int LOG = ilog2(KB);
+  const Topo& tp = a.tp;
+  const int S = tp.S, K = a.K, T = a.T, R = tp.n_exits;
+  const int tid = threadIdx.x, lane = tid & 31, nt = blockDim.x;
+  const float pen = a.pen;
+  const KLayout L = kbest_layout(S, KB, R);
+  int* wsm = (int*)smem;
+  float* rows = smem + L.rows;
+  unsigned char* fc0 = (unsigned char*)(wsm + L.fcnt);
+  unsigned char* fc1 = fc0 + S;
+  int* exits = wsm + L.exits;
+  float* pool_v = smem + L.pool_v;
+  int* pool_k = wsm + L.pool_k;
+  // Past 32 exit rows: the heads (kept by the merges), ranked first.
+  const bool wide = R > KBEST_TEAM_EXITS;
+  int* ex_ord = wsm + L.ex_ord;
+  float* heads = smem + L.heads;
+  int* rowof = wsm + L.rowof;
+
+  for (int j = tid; j < S; j += nt) {
+    const float a0 = tp.is_entry(j) ? a.log_b[j] + tp.c(6, j) : neg_inf();
+    rows[j * KB] = a0;
+    for (int r = 1; r < KB; ++r) rows[j * KB + r] = neg_inf();
+    fc0[j] = a0 != neg_inf();
+    if (wide) ex_ord[j] = -1;
+  }
+  for (int i = tid; i < S * K; i += nt) a.bps[i] = -1;
+  for (int i = tid; i < R; i += nt) exits[i] = tp.exits[i];
+  if (wide && tid < KB) rowof[tid] = -1;
+  __syncthreads();
+  if (wide) {
+    for (int i = tid; i < R; i += nt) {
+      ex_ord[exits[i]] = i;
+      heads[i] = rows[exits[i] * KB];
+    }
+    __syncthreads();
+  }
+
+  // Team g (KB lanes) merges the states j = g + i NG, lane r its slot r;
+  // every team walks the same number of rounds (a block-uniform trip count),
+  // idle past S.
+  const int ng = nt >> LOG, g = tid >> LOG, r = tid & (KB - 1);
+  const int rounds = (S + ng - 1) / ng;  // the same for every team
+  const int base = lane & ~(KB - 1);
+  const unsigned actm = K >= 32 ? FULL : (1u << K) - 1u;
+  const unsigned low = (1u << r) - 1u;
+  // The first round's state: its coefficients and flags in registers, its
+  // emission loaded a step ahead.
+  const int g_s = g < S ? g : 0;
+  const float g_c0 = tp.c(0, g_s), g_c1 = tp.c(1, g_s), g_c2 = tp.c(2, g_s), g_c3 = tp.c(3, g_s);
+  const bool g_entry = tp.is_entry(g_s), g_exit = tp.is_exit(g_s);
+  float lb_next = g < S && T > 1 ? a.log_b[(size_t)S + g] : 0.f;
+
+  float* cur = rows;
+  float* nxt = rows + S * KB;
+  unsigned char* fcur = fc0;
+  unsigned char* fnxt = fc1;
+  float* hcur = heads;
+  float* hnxt = heads + R;
+  for (int t = 1; t < T; ++t) {
+    const bool live = t < a.len;
+    const float lb_first = lb_next;
+    if (g < S && t + 1 < T) lb_next = a.log_b[(size_t)(t + 1) * S + g];
+    // (1) The pool, by every thread, over the exit rows (up to 32) or, past
+    // them, over the K best-headed rows (ranked first, a barrier more);
+    // warp 0 fills its -inf tail.
+    const int* plist = exits;
+    int prows = R;
+    if (wide) {
+      rank_heads(hcur, exits, R, K, rowof);
+      __syncthreads();
+      plist = rowof;
+      prows = __popc(__ballot_sync(FULL, lane < K && rowof[lane] >= 0));
+    }
+    if (prows <= KBEST_POOL_LANES) {
+      if (wide) pool_select<KB, 1, true>(cur, fcur, plist, prows, K, pool_v, pool_k);
+      else pool_select<KB, 1, false>(cur, fcur, plist, prows, K, pool_v, pool_k);
+    } else if (prows <= 2 * KBEST_POOL_LANES) {
+      if (wide) pool_select<KB, 2, true>(cur, fcur, plist, prows, K, pool_v, pool_k);
+      else pool_select<KB, 2, false>(cur, fcur, plist, prows, K, pool_v, pool_k);
+    } else if (prows <= 4 * KBEST_POOL_LANES) {
+      if (wide) pool_select<KB, 4, true>(cur, fcur, plist, prows, K, pool_v, pool_k);
+      else pool_select<KB, 4, false>(cur, fcur, plist, prows, K, pool_v, pool_k);
+    } else {
+      if (wide) pool_select<KB, 8, true>(cur, fcur, plist, prows, K, pool_v, pool_k);
+      else pool_select<KB, 8, false>(cur, fcur, plist, prows, K, pool_v, pool_k);
+    }
+    if (tid < 32)
+      pool_tail<KB>(tp, fcur, K, finite_values(fcur, plist, prows, K), pool_v, pool_k);
+    __syncthreads();
+    if (wide && tid < KB) rowof[tid] = -1;  // read above; the next step ranks anew
+    // (2) Each state's stable top K by ranks, entries and non-entries in one
+    // code path.
+    for (int it = 0; it < rounds; ++it) {
+      const int j = g + it * ng;
+      const bool act = j < S && r < K;
+      const int js = j < S ? j : 0;
+      const bool first = it == 0;
+      const bool entry = first ? g_entry : tp.is_entry(js);
+      const float lbt = first ? lb_first : a.log_b[(size_t)t * S + js];
+      const float c0 = first ? g_c0 : tp.c(0, js), c1 = first ? g_c1 : tp.c(1, js);
+      const float c2 = first ? g_c2 : tp.c(2, js), dg = first ? g_c3 : tp.c(3, js);
+      // A non-entry: the 3K candidates of blocks (s-2, s-1, s), value
+      // desc, block asc, slot asc. An entry: [pool + penalty, own K
+      // self-loops], value desc, the pool first, index asc; a single-state
+      // word keeps one copy of a hypothesis reaching it both ways (its pool
+      // members are its slots [0, cj)).
+      const float own = act ? cur[js * KB + r] : neg_inf();
+      const float b0 = act && !entry && j >= 2 ? cur[(js - 2) * KB + r] + c2 : neg_inf();
+      const float b1 = act && !entry && j >= 1 ? cur[(js - 1) * KB + r] + c1 : neg_inf();
+      const float b2 = act && !entry ? own + c0 : neg_inf();
+      const float pv = act && entry ? pool_v[r] : neg_inf();
+      const int pk = act && entry ? pool_k[r] : 0;
+      const int ps = pk >> LOG, pm = pk & (KB - 1);
+      const bool both = entry && (first ? g_exit : tp.is_exit(js)), beats = pen >= dg;
+      const float pco = pv + pen;
+      const float sco = act && entry ? own + dg : neg_inf();
+      const int cj = __popc(team_bits<KB>(base, act && both && ps == j));
+      const bool pmask = act && both && !beats && ps == j;
+      const bool smask = act && both && beats && r < cj;
+      const float pc = pmask ? neg_inf() : pco;
+      const float sc = smask ? neg_inf() : sco;
+      const unsigned pf = team_bits<KB>(base, act && pc != neg_inf());
+      const unsigned sf = team_bits<KB>(base, act && sc != neg_inf());
+      const unsigned pmk = team_bits<KB>(base, pmask);
+      // Non-entry searches: b1 > b0, b2 > b0, b0 >= b1, b2 > b1, b0 >= b2,
+      // b1 >= b2; entry (in slots 0 and 2): self-loops beating pool
+      // candidate r (strictly), pool candidates beating self-loop r (on a
+      // tie too).
+      const float arr[6] = {entry ? sco : b1, b2, entry ? pco : b0, b2, b0, b1};
+      const float qv[6] = {entry ? pc : b0, b0, entry ? sc : b1, b1, b2, b2};
+      int lo[6];
+      team_counts<KB, 6>(arr, qv, lo);
+      float nv[3];
+      int q[3], code[3];
+      if (!entry) {
+        q[0] = r + lo[0] + lo[1];
+        q[1] = r + lo[2] + lo[3];
+        q[2] = r + lo[4] + lo[5];
+        code[0] = max(j - 2, 0) * K + r;
+        code[1] = max(j - 1, 0) * K + r;
+        code[2] = j * K + r;
+        nv[0] = b0 + lbt;
+        nv[1] = b1 + lbt;
+        nv[2] = b2 + lbt;
+      } else {
+        const int fin = __popc(pf) + __popc(sf);
+        const int m0 = both && beats ? cj : 0;
+        q[0] = pc != neg_inf() ? __popc(pf & low) + max(lo[0] - m0, 0)
+                               : fin + __popc(~pf & actm & low);
+        const unsigned below = lo[2] >= 32 ? FULL : (1u << lo[2]) - 1u;
+        q[1] = sc != neg_inf() ? lo[2] - __popc(pmk & below) + __popc(sf & low)
+                               : fin + (K - __popc(pf)) + __popc(~sf & actm & low);
+        q[2] = K;
+        code[0] = ps * K + pm;
+        code[1] = j * K + r;
+        code[2] = 0;
+        nv[0] = pc + lbt;
+        nv[1] = sc + lbt;
+        nv[2] = neg_inf();
+      }
+      int f = 0;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        if (!act) q[n] = K;
+        if (q[n] < K) a.bps[((size_t)t * S + j) * K + q[n]] = code[n];
+        if (live && q[n] < K) nxt[j * KB + q[n]] = nv[n];
+        if (wide && live && q[n] == 0 && ex_ord[js] >= 0) hnxt[ex_ord[js]] = nv[n];
+        f += __popc(team_bits<KB>(base, q[n] < K && nv[n] != neg_inf()));
+      }
+      if (live && r == 0 && j < S) fnxt[j] = f;
+    }
+    __syncthreads();
+    if (live) {
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+      unsigned char* ftmp = fcur;
+      fcur = fnxt;
+      fnxt = ftmp;
+      float* htmp = hcur;
+      hcur = hnxt;
+      hnxt = htmp;
+    }
+  }
+  for (int j = tid; j < S; j += nt)
+    for (int q = 0; q < K; ++q) a.alpha[(size_t)j * K + q] = cur[j * KB + q];
+}
+
+// The serial floor of a team step: a block of the same threads running the
+// step's barriers and shared exchanges alone (each thread writes a word,
+// the barrier, each reads its neighbour's), `barriers` a step (timing).
+__global__ void __launch_bounds__(MAX_THREADS) lattice_skeleton_kernel(int steps, int barriers,
+                                                                       float* out) {
+  extern __shared__ float sk[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float v = (float)tid;
+  for (int t = 0; t < steps; ++t)
+    for (int i = 0; i < barriers; ++i) {
+      float* row = sk + ((t * barriers + i) & 1) * nt;
+      row[tid] = v;
+      __syncthreads();
+      v += row[tid + 1 < nt ? tid + 1 : 0];
+    }
+  out[blockIdx.y * gridDim.x * nt + blockIdx.x * nt + tid] = v;
+}
+
 Topo make_topo(const void* coefs, const void* ints, const void* exits, const void* entries,
                int S, int n_exits, int n_entries) {
   Topo tp;
@@ -942,13 +1957,52 @@ cudaError_t allow_smem(Kern kernel, size_t smem) {
 // (ops/cuda/trellis_lattice.DENSE_POOL_MAX) checks against this library.
 extern "C" int cs304_lattice_dense_pool_max() { return DENSE_POOL_MAX; }
 
+// LSUM's plan at a shape: out[0] the branch (0 team, 1 simple), out[1] K
+// (states a band thread), out[2] the dense pool's bucket (0: factorized),
+// out[3] pool warps, out[4] threads, out[5] the build's cells a pool lane.
+extern "C" int cs304_lattice_sum_plan(int S, int n_exits, int n_entries, int* out) {
+  const SumPlan p = sum_plan(S, n_exits, n_entries);
+  out[0] = p.team ? 0 : 1;
+  out[1] = p.team ? p.ks : states_per_thread(S);
+  out[2] = p.wb;
+  out[3] = p.npw;
+  out[4] = p.team ? p.threads : block_threads(S, states_per_thread(S));
+  out[5] = p.wb || p.cpl <= 1 ? 1 : SUM_CELLS_A_LANE;
+  return 0;
+}
+
+template <int KS, int WB, int CPL>
+cudaError_t launch_sum_team(const SumArgs& a, const SumPlan& p, cudaStream_t st) {
+  const cudaError_t e = allow_smem(lattice_sum_team_kernel<KS, WB, CPL>, p.smem);
+  if (e != cudaSuccess) return e;
+  lattice_sum_team_kernel<KS, WB, CPL><<<dim3(a.B, 2), p.threads, p.smem, st>>>(a, p.band, p.npw,
+                                                                               p.cpl);
+  return cudaSuccess;
+}
+
+template <int KS>
+cudaError_t launch_sum_team_wb(const SumArgs& a, const SumPlan& p, cudaStream_t st) {
+  switch (p.wb) {
+    case 8:
+      return launch_sum_team<KS, 8, 1>(a, p, st);
+    case 16:
+      return launch_sum_team<KS, 16, 1>(a, p, st);
+    case 32:
+      return launch_sum_team<KS, 32, 1>(a, p, st);
+    default:
+      if (p.cpl == 1) return launch_sum_team<KS, 0, 1>(a, p, st);
+      return launch_sum_team<KS, 0, SUM_CELLS_A_LANE>(a, p, st);
+  }
+}
+
 // LSUM: log_b (B, T, S), the topology, lengths (B,) -> alphas, beta_em
 // (B, T, S), beta_entry (B, T), log_z (B,); contiguous float32 / int32.
+// simple != 0 takes the first design (the simple branch) at any shape.
 extern "C" int cs304_lattice_sum(const void* log_b, const void* coefs, const void* ints,
                                  const void* exits, const void* entries, const void* lengths,
                                  float penalty, void* alphas, void* beta_em, void* beta_entry,
                                  void* log_z, int B, int T, int S, int n_exits, int n_entries,
-                                 void* stream) {
+                                 int simple, void* stream) {
   if (B < 1 || T < 1 || S < 1 || S > MAX_STATES || n_exits < 1 || n_entries < 1)
     return (int)cudaErrorInvalidValue;
   SumArgs a;
@@ -962,13 +2016,32 @@ extern "C" int cs304_lattice_sum(const void* log_b, const void* coefs, const voi
   a.log_z = (float*)log_z;
   a.B = B;
   a.T = T;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
+  const SumPlan p = sum_plan(S, n_exits, n_entries);
+  if (p.team && !simple) {
+    switch (p.ks) {
+      case 1:
+        e = launch_sum_team_wb<1>(a, p, st);
+        break;
+      case 2:
+        e = launch_sum_team_wb<2>(a, p, st);
+        break;
+      case 4:
+        e = launch_sum_team_wb<4>(a, p, st);
+        break;
+      default:
+        e = launch_sum_team_wb<8>(a, p, st);
+        break;
+    }
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   const int k = states_per_thread(S);
   const int threads = block_threads(S, k);
   const size_t smem = (2 * (size_t)S + 64) * sizeof(float) +
                       (size_t)(n_exits > n_entries ? n_exits : n_entries) * sizeof(int);
   const dim3 grid(B, 2);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
   switch (k) {
     case 1:
       e = allow_smem(lattice_sum_kernel<1>, smem);
@@ -988,6 +2061,16 @@ extern "C" int cs304_lattice_sum(const void* log_b, const void* coefs, const voi
       break;
   }
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The skeleton of `steps` team steps on a (blocks, 2 if pair) grid of
+// `threads`: out (blocks * threads * (1 + pair),) float32.
+extern "C" int cs304_lattice_skeleton(int blocks, int pair, int threads, int steps, int barriers,
+                                      void* out, void* stream) {
+  if (blocks < 1 || threads < 1 || threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  lattice_skeleton_kernel<<<dim3(blocks, pair ? 2 : 1), threads, 2 * threads * sizeof(float),
+                            (cudaStream_t)stream>>>(steps, barriers, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -1036,20 +2119,80 @@ extern "C" int cs304_lattice_max(const void* log_b, const void* coefs, const voi
   return (int)cudaGetLastError();
 }
 
+// KBEST's plan at (S, K, exits): out[0] the branch (0 team, 1 simple),
+// out[1] the bucket, out[2] threads, out[3] unused (0), out[4] 1 where the
+// rows live in the device scratch.
+extern "C" int cs304_kbest_plan(int S, int K, int n_exits, int* out) {
+  const KPlan p = kbest_plan(S, K, n_exits);
+  out[0] = p.team ? 0 : 1;
+  out[1] = p.kb;
+  out[2] = p.team ? p.threads : (S >= MAX_THREADS ? MAX_THREADS : 32 * ((S + 31) / 32));
+  out[3] = 0;
+  out[4] = p.team ? 0 : (int)(kbest_words(S, K) * 4 > KBEST_SMEM_MAX);
+  return 0;
+}
+
 // The device scratch KBEST needs (int32 words): 0 where its rows and lists
-// fit shared memory.
+// fit shared memory (the team branch keeps its rows there; the simple
+// branch's need).
 extern "C" long long cs304_kbest_scratch_words(int S, int K) {
   const size_t words = kbest_words(S, K);
   return words * 4 <= KBEST_SMEM_MAX ? 0 : (long long)words;
 }
 
+template <int KB>
+cudaError_t launch_kbest_team(const KTeamArgs& a, const KPlan& p, cudaStream_t st) {
+  const cudaError_t e = allow_smem(kbest_team_kernel<KB>, p.smem);
+  if (e != cudaSuccess) return e;
+  kbest_team_kernel<KB><<<1, p.threads, p.smem, st>>>(a);
+  return cudaSuccess;
+}
+
 // KBEST: log_b (T, S), the topology's coefs and exits, the length, K ->
 // alpha (S, K) float32, bps (T, S, K) int32; scratch: cs304_kbest_scratch_words.
+// simple != 0 takes the first design (the simple branch) at any K.
 extern "C" int cs304_kbest_forward(const void* log_b, const void* coefs, const void* exits,
                                    float penalty, int length, int K, void* alpha, void* bps,
-                                   void* scratch, int T, int S, int n_exits, void* stream) {
+                                   void* scratch, int T, int S, int n_exits, int simple,
+                                   void* stream) {
   if (T < 1 || S < 1 || S > MAX_STATES || K < 1 || n_exits < 1)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const KPlan p = kbest_plan(S, K, n_exits);
+  if (p.team && !simple) {
+    KTeamArgs a;
+    a.log_b = (const float*)log_b;
+    a.tp = make_topo(coefs, nullptr, exits, nullptr, S, n_exits, 0);
+    a.pen = penalty;
+    a.len = length;
+    a.K = K;
+    a.T = T;
+    a.alpha = (float*)alpha;
+    a.bps = (int*)bps;
+    cudaError_t e = cudaSuccess;
+    switch (p.kb) {
+      case 1:
+        e = launch_kbest_team<1>(a, p, st);
+        break;
+      case 2:
+        e = launch_kbest_team<2>(a, p, st);
+        break;
+      case 4:
+        e = launch_kbest_team<4>(a, p, st);
+        break;
+      case 8:
+        e = launch_kbest_team<8>(a, p, st);
+        break;
+      case 16:
+        e = launch_kbest_team<16>(a, p, st);
+        break;
+      default:
+        e = launch_kbest_team<32>(a, p, st);
+        break;
+    }
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   KArgs a;
   a.log_b = (const float*)log_b;
   a.tp = make_topo(coefs, nullptr, exits, nullptr, S, n_exits, 0);
@@ -1064,7 +2207,6 @@ extern "C" int cs304_kbest_forward(const void* log_b, const void* coefs, const v
   a.scratch = global ? scratch : nullptr;
   const size_t smem = global ? 0 : words * 4;
   const int threads = S >= MAX_THREADS ? MAX_THREADS : 32 * ((S + 31) / 32);
-  cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e = allow_smem(kbest_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kbest_kernel<<<1, threads, smem, st>>>(a);

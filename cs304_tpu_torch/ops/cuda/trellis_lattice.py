@@ -27,10 +27,14 @@ Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. The kernels take 1 <= S <= MAX_LATTICE_STATES and any
 B, T >= 1 and K >= 1. LMAX and KBEST are bitwise their plain versions;
 LSUM's sums run in the order stated in ``lattice_sum_passes_plain`` and on
-the card differ from it only by expf / logf rounding.
+the card differ from it only by expf / logf rounding. LSUM and KBEST each
+have a team branch and, where it does not apply, the first design (the
+simple branch); ``lattice_sum_plan`` / ``kbest_plan`` say which a shape
+takes, and ``simple=True`` forces the first design (timing, tests).
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,9 +52,9 @@ DENSE_POOL_MAX = 32
 NEG = float("-inf")
 
 __all__ = ["DENSE_POOL_MAX", "MAX_LATTICE_STATES", "LatticeTopology", "kbest_forward",
-           "kbest_forward_plain", "lattice_max_passes", "lattice_max_passes_plain",
-           "lattice_sum_passes", "lattice_sum_passes_plain", "lattice_topology", "top_k",
-           "topology_of"]
+           "kbest_forward_plain", "kbest_plan", "lattice_max_passes", "lattice_max_passes_plain",
+           "lattice_sum_passes", "lattice_sum_passes_plain", "lattice_sum_plan",
+           "lattice_topology", "top_k", "topology_of"]
 
 
 @dataclass(frozen=True)
@@ -497,11 +501,43 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def lattice_sum_passes(log_b, topo: LatticeTopology, penalty, lengths):
+def _plan(fn, *args) -> list:
+    out = (ctypes.c_int * 6)()
+    _build.check(fn(*args, out), fn.__name__)
+    return list(out)
+
+
+def lattice_sum_plan(s: int, n_exits: int, n_entries: int) -> dict:
+    """LSUM's launch at S states and these pool sizes, as the library
+    decides it: the branch ("team": band warps beside pool warps; "simple":
+    the first design, where one pool is dense and the other not, or the
+    threads do not fit), states a band thread (a thread on the simple
+    branch), the dense pool's unrolled bucket (0: factorized), pool warps,
+    threads a block and the build's cells a pool lane."""
+    b, k, wb, npw, threads, cpl = _plan(_build.load().cs304_lattice_sum_plan, s, n_exits,
+                                        n_entries)
+    return {"branch": ("team", "simple")[b], "k": k, "bucket": wb, "pool_warps": npw,
+            "threads": threads, "cells_a_lane": cpl}
+
+
+def kbest_plan(s: int, k: int, n_exits: int) -> dict:
+    """KBEST's launch at S states, K and the exit count: the branch ("team":
+    a team of lanes a state, K in a bucket of 1 / 2 / 4 / 8 / 16 / 32, its
+    rows in shared memory; "simple": the first design, past K = 32, 128 exit
+    rows or rows beyond shared memory), the bucket, threads and where its
+    rows live."""
+    b, kb, threads, _unused, glob, _unused = _plan(_build.load().cs304_kbest_plan, s, k,
+                                                   n_exits)
+    return {"branch": ("team", "simple")[b], "bucket": kb, "threads": threads,
+            "rows": "global" if glob else "shared"}
+
+
+def lattice_sum_passes(log_b, topo: LatticeTopology, penalty, lengths, simple=False):
     """LSUM (see lattice_sum_passes_plain): log_b (B, T, S) float32,
     lengths (B,) int32 -> (alphas (B, T, S), beta_em (B, T, S), beta_entry
     (B, T), log_z (B,)) float32. On CUDA tensors one launch: a block a
-    row's forward and a block its backward."""
+    row's forward and a block its backward (lattice_sum_plan's branch, or
+    the first design with simple=True)."""
     if not log_b.is_cuda:
         return lattice_sum_passes_plain(log_b, topo, penalty, lengths)
     b, t_total, s = log_b.shape
@@ -529,7 +565,7 @@ def lattice_sum_passes(log_b, topo: LatticeTopology, penalty, lengths):
             topo.exits.data_ptr(), topo.entries.data_ptr(), lengths.data_ptr(),
             float(penalty), alphas.data_ptr(), beta_em.data_ptr(),
             beta_entry.data_ptr(), log_z.data_ptr(), b, t_total, s, topo.exits.numel(),
-            topo.entries.numel(), _stream())
+            topo.entries.numel(), int(simple), _stream())
     _build.check(code, "lattice_sum_passes")
     lattice_sum_passes.launches += 1
     return alphas, beta_em, beta_entry, log_z
@@ -570,11 +606,12 @@ def lattice_max_passes(log_b, topo: LatticeTopology, penalty, length: int):
 lattice_max_passes.launches = 0
 
 
-def kbest_forward(log_b, topo: LatticeTopology, penalty, k: int, length=None):
+def kbest_forward(log_b, topo: LatticeTopology, penalty, k: int, length=None, simple=False):
     """KBEST (see kbest_forward_plain): log_b (T, S) float32 -> (alpha
     (S, K) float32, bps (T, S, K) int32). On CUDA tensors one launch of one
     block, bitwise the plain version; any K >= 1 (the hypothesis rows live
-    in shared memory where they fit, else in a device scratch)."""
+    in shared memory where they fit, else in a device scratch;
+    kbest_plan's branch, or the first design with simple=True)."""
     if not log_b.is_cuda:
         return kbest_forward_plain(log_b, topo, penalty, k, length)
     t_total, s = log_b.shape
@@ -595,7 +632,7 @@ def kbest_forward(log_b, topo: LatticeTopology, penalty, k: int, length=None):
         code = lib.cs304_kbest_forward(
             log_b.data_ptr(), topo.coefs.data_ptr(), topo.exits.data_ptr(), float(penalty),
             length, k, alpha.data_ptr(), bps.data_ptr(), scratch.data_ptr(), t_total, s,
-            topo.exits.numel(), _stream())
+            topo.exits.numel(), int(simple), _stream())
     _build.check(code, "kbest_forward")
     kbest_forward.launches += 1
     return alpha, bps

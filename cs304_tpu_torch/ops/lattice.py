@@ -156,28 +156,36 @@ def path_word_spans(composite, path: np.ndarray) -> List[Tuple[int, int, int]]:
     when the word changes OR on an exit->entry re-entry of the same word —
     the repeated-word rule, reference model_boundary.py:131-135), but frame
     positions are kept instead of just the label sequence."""
-    path = np.asarray(path)
-    t_total = len(path)
+    path = np.asarray(path, np.int64)
+    return path_word_spans_batch(composite, path[None], [len(path)])[0]
+
+
+def path_word_spans_batch(composite, paths, lengths) -> List[List[Tuple[int, int, int]]]:
+    """path_word_spans of each row of paths (B, T) cut at its length, as one
+    mask over the batch: a frame starts an instance where the state changes
+    and the word changes or an exit re-enters its own word's entry."""
+    paths = np.asarray(paths, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    b, t_total = paths.shape
     if t_total == 0:
-        return []
-    word_of = composite.word_of_state
-    lowers = composite.lowers
-    uppers = composite.uppers
-    starts = [0]
-    for t in range(1, t_total):
-        s_prev, s_cur = path[t - 1], path[t]
-        if s_prev == s_cur:
-            continue
-        w_prev, w_cur = word_of[s_prev], word_of[s_cur]
-        if w_cur != w_prev or (
-            s_prev == uppers[w_cur] and s_cur == lowers[w_cur]
-        ):
-            starts.append(t)
-    spans = []
-    for i, st in enumerate(starts):
-        en = starts[i + 1] if i + 1 < len(starts) else t_total
-        spans.append((st, en, int(word_of[path[st]])))
-    return spans
+        return [[] for _ in range(b)]
+    live = np.arange(t_total) < lengths[:, None]
+    paths = np.where(live, paths, 0)  # frames past a row's length hold any value
+    word = np.asarray(composite.word_of_state)[paths]
+    prev, cur, w = paths[:, :-1], paths[:, 1:], word[:, 1:]
+    new = np.empty((b, t_total), bool)
+    new[:, 0] = lengths > 0
+    new[:, 1:] = (prev != cur) & ((w != word[:, :-1])
+                                  | ((prev == np.asarray(composite.uppers)[w])
+                                     & (cur == np.asarray(composite.lowers)[w])))
+    new &= live
+    rows, starts = np.nonzero(new)
+    ends = np.append(starts[1:], 0)
+    last = np.append(rows[1:] != rows[:-1], True)
+    ends[last] = lengths[rows[last]]
+    spans = list(zip(starts.tolist(), ends.tolist(), word[rows, starts].tolist()))
+    bounds = np.concatenate(([0], np.cumsum(np.bincount(rows, minlength=b)))).tolist()
+    return [spans[bounds[i]:bounds[i + 1]] for i in range(b)]
 
 
 def nbest_lattice(composite, features, n: int = 8, beam_k: int | None = None,
@@ -283,9 +291,9 @@ def word_confidences_batch(composite, features, log_b=None,
     lam = _word_end_lambdas(composite, alphas, beta_entry, log_z, lengths_d).cpu().numpy()
 
     out = []
-    for i, l in enumerate(lengths):
+    for i, spans in enumerate(path_word_spans_batch(composite, paths, lengths)):
         words = []
-        for st, en, w in path_word_spans(composite, paths[i, :l]):
+        for st, en, w in spans:
             if skip_silence and composite._silence_word is not None \
                     and w == composite._silence_word:
                 continue

@@ -50,7 +50,9 @@ counted / grammar / duration decodes launching them and never a plain
 trellis; the posterior and n-best searches' kernels (LSUM: the same -inf
 cells, the rest within 1e-5 * max(1, |x|) of its plain version; LMAX and
 KBEST bitwise; 58, 503 and 5003 states, single-state words under both
-penalty cases, length-1 and -2 rows, K = 1, 6, 16, T = 1) and the decoder's
+penalty cases, length-1 and -2 rows, pools of 1, 31, 32 and 33 members,
+KBEST at K = 1, 2, 4, 6, 8, 16, 32 and 33, T = 1; LSUM and KBEST on their
+team branch and on the forced simple branch) and the decoder's
 confidences, n-best, forward lattice and keyword passes launching them
 with no plain loop on the card; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
@@ -2086,7 +2088,10 @@ def _lattice_composite(counts, penalty):
 
 # name: (composite (None: the flagship), B, T, integer-valued log_b); the
 # single-state words' self-loop (0) beats a -25 penalty and a 0 penalty
-# beats it; 503 and 5003 states (KBEST's rows in a device scratch at K = 16).
+# beats it; 503 and 5003 states (LSUM's factorized pools, at 8 states a band
+# thread at 5003; KBEST past 32 exits on the simple branch, its rows in a
+# device scratch at K = 16); pools of 1, 31, 32 and 33 members around
+# DENSE_POOL_MAX (KBEST's team branch up to 32 exit rows).
 LATTICE_CASES = {
     "flagship": (None, 16, 120, False),
     "flagship-ties": (None, 16, 60, True),
@@ -2094,15 +2099,23 @@ LATTICE_CASES = {
     "single-state-pool-beats": (([1, 3, 1, 5, 1, 3], 0.0), 8, 50, True),
     "503": (([5] * 100 + [3], -100.0), 4, 80, False),
     "5003": (([5] * 1000 + [3], -100.0), 2, 30, False),
+    "pool-1": (([2], -25.0), 4, 40, False),
+    "pool-31": (([2, 1] * 15 + [3], -25.0), 4, 40, True),
+    "pool-32": (([2, 1] * 16, 0.0), 4, 40, True),
+    "pool-33": (([2, 1] * 16 + [3], -25.0), 4, 40, False),
 }
+# KBEST's K: every bucket (1, 2, 4, 8, 16, 32; 6 in the 8 bucket) and one
+# past the largest (the simple branch).
+KBEST_KS = (1, 2, 4, 6, 8, 16, 32, 33)
 
 
 @pytest.mark.parametrize("case", sorted(LATTICE_CASES))
 def test_lattice_kernels_match_plain(dev, case):
     """LSUM against lattice_sum_passes_plain (the same -inf cells, the rest
     within 1e-5 * max(1, |x|), every row with a length-2 and a length-1
-    row), LMAX and KBEST (K = 1, 6, 16; T = 1) bitwise theirs, one launch
-    each."""
+    row), LMAX and KBEST (K = 1, 2, 4, 6, 8, 16, 32, 33; T = 1) bitwise
+    theirs, one launch each; LSUM and KBEST on the branch their plan takes
+    and on the forced simple branch (the first design)."""
     from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
 
     spec, b, t, ties = LATTICE_CASES[case]
@@ -2110,31 +2123,37 @@ def test_lattice_kernels_match_plain(dev, case):
     topo = tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
                                 comp.word_of_state, device=dev)
     gen = torch.Generator(device=dev).manual_seed(len(case))
-    s = comp.num_states
+    s, n_x, n_e = comp.num_states, topo.exits.numel(), topo.entries.numel()
     lb = (torch.randint(-3, 1, (b, t, s), generator=gen, device=dev).float() if ties
           else 3 * torch.randn((b, t, s), generator=gen, device=dev))
     lengths = torch.randint(2, t + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
     lengths[0], lengths[1] = t, 2
-    before = [c.launches for c in (tlk.lattice_sum_passes, tlk.lattice_max_passes,
-                                   tlk.kbest_forward)]
-    got = tlk.lattice_sum_passes(lb, topo, comp.penalty, lengths)
+    counters = (tlk.lattice_sum_passes, tlk.lattice_max_passes, tlk.kbest_forward)
+    before = [c.launches for c in counters]
+    assert tlk.lattice_sum_plan(s, n_x, n_e)["branch"] == "team"
     want = tlk.lattice_sum_passes_plain(lb, topo, comp.penalty, lengths)
-    for g, w in zip(got, want):
-        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
-        fin = torch.isfinite(w)
-        assert ((g - w)[fin].abs() <= 1e-5 * w[fin].abs().clamp(min=1.0)).all()
+    for simple in (False, True):
+        got = tlk.lattice_sum_passes(lb, topo, comp.penalty, lengths, simple=simple)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+            fin = torch.isfinite(w)
+            assert ((g - w)[fin].abs() <= 1e-5 * w[fin].abs().clamp(min=1.0)).all()
     assert torch.isfinite(want[3]).all()
     for length in (t, 2):
         got = tlk.lattice_max_passes(lb[0], topo, comp.penalty, length)
         want = tlk.lattice_max_passes_plain(lb[0], topo, comp.penalty, length)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    for k, tt in ((1, t), (6, t), (16, t), (8, 1)):
-        got = tlk.kbest_forward(lb[1, :tt].contiguous(), topo, comp.penalty, k, tt - 3)
-        want = tlk.kbest_forward_plain(lb[1, :tt].contiguous(), topo, comp.penalty, k, tt - 3)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    after = [c.launches for c in (tlk.lattice_sum_passes, tlk.lattice_max_passes,
-                                  tlk.kbest_forward)]
-    assert [a - b_ for a, b_ in zip(after, before)] == [1, 2, 4]
+    runs = [(k, t, False) for k in KBEST_KS] + [(8, 1, False), (16, t, True), (33, 1, False)]
+    for k, tt, simple in runs:
+        branch = tlk.kbest_plan(s, k, n_x)["branch"]
+        if k > 32 or s < 1000:  # past K = 32 the first design; else rows fit shared memory
+            assert branch == ("team" if k <= 32 else "simple"), (k, branch)
+        one = lb[1, :tt].contiguous()
+        got = tlk.kbest_forward(one, topo, comp.penalty, k, tt - 3, simple=simple)
+        want = tlk.kbest_forward_plain(one, topo, comp.penalty, k, tt - 3)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, tt, simple)
+    after = [c.launches for c in counters]
+    assert [a - b_ for a, b_ in zip(after, before)] == [2, 2, len(runs)]
 
 
 def test_posterior_and_nbest_searches_launch_their_kernels(dev, monkeypatch):

@@ -69,6 +69,58 @@ def test_word_spans_and_nbest_lattice_match_jax():
                                    [a.score for a in want.sorted_arcs()], rtol=1e-6)
 
 
+def _word_paths(comp, rng, n_paths):
+    """Seeded state paths over a composite as a decoder walks it: word
+    instances left to right through their states (a state held 1-3 frames,
+    a state skipped now and then), the same word repeated back to back,
+    silence between; then uniformly random state paths, and paths of
+    length 0, 1 and 2."""
+    lowers, uppers = np.asarray(comp.lowers), np.asarray(comp.uppers)
+    n_words = len(lowers)
+    paths = [np.zeros(0, np.int64), np.array([3]), np.array([lowers[-1], uppers[-1]])]
+    for _ in range(n_paths):
+        states, w = [], int(rng.integers(n_words))
+        for _i in range(int(rng.integers(1, 9))):
+            w = w if rng.random() < 0.3 else int(rng.integers(n_words))
+            s = lowers[w]
+            while s <= uppers[w]:
+                states += [s] * int(rng.integers(1, 4))
+                s += 2 if rng.random() < 0.1 else 1
+        paths.append(np.asarray(states))
+        paths.append(rng.integers(0, comp.num_states, size=int(rng.integers(1, 60))))
+    return paths
+
+
+@pytest.mark.parametrize("which", ["flagship", "single-state-words"])
+def test_path_word_spans_match_jax(which):
+    """The span walk as one mask over the path, equal to JAX's loop on
+    seeded paths with repeated words, silence, single-state words and
+    lengths 0, 1 and 2."""
+    from cs304_tpu_torch.models.hmm import flagship_models
+
+    if which == "flagship":
+        models = flagship_models()
+    else:
+        rng = np.random.default_rng(5)
+        models = [WordHMM(f"w{i}", rng.normal(size=(n, 4)).astype(np.float32),
+                          np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)),
+                          uniform_forward_log_a(n)) for i, n in enumerate((1, 3, 1, 5, 2))]
+    tc = stack_word_models(models, -100.0)
+    jc = j_stack([JWordHMM(m.label, np.asarray(m.means), np.asarray(m.covariances),
+                           np.asarray(m.log_a)) for m in models], -100.0)
+    paths = _word_paths(tc, np.random.default_rng(len(which)), 40)
+    want = [jl.path_word_spans(jc, path) for path in paths]
+    for path, w in zip(paths, want):
+        assert tl.path_word_spans(tc, path) == w, path
+    # The batch form on the paths padded with garbage states past each length.
+    lengths = [len(p) for p in paths]
+    padded = np.random.default_rng(0).integers(-5, 3 * tc.num_states,
+                                               size=(len(paths), max(lengths) + 3))
+    for i, p in enumerate(paths):
+        padded[i, : len(p)] = p
+    assert tl.path_word_spans_batch(tc, padded, lengths) == want
+
+
 @pytest.mark.parametrize("t,pad", [(40, 0), (37, 27), (2, 0)])
 def test_forward_lattice_and_posteriors_match_jax(t, pad):
     tc, jc = _pair_of_composites()

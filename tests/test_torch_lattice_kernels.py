@@ -23,11 +23,13 @@ on the CPU through their plain versions and their step order.
   readings behind the bound: each output's worst error against JAX, and
   JAX's and the port's against a float64 evaluation of JAX's recurrence, in
   units of RTOL / ATOL of the cell.
-- The kernels' step order emulated in numpy float32: KBEST's pool as a
-  merge of the warps' merges of sorted exit rows with its -inf tail filled
-  in flat order, each state's three-block or two-list merge with the
-  duplicate-prefix masks as slot < c_j; LMAX's banded argmax and best exit
-  pool with the lowest index on a tie: bitwise the plain versions.
+- The kernels' step order emulated in numpy float32: KBEST's team branch
+  (each state's top K by ranks, the entries' with the duplicate-prefix
+  masks as slot < c_j; the pool by ranks over the exit rows' values, its
+  -inf tail filled in flat order) at every K bucket, and its simple branch
+  (the first design: merges; K past 32, 40 exit rows); LMAX's banded
+  argmax and best exit pool with the lowest index on a tie: bitwise the
+  plain versions.
 - The dispatchers: CPU tensors run the plain versions and count no launch;
   a CUDA tensor with no kernel library raises, and no plain loop runs.
 
@@ -242,9 +244,196 @@ def _threads(s):
     return min(1024, 32 * -(-s // 32))
 
 
+def _bucket(k):
+    """KBEST's K bucket (csrc/trellis_lattice.cu kbest_bucket)."""
+    return next(b for b in (1, 2, 4, 8, 16, 32) if k <= b)
+
+
+def _lift(pred, lim, step):
+    """The kernels' binary search from the given first step: the length of
+    the prefix of [0, lim) where pred holds (pred true then false), up to
+    2 step - 1."""
+    lo = 0
+    while step:
+        if lo + step - 1 < lim and pred(lo + step - 1):
+            lo += step
+        step >>= 1
+    return lo
+
+
+def _beats(v, f, w, g):
+    """(v, f) before (w, g): the larger value, the lower key on a tie."""
+    return v > w or (v == w and f < g)
+
+
 def kbest_emulated(log_b, comp, k, length=None):
-    """KBEST's step as csrc/trellis_lattice.cu runs it, in numpy float32:
-    (alpha (S, K), bps (T, S, K))."""
+    """KBEST's team branch as csrc/trellis_lattice.cu runs a step, in numpy
+    float32: (alpha (S, K), bps (T, S, K)). A state's stable top K by ranks:
+    a non-entry's 3K candidates each count the values of the other two
+    sorted blocks that beat it (value desc, block asc, slot asc); an
+    entry's pool and self-loop candidates count by binary searches in the
+    unmasked sorted lists and by the masks' bits (value desc, the pool
+    first, index asc); the pool by ranks too: each finite value of an exit
+    row (past 32 exits, of the K best-headed rows, a row whose head ranks h
+    its first K - h values) counts the values of the other rows that beat
+    it (binary searches), its -inf tail the lowest flat indices at -inf.
+    Keys are x * KB + slot."""
+    t_total, s = log_b.shape
+    length = t_total if length is None else length
+    kb = _bucket(k)
+    coefs = _topo(comp).coefs.numpy()
+    c0, c1, c2, de, entry, exit_, dinit = coefs[:7]
+    entry, exit_ = entry > 0, exit_ > 0
+    pen = np.float32(comp.penalty)
+    exits = np.flatnonzero(exit_)
+    neg = np.float32(-np.inf)
+    cur = np.full((s, k), neg, np.float32)
+    cur[:, 0] = np.where(entry, log_b[0] + dinit, neg)
+    fcnt = (cur != neg).sum(1)
+    bps = np.full((t_total, s, k), -1, np.int64)
+
+    def count(arr, v, ge):
+        """team_counts: arr non-increasing over the team's KB lanes, its
+        surplus lanes (slots past K) at -inf; the steps KB/2 .. 1, then the
+        last lane."""
+        a = np.full(kb, neg, np.float32)
+        a[:k] = arr
+        pred = (lambda i: a[i] >= v) if ge else (lambda i: a[i] > v)
+        lo = _lift(pred, kb - 1, kb // 2) if kb > 1 else 0
+        return kb if lo == kb - 1 and pred(kb - 1) else lo
+
+    for t in range(1, t_total):
+        # The pool: each finite (row r, slot m) of the rows ranks itself by m
+        # and the values of the other rows beating it (a lower state on a
+        # tie). Past 32 exits the rows are the K best-headed ones, ranked
+        # first (a lower state on a tie), and a row whose head ranks h
+        # offers its first K - h values.
+        rows = list(exits)
+        if len(exits) > 32:
+            hv = [cur[x, 0] if fcnt[x] else neg for x in exits]
+            rank = [sum(hw > h or (hw == h and v < u) for v, hw in enumerate(hv))
+                    for u, h in enumerate(hv)]
+            rows = [None] * k
+            for u, x in enumerate(exits):
+                if hv[u] != neg and rank[u] < k:
+                    rows[rank[u]] = x
+            rows = [x for x in rows if x is not None]
+        pool = [None] * k
+        for r, x in enumerate(rows):
+            for m in range(min(k - r if len(exits) > 32 else k, fcnt[x])):
+                v = cur[x, m]
+                q = m + sum(_lift(lambda i, x2=x2: cur[x2, i] > v
+                                  or (x2 < x and cur[x2, i] == v), fcnt[x2], kb)
+                            for x2 in rows if x2 != x)
+                # (_lift from step KB reaches 2 KB - 1 >= fcnt: the whole row)
+                if q < k:
+                    assert pool[q] is None
+                    pool[q] = (v, x * kb + m)
+        nfin = min(k, int(fcnt[rows].sum()))
+        assert all(p is not None for p in pool[:nfin])
+        pool = pool[:nfin]
+        for sx in range(s):  # the -inf tail
+            first = int(fcnt[sx]) if exit_[sx] else 0
+            for slot in range(first, k):
+                if len(pool) < k:
+                    pool.append((neg, sx * kb + slot))
+        pv = np.asarray([v for v, _f in pool], np.float32)
+        ps = [f // kb for _v, f in pool]
+        pm = [f % kb for _v, f in pool]
+        new = np.empty_like(cur)
+        new_f = np.empty_like(fcnt)
+        for j in range(s):
+            vals, codes = [None] * k, [None] * k
+            cands = []  # (rank, value, code)
+            if not entry[j]:
+                b = [(cur[j - 2] if j >= 2 else np.full(k, neg, np.float32)) + c2[j],
+                     (cur[j - 1] if j >= 1 else np.full(k, neg, np.float32)) + c1[j],
+                     cur[j] + c0[j]]
+                preds = [max(j - 2, 0), max(j - 1, 0), j]
+                for blk in range(3):
+                    for r in range(k):
+                        v = b[blk][r]
+                        q = r + sum(count(b[o], v, ge=o < blk) for o in range(3) if o != blk)
+                        cands.append((q, v, preds[blk] * k + r))
+            else:
+                both, beats = exit_[j], pen >= de[j]
+                pco = pv + pen
+                sco = cur[j] + de[j]
+                cj = sum(both and ps[r] == j for r in range(k))
+                pmask = [both and not beats and ps[r] == j for r in range(k)]
+                smask = [both and beats and r < cj for r in range(k)]
+                pc = np.where(pmask, neg, pco).astype(np.float32)
+                sc = np.where(smask, neg, sco).astype(np.float32)
+                pf = [pc[r] != neg for r in range(k)]
+                sf = [sc[r] != neg for r in range(k)]
+                fin = sum(pf) + sum(sf)
+                m0 = cj if both and beats else 0
+                for r in range(k):
+                    if pf[r]:
+                        qp = sum(pf[:r]) + max(count(sco, pc[r], False) - m0, 0)
+                    else:
+                        qp = fin + sum(not x for x in pf[:r])
+                    cands.append((qp, pc[r], ps[r] * k + pm[r]))
+                    if sf[r]:
+                        cge = count(pco, sc[r], True)
+                        qs = cge - sum(pmask[:cge]) + sum(sf[:r])
+                    else:
+                        qs = fin + (k - sum(pf)) + sum(not x for x in sf[:r])
+                    cands.append((qs, sc[r], j * k + r))
+            for q, v, code in cands:
+                if q < k:
+                    assert vals[q] is None
+                    vals[q], codes[q] = v, code
+            bps[t, j] = codes
+            new[j] = np.asarray(vals, np.float32) + log_b[t, j]
+            new_f[j] = (new[j] != neg).sum()
+        if t < length:
+            cur, fcnt = new, new_f
+    return cur, bps
+
+
+@pytest.mark.parametrize("name", ["single-state-pool-beats", "single-state-self-beats",
+                                  "three-words", "twelve-words", "forty-words",
+                                  "forty-single-state-pool-beats"])
+@pytest.mark.parametrize("k,ties", [(1, True), (4, True), (6, False), (8, True), (16, True),
+                                    (32, False)])
+def test_kbest_kernel_order_is_bitwise_plain(name, k, ties):
+    """The team branch's step (kbest_emulated) bitwise kbest_forward_plain:
+    every K bucket, single-state words under both penalty cases, integer
+    ties, up to 32 exit rows and past them (40 words: the heads ranked
+    first)."""
+    comp = _comp(name)
+    rng = np.random.default_rng(31 + k)
+    log_b = _log_b(rng, (14 if comp.num_states < 100 else 8, comp.num_states), ties)
+    want = tlk.kbest_forward_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty, k, 9)
+    got = kbest_emulated(log_b, comp, k, 9)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("name", ["single-state-pool-beats", "single-state-self-beats",
+                                  "three-words", "forty-single-state-pool-beats",
+                                  "forty-words"])
+@pytest.mark.parametrize("k,ties", [(1, True), (4, True), (6, False), (16, True), (33, False)])
+def test_kbest_simple_branch_order_is_bitwise_plain(name, k, ties):
+    """The simple branch's step (kbest_simple_emulated, the first design,
+    which takes K past 32 and exit rows past 32) bitwise
+    kbest_forward_plain."""
+    comp = _comp(name)
+    rng = np.random.default_rng(31 + k)
+    log_b = _log_b(rng, (14 if comp.num_states < 100 else 8, comp.num_states), ties)
+    want = tlk.kbest_forward_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty, k, 9)
+    got = kbest_simple_emulated(log_b, comp, k, 9)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def kbest_simple_emulated(log_b, comp, k, length=None):
+    """KBEST's simple branch (the first design) as csrc/trellis_lattice.cu
+    runs a step, in numpy float32: (alpha (S, K), bps (T, S, K)). The pool
+    as a merge of the warps' merges of sorted exit rows with its -inf tail
+    filled in flat order; each state's three-block or two-list merge with
+    the duplicate-prefix masks as slot < c_j."""
     t_total, s = log_b.shape
     length = t_total if length is None else length
     coefs = _topo(comp).coefs.numpy()
@@ -331,19 +520,6 @@ def kbest_emulated(log_b, comp, k, length=None):
         if t < length:
             cur = new
     return cur, bps
-
-
-@pytest.mark.parametrize("name", ["single-state-pool-beats", "single-state-self-beats",
-                                  "three-words"])
-@pytest.mark.parametrize("k,ties", [(1, True), (4, True), (6, False), (16, True)])
-def test_kbest_kernel_order_is_bitwise_plain(name, k, ties):
-    comp = _comp(name)
-    rng = np.random.default_rng(31 + k)
-    log_b = _log_b(rng, (14, comp.num_states), ties)
-    want = tlk.kbest_forward_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty, k, 9)
-    got = kbest_emulated(log_b, comp, k, 9)
-    np.testing.assert_array_equal(got[0], want[0].numpy())
-    np.testing.assert_array_equal(got[1], want[1].numpy())
 
 
 def lmax_forward_emulated(log_b, comp, length):

@@ -3350,15 +3350,20 @@ def constrained_split(dev, dec, clips, by_count, grammar, search_ms):
 
 
 def search_split(dev, dec, clips, search_ms):
-    """Phase 22's confidences (64 clips) and n-best (one clip, n = 4) with
-    their host wall split into their parts (ops/lattice.py
-    word_confidences_batch and ops/nbest.py nbest_decode rebuilt here with
-    clocks; measurement only). Confidences: pad and features in, emissions
-    (one call), the dense decode (K4 + K2-bt and the paths' readback),
-    LSUM, the word-end lambdas formed on the card and their (B, T, W)
-    readback, the host span walk (one mask over the padded paths,
-    path_word_spans_batch); n-best: emissions, KBEST, the readback of
-    alpha and bps, the host backtrace and dedupe. Device parts by CUDA
+    """Phase 22's confidences (64 clips), n-best (one clip, n = 4) and
+    forward lattice with posteriors (one clip) with their host wall split
+    into their parts (ops/lattice.py word_confidences_batch and
+    forward_lattice, ops/nbest.py nbest_decode rebuilt here with clocks;
+    measurement only). Confidences: pad and features in, emissions (one
+    call), the dense decode (K4 + K2-bt and the paths' readback), LSUM, the
+    word-end lambdas formed on the card and their (B, T, W) readback, the
+    host span walk (one mask over the padded paths, path_word_spans_batch);
+    n-best: emissions, KBEST, the readback of alpha and bps, the host
+    backtrace and dedupe; forward lattice: emissions, LMAX, the exit
+    columns' readback ((T, W) alphas and entry times, beta_entry, the
+    score; beside it the (T, S) pair's readback it replaced, which the
+    wall does not include), the Python arc loop, the posteriors' LSUM and
+    their readback and lambdas (word_end_log_posteriors' host part). Device parts by CUDA
     events, host parts by the host clock after a synchronize; best of three
     passes."""
     from cs304_tpu_torch.data.batching import pad_batch
@@ -3419,14 +3424,47 @@ def search_split(dev, dec, clips, search_ms):
             for _s, p in tnb.nbest_paths(a, b, comp.is_exit, lb.shape[0], 8)])
         return parts
 
-    for what, fn in (("confidences (64 clips)", confidences), ("nbest (1 clip, n=4)", nbest)):
+    def lattice():
+        parts = {}
+        host, device = clocks(parts)
+        feats = np.asarray(clips[0])
+        t_total = feats.shape[0]
+        lb = device("emissions", lambda: comp.log_likelihoods(feats, device=dev))
+        out = device("LMAX", lambda: tla._lattice_passes(comp, lb.contiguous(), t_total))
+        # Beside it, the readback it replaced: the (T, S) pair, beta_entry and
+        # the score, each its own copy (measurement only).
+        device("pair readback replaced", lambda: (
+            out[0].cpu().numpy(), out[1].cpu().numpy(), out[2].cpu().numpy(), float(out[3])))
+        cols = device("exit columns readback", lambda: tla._exit_columns(comp, *out, t_total))
+        host("arc loop", lambda: tla._lattice_arcs(comp, *cols, 50.0, t_total))
+        ln = torch.tensor([t_total], dtype=torch.int32, device=dev)
+        sq = device("posteriors LSUM", lambda: tla._sum_passes(comp, lb[None].contiguous(), ln))
+
+        def readback_and_lambdas():
+            lb.cpu().numpy()
+            alphas, _beta_em, beta_entry = (x[0].cpu().numpy() for x in sq[:3])
+            log_z = float(sq[3][0])
+            uppers = np.asarray(comp.uppers)
+            lam = np.full((t_total, len(uppers)), -np.inf)
+            a_exit = alphas[:t_total][:, uppers]
+            lam[: t_total - 1] = (a_exit[: t_total - 1] + comp.penalty
+                                  + beta_entry[1:t_total, None] - log_z)
+            lam[t_total - 1] = a_exit[t_total - 1] - log_z
+            return lam
+        host("posteriors readback + lambdas", readback_and_lambdas)
+        return parts
+
+    for what, fn in (("confidences (64 clips)", confidences), ("nbest (1 clip, n=4)", nbest),
+                     ("forward lattice + posteriors (1 clip)", lattice)):
+        def path_ms(parts):  # the parts on the path (not the host clocks, not comparisons)
+            return {k: v for k, v in parts.items() if "(host)" not in k and "replaced" not in k}
+
         best = None
         for _ in range(3):
             parts = fn()
-            if best is None or sum(v for k, v in parts.items() if "(host)" not in k) < sum(
-                    v for k, v in best.items() if "(host)" not in k):
+            if best is None or sum(path_ms(parts).values()) < sum(path_ms(best).values()):
                 best = parts
-        lead = max((k for k in best if "(host)" not in k), key=best.get)
+        lead = max(path_ms(best), key=best.get)
         log("split", run=what, wall_ms=search_ms.get(what), lead=repr(lead),
             **{k.replace(" ", "_").replace("+", "and").replace("(", "").replace(")", ""): v
                for k, v in best.items()})
@@ -3814,21 +3852,24 @@ def kbest_bound(t, topo, k):
                  [((t - 1) * (6 * k * s + wx * k), PEAK_FP32_ALU)])
 
 
-def lattice_resources(kernel, s, plan=None):
+def lattice_resources(kernel, s, plan):
     """ptxas' registers and spills of the instantiations a launch at S
-    states takes: lattice_max_kernel at K states a thread; LSUM and KBEST
-    on their team branch (the plan's lattice_sum_team_kernel<K, bucket,
-    cells a lane> / kbest_team_kernel<bucket>) and on the simple branch (the first design's
-    lattice_sum_kernel<K> / kbest_kernel)."""
+    states takes, on the team branch (the plan's lattice_sum_team_kernel<K,
+    bucket, cells a lane> / lattice_max_team_kernel<K, dense pool, cells a
+    lane, CTAs> / kbest_team_kernel<bucket>) and on the simple branch (the first
+    design's lattice_sum_kernel<K> / lattice_max_kernel<K> / kbest_kernel,
+    K states a thread)."""
     from cs304_tpu_torch.ops.cuda import _build
 
     path = _build.library_path().with_suffix(".log")
     text = path.read_text() if path.exists() else ""
     k = 1 if s <= 1024 else 2 if s <= 2048 else 4 if s <= 4096 else 8
-    if kernel == "lattice_max":
-        return {"team": ptxas_resources(text, re.compile(rf"lattice_max_kernelILi{k}E"))}
     if kernel == "kbest":
         team, simple = rf"kbest_team_kernelILi{plan['bucket']}E", r"kbest_kernelE"
+    elif kernel == "lattice_max":
+        team = (rf"lattice_max_team_kernelILi{plan['k']}ELb{int(plan['pool'] == 'dense')}E"
+                rf"Li{plan['cells_a_lane']}ELi{plan['ctas']}E")
+        simple = rf"lattice_max_kernelILi{k}E"
     else:
         team = (rf"lattice_sum_team_kernelILi{plan['k']}ELi{plan['bucket']}E"
                 rf"Li{plan['cells_a_lane']}E")
@@ -3838,20 +3879,25 @@ def lattice_resources(kernel, s, plan=None):
             "simple": ptxas_resources(text, re.compile(simple))}
 
 
-def lattice_skeleton_ms(dev, blocks, pair, threads, steps, barriers):
+def lattice_skeleton_ms(dev, blocks, pair, threads, steps, barriers, ctas=1):
     """Device time of a team step's skeleton (cs304_lattice_skeleton: the
     same grid and threads, `barriers` barriers and shared exchanges a step
-    and nothing else) over `steps` steps: the step's serial floor."""
+    and nothing else; cs304_lattice_cluster_skeleton on a cluster of `ctas`
+    CTAs a pass, one cluster barrier a step) over `steps` steps: the step's
+    serial floor."""
     from cs304_tpu_torch.ops.cuda import _build
 
     lib = _build.load()
-    out = torch.empty(blocks * threads * (2 if pair else 1), device=dev)
+    out = torch.empty(blocks * threads * (2 if pair else 1) * ctas, device=dev)
 
     def run():
-        _build.check(lib.cs304_lattice_skeleton(blocks, int(pair), threads, steps, barriers,
-                                                out.data_ptr(),
-                                                torch.cuda.current_stream().cuda_stream),
-                     "lattice_skeleton")
+        stream = torch.cuda.current_stream().cuda_stream
+        if ctas > 1:
+            _build.check(lib.cs304_lattice_cluster_skeleton(ctas, threads, steps, out.data_ptr(),
+                                                            stream), "lattice_cluster_skeleton")
+        else:
+            _build.check(lib.cs304_lattice_skeleton(blocks, int(pair), threads, steps, barriers,
+                                                    out.data_ptr(), stream), "lattice_skeleton")
     return device_ms(run, reps=5)
 
 
@@ -3876,12 +3922,15 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     states (B = 16, T = 201), 503 states (B = 16, T = 201), 5003 states (B =
     2, T = 60); the edges: single-state words whose self-loop beats the
     penalty and whose penalty beats it, length-2 rows, integer-valued
-    emissions for ties, K = 1 / 2 / 4 / 6 / 16 / 32 / 33, T = 1. Each case
-    logs its launches, its error and (LSUM, KBEST) its plan's branch; then
-    each kernel's device time (CUDA-graph replays) beside its plain loop's
-    eager time, its bound, µs a step and ptxas' registers and spills, LSUM
-    and KBEST in turns p n n p beside their first design (simple=True, the
-    parent) with the serial floor of the step's skeleton."""
+    emissions for ties, K = 1 / 2 / 4 / 6 / 16 / 32 / 33, T = 1; LMAX also
+    at 8188 states (T = 30), near the largest S the kernels take. Each case
+    logs its launches, its error and its plan's branch, LMAX on its plan's
+    branch and on the first design (simple=True), both bitwise; then each
+    kernel's device time (CUDA-graph replays) beside its plain loop's eager
+    time, its bound, µs a step and ptxas' registers and spills of both
+    builds, in turns p n n p beside its first design (simple=True, the
+    parent) with the serial floor of the step's skeleton at the plan's
+    threads."""
     from cs304_tpu_torch.data.batching import pad_batch
     from cs304_tpu_torch.models import decoder as dm
     from cs304_tpu_torch.ops.cuda import _build
@@ -3935,20 +3984,28 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     def check_max(name, comp, lb, length):
         topo = topo_of(comp)
         before = tlk.lattice_max_passes.launches
-        got = tlk.lattice_max_passes(lb, topo, comp.penalty, length)
+        got = {simple: tlk.lattice_max_passes(lb, topo, comp.penalty, length, simple=simple)
+               for simple in (False, True)}
         torch.cuda.synchronize()
         rose = tlk.lattice_max_passes.launches - before
         want = plain_timed(("lattice_max", name),
                            lambda: tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length))
         names = ("alphas", "ets", "beta_entry", "score")
-        same = {n: tensor_bits_equal(g, w) for n, g, w in zip(names, got, want)}
-        fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
-        e = (got[0] - want[0])[fin].abs().max().item() if fin.any() else 0.0
+        same = {("simple_" if simple else "") + n: tensor_bits_equal(g, w)
+                for simple, out in got.items() for n, g, w in zip(names, out, want)}
+        e = 0.0
+        for out in got.values():
+            fin = torch.isfinite(out[0]) & torch.isfinite(want[0])
+            if fin.any():
+                e = max(e, (out[0] - want[0])[fin].abs().max().item())
         err["lattice_max"] = max(err["lattice_max"], e)
+        plan = tlk.lattice_max_plan(lb.shape[1], topo.exits.numel(), topo.entries.numel())
         log("lattice", case=name, kernel="lattice_max", T=lb.shape[0], S=lb.shape[1],
-            length=length, launches=rose, equal=json.dumps(same), max_abs_err=e,
+            length=length, branch=plan["branch"], pool=plan["pool"], k=plan["k"],
+            threads=plan["threads"], ctas=plan["ctas"], launches=rose, equal=json.dumps(same),
+            max_abs_err=e,
             score=want[3].item())
-        if rose != 1 or not all(same.values()) or (lb.shape[0] > 1 and
+        if rose != 2 or not all(same.values()) or (lb.shape[0] > 1 and
                                                    not torch.isfinite(want[3]).item()):
             raise SystemExit(f"phase 31: LMAX disagrees with its plain version ({name})")
 
@@ -4014,6 +4071,10 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         check_max(f"{name}-states", comp, lb[0].contiguous(), int(ln[0]))
         check_kbest(f"{name}-states-K8", comp, lb[1].contiguous(), 8, int(ln[1]))
     check_kbest("5003-states-K16", c5003, lb5003[0].contiguous(), 16)
+    # LMAX near the largest S the kernels take: 16 states a band thread.
+    c8188 = lattice_composite([5] * 1637 + [3])
+    lb8188 = 3 * torch.randn((30, c8188.num_states), generator=gen, device=dev)
+    check_max("8188-states", c8188, lb8188, 30)
 
     # The edges: single-state words (their self-loop 0 beats a -25 penalty,
     # or a 0 penalty beats it), length-2 rows, integer ties, K = 1, T = 1.
@@ -4040,10 +4101,10 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     check_max("flagship-T1", flag, lb58[0, :1].contiguous(), 1)
     check_kbest("flagship-T1-K8", flag, lb58[0, :1].contiguous(), 8)
 
-    # -- timing: device time (CUDA-graph replays) beside the plain loop; LSUM
-    # and KBEST in turns beside the first design (simple=True), p n n p ----
+    # -- timing: device time (CUDA-graph replays) beside the plain loop; each
+    # kernel in turns beside its first design (simple=True), p n n p ----------
     tp_main, tp58 = topo_of(pc), topo_of(flag)
-    tp503, tp5003 = topo_of(c503), topo_of(c5003)
+    tp503, tp5003, tp8188 = topo_of(c503), topo_of(c5003), topo_of(c8188)
     len0 = lb_clip.shape[0]
     # Host ints before any capture: a capture may not synchronize.
     l58, l58b, l503, l503b, l5003 = (int(x) for x in (len58[0], len58[1], len503[0],
@@ -4053,7 +4114,7 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         return lambda simple: lambda: tlk.lattice_sum_passes(lb, tp, pen, ln, simple=simple)
 
     def lmax(lb, tp, pen, n):
-        return lambda _simple: lambda: tlk.lattice_max_passes(lb, tp, pen, n)
+        return lambda simple: lambda: tlk.lattice_max_passes(lb, tp, pen, n, simple=simple)
 
     def kbest(lb, tp, pen, k, n=None):
         return lambda simple: lambda: tlk.kbest_forward(lb, tp, pen, k, n, simple=simple)
@@ -4085,6 +4146,9 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         ("lattice_max", "5003-states", "5003 states T=60",
          lmax(lb5003[0], tp5003, c5003.penalty, l5003),
          lattice_max_bound(60, tp5003, l5003), 59, tp5003, 1, None),
+        ("lattice_max", "8188-states", "8188 states T=30",
+         lmax(lb8188, tp8188, c8188.penalty, 30),
+         lattice_max_bound(30, tp8188, 30), 29, tp8188, 1, None),
         ("kbest", "main-nbest-clip-0-K8", f"phase 22's clip 0, T={len0}, K=8",
          kbest(lb_clip, tp_main, pc.penalty, 8),
          kbest_bound(len0, tp_main, 8), len0 - 1, tp_main, 1, 8),
@@ -4101,23 +4165,24 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     for key, case, shape, fn, (b_ms, b_by), steps, tp, blocks, k in rows:
         s_k, n_x, n_e = tp.num_states, tp.exits.numel(), tp.entries.numel()
         plan = (tlk.kbest_plan(s_k, k, n_x) if key == "kbest"
-                else tlk.lattice_sum_plan(s_k, n_x, n_e) if key == "lattice_sum" else None)
+                else tlk.lattice_sum_plan(s_k, n_x, n_e) if key == "lattice_sum"
+                else tlk.lattice_max_plan(s_k, n_x, n_e))
         res = lattice_resources(key, s_k, plan)
         extra = {f"ptxas_{k_}": v for k_, v in res["team"].items()}
-        if plan is None:
-            ms = device_ms(fn(False), reps=5)
-        else:
-            turns = [device_ms(fn(simple), reps=5) for simple in (True, False, False, True)]
-            ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-            floor_ms = lattice_skeleton_ms(dev, blocks, key == "lattice_sum", plan["threads"],
-                                           steps, 2 if key == "kbest" else 1)
-            extra.update(branch=plan["branch"], bucket=plan["bucket"], threads=plan["threads"],
-                         ms_turns=json.dumps([turns[1], turns[2]]), parent_ms=parent_ms,
-                         parent_turns=json.dumps([turns[0], turns[3]]),
-                         parent_us_per_step=parent_ms / steps * 1e3,
-                         slower_than_parent=min(turns[1:3]) > max(turns[0], turns[3]),
-                         skeleton_us_per_step=floor_ms / steps * 1e3,
-                         **{f"parent_ptxas_{k_}": v for k_, v in res["simple"].items()})
+        turns = [device_ms(fn(simple), reps=5) for simple in (True, False, False, True)]
+        ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        # LSUM and LMAX: a (blocks, 2) grid, a row's forward and backward.
+        floor_ms = lattice_skeleton_ms(dev, blocks, key != "kbest", plan["threads"],
+                                       steps, 2 if key == "kbest" else 1, plan.get("ctas", 1))
+        extra.update(branch=plan["branch"], bucket=plan.get("bucket", plan.get("pool")),
+                     states_a_thread=plan.get("k"), threads=plan["threads"],
+                     ctas=plan.get("ctas", 1),
+                     ms_turns=json.dumps([turns[1], turns[2]]), parent_ms=parent_ms,
+                     parent_turns=json.dumps([turns[0], turns[3]]),
+                     parent_us_per_step=parent_ms / steps * 1e3,
+                     slower_than_parent=min(turns[1:3]) > max(turns[0], turns[3]),
+                     skeleton_us_per_step=floor_ms / steps * 1e3,
+                     **{f"parent_ptxas_{k_}": v for k_, v in res["simple"].items()})
         log("timing", kernel=key, shape=shape, ms=ms, plain_ms=plain_ms[(key, case)],
             bound_ms=b_ms, bound_by=b_by, us_per_step=ms / steps * 1e3, **extra)
         if key not in timings:  # the first row of each kernel, the main path's, is its record

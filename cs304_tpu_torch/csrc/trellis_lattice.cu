@@ -53,9 +53,9 @@
 // LMAX and KBEST are max / compare / add only, bitwise their plain
 // versions.
 //
-// Design. LSUM and KBEST have a team branch (below) and keep their first
-// design as the simple branch: where the team branch does not apply, and
-// behind simple != 0 (timing beside it, tests).
+// Design. LSUM, LMAX and KBEST have a team branch (below) and keep their
+// first design as the simple branch: where the team branch does not apply,
+// and behind simple != 0 (timing beside it, tests).
 // - LSUM, team branch: a block a row's forward and a block its backward
 //   (grid (B, 2)); band threads (K = 1 / 2 / 4 / 8 states each) beside pool
 //   warps, one barrier a step, the carry in a shared double buffer. The band
@@ -75,15 +75,34 @@
 //   thread (in the loop it would lengthen the pool warp's chain).
 //   First design (simple): K states a thread, entry and band cells on the
 //   same warps, the dense walk serial, every warp summing P.
-// - LMAX: one block for the forward and one for the backward of the
-//   utterance, the same layout and one barrier a step. The forward's pool
-//   is the best exit by (alpha + penalty, lowest index), reduced like
-//   LSUM's max; an entry compares it with its own cell (the lowest index
-//   wins a tie: the dense column's first max); a column all -inf points at
-//   0. A single-state word needs no exclusion here: where its self-loop
-//   beats the penalty its own exit term is strictly below its own cell.
-//   The entry-time carry is read from the previous step's shared row at
-//   the argmax.
+// - LMAX, team branch: a block the forward and a block the backward of
+//   the utterance (past 4 states a band thread a cluster of 2 or 4 CTAs
+//   each, the states shared in contiguous spans, the cells at a span's edge
+//   and the warps' partials copied into the other CTAs' shared memory, one
+//   cluster barrier a step), band threads (K = 1 / 2 / 4 / 8 / 16 states
+//   each) beside pool warps, one barrier a step, each role in a loop of its
+//   own (its registers only). The forward's band threads hold the non-entries, their
+//   coefficients (in shared memory at K >= 8) and carry bits (LatticeTopology
+//   ints row 3: JAX's new-instance rule for each pick a step can make,
+//   precomputed on the host) loaded once; (alpha, entry time) pairs in the
+//   shared rows, so a pick's entry time comes with its alpha in one 8-byte
+//   load; a cell is the first max over (j-2, j-1, j), its entry time t or
+//   the pick's by the bits. The pool warps hold the entry columns: the best
+//   exit of the previous row by keys (the largest value with -0 as +0, the
+//   lowest index, the value read back from the winner), one redux where the
+//   lanes' indices ascend (a dense pool: lane i reads exit i after the
+//   barrier; up to 32 exits) and past 32 exits the fold of each warp's
+//   partial, put in a parity slot before the barrier; then each entry's own
+//   cell against it (the lowest index wins a tie; an all -inf column points
+//   at 0). Step t stores row t - 1's cells (loaded anyway) to alphas / ets
+//   first thing: a store just before the barrier lengthens the step by its
+//   latency. The backward's band threads hold the non-exit rows (beta in
+//   shared memory at K >= 8), its pool warps the exit rows and the entries'
+//   max (beta_entry, kept in a ring of 32 and written every 32 steps), read
+//   from the row (dense) or folded from the warps' slots.
+//   First design (simple): K states a thread, entries and band on the same
+//   warps, every warp re-reducing the previous step's best exit by (value,
+//   index) butterflies, the topology read through L1 each step.
 // - KBEST, team branch (K in a bucket of 1 / 2 / 4 / 8 / 16 / 32, surplus
 //   slots masked; codes pred_state K + pred_slot in the caller's K; keys
 //   state KB + slot, so no division by a runtime K in the step): one block,
@@ -113,6 +132,9 @@
 //
 // What bounds them on this card: the chain of dependent steps (latency),
 // not bytes (log_b read, the passes' rows written once, far below it).
+// LMAX a step: the barrier, the pool warp's best exit (a shared load and
+// one or two reduxes, or the slots' fold) and its cells; the band's three
+// 8-byte loads and two compares a state, K states a thread.
 // LSUM a step: the barrier, a band cell's two shared loads and three expf
 // and a logf; a dense pool cell's redux, its members' shuffles and W expf
 // issued apart, then W dependent adds (the dense order); a factorized
@@ -121,11 +143,14 @@
 // pool's candidates' searches (each lane a quarter of the rows, log2(KB) +
 // 1 shared loads each); ~30 warps share four schedulers, so the step is
 // issue-bound, and a state past the block's teams takes another round.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1265,6 +1290,743 @@ __global__ void __launch_bounds__(MAX_THREADS) lattice_max_kernel(MaxArgs a) {
   }
 }
 
+// -- LMAX, the team branch ----------------------------------------------------
+
+constexpr int MAX_POOL_WARPS = 8;
+// A factorized pool's cells a lane at most; a build holds 1, 2, 4 or 8 in
+// registers (the plan's bucket; unused cells are skipped).
+constexpr int MAX_CELLS_A_LANE = 8;
+// A team build of 8 states a band thread, or a cluster's, runs at most this
+// many threads (72 registers a thread, not 64 as at 1,024); of 16, at most
+// 768 (80).
+constexpr int MAX_WIDE_THREADS = 896;
+// A state's carry bits (LatticeTopology ints row 3): the new-instance rule
+// of the predecessor its forward step picks, j-2, j-1, state 0 (an all -inf
+// column) or, for an entry, every exit but itself (clear where the rule
+// differs between them: the kernel then reads the word table).
+constexpr unsigned NEW_SUB2 = 1u, NEW_SUB1 = 2u, NEW_FROM0 = 4u, NEW_POOL = 8u;
+
+// With a dense pool (and below 8 states a band thread) a step is shorter
+// than a read of device memory, so the emissions come through a shared ring
+// of EMIT_AHEAD rows, each thread's own cells copied that many steps ahead
+// by cp.async (no barrier: the thread that copies a cell reads it); else
+// the next step's emissions in registers (the ring measured slower there).
+constexpr int EMIT_AHEAD = 8;
+
+__device__ __forceinline__ void copy_ahead(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(EMIT_AHEAD - 1));
+}
+
+// A cell of the forward's shared rows: alpha and its word entry time, one
+// 8-byte load.
+struct __align__(8) MaxCell {
+  float a;
+  int e;
+};
+
+// The order-preserving key of a value, -0 as +0 (the two tie).
+__device__ __forceinline__ int tie_key(float v) {
+  const int b = __float_as_int(v == 0.f ? 0.f : v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// The warp's best (value, index): the largest value, the lowest index on a
+// tie, the value read back from the winner (so a -0 survives); index
+// INT_MAX marks a lane without one (below every value, -inf included).
+__device__ __forceinline__ void warp_best_keyed(float& v, int& i) {
+  const int m = __reduce_max_sync(FULL, i == INT_MAX ? INT_MIN : tie_key(v));
+  const int bi = __reduce_min_sync(FULL, i != INT_MAX && tie_key(v) == m ? i : INT_MAX);
+  v = __shfl_sync(FULL, v, __ffs(__ballot_sync(FULL, i == bi)) - 1);
+  i = bi;
+}
+
+// warp_best_keyed where the lanes' indices ascend: the first lane at the
+// largest key holds the lowest index (one reduction, not two).
+__device__ __forceinline__ void warp_best_ordered(float& v, int& i) {
+  const int key = i == INT_MAX ? INT_MIN : tie_key(v);
+  const int src = __ffs(__ballot_sync(FULL, key == __reduce_max_sync(FULL, key))) - 1;
+  v = __shfl_sync(FULL, v, src);
+  i = __shfl_sync(FULL, i, src);
+}
+
+// JAX's new-instance rule (cs304_tpu/ops/lattice.py:263-266) from the word
+// table: predecessor p of state j starts a new word instance.
+__device__ __forceinline__ bool new_instance(const Topo& tp, int p, int j) {
+  return p != j && (tp.i(0, p) != tp.i(0, j) || (p == tp.i(2, j) && j == tp.i(1, j)));
+}
+
+// The team branch's launch: band threads [0, band) K states each (the
+// forward's non-entries, the backward's non-exit rows), then the pool
+// warps (the forward's entry columns, the backward's exit rows). A dense
+// pool (both lists at most DENSE_POOL_MAX): one pool warp, lane i holding
+// entry i, exit i and (as a member) the other list's i-th state, read from
+// the shared row after the barrier. Past it: up to MAX_POOL_WARPS pool
+// warps, up to MAX_CELLS_A_LANE cells a lane (a build's bucket CPL), and
+// every warp holding members puts its partial into a parity slot before
+// the barrier. Each role runs a loop of its own (its registers only), one
+// barrier a step. Past 4 states a band thread a cluster of C = 2 or 4 CTAs
+// a pass shares the states (4 a band thread), one cluster barrier a step.
+struct MaxPlan {
+  int team, ks, dense, npw, cpl, band, threads, c;
+  size_t smem;
+};
+
+// States a band thread for sc states beside npw pool warps (0: none fits).
+int band_states(int sc, int npw, int c) {
+  for (int ks = 1; ks <= 16; ks <<= 1) {
+    const int band = 32 * (((sc + ks - 1) / ks + 31) / 32);
+    const int limit = c > 1 || ks == 8 ? MAX_WIDE_THREADS : ks >= 16 ? 768 : MAX_THREADS;
+    if (band + 32 * npw <= limit) return ks;
+  }
+  return 0;
+}
+
+MaxPlan max_plan(int S, int nx, int ne) {
+  MaxPlan p{};
+  const int cells = nx > ne ? nx : ne;
+  p.dense = nx <= DENSE_POOL_MAX && ne <= DENSE_POOL_MAX;
+  p.npw = p.dense ? 1 : min((cells + 31) / 32, MAX_POOL_WARPS);
+  const int need = (cells + 32 * p.npw - 1) / (32 * p.npw);
+  if (need > MAX_CELLS_A_LANE) return p;
+  p.cpl = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  p.c = 1;
+  p.ks = band_states(S, p.npw, 1);
+  if (!p.ks) return p;
+  // Past 4 states a band thread, a cluster of 2 or 4 CTAs of 4 states a
+  // band thread (each CTA's pool sized for every cell: the plan sees only
+  // the counts), where one is built.
+  if (p.ks >= 8 && !p.dense && p.cpl >= 4) {
+    for (int c = 2; c <= 4; c *= 2)
+      if (band_states((S + c - 1) / c, p.npw, c) == 4) {
+        p.c = c;
+        p.ks = 4;
+        break;
+      }
+  }
+  const int sc = (S + p.c - 1) / p.c;
+  p.team = 1;
+  p.band = 32 * (((sc + p.ks - 1) / p.ks + 31) / 32);
+  p.threads = p.band + 32 * p.npw;
+  // The forward's (the backward needs less): the rows [2][S], the slots
+  // [2][C][32], the score's [C][32], then at K >= 8 the coefficients
+  // [3][S], or with a dense pool the emissions' ring [EMIT_AHEAD][S].
+  p.smem = 2 * (size_t)S * sizeof(MaxCell) + 64 * p.c * sizeof(MaxCell) +
+           32 * p.c * sizeof(float) +
+           (p.ks >= 8 ? 3 : p.dense ? EMIT_AHEAD : 0) * (size_t)S * sizeof(float);
+  return p;
+}
+
+// The states a CTA holds, [lo, hi), and its entries' and exits' positions
+// in the lists: all of them on one CTA; on a cluster of C CTAs a share of
+// sc states each, the cells at a share's edges copied into the neighbour's
+// rows (distributed shared memory), the rows indexed by state throughout.
+struct Span {
+  int lo, hi, rank, sc, e_lo, e_hi, x_lo, x_hi;
+};
+
+__device__ __forceinline__ int lower_bound_of(const int* list, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(list + mid) < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+template <int C>
+__device__ __forceinline__ Span span_of(const Topo& tp, int rank) {
+  Span sp;
+  sp.rank = rank;
+  sp.sc = (tp.S + C - 1) / C;
+  sp.lo = min(tp.S, rank * sp.sc);
+  sp.hi = min(tp.S, sp.lo + sp.sc);
+  sp.e_lo = C == 1 ? 0 : lower_bound_of(tp.entries, tp.n_entries, sp.lo);
+  sp.e_hi = C == 1 ? tp.n_entries : lower_bound_of(tp.entries, tp.n_entries, sp.hi);
+  sp.x_lo = C == 1 ? 0 : lower_bound_of(tp.exits, tp.n_exits, sp.lo);
+  sp.x_hi = C == 1 ? tp.n_exits : lower_bound_of(tp.exits, tp.n_exits, sp.hi);
+  return sp;
+}
+
+// The step's barrier: the block's, or the cluster's.
+template <int C>
+__device__ __forceinline__ void step_sync() {
+  if (C > 1) cg::this_cluster().sync();
+  else __syncthreads();
+}
+
+// Another CTA's copy of a shared array.
+template <typename T>
+__device__ __forceinline__ T* at_rank(T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+// A warp's partial into parity slot par of every CTA: slot [2][32 C], the
+// CTA of rank r's warps at r 32.
+template <int C, typename V>
+__device__ __forceinline__ void slot_put(V* slot, int par, int warp, int rank, V v) {
+  const int lane = threadIdx.x & 31;
+  if (C == 1) {
+    if (lane == 0) slot[par * 32 + warp] = v;
+  } else if (lane < C) {
+    at_rank(slot, lane)[(par * C + rank) * 32 + warp] = v;
+  }
+}
+
+// The forward's band thread: the non-entries j = tid + k nb, their
+// coefficients (sub2, sub1, diag_ne) and three carry bits each loaded once,
+// the next emission ahead in lbn; the carry lives in the shared rows. Step
+// t stores row t - 1's cells, which it loads anyway, to alphas / ets first
+// thing: the barrier after the step then finds them done (a store just
+// before a barrier lengthens the step by its latency). Returns the max of
+// its exits' last alpha (the score's part). On a cluster j = lo + tid + k nb.
+template <int KS, bool DENSE, int C>
+__device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* rows,
+                                                  MaxCell* slot, float* csm, int nb,
+                                                  const Span& sp) {
+  const Topo& tp = a.tp;
+  const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float pen = a.pen, NEG = neg_inf();
+  const float* lb = a.log_b;
+  const int tl = min(a.len, T);
+  constexpr bool RING = DENSE && KS < 8;  // the emissions through the ring (csm's place)
+  float lbn[RING ? 1 : KS];
+  unsigned mine = 0, xmask = 0;  // the thread's states, those that are exits
+  unsigned long long bits = 0;
+  BandCoefs<KS> bc;
+  bc.sm = csm;
+  bc.S = S;
+  const int lo = sp.lo;
+  // A cell the next CTA reads (its j - 1, j - 2) goes into its rows too.
+  const int edge = C > 1 && sp.rank + 1 < C ? sp.hi - 2 : S;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    const int j = lo + tid + k * nb;
+    if (!RING) lbn[k] = 0.f;
+    if (j < sp.hi && !tp.is_entry(j)) {
+      mine |= 1u << k;
+      if (tp.is_exit(j)) xmask |= 1u << k;
+      bc.set(k, j, tp.c(0, j), tp.c(1, j), tp.c(2, j));
+      bits |= (unsigned long long)(tp.i(3, j) & 7) << (3 * k);
+      rows[j] = MaxCell{NEG, 0};
+      if (C > 1 && j >= edge) at_rank(rows, sp.rank + 1)[j] = MaxCell{NEG, 0};
+      if (!RING && T > 1) lbn[k] = lb[(size_t)S + j];
+    }
+  }
+  if (RING) {
+    for (int r = 1; r <= EMIT_AHEAD; ++r) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        if (r < tl && (mine >> k & 1u))
+          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + tid + k * nb,
+                     lb + (size_t)r * S + tid + k * nb);
+      copy_commit();
+    }
+  }
+  // Past a dense pool each warp holding exits puts its best exit of the
+  // row into a parity slot (row 0: -inf, the lowest exit); the others'
+  // slots hold (-inf, none) throughout.
+  const bool has_x = !DENSE && __any_sync(FULL, xmask != 0u);
+  if (!DENSE) {
+    float bv = NEG;
+    int bi = has_x && xmask ? lo + tid + (__ffs(xmask) - 1) * nb : INT_MAX;
+    if (has_x) warp_best_keyed(bv, bi);
+    slot_put<C>(slot, 0, warp, sp.rank, MaxCell{NEG, bi});
+    if (!has_x) slot_put<C>(slot, 1, warp, sp.rank, MaxCell{NEG, INT_MAX});
+  }
+  step_sync<C>();
+
+  for (int t = 1; t < tl; ++t) {
+    const MaxCell* cur = rows + ((t - 1) & 1) * S;
+    MaxCell* nxt = rows + (t & 1) * S;
+    float bv = NEG;
+    int bi = INT_MAX;
+    if (RING) copy_wait();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (!(mine >> k & 1u)) continue;
+      const int j = lo + tid + k * nb;
+      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + j;
+      const float lbt = RING ? *ring : lbn[k];
+      if (!RING && t + 1 < tl) lbn[k] = lb[(size_t)(t + 1) * S + j];
+      const MaxCell m0 = cur[j];
+      a.alphas[(size_t)(t - 1) * S + j] = m0.a;
+      a.ets[(size_t)(t - 1) * S + j] = m0.e;
+      const MaxCell m1 = j >= 1 ? cur[j - 1] : MaxCell{NEG, 0};
+      const MaxCell m2 = j >= 2 ? cur[j - 2] : MaxCell{NEG, 0};
+      const unsigned nb3 = (unsigned)(bits >> (3 * k)) & 7u;
+      // The first max over (j-2, j-1, j) and its entry time: t where the
+      // pick starts a new instance, else the pick's own.
+      float v = j >= 2 ? m2.a + bc.get(k, j, 2) : NEG;
+      int et = (nb3 & NEW_SUB2) ? t : m2.e;
+      const float v1 = m1.a + bc.get(k, j, 1);
+      if (v1 > v) {
+        v = v1;
+        et = (nb3 & NEW_SUB1) ? t : m1.e;
+      }
+      const float v0 = m0.a + bc.get(k, j, 0);
+      if (v0 > v) {
+        v = v0;
+        et = m0.e;
+      }
+      if (v == NEG)  // an all -inf column: state 0 (on a cluster, rank 0's)
+        et = (nb3 & NEW_FROM0) ? t : (C > 1 ? at_rank(cur, 0) : cur)[0].e;
+      const float al = v + lbt;
+      nxt[j] = MaxCell{al, et};
+      if (C > 1 && j >= edge) at_rank(nxt, sp.rank + 1)[j] = MaxCell{al, et};
+      // The slot just read takes row t + EMIT_AHEAD (after its use).
+      if (RING && t + EMIT_AHEAD < tl) copy_ahead(ring, lb + (size_t)(t + EMIT_AHEAD) * S + j);
+      if (!DENSE && (xmask >> k & 1u) && better(al + pen, j, bv, bi)) {
+        bv = al + pen;
+        bi = j;
+      }
+    }
+    if (RING) copy_commit();
+    if (has_x) {
+      // One state a lane: the lanes' indices ascend.
+      if (KS == 1) warp_best_ordered(bv, bi);
+      else warp_best_keyed(bv, bi);
+      slot_put<C>(slot, t & 1, warp, sp.rank, MaxCell{bv, bi});
+    }
+    step_sync<C>();
+  }
+  // The last live row, and the steps at t >= length, which keep the carry.
+  const int te = max(tl, 1);
+  const MaxCell* fin = rows + ((te - 1) & 1) * S;
+  float mx = NEG;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    if (!(mine >> k & 1u)) continue;
+    const int j = lo + tid + k * nb;
+    const MaxCell f = fin[j];
+    for (int t = te - 1; t < T; ++t) {
+      a.alphas[(size_t)t * S + j] = f.a;
+      a.ets[(size_t)t * S + j] = f.e;
+    }
+    if (xmask >> k & 1u) mx = fmaxf(mx, f.a);
+  }
+  return mx;
+}
+
+// The forward's pool lane: the entries pw 32 + l + c 32 npw, each cell's
+// own dense cell d[e] (in the shared table's unused diag_ne slot at K >=
+// 8) and four carry bits loaded once; in a dense pool lane i also holds
+// exit i (its member). Each step: row t - 1's cells stored, the previous
+// row's best exit by (alpha + penalty, lowest index), then every cell
+// against it.
+template <int KS, bool DENSE, int CPL, int C>
+__device__ __forceinline__ float max_pool_forward(const MaxArgs& a, MaxCell* rows,
+                                                  MaxCell* slot, float* csm, int nb, int npw,
+                                                  const Span& sp) {
+  static_assert(C == 1 || !DENSE, "a cluster's pool folds the warps' slots");
+  const Topo& tp = a.tp;
+  const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5, nx = tp.n_exits, ne = tp.n_entries;
+  const float pen = a.pen, NEG = neg_inf();
+  const float* lb = a.log_b;
+  const int tl = min(a.len, T);
+  constexpr bool OWN_SM = KS >= 8, RING = DENSE && !OWN_SM;  // csm's place holds the ring
+  int pe[CPL];
+  float pown[OWN_SM ? 1 : CPL], lbn[RING ? 1 : CPL];
+  unsigned mine = 0, xmask = 0;  // the lane's cells, those that are exits
+  unsigned long long bits = 0;
+  const int first = sp.e_lo + ((tid - nb) >> 5) * 32 + lane;
+  const int edge = C > 1 && sp.rank + 1 < C ? sp.hi - 2 : S;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int i = first + c * 32 * npw;
+    pe[c] = i < sp.e_hi ? tp.entries[i] : 0;
+    if (!OWN_SM) pown[c] = 0.f;
+    if (!RING) lbn[c] = 0.f;
+    if (i < sp.e_hi) {
+      const int e = pe[c];
+      mine |= 1u << c;
+      if (tp.is_exit(e)) xmask |= 1u << c;
+      if (OWN_SM) csm[e] = tp.own_cell(e, pen);
+      else pown[c] = tp.own_cell(e, pen);
+      bits |= (unsigned long long)(tp.i(3, e) & 15) << (4 * c);
+      rows[e] = MaxCell{lb[e] + tp.c(6, e), 0};
+      if (C > 1 && e >= edge) at_rank(rows, sp.rank + 1)[e] = rows[e];
+      if (!RING && T > 1) lbn[c] = lb[(size_t)S + e];
+    }
+  }
+  if (RING) {
+    for (int r = 1; r <= EMIT_AHEAD; ++r) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (r < tl && (mine >> c & 1u))
+          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + pe[c], lb + (size_t)r * S + pe[c]);
+      copy_commit();
+    }
+  }
+  const int xm = DENSE && lane < nx ? tp.exits[lane] : -1;
+  const bool has_x = !DENSE && __any_sync(FULL, xmask != 0u);
+  if (!DENSE) {
+    float bv = NEG;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (!(xmask >> c & 1u)) continue;
+      const float u = rows[pe[c]].a + pen;
+      if (better(u, pe[c], bv, bi)) {
+        bv = u;
+        bi = pe[c];
+      }
+    }
+    if (has_x) warp_best_keyed(bv, bi);
+    slot_put<C>(slot, 0, warp, sp.rank, MaxCell{bv, bi});
+    if (!has_x) slot_put<C>(slot, 1, warp, sp.rank, MaxCell{NEG, INT_MAX});
+  }
+  step_sync<C>();
+
+  for (int t = 1; t < tl; ++t) {
+    const MaxCell* cur = rows + ((t - 1) & 1) * S;
+    MaxCell* nxt = rows + (t & 1) * S;
+    float pv = NEG;
+    int pi = INT_MAX;
+    if (DENSE) {
+      // Lane i holds exit i: the lanes' indices ascend.
+      pv = xm >= 0 ? cur[xm].a + pen : NEG;
+      pi = xm >= 0 ? xm : INT_MAX;
+    } else if (lane < nw) {
+      // Lane w: warp w's slot of every CTA, folded in order.
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        const MaxCell s = slot[(((t - 1) & 1) * C + r) * 32 + lane];
+        if (better(s.a, s.e, pv, pi) && s.e != INT_MAX) {
+          pv = s.a;
+          pi = s.e;
+        }
+      }
+    }
+    MaxCell me[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (!(mine >> c & 1u)) continue;
+      me[c] = cur[pe[c]];
+      a.alphas[(size_t)(t - 1) * S + pe[c]] = me[c].a;
+      a.ets[(size_t)(t - 1) * S + pe[c]] = me[c].e;
+    }
+    if (DENSE) warp_best_ordered(pv, pi);
+    else warp_best_keyed(pv, pi);
+    float bv = NEG;
+    int bi = INT_MAX;
+    if (RING) copy_wait();
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (!(mine >> c & 1u)) continue;
+      const int e = pe[c];
+      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + e;
+      const float lbt = RING ? *ring : lbn[c];
+      if (!RING && t + 1 < tl) lbn[c] = lb[(size_t)(t + 1) * S + e];
+      const unsigned nb4 = (unsigned)(bits >> (4 * c)) & 15u;
+      // Every exit, and the entry's own cell at its index (the lowest index
+      // wins a tie: the dense column's first max).
+      const float own = me[c].a + (OWN_SM ? csm[e] : pown[c]);
+      float v;
+      int et;
+      if (better(own, e, pv, pi)) {
+        v = own;
+        et = me[c].e;
+      } else {
+        // The pick's own entry time only where the rule differs between the
+        // exits (never on a composite); on a cluster from its owner's rows.
+        v = pv;
+        et = pi == e ? me[c].e
+             : (nb4 & NEW_POOL) || new_instance(tp, pi, e)
+                 ? t
+                 : (C > 1 ? at_rank(cur, pi / sp.sc) : cur)[pi].e;
+      }
+      if (v == NEG) et = (nb4 & NEW_FROM0) ? t : (C > 1 ? at_rank(cur, 0) : cur)[0].e;
+      const float al = v + lbt;
+      nxt[e] = MaxCell{al, et};
+      if (C > 1 && e >= edge) at_rank(nxt, sp.rank + 1)[e] = MaxCell{al, et};
+      if (RING && t + EMIT_AHEAD < tl) copy_ahead(ring, lb + (size_t)(t + EMIT_AHEAD) * S + e);
+      if (!DENSE && (xmask >> c & 1u) && better(al + pen, e, bv, bi)) {
+        bv = al + pen;
+        bi = e;
+      }
+    }
+    if (RING) copy_commit();
+    if (has_x) {
+      // One cell a lane: the lanes' indices ascend.
+      if (CPL == 1) warp_best_ordered(bv, bi);
+      else warp_best_keyed(bv, bi);
+      slot_put<C>(slot, t & 1, warp, sp.rank, MaxCell{bv, bi});
+    }
+    step_sync<C>();
+  }
+  const int te = max(tl, 1);
+  const MaxCell* fin = rows + ((te - 1) & 1) * S;
+  float mx = NEG;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    if (!(mine >> c & 1u)) continue;
+    const MaxCell f = fin[pe[c]];
+    for (int t = te - 1; t < T; ++t) {
+      a.alphas[(size_t)t * S + pe[c]] = f.a;
+      a.ets[(size_t)t * S + pe[c]] = f.e;
+    }
+    if (xmask >> c & 1u) mx = fmaxf(mx, f.a);
+  }
+  return mx;
+}
+
+// The backward's band thread: the non-exit rows j = tid + k nb, their
+// coefficients c[j] (diag_ne, or the own cell at an entry), sub1[j+1],
+// sub2[j+2] loaded once; beta and the next emission in registers (at K >=
+// 8 beta in shared memory, and beta_em read back from the row: no spill).
+template <int KS, bool DENSE, int C>
+__device__ __forceinline__ void max_band_backward(const MaxArgs& a, float* buf, float* slot,
+                                                  float* csm, float* bsm, int nb,
+                                                  const Span& sp) {
+  const Topo& tp = a.tp;
+  const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float pen = a.pen, NEG = neg_inf();
+  const float* lb = a.log_b;
+  constexpr bool WIDE = KS >= 8, RING = DENSE && !WIDE;  // csm's place holds the ring
+  float beta[WIDE ? 1 : KS], bem[WIDE ? 1 : KS], lbn[RING ? 1 : KS];
+  unsigned mine = 0, emask = 0;  // the thread's rows, those that are entries
+  BandCoefs<KS> bc;
+  bc.sm = csm;
+  bc.S = S;
+  const int lo = sp.lo;
+  // A row the previous CTA reads (its j + 1, j + 2) goes into its rows too.
+  const int edge = C > 1 && sp.rank > 0 ? lo + 2 : 0;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    const int j = lo + tid + k * nb;
+    if (!WIDE) beta[k] = NEG;
+    if (!RING) lbn[k] = 0.f;
+    if (j < sp.hi && !tp.is_exit(j)) {
+      mine |= 1u << k;
+      if (tp.is_entry(j)) emask |= 1u << k;
+      bc.set(k, j, tp.is_entry(j) ? tp.own_cell(j, pen) : tp.c(0, j),
+             j + 1 < S ? tp.c(1, j + 1) : 0.f, j + 2 < S ? tp.c(2, j + 2) : 0.f);
+      if (WIDE) bsm[j] = NEG;
+      if (!RING) lbn[k] = lb[(size_t)(T - 1) * S + j];
+    }
+  }
+  if (RING) {
+    for (int r = T - 1; r >= T - EMIT_AHEAD; --r) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        if (r >= 0 && (mine >> k & 1u))
+          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + lo + tid + k * nb,
+                     lb + (size_t)r * S + lo + tid + k * nb);
+      copy_commit();
+    }
+  }
+  // Past a dense pool each warp holding entries puts their max into a
+  // parity slot before the barrier; the others' slots hold -inf throughout.
+  const bool has_e = !DENSE && __any_sync(FULL, emask != 0u);
+  if (!DENSE && !has_e) {
+    slot_put<C>(slot, 0, warp, sp.rank, NEG);
+    slot_put<C>(slot, 1, warp, sp.rank, NEG);
+  }
+  for (int t = T - 1;; --t) {
+    float* bb = buf + (t & 1) * S;
+    // beta_em = log_b[t] + beta (the exit terminal again at t == length - 1:
+    // -inf off the exits).
+    const bool term = t >= 1 && t == a.len - 1;
+    float mx = NEG;
+    if (RING) copy_wait();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (!(mine >> k & 1u)) continue;
+      const int j = lo + tid + k * nb;
+      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + j;
+      const float e = (RING ? *ring : lbn[k]) + (term ? NEG : WIDE ? bsm[j] : beta[k]);
+      if (!RING && t >= 1) lbn[k] = lb[(size_t)(t - 1) * S + j];
+      bb[j] = e;
+      if (C > 1 && j < edge) at_rank(bb, sp.rank - 1)[j] = e;
+      if (RING && t >= EMIT_AHEAD) copy_ahead(ring, lb + (size_t)(t - EMIT_AHEAD) * S + j);
+      if (!WIDE) bem[k] = e;
+      if (!DENSE && (emask >> k & 1u)) mx = fmaxf(mx, e);
+    }
+    if (RING) copy_commit();
+    if (has_e) {
+      mx = warp_max_redux(mx);
+      slot_put<C>(slot, t & 1, warp, sp.rank, mx);
+    }
+    step_sync<C>();
+    if (t == 0) break;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (!(mine >> k & 1u)) continue;
+      const int j = lo + tid + k * nb;
+      const float t0 = bc.get(k, j, 0) + (WIDE ? bb[j] : bem[k]);
+      const float t1 = j + 1 < S ? bc.get(k, j, 1) + bb[j + 1] : NEG;
+      const float t2 = j + 2 < S ? bc.get(k, j, 2) + bb[j + 2] : NEG;
+      const float v = fmaxf(fmaxf(t0, t1), t2);
+      if (WIDE) bsm[j] = v;
+      else beta[k] = v;
+    }
+  }
+}
+
+// The backward's pool lane: the exit rows pw 32 + l + c 32 npw with the
+// same coefficients (at K >= 8 in the shared table's unused slots of the
+// exits); in a dense pool lane i also holds entry i (its member). Each
+// step: the entries' max (beta_entry[t], kept in a ring of 32 and written
+// by the first pool warp every 32 steps); penalty + it enters every exit
+// row (the entry x itself is the row's own cell, never below).
+template <int KS, bool DENSE, int CPL, int C>
+__device__ __forceinline__ void max_pool_backward(const MaxArgs& a, float* buf, float* slot,
+                                                  float* bqr, float* csm, int nb, int npw,
+                                                  const Span& sp) {
+  static_assert(C == 1 || !DENSE, "a cluster's pool folds the warps' slots");
+  const Topo& tp = a.tp;
+  const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5, nx = tp.n_exits, ne = tp.n_entries;
+  const float pen = a.pen, NEG = neg_inf();
+  const float* lb = a.log_b;
+  constexpr bool Q_SM = KS >= 8, RING = DENSE && !Q_SM;  // csm's place holds the ring
+  constexpr int NQ = Q_SM ? 1 : CPL;
+  float beta[CPL], lbn[RING ? 1 : CPL], bem[CPL], q0[NQ], q1[NQ], q2[NQ];
+  int px[CPL];
+  unsigned mine = 0, emask = 0;  // the lane's rows, those that are entries
+  const int first = sp.x_lo + ((tid - nb) >> 5) * 32 + lane;
+  const int edge = C > 1 && sp.rank > 0 ? sp.lo + 2 : 0;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int i = first + c * 32 * npw;
+    px[c] = i < sp.x_hi ? tp.exits[i] : 0;
+    beta[c] = 0.f;
+    if (!RING) lbn[c] = 0.f;
+    if (!Q_SM) q0[c] = q1[c] = q2[c] = 0.f;
+    if (i < sp.x_hi) {
+      const int x = px[c];
+      mine |= 1u << c;
+      if (tp.is_entry(x)) emask |= 1u << c;
+      const float c0 = tp.is_entry(x) ? tp.own_cell(x, pen) : tp.c(0, x);
+      const float c1 = x + 1 < S ? tp.c(1, x + 1) : 0.f;
+      const float c2 = x + 2 < S ? tp.c(2, x + 2) : 0.f;
+      if (Q_SM) {
+        csm[x] = c0;
+        csm[S + x] = c1;
+        csm[2 * S + x] = c2;
+      } else {
+        q0[c] = c0;
+        q1[c] = c1;
+        q2[c] = c2;
+      }
+      if (!RING) lbn[c] = lb[(size_t)(T - 1) * S + x];
+    }
+  }
+  if (RING) {
+    for (int r = T - 1; r >= T - EMIT_AHEAD; --r) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (r >= 0 && (mine >> c & 1u))
+          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + px[c], lb + (size_t)r * S + px[c]);
+      copy_commit();
+    }
+  }
+  const int em = DENSE && lane < ne ? tp.entries[lane] : -1;
+  const bool has_e = !DENSE && __any_sync(FULL, emask != 0u);
+  if (!DENSE && !has_e) {
+    slot_put<C>(slot, 0, warp, sp.rank, NEG);
+    slot_put<C>(slot, 1, warp, sp.rank, NEG);
+  }
+  for (int t = T - 1;; --t) {
+    float* bb = buf + (t & 1) * S;
+    // The exit terminal again at t == length - 1: 0.
+    const bool term = t >= 1 && t == a.len - 1;
+    float mx = NEG;
+    if (RING) copy_wait();
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (!(mine >> c & 1u)) continue;
+      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + px[c];
+      bem[c] = (RING ? *ring : lbn[c]) + (term ? 0.f : beta[c]);
+      if (!RING && t >= 1) lbn[c] = lb[(size_t)(t - 1) * S + px[c]];
+      bb[px[c]] = bem[c];
+      if (C > 1 && px[c] < edge) at_rank(bb, sp.rank - 1)[px[c]] = bem[c];
+      if (RING && t >= EMIT_AHEAD) copy_ahead(ring, lb + (size_t)(t - EMIT_AHEAD) * S + px[c]);
+      if (!DENSE && (emask >> c & 1u)) mx = fmaxf(mx, bem[c]);
+    }
+    if (RING) copy_commit();
+    if (has_e) {
+      mx = warp_max_redux(mx);
+      slot_put<C>(slot, t & 1, warp, sp.rank, mx);
+    }
+    step_sync<C>();
+    float part = NEG;  // lane w: warp w's slot of every CTA
+    if (DENSE) {
+      part = em >= 0 ? bb[em] : NEG;
+    } else if (lane < nw) {
+#pragma unroll
+      for (int r = 0; r < C; ++r) part = fmaxf(part, slot[((t & 1) * C + r) * 32 + lane]);
+    }
+    const float bq = warp_max_redux(part);
+    // beta_entry: rank 0's.
+    if (tid == nb && sp.rank == 0) bqr[t & 31] = bq;
+    if ((t & 31) == 0 && tid - nb < 32 && sp.rank == 0) {
+      __syncwarp();
+      if (t + lane < T) a.beta_entry[t + lane] = bqr[(t + lane) & 31];
+    }
+    if (t == 0) break;
+    const float mq = bq + pen;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (!(mine >> c & 1u)) continue;
+      const int x = px[c];
+      const float t0 = (Q_SM ? csm[x] : q0[c]) + bem[c];
+      const float t1 = x + 1 < S ? (Q_SM ? csm[S + x] : q1[c]) + bb[x + 1] : NEG;
+      const float t2 = x + 2 < S ? (Q_SM ? csm[2 * S + x] : q2[c]) + bb[x + 2] : NEG;
+      beta[c] = fmaxf(fmaxf(fmaxf(t0, t1), t2), mq);
+    }
+  }
+}
+
+template <int KS, bool DENSE, int CPL, int C>
+__global__ void __launch_bounds__(C > 1 || KS == 8 ? MAX_WIDE_THREADS
+                                  : KS >= 16           ? 768
+                                                       : MAX_THREADS)
+    lattice_max_team_kernel(MaxArgs a, int nb, int npw) {
+  extern __shared__ __align__(16) unsigned char msm[];
+  const int S = a.tp.S, nw = blockDim.x >> 5;
+  const bool band = (int)threadIdx.x < nb;
+  const Span sp = span_of<C>(a.tp, blockIdx.x % C);
+  if (C > 1) cg::this_cluster().sync();  // every CTA running before another's stores
+  if (blockIdx.x < C) {
+    MaxCell* rows = (MaxCell*)msm;              // [2][S] (alpha, entry time)
+    MaxCell* slot = rows + 2 * S;               // [2][C][32] (value, index)
+    float* ws = (float*)(slot + 64 * C);        // [C][32], the score
+    float* csm = ws + 32 * C;  // [3][S] at K >= 8, or the emissions' ring [EMIT_AHEAD][S]
+    float mx = band ? max_band_forward<KS, DENSE, C>(a, rows, slot, csm, nb, sp)
+                    : max_pool_forward<KS, DENSE, CPL, C>(a, rows, slot, csm, nb, npw, sp);
+    mx = warp_max(mx);
+    if ((threadIdx.x & 31) == 0)
+      (C > 1 ? at_rank(ws, 0) : ws)[sp.rank * 32 + (threadIdx.x >> 5)] = mx;
+    step_sync<C>();
+    if (threadIdx.x == 0 && sp.rank == 0) {
+      float s = neg_inf();
+      for (int r = 0; r < C; ++r)
+        for (int w = 0; w < nw; ++w) s = fmaxf(s, ws[r * 32 + w]);
+      *a.score = s;
+    }
+  } else {
+    float* buf = (float*)msm;     // [2][S] beta_em
+    float* slot = buf + 2 * S;    // [2][C][32], the entries' max
+    float* bqr = slot + 64 * C;   // [32], beta_entry's ring
+    float* csm = bqr + 32;        // as the forward's
+    float* bsm = csm + 3 * S;     // [S], the band's beta at K >= 8
+    if (band) {
+      max_band_backward<KS, DENSE, C>(a, buf, slot, csm, bsm, nb, sp);
+    } else {
+      max_pool_backward<KS, DENSE, CPL, C>(a, buf, slot, bqr, csm, nb, npw, sp);
+    }
+  }
+}
+
 // -- KBEST --------------------------------------------------------------------
 
 struct KArgs {
@@ -1931,6 +2693,27 @@ __global__ void __launch_bounds__(MAX_THREADS) lattice_skeleton_kernel(int steps
   out[blockIdx.y * gridDim.x * nt + blockIdx.x * nt + tid] = v;
 }
 
+// The same floor on a cluster of C CTAs a pass (2 C CTAs): the cluster
+// barrier and an exchange through distributed shared memory a step, one
+// warp reading the next CTA's row.
+__global__ void __launch_bounds__(MAX_THREADS) lattice_cluster_skeleton_kernel(int steps, int c,
+                                                                               float* out) {
+  extern __shared__ float sk[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x, r = (int)cl.block_rank();
+  float v = (float)tid;
+  cl.sync();
+  for (int t = 0; t < steps; ++t) {
+    float* row = sk + (t & 1) * nt;
+    row[tid] = v;
+    cl.sync();
+    const float* src = tid < 32 ? cl.map_shared_rank(row, (r + 1) % c) : row;
+    v += src[tid + 1 < nt ? tid + 1 : 0];
+  }
+  cl.sync();
+  out[blockIdx.x * nt + tid] = v;
+}
+
 Topo make_topo(const void* coefs, const void* ints, const void* exits, const void* entries,
                int S, int n_exits, int n_entries) {
   Topo tp;
@@ -2074,15 +2857,108 @@ extern "C" int cs304_lattice_skeleton(int blocks, int pair, int threads, int ste
   return (int)cudaGetLastError();
 }
 
-// LMAX: log_b (T, S), the topology's coefs and ints, the length -> alphas
-// (T, S) float32, entry times (T, S) int32, beta_entry (T,), score ().
+// The cluster skeleton of `steps` steps, `ctas` CTAs a pass of `threads`:
+// out (2 ctas threads,) float32.
+extern "C" int cs304_lattice_cluster_skeleton(int ctas, int threads, int steps, void* out,
+                                              void* stream) {
+  if (ctas < 2 || ctas > 8 || threads < 1 || threads > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(2 * ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 2 * threads * sizeof(float);
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, lattice_cluster_skeleton_kernel, steps, ctas,
+                                           (float*)out);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// LMAX's plan at a shape: out[0] the branch (0 team, 1 simple), out[1] K
+// (states a band thread), out[2] 1 where the pool is dense, out[3] pool
+// warps, out[4] threads, out[5] the build's cells a pool lane, out[6] the
+// CTAs a pass (a cluster past 1).
+extern "C" int cs304_lattice_max_plan(int S, int n_exits, int n_entries, int* out) {
+  const MaxPlan p = max_plan(S, n_exits, n_entries);
+  out[0] = p.team ? 0 : 1;
+  out[1] = p.team ? p.ks : states_per_thread(S);
+  out[2] = p.dense;
+  out[3] = p.npw;
+  out[4] = p.team ? p.threads : block_threads(S, states_per_thread(S));
+  out[5] = p.team ? p.cpl : 1;
+  out[6] = p.team ? p.c : 1;
+  return 0;
+}
+
+template <int KS, bool DENSE, int CPL, int C>
+cudaError_t launch_max_team(const MaxArgs& a, const MaxPlan& p, cudaStream_t st) {
+  auto kernel = lattice_max_team_kernel<KS, DENSE, CPL, C>;
+  const cudaError_t e = allow_smem(kernel, p.smem);
+  if (e != cudaSuccess) return e;
+  if (C == 1) {
+    kernel<<<2, p.threads, p.smem, st>>>(a, p.band, p.npw);
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(2 * C, 1, 1);  // the forward's cluster, then the backward's
+  cfg.blockDim = dim3(p.threads, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a, p.band, p.npw);
+}
+
+template <int KS>
+cudaError_t launch_max_team_pool(const MaxArgs& a, const MaxPlan& p, cudaStream_t st) {
+  if (p.dense) return launch_max_team<KS, true, 1, 1>(a, p, st);
+  if constexpr (KS == 4) {  // the cluster builds
+    if (p.c == 2) {
+      return p.cpl == 4 ? launch_max_team<4, false, 4, 2>(a, p, st)
+                        : launch_max_team<4, false, 8, 2>(a, p, st);
+    }
+    if (p.c == 4) {
+      return p.cpl == 4 ? launch_max_team<4, false, 4, 4>(a, p, st)
+                        : launch_max_team<4, false, 8, 4>(a, p, st);
+    }
+  }
+  switch (p.cpl) {
+    case 1:
+      return launch_max_team<KS, false, 1, 1>(a, p, st);
+    case 2:
+      return launch_max_team<KS, false, 2, 1>(a, p, st);
+    case 4:
+      return launch_max_team<KS, false, 4, 1>(a, p, st);
+    default:
+      return launch_max_team<KS, false, 8, 1>(a, p, st);
+  }
+}
+
+// LMAX: log_b (T, S), the topology (coefs, ints with the carry bits, the
+// exit and entry lists), the length -> alphas (T, S) float32, entry times
+// (T, S) int32, beta_entry (T,), score (). simple != 0 takes the first
+// design (the simple branch) at any shape.
 extern "C" int cs304_lattice_max(const void* log_b, const void* coefs, const void* ints,
-                                 float penalty, int length, void* alphas, void* ets,
-                                 void* beta_entry, void* score, int T, int S, void* stream) {
-  if (T < 1 || S < 1 || S > MAX_STATES) return (int)cudaErrorInvalidValue;
+                                 const void* exits, const void* entries, float penalty,
+                                 int length, void* alphas, void* ets, void* beta_entry,
+                                 void* score, int T, int S, int n_exits, int n_entries,
+                                 int simple, void* stream) {
+  if (T < 1 || S < 1 || S > MAX_STATES || n_exits < 1 || n_entries < 1)
+    return (int)cudaErrorInvalidValue;
   MaxArgs a;
   a.log_b = (const float*)log_b;
-  a.tp = make_topo(coefs, ints, nullptr, nullptr, S, 0, 0);
+  a.tp = make_topo(coefs, ints, exits, entries, S, n_exits, n_entries);
   a.pen = penalty;
   a.len = length;
   a.alphas = (float*)alphas;
@@ -2090,13 +2966,35 @@ extern "C" int cs304_lattice_max(const void* log_b, const void* coefs, const voi
   a.beta_entry = (float*)beta_entry;
   a.score = (float*)score;
   a.T = T;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
+  const MaxPlan p = max_plan(S, n_exits, n_entries);
+  if (p.team && !simple) {
+    switch (p.ks) {
+      case 1:
+        e = launch_max_team_pool<1>(a, p, st);
+        break;
+      case 2:
+        e = launch_max_team_pool<2>(a, p, st);
+        break;
+      case 4:
+        e = launch_max_team_pool<4>(a, p, st);
+        break;
+      case 8:
+        e = launch_max_team_pool<8>(a, p, st);
+        break;
+      default:
+        e = launch_max_team_pool<16>(a, p, st);
+        break;
+    }
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   const int k = states_per_thread(S);
   const int threads = block_threads(S, k);
   // Forward: two float rows, two int rows, (value, index) slots [2][32]
   // and a score slot row; the backward uses less.
   const size_t smem = (4 * (size_t)S + 64 + 64 + 32) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
   switch (k) {
     case 1:
       e = allow_smem(lattice_max_kernel<1>, smem);

@@ -164,12 +164,16 @@ def load():
         lib.cs304_lattice_sum_plan.restype = i
         lib.cs304_lattice_dense_pool_max.argtypes = []
         lib.cs304_lattice_dense_pool_max.restype = i
-        lib.cs304_lattice_max.argtypes = [p, p, p, f, i, p, p, p, p, i, i, p]
+        lib.cs304_lattice_max.argtypes = [p, p, p, p, p, f, i, p, p, p, p, i, i, i, i, i, p]
         lib.cs304_lattice_max.restype = i
+        lib.cs304_lattice_max_plan.argtypes = [i, i, i, p]
+        lib.cs304_lattice_max_plan.restype = i
         lib.cs304_kbest_scratch_words.argtypes = [i, i]
         lib.cs304_kbest_scratch_words.restype = ctypes.c_longlong
         lib.cs304_lattice_skeleton.argtypes = [i, i, i, i, i, p, p]
         lib.cs304_lattice_skeleton.restype = i
+        lib.cs304_lattice_cluster_skeleton.argtypes = [i, i, i, p, p]
+        lib.cs304_lattice_cluster_skeleton.restype = i
         lib.cs304_kbest_plan.argtypes = [i, i, i, p]
         lib.cs304_kbest_plan.restype = i
         lib.cs304_kbest_forward.argtypes = [p, p, p, f, i, i, p, p, p, i, i, i, i, p]

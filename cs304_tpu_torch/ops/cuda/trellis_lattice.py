@@ -27,10 +27,11 @@ Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. The kernels take 1 <= S <= MAX_LATTICE_STATES and any
 B, T >= 1 and K >= 1. LMAX and KBEST are bitwise their plain versions;
 LSUM's sums run in the order stated in ``lattice_sum_passes_plain`` and on
-the card differ from it only by expf / logf rounding. LSUM and KBEST each
-have a team branch and, where it does not apply, the first design (the
-simple branch); ``lattice_sum_plan`` / ``kbest_plan`` say which a shape
-takes, and ``simple=True`` forces the first design (timing, tests).
+the card differ from it only by expf / logf rounding. LSUM, LMAX and KBEST
+each have a team branch and, where it does not apply, the first design (the
+simple branch); ``lattice_sum_plan`` / ``lattice_max_plan`` / ``kbest_plan``
+say which a shape takes, and ``simple=True`` forces the first design
+(timing, tests).
 """
 from __future__ import annotations
 
@@ -53,8 +54,8 @@ NEG = float("-inf")
 
 __all__ = ["DENSE_POOL_MAX", "MAX_LATTICE_STATES", "LatticeTopology", "kbest_forward",
            "kbest_forward_plain", "kbest_plan", "lattice_max_passes", "lattice_max_passes_plain",
-           "lattice_sum_passes", "lattice_sum_passes_plain", "lattice_sum_plan",
-           "lattice_topology", "top_k", "topology_of"]
+           "lattice_max_plan", "lattice_sum_passes", "lattice_sum_passes_plain",
+           "lattice_sum_plan", "lattice_topology", "top_k", "topology_of"]
 
 
 @dataclass(frozen=True)
@@ -62,9 +63,9 @@ class LatticeTopology:
     """A composite's search topology on one device.
 
     coefs (8, S) float32: pack_coefs' rows diag_ne, sub1, sub2, diag_e,
-    is_entry, is_exit, diag_init, unused. ints (3, S) int32: each state's
-    word, its word's entry state and its word's exit state. exits / entries:
-    the ascending state lists."""
+    is_entry, is_exit, diag_init, unused. ints (4, S) int32: each state's
+    word, its word's entry state, its word's exit state and its carry bits
+    (``carry_bits``). exits / entries: the ascending state lists."""
 
     coefs: torch.Tensor
     ints: torch.Tensor
@@ -84,6 +85,45 @@ def _host(x, dtype):
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, dtype)
+
+
+# A state's carry bits (ints row 3): JAX's new-instance rule for each
+# predecessor its forward step can pick (csrc/trellis_lattice.cu NEW_*).
+NEW_SUB2, NEW_SUB1, NEW_FROM0, NEW_POOL = 1, 2, 4, 8
+
+
+def new_instance(p, j, word, lower, upper):
+    """JAX's new-instance rule (cs304_tpu/ops/lattice.py:263-266): the
+    forward's pick p of state j starts a new word instance where p lies in
+    another word, or on an exit -> entry re-entry of the same word."""
+    return (p != j) & ((word[p] != word[j]) | ((p == upper[j]) & (j == lower[j])))
+
+
+def carry_bits(word, lower, upper, is_entry, is_exit) -> np.ndarray:
+    """(S,) int32: for each state, new_instance of each predecessor its
+    forward step can pick, as bits: NEW_SUB2 j-2 and NEW_SUB1 j-1 (a
+    non-entry's band), NEW_FROM0 state 0 (an all -inf column picks the
+    first index), NEW_POOL every exit but j (an entry's pool pick; clear
+    where that rule differs between the exits, and the kernel reads the word
+    table). LMAX's team branch takes the entry time t or the pick's own
+    from them, with no load at the pick."""
+    word, lower, upper = (np.asarray(x, np.int64) for x in (word, lower, upper))
+    j = np.arange(len(word))
+
+    def rule(p):
+        return new_instance(p, j, word, lower, upper)
+
+    bits = ((j >= 2) & rule(np.maximum(j - 2, 0))) * NEW_SUB2
+    bits |= ((j >= 1) & rule(np.maximum(j - 1, 0))) * NEW_SUB1
+    bits |= rule(np.zeros_like(j)) * NEW_FROM0
+    exits = np.flatnonzero(is_exit)
+    for e in np.flatnonzero(is_entry):
+        # Only the exits of e's own word can differ from "new" (another
+        # word's pick always is).
+        own = exits[(exits != e) & (word[exits] == word[e])]
+        if new_instance(own, np.full_like(own, e), word, lower, upper).all():
+            bits[e] |= NEW_POOL
+    return bits.astype(np.int32)
 
 
 def lattice_topology(log_a, lower_of_state, is_entry, is_exit, word_of_state=None,
@@ -109,7 +149,8 @@ def lattice_topology(log_a, lower_of_state, is_entry, is_exit, word_of_state=Non
         if j < s - 1 and word[j] != word[j + 1]:
             last = j
         upper[j] = last
-    ints = np.stack([word, lower, upper]).astype(np.int32)
+    ints = np.stack([word, lower, upper, carry_bits(word, lower, upper, entry, exit_)]
+                    ).astype(np.int32)
     coefs = pack_coefs(_host(log_a, np.float32), lower, entry, exit_, device="cpu")
     dev = torch.device(device) if device is not None else coefs.device
     return LatticeTopology(
@@ -385,7 +426,7 @@ def lattice_max_passes_plain(log_b, topo: LatticeTopology, penalty, length: int)
     trans = dense_transitions(topo, penalty)
     c, ints = topo.coefs, topo.ints.to(torch.int64)
     entry, exit_ = c[4] > 0, c[5] > 0
-    word_of, lower, upper = ints
+    word_of, lower, upper = ints[:3]
     sidx = torch.arange(s, device=dev)
     alpha = torch.where(entry, log_b[0] + c[6], NEG)
     et = torch.zeros((s,), dtype=torch.int64, device=dev)
@@ -501,8 +542,8 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _plan(fn, *args) -> list:
-    out = (ctypes.c_int * 6)()
+def _plan(fn, *args, n=6) -> list:
+    out = (ctypes.c_int * n)()
     _build.check(fn(*args, out), fn.__name__)
     return list(out)
 
@@ -518,6 +559,22 @@ def lattice_sum_plan(s: int, n_exits: int, n_entries: int) -> dict:
                                         n_entries)
     return {"branch": ("team", "simple")[b], "k": k, "bucket": wb, "pool_warps": npw,
             "threads": threads, "cells_a_lane": cpl}
+
+
+def lattice_max_plan(s: int, n_exits: int, n_entries: int) -> dict:
+    """LMAX's launch at S states and these pool sizes, as the library
+    decides it: the branch ("team": band threads beside pool warps; "simple":
+    the first design, where the pool's cells or the threads do not fit),
+    states a band thread (a thread on the simple branch), the pool ("dense":
+    one pool warp reading its members after the barrier; "factorized": the
+    members' partials in parity slots), pool warps, threads a block, the
+    build's cells a pool lane and the CTAs a pass (a cluster past one,
+    where one CTA would take 8 or 16 states a band thread)."""
+    b, k, dense, npw, threads, cpl, ctas = _plan(_build.load().cs304_lattice_max_plan, s,
+                                                 n_exits, n_entries, n=7)
+    return {"branch": ("team", "simple")[b], "k": k,
+            "pool": "dense" if dense else "factorized", "pool_warps": npw,
+            "threads": threads, "cells_a_lane": cpl, "ctas": ctas}
 
 
 def kbest_plan(s: int, k: int, n_exits: int) -> dict:
@@ -574,11 +631,12 @@ def lattice_sum_passes(log_b, topo: LatticeTopology, penalty, lengths, simple=Fa
 lattice_sum_passes.launches = 0
 
 
-def lattice_max_passes(log_b, topo: LatticeTopology, penalty, length: int):
+def lattice_max_passes(log_b, topo: LatticeTopology, penalty, length: int, simple=False):
     """LMAX (see lattice_max_passes_plain): log_b (T, S) float32 ->
     (alphas (T, S) float32, entry times (T, S) int32, beta_entry (T,)
     float32, score (0-d float32)). On CUDA tensors one launch: a block
-    for the forward and a block for the backward, bitwise the plain
+    for the forward and a block for the backward (lattice_max_plan's
+    branch, or the first design with simple=True), bitwise the plain
     version."""
     if not log_b.is_cuda:
         return lattice_max_passes_plain(log_b, topo, penalty, length)
@@ -595,9 +653,10 @@ def lattice_max_passes(log_b, topo: LatticeTopology, penalty, length: int):
     score = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = lib.cs304_lattice_max(
-            log_b.data_ptr(), topo.coefs.data_ptr(), topo.ints.data_ptr(), float(penalty),
-            int(length), alphas.data_ptr(), ets.data_ptr(), beta_entry.data_ptr(),
-            score.data_ptr(), t_total, s, _stream())
+            log_b.data_ptr(), topo.coefs.data_ptr(), topo.ints.data_ptr(),
+            topo.exits.data_ptr(), topo.entries.data_ptr(), float(penalty), int(length),
+            alphas.data_ptr(), ets.data_ptr(), beta_entry.data_ptr(), score.data_ptr(),
+            t_total, s, topo.exits.numel(), topo.entries.numel(), int(simple), _stream())
     _build.check(code, "lattice_max_passes")
     lattice_max_passes.launches += 1
     return alphas, ets, beta_entry, score

@@ -414,6 +414,56 @@ def word_confidences(composite, features, log_b=None, skip_silence: bool = True,
     return out
 
 
+def _uppers_on(composite, dev):
+    """composite.uppers (each word's exit state) as an index on dev,
+    uploaded once and kept on the composite as topology_of keeps the
+    topology (an upload a call is a synchronous copy)."""
+    dev = torch.device(dev)
+    cache = composite.__dict__.setdefault("_lattice_uppers", {})
+    key = (str(dev), id(composite.uppers))
+    if key not in cache:
+        cache[key] = torch.as_tensor(np.asarray(composite.uppers, np.int64), device=dev)
+    return cache[key]
+
+
+def _exit_columns(composite, alphas, ets, beta_entry, score, t_total: int):
+    """What the forward lattice reads of the max-plus passes, on the host:
+    alpha and entry time at each word's exit (T, W) for the first t_total
+    frames, beta_entry (T,) and the score, gathered on the passes' device
+    and read back in one copy (not the (T, S) pair)."""
+    uppers = _uppers_on(composite, alphas.device)
+    a_exit = torch.index_select(alphas[:t_total], 1, uppers)
+    st_exit = torch.index_select(ets[:t_total], 1, uppers)
+    packed = torch.cat([a_exit.reshape(-1).view(torch.int32), st_exit.reshape(-1),
+                        beta_entry.view(torch.int32), score.reshape(1).view(torch.int32)])
+    packed = packed.cpu().numpy()
+    n = a_exit.numel()
+    return (packed[:n].view(np.float32).reshape(a_exit.shape),
+            packed[n: 2 * n].reshape(a_exit.shape),
+            packed[2 * n: -1].view(np.float32), float(packed[-1:].view(np.float32)[0]))
+
+
+def _lattice_arcs(composite, a_exit, st_exit, beta_entry, best_total, beam, t_total):
+    """The forward lattice's arcs {(start, end, word): score} from the exit
+    columns: every (frame t, word w) whose best complete path ending w at t
+    (alpha at w's exit + penalty + beta_entry[t + 1], or alpha alone at the
+    last frame) is within beam of the best, keyed by its entry time."""
+    arcs: Dict[Tuple[int, int, int], float] = {}
+    for w in range(a_exit.shape[1]):
+        a_e = a_exit[:, w]
+        st_e = st_exit[:, w]
+        sigma = np.full(t_total, -np.inf)
+        sigma[: t_total - 1] = a_e[: t_total - 1] + composite.penalty + beta_entry[1:t_total]
+        sigma[t_total - 1] = a_e[t_total - 1]
+        for t in np.flatnonzero(sigma >= best_total - beam):
+            key = (int(st_e[t]), int(t) + 1, w)
+            sc = float(sigma[t])
+            prev = arcs.get(key)
+            if prev is None or sc > prev:
+                arcs[key] = sc
+    return arcs
+
+
 def forward_lattice(composite, features, beam: float = 50.0, log_b=None,
                     posteriors: bool = False, length: int | None = None,
                     device=None) -> Lattice:
@@ -428,26 +478,9 @@ def forward_lattice(composite, features, beam: float = 50.0, log_b=None,
     if t_total < 2 and feats.shape[0] > t_total:
         raise ValueError("padded forward_lattice needs length >= 2")
     log_b, _dev = emissions_of(composite, feats, log_b, device)
-    alphas, ets, beta_entry, score = _lattice_passes(composite, log_b.contiguous(), t_total)
-    alphas = alphas.cpu().numpy()
-    ets = ets.cpu().numpy()
-    beta_entry = beta_entry.cpu().numpy()
-    best_total = float(score)
-
-    uppers = np.asarray(composite.uppers)
-    arcs: Dict[Tuple[int, int, int], float] = {}
-    for w, e in enumerate(uppers):
-        a_e = alphas[:t_total, e]
-        st_e = ets[:t_total, e]
-        sigma = np.full(t_total, -np.inf)
-        sigma[: t_total - 1] = a_e[: t_total - 1] + composite.penalty + beta_entry[1:t_total]
-        sigma[t_total - 1] = a_e[t_total - 1]
-        for t in np.flatnonzero(sigma >= best_total - beam):
-            key = (int(st_e[t]), int(t) + 1, w)
-            sc = float(sigma[t])
-            prev = arcs.get(key)
-            if prev is None or sc > prev:
-                arcs[key] = sc
+    cols = _exit_columns(composite, *_lattice_passes(composite, log_b.contiguous(), t_total),
+                         t_total)
+    arcs = _lattice_arcs(composite, *cols, beam, t_total)
     lam = None
     if posteriors:
         lam = word_end_log_posteriors(composite, feats, log_b=log_b, length=t_total)

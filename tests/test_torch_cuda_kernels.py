@@ -51,8 +51,9 @@ trellis; the posterior and n-best searches' kernels (LSUM: the same -inf
 cells, the rest within 1e-5 * max(1, |x|) of its plain version; LMAX and
 KBEST bitwise; 58, 503 and 5003 states, single-state words under both
 penalty cases, length-1 and -2 rows, pools of 1, 31, 32 and 33 members,
-KBEST at K = 1, 2, 4, 6, 8, 16, 32 and 33, T = 1; LSUM and KBEST on their
-team branch and on the forced simple branch) and the decoder's
+KBEST at K = 1, 2, 4, 6, 8, 16, 32 and 33, T = 1; LSUM, LMAX and KBEST on
+their team branch and on the forced simple branch, LMAX with signs of zero
+and at 8188 states too) and the decoder's
 confidences, n-best, forward lattice and keyword passes launching them
 with no plain loop on the card; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
@@ -2107,15 +2108,31 @@ LATTICE_CASES = {
 # KBEST's K: every bucket (1, 2, 4, 8, 16, 32; 6 in the 8 bucket) and one
 # past the largest (the simple branch).
 KBEST_KS = (1, 2, 4, 6, 8, 16, 32, 33)
+# LMAX's pool on its team branch: dense up to 32 exits and entries (one pool
+# warp reading them after the barrier), factorized past them; 5003 states
+# take a cluster of two CTAs a pass (one CTA would hold 8 states a thread).
+LMAX_POOLS = {"flagship": "dense", "flagship-ties": "dense", "single-state-words": "dense",
+              "single-state-pool-beats": "dense", "503": "factorized", "5003": "factorized",
+              "pool-1": "dense", "pool-31": "dense", "pool-32": "dense",
+              "pool-33": "factorized"}
+
+
+def _bits_equal(a, b):
+    """Equal values with their signs of zero (floats), or equal integers
+    (chip_smoke.tensor_bits_equal)."""
+    if a.dtype.is_floating_point:
+        return torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+    return torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", sorted(LATTICE_CASES))
 def test_lattice_kernels_match_plain(dev, case):
     """LSUM against lattice_sum_passes_plain (the same -inf cells, the rest
     within 1e-5 * max(1, |x|), every row with a length-2 and a length-1
-    row), LMAX and KBEST (K = 1, 2, 4, 6, 8, 16, 32, 33; T = 1) bitwise
-    theirs, one launch each; LSUM and KBEST on the branch their plan takes
-    and on the forced simple branch (the first design)."""
+    row), LMAX (signs of zero included) and KBEST (K = 1, 2, 4, 6, 8, 16,
+    32, 33; T = 1) bitwise theirs, one launch each; each on the branch its
+    plan takes and on the forced simple branch (the first design); LMAX's
+    plan the team branch with the case's pool."""
     from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
 
     spec, b, t, ties = LATTICE_CASES[case]
@@ -2139,10 +2156,14 @@ def test_lattice_kernels_match_plain(dev, case):
             fin = torch.isfinite(w)
             assert ((g - w)[fin].abs() <= 1e-5 * w[fin].abs().clamp(min=1.0)).all()
     assert torch.isfinite(want[3]).all()
+    plan = tlk.lattice_max_plan(s, n_x, n_e)
+    assert (plan["branch"], plan["pool"], plan["ctas"]) == (
+        "team", LMAX_POOLS[case], 2 if case == "5003" else 1), plan
     for length in (t, 2):
-        got = tlk.lattice_max_passes(lb[0], topo, comp.penalty, length)
         want = tlk.lattice_max_passes_plain(lb[0], topo, comp.penalty, length)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for simple in (False, True):
+            got = tlk.lattice_max_passes(lb[0], topo, comp.penalty, length, simple=simple)
+            assert all(_bits_equal(g, w) for g, w in zip(got, want)), (length, simple)
     runs = [(k, t, False) for k in KBEST_KS] + [(8, 1, False), (16, t, True), (33, 1, False)]
     for k, tt, simple in runs:
         branch = tlk.kbest_plan(s, k, n_x)["branch"]
@@ -2153,7 +2174,31 @@ def test_lattice_kernels_match_plain(dev, case):
         want = tlk.kbest_forward_plain(one, topo, comp.penalty, k, tt - 3)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, tt, simple)
     after = [c.launches for c in counters]
-    assert [a - b_ for a, b_ in zip(after, before)] == [2, 2, len(runs)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [2, 4, len(runs)]
+
+
+def test_lattice_max_at_its_widest(dev):
+    """LMAX near MAX_LATTICE_STATES (8188 states, 1638 words: the team
+    branch on a cluster of four CTAs a pass, 4 states a band thread and 8
+    pool warps each) bitwise its plain version on both branches, at the
+    full length and a shorter one."""
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+    comp = _lattice_composite([5] * 1637 + [3], -100.0)
+    topo = tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                                comp.word_of_state, device=dev)
+    s = comp.num_states
+    plan = tlk.lattice_max_plan(s, topo.exits.numel(), topo.entries.numel())
+    assert s == 8188 and (plan["branch"], plan["k"], plan["pool_warps"], plan["ctas"]) == (
+        "team", 4, 8, 4), plan
+    gen = torch.Generator(device=dev).manual_seed(8188)
+    lb = 3 * torch.randn((30, s), generator=gen, device=dev)
+    for length in (30, 17):
+        want = tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length)
+        assert torch.isfinite(want[3])
+        for simple in (False, True):
+            got = tlk.lattice_max_passes(lb, topo, comp.penalty, length, simple=simple)
+            assert all(_bits_equal(g, w) for g, w in zip(got, want)), (length, simple)
 
 
 def test_posterior_and_nbest_searches_launch_their_kernels(dev, monkeypatch):

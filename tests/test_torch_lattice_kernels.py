@@ -27,9 +27,14 @@ on the CPU through their plain versions and their step order.
   (each state's top K by ranks, the entries' with the duplicate-prefix
   masks as slot < c_j; the pool by ranks over the exit rows' values, its
   -inf tail filled in flat order) at every K bucket, and its simple branch
-  (the first design: merges; K past 32, 40 exit rows); LMAX's banded
-  argmax and best exit pool with the lowest index on a tie: bitwise the
-  plain versions.
+  (the first design: merges; K past 32, 40 exit rows); LMAX's first design
+  (the banded argmax and best exit pool with the lowest index on a tie)
+  and its team branch (lmax_team_emulated: band threads and pool warps, the
+  best exit by keys from a dense pool's lanes or folded from the warps'
+  slots past 32 exits, the carry bits, the backward's entries' max and
+  exit rows), signs of zero included: bitwise the plain versions. The
+  carry bits (LatticeTopology ints row 3) against JAX's new-instance rule
+  for every predecessor a step can pick.
 - The dispatchers: CPU tensors run the plain versions and count no launch;
   a CUDA tensor with no kernel library raises, and no plain loop runs.
 
@@ -577,6 +582,267 @@ def test_lmax_kernel_order_is_bitwise_plain(name, ties):
     alphas, ets = lmax_forward_emulated(log_b, comp, 19)
     np.testing.assert_array_equal(alphas, want[0].numpy())
     np.testing.assert_array_equal(ets, want[1].numpy())
+
+
+INT_MAX, INT_MIN = 2**31 - 1, -2**31
+
+
+def _lmax_plan(s, n_x, n_e, ks=None):
+    """csrc/trellis_lattice.cu max_plan on one CTA (the cluster of CTAs it
+    takes past 4 states a band thread shares the states, not the order):
+    (states a band thread, band threads, pool warps, dense pool, cells a
+    pool lane); ks pins the band's states a thread."""
+    dense = n_x <= 32 and n_e <= 32
+    npw = 1 if dense else min(-(-max(n_x, n_e) // 32), 8)
+    need = -(-max(n_x, n_e) // (32 * npw))
+    cpl = next(c for c in (1, 2, 4, 8) if need <= c)
+    for k in (1, 2, 4, 8, 16) if ks is None else (ks,):
+        band = 32 * -(-(-(-s // k)) // 32)
+        if ks is not None or band + 32 * npw <= (896 if k >= 8 else 1024):
+            return k, band, npw, dense, cpl
+    raise AssertionError("no team plan")
+
+
+def _f32_bits(v):
+    return int(np.array(v, np.float32).view(np.int32))
+
+
+def _tie_key(v):
+    """tie_key: the order-preserving int key of a float32, -0 as +0."""
+    b = _f32_bits(0.0 if v == 0 else v)
+    return b if b >= 0 else b ^ 0x7FFFFFFF
+
+
+def _keyed_best(lanes):
+    """warp_best_keyed over a warp's (value, index) lanes (index INT_MAX:
+    none): the largest key, the lowest index at it, the value read from
+    the winner's lane (the ballot's first)."""
+    keys = [INT_MIN if i == INT_MAX else _tie_key(v) for v, i in lanes]
+    m = max(keys)
+    bi = min([i for (_v, i), k in zip(lanes, keys) if i != INT_MAX and k == m], default=INT_MAX)
+    return next(v for v, i in lanes if i == bi), bi
+
+
+def _ordered_best(lanes):
+    """warp_best_ordered, where the lanes' indices ascend: the first lane at
+    the largest key."""
+    keys = [INT_MIN if i == INT_MAX else _tie_key(v) for v, i in lanes]
+    return lanes[keys.index(max(keys))]
+
+
+def _redux_max(values):
+    """warp_max_redux: the max by order-preserving keys (-0 below +0)."""
+    keys = [(b if b >= 0 else b ^ 0x7FFFFFFF) for b in map(_f32_bits, values)]
+    k = max(keys)
+    return np.array(k if k >= 0 else k ^ 0x7FFFFFFF, np.int32).view(np.float32)[()]
+
+
+def _fmax(a, b):
+    return b if b > a else a
+
+
+def _better(v, i, bv, bi):
+    return v > bv or (v == bv and i < bi)
+
+
+def lmax_team_emulated(log_b, comp, length, ks=None):
+    """LMAX's team branch (csrc/trellis_lattice.cu max_team_forward and
+    max_team_backward) in numpy float32, thread by thread and warp by warp:
+    band threads holding the non-entries (the forward) or non-exit rows (the
+    backward) j = tid + k band, pool warps holding the entry columns (exit
+    rows) pw 32 + l + c 32 npw. Forward: a band cell's first max over (j-2,
+    j-1, j) with its entry time t or the pick's own by the carry bits
+    (ints row 3), state 0's where the column is all -inf; the previous
+    row's best exit by keys (largest value with -0 as +0, lowest index, the
+    value read back from the winner), from the exits' lanes (dense: the
+    first lane at the largest key, the lanes' indices ascending) or folded
+    from each warp's partial (factorized: each lane's exits in order, then
+    the warp's best, the first lane's at one state or cell a lane, else the
+    lowest index at the key, in a slot a warp); an entry's own
+    cell against it (the lowest index on a tie), a pool pick's entry time t
+    by NEW_POOL. Backward: the entries' max (beta_entry) by keys, from the
+    entries' lanes or folded from each warp's partial max; a row's
+    max(max(t0, t1), t2), an exit's with penalty + that max. Returns
+    (alphas, ets, beta_entry, score)."""
+    topo = _topo(comp)
+    coefs, bits = topo.coefs.numpy(), topo.ints.numpy()[3]
+    c0, c1, c2, de, entry, exit_, dinit = coefs[:7]
+    entry, exit_ = entry > 0, exit_ > 0
+    word, lower = comp.word_of_state, comp.lower_of_state
+    upper = np.asarray(comp.uppers)[word]
+    exits, entries = np.flatnonzero(exit_), np.flatnonzero(entry)
+    t_total, s = log_b.shape
+    ks, nb, npw, dense, cpl = _lmax_plan(s, len(exits), len(entries), ks)
+    nw = nb // 32 + npw
+    pen, neg = np.float32(comp.penalty), np.float32(-np.inf)
+    own_cell = np.where(entry, np.maximum(np.where(exit_, pen, neg), de), neg).astype(np.float32)
+
+    def holders(band_states, pool_states):
+        """Each thread's states, ascending: band tid's j = tid + k nb with
+        band_states[j], pool lane (pw, l)'s pool_states[pw 32 + l + c 32 npw]."""
+        out = [[j for j in range(tid, min(s, tid + ks * nb), nb) if band_states[j]]
+               for tid in range(nb)]
+        return out + [list(pool_states[pw * 32 + lane:: 32 * npw])
+                      for pw in range(npw) for lane in range(32)]
+
+    def warps(per_thread):
+        return [per_thread[32 * w: 32 * w + 32] for w in range(nw)]
+
+    # Forward.
+    fwd = holders(~entry, entries)
+    alpha = np.where(entry, log_b[0] + dinit, neg).astype(np.float32)
+    et = np.zeros(s, np.int64)
+    alphas, ets = [alpha], [et]
+    for t in range(1, t_total):
+        if t < min(length, t_total):
+            if dense:  # lane i holds exit i: ordered
+                lanes = [(alpha[x] + pen, int(x)) for x in exits]
+                pv, pi = _ordered_best(lanes + [(neg, INT_MAX)] * (32 - len(lanes)))
+            else:
+                # Each warp's best of the row in a slot (one state or cell a
+                # lane: ordered), folded by keys.
+                slots = []
+                for w, warp in enumerate(warps(fwd)):
+                    part = []
+                    for states in warp:
+                        bv, bi = neg, INT_MAX
+                        for j in states:
+                            if exit_[j] and _better(alpha[j] + pen, j, bv, bi):
+                                bv, bi = alpha[j] + pen, j
+                        part.append((bv, bi))
+                    ordered = ks == 1 if w < nb // 32 else cpl == 1
+                    slots.append((_ordered_best if ordered else _keyed_best)(part))
+                pv, pi = _keyed_best(slots + [(neg, INT_MAX)] * (32 - len(slots)))
+            new, new_et = alpha.copy(), et.copy()
+            for j in range(s):
+                b = bits[j]
+                if not entry[j]:
+                    v = alpha[j - 2] + c2[j] if j >= 2 else neg
+                    e = t if b & tlk.NEW_SUB2 else (et[j - 2] if j >= 2 else 0)
+                    v1 = (alpha[j - 1] if j >= 1 else neg) + c1[j]
+                    if v1 > v:
+                        v, e = v1, (t if b & tlk.NEW_SUB1 else et[j - 1])
+                    if alpha[j] + c0[j] > v:
+                        v, e = alpha[j] + c0[j], et[j]
+                else:
+                    own = alpha[j] + own_cell[j]
+                    if _better(own, j, pv, pi):
+                        v, e = own, et[j]
+                    elif pi == j:
+                        v, e = pv, et[j]
+                    else:
+                        fresh = b & tlk.NEW_POOL or tlk.new_instance(pi, j, word, lower, upper)
+                        v, e = pv, (t if fresh else et[pi])
+                if v == neg:
+                    e = t if b & tlk.NEW_FROM0 else et[0]
+                new[j], new_et[j] = v + log_b[t, j], e
+            alpha, et = new, new_et
+        alphas.append(alpha)
+        ets.append(et)
+    score = neg
+    for x in exits:
+        score = _fmax(score, alpha[x])
+
+    # Backward.
+    bwd = holders(~exit_, exits)
+    q0 = np.where(entry, own_cell, c0)
+    q1 = np.append(c1[1:], np.float32(0))
+    q2 = np.append(c2[2:], np.float32([0, 0]))[:s]
+    terminal = np.where(exit_, np.float32(0), neg).astype(np.float32)
+    beta = terminal
+    beta_entry = np.empty(t_total, np.float32)
+    for t in range(t_total - 1, -1, -1):
+        bem = (log_b[t] + (terminal if 1 <= t == length - 1 else beta)).astype(np.float32)
+        if dense:
+            bq = _redux_max([bem[e] for e in entries] + [neg] * (32 - len(entries)))
+        else:
+            slots = []
+            for warp in warps(bwd):
+                part = []
+                for states in warp:
+                    mx = neg
+                    for j in states:
+                        if entry[j]:
+                            mx = _fmax(mx, bem[j])
+                    part.append(mx)
+                slots.append(_redux_max(part))
+            bq = _redux_max(slots + [neg] * (32 - len(slots)))
+        beta_entry[t] = bq
+        if t == 0:
+            break
+        beta = np.empty(s, np.float32)
+        for j in range(s):
+            t1 = q1[j] + bem[j + 1] if j + 1 < s else neg
+            t2 = q2[j] + bem[j + 2] if j + 2 < s else neg
+            beta[j] = _fmax(_fmax(q0[j] + bem[j], t1), t2)
+            if exit_[j]:
+                beta[j] = _fmax(beta[j], bq + pen)
+    return np.stack(alphas), np.stack(ets), beta_entry, score
+
+
+def _bits_equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.array_equal(got, want) and np.array_equal(np.signbit(got), np.signbit(want))
+
+
+@pytest.mark.parametrize("name", sorted({**COMPOSITES, **FACTORIZED}))
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("ks", [None, 4])
+def test_lmax_team_order_is_bitwise_plain(name, ties, ks):
+    """The team branch's step order (lmax_team_emulated, the plan's states
+    a band thread or 4) bitwise lattice_max_passes_plain, signs of zero
+    included: alphas, entry times, beta_entry and score at a length below
+    T, at the full length and at T = 1; a dense pool up to 32 exits, the
+    warps' partial folds past them (the 40-word composites)."""
+    comp = _comp(name)
+    rng = np.random.default_rng(11 + ties)
+    for t, length in ((24, 17), (24, 24), (1, 1)):
+        log_b = _log_b(rng, (t, comp.num_states), ties)
+        want = tlk.lattice_max_passes_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty,
+                                            length)
+        got = lmax_team_emulated(log_b, comp, length, ks)
+        for g, w in zip(got, want):
+            assert _bits_equal(g, w.numpy()), (t, length)
+        assert t == 1 or np.isfinite(got[3])
+
+
+@pytest.mark.parametrize("name", sorted({**COMPOSITES, **FACTORIZED}))
+def test_carry_bits_are_jax_new_instance_rule(name):
+    """ints row 3 (carry_bits) against JAX's new_inst expression
+    (cs304_tpu/ops/lattice.py:263-266, evaluated by jnp on a column of
+    picks) for every predecessor each state's forward step can pick: j-2
+    and j-1 (a non-entry's band), state 0 (an all -inf column) and, for an
+    entry, every exit but itself (NEW_POOL, set at every entry of these
+    composites: the kernel never reads the word table)."""
+    comp = _comp(name)
+    bits = _topo(comp).ints.numpy()[3]
+    s = comp.num_states
+    word_of = jnp.asarray(comp.word_of_state)
+    lower_of_state = jnp.asarray(comp.lower_of_state)
+    upper_of_state = jnp.asarray(np.asarray(comp.uppers)[comp.word_of_state])
+    sidx = jnp.arange(s, dtype=jnp.int32)
+
+    def jax_rule(bp):
+        bp = jnp.asarray(bp, jnp.int32)
+        new_inst = (bp != sidx) & (
+            (word_of[bp] != word_of)
+            | ((bp == upper_of_state) & (sidx == lower_of_state))
+        )
+        return np.asarray(new_inst)
+
+    j = np.arange(s)
+    non_entry = ~np.asarray(comp.is_entry)
+    for back, bit in ((2, tlk.NEW_SUB2), (1, tlk.NEW_SUB1)):
+        can = non_entry & (j >= back)
+        rule = jax_rule(np.maximum(j - back, 0))
+        np.testing.assert_array_equal((bits & bit != 0)[can], rule[can])
+    np.testing.assert_array_equal(bits & tlk.NEW_FROM0 != 0, jax_rule(np.zeros(s)))
+    entries = np.flatnonzero(comp.is_entry)
+    pool_new = np.ones(s, bool)
+    for x in np.flatnonzero(comp.is_exit):
+        pool_new &= jax_rule(np.full(s, x)) | (j == x)
+    np.testing.assert_array_equal(bits[entries] & tlk.NEW_POOL != 0, pool_new[entries])
+    assert pool_new[entries].all()
 
 
 # -- dispatch -------------------------------------------------------------------

@@ -3359,11 +3359,10 @@ def search_split(dev, dec, clips, search_ms):
     word-end lambdas formed on the card and their (B, T, W) readback, the
     host span walk (one mask over the padded paths, path_word_spans_batch);
     n-best: emissions, KBEST, the readback of alpha and bps, the host
-    backtrace and dedupe; forward lattice: emissions, LMAX, the exit
-    columns' readback ((T, W) alphas and entry times, beta_entry, the
-    score; beside it the (T, S) pair's readback it replaced, which the
-    wall does not include), the Python arc loop, the posteriors' LSUM and
-    their readback and lambdas (word_end_log_posteriors' host part). Device parts by CUDA
+    backtrace and dedupe; forward lattice: emissions, LMAX, the readback
+    (the (T, S) alphas and entry times, beta_entry, the score), the Python
+    arc loop, the posteriors' LSUM and their readback and lambdas
+    (word_end_log_posteriors' host part). Device parts by CUDA
     events, host parts by the host clock after a synchronize; best of three
     passes."""
     from cs304_tpu_torch.data.batching import pad_batch
@@ -3431,11 +3430,10 @@ def search_split(dev, dec, clips, search_ms):
         t_total = feats.shape[0]
         lb = device("emissions", lambda: comp.log_likelihoods(feats, device=dev))
         out = device("LMAX", lambda: tla._lattice_passes(comp, lb.contiguous(), t_total))
-        # Beside it, the readback it replaced: the (T, S) pair, beta_entry and
-        # the score, each its own copy (measurement only).
-        device("pair readback replaced", lambda: (
-            out[0].cpu().numpy(), out[1].cpu().numpy(), out[2].cpu().numpy(), float(out[3])))
-        cols = device("exit columns readback", lambda: tla._exit_columns(comp, *out, t_total))
+        uppers = np.asarray(comp.uppers)
+        cols = device("readback", lambda: (
+            out[0].cpu().numpy()[:t_total, uppers], out[1].cpu().numpy()[:t_total, uppers],
+            out[2].cpu().numpy(), float(out[3])))
         host("arc loop", lambda: tla._lattice_arcs(comp, *cols, 50.0, t_total))
         ln = torch.tensor([t_total], dtype=torch.int32, device=dev)
         sq = device("posteriors LSUM", lambda: tla._sum_passes(comp, lb[None].contiguous(), ln))
@@ -3456,15 +3454,13 @@ def search_split(dev, dec, clips, search_ms):
 
     for what, fn in (("confidences (64 clips)", confidences), ("nbest (1 clip, n=4)", nbest),
                      ("forward lattice + posteriors (1 clip)", lattice)):
-        def path_ms(parts):  # the parts on the path (not the host clocks, not comparisons)
-            return {k: v for k, v in parts.items() if "(host)" not in k and "replaced" not in k}
-
         best = None
         for _ in range(3):
             parts = fn()
-            if best is None or sum(path_ms(parts).values()) < sum(path_ms(best).values()):
+            if best is None or sum(v for k, v in parts.items() if "(host)" not in k) < sum(
+                    v for k, v in best.items() if "(host)" not in k):
                 best = parts
-        lead = max(path_ms(best), key=best.get)
+        lead = max((k for k in best if "(host)" not in k), key=best.get)
         log("split", run=what, wall_ms=search_ms.get(what), lead=repr(lead),
             **{k.replace(" ", "_").replace("+", "and").replace("(", "").replace(")", ""): v
                for k, v in best.items()})
@@ -3923,9 +3919,12 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     2, T = 60); the edges: single-state words whose self-loop beats the
     penalty and whose penalty beats it, length-2 rows, integer-valued
     emissions for ties, K = 1 / 2 / 4 / 6 / 16 / 32 / 33, T = 1; LMAX also
-    at 8188 states (T = 30), near the largest S the kernels take. Each case
+    at 1503 and 3003 states (2 and 4 states a band thread on one CTA), 5000
+    states of 20 long words (a dense pool folded on a cluster of two CTAs)
+    and 8188 states (T = 30), near the largest S the kernels take. Each case
     logs its launches, its error and its plan's branch, LMAX on its plan's
-    branch and on the first design (simple=True), both bitwise; then each
+    branch (asserted where the case names one) and on the first design
+    (simple=True), both bitwise; then each
     kernel's device time (CUDA-graph replays) beside its plain loop's eager
     time, its bound, µs a step and ptxas' registers and spills of both
     builds, in turns p n n p beside its first design (simple=True, the
@@ -3981,7 +3980,7 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
             raise SystemExit(f"phase 31: LSUM disagrees with its plain version ({name}): "
                              f"launches {rose}, same -inf cells {same_inf}, rel {worst}")
 
-    def check_max(name, comp, lb, length):
+    def check_max(name, comp, lb, length, expect=None):
         topo = topo_of(comp)
         before = tlk.lattice_max_passes.launches
         got = {simple: tlk.lattice_max_passes(lb, topo, comp.penalty, length, simple=simple)
@@ -4008,6 +4007,8 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         if rose != 2 or not all(same.values()) or (lb.shape[0] > 1 and
                                                    not torch.isfinite(want[3]).item()):
             raise SystemExit(f"phase 31: LMAX disagrees with its plain version ({name})")
+        if expect and any(plan[k_] != v for k_, v in expect.items()):
+            raise SystemExit(f"phase 31: LMAX's plan at {name} is {plan}, not {expect}")
 
     def check_kbest(name, comp, lb, k, length=None):
         topo = topo_of(comp)
@@ -4071,10 +4072,25 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         check_max(f"{name}-states", comp, lb[0].contiguous(), int(ln[0]))
         check_kbest(f"{name}-states-K8", comp, lb[1].contiguous(), 8, int(ln[1]))
     check_kbest("5003-states-K16", c5003, lb5003[0].contiguous(), 16)
-    # LMAX near the largest S the kernels take: 16 states a band thread.
+    # LMAX at each width of its team branch: 2 and 4 states a band thread on
+    # one CTA, a dense pool of long words folded on a cluster, and near the
+    # largest S the kernels take (a cluster of four).
+    c1503, c3003 = random_composite(300, 3), random_composite(600, 3)
+    c_long = lattice_composite([250] * 20)
     c8188 = lattice_composite([5] * 1637 + [3])
+    lb1503 = 3 * torch.randn((t_total, c1503.num_states), generator=gen, device=dev)
+    lb3003 = 3 * torch.randn((100, c3003.num_states), generator=gen, device=dev)
+    # A 250-state word takes at least 125 frames.
+    lb_long = 3 * torch.randn((150, c_long.num_states), generator=gen, device=dev)
     lb8188 = 3 * torch.randn((30, c8188.num_states), generator=gen, device=dev)
-    check_max("8188-states", c8188, lb8188, 30)
+    check_max("1503-states", c1503, lb1503, t_total,
+              {"branch": "team", "k": 2, "ctas": 1, "cells_a_lane": 2})
+    check_max("3003-states", c3003, lb3003, 100,
+              {"branch": "team", "k": 4, "ctas": 1, "cells_a_lane": 4})
+    check_max("long-words-5000-states", c_long, lb_long, 150,
+              {"branch": "team", "k": 4, "ctas": 2, "pool": "factorized", "cells_a_lane": 1})
+    check_max("8188-states", c8188, lb8188, 30,
+              {"branch": "team", "k": 4, "ctas": 4, "cells_a_lane": 8})
 
     # The edges: single-state words (their self-loop 0 beats a -25 penalty,
     # or a 0 penalty beats it), length-2 rows, integer ties, K = 1, T = 1.
@@ -4105,6 +4121,7 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
     # kernel in turns beside its first design (simple=True), p n n p ----------
     tp_main, tp58 = topo_of(pc), topo_of(flag)
     tp503, tp5003, tp8188 = topo_of(c503), topo_of(c5003), topo_of(c8188)
+    tp1503, tp3003, tp_long = topo_of(c1503), topo_of(c3003), topo_of(c_long)
     len0 = lb_clip.shape[0]
     # Host ints before any capture: a capture may not synchronize.
     l58, l58b, l503, l503b, l5003 = (int(x) for x in (len58[0], len58[1], len503[0],
@@ -4143,9 +4160,18 @@ def lattice_phase(dev, decode, pipe, launches, timings, errs, yardsticks):
         ("lattice_max", "503-states", f"503 states T={t_total}",
          lmax(lb503[0], tp503, c503.penalty, l503),
          lattice_max_bound(t_total, tp503, l503), t_total - 1, tp503, 1, None),
+        ("lattice_max", "1503-states", f"1503 states T={t_total}",
+         lmax(lb1503, tp1503, c1503.penalty, t_total),
+         lattice_max_bound(t_total, tp1503, t_total), t_total - 1, tp1503, 1, None),
+        ("lattice_max", "3003-states", "3003 states T=100",
+         lmax(lb3003, tp3003, c3003.penalty, 100),
+         lattice_max_bound(100, tp3003, 100), 99, tp3003, 1, None),
         ("lattice_max", "5003-states", "5003 states T=60",
          lmax(lb5003[0], tp5003, c5003.penalty, l5003),
          lattice_max_bound(60, tp5003, l5003), 59, tp5003, 1, None),
+        ("lattice_max", "long-words-5000-states", "20 words of 250 states T=150",
+         lmax(lb_long, tp_long, c_long.penalty, 150),
+         lattice_max_bound(150, tp_long, 150), 149, tp_long, 1, None),
         ("lattice_max", "8188-states", "8188 states T=30",
          lmax(lb8188, tp8188, c8188.penalty, 30),
          lattice_max_bound(30, tp8188, 30), 29, tp8188, 1, None),

@@ -79,15 +79,17 @@
 //   the utterance (past 4 states a band thread a cluster of 2 or 4 CTAs
 //   each, the states shared in contiguous spans, the cells at a span's edge
 //   and the warps' partials copied into the other CTAs' shared memory, one
-//   cluster barrier a step), band threads (K = 1 / 2 / 4 / 8 / 16 states
-//   each) beside pool warps, one barrier a step, each role in a loop of its
-//   own (its registers only). The forward's band threads hold the non-entries, their
-//   coefficients (in shared memory at K >= 8) and carry bits (LatticeTopology
-//   ints row 3: JAX's new-instance rule for each pick a step can make,
-//   precomputed on the host) loaded once; (alpha, entry time) pairs in the
-//   shared rows, so a pick's entry time comes with its alpha in one 8-byte
-//   load; a cell is the first max over (j-2, j-1, j), its entry time t or
-//   the pick's by the bits. The pool warps hold the entry columns: the best
+//   cluster barrier a step, the pool always folded from the warps' slots),
+//   band threads (K = 1 / 2 / 4 states each) beside pool warps, one barrier
+//   a step, each role in a loop of its own (its registers only). The
+//   forward's band threads hold the non-entries, their coefficients and
+//   carry bits (LatticeTopology ints row 3: JAX's new-instance rule for each
+//   band pick a step can make, precomputed on the host) loaded once; (alpha,
+//   entry time) pairs in the shared rows, so a pick's entry time comes with
+//   its alpha in one 8-byte load; a cell is the first max over (j-2, j-1,
+//   j), its entry time t or the pick's by the bits (a pool pick other than
+//   the entry itself always starts a new instance: lattice_topology checks
+//   it). The pool warps hold the entry columns: the best
 //   exit of the previous row by keys (the largest value with -0 as +0, the
 //   lowest index, the value read back from the winner), one redux where the
 //   lanes' indices ascend (a dense pool: lane i reads exit i after the
@@ -96,8 +98,8 @@
 //   cell against it (the lowest index wins a tie; an all -inf column points
 //   at 0). Step t stores row t - 1's cells (loaded anyway) to alphas / ets
 //   first thing: a store just before the barrier lengthens the step by its
-//   latency. The backward's band threads hold the non-exit rows (beta in
-//   shared memory at K >= 8), its pool warps the exit rows and the entries'
+//   latency. The backward's band threads hold the non-exit rows, its pool
+//   warps the exit rows and the entries'
 //   max (beta_entry, kept in a ring of 32 and written every 32 steps), read
 //   from the row (dense) or folded from the warps' slots.
 //   First design (simple): K states a thread, entries and band on the same
@@ -1296,21 +1298,19 @@ constexpr int MAX_POOL_WARPS = 8;
 // A factorized pool's cells a lane at most; a build holds 1, 2, 4 or 8 in
 // registers (the plan's bucket; unused cells are skipped).
 constexpr int MAX_CELLS_A_LANE = 8;
-// A team build of 8 states a band thread, or a cluster's, runs at most this
-// many threads (72 registers a thread, not 64 as at 1,024); of 16, at most
-// 768 (80).
-constexpr int MAX_WIDE_THREADS = 896;
-// A state's carry bits (LatticeTopology ints row 3): the new-instance rule
-// of the predecessor its forward step picks, j-2, j-1, state 0 (an all -inf
-// column) or, for an entry, every exit but itself (clear where the rule
-// differs between them: the kernel then reads the word table).
-constexpr unsigned NEW_SUB2 = 1u, NEW_SUB1 = 2u, NEW_FROM0 = 4u, NEW_POOL = 8u;
+// A cluster's CTA runs at most this many threads (72 registers a thread,
+// not 64 as at 1,024).
+constexpr int CLUSTER_THREADS = 896;
+// A state's carry bits (LatticeTopology ints row 3): JAX's new-instance
+// rule of the predecessor its forward step picks, j-2, j-1 or state 0 (an
+// all -inf column).
+constexpr unsigned NEW_SUB2 = 1u, NEW_SUB1 = 2u, NEW_FROM0 = 4u;
 
-// With a dense pool (and below 8 states a band thread) a step is shorter
-// than a read of device memory, so the emissions come through a shared ring
-// of EMIT_AHEAD rows, each thread's own cells copied that many steps ahead
-// by cp.async (no barrier: the thread that copies a cell reads it); else
-// the next step's emissions in registers (the ring measured slower there).
+// With a dense pool a step is shorter than a read of device memory, so
+// the emissions come through a shared ring of EMIT_AHEAD rows, each
+// thread's own cells copied that many steps ahead by cp.async (no barrier:
+// the thread that copies a cell reads it); else the next step's emissions
+// in registers (the ring measured slower there).
 constexpr int EMIT_AHEAD = 8;
 
 __device__ __forceinline__ void copy_ahead(float* dst, const float* src) {
@@ -1355,12 +1355,6 @@ __device__ __forceinline__ void warp_best_ordered(float& v, int& i) {
   i = __shfl_sync(FULL, i, src);
 }
 
-// JAX's new-instance rule (cs304_tpu/ops/lattice.py:263-266) from the word
-// table: predecessor p of state j starts a new word instance.
-__device__ __forceinline__ bool new_instance(const Topo& tp, int p, int j) {
-  return p != j && (tp.i(0, p) != tp.i(0, j) || (p == tp.i(2, j) && j == tp.i(1, j)));
-}
-
 // The team branch's launch: band threads [0, band) K states each (the
 // forward's non-entries, the backward's non-exit rows), then the pool
 // warps (the forward's entry columns, the backward's exit rows). A dense
@@ -1371,21 +1365,15 @@ __device__ __forceinline__ bool new_instance(const Topo& tp, int p, int j) {
 // every warp holding members puts its partial into a parity slot before
 // the barrier. Each role runs a loop of its own (its registers only), one
 // barrier a step. Past 4 states a band thread a cluster of C = 2 or 4 CTAs
-// a pass shares the states (4 a band thread), one cluster barrier a step.
+// a pass shares the states (4 a band thread), one cluster barrier a step;
+// its pool is always folded from the slots (a dense pool's one warp too).
 struct MaxPlan {
   int team, ks, dense, npw, cpl, band, threads, c;
   size_t smem;
 };
 
-// States a band thread for sc states beside npw pool warps (0: none fits).
-int band_states(int sc, int npw, int c) {
-  for (int ks = 1; ks <= 16; ks <<= 1) {
-    const int band = 32 * (((sc + ks - 1) / ks + 31) / 32);
-    const int limit = c > 1 || ks == 8 ? MAX_WIDE_THREADS : ks >= 16 ? 768 : MAX_THREADS;
-    if (band + 32 * npw <= limit) return ks;
-  }
-  return 0;
-}
+// Band threads for sc states at ks states a thread.
+int band_threads(int sc, int ks) { return 32 * (((sc + ks - 1) / ks + 31) / 32); }
 
 MaxPlan max_plan(int S, int nx, int ne) {
   MaxPlan p{};
@@ -1395,30 +1383,33 @@ MaxPlan max_plan(int S, int nx, int ne) {
   const int need = (cells + 32 * p.npw - 1) / (32 * p.npw);
   if (need > MAX_CELLS_A_LANE) return p;
   p.cpl = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  // A pool lane walks its cells one after another: past twice the first
+  // design's states a thread it measured slower than the first design
+  // (700 single-state words at 4 cells a lane, 1,100 at 8), which then
+  // stays. So a build holds at most 2 KS cells a lane.
+  if (p.cpl > 2 * states_per_thread(S)) return p;
   p.c = 1;
-  p.ks = band_states(S, p.npw, 1);
-  if (!p.ks) return p;
+  for (int ks = 1; ks <= 4 && !p.ks; ks <<= 1)
+    if (band_threads(S, ks) + 32 * p.npw <= MAX_THREADS) p.ks = ks;
   // Past 4 states a band thread, a cluster of 2 or 4 CTAs of 4 states a
   // band thread (each CTA's pool sized for every cell: the plan sees only
-  // the counts), where one is built.
-  if (p.ks >= 8 && !p.dense && p.cpl >= 4) {
-    for (int c = 2; c <= 4; c *= 2)
-      if (band_states((S + c - 1) / c, p.npw, c) == 4) {
-        p.c = c;
-        p.ks = 4;
-        break;
-      }
+  // the counts).
+  for (int c = 2; c <= 4 && !p.ks; c <<= 1) {
+    if (band_threads((S + c - 1) / c, 4) + 32 * p.npw <= CLUSTER_THREADS) {
+      p.c = c;
+      p.ks = 4;
+      p.dense = 0;
+    }
   }
-  const int sc = (S + p.c - 1) / p.c;
+  if (!p.ks) return p;
   p.team = 1;
-  p.band = 32 * (((sc + p.ks - 1) / p.ks + 31) / 32);
+  p.band = band_threads((S + p.c - 1) / p.c, p.ks);
   p.threads = p.band + 32 * p.npw;
   // The forward's (the backward needs less): the rows [2][S], the slots
-  // [2][C][32], the score's [C][32], then at K >= 8 the coefficients
-  // [3][S], or with a dense pool the emissions' ring [EMIT_AHEAD][S].
+  // [2][C][32], the score's [C][32], and with a dense pool the emissions'
+  // ring [EMIT_AHEAD][S].
   p.smem = 2 * (size_t)S * sizeof(MaxCell) + 64 * p.c * sizeof(MaxCell) +
-           32 * p.c * sizeof(float) +
-           (p.ks >= 8 ? 3 : p.dense ? EMIT_AHEAD : 0) * (size_t)S * sizeof(float);
+           32 * p.c * sizeof(float) + (p.dense ? EMIT_AHEAD : 0) * (size_t)S * sizeof(float);
   return p;
 }
 
@@ -1488,20 +1479,19 @@ __device__ __forceinline__ void slot_put(V* slot, int par, int warp, int rank, V
 // its exits' last alpha (the score's part). On a cluster j = lo + tid + k nb.
 template <int KS, bool DENSE, int C>
 __device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* rows,
-                                                  MaxCell* slot, float* csm, int nb,
+                                                  MaxCell* slot, float* ring_sm, int nb,
                                                   const Span& sp) {
+  static_assert(KS <= 4, "a band thread holds at most 4 states");
   const Topo& tp = a.tp;
-  const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = tp.S, T = a.T, tid = threadIdx.x, warp = tid >> 5;
   const float pen = a.pen, NEG = neg_inf();
   const float* lb = a.log_b;
   const int tl = min(a.len, T);
-  constexpr bool RING = DENSE && KS < 8;  // the emissions through the ring (csm's place)
+  constexpr bool RING = DENSE;  // the emissions through the shared ring
   float lbn[RING ? 1 : KS];
   unsigned mine = 0, xmask = 0;  // the thread's states, those that are exits
-  unsigned long long bits = 0;
+  unsigned bits = 0;
   BandCoefs<KS> bc;
-  bc.sm = csm;
-  bc.S = S;
   const int lo = sp.lo;
   // A cell the next CTA reads (its j - 1, j - 2) goes into its rows too.
   const int edge = C > 1 && sp.rank + 1 < C ? sp.hi - 2 : S;
@@ -1513,7 +1503,7 @@ __device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* row
       mine |= 1u << k;
       if (tp.is_exit(j)) xmask |= 1u << k;
       bc.set(k, j, tp.c(0, j), tp.c(1, j), tp.c(2, j));
-      bits |= (unsigned long long)(tp.i(3, j) & 7) << (3 * k);
+      bits |= (unsigned)(tp.i(3, j) & 7) << (3 * k);
       rows[j] = MaxCell{NEG, 0};
       if (C > 1 && j >= edge) at_rank(rows, sp.rank + 1)[j] = MaxCell{NEG, 0};
       if (!RING && T > 1) lbn[k] = lb[(size_t)S + j];
@@ -1524,7 +1514,7 @@ __device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* row
 #pragma unroll
       for (int k = 0; k < KS; ++k)
         if (r < tl && (mine >> k & 1u))
-          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + tid + k * nb,
+          copy_ahead(ring_sm + (r & (EMIT_AHEAD - 1)) * S + tid + k * nb,
                      lb + (size_t)r * S + tid + k * nb);
       copy_commit();
     }
@@ -1552,7 +1542,7 @@ __device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* row
     for (int k = 0; k < KS; ++k) {
       if (!(mine >> k & 1u)) continue;
       const int j = lo + tid + k * nb;
-      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + j;
+      float* ring = ring_sm + (t & (EMIT_AHEAD - 1)) * S + j;
       const float lbt = RING ? *ring : lbn[k];
       if (!RING && t + 1 < tl) lbn[k] = lb[(size_t)(t + 1) * S + j];
       const MaxCell m0 = cur[j];
@@ -1560,7 +1550,7 @@ __device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* row
       a.ets[(size_t)(t - 1) * S + j] = m0.e;
       const MaxCell m1 = j >= 1 ? cur[j - 1] : MaxCell{NEG, 0};
       const MaxCell m2 = j >= 2 ? cur[j - 2] : MaxCell{NEG, 0};
-      const unsigned nb3 = (unsigned)(bits >> (3 * k)) & 7u;
+      const unsigned nb3 = bits >> (3 * k) & 7u;
       // The first max over (j-2, j-1, j) and its entry time: t where the
       // pick starts a new instance, else the pick's own.
       float v = j >= 2 ? m2.a + bc.get(k, j, 2) : NEG;
@@ -1615,42 +1605,41 @@ __device__ __forceinline__ float max_band_forward(const MaxArgs& a, MaxCell* row
 }
 
 // The forward's pool lane: the entries pw 32 + l + c 32 npw, each cell's
-// own dense cell d[e] (in the shared table's unused diag_ne slot at K >=
-// 8) and four carry bits loaded once; in a dense pool lane i also holds
-// exit i (its member). Each step: row t - 1's cells stored, the previous
-// row's best exit by (alpha + penalty, lowest index), then every cell
-// against it.
-template <int KS, bool DENSE, int CPL, int C>
+// own dense cell d[e] and its NEW_FROM0 bit loaded once; in a dense pool
+// lane i also holds exit i (its member). Each step: row t - 1's cells
+// stored, the previous row's best exit by (alpha + penalty, lowest index),
+// then every cell against it.
+template <bool DENSE, int CPL, int C>
 __device__ __forceinline__ float max_pool_forward(const MaxArgs& a, MaxCell* rows,
-                                                  MaxCell* slot, float* csm, int nb, int npw,
+                                                  MaxCell* slot, float* ring_sm, int nb, int npw,
                                                   const Span& sp) {
   static_assert(C == 1 || !DENSE, "a cluster's pool folds the warps' slots");
   const Topo& tp = a.tp;
   const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nw = blockDim.x >> 5, nx = tp.n_exits, ne = tp.n_entries;
+  const int nw = blockDim.x >> 5, nx = tp.n_exits;
   const float pen = a.pen, NEG = neg_inf();
   const float* lb = a.log_b;
   const int tl = min(a.len, T);
-  constexpr bool OWN_SM = KS >= 8, RING = DENSE && !OWN_SM;  // csm's place holds the ring
+  constexpr bool RING = DENSE;  // the emissions through the shared ring
   int pe[CPL];
-  float pown[OWN_SM ? 1 : CPL], lbn[RING ? 1 : CPL];
-  unsigned mine = 0, xmask = 0;  // the lane's cells, those that are exits
-  unsigned long long bits = 0;
+  float pown[CPL], lbn[RING ? 1 : CPL];
+  // The lane's cells, those that are exits, those whose all -inf column's
+  // pick (state 0) starts a new instance.
+  unsigned mine = 0, xmask = 0, from0 = 0;
   const int first = sp.e_lo + ((tid - nb) >> 5) * 32 + lane;
   const int edge = C > 1 && sp.rank + 1 < C ? sp.hi - 2 : S;
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     const int i = first + c * 32 * npw;
     pe[c] = i < sp.e_hi ? tp.entries[i] : 0;
-    if (!OWN_SM) pown[c] = 0.f;
+    pown[c] = 0.f;
     if (!RING) lbn[c] = 0.f;
     if (i < sp.e_hi) {
       const int e = pe[c];
       mine |= 1u << c;
       if (tp.is_exit(e)) xmask |= 1u << c;
-      if (OWN_SM) csm[e] = tp.own_cell(e, pen);
-      else pown[c] = tp.own_cell(e, pen);
-      bits |= (unsigned long long)(tp.i(3, e) & 15) << (4 * c);
+      if (tp.i(3, e) & NEW_FROM0) from0 |= 1u << c;
+      pown[c] = tp.own_cell(e, pen);
       rows[e] = MaxCell{lb[e] + tp.c(6, e), 0};
       if (C > 1 && e >= edge) at_rank(rows, sp.rank + 1)[e] = rows[e];
       if (!RING && T > 1) lbn[c] = lb[(size_t)S + e];
@@ -1661,7 +1650,7 @@ __device__ __forceinline__ float max_pool_forward(const MaxArgs& a, MaxCell* row
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
         if (r < tl && (mine >> c & 1u))
-          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + pe[c], lb + (size_t)r * S + pe[c]);
+          copy_ahead(ring_sm + (r & (EMIT_AHEAD - 1)) * S + pe[c], lb + (size_t)r * S + pe[c]);
       copy_commit();
     }
   }
@@ -1722,28 +1711,23 @@ __device__ __forceinline__ float max_pool_forward(const MaxArgs& a, MaxCell* row
     for (int c = 0; c < CPL; ++c) {
       if (!(mine >> c & 1u)) continue;
       const int e = pe[c];
-      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + e;
+      float* ring = ring_sm + (t & (EMIT_AHEAD - 1)) * S + e;
       const float lbt = RING ? *ring : lbn[c];
       if (!RING && t + 1 < tl) lbn[c] = lb[(size_t)(t + 1) * S + e];
-      const unsigned nb4 = (unsigned)(bits >> (4 * c)) & 15u;
       // Every exit, and the entry's own cell at its index (the lowest index
-      // wins a tie: the dense column's first max).
-      const float own = me[c].a + (OWN_SM ? csm[e] : pown[c]);
+      // wins a tie: the dense column's first max). A pool pick other than e
+      // starts a new instance.
+      const float own = me[c].a + pown[c];
       float v;
       int et;
       if (better(own, e, pv, pi)) {
         v = own;
         et = me[c].e;
       } else {
-        // The pick's own entry time only where the rule differs between the
-        // exits (never on a composite); on a cluster from its owner's rows.
         v = pv;
-        et = pi == e ? me[c].e
-             : (nb4 & NEW_POOL) || new_instance(tp, pi, e)
-                 ? t
-                 : (C > 1 ? at_rank(cur, pi / sp.sc) : cur)[pi].e;
+        et = pi == e ? me[c].e : t;
       }
-      if (v == NEG) et = (nb4 & NEW_FROM0) ? t : (C > 1 ? at_rank(cur, 0) : cur)[0].e;
+      if (v == NEG) et = (from0 >> c & 1u) ? t : (C > 1 ? at_rank(cur, 0) : cur)[0].e;
       const float al = v + lbt;
       nxt[e] = MaxCell{al, et};
       if (C > 1 && e >= edge) at_rank(nxt, sp.rank + 1)[e] = MaxCell{al, et};
@@ -1780,36 +1764,32 @@ __device__ __forceinline__ float max_pool_forward(const MaxArgs& a, MaxCell* row
 
 // The backward's band thread: the non-exit rows j = tid + k nb, their
 // coefficients c[j] (diag_ne, or the own cell at an entry), sub1[j+1],
-// sub2[j+2] loaded once; beta and the next emission in registers (at K >=
-// 8 beta in shared memory, and beta_em read back from the row: no spill).
+// sub2[j+2] loaded once; beta and the next emission in registers.
 template <int KS, bool DENSE, int C>
 __device__ __forceinline__ void max_band_backward(const MaxArgs& a, float* buf, float* slot,
-                                                  float* csm, float* bsm, int nb,
-                                                  const Span& sp) {
+                                                  float* ring_sm, int nb, const Span& sp) {
+  static_assert(KS <= 4, "a band thread holds at most 4 states");
   const Topo& tp = a.tp;
-  const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = tp.S, T = a.T, tid = threadIdx.x, warp = tid >> 5;
   const float pen = a.pen, NEG = neg_inf();
   const float* lb = a.log_b;
-  constexpr bool WIDE = KS >= 8, RING = DENSE && !WIDE;  // csm's place holds the ring
-  float beta[WIDE ? 1 : KS], bem[WIDE ? 1 : KS], lbn[RING ? 1 : KS];
+  constexpr bool RING = DENSE;  // the emissions through the shared ring
+  float beta[KS], bem[KS], lbn[RING ? 1 : KS];
   unsigned mine = 0, emask = 0;  // the thread's rows, those that are entries
   BandCoefs<KS> bc;
-  bc.sm = csm;
-  bc.S = S;
   const int lo = sp.lo;
   // A row the previous CTA reads (its j + 1, j + 2) goes into its rows too.
   const int edge = C > 1 && sp.rank > 0 ? lo + 2 : 0;
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
     const int j = lo + tid + k * nb;
-    if (!WIDE) beta[k] = NEG;
+    beta[k] = NEG;
     if (!RING) lbn[k] = 0.f;
     if (j < sp.hi && !tp.is_exit(j)) {
       mine |= 1u << k;
       if (tp.is_entry(j)) emask |= 1u << k;
       bc.set(k, j, tp.is_entry(j) ? tp.own_cell(j, pen) : tp.c(0, j),
              j + 1 < S ? tp.c(1, j + 1) : 0.f, j + 2 < S ? tp.c(2, j + 2) : 0.f);
-      if (WIDE) bsm[j] = NEG;
       if (!RING) lbn[k] = lb[(size_t)(T - 1) * S + j];
     }
   }
@@ -1818,7 +1798,7 @@ __device__ __forceinline__ void max_band_backward(const MaxArgs& a, float* buf, 
 #pragma unroll
       for (int k = 0; k < KS; ++k)
         if (r >= 0 && (mine >> k & 1u))
-          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + lo + tid + k * nb,
+          copy_ahead(ring_sm + (r & (EMIT_AHEAD - 1)) * S + lo + tid + k * nb,
                      lb + (size_t)r * S + lo + tid + k * nb);
       copy_commit();
     }
@@ -1841,13 +1821,13 @@ __device__ __forceinline__ void max_band_backward(const MaxArgs& a, float* buf, 
     for (int k = 0; k < KS; ++k) {
       if (!(mine >> k & 1u)) continue;
       const int j = lo + tid + k * nb;
-      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + j;
-      const float e = (RING ? *ring : lbn[k]) + (term ? NEG : WIDE ? bsm[j] : beta[k]);
+      float* ring = ring_sm + (t & (EMIT_AHEAD - 1)) * S + j;
+      const float e = (RING ? *ring : lbn[k]) + (term ? NEG : beta[k]);
       if (!RING && t >= 1) lbn[k] = lb[(size_t)(t - 1) * S + j];
       bb[j] = e;
       if (C > 1 && j < edge) at_rank(bb, sp.rank - 1)[j] = e;
       if (RING && t >= EMIT_AHEAD) copy_ahead(ring, lb + (size_t)(t - EMIT_AHEAD) * S + j);
-      if (!WIDE) bem[k] = e;
+      bem[k] = e;
       if (!DENSE && (emask >> k & 1u)) mx = fmaxf(mx, e);
     }
     if (RING) copy_commit();
@@ -1861,35 +1841,32 @@ __device__ __forceinline__ void max_band_backward(const MaxArgs& a, float* buf, 
     for (int k = 0; k < KS; ++k) {
       if (!(mine >> k & 1u)) continue;
       const int j = lo + tid + k * nb;
-      const float t0 = bc.get(k, j, 0) + (WIDE ? bb[j] : bem[k]);
+      const float t0 = bc.get(k, j, 0) + bem[k];
       const float t1 = j + 1 < S ? bc.get(k, j, 1) + bb[j + 1] : NEG;
       const float t2 = j + 2 < S ? bc.get(k, j, 2) + bb[j + 2] : NEG;
-      const float v = fmaxf(fmaxf(t0, t1), t2);
-      if (WIDE) bsm[j] = v;
-      else beta[k] = v;
+      beta[k] = fmaxf(fmaxf(t0, t1), t2);
     }
   }
 }
 
 // The backward's pool lane: the exit rows pw 32 + l + c 32 npw with the
-// same coefficients (at K >= 8 in the shared table's unused slots of the
-// exits); in a dense pool lane i also holds entry i (its member). Each
-// step: the entries' max (beta_entry[t], kept in a ring of 32 and written
-// by the first pool warp every 32 steps); penalty + it enters every exit
-// row (the entry x itself is the row's own cell, never below).
-template <int KS, bool DENSE, int CPL, int C>
+// same coefficients; in a dense pool lane i also holds entry i (its
+// member). Each step: the entries' max (beta_entry[t], kept in a ring of
+// 32 and written by the first pool warp every 32 steps); penalty + it
+// enters every exit row (the entry x itself is the row's own cell, never
+// below).
+template <bool DENSE, int CPL, int C>
 __device__ __forceinline__ void max_pool_backward(const MaxArgs& a, float* buf, float* slot,
-                                                  float* bqr, float* csm, int nb, int npw,
+                                                  float* bqr, float* ring_sm, int nb, int npw,
                                                   const Span& sp) {
   static_assert(C == 1 || !DENSE, "a cluster's pool folds the warps' slots");
   const Topo& tp = a.tp;
   const int S = tp.S, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nw = blockDim.x >> 5, nx = tp.n_exits, ne = tp.n_entries;
+  const int nw = blockDim.x >> 5, ne = tp.n_entries;
   const float pen = a.pen, NEG = neg_inf();
   const float* lb = a.log_b;
-  constexpr bool Q_SM = KS >= 8, RING = DENSE && !Q_SM;  // csm's place holds the ring
-  constexpr int NQ = Q_SM ? 1 : CPL;
-  float beta[CPL], lbn[RING ? 1 : CPL], bem[CPL], q0[NQ], q1[NQ], q2[NQ];
+  constexpr bool RING = DENSE;  // the emissions through the shared ring
+  float beta[CPL], lbn[RING ? 1 : CPL], bem[CPL], q0[CPL], q1[CPL], q2[CPL];
   int px[CPL];
   unsigned mine = 0, emask = 0;  // the lane's rows, those that are entries
   const int first = sp.x_lo + ((tid - nb) >> 5) * 32 + lane;
@@ -1900,23 +1877,14 @@ __device__ __forceinline__ void max_pool_backward(const MaxArgs& a, float* buf, 
     px[c] = i < sp.x_hi ? tp.exits[i] : 0;
     beta[c] = 0.f;
     if (!RING) lbn[c] = 0.f;
-    if (!Q_SM) q0[c] = q1[c] = q2[c] = 0.f;
+    q0[c] = q1[c] = q2[c] = 0.f;
     if (i < sp.x_hi) {
       const int x = px[c];
       mine |= 1u << c;
       if (tp.is_entry(x)) emask |= 1u << c;
-      const float c0 = tp.is_entry(x) ? tp.own_cell(x, pen) : tp.c(0, x);
-      const float c1 = x + 1 < S ? tp.c(1, x + 1) : 0.f;
-      const float c2 = x + 2 < S ? tp.c(2, x + 2) : 0.f;
-      if (Q_SM) {
-        csm[x] = c0;
-        csm[S + x] = c1;
-        csm[2 * S + x] = c2;
-      } else {
-        q0[c] = c0;
-        q1[c] = c1;
-        q2[c] = c2;
-      }
+      q0[c] = tp.is_entry(x) ? tp.own_cell(x, pen) : tp.c(0, x);
+      q1[c] = x + 1 < S ? tp.c(1, x + 1) : 0.f;
+      q2[c] = x + 2 < S ? tp.c(2, x + 2) : 0.f;
       if (!RING) lbn[c] = lb[(size_t)(T - 1) * S + x];
     }
   }
@@ -1925,7 +1893,7 @@ __device__ __forceinline__ void max_pool_backward(const MaxArgs& a, float* buf, 
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
         if (r >= 0 && (mine >> c & 1u))
-          copy_ahead(csm + (r & (EMIT_AHEAD - 1)) * S + px[c], lb + (size_t)r * S + px[c]);
+          copy_ahead(ring_sm + (r & (EMIT_AHEAD - 1)) * S + px[c], lb + (size_t)r * S + px[c]);
       copy_commit();
     }
   }
@@ -1944,7 +1912,7 @@ __device__ __forceinline__ void max_pool_backward(const MaxArgs& a, float* buf, 
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
       if (!(mine >> c & 1u)) continue;
-      float* ring = csm + (t & (EMIT_AHEAD - 1)) * S + px[c];
+      float* ring = ring_sm + (t & (EMIT_AHEAD - 1)) * S + px[c];
       bem[c] = (RING ? *ring : lbn[c]) + (term ? 0.f : beta[c]);
       if (!RING && t >= 1) lbn[c] = lb[(size_t)(t - 1) * S + px[c]];
       bb[px[c]] = bem[c];
@@ -1978,18 +1946,16 @@ __device__ __forceinline__ void max_pool_backward(const MaxArgs& a, float* buf, 
     for (int c = 0; c < CPL; ++c) {
       if (!(mine >> c & 1u)) continue;
       const int x = px[c];
-      const float t0 = (Q_SM ? csm[x] : q0[c]) + bem[c];
-      const float t1 = x + 1 < S ? (Q_SM ? csm[S + x] : q1[c]) + bb[x + 1] : NEG;
-      const float t2 = x + 2 < S ? (Q_SM ? csm[2 * S + x] : q2[c]) + bb[x + 2] : NEG;
+      const float t0 = q0[c] + bem[c];
+      const float t1 = x + 1 < S ? q1[c] + bb[x + 1] : NEG;
+      const float t2 = x + 2 < S ? q2[c] + bb[x + 2] : NEG;
       beta[c] = fmaxf(fmaxf(fmaxf(t0, t1), t2), mq);
     }
   }
 }
 
 template <int KS, bool DENSE, int CPL, int C>
-__global__ void __launch_bounds__(C > 1 || KS == 8 ? MAX_WIDE_THREADS
-                                  : KS >= 16           ? 768
-                                                       : MAX_THREADS)
+__global__ void __launch_bounds__(C > 1 ? CLUSTER_THREADS : MAX_THREADS)
     lattice_max_team_kernel(MaxArgs a, int nb, int npw) {
   extern __shared__ __align__(16) unsigned char msm[];
   const int S = a.tp.S, nw = blockDim.x >> 5;
@@ -2000,9 +1966,9 @@ __global__ void __launch_bounds__(C > 1 || KS == 8 ? MAX_WIDE_THREADS
     MaxCell* rows = (MaxCell*)msm;              // [2][S] (alpha, entry time)
     MaxCell* slot = rows + 2 * S;               // [2][C][32] (value, index)
     float* ws = (float*)(slot + 64 * C);        // [C][32], the score
-    float* csm = ws + 32 * C;  // [3][S] at K >= 8, or the emissions' ring [EMIT_AHEAD][S]
-    float mx = band ? max_band_forward<KS, DENSE, C>(a, rows, slot, csm, nb, sp)
-                    : max_pool_forward<KS, DENSE, CPL, C>(a, rows, slot, csm, nb, npw, sp);
+    float* ring = ws + 32 * C;                  // [EMIT_AHEAD][S] with a dense pool
+    float mx = band ? max_band_forward<KS, DENSE, C>(a, rows, slot, ring, nb, sp)
+                    : max_pool_forward<DENSE, CPL, C>(a, rows, slot, ring, nb, npw, sp);
     mx = warp_max(mx);
     if ((threadIdx.x & 31) == 0)
       (C > 1 ? at_rank(ws, 0) : ws)[sp.rank * 32 + (threadIdx.x >> 5)] = mx;
@@ -2017,12 +1983,11 @@ __global__ void __launch_bounds__(C > 1 || KS == 8 ? MAX_WIDE_THREADS
     float* buf = (float*)msm;     // [2][S] beta_em
     float* slot = buf + 2 * S;    // [2][C][32], the entries' max
     float* bqr = slot + 64 * C;   // [32], beta_entry's ring
-    float* csm = bqr + 32;        // as the forward's
-    float* bsm = csm + 3 * S;     // [S], the band's beta at K >= 8
+    float* ring = bqr + 32;       // as the forward's
     if (band) {
-      max_band_backward<KS, DENSE, C>(a, buf, slot, csm, bsm, nb, sp);
+      max_band_backward<KS, DENSE, C>(a, buf, slot, ring, nb, sp);
     } else {
-      max_pool_backward<KS, DENSE, CPL, C>(a, buf, slot, bqr, csm, nb, npw, sp);
+      max_pool_backward<DENSE, CPL, C>(a, buf, slot, bqr, ring, nb, npw, sp);
     }
   }
 }
@@ -2920,29 +2885,28 @@ cudaError_t launch_max_team(const MaxArgs& a, const MaxPlan& p, cudaStream_t st)
   return cudaLaunchKernelEx(&cfg, kernel, a, p.band, p.npw);
 }
 
+// A factorized pool's build: its cells a lane, at most 2 KS (max_plan).
+template <int KS, int C>
+cudaError_t launch_max_team_cells(const MaxArgs& a, const MaxPlan& p, cudaStream_t st) {
+  if (p.cpl == 1) return launch_max_team<KS, false, 1, C>(a, p, st);
+  if (p.cpl == 2) return launch_max_team<KS, false, 2, C>(a, p, st);
+  if constexpr (KS >= 2) {
+    if (p.cpl == 4) return launch_max_team<KS, false, 4, C>(a, p, st);
+  }
+  if constexpr (KS >= 4) {
+    if (p.cpl == 8) return launch_max_team<KS, false, 8, C>(a, p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int KS>
 cudaError_t launch_max_team_pool(const MaxArgs& a, const MaxPlan& p, cudaStream_t st) {
   if (p.dense) return launch_max_team<KS, true, 1, 1>(a, p, st);
   if constexpr (KS == 4) {  // the cluster builds
-    if (p.c == 2) {
-      return p.cpl == 4 ? launch_max_team<4, false, 4, 2>(a, p, st)
-                        : launch_max_team<4, false, 8, 2>(a, p, st);
-    }
-    if (p.c == 4) {
-      return p.cpl == 4 ? launch_max_team<4, false, 4, 4>(a, p, st)
-                        : launch_max_team<4, false, 8, 4>(a, p, st);
-    }
+    if (p.c == 2) return launch_max_team_cells<4, 2>(a, p, st);
+    if (p.c == 4) return launch_max_team_cells<4, 4>(a, p, st);
   }
-  switch (p.cpl) {
-    case 1:
-      return launch_max_team<KS, false, 1, 1>(a, p, st);
-    case 2:
-      return launch_max_team<KS, false, 2, 1>(a, p, st);
-    case 4:
-      return launch_max_team<KS, false, 4, 1>(a, p, st);
-    default:
-      return launch_max_team<KS, false, 8, 1>(a, p, st);
-  }
+  return launch_max_team_cells<KS, 1>(a, p, st);
 }
 
 // LMAX: log_b (T, S), the topology (coefs, ints with the carry bits, the
@@ -2977,14 +2941,8 @@ extern "C" int cs304_lattice_max(const void* log_b, const void* coefs, const voi
       case 2:
         e = launch_max_team_pool<2>(a, p, st);
         break;
-      case 4:
-        e = launch_max_team_pool<4>(a, p, st);
-        break;
-      case 8:
-        e = launch_max_team_pool<8>(a, p, st);
-        break;
       default:
-        e = launch_max_team_pool<16>(a, p, st);
+        e = launch_max_team_pool<4>(a, p, st);
         break;
     }
     if (e != cudaSuccess) return (int)e;

@@ -87,9 +87,9 @@ def _host(x, dtype):
     return np.asarray(x, dtype)
 
 
-# A state's carry bits (ints row 3): JAX's new-instance rule for each
+# A state's carry bits (ints row 3): JAX's new-instance rule for each band
 # predecessor its forward step can pick (csrc/trellis_lattice.cu NEW_*).
-NEW_SUB2, NEW_SUB1, NEW_FROM0, NEW_POOL = 1, 2, 4, 8
+NEW_SUB2, NEW_SUB1, NEW_FROM0 = 1, 2, 4
 
 
 def new_instance(p, j, word, lower, upper):
@@ -100,13 +100,14 @@ def new_instance(p, j, word, lower, upper):
 
 
 def carry_bits(word, lower, upper, is_entry, is_exit) -> np.ndarray:
-    """(S,) int32: for each state, new_instance of each predecessor its
-    forward step can pick, as bits: NEW_SUB2 j-2 and NEW_SUB1 j-1 (a
+    """(S,) int32: for each state, new_instance of each band predecessor
+    its forward step can pick, as bits: NEW_SUB2 j-2 and NEW_SUB1 j-1 (a
     non-entry's band), NEW_FROM0 state 0 (an all -inf column picks the
-    first index), NEW_POOL every exit but j (an entry's pool pick; clear
-    where that rule differs between the exits, and the kernel reads the word
-    table). LMAX's team branch takes the entry time t or the pick's own
-    from them, with no load at the pick."""
+    first index). LMAX's team branch takes the entry time t or the pick's
+    own from them, with no load at the pick. An entry's pool pick (any exit
+    but the entry itself) always starts a new instance: a topology where
+    it would not (an entry that is not its word's first state, or an exit
+    that is not its word's last) raises ValueError."""
     word, lower, upper = (np.asarray(x, np.int64) for x in (word, lower, upper))
     j = np.arange(len(word))
 
@@ -121,8 +122,10 @@ def carry_bits(word, lower, upper, is_entry, is_exit) -> np.ndarray:
         # Only the exits of e's own word can differ from "new" (another
         # word's pick always is).
         own = exits[(exits != e) & (word[exits] == word[e])]
-        if new_instance(own, np.full_like(own, e), word, lower, upper).all():
-            bits[e] |= NEW_POOL
+        if not new_instance(own, np.full_like(own, e), word, lower, upper).all():
+            raise ValueError(f"entry {e}: a pool pick from its own word's exits {own.tolist()} "
+                             "would continue the word instance (each word needs its entry "
+                             "first and its one exit last)")
     return bits.astype(np.int32)
 
 
@@ -567,9 +570,10 @@ def lattice_max_plan(s: int, n_exits: int, n_entries: int) -> dict:
     the first design, where the pool's cells or the threads do not fit),
     states a band thread (a thread on the simple branch), the pool ("dense":
     one pool warp reading its members after the barrier; "factorized": the
-    members' partials in parity slots), pool warps, threads a block, the
-    build's cells a pool lane and the CTAs a pass (a cluster past one,
-    where one CTA would take 8 or 16 states a band thread)."""
+    members' partials in parity slots; always on a cluster), pool warps,
+    threads a block, the build's cells a pool lane and the CTAs a pass (a
+    cluster of 2 or 4 at 4 states a band thread, where one CTA's band would
+    need more)."""
     b, k, dense, npw, threads, cpl, ctas = _plan(_build.load().cs304_lattice_max_plan, s,
                                                  n_exits, n_entries, n=7)
     return {"branch": ("team", "simple")[b], "k": k,

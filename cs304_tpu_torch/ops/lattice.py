@@ -414,35 +414,6 @@ def word_confidences(composite, features, log_b=None, skip_silence: bool = True,
     return out
 
 
-def _uppers_on(composite, dev):
-    """composite.uppers (each word's exit state) as an index on dev,
-    uploaded once and kept on the composite as topology_of keeps the
-    topology (an upload a call is a synchronous copy)."""
-    dev = torch.device(dev)
-    cache = composite.__dict__.setdefault("_lattice_uppers", {})
-    key = (str(dev), id(composite.uppers))
-    if key not in cache:
-        cache[key] = torch.as_tensor(np.asarray(composite.uppers, np.int64), device=dev)
-    return cache[key]
-
-
-def _exit_columns(composite, alphas, ets, beta_entry, score, t_total: int):
-    """What the forward lattice reads of the max-plus passes, on the host:
-    alpha and entry time at each word's exit (T, W) for the first t_total
-    frames, beta_entry (T,) and the score, gathered on the passes' device
-    and read back in one copy (not the (T, S) pair)."""
-    uppers = _uppers_on(composite, alphas.device)
-    a_exit = torch.index_select(alphas[:t_total], 1, uppers)
-    st_exit = torch.index_select(ets[:t_total], 1, uppers)
-    packed = torch.cat([a_exit.reshape(-1).view(torch.int32), st_exit.reshape(-1),
-                        beta_entry.view(torch.int32), score.reshape(1).view(torch.int32)])
-    packed = packed.cpu().numpy()
-    n = a_exit.numel()
-    return (packed[:n].view(np.float32).reshape(a_exit.shape),
-            packed[n: 2 * n].reshape(a_exit.shape),
-            packed[2 * n: -1].view(np.float32), float(packed[-1:].view(np.float32)[0]))
-
-
 def _lattice_arcs(composite, a_exit, st_exit, beta_entry, best_total, beam, t_total):
     """The forward lattice's arcs {(start, end, word): score} from the exit
     columns: every (frame t, word w) whose best complete path ending w at t
@@ -478,9 +449,11 @@ def forward_lattice(composite, features, beam: float = 50.0, log_b=None,
     if t_total < 2 and feats.shape[0] > t_total:
         raise ValueError("padded forward_lattice needs length >= 2")
     log_b, _dev = emissions_of(composite, feats, log_b, device)
-    cols = _exit_columns(composite, *_lattice_passes(composite, log_b.contiguous(), t_total),
-                         t_total)
-    arcs = _lattice_arcs(composite, *cols, beam, t_total)
+    alphas, ets, beta_entry, score = _lattice_passes(composite, log_b.contiguous(), t_total)
+    uppers = np.asarray(composite.uppers)
+    arcs = _lattice_arcs(composite, alphas.cpu().numpy()[:t_total, uppers],
+                         ets.cpu().numpy()[:t_total, uppers], beta_entry.cpu().numpy(),
+                         float(score), beam, t_total)
     lam = None
     if posteriors:
         lam = word_end_log_posteriors(composite, feats, log_b=log_b, length=t_total)

@@ -52,8 +52,9 @@ cells, the rest within 1e-5 * max(1, |x|) of its plain version; LMAX and
 KBEST bitwise; 58, 503 and 5003 states, single-state words under both
 penalty cases, length-1 and -2 rows, pools of 1, 31, 32 and 33 members,
 KBEST at K = 1, 2, 4, 6, 8, 16, 32 and 33, T = 1; LSUM, LMAX and KBEST on
-their team branch and on the forced simple branch, LMAX with signs of zero
-and at 8188 states too) and the decoder's
+their team branch and on the forced simple branch, LMAX with signs of zero,
+at 1503, 3003 and 8188 states too and on every build of its team branch)
+and the decoder's
 confidences, n-best, forward lattice and keyword passes launching them
 with no plain loop on the card; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
@@ -2089,9 +2090,10 @@ def _lattice_composite(counts, penalty):
 
 # name: (composite (None: the flagship), B, T, integer-valued log_b); the
 # single-state words' self-loop (0) beats a -25 penalty and a 0 penalty
-# beats it; 503 and 5003 states (LSUM's factorized pools, at 8 states a band
-# thread at 5003; KBEST past 32 exits on the simple branch, its rows in a
-# device scratch at K = 16); pools of 1, 31, 32 and 33 members around
+# beats it; 503, 1503, 3003 and 5003 states (LSUM's factorized pools, at 8
+# states a band thread at 5003; KBEST past 32 exits on the simple branch,
+# its rows in a device scratch at K = 16; LMAX at 1, 2 and 4 states a band
+# thread and on a cluster); pools of 1, 31, 32 and 33 members around
 # DENSE_POOL_MAX (KBEST's team branch up to 32 exit rows).
 LATTICE_CASES = {
     "flagship": (None, 16, 120, False),
@@ -2099,6 +2101,8 @@ LATTICE_CASES = {
     "single-state-words": (([1, 3, 1, 5, 1, 3], -25.0), 8, 50, True),
     "single-state-pool-beats": (([1, 3, 1, 5, 1, 3], 0.0), 8, 50, True),
     "503": (([5] * 100 + [3], -100.0), 4, 80, False),
+    "1503": (([5] * 300 + [3], -100.0), 2, 40, False),
+    "3003": (([5] * 600 + [3], -100.0), 2, 30, False),
     "5003": (([5] * 1000 + [3], -100.0), 2, 30, False),
     "pool-1": (([2], -25.0), 4, 40, False),
     "pool-31": (([2, 1] * 15 + [3], -25.0), 4, 40, True),
@@ -2108,13 +2112,45 @@ LATTICE_CASES = {
 # KBEST's K: every bucket (1, 2, 4, 8, 16, 32; 6 in the 8 bucket) and one
 # past the largest (the simple branch).
 KBEST_KS = (1, 2, 4, 6, 8, 16, 32, 33)
-# LMAX's pool on its team branch: dense up to 32 exits and entries (one pool
-# warp reading them after the barrier), factorized past them; 5003 states
-# take a cluster of two CTAs a pass (one CTA would hold 8 states a thread).
-LMAX_POOLS = {"flagship": "dense", "flagship-ties": "dense", "single-state-words": "dense",
-              "single-state-pool-beats": "dense", "503": "factorized", "5003": "factorized",
-              "pool-1": "dense", "pool-31": "dense", "pool-32": "dense",
-              "pool-33": "factorized"}
+# LMAX's team plan at each case: (states a band thread, the pool, cells a
+# pool lane, CTAs a pass). The pool is dense up to 32 exits and entries (one
+# pool warp reading them after the barrier), factorized past them; 5003
+# states take a cluster of two CTAs a pass (one CTA's band would need more
+# than 4 states a thread).
+_DENSE1 = (1, "dense", 1, 1)
+LMAX_PLANS = {"flagship": _DENSE1, "flagship-ties": _DENSE1, "single-state-words": _DENSE1,
+              "single-state-pool-beats": _DENSE1, "503": (1, "factorized", 1, 1),
+              "1503": (2, "factorized", 2, 1), "3003": (4, "factorized", 4, 1),
+              "5003": (4, "factorized", 4, 2), "pool-1": _DENSE1, "pool-31": _DENSE1,
+              "pool-32": _DENSE1, "pool-33": (1, "factorized", 1, 1)}
+# Every other build of LMAX's team branch (lattice_max_team_kernel<states a
+# band thread, dense pool, cells a pool lane, CTAs>) on a composite whose
+# plan takes it: word state counts -> (branch, that plan). A dense pool of
+# long words past 4 states a band thread is folded on a cluster like a
+# factorized one. Past twice the first design's states a thread in cells a
+# pool lane the first design stays (the simple cases).
+LMAX_BUILDS = {
+    "k1-cells2": ([2] * 300, ("team", 1, "factorized", 2, 1)),
+    "simple-700-single-state-words": ([1] * 700, ("simple", 1, "factorized", 1, 1)),
+    "k2-dense": ([50] * 30, ("team", 2, "dense", 1, 1)),
+    "k2-cells1": ([10] * 150, ("team", 2, "factorized", 1, 1)),
+    "k2-cells4": ([2] * 700, ("team", 2, "factorized", 4, 1)),
+    "simple-1100-single-state-words": ([1] * 1100, ("simple", 2, "factorized", 1, 1)),
+    "k4-dense": ([100] * 30, ("team", 4, "dense", 1, 1)),
+    "k4-cells1": ([20] * 150, ("team", 4, "factorized", 1, 1)),
+    "k4-cells2": ([7] * 400, ("team", 4, "factorized", 2, 1)),
+    "k4-cells8": ([2] * 1100, ("team", 4, "factorized", 8, 1)),
+    "cluster2-long-words": ([250] * 20, ("team", 4, "factorized", 1, 2)),
+    "cluster2-cells2": ([12] * 400, ("team", 4, "factorized", 2, 2)),
+    "cluster2-cells8": ([4] * 1100, ("team", 4, "factorized", 8, 2)),
+    "cluster4-long-words": ([400] * 20, ("team", 4, "factorized", 1, 4)),
+    "cluster4-cells2": ([20] * 400, ("team", 4, "factorized", 2, 4)),
+    "cluster4-cells4": ([8] * 1000, ("team", 4, "factorized", 4, 4)),
+}
+
+
+def _lmax_plan_key(plan):
+    return plan["branch"], plan["k"], plan["pool"], plan["cells_a_lane"], plan["ctas"]
 
 
 def _bits_equal(a, b):
@@ -2157,8 +2193,7 @@ def test_lattice_kernels_match_plain(dev, case):
             assert ((g - w)[fin].abs() <= 1e-5 * w[fin].abs().clamp(min=1.0)).all()
     assert torch.isfinite(want[3]).all()
     plan = tlk.lattice_max_plan(s, n_x, n_e)
-    assert (plan["branch"], plan["pool"], plan["ctas"]) == (
-        "team", LMAX_POOLS[case], 2 if case == "5003" else 1), plan
+    assert _lmax_plan_key(plan) == ("team", *LMAX_PLANS[case]), plan
     for length in (t, 2):
         want = tlk.lattice_max_passes_plain(lb[0], topo, comp.penalty, length)
         for simple in (False, True):
@@ -2194,6 +2229,36 @@ def test_lattice_max_at_its_widest(dev):
     gen = torch.Generator(device=dev).manual_seed(8188)
     lb = 3 * torch.randn((30, s), generator=gen, device=dev)
     for length in (30, 17):
+        want = tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length)
+        assert torch.isfinite(want[3])
+        for simple in (False, True):
+            got = tlk.lattice_max_passes(lb, topo, comp.penalty, length, simple=simple)
+            assert all(_bits_equal(g, w) for g, w in zip(got, want)), (length, simple)
+
+
+@pytest.mark.parametrize("build", sorted(LMAX_BUILDS))
+def test_lattice_max_team_builds_match_plain(dev, build):
+    """Each build of LMAX's team branch that LATTICE_CASES and the widest
+    case leave out, and the pools whose lanes would hold too many cells
+    for it (LMAX_BUILDS, the plan asserted), bitwise the plain version,
+    signs of zero included, on the planned branch and on the simple one:
+    random emissions at the full length, integer-valued ones (ties) at two
+    thirds of it; T at least a word's states, so that every word can be
+    walked through."""
+    from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+    counts, want_plan = LMAX_BUILDS[build]
+    comp = _lattice_composite(counts, -100.0)
+    topo = tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit,
+                                comp.word_of_state, device=dev)
+    s = comp.num_states
+    plan = tlk.lattice_max_plan(s, topo.exits.numel(), topo.entries.numel())
+    assert _lmax_plan_key(plan) == want_plan, plan
+    gen = torch.Generator(device=dev).manual_seed(s)
+    t = max(16, max(counts))
+    inputs = ((3 * torch.randn((t, s), generator=gen, device=dev), t),
+              (torch.randint(-3, 1, (t, s), generator=gen, device=dev).float(), 2 * t // 3))
+    for lb, length in inputs:
         want = tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length)
         assert torch.isfinite(want[3])
         for simple in (False, True):

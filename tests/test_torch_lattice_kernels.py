@@ -587,20 +587,22 @@ def test_lmax_kernel_order_is_bitwise_plain(name, ties):
 INT_MAX, INT_MIN = 2**31 - 1, -2**31
 
 
-def _lmax_plan(s, n_x, n_e, ks=None):
-    """csrc/trellis_lattice.cu max_plan on one CTA (the cluster of CTAs it
-    takes past 4 states a band thread shares the states, not the order):
-    (states a band thread, band threads, pool warps, dense pool, cells a
-    pool lane); ks pins the band's states a thread."""
-    dense = n_x <= 32 and n_e <= 32
-    npw = 1 if dense else min(-(-max(n_x, n_e) // 32), 8)
+def _lmax_plan(s, n_x, n_e, ks=None, cluster=False):
+    """csrc/trellis_lattice.cu max_plan on one CTA: (states a band thread,
+    band threads, pool warps, dense pool, cells a pool lane); ks pins the
+    band's states a thread. cluster: the step order of a cluster plan (4
+    states a band thread, the pool folded from the warps' slots even where
+    it is dense); a cluster's CTAs share the states, and its fold by keys
+    over every CTA's warps picks what one CTA's fold does."""
+    dense = n_x <= 32 and n_e <= 32 and not cluster
+    npw = 1 if n_x <= 32 and n_e <= 32 else min(-(-max(n_x, n_e) // 32), 8)
     need = -(-max(n_x, n_e) // (32 * npw))
     cpl = next(c for c in (1, 2, 4, 8) if need <= c)
-    for k in (1, 2, 4, 8, 16) if ks is None else (ks,):
+    for k in (1, 2, 4) if ks is None and not cluster else (4 if cluster else ks,):
         band = 32 * -(-(-(-s // k)) // 32)
-        if ks is not None or band + 32 * npw <= (896 if k >= 8 else 1024):
+        if ks is not None or cluster or band + 32 * npw <= 1024:
             return k, band, npw, dense, cpl
-    raise AssertionError("no team plan")
+    raise AssertionError("no one-CTA plan")
 
 
 def _f32_bits(v):
@@ -645,7 +647,7 @@ def _better(v, i, bv, bi):
     return v > bv or (v == bv and i < bi)
 
 
-def lmax_team_emulated(log_b, comp, length, ks=None):
+def lmax_team_emulated(log_b, comp, length, ks=None, cluster=False):
     """LMAX's team branch (csrc/trellis_lattice.cu max_team_forward and
     max_team_backward) in numpy float32, thread by thread and warp by warp:
     band threads holding the non-entries (the forward) or non-exit rows (the
@@ -658,21 +660,20 @@ def lmax_team_emulated(log_b, comp, length, ks=None):
     first lane at the largest key, the lanes' indices ascending) or folded
     from each warp's partial (factorized: each lane's exits in order, then
     the warp's best, the first lane's at one state or cell a lane, else the
-    lowest index at the key, in a slot a warp); an entry's own
-    cell against it (the lowest index on a tie), a pool pick's entry time t
-    by NEW_POOL. Backward: the entries' max (beta_entry) by keys, from the
-    entries' lanes or folded from each warp's partial max; a row's
+    lowest index at the key, in a slot a warp; always on a cluster); an
+    entry's own cell against it (the lowest index on a tie), a pool pick
+    other than the entry itself with entry time t. Backward: the entries'
+    max (beta_entry) by keys, from the entries' lanes or folded from each
+    warp's partial max; a row's
     max(max(t0, t1), t2), an exit's with penalty + that max. Returns
     (alphas, ets, beta_entry, score)."""
     topo = _topo(comp)
     coefs, bits = topo.coefs.numpy(), topo.ints.numpy()[3]
     c0, c1, c2, de, entry, exit_, dinit = coefs[:7]
     entry, exit_ = entry > 0, exit_ > 0
-    word, lower = comp.word_of_state, comp.lower_of_state
-    upper = np.asarray(comp.uppers)[word]
     exits, entries = np.flatnonzero(exit_), np.flatnonzero(entry)
     t_total, s = log_b.shape
-    ks, nb, npw, dense, cpl = _lmax_plan(s, len(exits), len(entries), ks)
+    ks, nb, npw, dense, cpl = _lmax_plan(s, len(exits), len(entries), ks, cluster)
     nw = nb // 32 + npw
     pen, neg = np.float32(comp.penalty), np.float32(-np.inf)
     own_cell = np.where(entry, np.maximum(np.where(exit_, pen, neg), de), neg).astype(np.float32)
@@ -728,11 +729,8 @@ def lmax_team_emulated(log_b, comp, length, ks=None):
                     own = alpha[j] + own_cell[j]
                     if _better(own, j, pv, pi):
                         v, e = own, et[j]
-                    elif pi == j:
-                        v, e = pv, et[j]
                     else:
-                        fresh = b & tlk.NEW_POOL or tlk.new_instance(pi, j, word, lower, upper)
-                        v, e = pv, (t if fresh else et[pi])
+                        v, e = pv, (et[j] if pi == j else t)
                 if v == neg:
                     e = t if b & tlk.NEW_FROM0 else et[0]
                 new[j], new_et[j] = v + log_b[t, j], e
@@ -787,20 +785,22 @@ def _bits_equal(got, want):
 
 @pytest.mark.parametrize("name", sorted({**COMPOSITES, **FACTORIZED}))
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("ks", [None, 4])
+@pytest.mark.parametrize("ks", [None, 4, "cluster"])
 def test_lmax_team_order_is_bitwise_plain(name, ties, ks):
     """The team branch's step order (lmax_team_emulated, the plan's states
-    a band thread or 4) bitwise lattice_max_passes_plain, signs of zero
-    included: alphas, entry times, beta_entry and score at a length below
-    T, at the full length and at T = 1; a dense pool up to 32 exits, the
-    warps' partial folds past them (the 40-word composites)."""
+    a band thread, 4, or a cluster plan's order: 4 and the pool always
+    folded from the warps' slots) bitwise lattice_max_passes_plain, signs
+    of zero included: alphas, entry times, beta_entry and score at a length
+    below T, at the full length and at T = 1; a dense pool up to 32 exits,
+    the warps' partial folds past them (the 40-word composites)."""
     comp = _comp(name)
     rng = np.random.default_rng(11 + ties)
     for t, length in ((24, 17), (24, 24), (1, 1)):
         log_b = _log_b(rng, (t, comp.num_states), ties)
         want = tlk.lattice_max_passes_plain(torch.as_tensor(log_b), _topo(comp), comp.penalty,
                                             length)
-        got = lmax_team_emulated(log_b, comp, length, ks)
+        got = lmax_team_emulated(log_b, comp, length, None if ks == "cluster" else ks,
+                                 cluster=ks == "cluster")
         for g, w in zip(got, want):
             assert _bits_equal(g, w.numpy()), (t, length)
         assert t == 1 or np.isfinite(got[3])
@@ -812,8 +812,8 @@ def test_carry_bits_are_jax_new_instance_rule(name):
     (cs304_tpu/ops/lattice.py:263-266, evaluated by jnp on a column of
     picks) for every predecessor each state's forward step can pick: j-2
     and j-1 (a non-entry's band), state 0 (an all -inf column) and, for an
-    entry, every exit but itself (NEW_POOL, set at every entry of these
-    composites: the kernel never reads the word table)."""
+    entry, every exit but itself (no bit: the team branch takes t for such
+    a pick, and the rule marks each of them new on these composites)."""
     comp = _comp(name)
     bits = _topo(comp).ints.numpy()[3]
     s = comp.num_states
@@ -841,8 +841,31 @@ def test_carry_bits_are_jax_new_instance_rule(name):
     pool_new = np.ones(s, bool)
     for x in np.flatnonzero(comp.is_exit):
         pool_new &= jax_rule(np.full(s, x)) | (j == x)
-    np.testing.assert_array_equal(bits[entries] & tlk.NEW_POOL != 0, pool_new[entries])
     assert pool_new[entries].all()
+    assert not (bits & ~(tlk.NEW_SUB2 | tlk.NEW_SUB1 | tlk.NEW_FROM0)).any()
+
+
+@pytest.mark.parametrize("where", ["exit-inside-a-word", "entry-inside-a-word"])
+def test_topology_whose_pool_pick_continues_a_word_raises(where):
+    """lattice_topology refuses a topology where an entry's pool pick (an
+    exit of its own word) would continue the word instance by JAX's rule:
+    an exit before its word's last state, or an entry after its word's
+    first. The team branch takes t for every pool pick but the entry
+    itself."""
+    comp = _comp("three-words")
+    is_entry, is_exit = np.array(comp.is_entry), np.array(comp.is_exit)
+    lower = np.asarray(comp.lower_of_state)
+    word = np.asarray(comp.word_of_state)
+    w = int(np.argmax(np.bincount(word)))  # the longest word
+    first = int(np.flatnonzero(word == w)[0])
+    if where == "exit-inside-a-word":
+        is_exit[first + 1] = True
+    else:
+        is_entry[first + 1] = True
+    # The unchanged topology is taken.
+    tlk.lattice_topology(comp.log_a, lower, comp.is_entry, comp.is_exit, word)
+    with pytest.raises(ValueError, match="continue the word instance"):
+        tlk.lattice_topology(comp.log_a, lower, is_entry, is_exit, word)
 
 
 # -- dispatch -------------------------------------------------------------------

@@ -197,7 +197,8 @@ Phases (each prints its own numbers; any failure exits non-zero):
               phase 8's corpus against the fused one (atol 2e-5 / 5e-5,
               rtol 1e-4); map_adapt means card against CPU within 1e-4;
               viterbi_composite_assoc against the sequential dense decode
-              (rtol 1e-4 / atol 1e-3, paths equal)
+              (rtol 1e-4 / atol 1e-3, paths equal); the legacy Baum-Welch
+              pass launching FBD once a transcript
  25. DTW      the column kernel (csrc/dtw.cu) bitwise dtw_columns_plain with
               and without pruning: the 11 digits' templates from phase 9's
               corpus (4 takes each, H ~ 1,100) against a digit and against
@@ -256,6 +257,12 @@ Phases (each prints its own numbers; any failure exits non-zero):
               LMAX launched), train_phones,
               demo_serving (project3_predict and the penalty sweep where
               matplotlib is installed; their classifier checked either way);
+              project3_train --gmm-mixtures 4 --baum-welch (one
+              iteration of each trainer) on the card (K3 and one FBD launch
+              a word) and with --device cpu (no card kernel), the models
+              within tests/test_torch_cli_train_gmm.py's bound (BW_BOUND),
+              and project6_interactive --rescore-lm (LMAX, and K3 for the
+              arc scores);
               n-digit CSV accuracy >= 0.9, align 3 7 5, transcripts equal to
               the decoder's, project6_train bitwise the trainer's, the CPU
               run equal and off the card, each script's kernels launched,
@@ -320,9 +327,37 @@ Phases (each prints its own numbers; any failure exits non-zero):
               turns p n n p beside the first design (simple=True) with the
               skeleton's µs a step (the step's barriers and shared
               exchanges alone)
+ 32. slice 10 FBD, the dense forward-backward (csrc/forward_backward.cu),
+              against its plain version in its forward, backward and
+              posteriors modes, one launch each, every output bitwise
+              (where gamma or xi is not: W5's measure and a probe of
+              which side's xi sums the correctly rounded exp terms,
+              logged before failing; FBD's expf against torch.exp on
+              4,096 subnormal results and 2^20 values in [-103.9,
+              -17.5] logged): the word shape (B=256, T=128,
+              S=5, a uniform upper-triangular log_a, no final), its banded
+              matrix with a pinned final, S=1, S=2 at T=1, an all -inf
+              column, S=128 (the cap), lengths 0, 1 and past T, and the
+              legacy trainer's largest call (one fused=False Baum-Welch
+              iteration at phase 8's corpus, pinned final); each mode's
+              device time at the word shape and the legacy one beside its
+              plain loop's eager time, bound and µs a chain step;
+              isolated-word Baum-Welch at full width (the slice's main
+              path: train_gmm_hmm_baum_welch, K = 4, phase 9's 11 words, all
+              of a word's clips in one batch, from k-means models trained
+              on the card): one FBD launch an iteration, no plain loop on
+              the card, the parameters within BW_BOUND of a CPU run from the
+              same models; an iteration's wall and project3_train
+              --gmm-mixtures 4 --baum-welch's, with FBD and with the plain
+              loop on the card, in turns; lattice_rescore on phase 22's clip
+              0 (a bigram of the pipeline's transcripts): arc scores
+              bitwise the CPU's, one K3 launch for all arcs a call, the same
+              best path; viterbi_composite_assoc on 4 clips: one K2-bt
+              launch a decode, paths equal to the sequential decode's and
+              the CPU's
 Kernel and library times are device times from CUDA-graph replays
 (device_ms); plain versions run eagerly (cuda_ms), host loops included.
-The line before the last is the kernels' JSON record (twenty kernels, each with
+The line before the last is the kernels' JSON record (twenty-one kernels, each with
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last line is
 {"ok": true, "device": {...}}. Needs torch with CUDA, nvcc, one card.
@@ -903,6 +938,7 @@ def main():
     phone_tier_phase(dev, smi)
     cli_phase(dev, smi)
     data_parallel_phase(dev, smi, decode, pipe)
+    slice10_phase(dev, pipe, launches, timings, errs, yardsticks, smi)
     report(kind, launches, timings, errs, yardsticks)
 
 
@@ -4258,6 +4294,7 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
     from cs304_tpu_torch.models.train_kmeans import SegmentalKMeansConfig
     from cs304_tpu_torch.ops import viterbi as vt
     from cs304_tpu_torch.ops.cuda import dtw as cdtw
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
     from cs304_tpu_torch.ops.cuda import trellis_banded as tb
     from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
     from cs304_tpu_torch.ops.dtw import DTWRecognizer, dtw_columns_plain, pairwise_euclidean
@@ -4401,12 +4438,14 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
                                         cov_reg=0.1, update=update, fused=fused)
             tr = ContinuousTrainer(dict(pipe["boot"]), cfg, device=dev)
             before = k3_counts()
+            fbd_before = fbd.fb_dense.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tr.train(pipe["labeled"])
             torch.cuda.synchronize()
             secs[fused] = time.perf_counter() - t0
-            trained[fused] = (tr, k3_delta(before))
+            trained[fused] = (tr, {**k3_delta(before),
+                                   "fb_dense": fbd.fb_dense.launches - fbd_before})
         worst, ok = 0.0, True
         for n in ("means_g", "covs_g", "log_a_g"):
             x, y = getattr(trained[False][0], n), getattr(trained[True][0], n)
@@ -4452,6 +4491,12 @@ def slice4b_phases(dev, decode, pipe, launches, timings, errs, yardsticks):
             raise SystemExit(f"one legacy {update} iteration differs from the fused one")
         if update == "viterbi" and trained[False][1]["banded_decode"] != len(pipe["labeled"]):
             raise SystemExit("the legacy Viterbi pass did not launch K3 once a transcript")
+        # The legacy Baum-Welch pass: one FBD launch a transcript group.
+        want_fbd = len(pipe["labeled"]) if update == "baum_welch" else 0
+        if trained[False][1]["fb_dense"] != want_fbd or trained[True][1]["fb_dense"]:
+            raise SystemExit(f"the legacy {update} pass launched FBD "
+                             f"{trained[False][1]['fb_dense']} times for {want_fbd} "
+                             f"transcripts (the fused one {trained[True][1]['fb_dense']})")
 
     off = np.zeros(39, np.float32)
     off[:13] = np.random.default_rng(24).normal(0, 0.8, 13)
@@ -5109,6 +5154,7 @@ CLI_ACC_BAR = 0.9  # tests/test_cli_chain.py:106, the n-digit CSVs
 CLI_BUDGET_S = 60.0  # what phase 28 may add to the script's run
 CLI_KMEANS = ["--set", "train.max_iterations=6", "--set", "train.length_multiple=32"]
 CLI_EMBEDDED = ["--set", "continuous.max_iterations=3", "--set", "continuous.cov_reg=0.1"]
+CLI_GMM_ONE_ITERATION = ["--set", "train.max_iterations=1", "--set", "train.length_multiple=32"]
 
 
 def transcripts_of(out):
@@ -5166,7 +5212,9 @@ def cli_phase(dev, card):
     from cs304_tpu_torch.ops import viterbi as vt
     from cs304_tpu_torch.ops import viterbi_counted as tvc
     from cs304_tpu_torch.ops import viterbi_duration as tvd
+    from cs304_tpu_torch.ops import rescore as rs
     from cs304_tpu_torch.ops.cuda import emission as em
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
     from cs304_tpu_torch.ops.cuda import trellis_banded as tb
     from cs304_tpu_torch.ops.cuda import trellis_constrained as tcs
     from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
@@ -5189,7 +5237,7 @@ def cli_phase(dev, card):
                 "FB": tfb.banded_fb, "STREAM": tst.stream_advance,
                 "PLANES": tcs.planes_decode, "DURATION": tcs.duration_decode,
                 "LSUM": tlk.lattice_sum_passes, "LMAX": tlk.lattice_max_passes,
-                "KBEST": tlk.kbest_forward}
+                "KBEST": tlk.kbest_forward, "FBD": fbd.fb_dense}
 
     def counts():
         torch.cuda.synchronize()
@@ -5208,7 +5256,7 @@ def cli_phase(dev, card):
              (gm, "viterbi_composite_grammar_batch_plain"),
              (tvd, "viterbi_composite_duration_batch_plain"),
              (tlk, "lattice_sum_passes_plain"), (tlk, "lattice_max_passes_plain"),
-             (tlk, "kbest_forward_plain")]
+             (tlk, "kbest_forward_plain"), (fbd, "fb_dense_plain"), (rs, "_arc_scores_dense")]
     saved = [guard(plain_on_card, m, n) for m, n in plain]
     tmp = tempfile.mkdtemp(prefix="cli_phase_")
     log_file = os.path.join(tmp, "runtime.log")
@@ -5252,6 +5300,37 @@ def cli_phase(dev, card):
             log("cli", check="project3_predict", split=split, clips=len(truths),
                 accuracy=float(np.mean([a == b for a, b in zip(labels, truths)])),
                 cpu_labels_equal=True)
+        # The GMM options (slice 10): K = 4 with Baum-Welch, one iteration of
+        # each trainer (tests/test_torch_cli_train_gmm.py's setting), on the
+        # card and with --device cpu; the models within that test's bound.
+        gmm_cks = {d: os.path.join(tmp, f"ck3_gmm_{d}") for d in ("card", "cpu")}
+        for where, opts, need in (("card", [], ["K3", "FBD"]), ("cpu", ["--device", "cpu"], [])):
+            _out, rose = run("project3_train", [
+                "--synthetic", "--checkpoint-dir", gmm_cks[where], "--gmm-mixtures", "4",
+                "--baum-welch", *CLI_GMM_ONE_ITERATION, *opts], need,
+                label=f"project3_train_gmm4_bw_{where}")
+            if where == "card" and rose["FBD"] != len(DIGIT_LABELS):
+                raise SystemExit(f"phase 28: project3_train --baum-welch launched FBD "
+                                 f"{rose['FBD']} times for {len(DIGIT_LABELS)} words")
+            if where == "cpu" and any(rose.values()):
+                raise SystemExit(f"phase 28: project3_train --device cpu launched {rose}")
+        got, want = (load_models(gmm_cks[d]) for d in ("card", "cpu"))
+        worst = {}
+        for w in want:
+            for name, (k, rtol, atol) in BW_BOUND.items():
+                a, b = getattr(got[w], name), getattr(want[w], name)
+                fin = np.isfinite(b)
+                same_inf = np.array_equal(np.isfinite(a), fin)
+                r = float((np.abs(a[fin] - b[fin]) / (atol + rtol * np.abs(b[fin]))).max())
+                worst[name] = max(worst.get(name, 0.0), r if same_inf else np.inf)
+        within = sorted(got) == sorted(want) and all(
+            worst[n] <= BW_BOUND[n][0] for n in BW_BOUND)
+        log("cli", check="project3_train_gmm4_bw_card_vs_cpu", within=within,
+            in_tolerance_units=json.dumps({k: round(v, 4) for k, v in worst.items()}),
+            bound=json.dumps({k: v[0] for k, v in BW_BOUND.items()}))
+        if not within:
+            raise SystemExit(f"phase 28: project3_train --gmm-mixtures 4 --baum-welch on the "
+                             f"card differs from --device cpu past the bound: {worst}")
         run("project5_train_no_empty", ["--synthetic", "--checkpoint-dir", ck5, *CLI_KMEANS],
             ["K3"])
         state = os.path.join(tmp, "state")
@@ -5376,6 +5455,14 @@ def cli_phase(dev, card):
                                      "--confidence", "--spot", "7", "--lattice-dot",
                                      os.path.join(tmp, "lattice.dot")],
             ["K4", "K2-bt", "LSUM", "LMAX", "KBEST"])
+        lm_file = os.path.join(tmp, "transcripts.txt")
+        with open(lm_file, "w") as f:
+            f.write("\n".join(PIPELINE_TRANSCRIPTS + [s[0] for s in CLI_SENTENCES]) + "\n")
+        out, _ = run("project6_interactive", ["--checkpoint-dir", ck6, "--wav", wavs[0],
+                                              "--rescore-lm", lm_file], ["LMAX", "K3-bp"],
+                     label="project6_interactive_rescore_lm")
+        if "rescored:" not in out:
+            raise SystemExit(f"phase 28: project6_interactive --rescore-lm printed {out!r}")
         run("train_phones", ["--iterations", "3", "--out-dir", os.path.join(tmp, "phones")],
             ["K3"])
         run("demo_serving", ["--checkpoint-dir", ck6], ["K4", "K2-bt", "K2"])
@@ -5732,6 +5819,440 @@ def data_parallel_phase(dev, card, decode, pipe):
     log("timing", what="phase 29", card=repr(card), seconds=time.perf_counter() - t_phase)
 
 
+# -- phase 32: slice 10 -----------------------------------------------------
+
+# FBD's cases beside the word shape: name -> (B, T, S, matrix, pinned final).
+FBD_CASES = {
+    "word": (256, 128, 5, "uniform", False),  # the word Baum-Welch shape
+    "word-banded-final": (256, 128, 5, "banded", True),
+    "S1": (8, 40, 1, "uniform", True),
+    "S2-T1": (8, 1, 2, "uniform", False),
+    "dead-column": (16, 64, 9, "dead", False),
+    "S128": (4, 100, 128, "uniform", True),
+}
+WORD_BW_MIXTURES = 4  # the reference's NUM_MIXTURES
+# tests/test_torch_cli_train_gmm.py's bound after one Baum-Welch iteration,
+# in units of tests/test_torch_gmm.py's _assert_gmm_model tolerances.
+BW_BOUND = {"means": (20, 1e-4, 1e-4), "covariances": (20, 1e-3, 1e-4),
+            "weights": (1, 1e-4, 1e-4), "log_a": (1, 1e-4, 1e-4)}
+
+
+def fbd_problem(dev, b, t, s, kind, pinned, seed):
+    """A seeded FBD problem on the card (tests/test_torch_cuda_kernels.py's
+    _fbd_case): a uniform upper-triangular log_a, its banded matrix or one
+    with an all -inf column; emissions N(0, 9); lengths ragged with rows of
+    0, 1 and past T (row 0 the full T); a final pinned at the last state
+    where the case says (the short rows cannot reach it: ll = -inf)."""
+    from cs304_tpu_torch.models.hmm import uniform_forward_log_a
+    from cs304_tpu_torch.ops.viterbi import banded_transition_matrix
+
+    gen = torch.Generator().manual_seed(seed)
+    log_a = torch.as_tensor(uniform_forward_log_a(s))
+    if kind == "banded":
+        log_a = banded_transition_matrix(log_a)
+    if kind == "dead":
+        log_a[:, 3] = float("-inf")
+    log_b = 3 * torch.randn((b, t, s), generator=gen)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32)
+    lengths[0] = t
+    lengths[1::4] = 1
+    lengths[2::5] = 0
+    lengths[3::6] = t + 3
+    log_init = torch.full((s,), float("-inf"))
+    log_init[0] = 0.0
+    final = None
+    if pinned:
+        final = torch.full((s,), float("-inf"))
+        final[-1] = 0.0
+        final = final.to(dev)
+    return (log_b.to(dev), log_a.contiguous().to(dev), log_init.to(dev), lengths.to(dev),
+            final)
+
+
+def fbd_bound(b, t, s, lengths, mode):
+    """bound() of one FBD call: the live log_b rows, log_a, log_init,
+    log_final and lengths in; alpha, beta or gamma (every row), xi and ll
+    out; per (chain step, state) 6 S + 3 FP32 operations (for each source
+    an add, a max, the add again, a subtract, an exp and the sum's add; a
+    log and two adds), per (live row, state) 3 for gamma (add, subtract,
+    exp) and per (pair, cell) 6 for xi, over the steps these lengths need;
+    and the serial chain: steps a sequence waits for (T - 1 a direction)."""
+    n = lengths.clamp(min=0, max=t)
+    live, steps = int(n.sum().item()), int((n - 1).clamp(min=0).sum().item())
+    moved_in = 4 * live * s + 4 * s * s + 8 * s + 4 * b
+    per_step = steps * s * (6 * s + 3)
+    if mode == "forward":
+        return bound(moved_in + 4 * b * t * s + 4 * b, [(per_step, PEAK_FP32_ALU)])
+    if mode == "backward":
+        return bound(moved_in + 4 * b * t * s, [(per_step, PEAK_FP32_ALU)])
+    ops = 2 * per_step + 3 * live * s + 6 * steps * s * s
+    return bound(moved_in + 4 * b * t * s + 4 * b * s * s + 4 * b, [(ops, PEAK_FP32_ALU)])
+
+
+def same_cells(got, want):
+    """The same NaN, +inf, -inf and zero cells."""
+    return all(bool(torch.equal(f(got), f(want))) for f in (
+        torch.isnan, torch.isposinf, torch.isneginf, lambda x: x == 0))
+
+
+def xi_rounding_probe(args, got, want, n_cells=64):
+    """Where FBD's xi and its plain version differ: rebuild each differing
+    cell's terms from the forward and backward modes (bitwise the plain
+    version's alpha and beta), and count the cells whose value is the sum
+    of exp(e) rounded once from float64 (correctly rounded terms), on each
+    side; beside it, the terms whose value is subnormal, and whether the
+    card's torch.exp rounds those as float64 does."""
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    log_b, log_a, log_init, lengths, final = args
+    alpha, ll = fbd.fb_dense_plain(*args, mode="forward")
+    beta = fbd.fb_dense_plain(*args, mode="backward")
+    cells = (got.view(torch.int32) != want.view(torch.int32)) & ~torch.isnan(want)
+    idx = cells.nonzero().tolist()[:n_cells]
+    tiny = torch.finfo(torch.float32).tiny
+    out = {"xi_cells": int(cells.sum()), "probed": len(idx), "kernel_correctly_rounded": 0,
+           "plain_correctly_rounded": 0, "kernel_is_sum_of_normal_terms": 0,
+           "kernel_is_ftz_sum": 0, "subnormal_terms": 0,
+           "torch_exp_subnormal_terms_correctly_rounded": 0, "kernel_minus_plain_ulps": []}
+    for bi, i, j in idx:
+        n = min(int(lengths[bi]), log_b.shape[1])
+        e = ((alpha[bi, : n - 1, i] + log_a[i, j]) + (log_b[bi, 1:n, j] + beta[bi, 1:n, j])) \
+            - ll[bi]
+        exact = torch.exp(e.double()).float()
+        acc = acc_normal = acc_ftz = np.float32(0.0)
+        for term in torch.exp(e).cpu().numpy():
+            normal = term if term >= np.finfo(np.float32).tiny else np.float32(0.0)
+            acc_normal = np.float32(acc_normal + normal)
+            acc_ftz = np.float32(acc_ftz + normal)
+            acc_ftz = acc_ftz if acc_ftz >= np.finfo(np.float32).tiny else np.float32(0.0)
+        for term in exact.cpu().numpy():
+            acc = np.float32(acc + term)
+        k = np.float32(got[bi, i, j].item())
+        out["kernel_correctly_rounded"] += int(k == acc)
+        out["plain_correctly_rounded"] += int(np.float32(want[bi, i, j].item()) == acc)
+        out["kernel_is_sum_of_normal_terms"] += int(k == acc_normal)
+        out["kernel_is_ftz_sum"] += int(k == acc_ftz)
+        if len(out["kernel_minus_plain_ulps"]) < 8:
+            out["kernel_minus_plain_ulps"].append(
+                int(got[bi, i, j].view(torch.int32)) - int(want[bi, i, j].view(torch.int32)))
+        sub = (exact > 0) & (exact < tiny)
+        out["subnormal_terms"] += int(sub.sum())
+        out["torch_exp_subnormal_terms_correctly_rounded"] += int(
+            (torch.exp(e)[sub] == exact[sub]).sum())
+    return out
+
+
+def fbd_expf_probe(dev, n=4096, lo=-103.9, hi=-87.4):
+    """FBD's expf against torch.exp on the card: the posteriors mode at
+    S = 2, T = 1, log_b[b, 0] = (0, x_b), so ll = log(1 + e^x) rounds to 0
+    (x < -17) and gamma[b, 0, 1] = expf(x_b), for n values of x in
+    [lo, hi] (by default results below float32's smallest normal), one
+    launch. Counts of the kernel's and torch's values equal to exp(x)
+    rounded once from float64, and of the two agreeing."""
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    x = torch.linspace(lo, hi, n, device=dev)
+    log_b = torch.stack([torch.zeros_like(x), x], dim=1)[:, None, :].contiguous()
+    gamma = fbd.fb_dense(log_b, torch.zeros((2, 2), device=dev), torch.zeros(2, device=dev),
+                         torch.ones(n, dtype=torch.int32, device=dev))[0][:, 0, 1]
+    exact = torch.exp(x.double()).float()
+    ref = torch.exp(x)
+    return {"values": n, "kernel_correctly_rounded": int((gamma == exact).sum()),
+            "torch_exp_correctly_rounded": int((ref == exact).sum()),
+            "kernel_equals_torch_exp": int((gamma == ref).sum())}
+
+
+def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
+    """Phase 32 (slice 10): FBD, the dense forward-backward
+    (csrc/forward_backward.cu), against its plain version in all three
+    modes; its timing; isolated-word Baum-Welch at full width and the
+    legacy trainer's Baum-Welch pass on it; project3_train --gmm-mixtures 4
+    --baum-welch with FBD and with the plain loop on the card; lattice
+    rescoring's arc scores on K3 and the associative decode's backtrace on
+    K2-bt."""
+    import os
+    import shutil
+    import tempfile
+
+    from cs304_tpu_torch.models import gmm_hmm as tg
+    from cs304_tpu_torch.models.decoder import ContinuousDecoder
+    from cs304_tpu_torch.models.hmm import flagship_composite
+    from cs304_tpu_torch.models.train_continuous import ContinuousTrainConfig, ContinuousTrainer
+    from cs304_tpu_torch.models.train_kmeans import SegmentalKMeansConfig
+    from cs304_tpu_torch.ops import forward_backward as fb_ops
+    from cs304_tpu_torch.ops import rescore as rs
+    from cs304_tpu_torch.ops import viterbi as vt
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+    from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+    from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+    from cs304_tpu_torch.ops.gaussian import gaussian_log_pdf
+    from cs304_tpu_torch.ops.lattice import forward_lattice
+    from cs304_tpu_torch.ops.lm import train_word_bigram
+    from cs304_tpu_torch.ops.viterbi_assoc import viterbi_composite_assoc
+    from cs304_tpu_torch.scripts._common import run_in_process
+
+    t_phase = time.perf_counter()
+    plain_on_card = {}
+    guards = [(fbd, "fb_dense_plain"), (tb, "banded_sentence_forward"),
+              (tsf, "backtrace_batch"), (rs, "_arc_scores_dense")]
+
+    # -- FBD against its plain version --------------------------------------
+    err = 0.0
+
+    def fbd_check(name, args):
+        """Each mode one launch, every output bitwise the plain version
+        (NaN cells the same); where one is not, W5's measure (the same NaN
+        / inf / zero cells, within 1e-5 * max(1, |x|)) and, for xi, the
+        rounding probe are logged before the phase fails."""
+        nonlocal err
+        b_k, t_k, s_k = args[0].shape
+        for mode in fbd.MODES:
+            before = fbd.fb_dense.launches
+            got = fbd.fb_dense(*args, mode=mode)
+            torch.cuda.synchronize()
+            one = fbd.fb_dense.launches == before + 1
+            want = fbd.fb_dense_plain(*args, mode=mode)
+            got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+            for i, (g, w) in enumerate(zip(got, want)):
+                nan = torch.isnan(w)
+                bits = bool(torch.equal(torch.isnan(g), nan)) and bool(torch.equal(
+                    g[~nan].view(torch.int32), w[~nan].view(torch.int32)))
+                fin = torch.isfinite(w)
+                d = (g[fin] - w[fin]).abs()
+                err = max(err, d.max().item() if d.numel() else 0.0)
+                if not (one and bits):
+                    what = f"{mode}:{('gamma', 'xi', 'll')[i] if mode == 'posteriors' else i}"
+                    w5 = same_cells(g, w) and bool(
+                        (d <= 1e-5 * w[fin].abs().clamp(min=1.0)).all())
+                    if what == "posteriors:xi":
+                        log("FBD-rounding", case=name, **xi_rounding_probe(args, g, w))
+                    raise SystemExit(
+                        f"phase 32: FBD's {what} disagrees with its plain version ({name}: "
+                        f"cells {int((g.view(torch.int32) != w.view(torch.int32)).sum())}, "
+                        f"W5 {w5}, one launch {one})")
+            if mode != "backward":
+                ll = got[-1]
+                if not (bool(torch.isfinite(ll[0])) and not bool(torch.isnan(ll).any())):
+                    raise SystemExit(f"phase 32: FBD case {name} does not reach row 0's end")
+        log("FBD", case=name, B=b_k, T=t_k, S=s_k, final=args[4] is not None,
+            neg_inf_ll=int(torch.isneginf(fbd.fb_dense(*args, mode="forward")[1]).sum()),
+            modes=",".join(fbd.MODES), bitwise=True, one_launch_each=True)
+
+    log("FBD-rounding", what="expf on subnormal results", **fbd_expf_probe(dev))
+    log("FBD-rounding", what="expf on [-103.9, -17.5]",
+        **fbd_expf_probe(dev, 1 << 20, -103.9, -17.5))
+    word_args = None
+    for name, (b_k, t_k, s_k, kind, pinned) in FBD_CASES.items():
+        args = fbd_problem(dev, b_k, t_k, s_k, kind, pinned, seed=b_k + t_k + s_k)
+        fbd_check(name, args)
+        if name == "word":
+            word_args = args
+
+    # The legacy trainer's shape: the largest call of one legacy Baum-Welch
+    # iteration at phase 8's corpus (a transcript group, pinned final).
+    captured = []
+    real = fb_ops.fb_dense
+
+    def capture(*args):
+        if args[0].shape[2] > (captured[0][0].shape[2] if captured else 0):
+            captured[:] = [tuple(a.clone() if a is not None else None for a in args[:5])]
+        return real(*args)
+
+    fb_ops.fb_dense = capture
+    try:
+        legacy = ContinuousTrainer(dict(pipe["boot"]), ContinuousTrainConfig(
+            max_iterations=1, silence_bootstrap=False, cov_reg=0.1, update="baum_welch",
+            fused=False), device=dev)
+        legacy.train(pipe["labeled"])
+    finally:
+        fb_ops.fb_dense = real
+    fbd_check("legacy-sentence", captured[0])
+
+    # -- FBD timing at the word shape ---------------------------------------
+    b_w, t_w, s_w = word_args[0].shape
+    for mode in fbd.MODES:
+        ms = device_ms(lambda: fbd.fb_dense(*word_args, mode=mode))
+        plain_ms = cuda_ms(lambda: fbd.fb_dense_plain(*word_args, mode=mode), reps=2)
+        b_ms, b_by = fbd_bound(b_w, t_w, s_w, word_args[3], mode)
+        chain = (2 if mode == "posteriors" else 1) * (t_w - 1)
+        log("timing", kernel=f"fb_dense:{mode}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, chain_steps=chain, us_per_chain_step=ms / chain * 1e3,
+            plain_us_per_chain_step=plain_ms / chain * 1e3, library_ms=None,
+            shape=f"B={b_w} T={t_w} S={s_w}", card=card)
+        if mode == "posteriors":
+            timings["fb_dense"] = (ms, plain_ms)
+            yardsticks["fb_dense"] = (None, b_ms, b_by)
+    leg = captured[0]
+    b_l, t_l, s_l = leg[0].shape
+    leg_ms = device_ms(lambda: fbd.fb_dense(*leg, mode="posteriors"))
+    leg_plain = cuda_ms(lambda: fbd.fb_dense_plain(*leg, mode="posteriors"), reps=2)
+    leg_bound = fbd_bound(b_l, t_l, s_l, leg[3], "posteriors")
+    log("timing", kernel="fb_dense:posteriors", ms=leg_ms, plain_ms=leg_plain,
+        bound_ms=leg_bound[0], bound_by=leg_bound[1], chain_steps=2 * (t_l - 1),
+        us_per_chain_step=leg_ms / (2 * (t_l - 1)) * 1e3, library_ms=None,
+        shape=f"legacy B={b_l} T={t_l} S={s_l}", card=card)
+
+    # -- isolated-word Baum-Welch at full width (the slice's main path) ------
+    feats = pipe["digit_feats"]
+    km = SegmentalKMeansConfig(num_states=5, max_iterations=15)
+    one_it = SegmentalKMeansConfig(num_states=5, max_iterations=1)
+    init = {w: tg.train_gmm_hmm(w, f, num_mixtures=WORD_BW_MIXTURES, cfg=km, device=dev)
+            for w, f in feats.items()}
+    saved = [guard(plain_on_card, m, n) for m, n in guards]
+    calls = []
+    real_stats = tg._bw_stats
+
+    def counted_stats(*args, **kwargs):
+        calls.append(1)
+        return real_stats(*args, **kwargs)
+
+    tg._bw_stats = counted_stats
+    try:
+        fbd.fb_dense.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_models = {w: tg.train_gmm_hmm_baum_welch(w, f, WORD_BW_MIXTURES, one_it,
+                                                      init=init[w], device=dev)
+                       for w, f in feats.items()}
+        torch.cuda.synchronize()
+        main_wall = time.perf_counter() - t0
+        main_launches = fbd.fb_dense.launches
+    finally:
+        tg._bw_stats = real_stats
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    launches["fb_dense"] = main_launches
+    cpu_models = {w: tg.train_gmm_hmm_baum_welch(w, f, WORD_BW_MIXTURES, one_it, init=init[w],
+                                                 device="cpu") for w, f in feats.items()}
+    worst = {}
+    for w in feats:
+        for name, (k, rtol, atol) in BW_BOUND.items():
+            a, b = getattr(card_models[w], name), getattr(cpu_models[w], name)
+            fin = np.isfinite(b)
+            if not np.array_equal(np.isfinite(a), fin):
+                raise SystemExit(f"phase 32: word {w}'s {name} is -inf in other places on "
+                                 f"the card than on the CPU")
+            r = float((np.abs(a[fin] - b[fin]) / (atol + rtol * np.abs(b[fin]))).max())
+            worst[name] = max(worst.get(name, 0.0), r)
+    within = all(worst[n] <= BW_BOUND[n][0] for n in BW_BOUND)
+    log("word-bw", words=len(feats), K=WORD_BW_MIXTURES, clips=json.dumps(
+        {w: len(f) for w, f in feats.items()}), fb_dense_launches=main_launches,
+        bw_iterations=len(calls), wall_s=f"{main_wall:.3f}",
+        card_vs_cpu_in_tolerance_units=json.dumps({k: round(v, 4) for k, v in worst.items()}),
+        bound=json.dumps({k: v[0] for k, v in BW_BOUND.items()}), within=within)
+    if not within or main_launches != len(calls) or main_launches < len(feats) \
+            or plain_on_card:
+        raise SystemExit(f"phase 32: word Baum-Welch on the card: within bound {within}, "
+                         f"FBD launches {main_launches} for {len(calls)} iterations, plain "
+                         f"on the card {plain_on_card}")
+
+    # One Baum-Welch iteration over the 11 words: FBD against the plain loop
+    # on the card (the path before this slice), host wall with readback.
+    def bw_iteration_ms(use_kernel):
+        fb_ops.fb_dense = real if use_kernel else fbd.fb_dense_plain
+        try:
+            t0 = time.perf_counter()
+            for w, f in feats.items():
+                tg.train_gmm_hmm_baum_welch(w, f, WORD_BW_MIXTURES, one_it, init=init[w],
+                                            device=dev)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        finally:
+            fb_ops.fb_dense = real
+
+    walls = {True: [], False: []}
+    for use_kernel in (False, True, True, False):
+        walls[use_kernel].append(bw_iteration_ms(use_kernel))
+    log("timing", what=f"word Baum-Welch iteration, {len(feats)} words x K={WORD_BW_MIXTURES}, "
+                       f"host wall with readback",
+        ms_fb_dense=min(walls[True]), ms_plain_loop_on_card=min(walls[False]),
+        runs=json.dumps({"fb_dense": walls[True], "plain": walls[False]}), card=card)
+
+    # project3_train --gmm-mixtures 4 --baum-welch, FBD and the plain loop.
+    tmp = tempfile.mkdtemp(prefix="slice10_")
+    try:
+        from cs304_tpu_torch.scripts import project3_train
+
+        p3 = {True: [], False: []}
+        for run_i, use_kernel in enumerate((True, False, False, True)):
+            fb_ops.fb_dense = real if use_kernel else fbd.fb_dense_plain
+            try:
+                t0 = time.perf_counter()
+                run_in_process(project3_train.main, [
+                    "--synthetic", "--checkpoint-dir", os.path.join(tmp, f"ck{run_i}"),
+                    "--gmm-mixtures", "4", "--baum-welch", *CLI_KMEANS,
+                    "--log-file", os.path.join(tmp, "runtime.log")])
+                torch.cuda.synchronize()
+                p3[use_kernel].append(time.perf_counter() - t0)
+            finally:
+                fb_ops.fb_dense = real
+        log("timing", what="project3_train --gmm-mixtures 4 --baum-welch (CLI_KMEANS), wall s",
+            s_fb_dense=min(p3[True]), s_plain_loop_on_card=min(p3[False]),
+            runs=json.dumps({"fb_dense": p3[True], "plain": p3[False]}), card=card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- lattice rescoring on phase 22's clip 0 (arc scores on K3) ----------
+    models = pipe["models"]
+    clip0 = pipe["eval"]["train_speakers"][1][0]
+    comp = ContinuousDecoder(models, penalty=-100.0, device=dev).composite
+    log_b = comp.log_likelihoods(clip0, device=dev)
+    lat = forward_lattice(comp, clip0, beam=500.0, log_b=log_b, device=dev)
+    bigram = train_word_bigram(PIPELINE_TRANSCRIPTS, sorted(models), insert_silence=True)
+    arcs = lat.sorted_arcs()
+    saved = [guard(plain_on_card, m, n) for m, n in guards]
+    try:
+        before = (tb.banded_forward.launches, tsf.trellis_backtrace.launches)
+        card_scores = rs.arc_acoustic_scores(comp, arcs, log_b=log_b, device=dev)
+        card_best = rs.lattice_rescore(comp, lat, log_b=log_b, bigram=bigram, lm_weight=1.0,
+                                       device=dev)
+        torch.cuda.synchronize()
+        k3_rescore = tb.banded_forward.launches - before[0]
+        # The associative decode: the flagship on 4 of phase 22's clips.
+        flag = flagship_composite()
+        params = flag.emission_params(dev)
+        topo = (flag.log_a, flag.lower_of_state, flag.is_entry, flag.is_exit, flag.penalty)
+        assoc = []
+        bt_before = tsf.trellis_backtrace.launches
+        for f in pipe["eval"]["train_speakers"][1][:4]:
+            lb = gaussian_log_pdf(params, torch.as_tensor(f, device=dev))
+            assoc.append((lb, viterbi_composite_assoc(lb, *topo)))
+        torch.cuda.synchronize()
+        bt_assoc = tsf.trellis_backtrace.launches - bt_before
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    cpu_scores = rs.arc_acoustic_scores(comp, arcs, log_b=log_b.cpu(), device="cpu")
+    cpu_best = rs.lattice_rescore(comp, lat, log_b=log_b.cpu(), bigram=bigram, lm_weight=1.0,
+                                  device="cpu")
+    bitwise = bool(np.array_equal(card_scores.view(np.int32), cpu_scores.view(np.int32)))
+    log("rescore", clip="phase 22's clip 0", T=len(clip0), arcs=len(arcs),
+        arc_scores_bitwise_cpu=bitwise, finite=int(np.isfinite(card_scores).sum()),
+        k3_launches=k3_rescore, text=card_best[1], score=card_best[0],
+        equal_cpu=card_best[:2] == cpu_best[:2], card=card)
+    if not bitwise or card_best[:2] != cpu_best[:2] or k3_rescore != 2 or plain_on_card:
+        raise SystemExit(f"phase 32: rescoring on the card: arc scores bitwise {bitwise}, "
+                         f"{card_best[:2]} vs {cpu_best[:2]}, K3 launches {k3_rescore} (2 "
+                         f"calls), plain on the card {plain_on_card}")
+    assoc_ok, assoc_err = True, 0.0
+    for lb, (a_s, a_p) in assoc:
+        w_s, w_p = vt.viterbi_composite(lb, *topo, quirk_backtrace=False)
+        c_s, c_p = viterbi_composite_assoc(lb.cpu(), *topo)
+        assoc_err = max(assoc_err, abs(float(a_s) - float(w_s)))
+        assoc_ok &= bool(np.isclose(float(a_s), float(w_s), rtol=1e-4, atol=1e-3))
+        assoc_ok &= bool(torch.equal(a_p, w_p)) and bool(torch.equal(a_p.cpu(), c_p))
+        assoc_ok &= float(a_s) == float(c_s)
+    log("assoc", clips=len(assoc), S=flag.num_states, k2_bt_launches=bt_assoc,
+        paths_equal_sequential_and_cpu=assoc_ok, max_abs_score_err=assoc_err)
+    if not assoc_ok or bt_assoc != len(assoc):
+        raise SystemExit(f"phase 32: viterbi_composite_assoc: equal {assoc_ok}, K2-bt "
+                         f"launches {bt_assoc} for {len(assoc)} decodes")
+    launches["trellis_banded_forward"] += k3_rescore
+    launches["trellis_backtrace"] += bt_assoc
+    errs["fb_dense"] = err
+    log("phase", which="32 slice 10", seconds=f"{time.perf_counter() - t_phase:.2f}", card=card)
+
+
 def report(kind, launches, timings, errs, yardsticks):
     """The kernels' JSON line and the final line."""
     meta = {
@@ -5795,6 +6316,11 @@ def report(kind, launches, timings, errs, yardsticks):
                         ":292)"),
         "kbest": ("cs304_tpu_torch/csrc/trellis_lattice.cu",
                   "cs304_tpu/ops/nbest.py:27 (kbest_composite_forward, lax.scan :124)"),
+        # No Pallas counterpart: the JAX package's dense forward-backward is
+        # two lax.scans.
+        "fb_dense": ("cs304_tpu_torch/csrc/forward_backward.cu",
+                     "cs304_tpu/ops/forward_backward.py:24 and :55 (forward / backward, "
+                     "lax.scans :47, :75)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

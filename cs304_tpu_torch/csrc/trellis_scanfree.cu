@@ -117,7 +117,9 @@
 // non-entry step above with per-utterance coefficient rows (pointers with a
 // row stride of S, no packing copy), the value the winner's own; no entry or
 // exit state, so a step exchanges only the lane-boundary neighbours; t = 0 is
-// state 0 alone, log_b[b,0,0] + (isfinite(c0[b,0]) ? c0[b,0] : 0). Decode
+// state 0 alone, log_b[b,0,0] + (isfinite(c0[b,0]) ? c0[b,0] : 0), or
+// log_b[b,0,0] + seed[b] where the backpointer mode is given a seed row
+// (lattice rescoring's arc scores, ops/rescore.py). Decode
 // mode returns the score alpha[final] and the walked path in one launch
 // (sentence_decode); backpointer mode gives alpha and bp (sentence_forward).
 // The inputs never hold +inf, so no candidate is NaN and no NaN handling is
@@ -323,6 +325,7 @@ struct TeamArgs {
   const float* c1;
   const float* c2;
   const int* final_state;    // sentence decode: (B,) start of the walk
+  const float* seed;         // sentence backpointer mode: (B,) t = 0 seed, or null
   const int* lengths;
   float penalty;
   float* alpha_out;          // backpointer mode
@@ -618,8 +621,10 @@ __global__ void __launch_bounds__(team_threads(K, rows_in_smem<K, MODE, SENT, LM
           dg[k] = p.c0[r];
           s1[k] = p.c1[r];
           s2[k] = p.c2[r];
-          // t = 0: state 0 alone, a non-finite self-loop counting as 0.
-          if (j == 0) a[k] = lb_b[0] + (isfinite(dg[k]) ? dg[k] : 0.f);
+          // t = 0: state 0 alone, plus the row's seed where one is given,
+          // else its self-loop (a non-finite one counting as 0).
+          if (j == 0)
+            a[k] = lb_b[0] + (p.seed ? p.seed[b] : (isfinite(dg[k]) ? dg[k] : 0.f));
         } else {
           const bool e = p.coefs[4 * S + j] > 0.f;
           entry_m |= (unsigned)e << k;
@@ -1439,12 +1444,16 @@ extern "C" int cs304_trellis_search_decode(
 }
 
 // The sentence topology (K3). log_b (B, T, S) f32; c0/c1/c2 (B, S) f32
-// destination-indexed self/prev/skip log transitions; lengths (B,) i32.
+// destination-indexed self/prev/skip log transitions; lengths (B,) i32;
+// seed (B,) f32 or null: alpha_0[0] = log_b[b, 0, 0] + seed[b] where given,
+// else the self-loop rule.
 // Backpointer mode -> alpha (B, S) f32, bp (B, T, S) i32 with row 0 = -1.
 extern "C" int cs304_trellis_sentence_forward(
     const void* log_b, const void* c0, const void* c1, const void* c2,
-    const void* lengths, void* alpha, void* bp, int B, int T, int S, void* stream) {
+    const void* lengths, const void* seed, void* alpha, void* bp, int B, int T, int S,
+    void* stream) {
   TeamArgs a = sentence_args(log_b, c0, c1, c2, lengths, B, T, S);
+  a.seed = (const float*)seed;
   a.alpha_out = (float*)alpha;
   a.bp = (int*)bp;
   return launch_forward<true>(a, false, (cudaStream_t)stream);

@@ -118,7 +118,7 @@ def load():
         lib.cs304_trellis_stream_lm.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i,
                                                 i, i, i, i, i, i, p]
         lib.cs304_trellis_stream_lm.restype = i
-        lib.cs304_trellis_sentence_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_trellis_sentence_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
         lib.cs304_trellis_sentence_forward.restype = i
         lib.cs304_trellis_sentence_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
         lib.cs304_trellis_sentence_decode.restype = i
@@ -178,6 +178,10 @@ def load():
         lib.cs304_kbest_plan.restype = i
         lib.cs304_kbest_forward.argtypes = [p, p, p, f, i, i, p, p, p, i, i, i, i, p]
         lib.cs304_kbest_forward.restype = i
+        lib.cs304_fb_dense.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_fb_dense.restype = i
+        lib.cs304_fb_dense_max_states.argtypes = []
+        lib.cs304_fb_dense_max_states.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p
         _lib = lib

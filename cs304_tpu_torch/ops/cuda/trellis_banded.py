@@ -11,7 +11,9 @@ its reuse of trellis_scanfree._backtrace_kernel).
   viterbi_banded_batch_scanfree runs it and is bitwise
   models/train_fused.py:_banded_trellis_batch.
 - banded_forward is the backpointer mode: alpha and int32 backpointers,
-  bitwise the plain version ops/viterbi.py:banded_sentence_forward.
+  bitwise the plain version ops/viterbi.py:banded_sentence_forward, with an
+  optional per-row t = 0 seed (lattice rescoring's arc scores,
+  ops/rescore.py).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. The kernel takes every B >= 1, T >= 1 and
@@ -48,13 +50,19 @@ def _check_sentence(log_b, c0, c1, c2, lengths):
     return b, t_total, s
 
 
-def banded_forward(log_b, c0, c1, c2, lengths):
+def banded_forward(log_b, c0, c1, c2, lengths, seed=None):
     """log_b (B, T, S) float32, c0/c1/c2 (B, S) float32 destination-indexed
-    self/prev/skip log transitions, lengths (B,) int32 ->
+    self/prev/skip log transitions, lengths (B,) int32, seed (B,) float32
+    or None (alpha_0[0] = log_b[:, 0, 0] + seed where given, else the
+    self-loop rule of banded_sentence_forward) ->
     (alpha (B, S) float32, bp (B, T, S) int32 with row 0 = -1)."""
     if not log_b.is_cuda:
-        return banded_sentence_forward(log_b, c0, c1, c2, lengths)
+        return banded_sentence_forward(log_b, c0, c1, c2, lengths, seed)
     b, t_total, s = _check_sentence(log_b, c0, c1, c2, lengths)
+    if seed is not None:
+        _check_cuda("seed", seed, torch.float32)
+        if seed.shape != (b,) or seed.device != log_b.device:
+            raise ValueError(f"seed {tuple(seed.shape)} on {seed.device} vs batch {b}")
     lib = _build.load()
     alpha = torch.empty((b, s), dtype=torch.float32, device=log_b.device)
     bp = torch.empty((b, t_total, s), dtype=torch.int32, device=log_b.device)
@@ -62,8 +70,8 @@ def banded_forward(log_b, c0, c1, c2, lengths):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.cs304_trellis_sentence_forward(
             log_b.data_ptr(), c0.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-            lengths.data_ptr(), alpha.data_ptr(), bp.data_ptr(),
-            b, t_total, s, stream,
+            lengths.data_ptr(), seed.data_ptr() if seed is not None else None,
+            alpha.data_ptr(), bp.data_ptr(), b, t_total, s, stream,
         )
     _build.check(code, "banded_forward")
     banded_forward.launches += 1

@@ -6,10 +6,12 @@ stack on top of ops/lattice.py:
 - ``arc_acoustic_scores``: exact arc-local acoustic scores, the within-word
   Viterbi score of word w emitting frames [start, end) (entered at its entry
   state, left from its exit, the entry self-loop applied only at frame 0),
-  for every arc at once: one batched max-plus step over (arcs, s_max) in a
-  Python loop over the longest span (a 32-frame bucket), on the device the
-  caller names. Summing arc scores along a segmentation of a state path
-  plus one penalty a boundary gives the dense Viterbi path score.
+  for every arc at once: each arc a row of the sentence trellis K3
+  (ops/cuda/trellis_banded.py:banded_forward, its plain version on a CPU
+  tensor) over its (max_span, s_max) window, one launch for all arcs, on
+  the device the caller names. Summing arc scores along a segmentation of a
+  state path plus one penalty a boundary gives the dense Viterbi path
+  score.
 - ``lattice_rescore`` / ``lattice_rescore_trigram``: exact best path
   through a lattice under acoustic + lm_weight * log P(w | history) +
   penalty per word edge, a host DP over (node, history).
@@ -25,8 +27,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .cuda.trellis_banded import banded_forward
 from .lattice import Lattice, LatticeArc, path_word_spans
 from .nbest import emissions_of
+from .viterbi import banded_diagonals
 
 __all__ = [
     "arc_acoustic_scores", "lattice_rescore", "lattice_rescore_trigram",
@@ -39,7 +43,16 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     """(len(arcs),) exact arc-local acoustic scores (module docstring).
 
     log_b: (T, S) emissions (composite.log_likelihoods(features) when None;
-    GMM densities on a GMM checkpoint). Spans pad to a 32-frame bucket."""
+    GMM densities on a GMM checkpoint). Spans pad to a 32-frame bucket.
+
+    Each arc is one K3 row: its window of log_b (max_span frames from its
+    start, s_max states from its word's entry), the self / prev / skip
+    diagonals of its word's (s_max, s_max) block masked to the band, its
+    span as the row's length, and a t = 0 seed of the entry self-loop where
+    the arc starts the utterance (0 elsewhere, -inf counting as 0); the
+    score is alpha at the word's exit. K3 takes skip 0, 1 or 2 (c2, and c1
+    at 0, -inf); past that only a CPU tensor is scored, by a max-plus step a
+    frame over the dense band (ValueError on a CUDA tensor)."""
     if not arcs:
         return np.zeros((0,), np.float32)
     log_b, dev = emissions_of(composite, features, log_b, device)
@@ -60,6 +73,8 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     entry_diag = np.where(starts == 0, diag[lowers], 0.0).astype(np.float32)
     s_max = int(max(composite.state_counts))
     max_span = -(-int(spans.max()) // 32) * 32
+    if not 0 <= skip <= 2 and log_b.is_cuda:
+        raise ValueError(f"skip={skip}: the arc scores' kernel (K3) takes skip 0, 1 or 2")
 
     # Padded so every arc's window lies inside (values past a span or a
     # word's states are masked below).
@@ -67,8 +82,8 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     log_b_pad[:t_total, :s_total] = log_b
     log_a_pad = torch.full((s_total + s_max, s_total + s_max), float("-inf"), device=dev)
     log_a_pad[:s_total, :s_total] = torch.as_tensor(composite.log_a, device=dev)
-    starts_d, lowers_d, s_ws_d, spans_d = (torch.as_tensor(x, device=dev)
-                                           for x in (starts, lowers, s_ws, spans))
+    starts_d, lowers_d, s_ws_d = (torch.as_tensor(x, device=dev)
+                                  for x in (starts, lowers, s_ws))
     frames = starts_d[:, None] + torch.arange(max_span, device=dev)   # (N, M)
     states = lowers_d[:, None] + torch.arange(s_max, device=dev)      # (N, s_max)
     lb = log_b_pad[frames[:, :, None], states[:, None, :]]            # (N, M, s_max)
@@ -78,13 +93,27 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     sw = s_ws_d[:, None, None]
     band = (frm <= to) & (frm >= to - skip) & (to < sw) & (frm < sw)
     trans = torch.where(band, la, float("-inf"))
-    sidx = torch.arange(s_max, device=dev)
-    alpha = torch.where(sidx == 0, lb[:, 0, :1] + torch.as_tensor(entry_diag, device=dev)[:, None],
-                        float("-inf"))
-    for j in range(1, max_span):
+    rows = torch.arange(len(arcs), device=dev)
+    spans_d = torch.as_tensor(spans, dtype=torch.int32, device=dev)
+    seed = torch.as_tensor(entry_diag, device=dev)
+    if not 0 <= skip <= 2:
+        return _arc_scores_dense(lb, trans, spans_d, seed)[rows, s_ws_d - 1].cpu().numpy()
+    c0, c1, c2 = banded_diagonals(trans, len(arcs))
+    alpha, _bp = banded_forward(lb.contiguous(), c0, c1, c2, spans_d, seed)
+    return alpha[rows, s_ws_d - 1].cpu().numpy()
+
+
+def _arc_scores_dense(lb, trans, spans, seed):
+    """The arcs' trellises as the JAX package's scan writes them, for a band
+    K3 does not take (skip > 2; CPU only): alpha_0 = log_b[0, 0] + seed at
+    state 0, then a max-plus step over the dense band a frame, steps past a
+    span keeping the carry -> alpha (N, s_max)."""
+    sidx = torch.arange(lb.shape[2], device=lb.device)
+    alpha = torch.where(sidx == 0, lb[:, 0, :1] + seed[:, None], float("-inf"))
+    for j in range(1, lb.shape[1]):
         new = torch.max(alpha[:, :, None] + trans, dim=1).values + lb[:, j]
-        alpha = torch.where((j < spans_d)[:, None], new, alpha)
-    return alpha[torch.arange(len(arcs), device=dev), s_ws_d - 1].cpu().numpy()
+        alpha = torch.where((j < spans)[:, None], new, alpha)
+    return alpha
 
 
 def lattice_rescore(composite, lattice: Lattice, log_b=None, features=None,

@@ -489,10 +489,12 @@ def viterbi_banded(log_b, log_a, length=None, quirk_backtrace: bool = True):
     return score[0], paths[0]
 
 
-def banded_sentence_forward(log_b, c0, c1, c2, lengths):
+def banded_sentence_forward(log_b, c0, c1, c2, lengths, seed=None):
     """Sentence trellis forward: log_b (B, T, S) float32, destination-indexed
-    self/prev/skip coefficients c0, c1, c2 (B, S), lengths (B,) ->
-    (alpha (B, S), backpointers (B, T, S) int32 with row 0 = -1).
+    self/prev/skip coefficients c0, c1, c2 (B, S), lengths (B,), seed (B,)
+    or None -> (alpha (B, S), backpointers (B, T, S) int32 with row 0 = -1).
+    t = 0 holds state 0 alone: log_b[:, 0, 0] + seed where a seed is given,
+    else + c0[:, 0] (0 where that is not finite).
     Candidates start from skip-2 and are replaced only on a strict >, so
     ties keep the smallest predecessor. Steps t >= length leave alpha
     unchanged but still write backpointers."""
@@ -503,9 +505,12 @@ def banded_sentence_forward(log_b, c0, c1, c2, lengths):
     idx2 = torch.clamp(idx - 2, min=0).expand(b, s)
     idx0 = idx.expand(b, s)
     lengths = torch.as_tensor(lengths, device=dev)
-    # t = 0: state 0 only, with its self-loop (0 where that is not finite:
-    # the degenerate-safe init).
-    a00 = torch.where(torch.isfinite(c0[:, 0]), c0[:, 0], torch.zeros_like(c0[:, 0]))
+    # t = 0: state 0 only, with the seed or its self-loop (0 where that is
+    # not finite: the degenerate-safe init).
+    if seed is None:
+        a00 = torch.where(torch.isfinite(c0[:, 0]), c0[:, 0], torch.zeros_like(c0[:, 0]))
+    else:
+        a00 = torch.as_tensor(seed, dtype=torch.float32, device=dev)
     alpha = torch.full((b, s), NEG, dtype=torch.float32, device=dev)
     alpha[:, 0] = log_b[:, 0, 0] + a00
     bps = torch.empty((b, t_total, s), dtype=torch.int32, device=dev)

@@ -13,13 +13,20 @@ combined, the half-length scan recursed, the even prefixes filled in) in
 torch ops on the tensors' device, so the adds associate as JAX's do; they
 associate differently from the sequential recursion, so scores agree with
 it within float tolerance, and paths wherever no two predecessors tie. The
-path is recovered from the per-step alphas with the standard backward
-argmax pass (a Python loop of O(S) gathers). There is no kernel: the JAX
-package runs these as XLA ops (ROADMAP Queue 2 B).
+path is recovered from the per-step alphas as the JAX package's reverse
+scan does, the lowest index winning a tie: one batched table of first-max
+backpointers, bp[t, j] = argmax_i alphas[t-1, i] + trans[i, j]
+(ops/viterbi.first_max, torch ops on the tensors' device), then ONE walk
+of it by K2-bt (ops/cuda/trellis_scanfree.trellis_backtrace without the
+quirk; its plain version backtrace_batch on a CPU tensor). The forward
+stays torch ops, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
 import torch
+
+from .cuda.trellis_scanfree import trellis_backtrace
+from .viterbi import first_max
 
 
 def _maxplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,17 +73,18 @@ def viterbi_assoc(log_b: torch.Tensor, trans: torch.Tensor, alpha0: torch.Tensor
     (score, path (T,) int32) with the standard (non-quirk) backtrace; every
     argmax takes the first (lowest) index on a tie."""
     alphas = viterbi_alphas_assoc(log_b, trans, alpha0)
-    final_scores = torch.where(final_mask, alphas[-1], float("-inf"))
-    score = torch.max(final_scores)
-    state = torch.argmax(final_scores)
-    t_total = log_b.shape[0]
-    path = torch.empty((t_total,), dtype=torch.int64, device=log_b.device)
-    path[-1] = state
-    # state[t-1] = argmax_i alphas[t-1, i] + trans[i, state[t]]
-    for t in range(t_total - 1, 0, -1):
-        state = torch.argmax(alphas[t - 1] + trans[:, state])
-        path[t - 1] = state
-    return score, path.to(torch.int32)
+    t_total, s = alphas.shape
+    dev = alphas.device
+    final_mask = torch.as_tensor(final_mask, device=dev).to(torch.bool)
+    score, last = first_max(alphas[-1], final_mask)
+    # bp[t, j] = the lowest i maximizing alphas[t-1, i] + trans[i, j].
+    bp = torch.full((1, t_total, s), -1, dtype=torch.int32, device=dev)
+    if t_total > 1:
+        cand = (alphas[:-1, :, None] + trans[None]).transpose(1, 2)  # (T-1, to, from)
+        bp[0, 1:] = first_max(cand, torch.ones_like(cand, dtype=torch.bool))[1]
+    lengths = torch.full((1,), t_total, dtype=torch.int32, device=dev)
+    path = trellis_backtrace(bp, last.reshape(1).contiguous(), lengths, quirk=False)
+    return score, path[0]
 
 
 def viterbi_composite_assoc(log_b, log_a, lower_of_state, is_entry, is_exit, penalty):

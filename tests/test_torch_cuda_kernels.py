@@ -58,9 +58,16 @@ and the decoder's
 confidences, n-best, forward lattice and keyword passes launching them
 with no plain loop on the card; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
-WAVs: the same printed lines, the decode kernel launched on the card only.
+WAVs: the same printed lines, the decode kernel launched on the card only;
+FBD, the dense forward-backward (csrc/forward_backward.cu), bitwise its plain
+version in its forward, backward and posteriors modes (S = 1 to 128, T = 1,
+lengths 0, 1 and past T, a dead column, an unreachable final), the
+forward_backward ops and word Baum-Welch launching it once a call and never
+the plain loop; K3's backpointer mode with a t = 0 seed bitwise its plain
+version; lattice rescoring's arc scores (one K3 launch) and the assoc
+decode's backtrace (one K2-bt launch) equal to the CPU's.
 
-These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22, 28, 30 and 31 at small sizes. Every test needs a card
+These are chip_smoke.py's phases 3-4, 7, 11-13, 17, 19-20, 22, 28 and 30-32 at small sizes. Every test needs a card
 and skips without one; there is no CPU mode of a CUDA kernel. The machine
 with the card has no JAX, so run this file without the JAX conftest:
 
@@ -2304,3 +2311,207 @@ def test_posterior_and_nbest_searches_launch_their_kernels(dev, monkeypatch):
         [(a.start, a.end, a.label) for a in want_lat.sorted_arcs()]
     rose = [c.launches - b_ for c, b_ in zip(counters, before)]
     assert rose[0] >= 2 and rose[1] == 1 and rose[2] == 1, rose
+
+
+# -- FBD, the dense forward-backward (csrc/forward_backward.cu) ---------------
+
+FBD_CASES = {  # name -> (S, T, B, matrix, pinned final)
+    "word-S5": (5, 128, 64, "uniform", False),
+    "word-S5-banded-final": (5, 40, 16, "banded", True),
+    "S1": (1, 9, 4, "uniform", True),
+    "S2-T1": (2, 1, 5, "uniform", False),
+    "sentence-S59": (59, 70, 8, "banded", True),
+    "S128": (128, 33, 3, "uniform", True),
+    "dead-column": (9, 30, 6, "dead", False),
+}
+
+
+def _fbd_case(dev, name, seed=0):
+    """Seeded inputs of an FBD case on the card: lengths of 0, 1, past T
+    and ragged (row 0 the full T); a pinned final at the last state where
+    the case says, which the short rows cannot reach (ll = -inf)."""
+    s, t, b, kind, pinned = FBD_CASES[name]
+    rng = np.random.default_rng(seed)
+    log_a = uniform_forward_log_a(s)
+    if kind == "banded":
+        from cs304_tpu_torch.ops.viterbi import banded_transition_matrix
+
+        log_a = banded_transition_matrix(torch.as_tensor(log_a)).numpy()
+    if kind == "dead":
+        log_a[:, 3] = -np.inf
+    log_b = (rng.normal(size=(b, t, s)) * 3).astype(np.float32)
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[0] = t
+    lengths[1::4] = 1
+    lengths[2::5] = 0
+    lengths[3::6] = t + 3
+    log_init = np.full(s, -np.inf, np.float32)
+    log_init[0] = 0.0
+    final = None
+    if pinned:
+        final = np.full(s, -np.inf, np.float32)
+        final[-1] = 0.0
+        final = torch.as_tensor(final, device=dev)
+    return (torch.as_tensor(log_b, device=dev), torch.as_tensor(np.ascontiguousarray(log_a),
+                                                                device=dev),
+            torch.as_tensor(log_init, device=dev), torch.as_tensor(lengths, device=dev), final)
+
+
+def _same_bits(got, want):
+    """NaN in the same cells, every other cell bitwise (signs of zero too)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(
+        torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+
+
+@pytest.mark.parametrize("mode", ["forward", "backward", "posteriors"])
+@pytest.mark.parametrize("name", sorted(FBD_CASES))
+def test_fb_dense_is_bitwise_plain(dev, name, mode):
+    """Every output bitwise the plain version, signs of zero included (xi
+    sums of subnormal terms too: the kernel's adds are __fadd_rn)."""
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    args = _fbd_case(dev, name)
+    before = fbd.fb_dense.launches
+    got = fbd.fb_dense(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert fbd.fb_dense.launches == before + 1
+    want = fbd.fb_dense_plain(*args, mode=mode)
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and _same_bits(g, w), (name, mode, i)
+    if mode != "backward":
+        ll = got[-1]
+        assert bool(torch.isfinite(ll[0])) and not bool(torch.isnan(ll).any())
+
+
+def test_fb_dense_rejects_what_the_kernel_does_not_take(dev):
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    log_b, log_a, log_init, lengths, _final = _fbd_case(dev, "word-S5")
+    with pytest.raises(ValueError, match="states"):
+        big = torch.zeros((1, 4, 129), device=dev)
+        fbd.fb_dense(big, torch.zeros((129, 129), device=dev), torch.zeros(129, device=dev),
+                     lengths[:1])
+    with pytest.raises(TypeError):
+        fbd.fb_dense(log_b, log_a, log_init, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        fbd.fb_dense(log_b, log_a.t(), log_init, lengths)
+
+
+def test_forward_backward_ops_launch_fb_dense_once(dev, monkeypatch):
+    """forward, backward, forward_backward and forward_log_likelihood on
+    CUDA tensors: one FBD launch each, no plain version, the plain
+    version's bits (single and batched forms)."""
+    from cs304_tpu_torch.ops import forward_backward as ops
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    log_b, log_a, log_init, lengths, final = _fbd_case(dev, "word-S5-banded-final")
+
+    def run_ops():
+        return (ops.forward(log_b, log_a, log_init, lengths, final),
+                ops.backward(log_b, log_a, lengths, final),
+                ops.forward_backward(log_b, log_a, log_init, lengths, final),
+                ops.forward_log_likelihood(log_b[0], log_a, log_init, 17))
+
+    with monkeypatch.context() as m:  # the plain version on the same CUDA tensors
+        m.setattr(ops, "fb_dense", fbd.fb_dense_plain)
+        want = run_ops()
+
+    def plain_on_card(*args, **kwargs):
+        raise AssertionError("the plain forward-backward ran on the card")
+
+    before = fbd.fb_dense.launches
+    monkeypatch.setattr(fbd, "fb_dense_plain", plain_on_card)
+    (alpha, ll), beta, (gamma, xi, ll_p), ll_1 = run_ops()
+    torch.cuda.synchronize()
+    assert fbd.fb_dense.launches == before + 4
+    bits = [(alpha, want[0][0]), (ll, want[0][1]), (beta, want[1]), (gamma, want[2][0]),
+            (xi, want[2][1]), (ll_p, want[2][2]), (ll_1, want[3])]
+    assert all(_same_bits(g, w) for g, w in bits)
+
+
+def test_word_baum_welch_launches_fb_dense_once_an_iteration(dev, monkeypatch):
+    from cs304_tpu_torch.models import gmm_hmm as tg
+    from cs304_tpu_torch.models.train_kmeans import SegmentalKMeansConfig
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(5, 6)).astype(np.float32) * 4
+    clips = [np.concatenate([c + rng.normal(0, 0.6, size=(int(rng.integers(3, 7)), 6))
+                             for c in centers]).astype(np.float32) for _ in range(12)]
+    cfg = SegmentalKMeansConfig(num_states=5, max_iterations=3, length_multiple=16,
+                                cov_reg=0.01)
+    log_a = np.full((5, 5), -np.inf, np.float32)
+    for i in range(5):
+        log_a[i, i: i + 2] = np.log(0.5) if i < 4 else 0.0
+    init = tg.GMMWordHMM("w", np.stack([centers, centers + 0.3], axis=1),
+                         np.tile(np.eye(6, dtype=np.float32), (5, 2, 1, 1)),
+                         np.full((5, 2), 0.5, np.float32), log_a)
+    calls = []
+    orig = tg._bw_stats
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(tg, "_bw_stats", counted)
+    monkeypatch.setattr(fbd, "fb_dense_plain", lambda *a, **k: pytest.fail("plain FB on card"))
+    before = fbd.fb_dense.launches
+    model = tg.train_gmm_hmm_baum_welch("w", clips, 2, cfg, init=init, device=dev)
+    torch.cuda.synchronize()
+    assert fbd.fb_dense.launches - before == len(calls) >= 1
+    assert np.isfinite(model.means).all()
+    before = fbd.fb_dense.launches
+    assert np.isfinite(model.forward_score(clips[0], device=dev))
+    assert fbd.fb_dense.launches == before + 1
+
+
+def test_seeded_k3_is_bitwise_plain(dev):
+    rng = np.random.default_rng(12)
+    b, t, s = 40, 70, 9
+    log_b = (rng.normal(size=(b, t, s)) * 2).astype(np.float32)
+    c = [rng.normal(size=(b, s)).astype(np.float32) for _ in range(3)]
+    c[1][:, 0] = c[2][:, :2] = -np.inf
+    c[2][::3] = -np.inf  # skip 1 rows
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    seed = np.where(rng.random(b) < 0.5, rng.normal(size=b), 0.0).astype(np.float32)
+    cpu = [torch.as_tensor(x) for x in (log_b, *c, lengths)]
+    card = [x.to(dev) for x in cpu]
+    for sd in (None, torch.as_tensor(seed)):
+        before = tb.banded_forward.launches
+        got = tb.banded_forward(*card, None if sd is None else sd.to(dev))
+        torch.cuda.synchronize()
+        assert tb.banded_forward.launches == before + 1
+        want = banded_sentence_forward(*cpu, sd)
+        assert _same_bits(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_arc_scores_and_assoc_backtrace_card_equals_cpu(dev):
+    """lattice_rescore's arc scores on the card: one K3 launch for all
+    arcs, bitwise the CPU's; the rescored path equal. The associative
+    decode's backtrace: one K2-bt launch, path and score equal to the CPU's."""
+    from cs304_tpu_torch.ops import rescore as tr
+    from cs304_tpu_torch.ops.viterbi_assoc import viterbi_composite_assoc
+
+    comp = flagship_composite()
+    clip = _sampled_clips(1, 21)[0][:24]
+    log_b = comp.log_likelihoods(clip, device="cpu")
+    lat = tr.exhaustive_lattice(comp, len(clip))
+    want = tr.arc_acoustic_scores(comp, lat.arcs, log_b=log_b, device="cpu")
+    before = tb.banded_forward.launches
+    got = tr.arc_acoustic_scores(comp, lat.arcs, log_b=log_b.to(dev), device=dev)
+    assert tb.banded_forward.launches == before + 1
+    np.testing.assert_array_equal(got, want)
+    assert tr.lattice_rescore(comp, lat, log_b=log_b.to(dev), device=dev)[:2] == \
+        tr.lattice_rescore(comp, lat, log_b=log_b, device="cpu")[:2]
+    with pytest.raises(ValueError, match="skip"):
+        tr.arc_acoustic_scores(comp, lat.arcs[:3], log_b=log_b.to(dev), skip=3, device=dev)
+    topo = (comp.log_a, comp.lower_of_state, comp.is_entry, comp.is_exit, comp.penalty)
+    w_s, w_p = viterbi_composite_assoc(log_b, *topo)
+    before = tsf.trellis_backtrace.launches
+    g_s, g_p = viterbi_composite_assoc(log_b.to(dev), *topo)
+    assert tsf.trellis_backtrace.launches == before + 1
+    assert float(g_s) == float(w_s) and torch.equal(g_p.cpu(), w_p)

@@ -92,3 +92,24 @@ def test_composite_assoc_matches_sequential_and_jax(rng, t):
     j_s, j_p = jassoc.viterbi_composite_assoc(log_b, *topo)
     assert float(score) == pytest.approx(float(j_s), rel=1e-6, abs=1e-5)
     np.testing.assert_array_equal(path.numpy(), np.asarray(j_p))
+
+
+@pytest.mark.parametrize("t", [1, 2, 29])
+def test_assoc_backtrace_ties_match_jax(rng, t):
+    """Integer emissions on a uniform upper-triangular word: predecessors
+    tie, and the backtrace (first-max table walked by K2-bt's plain
+    version) takes the lowest index as JAX's argmax does; scores bitwise."""
+    s = 6
+    trans = torch.as_tensor(np.where(np.isfinite(uniform_forward_log_a(s)), 0.0,
+                                     -np.inf).astype(np.float32))
+    log_b = rng.integers(-2, 1, size=(t, s)).astype(np.float32)
+    alpha0 = np.zeros(s, np.float32)
+    alpha0[3:] = -np.inf
+    final = np.zeros(s, bool)
+    final[[2, 4, 5]] = True
+    score, path = tassoc.viterbi_assoc(torch.as_tensor(log_b), trans,
+                                       torch.as_tensor(alpha0), torch.as_tensor(final))
+    j_s, j_p = jassoc.viterbi_assoc(log_b, trans.numpy(), alpha0, final)
+    assert float(score) == float(j_s)
+    assert path.dtype == torch.int32 and path.shape == (t,)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(j_p))

@@ -339,8 +339,11 @@ Phases (each prints its own numbers; any failure exits non-zero):
               matrix with a pinned final, S=1, S=2 at T=1, an all -inf
               column, S=128 (the cap), lengths 0, 1 and past T, and the
               legacy trainer's largest call (one fused=False Baum-Welch
-              iteration at phase 8's corpus, pinned final); each mode's
-              device time at the word shape and the legacy one beside its
+              iteration at phase 8's corpus, pinned final), and each word's
+              own Baum-Welch call (its clips, GMM emissions and learned
+              log_a, captured from one iteration); each mode's device time
+              at the word shape, the posteriors' at the legacy call and at
+              the largest word call (the kernels line's row), beside its
               plain loop's eager time, bound and µs a chain step;
               isolated-word Baum-Welch at full width (the slice's main
               path: train_gmm_hmm_baum_welch, K = 4, phase 9's 11 words, all
@@ -5212,7 +5215,6 @@ def cli_phase(dev, card):
     from cs304_tpu_torch.ops import viterbi as vt
     from cs304_tpu_torch.ops import viterbi_counted as tvc
     from cs304_tpu_torch.ops import viterbi_duration as tvd
-    from cs304_tpu_torch.ops import rescore as rs
     from cs304_tpu_torch.ops.cuda import emission as em
     from cs304_tpu_torch.ops.cuda import forward_backward as fbd
     from cs304_tpu_torch.ops.cuda import trellis_banded as tb
@@ -5256,7 +5258,7 @@ def cli_phase(dev, card):
              (gm, "viterbi_composite_grammar_batch_plain"),
              (tvd, "viterbi_composite_duration_batch_plain"),
              (tlk, "lattice_sum_passes_plain"), (tlk, "lattice_max_passes_plain"),
-             (tlk, "kbest_forward_plain"), (fbd, "fb_dense_plain"), (rs, "_arc_scores_dense")]
+             (tlk, "kbest_forward_plain"), (fbd, "fb_dense_plain")]
     saved = [guard(plain_on_card, m, n) for m, n in plain]
     tmp = tempfile.mkdtemp(prefix="cli_phase_")
     log_file = os.path.join(tmp, "runtime.log")
@@ -5823,7 +5825,7 @@ def data_parallel_phase(dev, card, decode, pipe):
 
 # FBD's cases beside the word shape: name -> (B, T, S, matrix, pinned final).
 FBD_CASES = {
-    "word": (256, 128, 5, "uniform", False),  # the word Baum-Welch shape
+    "word": (256, 128, 5, "uniform", False),  # 5-state words, 256 clips of T = 128
     "word-banded-final": (256, 128, 5, "banded", True),
     "S1": (8, 40, 1, "uniform", True),
     "S2-T1": (8, 1, 2, "uniform", False),
@@ -5872,21 +5874,34 @@ def fbd_problem(dev, b, t, s, kind, pinned, seed):
 def fbd_bound(b, t, s, lengths, mode):
     """bound() of one FBD call: the live log_b rows, log_a, log_init,
     log_final and lengths in; alpha, beta or gamma (every row), xi and ll
-    out; per (chain step, state) 6 S + 3 FP32 operations (for each source
-    an add, a max, the add again, a subtract, an exp and the sum's add; a
-    log and two adds), per (live row, state) 3 for gamma (add, subtract,
-    exp) and per (pair, cell) 6 for xi, over the steps these lengths need;
-    and the serial chain: steps a sequence waits for (T - 1 a direction)."""
+    out. FP32 operations over the steps these lengths need: per (chain
+    step, state, source) 5 (an add, a max, a subtract, an exp and the sum's
+    add) and per (chain step, state) 3 (a log, the max added back, and the
+    emission's add: log_b to the sum in the forward, to beta in the
+    backward); per (live row, state) 3 for gamma (add, subtract, exp); per
+    (pair, cell) 4 for xi (the add of the destination's term to alpha +
+    log_a, which the forward step already formed, a subtract, an exp and
+    the sum's add) and per (pair, state) 1 (log_b + beta). Every operation,
+    exp and log included, is counted once at PEAK_FP32_ALU: an IEEE expf or
+    logf takes several instructions, so the bound stays a lower bound."""
     n = lengths.clamp(min=0, max=t)
     live, steps = int(n.sum().item()), int((n - 1).clamp(min=0).sum().item())
     moved_in = 4 * live * s + 4 * s * s + 8 * s + 4 * b
-    per_step = steps * s * (6 * s + 3)
+    per_step = steps * s * (5 * s + 3)
     if mode == "forward":
         return bound(moved_in + 4 * b * t * s + 4 * b, [(per_step, PEAK_FP32_ALU)])
     if mode == "backward":
         return bound(moved_in + 4 * b * t * s, [(per_step, PEAK_FP32_ALU)])
-    ops = 2 * per_step + 3 * live * s + 6 * steps * s * s
+    ops = 2 * per_step + 3 * live * s + steps * (4 * s * s + s)
     return bound(moved_in + 4 * b * t * s + 4 * b * s * s + 4 * b, [(ops, PEAK_FP32_ALU)])
+
+
+def fbd_chain(lengths, t, mode):
+    """The serial steps of one FBD call: the kernel walks each row to its
+    own length, so the longest row sets the chain (T - 1 a direction at
+    most; the posteriors walk both)."""
+    n = int(lengths.clamp(min=0, max=t).max().item())
+    return (2 if mode == "posteriors" else 1) * max(n - 1, 1)
 
 
 def same_cells(got, want):
@@ -5965,7 +5980,9 @@ def fbd_expf_probe(dev, n=4096, lo=-103.9, hi=-87.4):
 def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
     """Phase 32 (slice 10): FBD, the dense forward-backward
     (csrc/forward_backward.cu), against its plain version in all three
-    modes; its timing; isolated-word Baum-Welch at full width and the
+    modes, on seeded cases and on the legacy trainer's and each word's own
+    calls; its timing (the largest word call's for the kernels line);
+    isolated-word Baum-Welch at full width and the
     legacy trainer's Baum-Welch pass on it; project3_train --gmm-mixtures 4
     --baum-welch with FBD and with the plain loop on the card; lattice
     rescoring's arc scores on K3 and the associative decode's backtrace on
@@ -5994,7 +6011,7 @@ def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
     t_phase = time.perf_counter()
     plain_on_card = {}
     guards = [(fbd, "fb_dense_plain"), (tb, "banded_sentence_forward"),
-              (tsf, "backtrace_batch"), (rs, "_arc_scores_dense")]
+              (tsf, "backtrace_batch")]
 
     # -- FBD against its plain version --------------------------------------
     err = 0.0
@@ -6074,22 +6091,20 @@ def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
         ms = device_ms(lambda: fbd.fb_dense(*word_args, mode=mode))
         plain_ms = cuda_ms(lambda: fbd.fb_dense_plain(*word_args, mode=mode), reps=2)
         b_ms, b_by = fbd_bound(b_w, t_w, s_w, word_args[3], mode)
-        chain = (2 if mode == "posteriors" else 1) * (t_w - 1)
+        chain = fbd_chain(word_args[3], t_w, mode)
         log("timing", kernel=f"fb_dense:{mode}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, chain_steps=chain, us_per_chain_step=ms / chain * 1e3,
             plain_us_per_chain_step=plain_ms / chain * 1e3, library_ms=None,
             shape=f"B={b_w} T={t_w} S={s_w}", card=card)
-        if mode == "posteriors":
-            timings["fb_dense"] = (ms, plain_ms)
-            yardsticks["fb_dense"] = (None, b_ms, b_by)
     leg = captured[0]
     b_l, t_l, s_l = leg[0].shape
     leg_ms = device_ms(lambda: fbd.fb_dense(*leg, mode="posteriors"))
     leg_plain = cuda_ms(lambda: fbd.fb_dense_plain(*leg, mode="posteriors"), reps=2)
     leg_bound = fbd_bound(b_l, t_l, s_l, leg[3], "posteriors")
+    leg_chain = fbd_chain(leg[3], t_l, "posteriors")
     log("timing", kernel="fb_dense:posteriors", ms=leg_ms, plain_ms=leg_plain,
-        bound_ms=leg_bound[0], bound_by=leg_bound[1], chain_steps=2 * (t_l - 1),
-        us_per_chain_step=leg_ms / (2 * (t_l - 1)) * 1e3, library_ms=None,
+        bound_ms=leg_bound[0], bound_by=leg_bound[1], chain_steps=leg_chain,
+        us_per_chain_step=leg_ms / leg_chain * 1e3, library_ms=None,
         shape=f"legacy B={b_l} T={t_l} S={s_l}", card=card)
 
     # -- isolated-word Baum-Welch at full width (the slice's main path) ------
@@ -6098,6 +6113,43 @@ def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
     one_it = SegmentalKMeansConfig(num_states=5, max_iterations=1)
     init = {w: tg.train_gmm_hmm(w, f, num_mixtures=WORD_BW_MIXTURES, cfg=km, device=dev)
             for w, f in feats.items()}
+
+    # The main path's own FBD calls: one Baum-Welch iteration a word, each
+    # _bw_stats call captured (all of the word's clips, its GMM emissions,
+    # its learned log_a) and held to the plain version; the largest is timed
+    # for the kernels line.
+    word_calls = {}
+
+    def capture_word(*args):
+        word_calls[current[0]] = tuple(a.clone() if a is not None else None for a in args[:5])
+        return real(*args)
+
+    current = [None]
+    fb_ops.fb_dense = capture_word
+    try:
+        for w, f in feats.items():
+            current[0] = w
+            tg.train_gmm_hmm_baum_welch(w, f, WORD_BW_MIXTURES, one_it, init=init[w], device=dev)
+    finally:
+        fb_ops.fb_dense = real
+    for w, args in word_calls.items():
+        fbd_check(f"word-bw:{w}", args)
+    # The longest chain, then the most live frames.
+    big_w = max(word_calls, key=lambda w: (
+        fbd_chain(word_calls[w][3], word_calls[w][0].shape[1], "forward"),
+        int(word_calls[w][3].sum().item())))
+    big = word_calls[big_w]
+    b_b, t_b, s_b = big[0].shape
+    big_chain = fbd_chain(big[3], t_b, "posteriors")
+    big_ms = device_ms(lambda: fbd.fb_dense(*big, mode="posteriors"))
+    big_plain = cuda_ms(lambda: fbd.fb_dense_plain(*big, mode="posteriors"), reps=2)
+    big_bound = fbd_bound(b_b, t_b, s_b, big[3], "posteriors")
+    log("timing", kernel="fb_dense:posteriors", ms=big_ms, plain_ms=big_plain,
+        bound_ms=big_bound[0], bound_by=big_bound[1], chain_steps=big_chain,
+        us_per_chain_step=big_ms / big_chain * 1e3, library_ms=None, live_frames=int(big[3].clamp(max=t_b).sum().item()),
+        shape=f"word-bw {big_w!r} B={b_b} T={t_b} S={s_b}, the kernels line's row", card=card)
+    timings["fb_dense"] = (big_ms, big_plain)
+    yardsticks["fb_dense"] = (None, *big_bound)
     saved = [guard(plain_on_card, m, n) for m, n in guards]
     calls = []
     real_stats = tg._bw_stats
@@ -6247,8 +6299,6 @@ def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
     if not assoc_ok or bt_assoc != len(assoc):
         raise SystemExit(f"phase 32: viterbi_composite_assoc: equal {assoc_ok}, K2-bt "
                          f"launches {bt_assoc} for {len(assoc)} decodes")
-    launches["trellis_banded_forward"] += k3_rescore
-    launches["trellis_backtrace"] += bt_assoc
     errs["fb_dense"] = err
     log("phase", which="32 slice 10", seconds=f"{time.perf_counter() - t_phase:.2f}", card=card)
 

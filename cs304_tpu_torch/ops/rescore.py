@@ -51,8 +51,9 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     span as the row's length, and a t = 0 seed of the entry self-loop where
     the arc starts the utterance (0 elsewhere, -inf counting as 0); the
     score is alpha at the word's exit. K3 takes skip 0, 1 or 2 (c2, and c1
-    at 0, -inf); past that only a CPU tensor is scored, by a max-plus step a
-    frame over the dense band (ValueError on a CUDA tensor)."""
+    at 0, -inf); any other skip raises ValueError, on every device."""
+    if not 0 <= skip <= 2:
+        raise ValueError(f"skip={skip}: the arc scores' kernel (K3) takes skip 0, 1 or 2")
     if not arcs:
         return np.zeros((0,), np.float32)
     log_b, dev = emissions_of(composite, features, log_b, device)
@@ -73,8 +74,6 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     entry_diag = np.where(starts == 0, diag[lowers], 0.0).astype(np.float32)
     s_max = int(max(composite.state_counts))
     max_span = -(-int(spans.max()) // 32) * 32
-    if not 0 <= skip <= 2 and log_b.is_cuda:
-        raise ValueError(f"skip={skip}: the arc scores' kernel (K3) takes skip 0, 1 or 2")
 
     # Padded so every arc's window lies inside (values past a span or a
     # word's states are masked below).
@@ -96,24 +95,9 @@ def arc_acoustic_scores(composite, arcs: Sequence[LatticeArc], log_b=None,
     rows = torch.arange(len(arcs), device=dev)
     spans_d = torch.as_tensor(spans, dtype=torch.int32, device=dev)
     seed = torch.as_tensor(entry_diag, device=dev)
-    if not 0 <= skip <= 2:
-        return _arc_scores_dense(lb, trans, spans_d, seed)[rows, s_ws_d - 1].cpu().numpy()
     c0, c1, c2 = banded_diagonals(trans, len(arcs))
     alpha, _bp = banded_forward(lb.contiguous(), c0, c1, c2, spans_d, seed)
     return alpha[rows, s_ws_d - 1].cpu().numpy()
-
-
-def _arc_scores_dense(lb, trans, spans, seed):
-    """The arcs' trellises as the JAX package's scan writes them, for a band
-    K3 does not take (skip > 2; CPU only): alpha_0 = log_b[0, 0] + seed at
-    state 0, then a max-plus step over the dense band a frame, steps past a
-    span keeping the carry -> alpha (N, s_max)."""
-    sidx = torch.arange(lb.shape[2], device=lb.device)
-    alpha = torch.where(sidx == 0, lb[:, 0, :1] + seed[:, None], float("-inf"))
-    for j in range(1, lb.shape[1]):
-        new = torch.max(alpha[:, :, None] + trans, dim=1).values + lb[:, j]
-        alpha = torch.where((j < spans)[:, None], new, alpha)
-    return alpha
 
 
 def lattice_rescore(composite, lattice: Lattice, log_b=None, features=None,

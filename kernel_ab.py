@@ -1,0 +1,283 @@
+"""One hand-written kernel built from one or more sources and timed in turns.
+
+    python3 kernel_ab.py KERNEL --lib N=SOURCE.cu --lib P=OTHER.cu \
+        --order P,N,N,P [--shapes a,b,...] [--simple] [--out FILE]
+
+KERNEL is ``lattice_max`` (LMAX, ``csrc/trellis_lattice.cu``) or ``fb_dense``
+(FBD, ``csrc/forward_backward.cu``). Each source is a version of the
+kernel's file (a parent commit's from ``git show
+<commit>:cs304_tpu_torch/csrc/trellis_lattice.cu``, or an edited copy) that
+nvcc compiles into a library of its own, all at once, printing ptxas'
+registers and spills of the kernel's builds. At each shape every library's
+outputs are compared with the kernel's plain version on the same CUDA
+tensors (the cells whose bits differ, signs of zero included, NaN cells
+equal), then each library is timed in the order given (device time of
+CUDA-graph replays, best of 5), printed as µs a step.
+
+- ``lattice_max``: phase 31's shapes and a composite for each build of the
+  team branch (as ``tests/test_torch_cuda_kernels.py`` LMAX_BUILDS);
+  ``--simple`` adds the first library's first design (``simple=1``) in
+  turns beside its plan's branch (s n n s); each row gives the first
+  library's plan.
+- ``fb_dense``: the posteriors mode at chip_smoke.py phase 32's word shape
+  (B=256, T=128, S=5, no final) and a legacy-trainer-like one (B=128,
+  T=256, S=59, the banded matrix of a left-to-right model, a pinned final);
+  a step is one of its 2 (T - 1) chain steps.
+
+Exits non-zero where a library disagrees with the plain version. Needs a
+card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from cs304_tpu_torch.models.hmm import (  # noqa: E402
+    WordHMM,
+    flagship_composite,
+    stack_word_models,
+    uniform_forward_log_a,
+)
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def build(name, path, workdir, kernel):
+    """nvcc one source into its own library -> (name, lib, ptxas lines of
+    the entry functions whose name holds the kernel's tag)."""
+    out = os.path.join(workdir, f"{name}.so")
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-shared", "-o", out, path]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"{name}: nvcc failed\n{r.stderr[-3000:]}")
+    res, cur = [], None
+    for line in r.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        if m:
+            cur = m[1] if kernel.tag in m[1] else None
+        elif cur and ("registers" in line or "spill" in line):
+            info = re.sub(r".*:\s*", "", line.strip())
+            res.append(re.sub(rf".*{kernel.tag}_?", "", cur) + " " + info)
+    lib = ctypes.CDLL(out)
+    for symbol, argtypes in kernel.entries.items():
+        getattr(lib, symbol).argtypes = argtypes
+        getattr(lib, symbol).restype = I
+    return name, lib, res
+
+
+def differing_cells(got, want):
+    """Cells whose bits differ (NaN cells equal wherever both are NaN)."""
+    if not want.dtype.is_floating_point:
+        return int((got != want).sum())
+    nan = torch.isnan(want)
+    return int((torch.isnan(got) != nan).sum()) + int(
+        (got.view(torch.int32) != want.view(torch.int32))[~nan & ~torch.isnan(got)].sum())
+
+
+def device_ms(call, reps=20):
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            call()
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / reps)
+    return best
+
+
+class LatticeMax:
+    tag = "lattice_max"
+    entries = {"cs304_lattice_max": [P, P, P, P, P, F, I, P, P, P, P, I, I, I, I, I, P],
+               "cs304_lattice_max_plan": [I, I, I, P]}
+    # name: (word state counts (None: the flagship), penalty, T, length)
+    shapes = {
+        "58": (None, None, 201, 180), "58t59": (None, None, 59, 59),
+        "single": ([1, 3, 1, 5, 1, 3], 0.0, 64, 40),
+        "pool33": ([2, 1] * 16 + [3], -25.0, 40, 40),
+        "375": ([5] * 75, -100.0, 201, 201), "503": ([5] * 100 + [3], -100.0, 201, 201),
+        "1503": ([5] * 300 + [3], -100.0, 201, 201), "3003": ([5] * 600 + [3], -100.0, 100, 100),
+        "5003": ([5] * 1000 + [3], -100.0, 60, 60), "8188": ([5] * 1637 + [3], -100.0, 30, 30),
+        "long": ([250] * 20, -100.0, 150, 150),
+        # The team branch's other builds (states a band thread, pool, cells a
+        # lane, CTAs), and single-state words where the plan keeps the first
+        # design.
+        "k1-cells2": ([2] * 300, -100.0, 64, 64), "700-single": ([1] * 700, -100.0, 64, 64),
+        "k2-dense": ([50] * 30, -100.0, 100, 100), "k2-cells1": ([10] * 150, -100.0, 64, 64),
+        "k2-cells4": ([2] * 700, -100.0, 64, 64), "1100-single": ([1] * 1100, -100.0, 64, 64),
+        "k4-dense": ([100] * 30, -100.0, 100, 100), "k4-cells1": ([20] * 150, -100.0, 64, 64),
+        "k4-cells2": ([7] * 400, -100.0, 64, 64), "k4-cells8": ([2] * 1100, -100.0, 64, 64),
+        "c2-cells2": ([12] * 400, -100.0, 64, 64), "c2-cells8": ([4] * 1100, -100.0, 64, 64),
+        "c4-long": ([400] * 20, -100.0, 216, 216), "c4-cells2": ([20] * 400, -100.0, 64, 64),
+        "c4-cells4": ([8] * 1000, -100.0, 64, 64),
+    }
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.gen = torch.Generator(device=dev).manual_seed(5)
+
+    @staticmethod
+    def composite(counts, penalty):
+        if counts is None:
+            return flagship_composite()
+        rng = np.random.default_rng(31)
+        return stack_word_models(
+            [WordHMM(f"w{i}", rng.normal(size=(n, 4)).astype(np.float32),
+                     np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)), uniform_forward_log_a(n))
+             for i, n in enumerate(counts)], penalty=penalty)
+
+    def problem(self, key, first_lib):
+        """-> (run(lib, simple), plain outputs, outputs, steps, row info)."""
+        from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
+
+        counts, pen, t, length = self.shapes[key]
+        comp = self.composite(counts, pen)
+        dev = self.dev
+        topo = tlk.lattice_topology(comp.log_a, comp.lower_of_state, comp.is_entry,
+                                    comp.is_exit, comp.word_of_state, device=dev)
+        # Sources from before the pool's carry bit was dropped read bit 8 of
+        # ints row 3 at the entries (every pool pick new); later ones ignore it.
+        topo.ints[3] |= 8 * (topo.coefs[4] > 0).to(torch.int32)
+        s = comp.num_states
+        lb = 3 * torch.randn((t, s), generator=self.gen, device=dev)
+        want = tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length)
+        outs = (torch.empty((t, s), device=dev),
+                torch.empty((t, s), dtype=torch.int32, device=dev),
+                torch.empty((t,), device=dev), torch.empty((), device=dev))
+
+        def run(lib, simple):
+            code = lib.cs304_lattice_max(
+                lb.data_ptr(), topo.coefs.data_ptr(), topo.ints.data_ptr(),
+                topo.exits.data_ptr(), topo.entries.data_ptr(), float(comp.penalty),
+                int(length), *(o.data_ptr() for o in outs), t, s, topo.exits.numel(),
+                topo.entries.numel(), int(simple), torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise SystemExit(f"cs304_lattice_max returned {code}")
+
+        plan = (ctypes.c_int * 7)()
+        first_lib.cs304_lattice_max_plan(s, topo.exits.numel(), topo.entries.numel(), plan)
+        # (branch 0 team / 1 simple, states a band thread, dense, pool warps,
+        # threads, cells a pool lane, CTAs) of the first library
+        info = {"S": s, "T": t, "finite_score": bool(torch.isfinite(want[3])),
+                "plan": list(plan)}
+        return run, want, outs, t - 1, info
+
+
+class FbDense:
+    tag = "fb_dense"
+    entries = {"cs304_fb_dense": [I, P, P, P, P, P, P, P, P, P, P, I, I, I, P]}
+    # name: (B, T, S, matrix, pinned final), as chip_smoke.FBD_CASES
+    shapes = {"word": (256, 128, 5, "uniform", False), "legacy": (128, 256, 59, "banded", True)}
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def problem(self, key, first_lib):
+        from chip_smoke import fbd_problem
+        from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+        b, t, s, kind, pinned = self.shapes[key]
+        log_b, log_a, log_init, lengths, final = fbd_problem(
+            self.dev, b, t, s, kind, pinned, seed=b + t + s)
+        want = fbd.fb_dense_plain(log_b, log_a, log_init, lengths, final, mode="posteriors")
+        alpha, beta, gamma = (torch.empty_like(log_b) for _ in range(3))
+        xi = torch.empty((b, s, s), device=self.dev)
+        ll = torch.empty((b,), device=self.dev)
+
+        def run(lib, _simple):
+            code = lib.cs304_fb_dense(
+                2, log_b.data_ptr(), log_a.data_ptr(), log_init.data_ptr(),
+                final.data_ptr() if final is not None else None, lengths.data_ptr(),
+                alpha.data_ptr(), beta.data_ptr(), gamma.data_ptr(), xi.data_ptr(),
+                ll.data_ptr(), b, t, s, torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise SystemExit(f"cs304_fb_dense returned {code}")
+
+        return run, want, (gamma, xi, ll), 2 * (t - 1), {"B": b, "T": t, "S": s}
+
+
+KERNELS = {"lattice_max": LatticeMax, "fb_dense": FbDense}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("--lib", action="append", required=True, help="NAME=SOURCE.cu")
+    ap.add_argument("--order", default=None, help="library names in timing order")
+    ap.add_argument("--shapes", default=None, help="comma-separated; default all")
+    ap.add_argument("--simple", action="store_true", help="lattice_max: time simple=1 too")
+    ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a card")
+    dev = torch.device("cuda", 0)
+    kernel = KERNELS[args.kernel](dev)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True
+                          ).stdout.strip()
+    print("card:", card, flush=True)
+    specs = dict(x.split("=", 1) for x in args.lib)
+    workdir = tempfile.mkdtemp(prefix="kernel_ab_")
+    with ThreadPoolExecutor(len(specs)) as ex:
+        built = list(ex.map(lambda kv: build(*kv, workdir, kernel), specs.items()))
+    libs = {}
+    for name, lib, res in built:
+        print(name, "ptxas:", *res, sep="\n  ", flush=True)
+        libs[name] = lib
+    order = (args.order or ",".join(libs)).split(",")
+    first = order[0]
+    simple = args.simple and args.kernel == "lattice_max"
+    rows = []
+    for key in (args.shapes or ",".join(kernel.shapes)).split(","):
+        run, want, outs, steps, info = kernel.problem(key, libs[first])
+        differing = {}
+        for name, lib in libs.items():
+            for flag in (0, 1) if simple and name == first else (0,):
+                run(lib, flag)
+                torch.cuda.synchronize()
+                differing[name + ("-simple" if flag else "")] = sum(
+                    differing_cells(g, w) for g, w in zip(outs, want))
+        turns = [(n, 0) for n in order]
+        if simple:
+            turns = [(first, 1)] + turns + [(first, 1)]
+        us = {}
+        for name, flag in turns:
+            ms = device_ms(lambda: run(libs[name], flag))
+            us.setdefault(name + ("-simple" if flag else ""), []).append(
+                round(ms / steps * 1e3, 4))
+        row = {"shape": key, **info, "steps": steps, "differing_cells": differing,
+               "us_step": us, "card": card}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    if any(any(r["differing_cells"].values()) or not r.get("finite_score", True)
+           for r in rows):
+        raise SystemExit("kernel_ab: a library disagrees with the plain version")
+
+
+if __name__ == "__main__":
+    main()

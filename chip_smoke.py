@@ -337,14 +337,20 @@ Phases (each prints its own numbers; any failure exits non-zero):
               -17.5] logged): the word shape (B=256, T=128,
               S=5, a uniform upper-triangular log_a, no final), its banded
               matrix with a pinned final, S=1, S=2 at T=1, an all -inf
-              column, S=128 (the cap), lengths 0, 1 and past T, and the
+              column, S=128 (the cap), lengths 0, 1 and past T, a learned
+              matrix (scattered -inf entries, a dead row and column) at
+              S=5 and 32, banded S=16 and 100 with a pinned final, T=600,
+              kernel_ab.py's seeded word call (every build of the plan), the
               legacy trainer's largest call (one fused=False Baum-Welch
               iteration at phase 8's corpus, pinned final), and each word's
               own Baum-Welch call (its clips, GMM emissions and learned
               log_a, captured from one iteration); each mode's device time
-              at the word shape, the posteriors' at the legacy call and at
-              the largest word call (the kernels line's row), beside its
-              plain loop's eager time, bound and µs a chain step;
+              at the word shape, the posteriors' at the seeded word call,
+              the legacy call and the largest word call (the kernels
+              line's row), beside its plain loop's eager time, bound
+              (counted over log_a's finite entries), µs a chain step, the
+              skeleton's µs a step (its build's chain cut to the exchange)
+              and ptxas' registers and spills;
               isolated-word Baum-Welch at full width (the slice's main
               path: train_gmm_hmm_baum_welch, K = 4, phase 9's 11 words, all
               of a word's clips in one batch, from k-means models trained
@@ -5831,7 +5837,18 @@ FBD_CASES = {
     "S2-T1": (8, 1, 2, "uniform", False),
     "dead-column": (16, 64, 9, "dead", False),
     "S128": (4, 100, 128, "uniform", True),
+    # Each build of the plan (w8 / w16 / w32 / b64 / b128) on a learned-
+    # looking matrix (scattered -inf entries, a dead row and column) or a
+    # banded one with a pinned final; a long row at S = 5.
+    "word-learned": (64, 128, 5, "learned", False),
+    "S16-banded-final": (32, 64, 16, "banded", True),
+    "S32-learned": (32, 64, 32, "learned", False),
+    "S100-banded-final": (8, 64, 100, "banded", True),
+    "S5-long": (16, 600, 5, "left-to-right", False),
 }
+# The main path's word call as a seeded shape (kernel_ab.py's "wordcall"):
+# B=18 clips of lengths 20..37 padded to T=128, a left-to-right log_a.
+FBD_WORD_CALL = (18, 128, 5, "left-to-right", False, (20, 37))
 WORD_BW_MIXTURES = 4  # the reference's NUM_MIXTURES
 # tests/test_torch_cli_train_gmm.py's bound after one Baum-Welch iteration,
 # in units of tests/test_torch_gmm.py's _assert_gmm_model tolerances.
@@ -5839,12 +5856,16 @@ BW_BOUND = {"means": (20, 1e-4, 1e-4), "covariances": (20, 1e-3, 1e-4),
             "weights": (1, 1e-4, 1e-4), "log_a": (1, 1e-4, 1e-4)}
 
 
-def fbd_problem(dev, b, t, s, kind, pinned, seed):
+def fbd_problem(dev, b, t, s, kind, pinned, seed, lengths=None):
     """A seeded FBD problem on the card (tests/test_torch_cuda_kernels.py's
-    _fbd_case): a uniform upper-triangular log_a, its banded matrix or one
-    with an all -inf column; emissions N(0, 9); lengths ragged with rows of
-    0, 1 and past T (row 0 the full T); a final pinned at the last state
-    where the case says (the short rows cannot reach it: ll = -inf)."""
+    _fbd_case): a uniform upper-triangular log_a, its banded matrix, one
+    with an all -inf column, a left-to-right one (random self-loop and next
+    probabilities, -inf elsewhere: a trained word model's pattern) or a
+    learned-looking dense one (scattered -inf entries, a dead row and
+    column; log_init zeros); emissions N(0, 9); lengths ragged with rows of
+    0, 1 and past T (row 0 the full T), or uniform in lengths = (lo, hi); a
+    final pinned at the last state where the case says (the short rows
+    cannot reach it: ll = -inf)."""
     from cs304_tpu_torch.models.hmm import uniform_forward_log_a
     from cs304_tpu_torch.ops.viterbi import banded_transition_matrix
 
@@ -5854,14 +5875,35 @@ def fbd_problem(dev, b, t, s, kind, pinned, seed):
         log_a = banded_transition_matrix(log_a)
     if kind == "dead":
         log_a[:, 3] = float("-inf")
+    if kind == "left-to-right":
+        stay = 0.3 + 0.6 * torch.rand((s,), generator=gen)
+        stay[-1] = 1.0
+        log_a = torch.full((s, s), float("-inf"))
+        idx = torch.arange(s)
+        log_a[idx, idx] = torch.log(stay)
+        log_a[idx[:-1], idx[1:]] = torch.log1p(-stay[:-1])
+    if kind == "learned":
+        a = 0.05 + 0.95 * torch.rand((s, s), generator=gen)
+        a[torch.rand((s, s), generator=gen) < 0.5] = 0.0
+        a[torch.arange(s), torch.arange(s)] = 0.2 + 0.8 * torch.rand((s,), generator=gen)
+        if s >= 3:
+            a[:, s // 2] = 0.0
+            a[s // 3, :] = 0.0
+        log_a = torch.log(a / a.sum(dim=1, keepdim=True).clamp(min=1e-30))
     log_b = 3 * torch.randn((b, t, s), generator=gen)
-    lengths = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32)
-    lengths[0] = t
-    lengths[1::4] = 1
-    lengths[2::5] = 0
-    lengths[3::6] = t + 3
+    if lengths is not None:
+        lengths = torch.randint(lengths[0], lengths[1] + 1, (b,), generator=gen,
+                                dtype=torch.int32)
+    else:
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32)
+        lengths[0] = t
+        lengths[1::4] = 1
+        lengths[2::5] = 0
+        lengths[3::6] = t + 3
     log_init = torch.full((s,), float("-inf"))
     log_init[0] = 0.0
+    if kind == "learned":
+        log_init[:] = 0.0
     final = None
     if pinned:
         final = torch.full((s,), float("-inf"))
@@ -5871,29 +5913,67 @@ def fbd_problem(dev, b, t, s, kind, pinned, seed):
             final)
 
 
-def fbd_bound(b, t, s, lengths, mode):
+def fbd_bound(b, t, s, lengths, mode, log_a):
     """bound() of one FBD call: the live log_b rows, log_a, log_init,
     log_final and lengths in; alpha, beta or gamma (every row), xi and ll
-    out. FP32 operations over the steps these lengths need: per (chain
-    step, state, source) 5 (an add, a max, a subtract, an exp and the sum's
-    add) and per (chain step, state) 3 (a log, the max added back, and the
+    out. FP32 operations over the steps these lengths need and the entries
+    of log_a that are not -inf (a -inf entry adds exactly nothing to a sum,
+    so a kernel that knows the matrix does no work for it): per (chain step,
+    finite entry) 5 (an add, a max, a subtract, an exp and the sum's add)
+    and per (chain step, state) 3 (a log, the max added back, and the
     emission's add: log_b to the sum in the forward, to beta in the
     backward); per (live row, state) 3 for gamma (add, subtract, exp); per
-    (pair, cell) 4 for xi (the add of the destination's term to alpha +
-    log_a, which the forward step already formed, a subtract, an exp and
-    the sum's add) and per (pair, state) 1 (log_b + beta). Every operation,
-    exp and log included, is counted once at PEAK_FP32_ALU: an IEEE expf or
-    logf takes several instructions, so the bound stays a lower bound."""
+    (pair, finite entry) 4 for xi (the add of the destination's term to
+    alpha + log_a, which the forward step already formed, a subtract, an
+    exp and the sum's add) and per (pair, state) 1 (log_b + beta). Every
+    operation, exp and log included, is counted once at PEAK_FP32_ALU: an
+    IEEE expf or logf takes several instructions, so the bound stays a
+    lower bound."""
     n = lengths.clamp(min=0, max=t)
     live, steps = int(n.sum().item()), int((n - 1).clamp(min=0).sum().item())
+    finite = int((log_a != float("-inf")).sum().item())
     moved_in = 4 * live * s + 4 * s * s + 8 * s + 4 * b
-    per_step = steps * s * (5 * s + 3)
+    per_step = steps * (5 * finite + 3 * s)
     if mode == "forward":
         return bound(moved_in + 4 * b * t * s + 4 * b, [(per_step, PEAK_FP32_ALU)])
     if mode == "backward":
         return bound(moved_in + 4 * b * t * s, [(per_step, PEAK_FP32_ALU)])
-    ops = 2 * per_step + 3 * live * s + steps * (4 * s * s + s)
+    ops = 2 * per_step + 3 * live * s + steps * (4 * finite + s)
     return bound(moved_in + 4 * b * t * s + 4 * b * s * s + 4 * b, [(ops, PEAK_FP32_ALU)])
+
+
+def fbd_skeleton_ms(args):
+    """Device time of FBD's skeleton on one call's inputs (its plan's
+    build, the forward's chain cut to its exchange: the floor of a step)."""
+    from cs304_tpu_torch.ops.cuda import _build
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    log_b, log_a, log_init, lengths, final = args
+    b, t, s = log_b.shape
+    alpha = torch.empty_like(log_b)
+    lib = _build.load()
+    build = list(fbd.FBD_BUILDS).index(fbd.fb_dense_plan(s))
+
+    def run():
+        _build.check(lib.cs304_fb_dense_on(
+            build, 3, log_b.data_ptr(), log_a.data_ptr(), log_init.data_ptr(),
+            final.data_ptr() if final is not None else None, lengths.data_ptr(),
+            alpha.data_ptr(), None, None, None, None, b, t, s,
+            torch.cuda.current_stream().cuda_stream), "fb_dense skeleton")
+    return device_ms(run)
+
+
+def fbd_resources(s):
+    """ptxas' registers and spill bytes of the posteriors kernel of the
+    build that runs S states (the library's build log)."""
+    from cs304_tpu_torch.ops.cuda import _build
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    path = _build.library_path().with_suffix(".log")
+    build = fbd.fb_dense_plan(s)
+    kind = "warp" if build.startswith("w") else "block"
+    name = f"fb_dense_{kind}ILi2ELi{fbd.FBD_BUILDS[build][1]}E"
+    return ptxas_resources(path.read_text() if path.exists() else "", re.compile(name))
 
 
 def fbd_chain(lengths, t, mode):
@@ -6086,26 +6166,42 @@ def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
     fbd_check("legacy-sentence", captured[0])
 
     # -- FBD timing at the word shape ---------------------------------------
+    def floor_us(args):
+        """The skeleton's µs a forward chain step on these inputs."""
+        return fbd_skeleton_ms(args) / fbd_chain(args[3], args[0].shape[1], "forward") * 1e3
+
     b_w, t_w, s_w = word_args[0].shape
     for mode in fbd.MODES:
         ms = device_ms(lambda: fbd.fb_dense(*word_args, mode=mode))
         plain_ms = cuda_ms(lambda: fbd.fb_dense_plain(*word_args, mode=mode), reps=2)
-        b_ms, b_by = fbd_bound(b_w, t_w, s_w, word_args[3], mode)
+        b_ms, b_by = fbd_bound(b_w, t_w, s_w, word_args[3], mode, word_args[1])
         chain = fbd_chain(word_args[3], t_w, mode)
         log("timing", kernel=f"fb_dense:{mode}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, chain_steps=chain, us_per_chain_step=ms / chain * 1e3,
             plain_us_per_chain_step=plain_ms / chain * 1e3, library_ms=None,
-            shape=f"B={b_w} T={t_w} S={s_w}", card=card)
+            shape=f"B={b_w} T={t_w} S={s_w}", build=fbd.fb_dense_plan(s_w), card=card)
+    log("timing", kernel="fb_dense:skeleton", us_per_chain_step=floor_us(word_args),
+        shape=f"B={b_w} T={t_w} S={s_w}", **fbd_resources(s_w), card=card)
+    seeded_call = fbd_problem(dev, *FBD_WORD_CALL[:5], seed=151, lengths=FBD_WORD_CALL[5])
+    fbd_check("word-call-seeded", seeded_call)
+    sc_ms = device_ms(lambda: fbd.fb_dense(*seeded_call, mode="posteriors"))
+    sc_chain = fbd_chain(seeded_call[3], FBD_WORD_CALL[1], "posteriors")
+    log("timing", kernel="fb_dense:posteriors", ms=sc_ms, chain_steps=sc_chain,
+        us_per_chain_step=sc_ms / sc_chain * 1e3, skeleton_us_per_step=floor_us(seeded_call),
+        bound_ms=fbd_bound(*seeded_call[0].shape, seeded_call[3], "posteriors",
+                           seeded_call[1])[0],
+        shape="kernel_ab.py's wordcall (B=18 T=128 S=5, lengths 20..37)", card=card)
     leg = captured[0]
     b_l, t_l, s_l = leg[0].shape
     leg_ms = device_ms(lambda: fbd.fb_dense(*leg, mode="posteriors"))
     leg_plain = cuda_ms(lambda: fbd.fb_dense_plain(*leg, mode="posteriors"), reps=2)
-    leg_bound = fbd_bound(b_l, t_l, s_l, leg[3], "posteriors")
+    leg_bound = fbd_bound(b_l, t_l, s_l, leg[3], "posteriors", leg[1])
     leg_chain = fbd_chain(leg[3], t_l, "posteriors")
     log("timing", kernel="fb_dense:posteriors", ms=leg_ms, plain_ms=leg_plain,
         bound_ms=leg_bound[0], bound_by=leg_bound[1], chain_steps=leg_chain,
-        us_per_chain_step=leg_ms / leg_chain * 1e3, library_ms=None,
-        shape=f"legacy B={b_l} T={t_l} S={s_l}", card=card)
+        us_per_chain_step=leg_ms / leg_chain * 1e3, skeleton_us_per_step=floor_us(leg),
+        library_ms=None, shape=f"legacy B={b_l} T={t_l} S={s_l}",
+        build=fbd.fb_dense_plan(s_l), **fbd_resources(s_l), card=card)
 
     # -- isolated-word Baum-Welch at full width (the slice's main path) ------
     feats = pipe["digit_feats"]
@@ -6143,11 +6239,14 @@ def slice10_phase(dev, pipe, launches, timings, errs, yardsticks, card):
     big_chain = fbd_chain(big[3], t_b, "posteriors")
     big_ms = device_ms(lambda: fbd.fb_dense(*big, mode="posteriors"))
     big_plain = cuda_ms(lambda: fbd.fb_dense_plain(*big, mode="posteriors"), reps=2)
-    big_bound = fbd_bound(b_b, t_b, s_b, big[3], "posteriors")
+    big_bound = fbd_bound(b_b, t_b, s_b, big[3], "posteriors", big[1])
     log("timing", kernel="fb_dense:posteriors", ms=big_ms, plain_ms=big_plain,
         bound_ms=big_bound[0], bound_by=big_bound[1], chain_steps=big_chain,
-        us_per_chain_step=big_ms / big_chain * 1e3, library_ms=None, live_frames=int(big[3].clamp(max=t_b).sum().item()),
-        shape=f"word-bw {big_w!r} B={b_b} T={t_b} S={s_b}, the kernels line's row", card=card)
+        us_per_chain_step=big_ms / big_chain * 1e3, skeleton_us_per_step=floor_us(big),
+        library_ms=None, live_frames=int(big[3].clamp(max=t_b).sum().item()),
+        finite_log_a=int((big[1] != float("-inf")).sum().item()),
+        shape=f"word-bw {big_w!r} B={b_b} T={t_b} S={s_b}, the kernels line's row",
+        build=fbd.fb_dense_plan(s_b), card=card)
     timings["fb_dense"] = (big_ms, big_plain)
     yardsticks["fb_dense"] = (None, *big_bound)
     saved = [guard(plain_on_card, m, n) for m, n in guards]

@@ -182,6 +182,12 @@ def load():
         lib.cs304_fb_dense.restype = i
         lib.cs304_fb_dense_max_states.argtypes = []
         lib.cs304_fb_dense_max_states.restype = i
+        lib.cs304_fb_dense_plan.argtypes = [i]
+        lib.cs304_fb_dense_plan.restype = i
+        lib.cs304_fb_dense_build_shape.argtypes = [i, p]
+        lib.cs304_fb_dense_build_shape.restype = i
+        lib.cs304_fb_dense_on.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.cs304_fb_dense_on.restype = i
         lib.cs304_error_string.argtypes = [i]
         lib.cs304_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -18,9 +18,9 @@ call, in one of three modes:
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. The kernel takes every B >= 1, T >= 1 and
-1 <= S <= MAX_FB_DENSE_STATES (a thread a state in one block); past that it
-raises. Its sums run in the plain version's order, so on the card the two
-differ at most by expf / logf rounding.
+1 <= S <= MAX_FB_DENSE_STATES; past that it raises. It sums over log_a's
+finite entries only, in the plain version's order: on the card the two are
+bitwise equal. Which build runs is fb_dense_plan(S).
 """
 from __future__ import annotations
 
@@ -29,10 +29,25 @@ import torch
 from . import _build
 from .trellis_scanfree import _check_cuda
 
-MAX_FB_DENSE_STATES = 128  # csrc/forward_backward.cu: a thread a state, 4 warps
+MAX_FB_DENSE_STATES = 128  # csrc/forward_backward.cu: the b128 build's states
 MODES = ("forward", "backward", "posteriors")
+# The kernel's builds, in csrc/forward_backward.cu's BUILDS order: name ->
+# (most states, threads a sequence, sequences a block). w8 / w16 / w32:
+# 8 / 16 / 32 lanes of one warp a sequence, shuffles, no barrier; b64 /
+# b128: a block a sequence, a thread a state, one barrier a step.
+FBD_BUILDS = {"w8": (8, 8, 4), "w16": (16, 16, 2), "w32": (32, 32, 1), "b64": (64, 64, 1),
+              "b128": (128, 128, 1)}
 
-__all__ = ["MAX_FB_DENSE_STATES", "MODES", "fb_dense", "fb_dense_plain", "lse_ascending"]
+__all__ = ["FBD_BUILDS", "MAX_FB_DENSE_STATES", "MODES", "fb_dense", "fb_dense_plain",
+           "fb_dense_plan", "lse_ascending"]
+
+
+def fb_dense_plan(s: int) -> str:
+    """The build that runs S states (csrc/forward_backward.cu's plan()):
+    the narrowest build that holds them."""
+    if not 1 <= s <= MAX_FB_DENSE_STATES:
+        raise ValueError(f"{s} states; the kernel takes 1..{MAX_FB_DENSE_STATES}")
+    return next(name for name, shape in FBD_BUILDS.items() if s <= shape[0])
 
 
 def lse_ascending(x, dim: int):
@@ -137,7 +152,8 @@ def _check_args(log_b, log_a, log_init, lengths, log_final):
 def fb_dense(log_b, log_a, log_init, lengths, log_final=None, mode="posteriors"):
     """FBD (see fb_dense_plain): log_b (B, T, S) float32, log_a (S, S),
     log_init (S,), log_final (S,) or None float32, lengths (B,) int32, all
-    contiguous -> the mode's outputs. On CUDA tensors one launch."""
+    contiguous -> the mode's outputs. On CUDA tensors one launch, of
+    fb_dense_plan(S)'s build."""
     if not log_b.is_cuda:
         return fb_dense_plain(log_b, log_a, log_init, lengths, log_final, mode)
     if mode not in MODES:

@@ -19,10 +19,16 @@ CUDA-graph replays, best of 5), printed as µs a step.
   ``--simple`` adds the first library's first design (``simple=1``) in
   turns beside its plan's branch (s n n s); each row gives the first
   library's plan.
-- ``fb_dense``: the posteriors mode at chip_smoke.py phase 32's word shape
-  (B=256, T=128, S=5, no final) and a legacy-trainer-like one (B=128,
-  T=256, S=59, the banded matrix of a left-to-right model, a pinned final);
-  a step is one of its 2 (T - 1) chain steps.
+- ``fb_dense``: the posteriors mode at the main path's word call (B=18,
+  T=128, S=5, lengths 20..37 as phase 9's clips, a left-to-right log_a with
+  -inf entries), chip_smoke.py phase 32's seeded word shape (B=256, T=128,
+  S=5, no final) and a legacy-trainer-like one (B=128, T=256, S=59, the
+  banded matrix of a left-to-right model, a pinned final); a step is one of
+  the call's chain steps (2 (longest row - 1)). An order entry ``N@BUILD``
+  runs library N on one of its builds (``cs304_fb_dense_on``, FBD_BUILDS'
+  names); each library that has that entry also times its skeleton (the
+  forward's chain cut to its exchange) as µs a forward step. ``--mode``
+  times the forward or backward mode instead.
 
 Exits non-zero where a library disagrees with the plain version. Needs a
 card and nvcc.
@@ -75,6 +81,10 @@ def build(name, path, workdir, kernel):
     for symbol, argtypes in kernel.entries.items():
         getattr(lib, symbol).argtypes = argtypes
         getattr(lib, symbol).restype = I
+    for symbol, argtypes in getattr(kernel, "optional", {}).items():
+        if hasattr(lib, symbol):
+            getattr(lib, symbol).argtypes = argtypes
+            getattr(lib, symbol).restype = I
     return name, lib, res
 
 
@@ -187,34 +197,54 @@ class LatticeMax:
 class FbDense:
     tag = "fb_dense"
     entries = {"cs304_fb_dense": [I, P, P, P, P, P, P, P, P, P, P, I, I, I, P]}
-    # name: (B, T, S, matrix, pinned final), as chip_smoke.FBD_CASES
-    shapes = {"word": (256, 128, 5, "uniform", False), "legacy": (128, 256, 59, "banded", True)}
+    optional = {"cs304_fb_dense_on": [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, P]}
+    # name: (B, T, S, matrix, pinned final, lengths), as chip_smoke.FBD_CASES
+    shapes = {"wordcall": (18, 128, 5, "left-to-right", False, (20, 37)),
+              "word": (256, 128, 5, "uniform", False, None),
+              "legacy": (128, 256, 59, "banded", True, None)}
 
-    def __init__(self, dev):
+    def __init__(self, dev, mode=None):
         self.dev = dev
+        self.mode = mode
 
     def problem(self, key, first_lib):
-        from chip_smoke import fbd_problem
+        from chip_smoke import fbd_chain, fbd_problem
         from cs304_tpu_torch.ops.cuda import forward_backward as fbd
 
-        b, t, s, kind, pinned = self.shapes[key]
+        b, t, s, kind, pinned, span = self.shapes[key]
         log_b, log_a, log_init, lengths, final = fbd_problem(
-            self.dev, b, t, s, kind, pinned, seed=b + t + s)
-        want = fbd.fb_dense_plain(log_b, log_a, log_init, lengths, final, mode="posteriors")
+            self.dev, b, t, s, kind, pinned, seed=b + t + s, lengths=span)
+        mode_name = self.mode or "posteriors"
+        want = fbd.fb_dense_plain(log_b, log_a, log_init, lengths, final, mode=mode_name)
         alpha, beta, gamma = (torch.empty_like(log_b) for _ in range(3))
         xi = torch.empty((b, s, s), device=self.dev)
         ll = torch.empty((b,), device=self.dev)
+        outs = {"forward": (alpha, ll), "backward": (beta,), "posteriors": (gamma, xi, ll)}
+        builds = list(fbd.FBD_BUILDS)
 
-        def run(lib, _simple):
-            code = lib.cs304_fb_dense(
-                2, log_b.data_ptr(), log_a.data_ptr(), log_init.data_ptr(),
-                final.data_ptr() if final is not None else None, lengths.data_ptr(),
-                alpha.data_ptr(), beta.data_ptr(), gamma.data_ptr(), xi.data_ptr(),
-                ll.data_ptr(), b, t, s, torch.cuda.current_stream().cuda_stream)
+        def run(lib, build, mode=fbd.MODES.index(mode_name)):
+            args = (log_b.data_ptr(), log_a.data_ptr(), log_init.data_ptr(),
+                    final.data_ptr() if final is not None else None, lengths.data_ptr(),
+                    alpha.data_ptr(), beta.data_ptr(), gamma.data_ptr(), xi.data_ptr(),
+                    ll.data_ptr(), b, t, s, torch.cuda.current_stream().cuda_stream)
+            if build:
+                code = lib.cs304_fb_dense_on(builds.index(build), mode, *args)
+            else:
+                code = lib.cs304_fb_dense(mode, *args)
             if code:
                 raise SystemExit(f"cs304_fb_dense returned {code}")
 
-        return run, want, (gamma, xi, ll), 2 * (t - 1), {"B": b, "T": t, "S": s}
+        def skeleton_us(lib, build):
+            """The skeleton's µs a forward step, or None without the entry."""
+            if not hasattr(lib, "cs304_fb_dense_on"):
+                return None
+            ms = device_ms(lambda: run(lib, build or fbd.fb_dense_plan(s), mode=3))
+            return round(ms / fbd_chain(lengths, t, "forward") * 1e3, 4)
+
+        info = {"B": b, "T": t, "S": s, "mode": mode_name, "plan": fbd.fb_dense_plan(s),
+                "longest_row": int(lengths.clamp(max=t).max()), "skeleton": skeleton_us}
+        want = want if isinstance(want, tuple) else (want,)
+        return run, want, outs[mode_name], fbd_chain(lengths, t, mode_name), info
 
 
 KERNELS = {"lattice_max": LatticeMax, "fb_dense": FbDense}
@@ -227,12 +257,14 @@ def main():
     ap.add_argument("--order", default=None, help="library names in timing order")
     ap.add_argument("--shapes", default=None, help="comma-separated; default all")
     ap.add_argument("--simple", action="store_true", help="lattice_max: time simple=1 too")
+    ap.add_argument("--mode", default=None, choices=("forward", "backward", "posteriors"),
+                    help="fb_dense: the mode timed (default posteriors)")
     ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a card")
     dev = torch.device("cuda", 0)
-    kernel = KERNELS[args.kernel](dev)
+    kernel = KERNELS[args.kernel](dev, **({"mode": args.mode} if args.mode else {}))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True
                           ).stdout.strip()
@@ -245,29 +277,38 @@ def main():
     for name, lib, res in built:
         print(name, "ptxas:", *res, sep="\n  ", flush=True)
         libs[name] = lib
+    # An order entry is a library's name, or NAME@VARIANT (fb_dense: a build).
     order = (args.order or ",".join(libs)).split(",")
-    first = order[0]
+    first = order[0].split("@")[0]
     simple = args.simple and args.kernel == "lattice_max"
     rows = []
     for key in (args.shapes or ",".join(kernel.shapes)).split(","):
         run, want, outs, steps, info = kernel.problem(key, libs[first])
-        differing = {}
-        for name, lib in libs.items():
-            for flag in (0, 1) if simple and name == first else (0,):
-                run(lib, flag)
-                torch.cuda.synchronize()
-                differing[name + ("-simple" if flag else "")] = sum(
-                    differing_cells(g, w) for g, w in zip(outs, want))
-        turns = [(n, 0) for n in order]
+        skeleton = info.pop("skeleton", None)
+        turns = [tuple(x.split("@")) if "@" in x else (x, 0) for x in order]
         if simple:
             turns = [(first, 1)] + turns + [(first, 1)]
+
+        def label(name, flag):
+            return name + (f"@{flag}" if isinstance(flag, str) else "-simple" if flag else "")
+
+        differing = {}
+        for name, flag in dict.fromkeys([(n, 0) for n in libs] + turns):
+            for o in outs:  # a cell the run leaves unwritten differs
+                o.fill_(float("nan") if o.dtype.is_floating_point else -12345)
+            run(libs[name], flag)
+            torch.cuda.synchronize()
+            differing[label(name, flag)] = sum(
+                differing_cells(g, w) for g, w in zip(outs, want))
         us = {}
         for name, flag in turns:
             ms = device_ms(lambda: run(libs[name], flag))
-            us.setdefault(name + ("-simple" if flag else ""), []).append(
-                round(ms / steps * 1e3, 4))
+            us.setdefault(label(name, flag), []).append(round(ms / steps * 1e3, 4))
         row = {"shape": key, **info, "steps": steps, "differing_cells": differing,
                "us_step": us, "card": card}
+        if skeleton:
+            floors = {label(n, f): skeleton(libs[n], f or None) for n, f in dict.fromkeys(turns)}
+            row["skeleton_us_forward_step"] = {k: v for k, v in floors.items() if v is not None}
         print(json.dumps(row), flush=True)
         rows.append(row)
     if args.out:

@@ -60,8 +60,10 @@ with no plain loop on the card; the transcribe script (plain and with
 --confidence --timings) with --device cuda and --device cpu on the same
 WAVs: the same printed lines, the decode kernel launched on the card only;
 FBD, the dense forward-backward (csrc/forward_backward.cu), bitwise its plain
-version in its forward, backward and posteriors modes (S = 1 to 128, T = 1,
-lengths 0, 1 and past T, a dead column, an unreachable final), the
+version in its forward, backward and posteriors modes on each build (S = 1
+to 128 at every bucket's edges, 4 and 2 sequences a warp, T = 1 and rows of
+700, lengths 0, 1 and past T, a dead column, a learned matrix with a dead
+row and column, an unreachable final; the plan the library's), the
 forward_backward ops and word Baum-Welch launching it once a call and never
 the plain loop; K3's backpointer mode with a t = 0 seed bitwise its plain
 version; lattice rescoring's arc scores (one K3 launch) and the assoc
@@ -2323,13 +2325,43 @@ FBD_CASES = {  # name -> (S, T, B, matrix, pinned final)
     "sentence-S59": (59, 70, 8, "banded", True),
     "S128": (128, 33, 3, "uniform", True),
     "dead-column": (9, 30, 6, "dead", False),
+    # Every build of the plan at its bucket's edges; a warp of w8 / w16
+    # holds 4 / 2 sequences, rows 0-3 of lengths T, 1, 0 and T + 3.
+    "S8-learned": (8, 50, 11, "learned", False),
+    "S8-banded-final": (8, 45, 9, "banded", True),
+    "S9-learned": (9, 40, 7, "learned", False),
+    "S16-banded-final": (16, 60, 6, "banded", True),
+    "S17-uniform": (17, 30, 5, "uniform", False),
+    "S32-learned": (32, 50, 4, "learned", False),
+    "S33-banded-final": (33, 64, 5, "banded", True),
+    "S64-learned": (64, 40, 3, "learned", False),
+    "S65-banded-final": (65, 80, 3, "banded", True),
+    "S128-learned": (128, 24, 2, "learned", False),
+    # Long rows: the emission rows loaded ahead turn over many times.
+    "S5-long": (5, 700, 9, "learned", False),
+    "S59-long": (59, 500, 3, "banded", True),
 }
+def _learned_log_a(rng, s):
+    """A log_a like a trained one's: random rows with scattered -inf
+    entries, a self-loop on each state, and (from 3 states) a whole -inf
+    column and a whole -inf row."""
+    a = rng.uniform(0.05, 1.0, size=(s, s))
+    a[rng.random((s, s)) < 0.5] = 0.0
+    np.fill_diagonal(a, rng.uniform(0.2, 1.0, size=s))
+    if s >= 3:
+        a[:, s // 2] = 0.0
+        a[s // 3, :] = 0.0
+    rows = a.sum(axis=1, keepdims=True)
+    probs = np.divide(a, rows, out=np.zeros_like(a), where=rows > 0)
+    with np.errstate(divide="ignore"):
+        return np.log(probs).astype(np.float32)
 
 
 def _fbd_case(dev, name, seed=0):
     """Seeded inputs of an FBD case on the card: lengths of 0, 1, past T
     and ragged (row 0 the full T); a pinned final at the last state where
-    the case says, which the short rows cannot reach (ll = -inf)."""
+    the case says, which the short rows cannot reach (ll = -inf); a learned
+    matrix starts anywhere (log_init zeros)."""
     s, t, b, kind, pinned = FBD_CASES[name]
     rng = np.random.default_rng(seed)
     log_a = uniform_forward_log_a(s)
@@ -2339,6 +2371,8 @@ def _fbd_case(dev, name, seed=0):
         log_a = banded_transition_matrix(torch.as_tensor(log_a)).numpy()
     if kind == "dead":
         log_a[:, 3] = -np.inf
+    if kind == "learned":
+        log_a = _learned_log_a(rng, s)
     log_b = (rng.normal(size=(b, t, s)) * 3).astype(np.float32)
     lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
     lengths[0] = t
@@ -2347,6 +2381,8 @@ def _fbd_case(dev, name, seed=0):
     lengths[3::6] = t + 3
     log_init = np.full(s, -np.inf, np.float32)
     log_init[0] = 0.0
+    if kind == "learned":
+        log_init[:] = 0.0
     final = None
     if pinned:
         final = np.full(s, -np.inf, np.float32)
@@ -2385,6 +2421,24 @@ def test_fb_dense_is_bitwise_plain(dev, name, mode):
     if mode != "backward":
         ll = got[-1]
         assert bool(torch.isfinite(ll[0])) and not bool(torch.isnan(ll).any())
+
+
+def test_fb_dense_plan_is_the_kernels(dev):
+    """The library's plan and build shapes are fb_dense_plan's and
+    FBD_BUILDS' (the plan picks S's bucket from 1 to 128 states)."""
+    import ctypes
+
+    from cs304_tpu_torch.ops.cuda import forward_backward as fbd
+
+    lib = _build.load()
+    names = list(fbd.FBD_BUILDS)
+    assert [names[lib.cs304_fb_dense_plan(s)] for s in range(1, 129)] == \
+        [fbd.fb_dense_plan(s) for s in range(1, 129)]
+    assert lib.cs304_fb_dense_plan(0) == lib.cs304_fb_dense_plan(129) == -1
+    shape = (ctypes.c_int * 3)()
+    for k, name in enumerate(names):
+        assert lib.cs304_fb_dense_build_shape(k, shape) == len(names)
+        assert tuple(shape) == fbd.FBD_BUILDS[name], name
 
 
 def test_fb_dense_rejects_what_the_kernel_does_not_take(dev):

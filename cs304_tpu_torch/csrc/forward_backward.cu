@@ -63,8 +63,8 @@
 //   from a bitmask (dense columns only).
 // - Emissions: each thread copies its own log_b elements of the next 8
 //   steps into a shared ring by cp.async while the current 8 run, so no
-//   global load lies on a step's critical path, the step's loop is not
-//   unrolled, and T has no limit.
+//   global load lies on a step's critical path, the step's loop is
+//   unrolled only twice, and T has no limit.
 // - Posteriors: forward (alpha to a scratch, rows past the length not
 //   written), backward (beta likewise, gamma of the row a step behind, off
 //   the chain; +0 on rows past the length), then xi over the backward's
@@ -232,9 +232,11 @@ __device__ __forceinline__ void by_bucket(int kmax, F&& f) {
   }
 }
 
-// lse of KB terms (-inf past a thread's list), in the dense sum's order:
-// the max by a tree (exact in any order), every expf issued, then the
-// ascending sum from +0 (a -inf term adds expf(-inf) = +0: no change).
+// lse of KB terms (-inf past a thread's list: its entries there are -inf),
+// in the dense sum's order: the max by a tree (exact in any order), every
+// expf issued, then the ascending sum from +0 (a -inf term adds expf(-inf)
+// = +0: no change). Where the max is not finite the sum is discarded, so
+// the terms need no finite stand-in for it.
 template <int KB>
 __device__ __forceinline__ float lse_terms(const float (&x)[KB]) {
   float mx[KB];
@@ -244,16 +246,15 @@ __device__ __forceinline__ float lse_terms(const float (&x)[KB]) {
   for (int w = 1; w < KB; w *= 2)
 #pragma unroll
     for (int k = 0; k + w < KB; k += 2 * w) mx[k] = fmaxf(mx[k], mx[k + w]);
-  const float m = fmaxf(neg_inf(), mx[0]);
+  const float m = mx[0];
   const bool fin = isfinite(m);
-  const float ms = fin ? m : 0.f;
   float e[KB];
 #pragma unroll
-  for (int k = 0; k < KB; ++k) e[k] = expf(x[k] - ms);
+  for (int k = 0; k < KB; ++k) e[k] = expf(x[k] - m);
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < KB; ++k) s = __fadd_rn(s, e[k]);
-  return select(fin, __fadd_rn(logf(s), ms), m);
+  return select(fin, __fadd_rn(logf(s), m), m);
 }
 
 // lse of a vector in shared memory, ascending (the likelihood's).
@@ -353,7 +354,7 @@ __global__ void __launch_bounds__(32) fb_dense_warp(const FBDArgs p) {
         stage_wait<1>();
         const float* er = &ring[c & 1][0][lane];
         const int steps = min(D, nw - t0);
-#pragma unroll 1
+#pragma unroll 2
         for (int d = 0; d < steps; ++d) {
           const int t = t0 + d;
           const float e = er[d * 32];
@@ -364,8 +365,7 @@ __global__ void __launch_bounds__(32) fb_dense_warp(const FBDArgs p) {
             float terms[KB];
 #pragma unroll
             for (int k = 0; k < KB; ++k) {
-              const float v = shfl(x, L.idx[k]);
-              terms[k] = k < L.n ? v + L.a[k] : neg_inf();
+              terms[k] = shfl(x, L.idx[k]) + L.a[k];
             }
             y = lse_terms(terms) + e;
           }
@@ -433,7 +433,7 @@ __global__ void __launch_bounds__(32) fb_dense_warp(const FBDArgs p) {
         stage_wait<1>();
         const float* er = &ring[c & 1][0][lane];
         const int steps = min(D, t0 + 1);
-#pragma unroll 1
+#pragma unroll 2
         for (int d = 0; d < steps; ++d) {
           const int t = t0 - d;
           if constexpr (MODE == POSTERIORS) {
@@ -445,8 +445,7 @@ __global__ void __launch_bounds__(32) fb_dense_warp(const FBDArgs p) {
           float terms[KB];
 #pragma unroll
           for (int k = 0; k < KB; ++k) {
-            const float v = shfl(z, L.idx[k]);
-            terms[k] = k < L.n ? L.a[k] + v : neg_inf();
+            terms[k] = L.a[k] + shfl(z, L.idx[k]);
           }
           y = select(t + 1 < n, lse_terms(terms), y);  // else beta_end
           store_if(out + (size_t)t * S + j, y, own && (MODE == BACKWARD || t < n));
@@ -519,8 +518,7 @@ __device__ __forceinline__ float lse_shared(const Sources<R, W>& L, const float*
   float x[KB];
 #pragma unroll
   for (int k = 0; k < KB; ++k) {
-    const float vk = v[L.idx[k]];
-    x[k] = k < L.n ? vk + L.a[k] : neg_inf();
+    x[k] = v[L.idx[k]] + L.a[k];
   }
   bool more = false;
 #pragma unroll
@@ -609,7 +607,7 @@ __global__ void __launch_bounds__(NT) fb_dense_block(const FBDArgs p) {
         stage_wait<1>();
         const float* er = &ring[c & 1][0][s];
         const int steps = min(D, n - t0);
-#pragma unroll 1
+#pragma unroll 2
         for (int d = 0; d < steps; ++d) {
           const int t = t0 + d;
           const float e = er[d * NT];
@@ -678,7 +676,7 @@ __global__ void __launch_bounds__(NT) fb_dense_block(const FBDArgs p) {
         stage_wait<1>();
         const float* er = &ring[c & 1][0][s];
         const int steps = min(D, t0 + 1);
-#pragma unroll 1
+#pragma unroll 2
         for (int d = 0; d < steps; ++d) {
           const int t = t0 - d;
           if constexpr (MODE == POSTERIORS) {

@@ -112,8 +112,12 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float ep = expf((slot == 0 ? b : a) - m);
   const float eq = expf((slot == 2 ? b : c) - m);
   // slot 0: (1 + e_b) + e_c; slot 1: (e_a + 1) + e_c; slot 2: (e_a + e_b) + 1.
-  const float s = slot == 2 ? (ep + eq) + 1.0f : (ep + 1.0f) + eq;
-  return m + logf(s);
+  // Every add of an expf / logf result is __fadd_rn: nvcc may otherwise fuse
+  // the function's last multiply into the add (an FMA, one rounding fewer),
+  // which the plain version's separate ops do not do.
+  const float s = slot == 2 ? __fadd_rn(__fadd_rn(ep, eq), 1.0f)
+                            : __fadd_rn(__fadd_rn(ep, 1.0f), eq);
+  return __fadd_rn(m, logf(s));
 }
 
 template <int K>
@@ -458,9 +462,10 @@ __device__ void run_posteriors(const FBArgs& p, int b, int tw, float (*xch)[MAX_
           for (int k = 0; k < K; ++k) {
             const float p1 = k >= 1 ? a[d][k - 1] : h1;
             const float p2 = k >= 2 ? a[d][k - 2] : (k == 1 ? h1 : h2);
-            acc0[k] = acc0[k] + expf(((a[d][k] + c0[k]) + z[k]) - llc);
-            acc1[k] = acc1[k] + expf(((p1 + c1[k]) + z[k]) - llc);
-            acc2[k] = acc2[k] + expf(((p2 + c2[k]) + z[k]) - llc);
+            // __fadd_rn: no FMA of expf's last multiply into the sum (lse3).
+            acc0[k] = __fadd_rn(acc0[k], expf(((a[d][k] + c0[k]) + z[k]) - llc));
+            acc1[k] = __fadd_rn(acc1[k], expf(((p1 + c1[k]) + z[k]) - llc));
+            acc2[k] = __fadd_rn(acc2[k], expf(((p2 + c2[k]) + z[k]) - llc));
             gr[k] = expf((a[d][k] + x[k]) - llc);
           }
           store_row<K>(g + (size_t)t * S, S, j0, gr);

@@ -3,16 +3,19 @@
     python3 kernel_ab.py KERNEL --lib N=SOURCE.cu --lib P=OTHER.cu \
         --order P,N,N,P [--shapes a,b,...] [--simple] [--out FILE]
 
-KERNEL is ``lattice_max`` (LMAX, ``csrc/trellis_lattice.cu``) or ``fb_dense``
-(FBD, ``csrc/forward_backward.cu``). Each source is a version of the
+KERNEL is ``lattice_max`` (LMAX, ``csrc/trellis_lattice.cu``), ``fb_dense``
+(FBD, ``csrc/forward_backward.cu``) or ``fb_posteriors`` (FB's E-step mode,
+``csrc/trellis_fb.cu``). Each source is a version of the
 kernel's file (a parent commit's from ``git show
 <commit>:cs304_tpu_torch/csrc/trellis_lattice.cu``, or an edited copy) that
 nvcc compiles into a library of its own, all at once, printing ptxas'
 registers and spills of the kernel's builds. At each shape every library's
 outputs are compared with the kernel's plain version on the same CUDA
 tensors (the cells whose bits differ, signs of zero included, NaN cells
-equal), then each library is timed in the order given (device time of
-CUDA-graph replays, best of 5), printed as µs a step.
+equal; each library runs once on outputs filled with each of chip_smoke.py's
+two kernel poisons, the plain version under its third), then each library
+is timed in the order given (device time of CUDA-graph replays, best of 5),
+printed as µs a step.
 
 - ``lattice_max``: phase 31's shapes and a composite for each build of the
   team branch (as ``tests/test_torch_cuda_kernels.py`` LMAX_BUILDS);
@@ -29,6 +32,10 @@ CUDA-graph replays, best of 5), printed as µs a step.
   names); each library that has that entry also times its skeleton (the
   forward's chain cut to its exchange) as µs a forward step. ``--mode``
   times the forward or backward mode instead.
+- ``fb_posteriors``: the E-step at chip_smoke.py phase 19's shapes (the
+  trainer's B=896, T=160, S=59; 98, 503 and 2100 states; T=4000), drawn
+  by its ``fb_problem``; a step is one of the forward's or the backward's
+  (2 (longest row - 1)); ``--mode fb`` times FB's alpha/beta mode.
 
 Exits non-zero where a library disagrees with the plain version. Needs a
 card and nvcc.
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from chip_smoke import KERNEL_POISONS, plain_run, poison_  # noqa: E402
 from cs304_tpu_torch.models.hmm import (  # noqa: E402
     WordHMM,
     flagship_composite,
@@ -171,7 +179,7 @@ class LatticeMax:
         topo.ints[3] |= 8 * (topo.coefs[4] > 0).to(torch.int32)
         s = comp.num_states
         lb = 3 * torch.randn((t, s), generator=self.gen, device=dev)
-        want = tlk.lattice_max_passes_plain(lb, topo, comp.penalty, length)
+        want = plain_run(tlk.lattice_max_passes_plain, lb, topo, comp.penalty, length)
         outs = (torch.empty((t, s), device=dev),
                 torch.empty((t, s), dtype=torch.int32, device=dev),
                 torch.empty((t,), device=dev), torch.empty((), device=dev))
@@ -215,7 +223,8 @@ class FbDense:
         log_b, log_a, log_init, lengths, final = fbd_problem(
             self.dev, b, t, s, kind, pinned, seed=b + t + s, lengths=span)
         mode_name = self.mode or "posteriors"
-        want = fbd.fb_dense_plain(log_b, log_a, log_init, lengths, final, mode=mode_name)
+        want = plain_run(fbd.fb_dense_plain, log_b, log_a, log_init, lengths, final,
+                         mode=mode_name)
         alpha, beta, gamma = (torch.empty_like(log_b) for _ in range(3))
         xi = torch.empty((b, s, s), device=self.dev)
         ll = torch.empty((b,), device=self.dev)
@@ -247,7 +256,50 @@ class FbDense:
         return run, want, outs[mode_name], fbd_chain(lengths, t, mode_name), info
 
 
-KERNELS = {"lattice_max": LatticeMax, "fb_dense": FbDense}
+class FbPosteriors:
+    """The E-step mode of the sentence forward-backward (FB,
+    ``csrc/trellis_fb.cu``, ``banded_fb_posteriors``): gamma, xi sums, ll;
+    with ``--mode fb`` its alpha/beta mode (``banded_fb``)."""
+    tag = "trellis_fb"
+    entries = {"cs304_trellis_fb_posteriors": [P, P, P, P, P, P, P, P, P, I, I, I, P],
+               "cs304_trellis_fb": [P, P, P, P, P, P, P, P, P, I, I, I, P]}
+    # name: (B, T, S), drawn as chip_smoke.py phase 19's cases (fb_problem:
+    # -inf sprinkled, finals the band reaches); "train" is the trainer's
+    # shape on random emissions.
+    shapes = {"train": (896, 160, 59), "98": (32, 160, 98), "503": (16, 340, 503),
+              "2100": (4, 1500, 2100), "t4000": (6, 4000, 59)}
+
+    def __init__(self, dev, mode=None):
+        self.dev = dev
+        self.fb = mode == "fb"
+
+    def problem(self, key, first_lib):
+        from chip_smoke import fb_problem
+        from cs304_tpu_torch.ops.cuda import trellis_fb as tfb
+
+        b, t, s = self.shapes[key]
+        args = fb_problem(self.dev, b, t, s, seed=b * 7 + s)
+        plain = tfb.banded_fb_plain if self.fb else tfb.banded_fb_posteriors_plain
+        want = plain_run(plain, *args)
+        outs = tuple(torch.empty(w.shape, device=self.dev) for w in want)
+        entry = "cs304_trellis_fb" if self.fb else "cs304_trellis_fb_posteriors"
+
+        def run(lib, _flag):
+            code = getattr(lib, entry)(
+                *(x.data_ptr() for x in args), *(o.data_ptr() for o in outs), b, t, s,
+                torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise SystemExit(f"{entry} returned {code}")
+
+        # A step: one of the forward's and the backward's steps over the
+        # longest row.
+        steps = 2 * max(int(args[4].clamp(max=t).max()) - 1, 1)
+        info = {"B": b, "T": t, "S": s, "mode": "fb" if self.fb else "posteriors",
+                "finite_ll": int(torch.isfinite(want[2]).sum())}
+        return run, want, outs, steps, info
+
+
+KERNELS = {"lattice_max": LatticeMax, "fb_dense": FbDense, "fb_posteriors": FbPosteriors}
 
 
 def main():
@@ -257,8 +309,9 @@ def main():
     ap.add_argument("--order", default=None, help="library names in timing order")
     ap.add_argument("--shapes", default=None, help="comma-separated; default all")
     ap.add_argument("--simple", action="store_true", help="lattice_max: time simple=1 too")
-    ap.add_argument("--mode", default=None, choices=("forward", "backward", "posteriors"),
-                    help="fb_dense: the mode timed (default posteriors)")
+    ap.add_argument("--mode", default=None, choices=("forward", "backward", "posteriors", "fb"),
+                    help="fb_dense: the mode timed (default posteriors); fb_posteriors: "
+                         "fb times FB's alpha/beta mode")
     ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -294,12 +347,16 @@ def main():
 
         differing = {}
         for name, flag in dict.fromkeys([(n, 0) for n in libs] + turns):
-            for o in outs:  # a cell the run leaves unwritten differs
-                o.fill_(float("nan") if o.dtype.is_floating_point else -12345)
-            run(libs[name], flag)
-            torch.cuda.synchronize()
-            differing[label(name, flag)] = sum(
-                differing_cells(g, w) for g, w in zip(outs, want))
+            # Once on outputs filled with each of chip_smoke.py's two kernel
+            # poisons: a cell the run leaves unwritten differs under one.
+            differing[label(name, flag)] = 0
+            for pattern in KERNEL_POISONS:
+                for o in outs:
+                    poison_(o, pattern)
+                run(libs[name], flag)
+                torch.cuda.synchronize()
+                differing[label(name, flag)] += sum(
+                    differing_cells(g, w) for g, w in zip(outs, want))
         us = {}
         for name, flag in turns:
             ms = device_ms(lambda: run(libs[name], flag))

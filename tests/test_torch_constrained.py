@@ -25,6 +25,7 @@ from cs304_tpu_torch.ops import viterbi_duration as tvd
 from test_torch_decoder import _jax_models, _sampled_features
 from test_torch_gmm_decode import _gmm_models, _to_jax
 from test_torch_bigram_beam import one_torch_thread  # noqa: F401
+from torch_poison import KERNEL_POISONS, differing_cells, plain_run, poisoned
 
 
 def _random_composite(seed, labels=("1", "2", "3", "S"), states=(3, 2, 4, 2)):
@@ -101,6 +102,41 @@ def test_duration_trellis_is_bitwise_jax(min_d, max_d, sil, seed):
                                                torch.as_tensor(lengths), d_cap=d_cap)
     _assert_same(got, want)
     assert np.isfinite(np.asarray(want[0])).mean() >= 0.5
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_constrained_trellises_on_poisoned_memory_are_bitwise_jax(poison):
+    """The counted, duration and grammar plain trellises' backpointers are
+    torch.empty allocations: on memory filled with a poison their scores and
+    paths stay bitwise JAX's (rows with no admissible path among them), and
+    equal those computed on memory filled with another pattern."""
+    comp = _random_composite(1)
+    log_b, lengths = _batch(comp, 1)
+    counted = comp.word_of_state != comp.labels.index("S")
+    pen = np.float32(comp.penalty)
+    min_dur, max_dur, d_cap = tvd.duration_arrays(comp, 2, 5)
+    gt, gj = (_grammars(comp.labels, m)["strings"] for m in (tg, jg))
+    word_of = comp.word_of_state.astype(np.int32)
+    tb_, tl = torch.as_tensor(log_b), torch.as_tensor(lengths)
+    runs = {
+        "counted": (lambda: tvc.viterbi_composite_counted_batch(
+            tb_, *_topo(comp), counted, pen, 3, tl),
+            lambda: jvc.viterbi_composite_counted_batch(
+                log_b, *_topo(comp), counted, pen, 3, lengths)),
+        "duration": (lambda: tvd.viterbi_composite_duration_batch(
+            tb_, *_topo(comp), pen, min_dur, max_dur, tl, d_cap=d_cap),
+            lambda: jvd.viterbi_composite_duration_batch(
+                log_b, *_topo(comp), pen, min_dur, max_dur, lengths, d_cap=d_cap)),
+        "grammar": (lambda: tg.viterbi_composite_grammar_batch(
+            tb_, *_topo(comp), word_of, gt.next_state, gt.accept, comp.penalty, tl),
+            lambda: jg.viterbi_composite_grammar_batch(
+                log_b, *_topo(comp), word_of, gj.next_state, gj.accept, pen, lengths)),
+    }
+    for name, (port, jax_fn) in runs.items():
+        with poisoned(poison):
+            got = port()
+        _assert_same(got, jax_fn())
+        assert differing_cells(got, plain_run(port)) == 0, name
 
 
 def test_duration_arrays_validation():

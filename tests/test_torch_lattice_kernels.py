@@ -53,6 +53,7 @@ from cs304_tpu.ops.viterbi import composite_transition_matrix as j_trans
 from cs304_tpu_torch.ops.cuda import _build
 from cs304_tpu_torch.ops.cuda import trellis_lattice as tlk
 from test_torch_viterbi import _composite
+from torch_poison import KERNEL_POISONS, differing_cells, plain_run, poisoned
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_torch_lattice.py's
@@ -147,6 +148,49 @@ def test_sum_passes_plain_matches_jax(name, ties):
     for g, w in zip(got, want):  # every row, the garbage ones past length included
         _close(g.numpy(), w)
     assert np.isfinite(np.asarray(want[3])).all()
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_plain_passes_on_poisoned_memory_match_jax(poison):
+    """LSUM's alphas and beta_em, LMAX's alphas, entry times and beta_em
+    and KBEST's backpointer slots are torch.empty allocations in the plain
+    versions: on memory filled with a poison they stay JAX's (LSUM within
+    RTOL / ATOL, LMAX and KBEST bitwise; rows past a length included), and
+    equal those computed on memory filled with another pattern in every
+    bit."""
+    comp, topo = _comp("twelve-words"), _topo(_comp("twelve-words"))
+    rng = np.random.default_rng(26)
+    lengths = np.array([40, 2, 27, 33], np.int32)
+    lb_sum = _log_b(rng, (4, 40, comp.num_states), False)
+    lb_max = _log_b(rng, (30, comp.num_states), True)
+    lb_k = _log_b(rng, (25, comp.num_states), False)
+    runs = {
+        "sum": lambda: tlk.lattice_sum_passes_plain(
+            torch.as_tensor(lb_sum), topo, comp.penalty, torch.as_tensor(lengths)),
+        "max": lambda: tlk.lattice_max_passes_plain(
+            torch.as_tensor(lb_max), topo, comp.penalty, 17),
+        "kbest": lambda: tlk.kbest_forward_plain(
+            torch.as_tensor(lb_k), topo, comp.penalty, 6, 13),
+    }
+    with poisoned(poison):
+        got = {name: run() for name, run in runs.items()}
+    for g, w in zip(got["sum"], _jax_sum_passes(comp, lb_sum, lengths)):
+        _close(g.numpy(), w)
+    trans, diag_init = _jax_topology(comp)
+    want = jl._lattice_passes_impl(
+        jnp.asarray(lb_max), trans, diag_init, jnp.asarray(comp.is_entry),
+        jnp.asarray(comp.is_exit), jnp.asarray(comp.word_of_state),
+        jnp.asarray(comp.lower_of_state),
+        jnp.asarray(np.asarray(comp.uppers)[comp.word_of_state]), 17)
+    for g, w in zip(got["max"], want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = jnb.kbest_composite_forward(
+        jnp.asarray(lb_k), jnp.asarray(comp.log_a), jnp.asarray(comp.lower_of_state),
+        jnp.asarray(comp.is_entry), jnp.asarray(comp.is_exit), comp.penalty, length=13, k=6)
+    for g, w in zip(got["kbest"], want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for name, run in runs.items():
+        assert differing_cells(got[name], plain_run(run)) == 0, name
 
 
 def _factorized_case(name, ties):

@@ -24,6 +24,7 @@ from cs304_tpu_torch.models.train_continuous import (
 )
 from test_torch_train_continuous import _copy
 from test_torch_train_fused import jax_models, make_corpus, make_models
+from torch_poison import KERNEL_POISONS, differing_cells, plain_run, poisoned
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 CASES = {  # name -> (transcripts, utterances each, corpus seed, config, tol vs fused)
@@ -129,6 +130,22 @@ def test_stats_passes_match_jax_passes(transcript):
     sums within atol 1e-3 / rtol 1e-5 (float32 sums of ~60 frames of
     magnitude ~10 in other orders); _centered_m2_pass within rtol 1e-4 /
     atol 1e-3 of JAX's on the same paths and means."""
+    _stats_passes_vs_jax(transcript)
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_stats_passes_on_poisoned_memory_match_jax_passes(poison):
+    """_m2_per_slot's second moments (and the trellis' backpointers) are
+    torch.empty allocations: on memory filled with a poison the passes stay
+    within the bounds above, and the second moments equal those computed on
+    memory filled with another pattern in every bit."""
+    with poisoned(poison):
+        got = _stats_passes_vs_jax("13")
+    assert differing_cells(got, plain_run(_stats_passes_vs_jax, "13")) == 0
+
+
+def _stats_passes_vs_jax(transcript):
+    """test_stats_passes_match_jax_passes' checks -> the port's m2."""
     import torch
 
     from cs304_tpu.models import train_continuous as jtc
@@ -158,3 +175,4 @@ def test_stats_passes_match_jax_passes(transcript):
                                     num_labels=n_lab, s_max=s_max)
     np.testing.assert_allclose(m2.numpy(), np.asarray(want_m2), rtol=1e-4, atol=1e-3)
     assert isinstance(got[0], torch.Tensor) and got[0].dtype == torch.float32
+    return m2

@@ -19,6 +19,8 @@ from cs304_tpu.ops.pallas.trellis_banded import (
 )
 from cs304_tpu_torch.models import train_fused as tf
 from cs304_tpu_torch.ops.cuda import trellis_banded as tb
+from cs304_tpu_torch.ops.viterbi import banded_sentence_forward
+from torch_poison import KERNEL_POISONS, differing_cells, plain_run, poisoned
 
 NEG = -np.inf
 
@@ -87,6 +89,25 @@ def test_plain_banded_trellis_matches_jax(seed, case):
     # The wrapper on CPU tensors is the same plain computation.
     got_wrapper = tb.viterbi_banded_batch_scanfree(*_torch(prob))
     _assert_same(want, got_wrapper, lengths)
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_plain_banded_trellis_on_poisoned_memory_matches_jax(poison):
+    """banded_sentence_forward's backpointers (K3's plain version) and the
+    backtrace's paths are torch.empty allocations: on memory filled with a
+    poison the decode stays JAX's (length-0 rows and ties among them), and
+    alpha, every backpointer and the full padded paths equal those written
+    on memory filled with another pattern."""
+    prob = _random_problem(np.random.default_rng(5), zero_length=True, quantize=True)
+
+    def run():
+        return (tf._banded_trellis_batch(*_torch(prob)),
+                banded_sentence_forward(*_torch(prob)[:5]))
+
+    with poisoned(poison):
+        got = run()
+    _assert_same(jax_banded(*(jnp.asarray(x) for x in prob)), got[0], prob[4])
+    assert differing_cells(got, plain_run(run)) == 0
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "degenerate", "zero-length"])

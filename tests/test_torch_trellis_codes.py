@@ -18,6 +18,7 @@ import torch
 from cs304_tpu_torch.models.hmm import flagship_composite
 from cs304_tpu_torch.ops import viterbi as tv
 from test_torch_viterbi import _composite, _topology, j_fast, j_scanfree
+from torch_poison import KERNEL_POISONS, poisoned
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
@@ -70,6 +71,19 @@ def test_codes_walk_matches_jax_on_random_composites(b, t, words, spw):
     log_b = (rng.normal(size=(b, t, comp.num_states)) * 3).astype(np.float32)
     lengths = rng.integers(3, t + 1, size=b).astype(np.int32)
     _check(log_b, lengths, _topology(comp))
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_codes_walk_on_poisoned_memory_matches_jax(poison):
+    """backtrace_codes' paths are a torch.empty allocation: on memory filled
+    with a poison the walk stays bitwise JAX's, rows of length 1, 2 and T
+    among them."""
+    comp = _composite(12, (5, 5, 3))
+    rng = np.random.default_rng(4)
+    log_b = (rng.normal(size=(6, 24, comp.num_states)) * 3).astype(np.float32)
+    lengths = np.array([24, 1, 9, 2, 17, 24], np.int32)
+    with poisoned(poison):
+        _check(log_b, lengths, _topology(comp), with_pallas=False)
 
 
 @pytest.mark.parametrize("quirk", [True, False])

@@ -18,6 +18,7 @@ from cs304_tpu.ops.pallas.trellis_scanfree import viterbi_composite_batch_scanfr
 from cs304_tpu.ops.viterbi import viterbi_composite_batch_fast
 from cs304_tpu_torch.ops import viterbi as tv
 from cs304_tpu_torch.ops.cuda import trellis_scanfree as tsf
+from torch_poison import KERNEL_POISONS, plain_run, poisoned
 
 
 # One compiled program per shape (eager op-by-op dispatch compiles ~5x longer).
@@ -87,6 +88,29 @@ def _random_case(b, t, words, spw):
 ])
 def test_matches_jax_fast_and_scanfree(b, t, words, spw):
     _random_case(b, t, words, spw)
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_plain_trellis_on_poisoned_memory_matches_jax(poison):
+    """forward_fast's backpointers, backtrace_batch's paths and
+    backtrace_codes' (the scan-free pair's plain decode) are torch.empty
+    allocations: on memory filled with a poison, scores and full padded
+    paths stay bitwise JAX's (rows of length 1 and 2 among them), and every
+    backpointer cell, past a row's length too, equals the one written on
+    memory filled with another pattern."""
+    comp = _composite(12, (5, 5, 3))
+    rng = np.random.default_rng(21)
+    log_b = (rng.normal(size=(6, 20, comp.num_states)) * 3).astype(np.float32)
+    lengths = np.array([20, 1, 7, 2, 13, 20], np.int32)
+    coefs = tv.pack_coefs(*_topology(comp)[:4])
+    with poisoned(poison):
+        ref, got = _run_all(log_b, lengths, _topology(comp), with_pallas=False)
+        _alpha, bps = tv.forward_fast(torch.as_tensor(log_b), coefs, comp.penalty,
+                                      torch.as_tensor(lengths))
+    _assert_bitwise(ref, got)
+    want = plain_run(tv.forward_fast, torch.as_tensor(log_b), coefs, comp.penalty,
+                     torch.as_tensor(lengths))[1]
+    assert torch.equal(bps, want)
 
 
 def test_standard_backtrace():

@@ -20,6 +20,7 @@ from cs304_tpu_torch.ops.viterbi import (
     viterbi_banded,
     viterbi_composite,
 )
+from torch_poison import KERNEL_POISONS, differing_cells, plain_run, poisoned
 
 
 def _word(rng, s, t):
@@ -47,6 +48,24 @@ def test_alphas_match_jax_and_sequential(rng, t):
             seq[i, j] = np.max(seq[i - 1] + trans.numpy()[:, j]) + log_b[i, j]
     assert np.array_equal(np.isfinite(seq), fin)
     np.testing.assert_allclose(got[fin], seq[fin], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+@pytest.mark.parametrize("t", [16, 33])
+def test_assoc_scan_on_poisoned_memory_matches_jax(t, poison):
+    """_associative_scan's output is a torch.empty_like allocation: on memory
+    filled with a poison the alphas (an even and an odd T) stay within the
+    JAX tolerance above, and equal those computed on memory filled with
+    another pattern in every bit."""
+    log_a, trans, log_b, alpha0 = _word(np.random.default_rng(t), 6, t)
+    args = (torch.as_tensor(log_b), trans, torch.as_tensor(alpha0))
+    with poisoned(poison):
+        got = tassoc.viterbi_alphas_assoc(*args)
+    want = np.asarray(jassoc.viterbi_alphas_assoc(log_b, trans.numpy(), alpha0))
+    fin = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got.numpy()), fin)
+    np.testing.assert_allclose(got.numpy()[fin], want[fin], rtol=1e-6, atol=1e-5)
+    assert differing_cells(got, plain_run(tassoc.viterbi_alphas_assoc, *args)) == 0
 
 
 def test_full_viterbi_matches_banded_and_jax(rng):

@@ -19,6 +19,7 @@ from cs304_tpu_torch.ops import viterbi as tv
 from cs304_tpu_torch.ops.cuda import trellis_dense as tdn
 from test_torch_viterbi import _composite, _topology
 from test_torch_viterbi_ties import _tie_topology
+from torch_poison import KERNEL_POISONS, poisoned
 
 j_scan = jax.jit(jv.viterbi_composite_batch, static_argnames=("quirk_backtrace",))
 j_pallas = jax.jit(jv.viterbi_composite_batch_pallas,
@@ -133,6 +134,19 @@ def test_dense_forward_matches_pallas_interpret(b, t, s):
     """dense_forward (K4's plain version) == viterbi_forward_pallas in
     interpret mode, alpha and every backpointer, with -inf sprinkled into
     trans and alpha0 and lengths below T."""
+    _dense_forward_vs_pallas(b, t, s)
+
+
+@pytest.mark.parametrize("poison", KERNEL_POISONS)
+def test_dense_forward_on_poisoned_memory_matches_pallas_interpret(poison):
+    """dense_forward's backpointers are a torch.empty allocation: on memory
+    filled with a poison every backpointer, past each row's length too,
+    stays viterbi_forward_pallas's."""
+    with poisoned(poison):
+        _dense_forward_vs_pallas(7, 25, 13)
+
+
+def _dense_forward_vs_pallas(b, t, s):
     rng = np.random.default_rng(s)
     trans = rng.normal(size=(s, s)).astype(np.float32)
     trans[rng.random((s, s)) < 0.4] = -np.inf
